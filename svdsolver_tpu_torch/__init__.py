@@ -1,0 +1,32 @@
+"""svdsolver_tpu_torch — the PyTorch/CUDA port of svdsolver_tpu for one
+NVIDIA H100.
+
+The ported slice is the main path, ``svdvals(A)`` with the two-stage
+reduction and bisection: plain PyTorch functions on tensors, with three
+hand-written CUDA kernels (``csrc/``) for float32 tensors on the card —
+the Stage I panel QR, the band -> bidiagonal chase and the bisection.
+Names and signatures follow ``svdsolver_tpu`` for what is ported.  This
+package imports torch and never jax.
+"""
+
+from svdsolver_tpu_torch.ops.householder import (
+    householder_vector,
+    apply_left,
+    apply_right,
+)
+from svdsolver_tpu_torch.models.two_stage import dense_to_band, band_to_bidiagonal
+from svdsolver_tpu_torch.models.diagonalize import bisect_svdvals
+from svdsolver_tpu_torch.models.svd import svdvals, Bidiagonal
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "householder_vector",
+    "apply_left",
+    "apply_right",
+    "dense_to_band",
+    "band_to_bidiagonal",
+    "bisect_svdvals",
+    "svdvals",
+    "Bidiagonal",
+]

@@ -1,0 +1,157 @@
+"""Two-stage bidiagonalization, plain PyTorch (twin of a subset of
+``svdsolver_tpu/models/two_stage.py``).
+
+Stage I  (dense -> band): panel QR/LQ with compact-WY block reflectors and
+GEMM trailing updates.  Stage II (band -> bidiagonal): Householder bulge
+chasing over fixed-size windows of a zero-padded matrix.
+
+This is the CPU path of ``svdvals`` (and the ``tpu1`` method on any device),
+and the oracle the CUDA Stage I loop and chase kernel are held against.
+"""
+
+import torch
+
+from svdsolver_tpu_torch.ops.chase_schedule import nc_of_static
+from svdsolver_tpu_torch.ops.householder import householder_vector
+from svdsolver_tpu_torch.ops.precision import pdot
+
+
+def _panel_qr_step(A, c0, r_off, b):
+    """Factor panel columns ``[c0, c0+b)`` with pivot row ``r_off + j`` for
+    panel column ``j``; apply the aggregated block reflector to the trailing
+    matrix.  ``r_off == c0`` gives a QR panel; calling on ``A.T`` with
+    ``r_off == c0 + b`` gives the LQ row step.  Returns the updated ``A``
+    (a new tensor; the input is not modified).
+
+    Compact-WY: ``Q = I - V T V^T`` accumulated by the larft forward
+    recurrence.
+    """
+    m = A.shape[0]
+    P = A[:, c0 : c0 + b].clone()
+    V = A.new_zeros((m, b))
+    T = A.new_zeros((b, b))
+    ridx = torch.arange(m, device=A.device)
+    zero = A.new_zeros(())
+    for j in range(b):
+        p = r_off + j
+        v, tau, beta = householder_vector(P[:, j], p)
+        P = P - tau * torch.outer(v, pdot(v, P))
+        # Exact column j: zeros strictly below the pivot, beta at the pivot.
+        colj = torch.where(ridx > p, zero, P[:, j])
+        if p < m:
+            colj[p] = beta
+        P[:, j] = colj
+        # larft update: T[:, j] = -tau * T @ (V^T v);  T[j, j] = tau.
+        w = pdot(V.T, v)  # zero at indices >= j (those V columns are still zero)
+        T[:, j] = -tau * pdot(T, w)
+        T[j, j] = tau
+        V[:, j] = v
+    # Trailing update A <- (I - V T V^T)^T A; the panel itself is overwritten
+    # with its factored form.
+    W = pdot(V.T, A)
+    A = A - pdot(V, pdot(T.T, W))
+    A[:, c0 : c0 + b] = P
+    return A
+
+
+def segment_bounds(nb, segments):
+    """Panel-index boundaries splitting ``nb`` panels into ``segments``
+    roughly equal runs (for shrinking the trailing matrix)."""
+    segments = max(1, min(int(segments), nb))
+    return [nb * s // segments for s in range(segments + 1)]
+
+
+def _check_stage1(A, b, name):
+    n = A.shape[0]
+    if A.ndim != 2 or A.shape[0] != A.shape[1]:
+        raise ValueError(f"{name} expects a square matrix, got {tuple(A.shape)}")
+    if b < 1 or n % b != 0:
+        raise ValueError(f"n={n} must be divisible by band={b}")
+
+
+def dense_to_band(A, band=32, segments=1):
+    """Stage I: reduce square ``A`` to upper-band form (``band`` superdiagonals).
+
+    Requires ``n % band == 0``; callers pad otherwise (zero padding only
+    appends zero singular values).  ``segments``: the trailing updates run on
+    the sub-block ``A[s0:, s0:]`` per segment of panels — exact, since a
+    panel at column ``c >= s0`` only reads and writes rows and columns
+    ``>= s0``.
+    """
+    b = int(band)
+    _check_stage1(A, b, "dense_to_band")
+    n = A.shape[0]
+    A = A.clone()  # segments are written back in place into this copy
+    bounds = segment_bounds(n // b, segments)
+    for s in range(len(bounds) - 1):
+        k0, k1 = bounds[s], bounds[s + 1]
+        if k0 == k1:
+            continue
+        s0 = k0 * b
+        sub = A[s0:, s0:]
+        for k in range(k1 - k0):
+            c = k * b
+            sub = _panel_qr_step(sub, c, c, b)  # QR on panel columns
+            sub = _panel_qr_step(sub.T, c, c + b, b).T  # LQ on panel rows
+        A[s0:, s0:] = sub
+    return A
+
+
+def make_window_pairs(w):
+    """The two Stage-II window eliminations for window parameter ``w``
+    (= band + 1).  ``top_pair`` opens a sweep (right-elim row 0 over cols
+    ``[0, w-1)``, then left-elim rows ``[1, w)``); ``chase_pair`` advances
+    the bulge (right-elim row 0 over cols ``[0, w-1)``, then left-elim rows
+    ``[w-1, 2w-2)``).  Both update the window ``W`` in place (a view into
+    the padded matrix, so no window is copied out and back) and return it.
+    """
+
+    def _pair(W, left_r0):
+        v, tau, _ = householder_vector(W[0, : w - 1], 0)
+        Wr = W[:, : w - 1]
+        Wr -= tau * torch.outer(pdot(Wr, v), v)
+        v2, tau2, _ = householder_vector(W[left_r0:, 0], 0)
+        Ws = W[left_r0:, :]
+        Ws -= tau2 * torch.outer(v2, pdot(v2, Ws))
+        return W
+
+    def top_pair(W):
+        return _pair(W, 1)
+
+    def chase_pair(W):
+        return _pair(W, w - 1)
+
+    return top_pair, chase_pair
+
+
+def band_to_bidiagonal(A, band=32):
+    """Stage II: bulge-chase an upper-band matrix (``band`` superdiagonals)
+    down to bidiagonal.  Returns ``(d, e)``.
+
+    For each column ``i`` a row elimination + column elimination open the
+    sweep, then window pairs chase the bulge off the band, each advancing
+    ``w - 1`` rows/cols (``w = band + 1``), ``nc_of_static(i, n, band)``
+    pairs per sweep.
+    """
+    n = A.shape[0]
+    w = int(band) + 1
+    if n < 2:
+        return torch.abs(torch.diagonal(A)), A.new_zeros((0,))
+    # Zero-pad so every window lies inside the matrix: the JAX package pads
+    # 2w+2 and relies on dynamic_slice clamping the last sweeps' windows,
+    # where torch slicing would truncate them instead.  Windows over the pad
+    # see zero tails, so their reflectors are the identity.
+    pad = 3 * w
+    Ap = A.new_zeros((n + pad, n + pad))
+    Ap[:n, :n] = A
+    step = w - 1
+    ww = 2 * w - 2
+    top_pair, chase_pair = make_window_pairs(w)
+    for i in range(n - 1):
+        top_pair(Ap[i : i + w, i + 1 : i + 1 + ww])
+        for k in range(nc_of_static(i, n, step)):
+            r = i + 1 + k * step
+            c = r + step
+            chase_pair(Ap[r : r + ww, c : c + ww])
+    B = Ap[:n, :n]
+    return torch.diagonal(B).clone(), torch.diagonal(B, 1).clone()

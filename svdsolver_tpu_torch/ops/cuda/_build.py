@@ -1,0 +1,116 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
+at first use into ``build/svdsolver_tpu_torch/lib<name>-<hash>.so`` (the
+hash covers the source and the flags, so an edited source rebuilds), then
+loaded with ``ctypes``.  Nothing here runs at import: a CPU-only machine
+with no ``nvcc`` imports every kernel module and never builds.
+
+No ``--use_fast_math``: bisection relies on IEEE division and on ``inf``
+for zero pivots, which flush-to-zero or approximate division would change.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "svdsolver_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-lineinfo", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_LIBS = {}  # name -> ctypes.CDLL, loaded once per process
+MAX_SMEM = 227 * 1024  # dynamic shared memory one block may use on the H100
+
+
+def nvcc_path():
+    """The ``nvcc`` to build with; raises if the toolkit is missing."""
+    found = shutil.which("nvcc")
+    if found is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        found = "/usr/local/cuda/bin/nvcc"
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def build(name):
+    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists.
+
+    Returns ``(path, seconds, log)``: the library, the compile time (0.0
+    when it was already built) and the compiler's output (``-Xptxas -v``
+    register and shared-memory report; empty when already built).
+    """
+    src = CSRC / f"{name}.cu"
+    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    out = BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
+    if out.exists():
+        return out, 0.0, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src.name}:\n{log}")
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
+    return out, seconds, log
+
+
+def load(name, entries):
+    """The loaded library of kernel ``name``, building it if needed.
+
+    ``entries`` maps each C entry point to its ``argtypes``; every entry
+    returns the ``cudaError_t`` of its launch as an int.
+    """
+    lib = _LIBS.get(name)
+    if lib is None:
+        path, _, _ = build(name)
+        lib = ctypes.CDLL(str(path))
+        for fn, argtypes in entries.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def check_input(t, name, ndim):
+    """Validate a kernel input; returns True when it lies on a CUDA device
+    (launch the kernel) and False on the CPU (run the plain version)."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor")
+    if t.ndim != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be on a CPU or CUDA device, not {t.device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"the CUDA kernel takes float32 {name}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"the CUDA kernel takes a contiguous {name}")
+    return True
+
+
+def stream_of(t):
+    """PyTorch's current stream on ``t``'s device, as a raw handle."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def raise_on_error(err, kernel):
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: cudaError_t {err}")
+
+
+VOIDP = ctypes.c_void_p
+INT = ctypes.c_int

@@ -1,0 +1,143 @@
+"""Kernel 1: compact-WY panel QR (``csrc/panel_qr.cu``), and the Stage I
+loop around it.
+
+Twin of ``svdsolver_tpu/ops/pallas/panel_qr.py``: the panel factorization
+runs in one launch on the card, and the trailing updates are plain
+``torch.matmul`` GEMMs (fp32, TF32 off), as they are XLA GEMMs outside the
+kernel in the reference.  On a CPU tensor :func:`panel_qr` runs
+:func:`panel_qr_plain`, the same column loop in PyTorch.
+"""
+
+import torch
+
+from svdsolver_tpu_torch.models.two_stage import _check_stage1, segment_bounds
+from svdsolver_tpu_torch.ops.cuda import _build
+from svdsolver_tpu_torch.ops.householder import householder_vector
+from svdsolver_tpu_torch.ops.precision import pdot
+
+launches = 0  # kernel launches by panel_qr since the last reset
+
+_ENTRIES = {
+    "svdt_panel_qr": [_build.VOIDP] * 4 + [_build.INT] * 3 + [_build.VOIDP],
+}
+
+
+def panel_qr_plain(Pt, r_off):
+    """Plain PyTorch version of the kernel: factor the transposed panel
+    ``Pt`` (b, m) whose row j is panel column j, pivot at ``r_off + j``.
+    Returns ``(Rt, Vt, Tt)``: R transposed with exact zeros beyond each
+    pivot and ``beta`` at it, the reflectors as rows, and ``T^T``."""
+    b, m = Pt.shape
+    Rt = Pt.clone()
+    Vt = Pt.new_zeros((b, m))
+    Tt = Pt.new_zeros((b, b))
+    cols = torch.arange(m, device=Pt.device)
+    zero = Pt.new_zeros(())
+    for j in range(b):
+        p = r_off + j
+        v, tau, beta = householder_vector(Rt[j], p)
+        Rt = Rt - tau * torch.outer(pdot(Rt, v), v)
+        rowj = torch.where(cols > p, zero, Rt[j])
+        if p < m:
+            rowj[p] = beta
+        Rt[j] = rowj
+        w = pdot(Vt, v)  # zero at rows >= j
+        Tt[j] = -tau * pdot(w, Tt)
+        Tt[j, j] = tau
+        Vt[j] = v
+    return Rt, Vt, Tt
+
+
+def panel_qr(Pt, r_off):
+    """Householder QR of the transposed panel ``Pt`` (b, m), pivots at
+    ``r_off + j``; returns ``(Rt, Vt, Tt)`` as :func:`panel_qr_plain`.
+
+    A CUDA tensor must be contiguous float32 and launches the kernel; a CPU
+    tensor runs the plain version.  Pivots at or past ``m`` give identity
+    reflectors (``tau = 0``, ``v = 0``).
+    """
+    global launches
+    r_off = int(r_off)
+    if r_off < 0:
+        raise ValueError(f"r_off must be >= 0, got {r_off}")
+    if not _build.check_input(Pt, "Pt", 2):
+        return panel_qr_plain(Pt, r_off)
+    b, m = Pt.shape
+    smem = 4 * (m + b + 32)
+    if b < 1 or m < 1 or smem > _build.MAX_SMEM:
+        raise ValueError(f"panel shape {(b, m)} not supported by the kernel")
+    Rt = torch.empty_like(Pt)
+    Vt = torch.empty_like(Pt)
+    Tt = torch.empty((b, b), dtype=Pt.dtype, device=Pt.device)
+    lib = _build.load("panel_qr", _ENTRIES)
+    with torch.cuda.device(Pt.device):
+        err = lib.svdt_panel_qr(
+            Pt.data_ptr(), Rt.data_ptr(), Vt.data_ptr(), Tt.data_ptr(),
+            b, m, r_off, _build.stream_of(Pt),
+        )
+    _build.raise_on_error(err, "panel_qr")
+    launches += 1
+    return Rt, Vt, Tt
+
+
+def _auto_segments(n, b):
+    """Trailing-update segment count: more segments the more panels there
+    are (the sub-block shrinks per segment)."""
+    return max(4, min(12, (n // b) // 8))
+
+
+def _fused_panel_pair_step(b, S, c):
+    """One QR+LQ panel pair at column ``c`` of ``S`` with the fused two-sided
+    trailing update (twin of the reference's ``_fused_panel_pair_step``):
+
+        W  = V^T S;   C1 = T^T W
+        Sl = S[c:c+b, :] - Vr C1        (the LQ panel's input rows)
+        factor LQ panel -> V2, T2
+        Y  = S V2^T;  AV = Y - V (C1 V2^T);  Z = AV T2^T
+        S -= [V | Z] @ [[C1], [V2]]     (one K=2b GEMM)
+
+    ``S`` is updated in place (it is a view of the Stage I matrix, so no
+    copy of the trailing matrix is made) and returned.
+    """
+    Pt = S[:, c : c + b].T.contiguous()
+    Rt, Vt, Tt = panel_qr(Pt, c)
+    W = pdot(Vt, S)  # (b, m)
+    C1 = pdot(Tt, W)  # (b, m); Tt = T^T
+    # LQ panel input rows [c, c+b) of the left-updated S; its panel-block
+    # columns [c, c+b) carry the exact R.
+    Sl = S[c : c + b, :] - pdot(Vt[:, c : c + b].T, C1)
+    Sl[:, c : c + b] = Rt[:, c : c + b].T
+    Rt2, Vt2, Tt2 = panel_qr(Sl, c + b)
+    Y = pdot(S, Vt2.T)  # (m, b); pre-update S
+    D = pdot(C1, Vt2.T)  # (b, b)
+    AV = Y - pdot(Vt.T, D)  # == (S - V C1) V2^T
+    Z = pdot(AV, Tt2.T)  # (m, b)
+    U2 = torch.cat([Vt.T, Z], dim=1)  # (m, 2b)
+    C2 = torch.cat([C1, Vt2], dim=0)  # (2b, m)
+    S -= pdot(U2, C2)
+    S[:, c : c + b] = Rt.T
+    S[c : c + b, :] = Rt2
+    return S
+
+
+def dense_to_band_fused(A, band=128, segments=None):
+    """Stage I through the panel kernel (twin of ``dense_to_band_pallas``):
+    reduce square ``A`` to upper-band form with fused panel pairs, the
+    trailing updates restricted to ``A[s0:, s0:]`` per segment.
+    ``segments=None`` picks :func:`_auto_segments`.  Returns a new tensor.
+    """
+    b = int(band)
+    _check_stage1(A, b, "dense_to_band_fused")
+    n = A.shape[0]
+    if segments is None:
+        segments = _auto_segments(n, b)
+    # every pair updates a view of this copy in place
+    A = A.clone(memory_format=torch.contiguous_format)
+    bounds = segment_bounds(n // b, segments)
+    for s in range(len(bounds) - 1):
+        k0, k1 = bounds[s], bounds[s + 1]
+        s0 = k0 * b
+        sub = A[s0:, s0:]
+        for k in range(k1 - k0):
+            _fused_panel_pair_step(b, sub, k * b)
+    return A
