@@ -4,16 +4,25 @@
 Run from the repository root: ``python3 chip_smoke.py``.  It
 
 1. reports the card (name, power limit), torch, CUDA and nvcc;
-2. builds the three hand-written kernels from ``svdsolver_tpu_torch/csrc``;
+2. builds the four kernel sources of ``svdsolver_tpu_torch/csrc`` (one
+   ``nvcc`` each, all started together): the panel QR, the chase (plain and
+   recording entries), the bisection and the TGK solve;
 3. holds each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it;
-4. drives the main path, ``svdvals`` on a uniform [0, 5) float32 matrix, at
-   n = 3840, 1000 and 7680, checks that every kernel was launched and that
-   the singular values agree with float64 ``torch.linalg.svdvals`` to
-   1e-5 * sigma_max;
-5. times ``svdvals``, its three stages and each kernel beside its plain
-   version (median of 5, CUDA events), then profiles one ``svdvals`` call
-   at n = 3840: device time by kernel and the card's busy share.
+   shapes the main paths give it: the recording chase's (d, e) bit-equal to
+   the plain chase kernel's and its records rebuilding the band, the TGK
+   solve's normalized columns within 64 eps;
+4. drives the two main paths, with every launch count set to 0 just before
+   each call and read just after: ``svdvals`` on a uniform [0, 5) float32
+   matrix at n = 3840, 1000 and 7680 (sigma against float64
+   ``torch.linalg.svdvals`` to 1e-5 sigma_max), and ``svd`` at n = 3840
+   (uniform), 2048 (Gaussian) and 1000 (uniform): sigma to 1e-5 sigma_max,
+   reconstruction to 1e-4 sigma_max, orthogonality of U and Vh to 1e-4;
+5. times ``svdvals`` and ``svd`` at 3840 with their stages, each kernel
+   beside its plain version and, where one exists, the PyTorch library
+   call computing the same function (CUDA events), and computes each
+   kernel's bound from its shapes;
+6. profiles one ``svdvals`` and one ``svd`` call at n = 3840: device time by
+   kernel and the card's busy share.
 
 Any failure raises and exits non-zero.  The second-to-last line is the
 kernel table as JSON, the last ``{"ok": true, "device": {...}}``.  With no
@@ -26,13 +35,27 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 TOL_SIGMA = 1e-5  # max |sigma - sigma_ref| / sigma_max against float64
+TOL_RECON = 1e-4  # max |U diag(s) Vh - A| / sigma_max (JAX package's scale tests)
+TOL_ORTH = 1e-4  # max |U^T U - I| and max |Vh Vh^T - I|
+TOL_REBUILD = 1e-5  # chase records: max |L B R^T - Ab| / max |Ab|, |L^T L - I|
 SLICE_SIZES = (3840, 1000, 7680)
+SVD_CASES = ((3840, "uniform"), (2048, "gauss"), (1000, "uniform"))
 REPS = 5
+SVD_REPS = 3
+SOURCES = ("panel_qr", "band_chase", "bisect", "tridiag_solve")
+KERNELS = ("panel_qr", "band_chase", "band_chase_rec", "bisect", "tridiag_solve")
+SVD_PATH = ("panel_qr", "band_chase_rec", "bisect", "tridiag_solve")
+# published H100 SXM peaks (NVIDIA's data sheet, 700 W): float32 outside
+# the tensor cores, and HBM3
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+DEV = "cuda"
 
 
 def say(*parts):
@@ -49,11 +72,12 @@ def run(cmd):
     return out.stdout.strip()
 
 
-def cuda_ms(fn, reps=REPS):
-    """Median milliseconds of ``fn()`` over ``reps`` runs after one warm-up,
-    each bracketed by CUDA events."""
-    fn()
-    torch.cuda.synchronize()
+def cuda_ms(fn, reps=REPS, warm=True):
+    """Median milliseconds of ``fn()`` over ``reps`` runs (after one warm-up
+    unless ``warm`` is false), each bracketed by CUDA events."""
+    if warm:
+        fn()
+        torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -66,10 +90,25 @@ def cuda_ms(fn, reps=REPS):
     return statistics.median(times)
 
 
+def in_turns(kern, plain):
+    """Kernel and plain version timed in turns (plain, kernel, kernel,
+    plain); the plain versions, slow launch-bound loops, once each."""
+    p1 = cuda_ms(plain, 1, warm=False)
+    k1 = cuda_ms(kern)
+    k2 = cuda_ms(kern)
+    p2 = cuda_ms(plain, 1, warm=False)
+    return (k1, k2), (p1, p2)
+
+
 def uniform_matrix(n, seed=0):
     """The bench's matrix: uniform [0, 5) float32 from ``default_rng(seed)``."""
     a = np.random.default_rng(seed).uniform(0, 5, (n, n)).astype(np.float32)
-    return torch.from_numpy(a).cuda()
+    return torch.from_numpy(a).to(DEV)
+
+
+def gauss_matrix(n, seed=0):
+    a = np.random.default_rng(seed).normal(size=(n, n)).astype(np.float32)
+    return torch.from_numpy(a).to(DEV)
 
 
 def bidiag_sigma(d, e):
@@ -77,6 +116,90 @@ def bidiag_sigma(d, e):
     B = torch.diag(d.double()) + torch.diag(e.double(), 1)
     return torch.linalg.svdvals(B)
 
+
+def _counters():
+    from svdsolver_tpu_torch.ops.cuda import band_chase, bisect, panel_qr, tridiag_solve
+
+    return {"panel_qr": (panel_qr, "launches"),
+            "band_chase": (band_chase, "launches"),
+            "band_chase_rec": (band_chase, "launches_rec"),
+            "bisect": (bisect, "launches"),
+            "tridiag_solve": (tridiag_solve, "launches")}
+
+
+def reset_counts():
+    for mod, attr in _counters().values():
+        setattr(mod, attr, 0)
+
+
+def read_counts():
+    return {k: getattr(mod, attr) for k, (mod, attr) in _counters().items()}
+
+
+# ---- work of each kernel, from its shapes (for its bound) ----
+
+def bound(flops, nbytes):
+    """(bound_ms, bound_by): the larger of float32 operations over the peak
+    rate and bytes over the HBM rate."""
+    t_ops = flops / PEAK_FP32 * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def work_panel_qr(b, m, r_off):
+    """Householder QR of the (b, m) transposed panel with the larft T:
+    per column j with L = m - p active entries, its norm and scaling (3L),
+    the update of the b-j-1 later rows (4L each), V^T v (2Lj) and T w (j^2).
+    Bytes: Pt in; Rt, Vt, Tt out."""
+    flops = 0
+    for j in range(b):
+        L = max(m - (r_off + j), 0)
+        flops += 3 * L + 4 * L * (b - j - 1) + 2 * L * j + j * j
+    return flops, 4 * (3 * b * m + b * b)
+
+
+def work_chase(n, b, record):
+    """Every pair of the schedule: a reflector from b entries (3b) applied
+    to the window rows it reaches (4 per entry), on each side, clipped at n.
+    Bytes: the band's n (b + 1) entries in, d and e out, and with
+    ``record`` the v and tau of every reflector (the slots the schedule
+    fills)."""
+    from svdsolver_tpu_torch.ops.chase_schedule import nc_of_static
+
+    def pair(r0, c0, wr, lr0):
+        if c0 >= n:
+            return 0
+        cols = min(b, n - c0)
+        rl = r0 + lr0
+        return (3 * b + 4 * min(wr, n - r0) * cols
+                + 3 * b + 4 * max(min(b, n - rl), 0) * min(2 * b, n - c0))
+
+    flops = pairs = 0
+    for i in range(n - 1):
+        flops += pair(i, i + 1, b + 1, 1)
+        for k in range(nc_of_static(i, n, b)):
+            r = i + 1 + k * b
+            flops += pair(r, r + b, 2 * b, b)
+        pairs += 1 + nc_of_static(i, n, b)
+    nbytes = 4 * (n * (b + 1) + 2 * n)
+    if record:  # each pair's two reflectors: b entries and tau each
+        nbytes += 4 * 2 * pairs * (b + 1)
+    return flops, nbytes
+
+
+def work_bisect(n, iters, probes):
+    """Each Sturm count: n steps of two divisions and two subtractions."""
+    return 4 * n * n * iters * probes, 4 * 3 * n
+
+
+def work_tgk(N, k):
+    """Per row and lane: forward one division, three products, three
+    differences; backward one division, two products, two differences.
+    Bytes: rhs in, x out, z and lam."""
+    return 12 * N * k, 4 * (2 * N * k + N + k)
+
+
+# ---- phases ----
 
 def phase_device():
     name = torch.cuda.get_device_name(0)
@@ -94,24 +217,60 @@ def phase_device():
 def phase_build():
     from svdsolver_tpu_torch.ops.cuda import _build
 
-    for name in ("panel_qr", "band_chase", "bisect"):
-        path, seconds, log = _build.build(name)
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        built = list(pool.map(_build.build, SOURCES))
+    for name, (path, seconds, log) in zip(SOURCES, built):
         say(f"[build] {name}: {seconds:.2f} s -> {path}")
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 say(f"[build]   {line.strip()}")
 
 
+def check_records(label, Ab, b, rec):
+    """The chase records rebuild the band: L B R^T = Ab with L, R built by
+    the rank-1 reference back-transform on the identity, both orthogonal."""
+    from svdsolver_tpu_torch.models.vectors import _apply_chase_reflectors
+
+    d, e, VL, TL, VR, TR = rec
+    n = Ab.shape[0]
+    eye = torch.eye(n, device=Ab.device)
+    L = _apply_chase_reflectors(VL, TL, eye, b, reverse=True)
+    R = _apply_chase_reflectors(VR, TR, eye, b, reverse=True)
+    B = torch.diag(d) + torch.diag(e, 1)
+    rebuild = float((L @ B @ R.T - Ab).abs().max() / Ab.abs().max())
+    orth_l = float((L.T @ L - eye).abs().max())
+    orth_r = float((R.T @ R - eye).abs().max())
+    say(f"[kernels] band_chase_rec n={n} b={b} {label}: |L B R^T - Ab| / |Ab| "
+        f"{rebuild:.3e}, |L^T L - I| {orth_l:.3e}, |R^T R - I| {orth_r:.3e}")
+    require(rebuild <= TOL_REBUILD, f"{label} records rebuild the band at n={n}")
+    require(max(orth_l, orth_r) <= TOL_REBUILD, f"{label} L, R orthogonal at n={n}")
+
+
+def tgk_problem(rng, n):
+    """The recipe of the JAX package's tgk-solve parity test, on the card."""
+    d = torch.from_numpy(rng.normal(size=n).astype(np.float32) * 5).to(DEV)
+    e = torch.from_numpy(rng.normal(size=n - 1).astype(np.float32) * 5).to(DEV)
+    z = torch.zeros(2 * n - 1, device=DEV)
+    z[0::2] = d
+    z[1::2] = e
+    sig = torch.linalg.svdvals(torch.diag(d) + torch.diag(e, 1)).contiguous()
+    eps = torch.finfo(torch.float32).eps
+    pivmin = torch.clamp_min(sig.abs().max() * eps * eps, torch.finfo(torch.float32).tiny)
+    big = torch.tensor(torch.finfo(torch.float32).max ** 0.5 / 16.0, device=DEV)
+    rhs = torch.from_numpy(rng.normal(size=(2 * n, n)).astype(np.float32)).to(DEV)
+    return z, sig, rhs, pivmin, big
+
+
 def phase_kernels(rng):
     """Each kernel against its plain version, same inputs, on the card."""
-    from svdsolver_tpu_torch.ops.cuda import band_chase, bisect, panel_qr
+    from svdsolver_tpu_torch.ops.cuda import band_chase, bisect, panel_qr, tridiag_solve
 
     errs = {}
     # K1: the first QR panel at n = 3840, and an LQ-like panel whose last
     # pivots run past m (identity reflectors there).
     k1 = 0.0
     for b, m, r_off in ((128, 3840, 0), (128, 1920, 1920 - 64)):
-        Pt = torch.from_numpy(rng.normal(size=(b, m)).astype(np.float32)).cuda()
+        Pt = torch.from_numpy(rng.normal(size=(b, m)).astype(np.float32)).to(DEV)
         got = panel_qr.panel_qr(Pt, r_off)
         want = panel_qr.panel_qr_plain(Pt, r_off)
         torch.cuda.synchronize()
@@ -147,7 +306,31 @@ def phase_kernels(rng):
     require(lead <= 1e-4, "band_chase leading |d| vs plain")
     errs["band_chase"] = float((s_k - s_p).abs().max())
 
-    # K2: bisection at n = 1024 on that bidiagonal, probes 1 and 3.
+    # K6-K8: the recording chase on the same band, and at n = 3840, b = 128.
+    rec = band_chase.band_to_bidiagonal_accum(Ab, band=b)
+    rec_p = band_chase.band_to_bidiagonal_accum_plain(Ab, band=b)
+    require(torch.equal(rec[0], d) and torch.equal(rec[1], e),
+            "recording chase (d, e) bit-equal to the chase kernel at n=1024")
+    require(torch.equal(rec_p[0], dp) and torch.equal(rec_p[1], ep),
+            "plain recording chase (d, e) bit-equal to the plain chase")
+    say(f"[kernels] band_chase_rec n={n} b={b}: (d, e) bit-equal to band_chase")
+    check_records("kernel", Ab, b, rec)
+    check_records("plain", Ab, b, rec_p)
+    errs["band_chase_rec"] = float((bidiag_sigma(rec[0], rec[1])
+                                    - bidiag_sigma(rec_p[0], rec_p[1])).abs().max())
+    del rec, rec_p
+    n3, b3 = 3840, 128
+    Ab3 = panel_qr.dense_to_band_fused(uniform_matrix(n3), band=b3)
+    rec = band_chase.band_to_bidiagonal_accum(Ab3, band=b3)
+    d3, e3 = band_chase.band_to_bidiagonal(Ab3, band=b3)
+    require(torch.equal(rec[0], d3) and torch.equal(rec[1], e3),
+            "recording chase (d, e) bit-equal to the chase kernel at n=3840")
+    say(f"[kernels] band_chase_rec n={n3} b={b3}: (d, e) bit-equal to band_chase")
+    check_records("kernel", Ab3, b3, rec)
+    del rec, Ab3
+    torch.cuda.empty_cache()
+
+    # K2: bisection at n = 1024 on the chase's bidiagonal, probes 1 and 3.
     k2 = 0.0
     for probes in (1, 3):
         s = bisect.bisect_svdvals(d, e, probes=probes)
@@ -163,30 +346,45 @@ def phase_kernels(rng):
                 f"bisect probes={probes} vs float64")
         k2 = max(k2, err)
     errs["bisect"] = k2
+
+    # K9 + K10: the TGK solve, normalized columns within 64 eps.
+    eps = torch.finfo(torch.float32).eps
+    k9 = 0.0
+    for nt in (512, 1280, 3840):
+        args = tgk_problem(rng, nt)
+        x = tridiag_solve.tgk_solve(*args)
+        xp = tridiag_solve.tgk_solve_plain(*args)
+        torch.cuda.synchronize()
+        unequal = int((x != xp).sum())
+        err = float((x / x.norm(dim=0) - xp / xp.norm(dim=0)).abs().max())
+        say(f"[kernels] tridiag_solve n={nt} ({2 * nt} rows, {nt} lanes): "
+            f"normalized max_abs_err {err:.3e} (64 eps = {64 * eps:.3e}), "
+            f"{unequal} of {x.numel()} entries bit-unequal")
+        require(err < 64 * eps, f"tridiag_solve n={nt} vs plain")
+        k9 = max(k9, err)
+    errs["tridiag_solve"] = k9
     return errs, (Ab, d, e)
 
 
 def phase_slice():
-    """The main path at each size; returns the launch counts at n = 3840."""
+    """svdvals, the first main path, at each size; returns the launch counts
+    at n = 3840."""
     from svdsolver_tpu_torch import svdvals
-    from svdsolver_tpu_torch.ops.cuda import band_chase, bisect, panel_qr
 
-    mods = {"panel_qr": panel_qr, "band_chase": band_chase, "bisect": bisect}
     counts_3840 = None
     for n in SLICE_SIZES:
         A = uniform_matrix(n)
         torch.cuda.synchronize()
-        for mod in mods.values():
-            mod.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         s = svdvals(A)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        counts = {k: mod.launches for k, mod in mods.items()}
+        counts = read_counts()
         say(f"[slice] n={n}: svdvals {seconds:.3f} s (host clock, first call "
             f"at this size) launches {counts}")
-        for k, c in counts.items():
-            require(c > 0, f"kernel {k} not launched by svdvals at n={n}")
+        for k in ("panel_qr", "band_chase", "bisect"):
+            require(counts[k] > 0, f"kernel {k} not launched by svdvals at n={n}")
         require(s.shape == (n,) and bool(torch.isfinite(s).all()),
                 f"svdvals output at n={n}")
         ref = torch.linalg.svdvals(A.double())
@@ -200,13 +398,69 @@ def phase_slice():
     return counts_3840
 
 
-def phase_times(band_state):
-    from svdsolver_tpu_torch import svdvals
-    from svdsolver_tpu_torch.ops.cuda import band_chase, bisect, panel_qr
+def phase_svd():
+    """svd, the second main path, at each case; returns the launch counts
+    at n = 3840."""
+    from svdsolver_tpu_torch import svd
+    from svdsolver_tpu_torch.models import vectors
 
-    n = 3840
+    counts_3840 = None
+    eps = torch.finfo(torch.float32).eps
+    for n, kind in SVD_CASES:
+        A = uniform_matrix(n) if kind == "uniform" else gauss_matrix(n)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        U, s, Vh = svd(A)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        say(f"[svd] n={n} {kind}: svd {seconds:.3f} s (host clock, first call "
+            f"at this size) launches {counts}")
+        for k in SVD_PATH:
+            require(counts[k] > 0, f"kernel {k} not launched by svd at n={n}")
+        require(counts["tridiag_solve"] == 2, "two TGK solves (iters = 2)")
+        require(U.shape == (n, n) and s.shape == (n,) and Vh.shape == (n, n),
+                f"svd shapes at n={n}")
+        require(all(bool(torch.isfinite(t).all()) for t in (U, s, Vh)),
+                f"svd output finite at n={n}")
+        ref = torch.linalg.svdvals(A.double())
+        smax = float(ref[0])
+        sig_err = float((s.double() - ref).abs().max()) / smax
+        Ud, Vd = U.double(), Vh.double()
+        recon = float(((Ud * s.double()) @ Vd - A.double()).abs().max()) / smax
+        eye = torch.eye(n, dtype=torch.float64, device=DEV)
+        orth_u = float((Ud.T @ Ud - eye).abs().max())
+        orth_v = float((Vd @ Vd.T - eye).abs().max())
+        rid, start, end = vectors._cluster_bounds(s, 64 * eps)
+        width = end - start + 1
+        clustered = width > 1
+        n_clusters = int(torch.unique(rid[clustered]).numel())
+        widest = int(width.max())
+        dense = bool(vectors._has_wide_cluster(s, 64 * eps))
+        say(f"[svd] n={n} {kind}: sigma err {sig_err:.3e}, |U S Vh - A| "
+            f"{recon:.3e} (both / sigma_max), |U^T U - I| {orth_u:.3e}, "
+            f"|Vh Vh^T - I| {orth_v:.3e}")
+        say(f"[svd] n={n} {kind}: {n_clusters} clusters over "
+            f"{int(clustered.sum())} values, widest {widest}; dense cluster "
+            f"orthogonalization {'taken' if dense else 'not taken'}")
+        require(sig_err <= TOL_SIGMA, f"svd sigma error at n={n}")
+        require(recon <= TOL_RECON, f"svd reconstruction at n={n}")
+        require(max(orth_u, orth_v) <= TOL_ORTH, f"svd orthogonality at n={n}")
+        if n == 3840:
+            counts_3840 = counts
+        del A, U, s, Vh, Ud, Vd, ref, eye
+        torch.cuda.empty_cache()
+    return counts_3840
+
+
+def phase_times(band_state):
+    from svdsolver_tpu_torch import svd, svdvals
+    from svdsolver_tpu_torch.models import vectors
+    from svdsolver_tpu_torch.ops.cuda import band_chase, bisect, panel_qr, tridiag_solve
+
+    n, b = 3840, 128
     A = uniform_matrix(n)
-    b = 128
     Ab = panel_qr.dense_to_band_fused(A, band=b)
     d, e = band_chase.band_to_bidiagonal(Ab, band=b)
     t = {
@@ -218,48 +472,97 @@ def phase_times(band_state):
     for k, v in t.items():
         say(f"[times] {k}: {v:.3f} ms (median of {REPS})")
 
+    # svd at 3840 and its split, each stage on the previous one's outputs
+    Abr, Vq, Tq, Vl, Tl = panel_qr.dense_to_band_rec_fused(A, band=b)
+    dr, er, VL, TL, VR, TR = band_chase.band_to_bidiagonal_accum(Abr, band=b)
+    sig = bisect.bisect_svdvals(dr, er)
+    Ub, Vb = vectors.tgk_vectors(dr, er, sig)
+    LU, RV = vectors._apply_chase_reflectors_wy_pair(VL, TL, VR, TR, Ub, Vb, b)
+    split = {
+        "svd_3840": lambda: svd(A),
+        "stage1_rec_3840": lambda: panel_qr.dense_to_band_rec_fused(A, band=b),
+        "chase_rec_3840": lambda: band_chase.band_to_bidiagonal_accum(Abr, band=b),
+        "bisect_svd_3840": lambda: bisect.bisect_svdvals(dr, er),
+        "tgk_vectors_3840": lambda: vectors.tgk_vectors(dr, er, sig),
+        "chase_backtransform_3840": lambda: vectors._apply_chase_reflectors_wy_pair(
+            VL, TL, VR, TR, Ub, Vb, b),
+        "stage1_backtransform_3840": lambda: vectors._apply_stage1_reflectors_pair(
+            Vq, Tq, Vl, Tl, LU, RV),
+    }
+    for k, fn in split.items():
+        t[k] = cuda_ms(fn, SVD_REPS)
+        say(f"[times] {k}: {t[k]:.3f} ms (median of {SVD_REPS})")
+    parts = sum(v for k, v in t.items() if k in split and k != "svd_3840")
+    say(f"[times] svd split sums to {parts:.3f} ms of {t['svd_3840']:.3f} ms")
+    del Vq, Tq, Vl, Tl, VL, TL, VR, TR, Ub, Vb, LU, RV
+
+    # the cost of recording: the two chase entries on one band, in turns
+    c1 = cuda_ms(lambda: band_chase.band_to_bidiagonal(Ab, band=b), SVD_REPS)
+    r1 = cuda_ms(lambda: band_chase.band_to_bidiagonal_accum(Ab, band=b), SVD_REPS)
+    r2 = cuda_ms(lambda: band_chase.band_to_bidiagonal_accum(Ab, band=b), SVD_REPS)
+    c2 = cuda_ms(lambda: band_chase.band_to_bidiagonal(Ab, band=b), SVD_REPS)
+    say(f"[times] chase n=3840 b=128: plain entry {c1:.3f} / {c2:.3f} ms, "
+        f"recording entry {r1:.3f} / {r2:.3f} ms (medians of {SVD_REPS})")
+
     rng = np.random.default_rng(2)
-    Pt = torch.from_numpy(rng.normal(size=(128, 3840)).astype(np.float32)).cuda()
+    Pt = torch.from_numpy(rng.normal(size=(128, 3840)).astype(np.float32)).to(DEV)
     Ab1, d1, e1 = band_state
+    tgk = {nt: tgk_problem(rng, nt) for nt in (1024, 3840)}
     pairs = {
         "panel_qr": (lambda: panel_qr.panel_qr(Pt, 0),
                      lambda: panel_qr.panel_qr_plain(Pt, 0), "b=128 m=3840"),
         "band_chase": (lambda: band_chase.band_to_bidiagonal(Ab1, band=64),
                        lambda: band_chase.band_to_bidiagonal_plain(Ab1, band=64),
                        "n=1024 b=64"),
+        "band_chase_rec": (
+            lambda: band_chase.band_to_bidiagonal_accum(Ab1, band=64),
+            lambda: band_chase.band_to_bidiagonal_accum_plain(Ab1, band=64),
+            "n=1024 b=64"),
         "bisect": (lambda: bisect.bisect_svdvals(d1, e1),
                    lambda: bisect.bisect_svdvals_plain(d1, e1), "n=1024 probes=1"),
         "bisect_p3": (lambda: bisect.bisect_svdvals(d1, e1, probes=3),
                       lambda: bisect.bisect_svdvals_plain(d1, e1, probes=3),
                       "n=1024 probes=3"),
+        "tridiag_solve": (lambda: tridiag_solve.tgk_solve(*tgk[3840]),
+                          lambda: tridiag_solve.tgk_solve_plain(*tgk[3840]),
+                          "n=3840 (7680 rows, 3840 lanes)"),
+        "tridiag_solve_1024": (lambda: tridiag_solve.tgk_solve(*tgk[1024]),
+                               lambda: tridiag_solve.tgk_solve_plain(*tgk[1024]),
+                               "n=1024 (2048 rows, 1024 lanes)"),
     }
     kt = {}
     for name, (kern, plain, shape) in pairs.items():
-        # plain, kernel, kernel, plain: the two versions in turns
-        p1 = cuda_ms(plain)
-        k1 = cuda_ms(kern)
-        k2 = cuda_ms(kern)
-        p2 = cuda_ms(plain)
-        kt[name] = (min(k1, k2), min(p1, p2))
-        say(f"[times] {name} {shape}: kernel {k1:.3f} / {k2:.3f} ms, "
-            f"plain {p1:.3f} / {p2:.3f} ms (medians of {REPS})")
-    return t, kt
+        (k1, k2), (p1, p2) = in_turns(kern, plain)
+        kt[name] = (min(k1, k2), min(p1, p2), shape)
+        say(f"[times] {name} {shape}: kernel {k1:.3f} / {k2:.3f} ms (medians of "
+            f"{REPS}), plain {p1:.3f} / {p2:.3f} ms (one run each)")
+
+    # library calls computing the same function, timed beside the kernels
+    # (never called by the port)
+    panel = Pt.T.contiguous()
+    lib = {
+        "panel_qr": cuda_ms(lambda: torch.geqrf(panel)),
+        "bisect": cuda_ms(lambda: torch.linalg.svdvals(
+            torch.diag(d1) + torch.diag(e1, 1))),
+    }
+    lib_3840 = cuda_ms(lambda: torch.linalg.svdvals(torch.diag(d) + torch.diag(e, 1)))
+    say(f"[times] library: torch.geqrf (3840, 128) {lib['panel_qr']:.3f} ms; "
+        f"torch.linalg.svdvals of the dense bidiagonal n=1024 {lib['bisect']:.3f} "
+        f"ms, n=3840 {lib_3840:.3f} ms (medians of {REPS})")
+    return t, kt, lib
 
 
-def phase_profile(n=3840):
-    """Device time by kernel over one ``svdvals`` call (``torch.profiler``),
+def phase_profile(label, fn):
+    """Device time by kernel over one call of ``fn`` (``torch.profiler``),
     and the share of the call's wall time in which the card ran a kernel.
     Busy is not utilization: the chase and the panel kernel hold one SM."""
     from torch.profiler import ProfilerActivity, profile
 
-    from svdsolver_tpu_torch import svdvals
-
-    A = uniform_matrix(n)
-    svdvals(A)  # warm: allocator and libraries
+    fn()  # warm: allocator and libraries
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        svdvals(A)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only: an aten op's device time repeats its kernels'
@@ -269,11 +572,61 @@ def phase_profile(n=3840):
          if e.device_type == torch.autograd.DeviceType.CUDA),
         reverse=True,
     )
-    for ms, count, key in rows[:8]:
-        say(f"[profile] {ms:10.3f} ms {count:4d} x {key[:72]}")
+    for ms, count, key in rows[:10]:
+        say(f"[profile] {label}: {ms:10.3f} ms {count:5d} x {key[:72]}")
     busy = sum(r[0] for r in rows)
-    say(f"[profile] svdvals n={n}: wall {wall_ms:.3f} ms (host clock, profiler "
-        f"on), kernels {busy:.3f} ms = {100 * busy / wall_ms:.1f}% of wall")
+    say(f"[profile] {label}: wall {wall_ms:.3f} ms (host clock, profiler on), "
+        f"kernels {busy:.3f} ms = {100 * busy / wall_ms:.1f}% of wall")
+
+
+def kernel_table(errs, counts_vals, counts_svd, kt, lib):
+    from svdsolver_tpu_torch.models.diagonalize import default_bisect_iters
+
+    src = "svdsolver_tpu_torch/csrc/{}.cu"
+    replaces = {
+        "panel_qr": "svdsolver_tpu/ops/pallas/panel_qr.py:30",
+        "band_chase": "svdsolver_tpu/ops/pallas/band_chase.py:331 "
+                      "+ band_chase_wave.py:687 + band_chase_stream.py:118",
+        "band_chase_rec": "svdsolver_tpu/ops/pallas/band_chase.py:191 "
+                          "+ band_chase_wave.py:959 + band_chase_stream.py:118 "
+                          "(rec=True)",
+        "bisect": "svdsolver_tpu/ops/pallas/bisect.py:44",
+        "tridiag_solve": "svdsolver_tpu/ops/pallas/tridiag_solve.py:41 "
+                         "+ tridiag_solve.py:124",
+    }
+    work = {  # the shapes of each kernel's "ms" in kt
+        "panel_qr": work_panel_qr(128, 3840, 0),
+        "band_chase": work_chase(1024, 64, record=False),
+        "band_chase_rec": work_chase(1024, 64, record=True),
+        "bisect": work_bisect(1024, default_bisect_iters(torch.float32), 1),
+        "tridiag_solve": work_tgk(2 * 3840, 3840),
+    }
+    rows = []
+    for k in KERNELS:
+        b_ms, b_by = bound(*work[k])
+        launches = (counts_svd if k in ("band_chase_rec", "tridiag_solve")
+                    else counts_vals)[k]
+        say(f"[bound] {k} ({kt[k][2]}): {work[k][0]:.4g} flops, {work[k][1]:.4g} "
+            f"bytes -> {b_ms:.4f} ms, bound by {b_by}")
+        rows.append({
+            "name": k, "route": "cuda",
+            "source": src.format("band_chase" if k == "band_chase_rec" else k),
+            "replaces": replaces[k], "launches": launches,
+            "max_abs_err": errs[k], "ms": kt[k][0], "plain_ms": kt[k][1],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib.get(k),
+            "shape": kt[k][2],
+        })
+    iters = default_bisect_iters(torch.float32)
+    at_path = {  # where the ms above were taken at a smaller n
+        "band_chase": work_chase(3840, 128, record=False),
+        "band_chase_rec": work_chase(3840, 128, record=True),
+        "bisect": work_bisect(3840, iters, 1),
+    }
+    for k, w in at_path.items():
+        b_ms, b_by = bound(*w)
+        say(f"[bound] {k} at the path's n=3840: {w[0]:.4g} flops, {w[1]:.4g} "
+            f"bytes -> {b_ms:.4f} ms, bound by {b_by}")
+    return rows
 
 
 def main():
@@ -281,31 +634,24 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import svdsolver_tpu_torch  # noqa: F401  (fails outside the repository)
+    from svdsolver_tpu_torch import svd, svdvals
 
     torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False  # the oracles' GEMMs too
+    t_start = time.perf_counter()
     name, _ = phase_device()
     t0 = time.perf_counter()
     phase_build()
     say(f"[build] total {time.perf_counter() - t0:.2f} s")
     errs, band_state = phase_kernels(np.random.default_rng(0))
-    counts = phase_slice()
-    _, kt = phase_times(band_state)
-    phase_profile()
-
-    source = "svdsolver_tpu_torch/csrc/{}.cu"
-    replaces = {
-        "panel_qr": "svdsolver_tpu/ops/pallas/panel_qr.py:30",
-        "band_chase": "svdsolver_tpu/ops/pallas/band_chase.py:331 "
-                      "+ band_chase_wave.py:687 + band_chase_stream.py:118",
-        "bisect": "svdsolver_tpu/ops/pallas/bisect.py:44",
-    }
-    kernels = [
-        {"name": k, "route": "cuda", "source": source.format(k),
-         "replaces": replaces[k], "launches": counts[k],
-         "max_abs_err": errs[k], "ms": kt[k][0], "plain_ms": kt[k][1]}
-        for k in ("panel_qr", "band_chase", "bisect")
-    ]
-    say(json.dumps({"kernels": kernels}))
+    counts_vals = phase_slice()
+    counts_svd = phase_svd()
+    _, kt, lib = phase_times(band_state)
+    A = uniform_matrix(3840)
+    phase_profile("svdvals n=3840", lambda: svdvals(A))
+    phase_profile("svd n=3840", lambda: svd(A))
+    say(f"[done] {time.perf_counter() - t_start:.1f} s in all")
+    say(json.dumps({"kernels": kernel_table(errs, counts_vals, counts_svd, kt, lib)}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

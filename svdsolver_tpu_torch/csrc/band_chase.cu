@@ -1,13 +1,33 @@
-// Band -> bidiagonal bulge chase, the whole Stage II in one launch.
+// Band -> bidiagonal bulge chase, the whole Stage II in one launch, with or
+// without recording its reflectors.
 //
-// Replaces three TPU kernels that compute the same chase and differ only in
-// where the TPU keeps the band:
+// svdt_band_chase replaces three TPU kernels that compute the same chase and
+// differ only in where the TPU keeps the band:
 //   svdsolver_tpu/ops/pallas/band_chase.py        _chase_kernel (dense matrix
 //       in HBM, one DMA'd window per pair);
 //   svdsolver_tpu/ops/pallas/band_chase_wave.py   _wave_chase_kernel (packed
 //       band resident in VMEM, wavefront schedule);
 //   svdsolver_tpu/ops/pallas/band_chase_stream.py _stream_chase_kernel with
 //       rec=False (packed band streamed through VMEM windows).
+// svdt_band_chase_rec replaces their three recording twins, which also emit
+// every reflector for the singular-vector back-transform:
+//   band_chase.py        _chase_kernel_rec;
+//   band_chase_wave.py   _wave_chase_rec_kernel;
+//   band_chase_stream.py _stream_chase_kernel with rec=True.
+// Both instantiate the one chase_pair below (template flag Rec), so the
+// recording chase's arithmetic is the very code of the plain one and its
+// (d, e) are bit-equal to it.  Recording: after each warp_reflector, warp 0
+// stores the b entries of v and tau straight into slot (i, s) of VR/TR
+// (right) or VL/TL (left), in the canonical (n-1, s_max, b) layout, so the
+// TPU's lane rotations of the records have no counterpart here.  tau is
+// stored as computed, not recovered as 2/v^Tv; an identity reflector
+// (tau = 0) is stored as a zero row; entries past n are zero because the
+// reads past n are.  Slots the schedule never reaches are left as the
+// caller allocated them (zeros).  The records add 2 (b + 1) floats of
+// stores a pair, under 1 % of the pair's window traffic, but warp 0 issues
+// them before the pair's barrier: on the H100 (700 W) the recording entry
+// took 913 ms against the plain entry's 850 ms at n = 3840, b = 128 (about
+// 1 us a pair); storing from registers after the barrier is later work.
 // Schedule and arithmetic are those of models/two_stage.band_to_bidiagonal:
 // sweep i runs a head pair at (i, i+1) and nc_of(i, n, b) chase pairs at
 // (r, r+b), r = i+1+k*b; each pair is a right Householder elimination of the
@@ -82,13 +102,32 @@ __device__ float warp_reflector(const float (&x)[KPL], int b, float* v) {
   return trivial ? 0.f : (beta - pivot) / (beta == 0.f ? 1.f : beta);
 }
 
+// Warp 0 only, after warp_reflector: store the reflector it just built
+// (b entries of v from shared memory, each read by the lane that wrote it)
+// and its tau into one record slot; a zero row for tau = 0.
+__device__ __forceinline__ void record(const float* v, float tau, int b,
+                                       float* rv, float* rt) {
+  const int lane = threadIdx.x & 31;
+  for (int k = lane; k < b; k += 32) rv[k] = tau != 0.f ? v[k] : 0.f;
+  if (lane == 0) *rt = tau;
+}
+
+// Record slot (i, s) of one side: v at (i * s_max + s) * b, tau at
+// i * s_max + s.  Unused (null) in the plain chase.
+struct Slot {
+  float* v;
+  float* t;
+};
+
 // One elimination pair on the window with corner (r0, c0): right reflector
 // from row r0, columns [c0, c0+b), applied to rows [r0, r0+wr); then left
 // reflector from column c0, rows [r0+lr0, r0+lr0+b), applied to columns
-// [c0, c0+2b).
-template <int KPL>
+// [c0, c0+2b).  With Rec, the right reflector goes to slot `rr`, the left
+// one to slot `rl_`.
+template <int KPL, bool Rec>
 __device__ void chase_pair(float* A, int n, int b, int r0, int c0, int wr,
-                           int lr0, float* v, float* part, float* s_tau) {
+                           int lr0, float* v, float* part, float* s_tau,
+                           Slot rr, Slot rl_) {
   constexpr int R = KPL >= 8 ? 32 / KPL : 8;  // rows a warp applies at once
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -106,6 +145,7 @@ __device__ void chase_pair(float* A, int n, int b, int r0, int c0, int wr,
     }
     const float tau = warp_reflector<KPL>(x, b, v);
     if (lane == 0) s_tau[0] = tau;
+    if constexpr (Rec) record(v, tau, b, rr.v, rr.t);
   }
   __syncthreads();
   const float tau = s_tau[0];
@@ -160,6 +200,7 @@ __device__ void chase_pair(float* A, int n, int b, int r0, int c0, int wr,
     }
     const float tau2 = warp_reflector<KPL>(x, b, v);
     if (lane == 0) s_tau[1] = tau2;
+    if constexpr (Rec) record(v, tau2, b, rl_.v, rl_.t);
   }
   __syncthreads();
   const float tau2 = s_tau[1];
@@ -210,21 +251,45 @@ __device__ void chase_pair(float* A, int n, int b, int r0, int c0, int wr,
   __syncthreads();
 }
 
-template <int KPL>
+// The records of one chase: VL, VR (n-1, s_max, b) and TL, TR (n-1, s_max),
+// row-major; all null in the plain chase.
+struct Records {
+  float* vl;
+  float* tl;
+  float* vr;
+  float* tr;
+  int s_max;
+  __device__ Slot left(int i, int s, int b) const {
+    const size_t k = (size_t)i * s_max + s;
+    return {vl + k * b, tl + k};
+  }
+  __device__ Slot right(int i, int s, int b) const {
+    const size_t k = (size_t)i * s_max + s;
+    return {vr + k * b, tr + k};
+  }
+};
+
+template <int KPL, bool Rec>
 __global__ void __launch_bounds__(kThreads)
 band_chase_kernel(float* __restrict__ A, float* __restrict__ d,
-                  float* __restrict__ e, int n, int b) {
+                  float* __restrict__ e, int n, int b, Records rec) {
   __shared__ float v[kMaxBand];
   __shared__ float part[kThreads];
   __shared__ float s_tau[2];
+  const Slot none = {nullptr, nullptr};
   for (int i = 0; i < n - 1; ++i) {
-    chase_pair<KPL>(A, n, b, i, i + 1, b + 1, 1, v, part, s_tau);  // head
+    // head pair: slot 0 (left reflector rows [i+1, i+1+b))
+    chase_pair<KPL, Rec>(A, n, b, i, i + 1, b + 1, 1, v, part, s_tau,
+                         Rec ? rec.right(i, 0, b) : none,
+                         Rec ? rec.left(i, 0, b) : none);
     // nc_of: max(0, ceil((n - (i + 2b + 1)) / b)) + 1 (ops/chase_schedule.py)
     const int rest = n - (i + 2 * b + 1);
     const int nc = (rest > 0 ? (rest + b - 1) / b : 0) + 1;
-    for (int k = 0; k < nc; ++k) {
+    for (int k = 0; k < nc; ++k) {  // chase pair k: slot k + 1
       const int r = i + 1 + k * b;
-      chase_pair<KPL>(A, n, b, r, r + b, 2 * b, b, v, part, s_tau);
+      chase_pair<KPL, Rec>(A, n, b, r, r + b, 2 * b, b, v, part, s_tau,
+                           Rec ? rec.right(i, k + 1, b) : none,
+                           Rec ? rec.left(i, k + 1, b) : none);
     }
   }
   for (int i = threadIdx.x; i < n; i += kThreads) {
@@ -233,17 +298,36 @@ band_chase_kernel(float* __restrict__ A, float* __restrict__ d,
   }
 }
 
+template <bool Rec>
+int launch(float* A, float* d, float* e, int n, int b, Records rec,
+           void* stream) {
+  if (n < 2 || b < 1 || b > kMaxBand) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (b <= 32)
+    band_chase_kernel<1, Rec><<<1, kThreads, 0, s>>>(A, d, e, n, b, rec);
+  else if (b <= 64)
+    band_chase_kernel<2, Rec><<<1, kThreads, 0, s>>>(A, d, e, n, b, rec);
+  else if (b <= 128)
+    band_chase_kernel<4, Rec><<<1, kThreads, 0, s>>>(A, d, e, n, b, rec);
+  else
+    band_chase_kernel<8, Rec><<<1, kThreads, 0, s>>>(A, d, e, n, b, rec);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Launches the chase on `stream`, overwriting A (n x n, row-major, upper band
 // b); returns the launch's cudaError_t.
 extern "C" int svdt_band_chase(float* A, float* d, float* e, int n, int b,
                                void* stream) {
-  if (n < 2 || b < 1 || b > kMaxBand) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (b <= 32) band_chase_kernel<1><<<1, kThreads, 0, s>>>(A, d, e, n, b);
-  else if (b <= 64) band_chase_kernel<2><<<1, kThreads, 0, s>>>(A, d, e, n, b);
-  else if (b <= 128) band_chase_kernel<4><<<1, kThreads, 0, s>>>(A, d, e, n, b);
-  else band_chase_kernel<8><<<1, kThreads, 0, s>>>(A, d, e, n, b);
-  return (int)cudaGetLastError();
+  return launch<false>(A, d, e, n, b, {nullptr, nullptr, nullptr, nullptr, 0},
+                       stream);
+}
+
+// As svdt_band_chase, and writes every reflector into the zero-initialised
+// records VL, VR (n-1, s_max, b) and TL, TR (n-1, s_max).
+extern "C" int svdt_band_chase_rec(float* A, float* d, float* e, int n, int b,
+                                   float* VL, float* TL, float* VR, float* TR,
+                                   int s_max, void* stream) {
+  return launch<true>(A, d, e, n, b, {VL, TL, VR, TR, s_max}, stream);
 }

@@ -10,6 +10,7 @@ fallback on failure.
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from svdsolver_tpu_torch.models.diagonalize import bisect_svdvals
@@ -24,6 +25,34 @@ _NOT_PORTED = {
     "qr": "ROADMAP queue 1, item 7 (the rest of models/diagonalize.py)",
     "dqds": "ROADMAP queue 1, item 7 (the rest of models/diagonalize.py)",
 }
+
+
+def as_input(A):
+    """The matrix an entry point works on.  A tensor keeps its device and
+    dtype.  A numpy array or array-like goes to the CUDA card as float32
+    (the JAX package's default placement and dtype); with no card this
+    raises, it never runs on the CPU.  Complex input is not ported."""
+    if isinstance(A, torch.Tensor):
+        if A.is_complex():
+            _complex()
+    else:
+        if np.iscomplexobj(A):
+            _complex()
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "a numpy or array-like input runs on the CUDA card, and none "
+                "is available; pass a torch.Tensor to run on its device"
+            )
+        A = torch.as_tensor(np.asarray(A, dtype=np.float32), device="cuda")
+    if A.ndim != 2:
+        raise ValueError(f"A must be 2-D, got shape {tuple(A.shape)}")
+    return A
+
+
+def _complex():
+    raise NotImplementedError(
+        "complex input is not ported yet: ROADMAP queue 1, item 12"
+    )
 
 
 def use_kernels(t):
@@ -88,18 +117,15 @@ def svdvals(A, method="tpu2", block=None, diag="bisect"):
 
     Bidiagonalize with the chosen method, then bisect (``diag='bisect'``,
     the only ported diagonalizer).  A rectangular input is first reduced to
-    its square triangular factor by QR (sigma-preserving).
+    its square triangular factor by QR (sigma-preserving).  ``A``: a tensor
+    runs on its own device; a numpy array or array-like goes to the CUDA
+    card as float32 (:func:`as_input`).
     """
-    if A.is_complex():
-        raise NotImplementedError(
-            "complex input is not ported yet: ROADMAP queue 1, item 12"
-        )
+    A = as_input(A)
     if diag in _NOT_PORTED:
         _not_ported(diag)
     if diag != "bisect":
         raise ValueError(f"unknown diag {diag!r}; 'bisect', 'qr' or 'dqds'")
-    if A.ndim != 2:
-        raise ValueError(f"A must be 2-D, got shape {tuple(A.shape)}")
     m, n = A.shape
     if m != n:
         if m < n:

@@ -5,13 +5,15 @@ Stage I  (dense -> band): panel QR/LQ with compact-WY block reflectors and
 GEMM trailing updates.  Stage II (band -> bidiagonal): Householder bulge
 chasing over fixed-size windows of a zero-padded matrix.
 
-This is the CPU path of ``svdvals`` (and the ``tpu1`` method on any device),
-and the oracle the CUDA Stage I loop and chase kernel are held against.
+This is the CPU path of ``svdvals`` and ``svd`` (and of the ``tpu1`` method
+on any device), and the oracle the CUDA Stage I loop and chase kernels are
+held against.  The ``_rec`` / ``_accum`` variants also return the
+reflectors, for the singular-vector back-transforms of ``models/vectors.py``.
 """
 
 import torch
 
-from svdsolver_tpu_torch.ops.chase_schedule import nc_of_static
+from svdsolver_tpu_torch.ops.chase_schedule import nc_of_static, s_max_of
 from svdsolver_tpu_torch.ops.householder import householder_vector
 from svdsolver_tpu_torch.ops.precision import pdot
 
@@ -20,11 +22,10 @@ def _panel_qr_step(A, c0, r_off, b):
     """Factor panel columns ``[c0, c0+b)`` with pivot row ``r_off + j`` for
     panel column ``j``; apply the aggregated block reflector to the trailing
     matrix.  ``r_off == c0`` gives a QR panel; calling on ``A.T`` with
-    ``r_off == c0 + b`` gives the LQ row step.  Returns the updated ``A``
-    (a new tensor; the input is not modified).
-
-    Compact-WY: ``Q = I - V T V^T`` accumulated by the larft forward
-    recurrence.
+    ``r_off == c0 + b`` gives the LQ row step.  Returns ``(A, V, T)``: the
+    updated ``A`` (a new tensor; the input is not modified) and the block
+    reflector ``Q = I - V T V^T`` (V (m, b), zero columns for identity
+    reflectors; T upper triangular by the larft forward recurrence).
     """
     m = A.shape[0]
     P = A[:, c0 : c0 + b].clone()
@@ -45,13 +46,13 @@ def _panel_qr_step(A, c0, r_off, b):
         w = pdot(V.T, v)  # zero at indices >= j (those V columns are still zero)
         T[:, j] = -tau * pdot(T, w)
         T[j, j] = tau
-        V[:, j] = v
+        V[:, j] = torch.where(tau != 0, v, zero)
     # Trailing update A <- (I - V T V^T)^T A; the panel itself is overwritten
     # with its factored form.
     W = pdot(V.T, A)
     A = A - pdot(V, pdot(T.T, W))
     A[:, c0 : c0 + b] = P
-    return A
+    return A, V, T
 
 
 def segment_bounds(nb, segments):
@@ -91,19 +92,46 @@ def dense_to_band(A, band=32, segments=1):
         sub = A[s0:, s0:]
         for k in range(k1 - k0):
             c = k * b
-            sub = _panel_qr_step(sub, c, c, b)  # QR on panel columns
-            sub = _panel_qr_step(sub.T, c, c + b, b).T  # LQ on panel rows
+            sub = _panel_qr_step(sub, c, c, b)[0]  # QR on panel columns
+            sub = _panel_qr_step(sub.T, c, c + b, b)[0].T  # LQ on panel rows
         A[s0:, s0:] = sub
     return A
 
 
-def make_window_pairs(w):
+def dense_to_band_rec(A, band=32):
+    """Stage I recording the panel block reflectors (twin of the JAX
+    ``dense_to_band_rec``).  Full width, no segments.
+
+    Returns ``(Ab, Vq, Tq, Vl, Tl)``: with ``p = n // band`` panels, ``Vq``
+    (p, b, n) and ``Tq`` (p, b, b) hold the QR panels' ``V_k^T`` and
+    ``T_k^T``, ``Vl`` / ``Tl`` the LQ panels' likewise, so that
+    ``A = Q_0 ... Q_{p-1} @ Ab @ (P_0 ... P_{p-1})^T`` with
+    ``Q_k = I - V_k T_k V_k^T``.
+    """
+    b = int(band)
+    _check_stage1(A, b, "dense_to_band_rec")
+    n = A.shape[0]
+    p = n // b
+    Vq, Vl = A.new_zeros((p, b, n)), A.new_zeros((p, b, n))
+    Tq, Tl = A.new_zeros((p, b, b)), A.new_zeros((p, b, b))
+    for k in range(p):
+        c = k * b
+        A, V, T = _panel_qr_step(A, c, c, b)
+        At, V2, T2 = _panel_qr_step(A.T, c, c + b, b)
+        A = At.T
+        Vq[k], Tq[k], Vl[k], Tl[k] = V.T, T.T, V2.T, T2.T
+    return A, Vq, Tq, Vl, Tl
+
+
+def make_window_pairs(w, record=False):
     """The two Stage-II window eliminations for window parameter ``w``
     (= band + 1).  ``top_pair`` opens a sweep (right-elim row 0 over cols
     ``[0, w-1)``, then left-elim rows ``[1, w)``); ``chase_pair`` advances
     the bulge (right-elim row 0 over cols ``[0, w-1)``, then left-elim rows
     ``[w-1, 2w-2)``).  Both update the window ``W`` in place (a view into
-    the padded matrix, so no window is copied out and back) and return it.
+    the padded matrix, so no window is copied out and back) and return it;
+    with ``record=True`` they return ``(W, v_right, tau_right, v_left,
+    tau_left)``, each ``v`` of length ``w - 1``.
     """
 
     def _pair(W, left_r0):
@@ -113,6 +141,8 @@ def make_window_pairs(w):
         v2, tau2, _ = householder_vector(W[left_r0:, 0], 0)
         Ws = W[left_r0:, :]
         Ws -= tau2 * torch.outer(v2, pdot(v2, Ws))
+        if record:
+            return W, v, tau, v2, tau2
         return W
 
     def top_pair(W):
@@ -124,6 +154,40 @@ def make_window_pairs(w):
     return top_pair, chase_pair
 
 
+def _chase(A, band, record):
+    """The sequential chase schedule over a zero-padded copy of ``A``;
+    returns ``(d, e)`` and, with ``record``, the reflector records."""
+    n = A.shape[0]
+    w = int(band) + 1
+    step = w - 1
+    # Zero-pad so every window lies inside the matrix: the JAX package pads
+    # 2w+2 and relies on dynamic_slice clamping the last sweeps' windows,
+    # where torch slicing would truncate them instead.  Windows over the pad
+    # see zero tails, so their reflectors are the identity.
+    pad = 3 * w
+    Ap = A.new_zeros((n + pad, n + pad))
+    Ap[:n, :n] = A
+    ww = 2 * w - 2
+    top_pair, chase_pair = make_window_pairs(w, record=record)
+    if record:
+        s_max = s_max_of(n, step)
+        VL, VR = A.new_zeros((2, n - 1, s_max, step))
+        TL, TR = A.new_zeros((2, n - 1, s_max))
+    for i in range(n - 1):
+        out = top_pair(Ap[i : i + w, i + 1 : i + 1 + ww])
+        if record:
+            _, VR[i, 0], TR[i, 0], VL[i, 0], TL[i, 0] = out
+        for k in range(nc_of_static(i, n, step)):
+            r = i + 1 + k * step
+            c = r + step
+            out = chase_pair(Ap[r : r + ww, c : c + ww])
+            if record:  # chase pair k fills slot k + 1
+                _, VR[i, k + 1], TR[i, k + 1], VL[i, k + 1], TL[i, k + 1] = out
+    B = Ap[:n, :n]
+    d, e = torch.diagonal(B).clone(), torch.diagonal(B, 1).clone()
+    return (d, e, VL, TL, VR, TR) if record else (d, e)
+
+
 def band_to_bidiagonal(A, band=32):
     """Stage II: bulge-chase an upper-band matrix (``band`` superdiagonals)
     down to bidiagonal.  Returns ``(d, e)``.
@@ -133,25 +197,25 @@ def band_to_bidiagonal(A, band=32):
     ``w - 1`` rows/cols (``w = band + 1``), ``nc_of_static(i, n, band)``
     pairs per sweep.
     """
-    n = A.shape[0]
-    w = int(band) + 1
-    if n < 2:
+    if A.shape[0] < 2:
         return torch.abs(torch.diagonal(A)), A.new_zeros((0,))
-    # Zero-pad so every window lies inside the matrix: the JAX package pads
-    # 2w+2 and relies on dynamic_slice clamping the last sweeps' windows,
-    # where torch slicing would truncate them instead.  Windows over the pad
-    # see zero tails, so their reflectors are the identity.
-    pad = 3 * w
-    Ap = A.new_zeros((n + pad, n + pad))
-    Ap[:n, :n] = A
-    step = w - 1
-    ww = 2 * w - 2
-    top_pair, chase_pair = make_window_pairs(w)
-    for i in range(n - 1):
-        top_pair(Ap[i : i + w, i + 1 : i + 1 + ww])
-        for k in range(nc_of_static(i, n, step)):
-            r = i + 1 + k * step
-            c = r + step
-            chase_pair(Ap[r : r + ww, c : c + ww])
-    B = Ap[:n, :n]
-    return torch.diagonal(B).clone(), torch.diagonal(B, 1).clone()
+    return _chase(A, band, record=False)
+
+
+def band_to_bidiagonal_accum(A, band=32):
+    """Stage II that also records every reflector (twin of the JAX
+    ``band_to_bidiagonal_accum``); same schedule and arithmetic as
+    :func:`band_to_bidiagonal`, so ``(d, e)`` are bit-equal to it.
+
+    Returns ``(d, e, VL, TL, VR, TR)``.  Reflector ``(i, s)`` of sweep ``i``
+    at slot ``s`` (0: the head pair, s >= 1: chase pair s-1) has ``band``
+    entries with support ``[i+1+s*band, i+1+(s+1)*band)``: rows for the left
+    ones ``VL`` (taus ``TL``), columns for the right ones ``VR``/``TR``.
+    Records are ``(n-1, s_max, band)`` with ``s_max = s_max_of(n, band)``;
+    slots the schedule never fills stay zero with tau 0.  The band factors
+    as ``A = L @ bidiag(d, e) @ R^T`` with ``L`` the left reflectors' and
+    ``R^T`` the right reflectors' products in creation order.
+    """
+    if A.shape[0] < 2:
+        raise ValueError("band_to_bidiagonal_accum needs n >= 2")
+    return _chase(A, band, record=True)

@@ -97,7 +97,8 @@ def _fused_panel_pair_step(b, S, c):
         S -= [V | Z] @ [[C1], [V2]]     (one K=2b GEMM)
 
     ``S`` is updated in place (it is a view of the Stage I matrix, so no
-    copy of the trailing matrix is made) and returned.
+    copy of the trailing matrix is made).  Returns ``(S, (Vt, Tt, Vt2,
+    Tt2))``: the pair's QR and LQ block reflectors as the kernel gives them.
     """
     Pt = S[:, c : c + b].T.contiguous()
     Rt, Vt, Tt = panel_qr(Pt, c)
@@ -117,7 +118,37 @@ def _fused_panel_pair_step(b, S, c):
     S -= pdot(U2, C2)
     S[:, c : c + b] = Rt.T
     S[c : c + b, :] = Rt2
-    return S
+    return S, (Vt, Tt, Vt2, Tt2)
+
+
+def _stage1_fused(A, b, segments, record):
+    """The fused Stage I loop; with ``record`` also the panel records."""
+    _check_stage1(A, b, "dense_to_band_fused")
+    n = A.shape[0]
+    if segments is None:
+        segments = _auto_segments(n, b)
+    # every pair updates a view of this copy in place
+    A = A.clone(memory_format=torch.contiguous_format)
+    if record:
+        p = n // b
+        Vq, Vl = A.new_zeros((2, p, b, n))
+        Tq, Tl = A.new_zeros((2, p, b, b))
+    bounds = segment_bounds(n // b, segments)
+    for s in range(len(bounds) - 1):
+        k0, k1 = bounds[s], bounds[s + 1]
+        s0 = k0 * b
+        sub = A[s0:, s0:]
+        for k in range(k1 - k0):
+            _, recs = _fused_panel_pair_step(b, sub, k * b)
+            if record:
+                # A reflector of this segment pivots at or past s0, so it is
+                # zero above s0: embed the (b, n - s0) rows at column s0.
+                # Identity reflectors (tau 0) are recorded as zero rows.
+                for V, T, (Vt, Tt) in ((Vq, Tq, recs[:2]), (Vl, Tl, recs[2:])):
+                    live = torch.diagonal(Tt) != 0
+                    V[k0 + k, :, s0:] = torch.where(live[:, None], Vt, 0.0)
+                    T[k0 + k] = Tt
+    return (A, Vq, Tq, Vl, Tl) if record else A
 
 
 def dense_to_band_fused(A, band=128, segments=None):
@@ -126,18 +157,15 @@ def dense_to_band_fused(A, band=128, segments=None):
     trailing updates restricted to ``A[s0:, s0:]`` per segment.
     ``segments=None`` picks :func:`_auto_segments`.  Returns a new tensor.
     """
-    b = int(band)
-    _check_stage1(A, b, "dense_to_band_fused")
-    n = A.shape[0]
-    if segments is None:
-        segments = _auto_segments(n, b)
-    # every pair updates a view of this copy in place
-    A = A.clone(memory_format=torch.contiguous_format)
-    bounds = segment_bounds(n // b, segments)
-    for s in range(len(bounds) - 1):
-        k0, k1 = bounds[s], bounds[s + 1]
-        s0 = k0 * b
-        sub = A[s0:, s0:]
-        for k in range(k1 - k0):
-            _fused_panel_pair_step(b, sub, k * b)
-    return A
+    return _stage1_fused(A, int(band), segments, record=False)
+
+
+def dense_to_band_rec_fused(A, band=128, segments=None):
+    """Stage I through the panel kernel, recording the panel block
+    reflectors (twin of ``dense_to_band_rec_pallas``).  Returns ``(Ab, Vq,
+    Tq, Vl, Tl)`` under the contract of ``models.two_stage.
+    dense_to_band_rec``: ``Vq[k] = V_k^T`` (b, n), ``Tq[k] = T_k^T``, QR
+    then LQ per panel.  The segmented trailing update is kept (see
+    :func:`dense_to_band_fused`).
+    """
+    return _stage1_fused(A, int(band), segments, record=True)

@@ -11,8 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from svdsolver_tpu_torch import svdvals
-from svdsolver_tpu_torch.ops.cuda import band_chase, bisect, panel_qr
+from svdsolver_tpu_torch import svd, svdvals
+from svdsolver_tpu_torch.models.vectors import _apply_chase_reflectors
+from svdsolver_tpu_torch.ops.cuda import band_chase, bisect, panel_qr, tridiag_solve
 
 pytestmark = pytest.mark.cuda
 
@@ -78,3 +79,69 @@ def test_kernels_reject_float64(dev):
 def test_chase_kernel_rejects_wide_band(dev):
     with pytest.raises(ValueError, match="band"):
         band_chase.band_to_bidiagonal(torch.zeros(600, 600, device=dev), band=300)
+
+
+def test_recording_chase_matches_plain(dev, rng):
+    # (d, e) bit-equal to the non-recording kernel; records rebuild the band
+    # with orthogonal L, R, as the plain recording chase's do
+    A = torch.from_numpy(rng.normal(size=(96, 96)).astype(np.float32)).to(dev)
+    b = 16
+    Ab = panel_qr.dense_to_band_fused(A, band=b)
+    d0, e0 = band_chase.band_to_bidiagonal(Ab, band=b)
+    eye = torch.eye(96, device=dev)
+    for fn in (band_chase.band_to_bidiagonal_accum,
+               band_chase.band_to_bidiagonal_accum_plain):
+        d, e, VL, TL, VR, TR = fn(Ab, band=b)
+        if fn is band_chase.band_to_bidiagonal_accum:
+            assert torch.equal(d, d0) and torch.equal(e, e0)
+        L = _apply_chase_reflectors(VL, TL, eye, b, reverse=True)
+        R = _apply_chase_reflectors(VR, TR, eye, b, reverse=True)
+        B = torch.diag(d) + torch.diag(e, 1)
+        assert float((L @ B @ R.T - Ab).abs().max()) <= 1e-5 * float(Ab.abs().max())
+        assert float((L.T @ L - eye).abs().max()) <= 1e-5
+        assert float((R.T @ R - eye).abs().max()) <= 1e-5
+
+
+def test_tgk_solve_kernel_matches_plain(dev, rng):
+    n = 160
+    d = torch.from_numpy(rng.normal(size=n).astype(np.float32) * 5).to(dev)
+    e = torch.from_numpy(rng.normal(size=n - 1).astype(np.float32) * 5).to(dev)
+    z = torch.zeros(2 * n - 1, device=dev)
+    z[0::2], z[1::2] = d, e
+    sig = torch.linalg.svdvals(torch.diag(d) + torch.diag(e, 1)).contiguous()
+    rhs = torch.from_numpy(rng.normal(size=(2 * n, n)).astype(np.float32)).to(dev)
+    pivmin = torch.tensor(float(sig[0]) * 2.0 ** -46, device=dev)
+    big = torch.tensor(torch.finfo(torch.float32).max ** 0.5 / 16, device=dev)
+    x = tridiag_solve.tgk_solve(z, sig, rhs, pivmin, big)
+    xp = tridiag_solve.tgk_solve_plain(z, sig, rhs, pivmin, big)
+    eps = torch.finfo(torch.float32).eps
+    assert float((x / x.norm(dim=0) - xp / xp.norm(dim=0)).abs().max()) < 64 * eps
+
+
+def test_svd_goes_through_kernels(dev, rng):
+    # the svd path launches the panel QR, the recording chase, the
+    # bisection and the TGK solve (twice: two inverse iterations)
+    n = 200
+    A = torch.from_numpy(rng.uniform(0, 5, (n, n)).astype(np.float32)).to(dev)
+    for mod, attr in ((panel_qr, "launches"), (band_chase, "launches_rec"),
+                      (bisect, "launches"), (tridiag_solve, "launches")):
+        setattr(mod, attr, 0)
+    U, s, Vh = svd(A)
+    assert panel_qr.launches and band_chase.launches_rec and bisect.launches
+    assert tridiag_solve.launches == 2
+    want = torch.linalg.svdvals(A.double())
+    smax = float(want[0])
+    torch.testing.assert_close(s.double(), want, rtol=0, atol=1e-5 * smax)
+    Ud, Vd = U.double(), Vh.double()
+    assert float(((Ud * s.double()) @ Vd - A.double()).abs().max()) < 1e-4 * smax
+    eye = torch.eye(n, dtype=torch.float64, device=dev)
+    assert float((Ud.T @ Ud - eye).abs().max()) < 1e-4
+    assert float((Vd @ Vd.T - eye).abs().max()) < 1e-4
+
+
+def test_numpy_input_goes_to_the_card(dev, rng):
+    A = rng.uniform(0, 5, (64, 64))
+    s = svdvals(A)
+    assert s.is_cuda and s.dtype == torch.float32
+    U, s2, Vh = svd(A)
+    assert U.is_cuda and Vh.is_cuda
