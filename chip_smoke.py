@@ -4,13 +4,21 @@
 Run from the repository root: ``python3 chip_smoke.py``.  It
 
 1. reports the card (name, power limit), torch, CUDA and nvcc;
-2. builds the four kernel sources of ``svdsolver_tpu_torch/csrc`` (one
+2. builds the seven kernel sources of ``svdsolver_tpu_torch/csrc`` (one
    ``nvcc`` each, all started together): the panel QR, the chase (plain and
-   recording entries), the bisection and the TGK solve;
+   recording entries), the bisection, the TGK solve, the wavefront chase
+   (with and without deferred left applies), the staged chase and the
+   packed chase;
 3. holds each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it: the recording chase's (d, e) bit-equal to
    the plain chase kernel's and its records rebuilding the band, the TGK
-   solve's normalized columns within 64 eps;
+   solve's normalized columns within 64 eps; and drives the chase variants
+   (the third path), every launch count set to 0 before each call and read
+   after it: each variant's (d, e) bit-equal to the chase kernel's at
+   n = 1024 (b = 64), 3840 (b = 128, the Stage I kernel's band) and, for the
+   wavefront kernels with lanes striding over capped CTAs, 2048 (b = 32);
+   each variant against its plain version at 1024; each variant's sigma
+   through the bisection kernel at 3840 against float64;
 4. drives the two main paths, with every launch count set to 0 just before
    each call and read just after: ``svdvals`` on a uniform [0, 5) float32
    matrix at n = 3840, 1000 and 7680 (sigma against float64
@@ -19,10 +27,11 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    reconstruction to 1e-4 sigma_max, orthogonality of U and Vh to 1e-4;
 5. times ``svdvals`` and ``svd`` at 3840 with their stages, each kernel
    beside its plain version and, where one exists, the PyTorch library
-   call computing the same function (CUDA events), and computes each
-   kernel's bound from its shapes;
-6. profiles one ``svdvals`` and one ``svd`` call at n = 3840: device time by
-   kernel and the card's busy share.
+   call computing the same function (CUDA events), each chase variant in
+   turns with the chase kernel at 3840, and computes each kernel's bound
+   from its shapes;
+6. profiles one ``svdvals`` and one ``svd`` call and one wavefront chase at
+   n = 3840: device time by kernel and the card's busy share.
 
 Any failure raises and exits non-zero.  The second-to-last line is the
 kernel table as JSON, the last ``{"ok": true, "device": {...}}``.  With no
@@ -48,9 +57,19 @@ SLICE_SIZES = (3840, 1000, 7680)
 SVD_CASES = ((3840, "uniform"), (2048, "gauss"), (1000, "uniform"))
 REPS = 5
 SVD_REPS = 3
-SOURCES = ("panel_qr", "band_chase", "bisect", "tridiag_solve")
-KERNELS = ("panel_qr", "band_chase", "band_chase_rec", "bisect", "tridiag_solve")
+SOURCES = ("panel_qr", "band_chase", "bisect", "tridiag_solve",
+           "band_chase_wave", "band_chase_staged", "band_chase_vmem")
+VARIANTS = ("band_chase_wave", "band_chase_wave_dl", "band_chase_staged",
+            "band_chase_vmem")
+KERNELS = ("panel_qr", "band_chase", "band_chase_rec", "bisect",
+           "tridiag_solve") + VARIANTS
 SVD_PATH = ("panel_qr", "band_chase_rec", "bisect", "tridiag_solve")
+# the chase variants' shapes: (n, band, khops) of the check against the plain
+# versions (phase_kernels' band), of the slice at full width, and (n, band,
+# CTAs) of the wavefront kernels with lanes striding over capped CTAs
+VAR_CHECK = (1024, 64, 3)
+VAR_PATH = (3840, 128, 4)
+VAR_CTAS = (2048, 32, 4)
 # published H100 SXM peaks (NVIDIA's data sheet, 700 W): float32 outside
 # the tensor cores, and HBM3
 PEAK_FP32 = 67e12
@@ -118,13 +137,19 @@ def bidiag_sigma(d, e):
 
 
 def _counters():
-    from svdsolver_tpu_torch.ops.cuda import band_chase, bisect, panel_qr, tridiag_solve
+    from svdsolver_tpu_torch.ops.cuda import (band_chase, band_chase_vmem,
+                                              band_chase_wave, bisect, panel_qr,
+                                              tridiag_solve)
 
     return {"panel_qr": (panel_qr, "launches"),
             "band_chase": (band_chase, "launches"),
             "band_chase_rec": (band_chase, "launches_rec"),
             "bisect": (bisect, "launches"),
-            "tridiag_solve": (tridiag_solve, "launches")}
+            "tridiag_solve": (tridiag_solve, "launches"),
+            "band_chase_wave": (band_chase_wave, "launches"),
+            "band_chase_wave_dl": (band_chase_wave, "launches_dl"),
+            "band_chase_staged": (band_chase, "launches_staged"),
+            "band_chase_vmem": (band_chase_vmem, "launches")}
 
 
 def reset_counts():
@@ -218,12 +243,20 @@ def phase_build():
     from svdsolver_tpu_torch.ops.cuda import _build
 
     with ThreadPoolExecutor(len(SOURCES)) as pool:
-        built = list(pool.map(_build.build, SOURCES))
-    for name, (path, seconds, log) in zip(SOURCES, built):
+        built = [pool.submit(_build.build, name) for name in SOURCES]
+    failed = []
+    for name, job in zip(SOURCES, built):
+        try:
+            path, seconds, log = job.result()
+        except RuntimeError as exc:  # report every source that fails
+            say(f"[build] {name}: FAILED\n{exc}")
+            failed.append(name)
+            continue
         say(f"[build] {name}: {seconds:.2f} s -> {path}")
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 say(f"[build]   {line.strip()}")
+    require(not failed, f"kernel sources failed to build: {failed}")
 
 
 def check_records(label, Ab, b, rec):
@@ -363,7 +396,166 @@ def phase_kernels(rng):
         require(err < 64 * eps, f"tridiag_solve n={nt} vs plain")
         k9 = max(k9, err)
     errs["tridiag_solve"] = k9
-    return errs, (Ab, d, e)
+    return errs, (Ab, d, e, dp, ep)
+
+
+def variant_calls(b, khops):
+    """The chase variants' entry points at band ``b``: call name -> (launch
+    counter it moves, call on a band)."""
+    from svdsolver_tpu_torch.ops.cuda import band_chase, band_chase_vmem, band_chase_wave
+
+    return {
+        "wave": ("band_chase_wave",
+                 lambda A: band_chase_wave.band_to_bidiagonal_wave(A, band=b)),
+        "wavefront=True": ("band_chase_wave",
+                           lambda A: band_chase.band_to_bidiagonal(A, band=b, wavefront=True)),
+        "wave_dl": ("band_chase_wave_dl",
+                    lambda A: band_chase_wave.band_to_bidiagonal_wave_dl(A, band=b)),
+        "pipelined=True": ("band_chase_staged",
+                           lambda A: band_chase.band_to_bidiagonal(A, band=b, pipelined=True)),
+        f"mega=True khops={khops}": (
+            "band_chase_staged",
+            lambda A: band_chase.band_to_bidiagonal(A, band=b, mega=True, khops=khops)),
+        "vmem": ("band_chase_vmem",
+                 lambda A: band_chase_vmem.band_to_bidiagonal_vmem(A, band=b)),
+    }
+
+
+def require_bit_equal(label, got, want):
+    d, e = got
+    require(torch.equal(d, want[0]) and torch.equal(e, want[1]),
+            f"{label}: (d, e) bit-equal to the chase kernel's")
+
+
+def phase_variants(band_state):
+    """The chase variants, the third path (K11-K15): every entry point on
+    the band of ``phase_kernels`` (VAR_CHECK), on the Stage I kernel's band
+    at the slice's full width (VAR_PATH) and, for the wavefront kernels on
+    capped CTAs, at VAR_CTAS; each one's (d, e) bit-equal to the chase
+    kernel's on the same band.  Returns the launch counts of the full-width
+    run, each kernel's max spectrum difference from its plain version and
+    the plain versions' times (VAR_CHECK), and the kernels' times."""
+    from svdsolver_tpu_torch.models import two_stage
+    from svdsolver_tpu_torch.ops.cuda import (band_chase, band_chase_vmem,
+                                              band_chase_wave, bisect, panel_qr)
+
+    def drive(label, calls, A, want):
+        """Each call once, every count set to 0 just before and read just
+        after; returns the outputs and the counts."""
+        torch.cuda.synchronize()
+        reset_counts()
+        outs = {name: fn(A) for name, (_, fn) in calls.items()}
+        torch.cuda.synchronize()
+        counts = read_counts()
+        say(f"[variants] {label}: launches {counts}, staged khops "
+            f"{band_chase.last_khops}, wave CTAs {band_chase_wave.last_ctas}")
+        for name in calls:
+            require_bit_equal(f"{name} {label}", outs[name], want)
+        for k in VARIANTS:
+            require(counts[k] >= 1, f"{k} not launched at {label}")
+        require(counts["band_chase"] == 0 and counts["band_chase_rec"] == 0,
+                f"a variant took the sequential kernel at {label}")
+        say(f"[variants] {label}: {', '.join(calls)}: (d, e) bit-equal to band_chase")
+        return outs, counts
+
+    # each kernel against the chase kernel and against its plain version
+    # (spectrum, leading |d|), each plain version once
+    n1, b1, khops1 = VAR_CHECK
+    Ab1, d1, e1, dp1, ep1 = band_state
+    outs, _ = drive(f"n={n1} b={b1}", variant_calls(b1, khops1), Ab1, (d1, e1))
+    require(band_chase.last_khops == band_chase.staged_khops(b1, khops1) == khops1,
+            f"mega khops={khops1} at b={b1} runs {khops1} pairs a window")
+    plains = {
+        "band_chase_wave": ("wave", band_chase_wave.band_to_bidiagonal_wave_plain),
+        "band_chase_wave_dl": ("wave_dl", band_chase_wave.band_to_bidiagonal_wave_dl_plain),
+        "band_chase_vmem": ("vmem", band_chase_vmem.band_to_bidiagonal_vmem_plain),
+    }
+    errs, plain_ms = {}, {}
+    for k, (name, plain) in plains.items():
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dp, ep = plain(Ab1, band=b1)
+        stop.record()
+        torch.cuda.synchronize()
+        plain_ms[k] = start.elapsed_time(stop)
+        same = torch.equal(dp, dp1) and torch.equal(ep, ep1)
+        say(f"[variants] {k} plain version n={n1} b={b1}: {plain_ms[k]:.3f} ms "
+            f"(one run), (d, e) {'bit-equal' if same else 'not bit-equal'} to "
+            "the plain chase's")
+        plains[k] = (name, (dp, ep))
+    plains["band_chase_staged"] = ("pipelined=True", (dp1, ep1))  # its plain version
+    s_a = torch.linalg.svdvals(Ab1.double())
+    smax = float(s_a[0])
+    for k, (name, (dp, ep)) in plains.items():
+        d, e = outs[name]
+        s_k, s_p = bidiag_sigma(d, e), bidiag_sigma(dp, ep)
+        errs[k] = float((s_k - s_p).abs().max())
+        lead = float(((d.abs() - dp.abs())[:8].abs() / dp.abs()[:8]).max())
+        say(f"[variants] {k} n={n1} b={b1}: spectrum kernel vs plain "
+            f"{errs[k]:.3e} (vs float64 sigma(Ab): kernel "
+            f"{float((s_k - s_a).abs().max()) / smax:.3e}, plain "
+            f"{float((s_p - s_a).abs().max()) / smax:.3e} * sigma_max), "
+            f"|d|[:8] rel diff {lead:.3e}")
+        require(torch.allclose(s_k, s_p, rtol=2e-5, atol=1e-5 * smax),
+                f"{k} spectrum vs plain")
+        require(lead <= 1e-4, f"{k} leading |d| vs plain")
+
+    # the wavefront kernels with more lanes than CTAs: lanes stride over them
+    n2, b2, ctas = VAR_CTAS
+    A2 = panel_qr.dense_to_band_fused(uniform_matrix(n2, seed=2), band=b2)
+    want2 = band_chase.band_to_bidiagonal(A2, band=b2)
+    for name, fn in (("wave", band_chase_wave.band_to_bidiagonal_wave),
+                     ("wave_dl", band_chase_wave.band_to_bidiagonal_wave_dl)):
+        got = fn(A2, band=b2, _ctas=ctas)
+        torch.cuda.synchronize()
+        require(band_chase_wave.last_ctas == ctas, "the _ctas cap holds")
+        require_bit_equal(f"{name} n={n2} b={b2} on {ctas} CTAs", got, want2)
+        lanes = two_stage.wave_lanes(n2, b2, defer_left=name == "wave_dl") + 1
+        say(f"[variants] {name} n={n2} b={b2}: {lanes} lanes (the head's "
+            f"included) on {ctas} CTAs, (d, e) bit-equal to band_chase")
+    del A2
+
+    # the slice at full width: every entry point once, on the Stage I band
+    n, b, khops = VAR_PATH
+    A = uniform_matrix(n)
+    Ab3 = panel_qr.dense_to_band_fused(A, band=b)
+    want3 = band_chase.band_to_bidiagonal(Ab3, band=b)
+    outs3, counts = drive(f"n={n} b={b}", variant_calls(b, khops), Ab3, want3)
+    require(band_chase.last_khops == band_chase.staged_khops(b, khops),
+            f"mega khops={khops} at b={b} runs the largest window that fits")
+    s_ref = torch.linalg.svdvals(A.double())
+    for name, (d, e) in outs3.items():
+        s = bisect.bisect_svdvals(d, e)
+        err = float((s.double() - s_ref).abs().max() / s_ref[0])
+        say(f"[variants] {name} n={n}: bisection sigma vs float64 sigma(A) "
+            f"{err:.3e} * sigma_max")
+        require(err <= TOL_SIGMA, f"{name} sigma at n={n}")
+    del outs3, s_ref
+
+    # times: every variant in turns with the chase kernel (A B C .. C B A),
+    # at full width and on the check band (the kernel table's shape)
+    timed = {
+        "band_chase": lambda A, b: band_chase.band_to_bidiagonal(A, band=b),
+        "band_chase_wave": lambda A, b: band_chase_wave.band_to_bidiagonal_wave(A, band=b),
+        "band_chase_wave_dl": lambda A, b: band_chase_wave.band_to_bidiagonal_wave_dl(A, band=b),
+        "band_chase_staged": lambda A, b: band_chase.band_to_bidiagonal(A, band=b, pipelined=True),
+        "band_chase_vmem": lambda A, b: band_chase_vmem.band_to_bidiagonal_vmem(A, band=b),
+    }
+    times = {}
+    for label, Ab_, n_, b_ in (("path", Ab3, n, b), ("check", Ab1, n1, b1)):
+        got = {}
+        for k in list(timed) + list(timed)[::-1]:
+            got.setdefault(k, []).append(cuda_ms(lambda: timed[k](Ab_, b_)))
+        for k, (t1, t2) in got.items():
+            times[k, label] = min(t1, t2)
+            say(f"[times] {k} n={n_} b={b_}: {t1:.3f} / {t2:.3f} ms (medians "
+                f"of {REPS}, in turns)")
+    phase_profile(f"wave chase n={n}",
+                  lambda: band_chase_wave.band_to_bidiagonal_wave(Ab3, band=b))
+    del Ab3, A
+    torch.cuda.empty_cache()
+    return counts, errs, plain_ms, times
 
 
 def phase_slice():
@@ -385,6 +577,8 @@ def phase_slice():
             f"at this size) launches {counts}")
         for k in ("panel_qr", "band_chase", "bisect"):
             require(counts[k] > 0, f"kernel {k} not launched by svdvals at n={n}")
+        for k in VARIANTS:
+            require(counts[k] == 0, f"svdvals launched {k} at n={n}")
         require(s.shape == (n,) and bool(torch.isfinite(s).all()),
                 f"svdvals output at n={n}")
         ref = torch.linalg.svdvals(A.double())
@@ -420,6 +614,8 @@ def phase_svd():
         for k in SVD_PATH:
             require(counts[k] > 0, f"kernel {k} not launched by svd at n={n}")
         require(counts["tridiag_solve"] == 2, "two TGK solves (iters = 2)")
+        for k in VARIANTS:
+            require(counts[k] == 0, f"svd launched {k} at n={n}")
         require(U.shape == (n, n) and s.shape == (n,) and Vh.shape == (n, n),
                 f"svd shapes at n={n}")
         require(all(bool(torch.isfinite(t).all()) for t in (U, s, Vh)),
@@ -506,7 +702,7 @@ def phase_times(band_state):
 
     rng = np.random.default_rng(2)
     Pt = torch.from_numpy(rng.normal(size=(128, 3840)).astype(np.float32)).to(DEV)
-    Ab1, d1, e1 = band_state
+    Ab1, d1, e1 = band_state[:3]
     tgk = {nt: tgk_problem(rng, nt) for nt in (1024, 3840)}
     pairs = {
         "panel_qr": (lambda: panel_qr.panel_qr(Pt, 0),
@@ -579,9 +775,11 @@ def phase_profile(label, fn):
         f"kernels {busy:.3f} ms = {100 * busy / wall_ms:.1f}% of wall")
 
 
-def kernel_table(errs, counts_vals, counts_svd, kt, lib):
+def kernel_table(errs, counts_vals, counts_svd, kt, lib, variants):
+    from svdsolver_tpu_torch.models import two_stage
     from svdsolver_tpu_torch.models.diagonalize import default_bisect_iters
 
+    counts_var, errs_var, plain_var, times_var = variants
     src = "svdsolver_tpu_torch/csrc/{}.cu"
     replaces = {
         "panel_qr": "svdsolver_tpu/ops/pallas/panel_qr.py:30",
@@ -602,7 +800,7 @@ def kernel_table(errs, counts_vals, counts_svd, kt, lib):
         "tridiag_solve": work_tgk(2 * 3840, 3840),
     }
     rows = []
-    for k in KERNELS:
+    for k in work:
         b_ms, b_by = bound(*work[k])
         launches = (counts_svd if k in ("band_chase_rec", "tridiag_solve")
                     else counts_vals)[k]
@@ -626,6 +824,39 @@ def kernel_table(errs, counts_vals, counts_svd, kt, lib):
         b_ms, b_by = bound(*w)
         say(f"[bound] {k} at the path's n=3840: {w[0]:.4g} flops, {w[1]:.4g} "
             f"bytes -> {b_ms:.4f} ms, bound by {b_by}")
+
+    # the chase variants: the chase's work; the packed kernel also writes P
+    replaces.update({
+        "band_chase_wave": "svdsolver_tpu/ops/pallas/band_chase.py:676",
+        "band_chase_wave_dl": "svdsolver_tpu/ops/pallas/band_chase_wave.py:581",
+        "band_chase_staged": "svdsolver_tpu/ops/pallas/band_chase.py:405 "
+                             "+ band_chase.py:541",
+        "band_chase_vmem": "svdsolver_tpu/ops/pallas/band_chase_vmem.py:180",
+    })
+    (n1, b1, _), (n3, b3, _) = VAR_CHECK, VAR_PATH
+    for k in VARIANTS:
+        bounds = {}
+        for label, n, b in (("check", n1, b1), ("path", n3, b3)):
+            flops, nbytes = work_chase(n, b, record=False)
+            if k == "band_chase_vmem":
+                nbytes += 4 * two_stage.packed_rows(n, b) * two_stage.PACK_WIDTH
+            bounds[label] = bound(flops, nbytes)
+            say(f"[bound] {k} (n={n} b={b}): {flops:.4g} flops, {nbytes:.4g} "
+                f"bytes -> {bounds[label][0]:.4f} ms, bound by {bounds[label][1]}")
+        rows.append({
+            "name": k, "route": "cuda",
+            "source": src.format("band_chase_wave" if k == "band_chase_wave_dl" else k),
+            "replaces": replaces[k], "launches": counts_var[k],
+            "max_abs_err": errs_var[k], "ms": times_var[k, "check"],
+            # the staged kernel's plain version is the plain chase
+            "plain_ms": (kt["band_chase"][1] if k == "band_chase_staged"
+                         else plain_var[k]),
+            "bound_ms": bounds["check"][0], "bound_by": bounds["check"][1],
+            "library_ms": None, "shape": f"n={n1} b={b1}",
+            "path_shape": f"n={n3} b={b3}", "path_ms": times_var[k, "path"],
+            "path_bound_ms": bounds["path"][0],
+            "band_chase_path_ms": times_var["band_chase", "path"],
+        })
     return rows
 
 
@@ -644,6 +875,7 @@ def main():
     phase_build()
     say(f"[build] total {time.perf_counter() - t0:.2f} s")
     errs, band_state = phase_kernels(np.random.default_rng(0))
+    variants = phase_variants(band_state)
     counts_vals = phase_slice()
     counts_svd = phase_svd()
     _, kt, lib = phase_times(band_state)
@@ -651,7 +883,8 @@ def main():
     phase_profile("svdvals n=3840", lambda: svdvals(A))
     phase_profile("svd n=3840", lambda: svd(A))
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all")
-    say(json.dumps({"kernels": kernel_table(errs, counts_vals, counts_svd, kt, lib)}))
+    rows = kernel_table(errs, counts_vals, counts_svd, kt, lib, variants)
+    say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

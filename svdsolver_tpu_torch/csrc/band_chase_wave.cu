@@ -1,0 +1,369 @@
+// Band -> bidiagonal bulge chase on a wavefront schedule, one CTA a lane.
+//
+// svdt_band_chase_wave replaces the TPU kernel
+//   svdsolver_tpu/ops/pallas/band_chase.py  _wavefront_kernel (the
+//       `wavefront=True` route of band_to_bidiagonal_pallas);
+// svdt_band_chase_wave_dl (template flag DeferLeft) replaces
+//   svdsolver_tpu/ops/pallas/band_chase_wave.py  _wave_chase_dl_kernel (each
+//       pair's left apply deferred one tick and fused into the same sweep's
+//       next right apply; tick _wave_tick_dl, _pend_correct,
+//       _pend_right_apply_xcol).
+// Schedule: models/two_stage.band_to_bidiagonal_wavefront.  Sweep i runs its
+// slot s (0: the head pair, s >= 1: chase pair s - 1) at tick t = 3 i + s.
+// Windows of pairs three slots apart are 3b - 1 >= 2b rows apart, so the
+// pairs of one tick touch disjoint rows and run at once, and every entry
+// sees the operations of the sequential schedule in its order.  Each pair
+// is the one chase_pair of chase_pair.cuh, so (d, e) are bit-equal to
+// svdt_band_chase's.  The TPU ran its lanes as a batch in one core's VMEM
+// and aimed idle lanes at a zero dummy corner; on the card the windows are
+// exact and idle lanes do nothing.
+//
+// Design: a cooperative launch of G CTAs of 512 threads.  Work unit 0 of a
+// tick is the head pair (ticks t % 3 == 0), units 1..L the chase lanes
+// (lane l holds sweep q - l, q = floor((t - 1) / 3)); CTA g runs units g,
+// g + G, ..., so a shape with more lanes than co-resident CTAs still runs.
+// After each tick a grid barrier (an atomic arrival counter, thread 0 of each
+// CTA spinning on an acquire load) orders the ticks.  A window rewritten by
+// one CTA is read by another after the barrier, so the matrix is read and
+// written through L2 only (DenseL2At): no SM can hold a stale L1 line of it.
+//
+// DeferLeft: the left reflector of pair (i, s) is kept in a device ring slot
+// of sweep i (i % R) and applied at tick t + 1, fused with the right apply
+// of pair (i, s + 1), whose rows [r, r + b) are that reflector's rows:
+//   pass 1 reads the pending region [r, r + b) x [c - b, c + b) for its
+//     column sums w (the left apply's own partial-sum code);
+//   warp 0 builds the right reflector from the pivot row as the pending
+//     apply leaves it, row - tau_p w (the pending v is 1 at the pivot);
+//   one read-modify-write applies the pending left and the right reflector
+//     to rows [r, r + 2b) x [c, c + b), and the pending left alone to
+//     [r, r + b) x [c - b, c).
+// Every entry gets the roundings of the sequential order, so (d, e) are
+// bit-equal again.  One extra tick a sweep (slot nc + 1) flushes its last
+// pending left.
+//
+// What bounds it on the H100: ~3n ticks (11,544 at n = 3840, b = 128) in
+// order, each one pair's chain of L2 round trips on each busy SM plus a grid
+// barrier; FLOPs and device memory bandwidth are far from bounding it.
+#include <cuda_runtime.h>
+
+#include "chase_pair.cuh"
+
+namespace {
+
+using namespace svdt;
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned x;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(x) : "l"(p) : "memory");
+  return x;
+}
+
+// Grid barrier number k (target = (k + 1) * gridDim.x): every CTA's writes
+// before it are seen by every CTA after it.
+__device__ __forceinline__ void grid_sync(unsigned* ctr, unsigned target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(ctr, 1u);
+    while (ld_acquire(ctr) < target) {
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// The pending left (vp, fcol = tau_p * column sums) and the right reflector
+// (v, tau; tau == 0: none) of a deferred-left lane, applied in one pass:
+// rows [r, r + 2b) x columns [c, c + b) get the pending update on their
+// first b rows and then the right one; rows [r, r + b) x [c - b, c) the
+// pending update alone.  The entries and their roundings are those of
+// apply_left followed by apply_right.
+template <int KPL, class Acc>
+__device__ void pend_right_apply(const Acc& a, int n, int b, int r, int c,
+                                 bool pend, const float* vp, const float* fcol,
+                                 const float* v, float tau) {
+  constexpr int R = right_rows<KPL>();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float vk[KPL], fk[KPL];
+  bool in[KPL];
+#pragma unroll
+  for (int t = 0; t < KPL; ++t) {
+    const int k = lane + 32 * t;
+    in[t] = k < b && c + k < n;
+    vk[t] = (tau != 0.f && in[t]) ? v[k] : 0.f;
+    fk[t] = (pend && in[t]) ? fcol[b + k] : 0.f;
+  }
+  const int rows = min(2 * b, n - r);
+  const int prows = pend ? min(b, n - r) : 0;
+  if (tau != 0.f || pend)
+    for (int i0 = warp * R; i0 < rows; i0 += kWarps * R) {
+      float x[R][KPL];
+#pragma unroll
+      for (int q = 0; q < R; ++q)
+#pragma unroll
+        for (int t = 0; t < KPL; ++t) {
+          const int k = lane + 32 * t;
+          const int i = i0 + q;
+          const bool p = i < prows && in[t];
+          x[q][t] = (i < rows && (vk[t] != 0.f || p)) ? a.load(r + i, c + k) : 0.f;
+          if (p) x[q][t] = rank1(x[q][t], fk[t], vp[i]);
+        }
+      float f[R];
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        float xm[KPL];
+#pragma unroll
+        for (int t = 0; t < KPL; ++t) xm[t] = vk[t] != 0.f ? x[q][t] : 0.f;
+        f[q] = row_dot<KPL>(xm, vk);
+      }
+#pragma unroll
+      for (int q = 0; q < R; ++q) f[q] = tau * warp_sum(f[q]);
+#pragma unroll
+      for (int q = 0; q < R; ++q)
+#pragma unroll
+        for (int t = 0; t < KPL; ++t) {
+          const int k = lane + 32 * t;
+          const int i = i0 + q;
+          if (i < rows && vk[t] != 0.f)
+            a.store(r + i, c + k, rank1(x[q][t], f[q], vk[t]));
+          else if (i < prows && in[t])
+            a.store(r + i, c + k, x[q][t]);
+        }
+    }
+  // [r, r + prows) x [c - b, c): thread (i0, k) owns column k of rows i0,
+  // i0 + p, ... (p = 512 / b), kChunk loads in flight before the stores
+  const int p = kThreads / b;
+  const int i0 = threadIdx.x / b;
+  const int k = threadIdx.x - i0 * b;
+  if (i0 < p && c - b + k < n) {
+    const float f = fcol[k];
+    for (int i = i0; i < prows; i += p * kChunk) {
+      float x[kChunk];
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u) {
+        const int ii = i + u * p;
+        x[u] = ii < prows ? a.load(r + ii, c - b + k) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u) {
+        const int ii = i + u * p;
+        if (ii < prows) a.store(r + ii, c - b + k, rank1(x[u], f, vp[ii]));
+      }
+    }
+  }
+}
+
+// Shared memory of one CTA.
+struct Smem {
+  float* v;     // the reflector being built or applied (b)
+  float* vp;    // the pending left reflector (b)
+  float* fcol;  // tau_p times the pending region's column sums (2b)
+  float* part;  // left-apply partial sums (kThreads)
+  float* s_tau; // tau of the right [0] and pending [1] reflectors
+};
+
+// The pending left reflector of sweep i: ring slot i % R.
+struct Ring {
+  float* v;  // (R, b)
+  float* t;  // (R)
+  int slots;
+};
+
+// Deferred-left head pair of sweep i: its right elimination, and its left
+// reflector into the ring.
+template <int KPL>
+__device__ void dl_head(const DenseL2At& a, int n, int b, int i, Ring ring,
+                        Smem sm) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (warp == 0) {
+    float x[KPL];
+    load_row<KPL>(a, n, b, i, i + 1, x);
+    const float tau = warp_reflector<KPL>(x, b, sm.v);
+    if (lane == 0) sm.s_tau[0] = tau;
+  }
+  __syncthreads();
+  const float tau = sm.s_tau[0];
+  if (tau != 0.f) apply_right<KPL>(a, n, b, i, i + 1, b + 1, sm.v, tau);
+  __syncthreads();
+  if (warp == 0) {
+    float x[KPL];
+    load_col<KPL>(a, n, b, i + 1, i + 1, x);
+    const float tau2 = warp_reflector<KPL>(x, b, sm.v);
+    float* pv = ring.v + (size_t)(i % ring.slots) * b;
+    for (int k = lane; k < b; k += 32) __stcg(pv + k, sm.v[k]);
+    if (lane == 0) __stcg(ring.t + i % ring.slots, tau2);
+  }
+  __syncthreads();
+}
+
+// Deferred-left chase slot s >= 1 of sweep i: the pending left of slot s - 1
+// fused with the right elimination of pair (i, s) (when it exists: c < n),
+// whose left reflector becomes the new pending one.
+template <int KPL>
+__device__ void dl_lane(const DenseL2At& a, int n, int b, int i, int s,
+                        Ring ring, Smem sm) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int r = i + 1 + (s - 1) * b;
+  const int c = r + b;
+  float* pv = ring.v + (size_t)(i % ring.slots) * b;
+  float* pt = ring.t + i % ring.slots;
+  for (int k = tid; k < b; k += kThreads) sm.vp[k] = __ldcg(pv + k);
+  if (tid == 0) sm.s_tau[1] = __ldcg(pt);
+  __syncthreads();
+  const float taup = sm.s_tau[1];
+  const bool pend = taup != 0.f;
+  if (pend) {
+    left_partials(a, n, b, r, c - b, sm.vp, sm.part);
+    __syncthreads();
+    const LeftThread lt(b);
+    if (lt.g == 0)
+      sm.fcol[lt.c] = c - b + lt.c < n ? taup * left_total(sm.part, b, lt.c) : 0.f;
+    __syncthreads();
+  }
+  const bool right = c < n;
+  if (right && warp == 0) {
+    float x[KPL];
+    load_row<KPL>(a, n, b, r, c, x);
+    if (pend)
+#pragma unroll
+      for (int t = 0; t < KPL; ++t) {
+        const int k = lane + 32 * t;
+        if (k < b && c + k < n) x[t] = rank1(x[t], sm.fcol[b + k], sm.vp[0]);
+      }
+    const float tau = warp_reflector<KPL>(x, b, sm.v);
+    if (lane == 0) sm.s_tau[0] = tau;
+  }
+  __syncthreads();
+  pend_right_apply<KPL>(a, n, b, r, c, pend, sm.vp, sm.fcol, sm.v,
+                        right ? sm.s_tau[0] : 0.f);
+  __syncthreads();
+  if (warp == 0) {
+    float tau2 = 0.f;
+    if (right) {
+      float x[KPL];
+      load_col<KPL>(a, n, b, r + b, c, x);
+      tau2 = warp_reflector<KPL>(x, b, sm.v);
+      for (int k = lane; k < b; k += 32) __stcg(pv + k, sm.v[k]);
+    }
+    if (lane == 0) __stcg(pt, tau2);
+  }
+  __syncthreads();
+}
+
+template <int KPL, bool DeferLeft>
+__global__ void __launch_bounds__(kThreads)
+wave_chase_kernel(float* __restrict__ A, float* __restrict__ d,
+                  float* __restrict__ e, int n, int b, int L, int T,
+                  unsigned* ctr, Ring ring) {
+  __shared__ float v[kMaxBand];
+  __shared__ float vp[kMaxBand];
+  __shared__ float fcol[2 * kMaxBand];
+  __shared__ float part[kThreads];
+  __shared__ float s_tau[2];
+  const Smem sm = {v, vp, fcol, part, s_tau};
+  const DenseL2At a = {A, (size_t)n};
+  const Slot none = {nullptr, nullptr};
+  const int G = gridDim.x;
+  unsigned target = 0;
+  for (int t = 0; t < T; ++t) {
+    const int q = t >= 1 ? (t - 1) / 3 : -1;  // newest sweep past its head
+    for (int u = blockIdx.x; u <= L; u += G) {
+      if (u == 0) {  // the head pair of sweep t / 3
+        const int i = t / 3;
+        if (t % 3 != 0 || i > n - 2) continue;
+        if constexpr (DeferLeft)
+          dl_head<KPL>(a, n, b, i, ring, sm);
+        else
+          chase_pair<KPL, false>(a, n, b, i, i + 1, b + 1, 1, v, part, s_tau,
+                                 none, none);
+        continue;
+      }
+      const int i = q - (u - 1);
+      const int s = t - 3 * i;
+      if (i < 0 || i > n - 2 || s > nc_of(i, n, b) + (DeferLeft ? 1 : 0))
+        continue;
+      if constexpr (DeferLeft) {
+        dl_lane<KPL>(a, n, b, i, s, ring, sm);
+      } else {
+        const int r = i + 1 + (s - 1) * b;
+        chase_pair<KPL, false>(a, n, b, r, r + b, 2 * b, b, v, part, s_tau,
+                               none, none);
+      }
+    }
+    target += G;
+    grid_sync(ctr, target);
+  }
+  for (int k = blockIdx.x * kThreads + threadIdx.x; k < n; k += G * kThreads) {
+    d[k] = __ldcg(A + (size_t)k * n + k);
+    if (k + 1 < n) e[k] = __ldcg(A + (size_t)k * n + k + 1);
+  }
+}
+
+// Lanes of the schedule: ceil(S / 3) chase lanes for S slots a sweep at most.
+int lanes_of(int S) { return (S + 2) / 3; }
+
+template <class Kernel>
+int coop_launch(Kernel kernel, int units, int max_ctas, void** args,
+                cudaStream_t s, int* ctas) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  int G = units < per_sm * sms ? units : per_sm * sms;
+  if (max_ctas > 0 && max_ctas < G) G = max_ctas;
+  if (G < 1) return (int)cudaErrorInvalidConfiguration;
+  *ctas = G;
+  return (int)cudaLaunchCooperativeKernel((const void*)kernel, dim3(G),
+                                          dim3(kThreads), args, 0, s);
+}
+
+template <bool DeferLeft>
+int launch(float* A, float* d, float* e, int n, int b, unsigned* ctr,
+           float* ring_v, float* ring_t, int ring_slots, int max_ctas,
+           int* ctas, void* stream) {
+  if (n < 2 || b < 1 || b > kMaxBand) return (int)cudaErrorInvalidValue;
+  const int S = nc_of(0, n, b) + (DeferLeft ? 1 : 0);  // slots past the head
+  int L = lanes_of(S);
+  int T = 3 * (n - 2) + S + 1;
+  Ring ring = {ring_v, ring_t, ring_slots};
+  if (DeferLeft && ring_slots < L + 2) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  void* args[] = {&A, &d, &e, &n, &b, &L, &T, &ctr, &ring};
+  int err = 0;
+  SVDT_KPL_DISPATCH(b, err = coop_launch(wave_chase_kernel<KPL, DeferLeft>,
+                                         L + 1, max_ctas, args, s, ctas));
+  return err;
+}
+
+}  // namespace
+
+// The wavefront chase on `stream`, overwriting A (n x n, row-major, upper
+// band b): (d, e) as svdt_band_chase's.  ctr is one zeroed counter for the
+// grid barrier; at most max_ctas CTAs (0: as many as are co-resident, at
+// most one per lane); the grid size goes to *ctas.  Returns the launch's
+// cudaError_t.
+extern "C" int svdt_band_chase_wave(float* A, float* d, float* e, int n, int b,
+                                    unsigned* ctr, int max_ctas, int* ctas,
+                                    void* stream) {
+  return launch<false>(A, d, e, n, b, ctr, nullptr, nullptr, 0, max_ctas,
+                       ctas, stream);
+}
+
+// As svdt_band_chase_wave with each left apply deferred one tick; ring_v
+// (ring_slots, b) and ring_t (ring_slots) hold the pending reflectors,
+// ring_slots >= ceil((nc_of(0) + 1) / 3) + 2.
+extern "C" int svdt_band_chase_wave_dl(float* A, float* d, float* e, int n,
+                                       int b, unsigned* ctr, float* ring_v,
+                                       float* ring_t, int ring_slots,
+                                       int max_ctas, int* ctas, void* stream) {
+  return launch<true>(A, d, e, n, b, ctr, ring_v, ring_t, ring_slots, max_ctas,
+                      ctas, stream);
+}

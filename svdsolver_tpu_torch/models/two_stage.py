@@ -123,6 +123,28 @@ def dense_to_band_rec(A, band=32):
     return A, Vq, Tq, Vl, Tl
 
 
+def _right_elim(W, w):
+    """Right elimination of a window: the reflector of row 0 over columns
+    ``[0, w-1)``, applied to every row of ``W`` in place; returns it."""
+    v, tau, _ = householder_vector(W[0, : w - 1], 0)
+    Wr = W[:, : w - 1]
+    Wr -= tau * torch.outer(pdot(Wr, v), v)
+    return v, tau
+
+
+def _left_reflector(W, left_r0):
+    """The left reflector of column 0 over rows ``[left_r0, ...)``."""
+    v2, tau2, _ = householder_vector(W[left_r0:, 0], 0)
+    return v2, tau2
+
+
+def _left_apply(W, left_r0, v2, tau2):
+    """Apply a left reflector of :func:`_left_reflector` to rows
+    ``[left_r0, ...)`` of ``W``, every column, in place."""
+    Ws = W[left_r0:, :]
+    Ws -= tau2 * torch.outer(v2, pdot(v2, Ws))
+
+
 def make_window_pairs(w, record=False):
     """The two Stage-II window eliminations for window parameter ``w``
     (= band + 1).  ``top_pair`` opens a sweep (right-elim row 0 over cols
@@ -135,12 +157,9 @@ def make_window_pairs(w, record=False):
     """
 
     def _pair(W, left_r0):
-        v, tau, _ = householder_vector(W[0, : w - 1], 0)
-        Wr = W[:, : w - 1]
-        Wr -= tau * torch.outer(pdot(Wr, v), v)
-        v2, tau2, _ = householder_vector(W[left_r0:, 0], 0)
-        Ws = W[left_r0:, :]
-        Ws -= tau2 * torch.outer(v2, pdot(v2, Ws))
+        v, tau = _right_elim(W, w)
+        v2, tau2 = _left_reflector(W, left_r0)
+        _left_apply(W, left_r0, v2, tau2)
         if record:
             return W, v, tau, v2, tau2
         return W
@@ -219,3 +238,123 @@ def band_to_bidiagonal_accum(A, band=32):
     if A.shape[0] < 2:
         raise ValueError("band_to_bidiagonal_accum needs n >= 2")
     return _chase(A, band, record=True)
+
+
+def wave_lanes(n, band, defer_left=False):
+    """Chase lanes of the wavefront schedule: sweep ``i`` runs slot ``s``
+    (0: head pair, ``1 <= s <= S``) at tick ``3 i + s``, so at most
+    ``ceil(S / 3)`` sweeps chase at once; ``S = nc_of(0)``, one more with
+    ``defer_left`` (the flush of the last pending left)."""
+    S = nc_of_static(0, n, int(band)) + (1 if defer_left else 0)
+    return -(-S // 3)
+
+
+def band_to_bidiagonal_wavefront(A, band=32, defer_left=False):
+    """Stage II on the wavefront schedule (twin of the JAX
+    ``band_to_bidiagonal_wavefront``); returns ``(d, e)``.
+
+    Sweep ``i`` runs slot ``s`` (0: the head pair, ``s >= 1``: chase pair
+    ``s - 1``) at tick ``t = 3 i + s``.  Window corners advance ``band`` rows
+    a slot, so the windows of one tick lie ``3 band - 1 >= 2 band`` rows
+    apart: disjoint.  Each tick runs the head pair, then every active lane's
+    pair (the same :func:`make_window_pairs`) in lane order, one window at a
+    time (a batched product would change the reduction order), so ``(d, e)``
+    are bit-equal to :func:`band_to_bidiagonal`'s.  Lanes past a sweep's
+    ``nc_of`` pairs run nothing (the JAX package aims them at a zero corner).
+
+    ``defer_left=True`` runs the order of the deferred-left kernel: a pair's
+    left apply runs at the next tick, before that sweep's next right
+    elimination, and one more tick a sweep flushes the last one.  No other
+    pair touches those rows in between, so ``(d, e)`` are bit-equal again.
+    """
+    n = A.shape[0]
+    if n < 2:
+        return torch.abs(torch.diagonal(A)), A.new_zeros((0,))
+    w = int(band) + 1
+    b = w - 1
+    ww = 2 * w - 2
+    Ap = A.new_zeros((n + 3 * w, n + 3 * w))  # as _chase: windows stay inside
+    Ap[:n, :n] = A
+    top_pair, chase_pair = make_window_pairs(w)
+    extra = 1 if defer_left else 0
+    S = nc_of_static(0, n, b) + extra
+    lanes = wave_lanes(n, b, defer_left)
+    pending = {}  # sweep -> (window, left_r0, v, tau) of its deferred left
+    for t in range(3 * (n - 2) + S + 1):
+        i = t // 3
+        if t % 3 == 0 and i <= n - 2:  # the head pair of sweep i
+            W = Ap[i : i + w, i + 1 : i + 1 + ww]
+            if defer_left:
+                _right_elim(W, w)
+                pending[i] = (W, 1) + _left_reflector(W, 1)
+            else:
+                top_pair(W)
+        q = (t - 1) // 3  # newest sweep past its head
+        for lane in range(lanes):
+            i = q - lane
+            s = t - 3 * i
+            if i < 0 or i > n - 2 or s > nc_of_static(i, n, b) + extra:
+                continue
+            r = i + 1 + (s - 1) * b
+            W = Ap[r : r + ww, r + b : r + b + ww]
+            if not defer_left:
+                chase_pair(W)
+                continue
+            _left_apply(*pending.pop(i))
+            if s <= nc_of_static(i, n, b):
+                _right_elim(W, w)
+                pending[i] = (W, b) + _left_reflector(W, b)
+    B = Ap[:n, :n]
+    return torch.diagonal(B).clone(), torch.diagonal(B, 1).clone()
+
+
+def bidiagonalize_two_stage(A, band=32, wavefront=False):
+    """Full two-stage reduction, dense -> band -> bidiagonal; returns
+    ``(d, e)``.  ``wavefront=True`` runs Stage II on the wavefront schedule
+    (bit-equal to the sequential one)."""
+    A = dense_to_band(A, band=band)
+    if wavefront:
+        return band_to_bidiagonal_wavefront(A, band=band)
+    return band_to_bidiagonal(A, band=band)
+
+
+PACK_WIDTH = 512  # packed lanes a row: the chase stays in [1, 511) for band <= 128
+
+
+def packed_rows(n, band):
+    """Rows of the packed band: ``ceil((n + 3 band + 8) / 128) * 128``."""
+    return -(-(n + 3 * int(band) + 8) // 128) * 128
+
+
+def _pack_blocks(n, Npad):
+    """Per 128-row block: rows ``[r0, r1)`` and the matrix columns
+    ``[cs, cs + cw)`` it holds at lanes ``[l0, l0 + cw)``."""
+    for r0 in range(0, min(n, Npad), 128):
+        c0 = r0 - 128
+        l0 = max(0, -c0)
+        cs = c0 + l0
+        cw = min(PACK_WIDTH - l0, n - cs)
+        if cw > 0:
+            yield r0, min(r0 + 128, n), cs, cw, l0
+
+
+def pack_band(A, band):
+    """The block-packed band of the packed chase (the layout of the JAX
+    ``band_chase_vmem``): ``P[row, l] = A[row, 128 * (row // 128) - 128 + l]``
+    for ``l < 512``, zero where that column is outside ``[0, n)`` and in the
+    rows past ``n``; ``packed_rows(n, band)`` rows.  For ``band <= 128``
+    every window of the chase stays in lanes ``[1, 511)``."""
+    n = A.shape[0]
+    P = A.new_zeros((packed_rows(n, band), PACK_WIDTH))
+    for r0, r1, cs, cw, l0 in _pack_blocks(n, P.shape[0]):
+        P[r0:r1, l0 : l0 + cw] = A[r0:r1, cs : cs + cw]
+    return P
+
+
+def unpack_band(P, n):
+    """The (n, n) matrix whose packed lanes ``P`` holds (inverse of
+    :func:`pack_band` on every entry the layout keeps; zero elsewhere)."""
+    A = P.new_zeros((n, n))
+    for r0, r1, cs, cw, l0 in _pack_blocks(n, P.shape[0]):
+        A[r0:r1, cs : cs + cw] = P[r0:r1, l0 : l0 + cw]
+    return A

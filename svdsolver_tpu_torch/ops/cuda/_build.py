@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 at first use into ``build/svdsolver_tpu_torch/lib<name>-<hash>.so`` (the
-hash covers the source and the flags, so an edited source rebuilds), then
-loaded with ``ctypes``.  Nothing here runs at import: a CPU-only machine
-with no ``nvcc`` imports every kernel module and never builds.
+hash covers the source, every shared header ``csrc/*.cuh`` and the flags,
+so an edited source or header rebuilds), then loaded with ``ctypes``.
+Nothing here runs at import: a CPU-only machine with no ``nvcc`` imports
+every kernel module and never builds.
 
 No ``--use_fast_math``: bisection relies on IEEE division and on ``inf``
 for zero pivots, which flush-to-zero or approximate division would change.
@@ -42,6 +43,17 @@ def nvcc_path():
     return found
 
 
+def _source_key(name):
+    """The build key of ``csrc/<name>.cu``: a hash of the source, of every
+    header in ``csrc/`` (by name and content, so an edited header rebuilds
+    each source) and of the flags."""
+    key = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        key.update(header.name.encode() + b"\0" + header.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
+    return key.hexdigest()[:16]
+
+
 def build(name):
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists.
 
@@ -50,8 +62,7 @@ def build(name):
     register and shared-memory report; empty when already built).
     """
     src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
+    out = BUILD_DIR / f"lib{name}-{_source_key(name)}.so"
     if out.exists():
         return out, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

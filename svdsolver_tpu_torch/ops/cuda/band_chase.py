@@ -1,5 +1,5 @@
 """The band -> bidiagonal bulge chase in one launch
-(``csrc/band_chase.cu``), plain and recording.
+(``csrc/band_chase.cu``), plain and recording, and the routes of its flags.
 
 One Hopper kernel stands for the three chase kernels the TPU routes by where
 the band fits: ``band_chase._chase_kernel``, ``band_chase_wave.
@@ -10,16 +10,24 @@ and ``_stream_chase_kernel`` with ``rec=True``.  Both walk the sequential
 schedule of ``models/two_stage``, whose ``band_to_bidiagonal`` and
 ``band_to_bidiagonal_accum`` are their plain versions: on a CPU tensor the
 wrappers run those.
+
+The flags of :func:`band_to_bidiagonal` are those of the JAX package's
+``band_to_bidiagonal_pallas``: ``wavefront`` runs the wavefront kernel
+(``band_chase_wave``), ``pipelined`` and ``mega`` the staged kernel
+(``csrc/band_chase_staged.cu``, TPU ``_chase_kernel_pipelined`` and
+``_chase_kernel_megapipe``), which holds its windows in shared memory.
 """
 
 import torch
 
 from svdsolver_tpu_torch.models import two_stage
 from svdsolver_tpu_torch.ops.chase_schedule import s_max_of
-from svdsolver_tpu_torch.ops.cuda import _build
+from svdsolver_tpu_torch.ops.cuda import _build, band_chase_wave
 
 launches = 0  # kernel launches by band_to_bidiagonal since the last reset
 launches_rec = 0  # kernel launches by band_to_bidiagonal_accum likewise
+launches_staged = 0  # staged-kernel launches by band_to_bidiagonal likewise
+last_khops = 0  # pairs a mega-window of the last staged launch
 
 _ENTRIES = {
     "svdt_band_chase": [_build.VOIDP] * 3 + [_build.INT] * 2 + [_build.VOIDP],
@@ -29,6 +37,13 @@ _ENTRIES = {
     ),
 }
 MAX_BAND = 256  # the kernel's 2b window columns map onto its 512 threads
+STAGED_MAX_BAND = 128  # the staged kernel's tiles fit shared memory up to here
+# the staged kernel's static shared memory: v (128), partial sums (512), 2 taus
+STAGED_STATIC_SMEM = 4 * (STAGED_MAX_BAND + 512 + 2)
+
+_STAGED_ENTRIES = {
+    "svdt_band_chase_staged": [_build.VOIDP] * 3 + [_build.INT] * 3 + [_build.VOIDP],
+}
 
 band_to_bidiagonal_plain = two_stage.band_to_bidiagonal
 band_to_bidiagonal_accum_plain = two_stage.band_to_bidiagonal_accum
@@ -43,17 +58,43 @@ def _check_band(A, b):
     return n
 
 
-def band_to_bidiagonal(A, band=128):
+def staged_khops(band, khops):
+    """The largest mega-window ``K <= khops`` whose ``2K + 1`` tiles of
+    ``band x (band + 1)`` floats fit the card's shared memory (0: none)."""
+    tile = 4 * band * (band + 1)
+    fit = (_build.MAX_SMEM - STAGED_STATIC_SMEM) // tile
+    return max(0, min(int(khops), (fit - 1) // 2))
+
+
+def band_to_bidiagonal(A, band=128, wavefront=False, pipelined=False,
+                       mega=False, khops=4):
     """Bulge-chase the upper-band ``A`` (n, n; ``band`` superdiagonals) to
     bidiagonal; returns ``(d, e)``.
 
     A CUDA tensor must be contiguous float32 with ``1 <= band <= 256`` and
-    launches the kernel on a copy of ``A`` (the chase runs in place on it);
-    a CPU tensor runs the plain version.
+    launches a kernel on a copy of ``A`` (the chase runs in place on it);
+    a CPU tensor runs the plain version.  The flags pick the kernel in the
+    JAX package's order: ``wavefront`` (the wavefront kernel,
+    ``band_chase_wave``), then ``pipelined`` (the staged kernel, one pair a
+    window), then ``mega`` with ``khops > 1`` (the staged kernel, up to
+    ``khops`` pairs a window: the largest that fits shared memory, recorded
+    in ``last_khops``), else the sequential kernel.  These routes are
+    decided by shape before launch: a band above 128 takes the sequential
+    kernel under ``pipelined`` or ``mega``, as the TPU sends bands that are
+    not multiples of 128 to its sequential kernel (its 128-lane gates are
+    alignment rules the card does not have).  Every route gives the same
+    ``(d, e)``, bit for bit; on the CPU ``wavefront`` runs the plain
+    wavefront schedule and the others the plain sequential chase.
     """
-    global launches
+    global launches, launches_staged, last_khops
     b = int(band)
+    if int(khops) < 1:
+        raise ValueError(f"khops must be >= 1, got {khops}")
+    if wavefront:
+        return band_chase_wave.band_to_bidiagonal_wave(A, band=b)
+    staged = (pipelined or (mega and khops > 1)) and b <= STAGED_MAX_BAND
     if not _build.check_input(A, "A", 2):
+        _check_band(A, b)
         return band_to_bidiagonal_plain(A, band=b)
     n = _check_band(A, b)
     if n < 2:
@@ -61,14 +102,26 @@ def band_to_bidiagonal(A, band=128):
     work = A.clone()
     d = torch.empty((n,), dtype=A.dtype, device=A.device)
     e = torch.empty((n - 1,), dtype=A.dtype, device=A.device)
-    lib = _build.load("band_chase", _ENTRIES)
     with torch.cuda.device(A.device):
-        err = lib.svdt_band_chase(
-            work.data_ptr(), d.data_ptr(), e.data_ptr(), n, b,
-            _build.stream_of(A),
-        )
-    _build.raise_on_error(err, "band_chase")
-    launches += 1
+        if staged:
+            K = 1 if pipelined else staged_khops(b, khops)
+            lib = _build.load("band_chase_staged", _STAGED_ENTRIES)
+            err = lib.svdt_band_chase_staged(
+                work.data_ptr(), d.data_ptr(), e.data_ptr(), n, b, K,
+                _build.stream_of(A),
+            )
+        else:
+            lib = _build.load("band_chase", _ENTRIES)
+            err = lib.svdt_band_chase(
+                work.data_ptr(), d.data_ptr(), e.data_ptr(), n, b,
+                _build.stream_of(A),
+            )
+    _build.raise_on_error(err, "band_chase_staged" if staged else "band_chase")
+    if staged:
+        launches_staged += 1
+        last_khops = K
+    else:
+        launches += 1
     return d, e
 
 

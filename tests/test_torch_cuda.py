@@ -13,7 +13,14 @@ import torch
 
 from svdsolver_tpu_torch import svd, svdvals
 from svdsolver_tpu_torch.models.vectors import _apply_chase_reflectors
-from svdsolver_tpu_torch.ops.cuda import band_chase, bisect, panel_qr, tridiag_solve
+from svdsolver_tpu_torch.ops.cuda import (
+    band_chase,
+    band_chase_vmem,
+    band_chase_wave,
+    bisect,
+    panel_qr,
+    tridiag_solve,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -145,3 +152,68 @@ def test_numpy_input_goes_to_the_card(dev, rng):
     assert s.is_cuda and s.dtype == torch.float32
     U, s2, Vh = svd(A)
     assert U.is_cuda and Vh.is_cuda
+
+
+def _band(dev, rng, n, b):
+    A = torch.from_numpy(rng.normal(size=(n, n)).astype(np.float32)).to(dev)
+    return torch.triu(torch.tril(A, b)).contiguous()
+
+
+VARIANTS = {
+    "wave": lambda A, b: band_chase_wave.band_to_bidiagonal_wave(A, band=b),
+    "wave_dl": lambda A, b: band_chase_wave.band_to_bidiagonal_wave_dl(A, band=b),
+    "wavefront": lambda A, b: band_chase.band_to_bidiagonal(A, band=b, wavefront=True),
+    "pipelined": lambda A, b: band_chase.band_to_bidiagonal(A, band=b, pipelined=True),
+    "mega": lambda A, b: band_chase.band_to_bidiagonal(A, band=b, mega=True, khops=3),
+    "vmem": lambda A, b: band_chase_vmem.band_to_bidiagonal_vmem(A, band=b),
+}
+
+
+@pytest.mark.parametrize("n,b", [(256, 32), (384, 64), (512, 128), (200, 8), (1000, 64)])
+def test_chase_variants_bit_equal_to_chase_kernel(dev, rng, n, b):
+    # every variant runs the one chase pair: (d, e) bit-equal to the
+    # sequential kernel's
+    Ab = _band(dev, rng, n, b)
+    d0, e0 = band_chase.band_to_bidiagonal(Ab, band=b)
+    for name, fn in VARIANTS.items():
+        d, e = fn(Ab, b)
+        torch.cuda.synchronize()
+        assert torch.equal(d, d0) and torch.equal(e, e0), name
+    want = torch.linalg.svdvals(Ab.double())
+    B = torch.diag(d0.double()) + torch.diag(e0.double(), 1)
+    torch.testing.assert_close(torch.linalg.svdvals(B), want, rtol=2e-5,
+                               atol=1e-5 * float(want[0]))
+
+
+def test_chase_variants_count_launches(dev, rng):
+    Ab = _band(dev, rng, 128, 16)
+    counters = ((band_chase_wave, "launches"), (band_chase_wave, "launches_dl"),
+                (band_chase, "launches_staged"), (band_chase_vmem, "launches"),
+                (band_chase, "launches"))
+    for mod, attr in counters:
+        setattr(mod, attr, 0)
+    for fn in VARIANTS.values():
+        fn(Ab, 16)
+    got = [getattr(mod, attr) for mod, attr in counters]
+    # wave + wavefront flag, wave_dl, pipelined + mega, vmem; no sequential
+    assert got == [2, 1, 2, 1, 0]
+
+
+def test_wave_kernels_stride_lanes_over_ctas(dev, rng):
+    n, b = 300, 16  # the head and 6 chase lanes (7 deferred) on 2 CTAs
+    Ab = _band(dev, rng, n, b)
+    d0, e0 = band_chase.band_to_bidiagonal(Ab, band=b)
+    for fn in (band_chase_wave.band_to_bidiagonal_wave,
+               band_chase_wave.band_to_bidiagonal_wave_dl):
+        d, e = fn(Ab, band=b, _ctas=2)
+        assert band_chase_wave.last_ctas == 2
+        assert torch.equal(d, d0) and torch.equal(e, e0)
+
+
+def test_staged_kernel_khops(dev, rng):
+    for b, khops, want in ((128, 4, 1), (64, 3, 3), (64, 99, 6)):
+        Ab = _band(dev, rng, 4 * b, b)
+        d0, e0 = band_chase.band_to_bidiagonal(Ab, band=b)
+        d, e = band_chase.band_to_bidiagonal(Ab, band=b, mega=True, khops=khops)
+        assert band_chase.last_khops == want
+        assert torch.equal(d, d0) and torch.equal(e, e0)
