@@ -5,29 +5,37 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
 
 1. reports the card (name, power limit), torch, CUDA and nvcc;
 2. builds the seven kernel sources of ``svdsolver_tpu_torch/csrc`` (one
-   ``nvcc`` each, all started together): the panel QR, the chase (plain and
-   recording entries), the bisection, the TGK solve, the wavefront chase
-   (with and without deferred left applies), the staged chase and the
-   packed chase;
+   ``nvcc`` each, all started together): the panel QR (one thread-block
+   cluster), the sequential chase (plain and recording entries), the
+   bisection, the TGK solve, the wavefront chase (plain, recording, and with
+   deferred left applies), the staged chase and the packed chase;
 3. holds each kernel against its plain PyTorch version on the card, at the
-   shapes the main paths give it: the recording chase's (d, e) bit-equal to
-   the plain chase kernel's and its records rebuilding the band, the TGK
-   solve's normalized columns within 64 eps; and drives the chase variants
-   (the third path), every launch count set to 0 before each call and read
-   after it: each variant's (d, e) bit-equal to the chase kernel's at
-   n = 1024 (b = 64), 3840 (b = 128, the Stage I kernel's band) and, for the
-   wavefront kernels with lanes striding over capped CTAs, 2048 (b = 32);
-   each variant against its plain version at 1024; each variant's sigma
-   through the bisection kernel at 3840 against float64;
+   shapes the main paths give it: the panel QR at (b, m, r_off) = (128,
+   3840, 0), (128, 3840, 3776) (identity reflectors past m), (64, 1024, 0)
+   and (128, 7680, 0) (the large-panel route), two launches bit-identical,
+   Q = I - V T V^T orthogonal and Q R = P in float64; the recording chase's
+   (d, e) bit-equal to the plain chase kernel's and its records rebuilding
+   the band, the TGK solve's normalized columns within 64 eps; and drives
+   the chase variants, every launch count set to 0 before each call and
+   read after it: each variant's (d, e), and the recording wavefront's
+   (d, e) and records, bit-equal to the sequential kernels' at n = 1024
+   (b = 64), 3840 (b = 128) and, on capped CTAs, 2048 (b = 32); each
+   variant against its plain version at 1024; each variant's sigma through
+   the bisection kernel at 3840 against float64;
 4. drives the two main paths, with every launch count set to 0 just before
    each call and read just after: ``svdvals`` on a uniform [0, 5) float32
-   matrix at n = 3840, 1000 and 7680 (sigma against float64
+   matrix at n = 3840, 1000, 7680 and 256 (sigma against float64
    ``torch.linalg.svdvals`` to 1e-5 sigma_max), and ``svd`` at n = 3840
-   (uniform), 2048 (Gaussian) and 1000 (uniform): sigma to 1e-5 sigma_max,
-   reconstruction to 1e-4 sigma_max, orthogonality of U and Vh to 1e-4;
+   (uniform), 2048 (Gaussian), 1000 and 256 (uniform): sigma to 1e-5
+   sigma_max, reconstruction to 1e-4 sigma_max, orthogonality of U and Vh
+   to 1e-4; the counts show the chase each routing predicate picked, and at
+   3840 the routed chase is bit-equal to the sequential kernel on the same
+   band;
 5. times ``svdvals`` and ``svd`` at 3840 with their stages, each kernel
    beside its plain version and, where one exists, the PyTorch library
-   call computing the same function (CUDA events), each chase variant in
+   call computing the same function (CUDA events), the panel QR at each
+   Stage I panel length of n = 3840 with a split, the sequential and
+   wavefront chases in turns at the routing shapes, each chase variant in
    turns with the chase kernel at 3840, and computes each kernel's bound
    from its shapes;
 6. profiles one ``svdvals`` and one ``svd`` call and one wavefront chase at
@@ -36,7 +44,8 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
 Any failure raises and exits non-zero.  The second-to-last line is the
 kernel table as JSON, the last ``{"ok": true, "device": {...}}``.  With no
 CUDA device, or without the package beside it, it exits non-zero and
-prints no result.
+prints no result.  Every timing line stands under the card's name and power
+limit, printed first.
 """
 
 import json
@@ -53,8 +62,10 @@ TOL_SIGMA = 1e-5  # max |sigma - sigma_ref| / sigma_max against float64
 TOL_RECON = 1e-4  # max |U diag(s) Vh - A| / sigma_max (JAX package's scale tests)
 TOL_ORTH = 1e-4  # max |U^T U - I| and max |Vh Vh^T - I|
 TOL_REBUILD = 1e-5  # chase records: max |L B R^T - Ab| / max |Ab|, |L^T L - I|
-SLICE_SIZES = (3840, 1000, 7680)
-SVD_CASES = ((3840, "uniform"), (2048, "gauss"), (1000, "uniform"))
+# n = 256 (band 64) has one chase lane: the predicates route it to the
+# sequential kernels
+SLICE_SIZES = (3840, 1000, 7680, 256)
+SVD_CASES = ((3840, "uniform"), (2048, "gauss"), (1000, "uniform"), (256, "uniform"))
 REPS = 5
 SVD_REPS = 3
 SOURCES = ("panel_qr", "band_chase", "bisect", "tridiag_solve",
@@ -62,8 +73,18 @@ SOURCES = ("panel_qr", "band_chase", "bisect", "tridiag_solve",
 VARIANTS = ("band_chase_wave", "band_chase_wave_dl", "band_chase_staged",
             "band_chase_vmem")
 KERNELS = ("panel_qr", "band_chase", "band_chase_rec", "bisect",
-           "tridiag_solve") + VARIANTS
-SVD_PATH = ("panel_qr", "band_chase_rec", "bisect", "tridiag_solve")
+           "tridiag_solve") + VARIANTS + ("band_chase_wave_rec",)
+SVD_PATH = ("panel_qr", "bisect", "tridiag_solve")  # and the routed chase
+CHASES = ("band_chase", "band_chase_rec", "band_chase_wave", "band_chase_wave_rec")
+# K1 (b, m, r_off): the first Stage I panel at 3840, an LQ panel whose last
+# 64 pivots lie past m, the first panel at 1000 (padded to 1024, b = 64) and
+# the first at 7680 (the large-panel route)
+K1_SHAPES = ((128, 3840, 0), (128, 3840, 3776), (64, 1024, 0), (128, 7680, 0))
+TOL_K1 = 1e-4  # |kernel - plain| <= TOL_K1 max|plain|: sums over m in other orders
+TOL_Q = 1e-5  # |Q^T Q - I| and |Q R - P|_F / |P|_F, float64 from the kernel's V, T, R
+# the chase's routing shapes (n, band): svdvals/svd at 1000, svd at 2048,
+# both paths at 3840, svdvals at 7680, and a one-lane shape (n = 256)
+ROUTE_SHAPES = ((1024, 64), (2048, 128), (3840, 128), (7680, 128), (256, 64))
 # the chase variants' shapes: (n, band, khops) of the check against the plain
 # versions (phase_kernels' band), of the slice at full width, and (n, band,
 # CTAs) of the wavefront kernels with lanes striding over capped CTAs
@@ -77,8 +98,16 @@ PEAK_BYTES = 3.35e12
 DEV = "cuda"
 
 
+CARD = ""  # the card's name and power limit, as nvidia-smi gives them
+TIMED = ("[times]", "[route]", "[profile]", "[slice]", "[svd]")
+
+
 def say(*parts):
-    print(*parts, flush=True)
+    """Print a line; a line with a time carries the card and its limit."""
+    line = " ".join(str(p) for p in parts)
+    if CARD and line.startswith(TIMED):
+        line += f" | {CARD}"
+    print(line, flush=True)
 
 
 def require(cond, what):
@@ -110,13 +139,12 @@ def cuda_ms(fn, reps=REPS, warm=True):
 
 
 def in_turns(kern, plain):
-    """Kernel and plain version timed in turns (plain, kernel, kernel,
-    plain); the plain versions, slow launch-bound loops, once each."""
+    """Kernel and plain version timed in turns (plain, kernel, kernel); the
+    plain version, a slow launch-bound loop, once."""
     p1 = cuda_ms(plain, 1, warm=False)
     k1 = cuda_ms(kern)
     k2 = cuda_ms(kern)
-    p2 = cuda_ms(plain, 1, warm=False)
-    return (k1, k2), (p1, p2)
+    return (k1, k2), p1
 
 
 def uniform_matrix(n, seed=0):
@@ -148,6 +176,7 @@ def _counters():
             "tridiag_solve": (tridiag_solve, "launches"),
             "band_chase_wave": (band_chase_wave, "launches"),
             "band_chase_wave_dl": (band_chase_wave, "launches_dl"),
+            "band_chase_wave_rec": (band_chase_wave, "launches_rec"),
             "band_chase_staged": (band_chase, "launches_staged"),
             "band_chase_vmem": (band_chase_vmem, "launches")}
 
@@ -230,8 +259,10 @@ def phase_device():
     name = torch.cuda.get_device_name(0)
     smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"])
+    global CARD
     say("[device]", name)
     say(smi.splitlines()[0])
+    CARD = smi.splitlines()[0].strip()
     say(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} cards {torch.cuda.device_count()}")
     from svdsolver_tpu_torch.ops.cuda import _build
@@ -273,7 +304,7 @@ def check_records(label, Ab, b, rec):
     rebuild = float((L @ B @ R.T - Ab).abs().max() / Ab.abs().max())
     orth_l = float((L.T @ L - eye).abs().max())
     orth_r = float((R.T @ R - eye).abs().max())
-    say(f"[kernels] band_chase_rec n={n} b={b} {label}: |L B R^T - Ab| / |Ab| "
+    say(f"[kernels] records n={n} b={b} {label}: |L B R^T - Ab| / |Ab| "
         f"{rebuild:.3e}, |L^T L - I| {orth_l:.3e}, |R^T R - I| {orth_r:.3e}")
     require(rebuild <= TOL_REBUILD, f"{label} records rebuild the band at n={n}")
     require(max(orth_l, orth_r) <= TOL_REBUILD, f"{label} L, R orthogonal at n={n}")
@@ -294,29 +325,95 @@ def tgk_problem(rng, n):
     return z, sig, rhs, pivmin, big
 
 
-def phase_kernels(rng):
-    """Each kernel against its plain version, same inputs, on the card."""
-    from svdsolver_tpu_torch.ops.cuda import band_chase, bisect, panel_qr, tridiag_solve
+def chase_entry(n, b, record):
+    """The chase the main path takes for an (n, n) band ``b``: (launch
+    counter name, entry point), by the routing predicates."""
+    from svdsolver_tpu_torch.ops.cuda import band_chase, band_chase_wave
 
-    errs = {}
-    # K1: the first QR panel at n = 3840, and an LQ-like panel whose last
-    # pivots run past m (identity reflectors there).
+    if record:
+        if band_chase_wave.wave_chase_accum_preferred(n, b):
+            return "band_chase_wave_rec", band_chase_wave.band_to_bidiagonal_wave_accum
+        return "band_chase_rec", band_chase.band_to_bidiagonal_accum
+    if band_chase_wave.wave_chase_preferred(n, b):
+        return "band_chase_wave", band_chase_wave.band_to_bidiagonal_wave
+    return "band_chase", band_chase.band_to_bidiagonal
+
+
+def path_band(n):
+    """(padded n, band) of the main paths' Stage I for an (n, n) input."""
+    from svdsolver_tpu_torch.models.svd import _auto_block
+
+    b = _auto_block(n)
+    while b >= n and b > 2:
+        b //= 2
+    return -(-n // b) * b, b
+
+
+def check_panel_qr(rng):
+    """K1 against its plain version at K1_SHAPES: outputs within TOL_K1,
+    exact zeros and ones of the contract, identity reflectors past m, two
+    launches bit-identical, Q = I - V T V^T orthogonal and Q R = P within
+    TOL_Q (float64).  Returns the largest |kernel - plain|."""
+    from svdsolver_tpu_torch.ops.cuda import panel_qr
+
     k1 = 0.0
-    for b, m, r_off in ((128, 3840, 0), (128, 1920, 1920 - 64)):
+    for b, m, r_off in K1_SHAPES:
+        plan = panel_qr.cluster_plan(b, m)
         Pt = torch.from_numpy(rng.normal(size=(b, m)).astype(np.float32)).to(DEV)
+        panel_qr.launches = 0
         got = panel_qr.panel_qr(Pt, r_off)
+        again = panel_qr.panel_qr(Pt, r_off)
+        torch.cuda.synchronize()
+        require(panel_qr.launches == 2, "panel_qr counts its launches")
+        shape = f"b={b} m={m} r_off={r_off}"
+        require(all(torch.equal(x, y) for x, y in zip(got, again)),
+                f"panel_qr {shape}: two launches bit-identical")
+        say(f"[kernels] panel_qr {shape}: one cluster of {plan.ctas} CTAs x "
+            f"{plan.width} columns ({plan.smem_cols} in shared memory"
+            f"{', the rest in device memory' if plan.spill else ''}), "
+            f"{plan.smem} B shared memory a CTA; two launches bit-identical")
         want = panel_qr.panel_qr_plain(Pt, r_off)
         torch.cuda.synchronize()
         for label, g, w in zip("RVT", got, want):
             err = float((g - w).abs().max())
             scale = float(w.abs().max())
-            # sums over m = 3840 run in other orders in the two versions
-            require(err <= 1e-4 * scale, f"panel_qr {label} {(b, m, r_off)}: "
-                    f"{err:.3e} > 1e-4 * {scale:.3e}")
+            require(err <= TOL_K1 * scale, f"panel_qr {label} {shape}: "
+                    f"{err:.3e} > {TOL_K1} * {scale:.3e}")
             k1 = max(k1, err)
-            say(f"[kernels] panel_qr b={b} m={m} r_off={r_off} {label}: "
-                f"max_abs_err {err:.3e} (scale {scale:.3e})")
-    errs["panel_qr"] = k1
+            say(f"[kernels] panel_qr {shape} {label}: max_abs_err {err:.3e} "
+                f"(scale {scale:.3e})")
+        Rt, Vt, Tt = got
+        cols = torch.arange(m, device=DEV)[None, :]
+        piv = r_off + torch.arange(b, device=DEV)[:, None]
+        require(bool((Rt[cols > piv] == 0).all()), f"panel_qr {shape}: R zero past the pivot")
+        require(bool((Vt[cols < piv] == 0).all()), f"panel_qr {shape}: V zero before the pivot")
+        live = max(0, min(b, m - r_off))
+        require(bool((Vt[:live].gather(1, piv[:live]) == 1).all()),
+                f"panel_qr {shape}: V one at the pivot")
+        if live < b:
+            require(bool((Tt[live:] == 0).all()) and bool((Vt[live:] == 0).all()),
+                    f"panel_qr {shape}: identity reflectors past m")
+            say(f"[kernels] panel_qr {shape}: {b - live} identity reflectors: "
+                "tau 0, zero T rows, zero V rows")
+        V, T = Vt.double().T, Tt.double().T
+        R, P = Rt.double().T, Pt.double().T
+        Q = torch.eye(m, dtype=torch.float64, device=DEV) - V @ T @ V.T
+        orth = float((Q.T @ Q - torch.eye(m, dtype=torch.float64, device=DEV)).abs().max())
+        rebuild = float(torch.linalg.norm(Q @ R - P) / torch.linalg.norm(P))
+        say(f"[kernels] panel_qr {shape}: |Q^T Q - I| {orth:.3e}, "
+            f"|Q R - P|_F / |P|_F {rebuild:.3e} (tolerance {TOL_Q})")
+        require(orth <= TOL_Q and rebuild <= TOL_Q, f"panel_qr {shape}: Q R = P, Q orthogonal")
+        del Q, V, T, R, P
+    torch.cuda.empty_cache()
+    return k1
+
+
+def phase_kernels(rng):
+    """Each kernel against its plain version, same inputs, on the card."""
+    from svdsolver_tpu_torch.ops.cuda import band_chase, bisect, panel_qr, tridiag_solve
+
+    errs = {}
+    errs["panel_qr"] = check_panel_qr(rng)
 
     # K3: chase of a Stage I band at n = 1024, b = 64.
     n, b = 1024, 64
@@ -427,6 +524,22 @@ def require_bit_equal(label, got, want):
             f"{label}: (d, e) bit-equal to the chase kernel's")
 
 
+def check_wave_rec(label, Ab, b, ctas=None):
+    """The recording wavefront chase against the sequential recording chase
+    on one band: (d, e) and all four records bit-equal."""
+    from svdsolver_tpu_torch.ops.cuda import band_chase, band_chase_wave
+
+    want = band_chase.band_to_bidiagonal_accum(Ab, band=b)
+    got = band_chase_wave.band_to_bidiagonal_wave_accum(Ab, band=b, _ctas=ctas)
+    torch.cuda.synchronize()
+    if ctas is not None:
+        require(band_chase_wave.last_ctas == ctas, "the _ctas cap holds")
+    for name, g, w in zip(("d", "e", "VL", "TL", "VR", "TR"), got, want):
+        require(torch.equal(g, w), f"wave_accum {label}: {name} bit-equal to band_chase_rec's")
+    say(f"[variants] wave_accum {label} on {band_chase_wave.last_ctas} CTAs: (d, e) "
+        "and VL, TL, VR, TR bit-equal to band_chase_rec")
+
+
 def phase_variants(band_state):
     """The chase variants, the third path (K11-K15): every entry point on
     the band of ``phase_kernels`` (VAR_CHECK), on the Stage I kernel's band
@@ -463,6 +576,7 @@ def phase_variants(band_state):
     n1, b1, khops1 = VAR_CHECK
     Ab1, d1, e1, dp1, ep1 = band_state
     outs, _ = drive(f"n={n1} b={b1}", variant_calls(b1, khops1), Ab1, (d1, e1))
+    check_wave_rec(f"n={n1} b={b1}", Ab1, b1)
     require(band_chase.last_khops == band_chase.staged_khops(b1, khops1) == khops1,
             f"mega khops={khops1} at b={b1} runs {khops1} pairs a window")
     plains = {
@@ -485,6 +599,23 @@ def phase_variants(band_state):
             "the plain chase's")
         plains[k] = (name, (dp, ep))
     plains["band_chase_staged"] = ("pipelined=True", (dp1, ep1))  # its plain version
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    rec_p = band_chase_wave.band_to_bidiagonal_wave_accum_plain(Ab1, band=b1)
+    stop.record()
+    torch.cuda.synchronize()
+    plain_ms["band_chase_wave_rec"] = start.elapsed_time(stop)
+    rec_k = band_chase_wave.band_to_bidiagonal_wave_accum(Ab1, band=b1)
+    seq_p = band_chase.band_to_bidiagonal_accum_plain(Ab1, band=b1)
+    same = all(torch.equal(x, y) for x, y in zip(rec_p, seq_p))
+    say(f"[variants] band_chase_wave_rec plain version n={n1} b={b1}: "
+        f"{plain_ms['band_chase_wave_rec']:.3f} ms (one run), (d, e) and records "
+        f"{'bit-equal' if same else 'not bit-equal'} to the plain recording chase's")
+    check_records("wave_accum kernel", Ab1, b1, rec_k)
+    errs["band_chase_wave_rec"] = float((bidiag_sigma(rec_k[0], rec_k[1])
+                                         - bidiag_sigma(rec_p[0], rec_p[1])).abs().max())
+    del rec_p, rec_k, seq_p
     s_a = torch.linalg.svdvals(Ab1.double())
     smax = float(s_a[0])
     for k, (name, (dp, ep)) in plains.items():
@@ -514,6 +645,7 @@ def phase_variants(band_state):
         lanes = two_stage.wave_lanes(n2, b2, defer_left=name == "wave_dl") + 1
         say(f"[variants] {name} n={n2} b={b2}: {lanes} lanes (the head's "
             f"included) on {ctas} CTAs, (d, e) bit-equal to band_chase")
+    check_wave_rec(f"n={n2} b={b2}", A2, b2, ctas=ctas)
     del A2
 
     # the slice at full width: every entry point once, on the Stage I band
@@ -522,6 +654,7 @@ def phase_variants(band_state):
     Ab3 = panel_qr.dense_to_band_fused(A, band=b)
     want3 = band_chase.band_to_bidiagonal(Ab3, band=b)
     outs3, counts = drive(f"n={n} b={b}", variant_calls(b, khops), Ab3, want3)
+    check_wave_rec(f"n={n} b={b}", Ab3, b)
     require(band_chase.last_khops == band_chase.staged_khops(b, khops),
             f"mega khops={khops} at b={b} runs the largest window that fits")
     s_ref = torch.linalg.svdvals(A.double())
@@ -546,11 +679,11 @@ def phase_variants(band_state):
     for label, Ab_, n_, b_ in (("path", Ab3, n, b), ("check", Ab1, n1, b1)):
         got = {}
         for k in list(timed) + list(timed)[::-1]:
-            got.setdefault(k, []).append(cuda_ms(lambda: timed[k](Ab_, b_)))
+            got.setdefault(k, []).append(cuda_ms(lambda: timed[k](Ab_, b_), SVD_REPS))
         for k, (t1, t2) in got.items():
             times[k, label] = min(t1, t2)
             say(f"[times] {k} n={n_} b={b_}: {t1:.3f} / {t2:.3f} ms (medians "
-                f"of {REPS}, in turns)")
+                f"of {SVD_REPS}, in turns)")
     phase_profile(f"wave chase n={n}",
                   lambda: band_chase_wave.band_to_bidiagonal_wave(Ab3, band=b))
     del Ab3, A
@@ -558,12 +691,46 @@ def phase_variants(band_state):
     return counts, errs, plain_ms, times
 
 
+def require_route(label, counts, record):
+    """The run launched the path's kernels and, of the chase entries, only
+    the one the routing predicates pick (``record``: the recording ones)."""
+    n, b = label
+    chase, _ = chase_entry(n, b, record)
+    for k in CHASES:
+        if k == chase:
+            require(counts[k] == 1, f"{k} launched once at n={n} b={b}")
+        else:
+            require(counts[k] == 0, f"{k} launched at n={n} b={b}, the route is {chase}")
+    for k in VARIANTS:
+        if k != chase:
+            require(counts[k] == 0, f"{k} launched at n={n} b={b}")
+    return chase
+
+
+def require_routed_bit_equal(label, A, record):
+    """At ``A``'s size: the routed chase and the sequential one on the same
+    Stage I band give the same (d, e) (and records) bit for bit."""
+    from svdsolver_tpu_torch.ops.cuda import band_chase, panel_qr
+
+    n, b = path_band(A.shape[0])
+    chase, fn = chase_entry(n, b, record)
+    seq = band_chase.band_to_bidiagonal_accum if record else band_chase.band_to_bidiagonal
+    Ab = (panel_qr.dense_to_band_rec_fused(A, band=b)[0] if record
+          else panel_qr.dense_to_band_fused(A, band=b))
+    got, want = fn(Ab, band=b), seq(Ab, band=b)
+    torch.cuda.synchronize()
+    require(all(torch.equal(g, w) for g, w in zip(got, want)),
+            f"{label}: the routed {chase} bit-equal to the sequential kernel")
+    say(f"{label}: the routed {chase} gives {'(d, e) and records' if record else '(d, e)'} "
+        f"bit-equal to {'band_chase_rec' if record else 'band_chase'} on the same band")
+
+
 def phase_slice():
     """svdvals, the first main path, at each size; returns the launch counts
-    at n = 3840."""
+    at each n."""
     from svdsolver_tpu_torch import svdvals
 
-    counts_3840 = None
+    counts_by_n = {}
     for n in SLICE_SIZES:
         A = uniform_matrix(n)
         torch.cuda.synchronize()
@@ -575,10 +742,11 @@ def phase_slice():
         counts = read_counts()
         say(f"[slice] n={n}: svdvals {seconds:.3f} s (host clock, first call "
             f"at this size) launches {counts}")
-        for k in ("panel_qr", "band_chase", "bisect"):
+        for k in ("panel_qr", "bisect"):
             require(counts[k] > 0, f"kernel {k} not launched by svdvals at n={n}")
-        for k in VARIANTS:
-            require(counts[k] == 0, f"svdvals launched {k} at n={n}")
+        chase = require_route(path_band(n), counts, record=False)
+        say(f"[slice] n={n}: the chase took {chase} (wave_chase_preferred"
+            f"{path_band(n)} = {chase == 'band_chase_wave'})")
         require(s.shape == (n,) and bool(torch.isfinite(s).all()),
                 f"svdvals output at n={n}")
         ref = torch.linalg.svdvals(A.double())
@@ -586,19 +754,20 @@ def phase_slice():
         say(f"[slice] n={n}: max|sigma - sigma_ref| / sigma_max = {err:.3e}")
         require(err <= TOL_SIGMA, f"sigma error {err:.3e} at n={n}")
         if n == 3840:
-            counts_3840 = counts
+            require_routed_bit_equal(f"[slice] n={n}", A, record=False)
+        counts_by_n[n] = counts
         del A, s, ref
         torch.cuda.empty_cache()
-    return counts_3840
+    return counts_by_n
 
 
 def phase_svd():
     """svd, the second main path, at each case; returns the launch counts
-    at n = 3840."""
+    at each n."""
     from svdsolver_tpu_torch import svd
     from svdsolver_tpu_torch.models import vectors
 
-    counts_3840 = None
+    counts_by_n = {}
     eps = torch.finfo(torch.float32).eps
     for n, kind in SVD_CASES:
         A = uniform_matrix(n) if kind == "uniform" else gauss_matrix(n)
@@ -614,8 +783,9 @@ def phase_svd():
         for k in SVD_PATH:
             require(counts[k] > 0, f"kernel {k} not launched by svd at n={n}")
         require(counts["tridiag_solve"] == 2, "two TGK solves (iters = 2)")
-        for k in VARIANTS:
-            require(counts[k] == 0, f"svd launched {k} at n={n}")
+        chase = require_route(path_band(n), counts, record=True)
+        say(f"[svd] n={n}: the chase took {chase} (wave_chase_accum_preferred"
+            f"{path_band(n)} = {chase == 'band_chase_wave_rec'})")
         require(U.shape == (n, n) and s.shape == (n,) and Vh.shape == (n, n),
                 f"svd shapes at n={n}")
         require(all(bool(torch.isfinite(t).all()) for t in (U, s, Vh)),
@@ -643,11 +813,87 @@ def phase_svd():
         require(sig_err <= TOL_SIGMA, f"svd sigma error at n={n}")
         require(recon <= TOL_RECON, f"svd reconstruction at n={n}")
         require(max(orth_u, orth_v) <= TOL_ORTH, f"svd orthogonality at n={n}")
+        del U, s, Vh, Ud, Vd, ref, eye
         if n == 3840:
-            counts_3840 = counts
-        del A, U, s, Vh, Ud, Vd, ref, eye
+            require_routed_bit_equal(f"[svd] n={n}", A, record=True)
+        counts_by_n[n] = counts
+        del A
         torch.cuda.empty_cache()
-    return counts_3840
+    return counts_by_n
+
+
+def stage1_widths(n, b):
+    """The panel lengths m of Stage I's segments at n (one per segment)."""
+    from svdsolver_tpu_torch.models.two_stage import segment_bounds
+    from svdsolver_tpu_torch.ops.cuda.panel_qr import _auto_segments
+
+    bounds = segment_bounds(n // b, _auto_segments(n, b))
+    return [n - k * b for k in bounds[:-1]]
+
+
+def phase_k1_times():
+    """K1 at (128, 3840) and each Stage I panel length at 3840, in turns with
+    its plain version, beside torch.geqrf; the cluster sizes 8 and 16 at
+    3840; and a split: the load and store alone (r_off = m: no column), a
+    zero panel (every column an identity reflector: one cluster barrier and
+    the reflector each) and the full panel."""
+    from svdsolver_tpu_torch.ops.cuda import panel_qr
+
+    rng = np.random.default_rng(2)
+    out = {}
+    for m in stage1_widths(3840, 128):
+        Pt = torch.from_numpy(rng.normal(size=(128, m)).astype(np.float32)).to(DEV)
+        (k1, k2), p1 = in_turns(lambda: panel_qr.panel_qr(Pt, 0),
+                                lambda: panel_qr.panel_qr_plain(Pt, 0))
+        panel = Pt.T.contiguous()
+        lib = cuda_ms(lambda: torch.geqrf(panel))
+        plan = panel_qr.cluster_plan(128, m)
+        out[m] = (min(k1, k2), p1, lib)
+        say(f"[times] panel_qr b=128 m={m} ({plan.ctas} CTAs): kernel {k1:.3f} / "
+            f"{k2:.3f} ms (medians of {REPS}), plain {p1:.3f} ms (one run), "
+            f"torch.geqrf ({m}, 128) {lib:.3f} ms")
+        if m == 3840:
+            for C in (8, 16, 8):
+                t = cuda_ms(lambda: panel_qr.panel_qr(Pt, 0, _cluster=C))
+                say(f"[times] panel_qr b=128 m=3840 on a cluster of {C}: {t:.3f} ms")
+            zero = torch.zeros_like(Pt)
+            split = {"load and store only (r_off = m)": lambda: panel_qr.panel_qr(Pt, m),
+                     "zero panel (identity reflectors)": lambda: panel_qr.panel_qr(zero, 0),
+                     "full panel": lambda: panel_qr.panel_qr(Pt, 0)}
+            for label, fn in split.items():
+                say(f"[times] panel_qr split b=128 m=3840 {label}: {cuda_ms(fn):.3f} ms")
+    return out
+
+
+def phase_route_times():
+    """The predicates' evidence: at each ROUTE_SHAPES band (Stage I's), the
+    sequential and wavefront chases in turns (seq, wave, wave, seq; at 7680
+    seq, wave, wave), plain and recording entries."""
+    from svdsolver_tpu_torch.ops.cuda import band_chase, band_chase_wave, panel_qr
+
+    entries = {
+        False: (band_chase.band_to_bidiagonal, band_chase_wave.band_to_bidiagonal_wave),
+        True: (band_chase.band_to_bidiagonal_accum, band_chase_wave.band_to_bidiagonal_wave_accum),
+    }
+    out = {}
+    for n, b in ROUTE_SHAPES:
+        Ab = panel_qr.dense_to_band_fused(uniform_matrix(n), band=b)
+        reps = 1 if n > 4000 else SVD_REPS
+        for record, (seq, wave) in entries.items():
+            s1 = cuda_ms(lambda: seq(Ab, band=b), reps, warm=n <= 4000)
+            w1 = cuda_ms(lambda: wave(Ab, band=b), reps)
+            w2 = cuda_ms(lambda: wave(Ab, band=b), reps)
+            # at 7680 the sequential kernel's 3.4 s runs once
+            s2 = cuda_ms(lambda: seq(Ab, band=b), reps, warm=False) if n <= 4000 else s1
+            out[n, b, record] = (min(w1, w2), min(s1, s2))
+            say(f"[route] n={n} b={b} {'recording' if record else 'plain'}: "
+                f"sequential {s1:.3f} / {s2:.3f} ms, wavefront {w1:.3f} / "
+                f"{w2:.3f} ms (medians of {reps}, in turns, "
+                f"{band_chase_wave.last_ctas} CTAs); the predicate takes the "
+                f"{'wavefront' if chase_entry(n, b, record)[0].startswith('band_chase_wave') else 'sequential'}")
+        del Ab
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_times(band_state):
@@ -657,12 +903,14 @@ def phase_times(band_state):
 
     n, b = 3840, 128
     A = uniform_matrix(n)
+    _, chase = chase_entry(n, b, record=False)
+    _, chase_rec = chase_entry(n, b, record=True)
     Ab = panel_qr.dense_to_band_fused(A, band=b)
-    d, e = band_chase.band_to_bidiagonal(Ab, band=b)
+    d, e = chase(Ab, band=b)
     t = {
         "svdvals_3840": cuda_ms(lambda: svdvals(A)),
         "stage1_3840": cuda_ms(lambda: panel_qr.dense_to_band_fused(A, band=b)),
-        "chase_3840": cuda_ms(lambda: band_chase.band_to_bidiagonal(Ab, band=b)),
+        "chase_3840": cuda_ms(lambda: chase(Ab, band=b)),
         "bisect_3840": cuda_ms(lambda: bisect.bisect_svdvals(d, e)),
     }
     for k, v in t.items():
@@ -670,14 +918,14 @@ def phase_times(band_state):
 
     # svd at 3840 and its split, each stage on the previous one's outputs
     Abr, Vq, Tq, Vl, Tl = panel_qr.dense_to_band_rec_fused(A, band=b)
-    dr, er, VL, TL, VR, TR = band_chase.band_to_bidiagonal_accum(Abr, band=b)
+    dr, er, VL, TL, VR, TR = chase_rec(Abr, band=b)
     sig = bisect.bisect_svdvals(dr, er)
     Ub, Vb = vectors.tgk_vectors(dr, er, sig)
     LU, RV = vectors._apply_chase_reflectors_wy_pair(VL, TL, VR, TR, Ub, Vb, b)
     split = {
         "svd_3840": lambda: svd(A),
         "stage1_rec_3840": lambda: panel_qr.dense_to_band_rec_fused(A, band=b),
-        "chase_rec_3840": lambda: band_chase.band_to_bidiagonal_accum(Abr, band=b),
+        "chase_rec_3840": lambda: chase_rec(Abr, band=b),
         "bisect_svd_3840": lambda: bisect.bisect_svdvals(dr, er),
         "tgk_vectors_3840": lambda: vectors.tgk_vectors(dr, er, sig),
         "chase_backtransform_3840": lambda: vectors._apply_chase_reflectors_wy_pair(
@@ -692,21 +940,19 @@ def phase_times(band_state):
     say(f"[times] svd split sums to {parts:.3f} ms of {t['svd_3840']:.3f} ms")
     del Vq, Tq, Vl, Tl, VL, TL, VR, TR, Ub, Vb, LU, RV
 
-    # the cost of recording: the two chase entries on one band, in turns
-    c1 = cuda_ms(lambda: band_chase.band_to_bidiagonal(Ab, band=b), SVD_REPS)
-    r1 = cuda_ms(lambda: band_chase.band_to_bidiagonal_accum(Ab, band=b), SVD_REPS)
-    r2 = cuda_ms(lambda: band_chase.band_to_bidiagonal_accum(Ab, band=b), SVD_REPS)
-    c2 = cuda_ms(lambda: band_chase.band_to_bidiagonal(Ab, band=b), SVD_REPS)
-    say(f"[times] chase n=3840 b=128: plain entry {c1:.3f} / {c2:.3f} ms, "
+    # the cost of recording: the routed plain and recording entries on one
+    # band, in turns
+    c1 = cuda_ms(lambda: chase(Ab, band=b), SVD_REPS)
+    r1 = cuda_ms(lambda: chase_rec(Ab, band=b), SVD_REPS)
+    r2 = cuda_ms(lambda: chase_rec(Ab, band=b), SVD_REPS)
+    c2 = cuda_ms(lambda: chase(Ab, band=b), SVD_REPS)
+    say(f"[times] routed chase n=3840 b=128: plain entry {c1:.3f} / {c2:.3f} ms, "
         f"recording entry {r1:.3f} / {r2:.3f} ms (medians of {SVD_REPS})")
 
     rng = np.random.default_rng(2)
-    Pt = torch.from_numpy(rng.normal(size=(128, 3840)).astype(np.float32)).to(DEV)
     Ab1, d1, e1 = band_state[:3]
     tgk = {nt: tgk_problem(rng, nt) for nt in (1024, 3840)}
     pairs = {
-        "panel_qr": (lambda: panel_qr.panel_qr(Pt, 0),
-                     lambda: panel_qr.panel_qr_plain(Pt, 0), "b=128 m=3840"),
         "band_chase": (lambda: band_chase.band_to_bidiagonal(Ab1, band=64),
                        lambda: band_chase.band_to_bidiagonal_plain(Ab1, band=64),
                        "n=1024 b=64"),
@@ -728,30 +974,31 @@ def phase_times(band_state):
     }
     kt = {}
     for name, (kern, plain, shape) in pairs.items():
-        (k1, k2), (p1, p2) = in_turns(kern, plain)
-        kt[name] = (min(k1, k2), min(p1, p2), shape)
+        (k1, k2), p1 = in_turns(kern, plain)
+        kt[name] = (min(k1, k2), p1, shape)
         say(f"[times] {name} {shape}: kernel {k1:.3f} / {k2:.3f} ms (medians of "
-            f"{REPS}), plain {p1:.3f} / {p2:.3f} ms (one run each)")
+            f"{REPS}), plain {p1:.3f} ms (one run)")
 
     # library calls computing the same function, timed beside the kernels
     # (never called by the port)
-    panel = Pt.T.contiguous()
     lib = {
-        "panel_qr": cuda_ms(lambda: torch.geqrf(panel)),
         "bisect": cuda_ms(lambda: torch.linalg.svdvals(
             torch.diag(d1) + torch.diag(e1, 1))),
     }
     lib_3840 = cuda_ms(lambda: torch.linalg.svdvals(torch.diag(d) + torch.diag(e, 1)))
-    say(f"[times] library: torch.geqrf (3840, 128) {lib['panel_qr']:.3f} ms; "
-        f"torch.linalg.svdvals of the dense bidiagonal n=1024 {lib['bisect']:.3f} "
-        f"ms, n=3840 {lib_3840:.3f} ms (medians of {REPS})")
-    return t, kt, lib
+    say(f"[times] library: torch.linalg.svdvals of the dense bidiagonal n=1024 "
+        f"{lib['bisect']:.3f} ms, n=3840 {lib_3840:.3f} ms (medians of {REPS})")
+    k1 = phase_k1_times()
+    kt["panel_qr"] = (k1[3840][0], k1[3840][1], "b=128 m=3840")
+    lib["panel_qr"] = k1[3840][2]
+    return t, kt, lib, k1
 
 
 def phase_profile(label, fn):
     """Device time by kernel over one call of ``fn`` (``torch.profiler``),
     and the share of the call's wall time in which the card ran a kernel.
-    Busy is not utilization: the chase and the panel kernel hold one SM."""
+    Busy is not utilization: the panel kernel holds one cluster of up to 16
+    SMs, the wavefront chase one SM a lane, the sequential chase one SM."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # warm: allocator and libraries
@@ -775,7 +1022,7 @@ def phase_profile(label, fn):
         f"kernels {busy:.3f} ms = {100 * busy / wall_ms:.1f}% of wall")
 
 
-def kernel_table(errs, counts_vals, counts_svd, kt, lib, variants):
+def kernel_table(errs, counts_vals, counts_svd, kt, lib, variants, route, k1):
     from svdsolver_tpu_torch.models import two_stage
     from svdsolver_tpu_torch.models.diagonalize import default_bisect_iters
 
@@ -784,10 +1031,9 @@ def kernel_table(errs, counts_vals, counts_svd, kt, lib, variants):
     replaces = {
         "panel_qr": "svdsolver_tpu/ops/pallas/panel_qr.py:30",
         "band_chase": "svdsolver_tpu/ops/pallas/band_chase.py:331 "
-                      "+ band_chase_wave.py:687 + band_chase_stream.py:118",
+                      "+ band_chase_stream.py:118",
         "band_chase_rec": "svdsolver_tpu/ops/pallas/band_chase.py:191 "
-                          "+ band_chase_wave.py:959 + band_chase_stream.py:118 "
-                          "(rec=True)",
+                          "+ band_chase_stream.py:118 (rec=True)",
         "bisect": "svdsolver_tpu/ops/pallas/bisect.py:44",
         "tridiag_solve": "svdsolver_tpu/ops/pallas/tridiag_solve.py:41 "
                          "+ tridiag_solve.py:124",
@@ -800,10 +1046,11 @@ def kernel_table(errs, counts_vals, counts_svd, kt, lib, variants):
         "tridiag_solve": work_tgk(2 * 3840, 3840),
     }
     rows = []
+    svd_side = ("band_chase_rec", "tridiag_solve", "band_chase_wave_rec")
     for k in work:
         b_ms, b_by = bound(*work[k])
-        launches = (counts_svd if k in ("band_chase_rec", "tridiag_solve")
-                    else counts_vals)[k]
+        # every main-path run of phase_slice (svdvals) or phase_svd (svd)
+        launches = sum(c[k] for c in (counts_svd if k in svd_side else counts_vals).values())
         say(f"[bound] {k} ({kt[k][2]}): {work[k][0]:.4g} flops, {work[k][1]:.4g} "
             f"bytes -> {b_ms:.4f} ms, bound by {b_by}")
         rows.append({
@@ -814,6 +1061,13 @@ def kernel_table(errs, counts_vals, counts_svd, kt, lib, variants):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib.get(k),
             "shape": kt[k][2],
         })
+        if k in ("band_chase", "band_chase_rec"):
+            side = counts_svd if k in svd_side else counts_vals
+            rows[-1]["path_launches"] = {n: c[k] for n, c in side.items()}
+    rows[0]["widths"] = {  # K1 at each Stage I panel length of n = 3840
+        m: {"ms": km, "plain_ms": pm, "library_ms": lm,
+            "bound_ms": bound(*work_panel_qr(128, m, 0))[0]}
+        for m, (km, pm, lm) in k1.items()}
     iters = default_bisect_iters(torch.float32)
     at_path = {  # where the ms above were taken at a smaller n
         "band_chase": work_chase(3840, 128, record=False),
@@ -827,7 +1081,8 @@ def kernel_table(errs, counts_vals, counts_svd, kt, lib, variants):
 
     # the chase variants: the chase's work; the packed kernel also writes P
     replaces.update({
-        "band_chase_wave": "svdsolver_tpu/ops/pallas/band_chase.py:676",
+        "band_chase_wave": "svdsolver_tpu/ops/pallas/band_chase.py:676 "
+                           "+ band_chase_wave.py:687",
         "band_chase_wave_dl": "svdsolver_tpu/ops/pallas/band_chase_wave.py:581",
         "band_chase_staged": "svdsolver_tpu/ops/pallas/band_chase.py:405 "
                              "+ band_chase.py:541",
@@ -843,10 +1098,13 @@ def kernel_table(errs, counts_vals, counts_svd, kt, lib, variants):
             bounds[label] = bound(flops, nbytes)
             say(f"[bound] {k} (n={n} b={b}): {flops:.4g} flops, {nbytes:.4g} "
                 f"bytes -> {bounds[label][0]:.4f} ms, bound by {bounds[label][1]}")
+        on_path = k == "band_chase_wave"
         rows.append({
             "name": k, "route": "cuda",
             "source": src.format("band_chase_wave" if k == "band_chase_wave_dl" else k),
-            "replaces": replaces[k], "launches": counts_var[k],
+            "replaces": replaces[k],
+            "launches": (sum(c[k] for c in counts_vals.values()) if on_path
+                         else counts_var[k]),
             "max_abs_err": errs_var[k], "ms": times_var[k, "check"],
             # the staged kernel's plain version is the plain chase
             "plain_ms": (kt["band_chase"][1] if k == "band_chase_staged"
@@ -857,6 +1115,25 @@ def kernel_table(errs, counts_vals, counts_svd, kt, lib, variants):
             "path_bound_ms": bounds["path"][0],
             "band_chase_path_ms": times_var["band_chase", "path"],
         })
+        if on_path:
+            rows[-1]["variant_launches"] = counts_var[k]
+            rows[-1]["path_launches"] = {n: c[k] for n, c in counts_vals.items()}
+
+    # the recording wavefront entry (svd's chase): ms at the check band from
+    # the routing evidence, in turns with the sequential recording entry
+    k = "band_chase_wave_rec"
+    b_chk, b_path = (bound(*work_chase(n, b, record=True)) for n, b in ((n1, b1), (n3, b3)))
+    rows.append({
+        "name": k, "route": "cuda", "source": src.format("band_chase_wave"),
+        "replaces": "svdsolver_tpu/ops/pallas/band_chase_wave.py:959",
+        "launches": sum(c[k] for c in counts_svd.values()), "max_abs_err": errs_var[k],
+        "ms": route[n1, b1, True][0], "plain_ms": plain_var[k],
+        "bound_ms": b_chk[0], "bound_by": b_chk[1], "library_ms": None,
+        "shape": f"n={n1} b={b1}", "path_shape": f"n={n3} b={b3}",
+        "path_ms": route[n3, b3, True][0], "path_bound_ms": b_path[0],
+        "band_chase_rec_path_ms": route[n3, b3, True][1],
+        "path_launches": {n: c[k] for n, c in counts_svd.items()},
+    })
     return rows
 
 
@@ -878,12 +1155,13 @@ def main():
     variants = phase_variants(band_state)
     counts_vals = phase_slice()
     counts_svd = phase_svd()
-    _, kt, lib = phase_times(band_state)
+    _, kt, lib, k1 = phase_times(band_state)
+    route = phase_route_times()
     A = uniform_matrix(3840)
     phase_profile("svdvals n=3840", lambda: svdvals(A))
     phase_profile("svd n=3840", lambda: svd(A))
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all")
-    rows = kernel_table(errs, counts_vals, counts_svd, kt, lib, variants)
+    rows = kernel_table(errs, counts_vals, counts_svd, kt, lib, variants, route, k1)
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,8 +1,17 @@
 // Band -> bidiagonal bulge chase on a wavefront schedule, one CTA a lane.
 //
-// svdt_band_chase_wave replaces the TPU kernel
+// svdt_band_chase_wave replaces the TPU kernels
 //   svdsolver_tpu/ops/pallas/band_chase.py  _wavefront_kernel (the
 //       `wavefront=True` route of band_to_bidiagonal_pallas);
+//   svdsolver_tpu/ops/pallas/band_chase_wave.py  _wave_chase_kernel (the
+//       wavefront chase the JAX svdvals routes by wave_chase_preferred);
+// svdt_band_chase_wave_rec (template flag Rec) replaces
+//   svdsolver_tpu/ops/pallas/band_chase_wave.py  _wave_chase_rec_kernel (the
+//       recording wavefront chase the JAX svd routes by
+//       wave_chase_accum_preferred): each pair stores its reflectors into
+//       slot (i, 0) (head pair) or (i, s) (chase pair of slot s), the slots
+//       svdt_band_chase_rec fills, through the one chase_pair, so (d, e) and
+//       every record are bit-equal to it;
 // svdt_band_chase_wave_dl (template flag DeferLeft) replaces
 //   svdsolver_tpu/ops/pallas/band_chase_wave.py  _wave_chase_dl_kernel (each
 //       pair's left apply deferred one tick and fused into the same sweep's
@@ -17,6 +26,9 @@
 // svdt_band_chase's.  The TPU ran its lanes as a batch in one core's VMEM
 // and aimed idle lanes at a zero dummy corner; on the card the windows are
 // exact and idle lanes do nothing.
+//
+// The main paths (svdvals, svd, svds) take these entries where
+// ops/cuda/band_chase_wave's predicates, measured on the card, say so.
 //
 // Design: a cooperative launch of G CTAs of 512 threads.  Work unit 0 of a
 // tick is the head pair (ticks t % 3 == 0), units 1..L the chase lanes
@@ -254,11 +266,11 @@ __device__ void dl_lane(const DenseL2At& a, int n, int b, int i, int s,
   __syncthreads();
 }
 
-template <int KPL, bool DeferLeft>
+template <int KPL, bool DeferLeft, bool Rec>
 __global__ void __launch_bounds__(kThreads)
 wave_chase_kernel(float* __restrict__ A, float* __restrict__ d,
                   float* __restrict__ e, int n, int b, int L, int T,
-                  unsigned* ctr, Ring ring) {
+                  unsigned* ctr, Ring ring, Records rec) {
   __shared__ float v[kMaxBand];
   __shared__ float vp[kMaxBand];
   __shared__ float fcol[2 * kMaxBand];
@@ -278,8 +290,9 @@ wave_chase_kernel(float* __restrict__ A, float* __restrict__ d,
         if constexpr (DeferLeft)
           dl_head<KPL>(a, n, b, i, ring, sm);
         else
-          chase_pair<KPL, false>(a, n, b, i, i + 1, b + 1, 1, v, part, s_tau,
-                                 none, none);
+          chase_pair<KPL, Rec>(a, n, b, i, i + 1, b + 1, 1, v, part, s_tau,
+                               Rec ? rec.right(i, 0, b) : none,
+                               Rec ? rec.left(i, 0, b) : none);
         continue;
       }
       const int i = q - (u - 1);
@@ -290,8 +303,9 @@ wave_chase_kernel(float* __restrict__ A, float* __restrict__ d,
         dl_lane<KPL>(a, n, b, i, s, ring, sm);
       } else {
         const int r = i + 1 + (s - 1) * b;
-        chase_pair<KPL, false>(a, n, b, r, r + b, 2 * b, b, v, part, s_tau,
-                               none, none);
+        chase_pair<KPL, Rec>(a, n, b, r, r + b, 2 * b, b, v, part, s_tau,
+                             Rec ? rec.right(i, s, b) : none,
+                             Rec ? rec.left(i, s, b) : none);
       }
     }
     target += G;
@@ -325,10 +339,10 @@ int coop_launch(Kernel kernel, int units, int max_ctas, void** args,
                                           dim3(kThreads), args, 0, s);
 }
 
-template <bool DeferLeft>
+template <bool DeferLeft, bool Rec>
 int launch(float* A, float* d, float* e, int n, int b, unsigned* ctr,
-           float* ring_v, float* ring_t, int ring_slots, int max_ctas,
-           int* ctas, void* stream) {
+           float* ring_v, float* ring_t, int ring_slots, Records rec,
+           int max_ctas, int* ctas, void* stream) {
   if (n < 2 || b < 1 || b > kMaxBand) return (int)cudaErrorInvalidValue;
   const int S = nc_of(0, n, b) + (DeferLeft ? 1 : 0);  // slots past the head
   int L = lanes_of(S);
@@ -336,9 +350,9 @@ int launch(float* A, float* d, float* e, int n, int b, unsigned* ctr,
   Ring ring = {ring_v, ring_t, ring_slots};
   if (DeferLeft && ring_slots < L + 2) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  void* args[] = {&A, &d, &e, &n, &b, &L, &T, &ctr, &ring};
+  void* args[] = {&A, &d, &e, &n, &b, &L, &T, &ctr, &ring, &rec};
   int err = 0;
-  SVDT_KPL_DISPATCH(b, err = coop_launch(wave_chase_kernel<KPL, DeferLeft>,
+  SVDT_KPL_DISPATCH(b, err = coop_launch(wave_chase_kernel<KPL, DeferLeft, Rec>,
                                          L + 1, max_ctas, args, s, ctas));
   return err;
 }
@@ -353,8 +367,20 @@ int launch(float* A, float* d, float* e, int n, int b, unsigned* ctr,
 extern "C" int svdt_band_chase_wave(float* A, float* d, float* e, int n, int b,
                                     unsigned* ctr, int max_ctas, int* ctas,
                                     void* stream) {
-  return launch<false>(A, d, e, n, b, ctr, nullptr, nullptr, 0, max_ctas,
-                       ctas, stream);
+  return launch<false, false>(A, d, e, n, b, ctr, nullptr, nullptr, 0,
+                              {nullptr, nullptr, nullptr, nullptr, 0},
+                              max_ctas, ctas, stream);
+}
+
+// As svdt_band_chase_wave, and writes every reflector into the
+// zero-initialised records VL, VR (n-1, s_max, b) and TL, TR (n-1, s_max),
+// the slots and values of svdt_band_chase_rec.
+extern "C" int svdt_band_chase_wave_rec(float* A, float* d, float* e, int n,
+                                        int b, float* VL, float* TL, float* VR,
+                                        float* TR, int s_max, unsigned* ctr,
+                                        int max_ctas, int* ctas, void* stream) {
+  return launch<false, true>(A, d, e, n, b, ctr, nullptr, nullptr, 0,
+                             {VL, TL, VR, TR, s_max}, max_ctas, ctas, stream);
 }
 
 // As svdt_band_chase_wave with each left apply deferred one tick; ring_v
@@ -364,6 +390,7 @@ extern "C" int svdt_band_chase_wave_dl(float* A, float* d, float* e, int n,
                                        int b, unsigned* ctr, float* ring_v,
                                        float* ring_t, int ring_slots,
                                        int max_ctas, int* ctas, void* stream) {
-  return launch<true>(A, d, e, n, b, ctr, ring_v, ring_t, ring_slots, max_ctas,
-                      ctas, stream);
+  return launch<true, false>(A, d, e, n, b, ctr, ring_v, ring_t, ring_slots,
+                             {nullptr, nullptr, nullptr, nullptr, 0}, max_ctas,
+                             ctas, stream);
 }

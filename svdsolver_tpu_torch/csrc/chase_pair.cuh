@@ -118,6 +118,26 @@ struct Slot {
   float* t;
 };
 
+// The records of one chase: VL, VR (n-1, s_max, b) and TL, TR (n-1, s_max),
+// row-major; all null in the plain chase.  Shared by the recording entries
+// of band_chase.cu (sequential) and band_chase_wave.cu (wavefront), which
+// fill the same slots.
+struct Records {
+  float* vl;
+  float* tl;
+  float* vr;
+  float* tr;
+  int s_max;
+  __device__ Slot left(int i, int s, int b) const {
+    const size_t k = (size_t)i * s_max + s;
+    return {vl + k * b, tl + k};
+  }
+  __device__ Slot right(int i, int s, int b) const {
+    const size_t k = (size_t)i * s_max + s;
+    return {vr + k * b, tr + k};
+  }
+};
+
 // The rows a warp of the right apply holds at once.
 template <int KPL>
 __host__ __device__ constexpr int right_rows() { return KPL >= 8 ? 32 / KPL : 8; }

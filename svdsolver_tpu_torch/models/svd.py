@@ -2,8 +2,9 @@
 ``svdsolver_tpu/models/svd.py``).
 
 Ported methods: ``tpu2`` (Stage I through the panel kernel, the chase
-kernel, the bisection kernel) and ``tpu1`` (the plain PyTorch path).  The
-kernels run for float32 CUDA tensors (:func:`use_kernels`); any other
+routed by ``band_chase_wave.wave_chase_preferred`` to the wavefront or the
+sequential chase kernel, the bisection kernel) and ``tpu1`` (the plain
+PyTorch path).  The kernels run for float32 CUDA tensors (:func:`use_kernels`); any other
 device or dtype takes the plain path, chosen by the input and never as a
 fallback on failure.
 """
@@ -15,7 +16,7 @@ import torch
 
 from svdsolver_tpu_torch.models.diagonalize import bisect_svdvals
 from svdsolver_tpu_torch.models.two_stage import band_to_bidiagonal, dense_to_band
-from svdsolver_tpu_torch.ops.cuda import band_chase, bisect, panel_qr
+from svdsolver_tpu_torch.ops.cuda import band_chase, band_chase_wave, bisect, panel_qr
 
 METHODS = ("base", "singlecore", "multicore", "tpu1", "tpu2")
 _NOT_PORTED = {
@@ -92,8 +93,11 @@ def _not_ported(name):
 def bidiagonalize(A, method="tpu2", block=None):
     """Reduce square ``A`` to bidiagonal form; returns :class:`Bidiagonal`.
 
-    ``tpu2``: Stage I through the panel kernel and the chase kernel for
-    float32 CUDA input, else as ``tpu1``.  ``tpu1``: plain two-stage
+    ``tpu2``: Stage I through the panel kernel and the chase for float32
+    CUDA input, else as ``tpu1``; the chase is the wavefront kernel where
+    :func:`band_chase_wave.wave_chase_preferred` holds (its docstring has
+    the card's times), else the sequential kernel, with the same ``(d, e)``
+    bit for bit.  ``tpu1``: plain two-stage
     reduction.  ``block=None`` picks the band width by size.
     """
     if method in _NOT_PORTED:
@@ -105,7 +109,10 @@ def bidiagonalize(A, method="tpu2", block=None):
     Ap, n = _pad_to_multiple(A, block)
     if method == "tpu2" and use_kernels(A):
         Ab = panel_qr.dense_to_band_fused(Ap, band=block)
-        d, e = band_chase.band_to_bidiagonal(Ab, band=block)
+        if band_chase_wave.wave_chase_preferred(Ab.shape[0], block):
+            d, e = band_chase_wave.band_to_bidiagonal_wave(Ab, band=block)
+        else:
+            d, e = band_chase.band_to_bidiagonal(Ab, band=block)
     else:
         Ab = dense_to_band(Ap, band=block)
         d, e = band_to_bidiagonal(Ab, band=block)

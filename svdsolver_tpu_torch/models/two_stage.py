@@ -249,9 +249,10 @@ def wave_lanes(n, band, defer_left=False):
     return -(-S // 3)
 
 
-def band_to_bidiagonal_wavefront(A, band=32, defer_left=False):
+def band_to_bidiagonal_wavefront(A, band=32, defer_left=False, record=False):
     """Stage II on the wavefront schedule (twin of the JAX
-    ``band_to_bidiagonal_wavefront``); returns ``(d, e)``.
+    ``band_to_bidiagonal_wavefront``); returns ``(d, e)``, and with
+    ``record`` ``(d, e, VL, TL, VR, TR)`` as :func:`band_to_bidiagonal_accum`.
 
     Sweep ``i`` runs slot ``s`` (0: the head pair, ``s >= 1``: chase pair
     ``s - 1``) at tick ``t = 3 i + s``.  Window corners advance ``band`` rows
@@ -266,16 +267,30 @@ def band_to_bidiagonal_wavefront(A, band=32, defer_left=False):
     left apply runs at the next tick, before that sweep's next right
     elimination, and one more tick a sweep flushes the last one.  No other
     pair touches those rows in between, so ``(d, e)`` are bit-equal again.
+
+    ``record=True`` (the plain version of the recording wavefront kernel)
+    stores each pair's reflectors in its slot ``(i, s)`` as they are made,
+    in wavefront order; every pair computes what the sequential schedule's
+    does, so the records are bit-equal to :func:`band_to_bidiagonal_accum`'s.
+    It does not combine with ``defer_left``.
     """
     n = A.shape[0]
+    if record and defer_left:
+        raise ValueError("record=True runs without defer_left")
     if n < 2:
+        if record:
+            raise ValueError("band_to_bidiagonal_accum needs n >= 2")
         return torch.abs(torch.diagonal(A)), A.new_zeros((0,))
     w = int(band) + 1
     b = w - 1
     ww = 2 * w - 2
     Ap = A.new_zeros((n + 3 * w, n + 3 * w))  # as _chase: windows stay inside
     Ap[:n, :n] = A
-    top_pair, chase_pair = make_window_pairs(w)
+    top_pair, chase_pair = make_window_pairs(w, record=record)
+    if record:
+        s_max = s_max_of(n, b)
+        VL, VR = A.new_zeros((2, n - 1, s_max, b))
+        TL, TR = A.new_zeros((2, n - 1, s_max))
     extra = 1 if defer_left else 0
     S = nc_of_static(0, n, b) + extra
     lanes = wave_lanes(n, b, defer_left)
@@ -287,6 +302,8 @@ def band_to_bidiagonal_wavefront(A, band=32, defer_left=False):
             if defer_left:
                 _right_elim(W, w)
                 pending[i] = (W, 1) + _left_reflector(W, 1)
+            elif record:
+                _, VR[i, 0], TR[i, 0], VL[i, 0], TL[i, 0] = top_pair(W)
             else:
                 top_pair(W)
         q = (t - 1) // 3  # newest sweep past its head
@@ -297,6 +314,9 @@ def band_to_bidiagonal_wavefront(A, band=32, defer_left=False):
                 continue
             r = i + 1 + (s - 1) * b
             W = Ap[r : r + ww, r + b : r + b + ww]
+            if record:
+                _, VR[i, s], TR[i, s], VL[i, s], TL[i, s] = chase_pair(W)
+                continue
             if not defer_left:
                 chase_pair(W)
                 continue
@@ -305,7 +325,8 @@ def band_to_bidiagonal_wavefront(A, band=32, defer_left=False):
                 _right_elim(W, w)
                 pending[i] = (W, b) + _left_reflector(W, b)
     B = Ap[:n, :n]
-    return torch.diagonal(B).clone(), torch.diagonal(B, 1).clone()
+    d, e = torch.diagonal(B).clone(), torch.diagonal(B, 1).clone()
+    return (d, e, VL, TL, VR, TR) if record else (d, e)
 
 
 def bidiagonalize_two_stage(A, band=32, wavefront=False):

@@ -11,7 +11,9 @@
 * :func:`svd`, :func:`svds`: the public entry points.
 
 On float32 CUDA tensors the path runs four hand-written kernels: the panel
-QR (Stage I), the recording chase, the bisection and the TGK solve.  The
+QR (Stage I), the recording chase (the wavefront or the sequential
+kernel, by ``band_chase_wave.wave_chase_accum_preferred``), the bisection
+and the TGK solve.  The
 back-transforms and cluster orthogonalization are GEMMs, batched Cholesky
 and triangular solves (``torch.matmul``, ``torch.linalg.cholesky_ex``,
 ``torch.linalg.solve_triangular``), full float32 with TF32 off, as they are
@@ -30,7 +32,13 @@ from svdsolver_tpu_torch.models import two_stage
 from svdsolver_tpu_torch.models.diagonalize import bisect_svdvals
 from svdsolver_tpu_torch.models.svd import _auto_block, as_input, use_kernels
 from svdsolver_tpu_torch.ops.chase_schedule import nc_of_static
-from svdsolver_tpu_torch.ops.cuda import band_chase, bisect, panel_qr, tridiag_solve
+from svdsolver_tpu_torch.ops.cuda import (
+    band_chase,
+    band_chase_wave,
+    bisect,
+    panel_qr,
+    tridiag_solve,
+)
 from svdsolver_tpu_torch.ops.precision import pdot
 
 TW = 128  # tile width of the tiled cluster orthogonalization
@@ -413,6 +421,9 @@ def svd_two_stage(A, band=None, k=None):
     ``A = U diag(s) V^T`` via the recording Stage I (``A = U1 Ab V1^T``),
     the recording chase (``Ab = L B R^T``), bisection and inverse iteration
     (``B = Ub diag(s) Vb^T``), then ``U = U1 (L Ub)``, ``V = V1 (R Vb)``.
+    For float32 CUDA input the recording chase is the wavefront kernel
+    where ``band_chase_wave.wave_chase_accum_preferred`` holds, else the
+    sequential one; both give the same records bit for bit.
 
     ``band=None`` picks the band by size, halved while ``band >= n``; the
     matrix is zero-padded to a multiple of it.  ``k``: only the top-``k``
@@ -432,7 +443,11 @@ def svd_two_stage(A, band=None, k=None):
         A = torch.nn.functional.pad(A, (0, pad, 0, pad))
     if use_kernels(A):
         Ab, Vq, Tq, Vl, Tl = panel_qr.dense_to_band_rec_fused(A, band=b)
-        d, e, VL, TL, VR, TR = band_chase.band_to_bidiagonal_accum(Ab, band=b)
+        if band_chase_wave.wave_chase_accum_preferred(A.shape[0], b):
+            chase = band_chase_wave.band_to_bidiagonal_wave_accum
+        else:
+            chase = band_chase.band_to_bidiagonal_accum
+        d, e, VL, TL, VR, TR = chase(Ab, band=b)
     else:
         Ab, Vq, Tq, Vl, Tl = two_stage.dense_to_band_rec(A, band=b)
         d, e, VL, TL, VR, TR = two_stage.band_to_bidiagonal_accum(Ab, band=b)

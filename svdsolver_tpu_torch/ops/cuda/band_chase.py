@@ -1,15 +1,20 @@
 """The band -> bidiagonal bulge chase in one launch
 (``csrc/band_chase.cu``), plain and recording, and the routes of its flags.
 
-One Hopper kernel stands for the three chase kernels the TPU routes by where
-the band fits: ``band_chase._chase_kernel``, ``band_chase_wave.
-_wave_chase_kernel`` and ``band_chase_stream._stream_chase_kernel``
-(``rec=False``).  Its recording entry stands for their recording twins,
-``band_chase._chase_kernel_rec``, ``band_chase_wave._wave_chase_rec_kernel``
-and ``_stream_chase_kernel`` with ``rec=True``.  Both walk the sequential
-schedule of ``models/two_stage``, whose ``band_to_bidiagonal`` and
-``band_to_bidiagonal_accum`` are their plain versions: on a CPU tensor the
-wrappers run those.
+The sequential chase: one block walks the schedule of ``models/two_stage``,
+whose ``band_to_bidiagonal`` and ``band_to_bidiagonal_accum`` are its plain
+versions (on a CPU tensor the wrappers run those).  It is the bitwise
+oracle of every chase kernel of the port.  With the wavefront kernel of
+``band_chase_wave`` it stands for the TPU's ``band_chase._chase_kernel``,
+``band_chase_wave._wave_chase_kernel`` and ``band_chase_stream.
+_stream_chase_kernel`` (``rec=False``); its recording entry, with
+``band_chase_wave.band_to_bidiagonal_wave_accum``, for their recording
+twins ``_chase_kernel_rec``, ``_wave_chase_rec_kernel`` and
+``_stream_chase_kernel`` with ``rec=True``.  The main paths take it
+wherever ``band_chase_wave.wave_chase_preferred`` (``svdvals``) or
+``wave_chase_accum_preferred`` (``svd``, ``svds``) is false, and the
+wavefront kernel elsewhere; both give the same ``(d, e)`` and records bit
+for bit.
 
 The flags of :func:`band_to_bidiagonal` are those of the JAX package's
 ``band_to_bidiagonal_pallas``: ``wavefront`` runs the wavefront kernel

@@ -2,11 +2,16 @@
 loop around it.
 
 Twin of ``svdsolver_tpu/ops/pallas/panel_qr.py``: the panel factorization
-runs in one launch on the card, and the trailing updates are plain
-``torch.matmul`` GEMMs (fp32, TF32 off), as they are XLA GEMMs outside the
-kernel in the reference.  On a CPU tensor :func:`panel_qr` runs
-:func:`panel_qr_plain`, the same column loop in PyTorch.
+runs in one launch on the card, one thread-block cluster whose CTAs each
+hold a slab of the panel's columns in shared memory (:func:`cluster_plan`),
+and the trailing updates are plain ``torch.matmul`` GEMMs (fp32, TF32 off),
+as they are XLA GEMMs outside the kernel in the reference.  On a CPU tensor
+:func:`panel_qr` runs :func:`panel_qr_plain`, the same column loop in
+PyTorch.
 """
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -18,8 +23,101 @@ from svdsolver_tpu_torch.ops.precision import pdot
 launches = 0  # kernel launches by panel_qr since the last reset
 
 _ENTRIES = {
-    "svdt_panel_qr": [_build.VOIDP] * 4 + [_build.INT] * 3 + [_build.VOIDP],
+    "svdt_panel_qr": [_build.VOIDP] * 4 + [_build.INT] * 12 + [_build.VOIDP],
+    "svdt_panel_qr_clusters": [_build.INT] * 3 + [_build.VOIDP],
 }
+THREADS = 1024  # a CTA of the kernel
+MAX_CLUSTER = 16  # CTAs a cluster at most (non-portable above 8)
+MAX_BAND = 256  # b <= THREADS / 4: at least 4 lanes a row
+CTA_TARGET = 64 * 1024  # slab bytes a CTA aims at: C grows until it is met
+_resident = {}  # (ctas, smem, spill) -> clusters that fit on the card
+
+
+class ClusterPlan(NamedTuple):
+    """How the kernel cuts a (b, m) panel: ``ctas`` CTAs of one cluster,
+    ``width`` columns each, ``smem_cols`` of them in shared memory with row
+    stride ``ld`` (the rest, if any, in device memory: the large-panel
+    route), ``tcols`` columns of T each (row stride ``tld``), ``groups``
+    lanes a row in the dot and update passes, ``smem`` bytes a CTA."""
+
+    ctas: int
+    width: int
+    smem_cols: int
+    ld: int
+    tcols: int
+    tld: int
+    groups: int
+    smem: int
+
+    @property
+    def spill(self):
+        return self.smem_cols < self.width
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def cluster_plan(b, m, ctas=None):
+    """The cluster launch of the panel kernel for a (b, m) panel.
+
+    ``ctas=None`` takes the fewest CTAs (a power of two, at most 16) whose
+    slabs are at most ``CTA_TARGET`` bytes, else 16.  Each CTA's slab of
+    ``width = ceil(m / ctas)`` columns (a multiple of 4) goes to shared
+    memory with a row stride equal to ``groups`` mod 32 (the warp's rows on
+    distinct banks); where it does not fit ``_build.MAX_SMEM`` beside v, the
+    CTA's T columns and the exchange arrays, the columns past what fits stay
+    in device memory.  Raises ``ValueError`` for ``b`` outside ``[1, 256]``
+    and for a panel whose CTAs would keep more columns in device memory
+    than in shared memory (``m`` above 12,544 at b = 128).
+    """
+    b, m = int(b), int(m)
+    if not 1 <= b <= MAX_BAND:
+        raise ValueError(f"panel width b={b} outside the kernel's range [1, {MAX_BAND}]")
+    if m < 1:
+        raise ValueError(f"panel length m={m} must be >= 1")
+    if ctas is None:
+        C = next((c for c in (1, 2, 4, 8) if 4 * b * _cdiv(m, c) <= CTA_TARGET), MAX_CLUSTER)
+    else:
+        C = int(ctas)
+        if not 1 <= C <= MAX_CLUSTER:
+            raise ValueError(f"a cluster holds 1 to {MAX_CLUSTER} CTAs, not {ctas}")
+    W = 4 * _cdiv(_cdiv(m, C), 4)
+    G = 1 << (min(32, THREADS // b).bit_length() - 1)
+    tc = _cdiv(b, C)
+    tld = tc + 1 if tc % 2 == 0 else tc
+    other = W + b * tld + 2 * (MAX_CLUSTER + 1) + C * b  # floats beside the slab
+    room = _build.MAX_SMEM // 4 - other  # slab floats that fit
+    ld = W + (G - W) % 32  # the smallest stride >= W that is = G (mod 32)
+    if b * ld <= room:
+        ws = W
+    else:
+        ld = room // b - (room // b - G) % 32  # the largest that fits
+        ws = ld
+        if W - ws > ws:
+            raise ValueError(
+                f"panel (b={b}, m={m}) past the kernel's limit: each of {C} CTAs "
+                f"would keep {W - ws} of its {W} columns in device memory, more "
+                f"than the {ws} that fit its shared memory"
+            )
+    return ClusterPlan(C, W, ws, ld, tc, tld, G, 4 * (b * ld + other))
+
+
+def _check_resident(lib, plan):
+    """Raise unless one cluster of the plan fits on the card."""
+    key = (plan.ctas, plan.smem, plan.spill)
+    if key not in _resident:
+        got = ctypes.c_int(0)
+        err = lib.svdt_panel_qr_clusters(plan.ctas, plan.smem, int(plan.spill),
+                                         ctypes.addressof(got))
+        _build.raise_on_error(err, "cudaOccupancyMaxActiveClusters (panel_qr)")
+        _resident[key] = got.value
+    if _resident[key] < 1:
+        raise ValueError(
+            f"a cluster of {plan.ctas} CTAs with {plan.smem} bytes of shared "
+            "memory each cannot be resident on this card "
+            "(cudaOccupancyMaxActiveClusters = 0)"
+        )
 
 
 def panel_qr_plain(Pt, r_off):
@@ -48,13 +146,15 @@ def panel_qr_plain(Pt, r_off):
     return Rt, Vt, Tt
 
 
-def panel_qr(Pt, r_off):
+def panel_qr(Pt, r_off, _cluster=None):
     """Householder QR of the transposed panel ``Pt`` (b, m), pivots at
     ``r_off + j``; returns ``(Rt, Vt, Tt)`` as :func:`panel_qr_plain`.
 
-    A CUDA tensor must be contiguous float32 and launches the kernel; a CPU
-    tensor runs the plain version.  Pivots at or past ``m`` give identity
-    reflectors (``tau = 0``, ``v = 0``).
+    A CUDA tensor must be contiguous float32 and launches the kernel as one
+    cluster under :func:`cluster_plan` (``_cluster`` fixes its CTA count);
+    a shape past the plan's limits, or a cluster the card cannot hold,
+    raises ``ValueError``.  A CPU tensor runs the plain version.  Pivots at
+    or past ``m`` give identity reflectors (``tau = 0``, ``v = 0``).
     """
     global launches
     r_off = int(r_off)
@@ -63,17 +163,19 @@ def panel_qr(Pt, r_off):
     if not _build.check_input(Pt, "Pt", 2):
         return panel_qr_plain(Pt, r_off)
     b, m = Pt.shape
-    smem = 4 * (m + b + 32)
-    if b < 1 or m < 1 or smem > _build.MAX_SMEM:
-        raise ValueError(f"panel shape {(b, m)} not supported by the kernel")
+    plan = cluster_plan(b, m, _cluster)
     Rt = torch.empty_like(Pt)
     Vt = torch.empty_like(Pt)
     Tt = torch.empty((b, b), dtype=Pt.dtype, device=Pt.device)
+    vec = int(m % 4 == 0 and Pt.data_ptr() % 16 == 0)
     lib = _build.load("panel_qr", _ENTRIES)
     with torch.cuda.device(Pt.device):
+        _check_resident(lib, plan)
         err = lib.svdt_panel_qr(
             Pt.data_ptr(), Rt.data_ptr(), Vt.data_ptr(), Tt.data_ptr(),
-            b, m, r_off, _build.stream_of(Pt),
+            b, m, r_off, plan.ctas, plan.width, plan.smem_cols, plan.ld,
+            plan.tcols, plan.tld, plan.groups, vec, plan.smem,
+            _build.stream_of(Pt),
         )
     _build.raise_on_error(err, "panel_qr")
     launches += 1

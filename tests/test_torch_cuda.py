@@ -45,6 +45,28 @@ def test_panel_qr_kernel_matches_plain(dev, rng):
             torch.testing.assert_close(g, w, rtol=0, atol=2e-5)
 
 
+@pytest.mark.parametrize("r_off", [0, 960])
+def test_panel_qr_cluster_kernel(dev, rng, r_off):
+    # one cluster of 8 CTAs at (128, 1024); at r_off = 960 the last 64
+    # pivots lie past m (identity reflectors); two launches bit-identical
+    b, m = 128, 1024
+    Pt = torch.from_numpy(rng.normal(size=(b, m)).astype(np.float32)).to(dev)
+    assert panel_qr.cluster_plan(b, m).ctas == 8
+    got = panel_qr.panel_qr(Pt, r_off)
+    again = panel_qr.panel_qr(Pt, r_off)
+    for g, a, w in zip(got, again, panel_qr.panel_qr_plain(Pt, r_off)):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * float(w.abs().max()))
+    Rt, Vt, Tt = got
+    live = min(b, m - r_off)
+    assert torch.equal(Tt[live:], torch.zeros_like(Tt[live:]))
+    V, T = Vt.double().T, Tt.double().T
+    Q = torch.eye(m, dtype=torch.float64, device=dev) - V @ T @ V.T
+    assert float((Q.T @ Q - torch.eye(m, dtype=torch.float64, device=dev)).abs().max()) < 1e-5
+    P = Pt.double().T
+    assert float(torch.linalg.norm(Q @ Rt.double().T - P) / torch.linalg.norm(P)) < 1e-5
+
+
 def test_chase_kernel_matches_plain(dev, rng):
     A = torch.from_numpy(rng.normal(size=(96, 96)).astype(np.float32)).to(dev)
     Ab = panel_qr.dense_to_band_fused(A, band=16)
@@ -68,11 +90,13 @@ def test_bisect_kernel_matches_plain(dev, rng):
 
 
 def test_svdvals_goes_through_kernels(dev, rng):
+    # n = 200: band 32, padded to 224, two chase lanes: the wavefront chase
     A = torch.from_numpy(rng.uniform(0, 5, (200, 200)).astype(np.float32)).to(dev)
-    for mod in (panel_qr, band_chase, bisect):
+    for mod in (panel_qr, band_chase, band_chase_wave, bisect):
         mod.launches = 0
     s = svdvals(A)
-    assert panel_qr.launches and band_chase.launches and bisect.launches
+    assert panel_qr.launches and band_chase_wave.launches == 1 and bisect.launches
+    assert band_chase.launches == 0
     want = torch.linalg.svdvals(A.double())
     torch.testing.assert_close(s.double(), want, rtol=2e-5,
                                atol=1e-5 * float(want[0]))
@@ -131,10 +155,13 @@ def test_svd_goes_through_kernels(dev, rng):
     n = 200
     A = torch.from_numpy(rng.uniform(0, 5, (n, n)).astype(np.float32)).to(dev)
     for mod, attr in ((panel_qr, "launches"), (band_chase, "launches_rec"),
-                      (bisect, "launches"), (tridiag_solve, "launches")):
+                      (band_chase_wave, "launches_rec"), (bisect, "launches"),
+                      (tridiag_solve, "launches")):
         setattr(mod, attr, 0)
     U, s, Vh = svd(A)
-    assert panel_qr.launches and band_chase.launches_rec and bisect.launches
+    # two chase lanes at n = 200 (band 32): the recording wavefront chase
+    assert panel_qr.launches and band_chase_wave.launches_rec == 1 and bisect.launches
+    assert band_chase.launches_rec == 0
     assert tridiag_solve.launches == 2
     want = torch.linalg.svdvals(A.double())
     smax = float(want[0])
@@ -217,3 +244,27 @@ def test_staged_kernel_khops(dev, rng):
         d, e = band_chase.band_to_bidiagonal(Ab, band=b, mega=True, khops=khops)
         assert band_chase.last_khops == want
         assert torch.equal(d, d0) and torch.equal(e, e0)
+
+
+@pytest.mark.parametrize("n,b", [(256, 32), (384, 64), (512, 128), (200, 8), (1000, 64)])
+def test_recording_wavefront_bit_equal_to_recording_chase(dev, rng, n, b):
+    Ab = _band(dev, rng, n, b)
+    want = band_chase.band_to_bidiagonal_accum(Ab, band=b)
+    got = band_chase_wave.band_to_bidiagonal_wave_accum(Ab, band=b)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_main_paths_launch_the_routed_chases(dev, rng):
+    # n = 64 (band 32): one chase lane, the sequential kernels; n = 1000
+    # (band 64): five lanes, the wavefront kernels
+    counters = ((band_chase, "launches"), (band_chase, "launches_rec"),
+                (band_chase_wave, "launches"), (band_chase_wave, "launches_rec"))
+    for n, want in ((64, [1, 1, 0, 0]), (1000, [0, 0, 1, 1])):
+        A = torch.from_numpy(rng.uniform(0, 5, (n, n)).astype(np.float32)).to(dev)
+        for mod, attr in counters:
+            setattr(mod, attr, 0)
+        svdvals(A)
+        svd(A)
+        assert [getattr(mod, attr) for mod, attr in counters] == want, n

@@ -62,9 +62,9 @@ def staged_source():
 def wave_source():
     s = (_build.CSRC / "band_chase_wave.cu").read_text()
     s = patch(s, "using namespace svdt;\n", "using namespace svdt;\nint g_skip = 0;\n")
-    s = patch(s, "unsigned* ctr, Ring ring) {", "unsigned* ctr, Ring ring, int skip) {")
+    s = patch(s, "Ring ring, Records rec) {", "Ring ring, Records rec, int skip) {")
     s = patch(s, "u <= L; u += G)", "u <= L && !skip; u += G)")
-    s = patch(s, "&ctr, &ring};", "&ctr, &ring, &g_skip};")
+    s = patch(s, "&ctr, &ring, &rec};", "&ctr, &ring, &rec, &g_skip};")
     return s + '\nextern "C" void svdt_set_skip(int v) { g_skip = v; }\n'
 
 
