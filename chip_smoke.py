@@ -21,7 +21,9 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    (d, e) and records, bit-equal to the sequential kernels' at n = 1024
    (b = 64), 3840 (b = 128) and, on capped CTAs, 2048 (b = 32); each
    variant against its plain version at 1024; each variant's sigma through
-   the bisection kernel at 3840 against float64;
+   the bisection kernel at 3840 against float64; the wavefront kernel's
+   L2 tick (forced at b = 64, taken at b = 160 by both entries) bit-equal
+   to the sequential kernels too;
 4. drives the two main paths, with every launch count set to 0 just before
    each call and read just after: ``svdvals`` on a uniform [0, 5) float32
    matrix at n = 3840, 1000, 7680 and 256 (sigma against float64
@@ -35,9 +37,12 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    beside its plain version and, where one exists, the PyTorch library
    call computing the same function (CUDA events), the panel QR at each
    Stage I panel length of n = 3840 with a split, the sequential and
-   wavefront chases in turns at the routing shapes, each chase variant in
-   turns with the chase kernel at 3840, and computes each kernel's bound
-   from its shapes;
+   wavefront chases in turns at the routing shapes (outputs bit-equal,
+   7680 included), each chase variant in turns with the chase kernel at
+   3840, the wavefront kernel's shared-memory tick in turns with its L2
+   tick at n = 1024, 3840 and 7680 (plain and recording), one CTA's copy
+   rate for a chase window and the shared-memory tick's schedule bound,
+   and computes each kernel's bound from its shapes;
 6. profiles one ``svdvals`` and one ``svd`` call and one wavefront chase at
    n = 3840: device time by kernel and the card's busy share.
 
@@ -75,7 +80,14 @@ VARIANTS = ("band_chase_wave", "band_chase_wave_dl", "band_chase_staged",
 KERNELS = ("panel_qr", "band_chase", "band_chase_rec", "bisect",
            "tridiag_solve") + VARIANTS + ("band_chase_wave_rec",)
 SVD_PATH = ("panel_qr", "bisect", "tridiag_solve")  # and the routed chase
-CHASES = ("band_chase", "band_chase_rec", "band_chase_wave", "band_chase_wave_rec")
+# the wavefront entries count by tick: "band_chase_wave" and
+# "band_chase_wave_rec" the shared-memory tick, "_l2" the L2 tick
+CHASES = ("band_chase", "band_chase_rec", "band_chase_wave", "band_chase_wave_rec",
+          "band_chase_wave_l2", "band_chase_wave_rec_l2")
+# the two wavefront ticks in turns (n, band): the check band and the widest
+# chases of the main paths
+TICK_SHAPES = ((1024, 64), (3840, 128), (7680, 128))
+WIDE_BAND = (640, 160)  # past the shared-memory tick's 128: the L2 tick
 # K1 (b, m, r_off): the first Stage I panel at 3840, an LQ panel whose last
 # 64 pivots lie past m, the first panel at 1000 (padded to 1024, b = 64) and
 # the first at 7680 (the large-panel route)
@@ -99,7 +111,7 @@ DEV = "cuda"
 
 
 CARD = ""  # the card's name and power limit, as nvidia-smi gives them
-TIMED = ("[times]", "[route]", "[profile]", "[slice]", "[svd]")
+TIMED = ("[times]", "[route]", "[profile]", "[slice]", "[svd]", "[ticks]")
 
 
 def say(*parts):
@@ -177,6 +189,8 @@ def _counters():
             "band_chase_wave": (band_chase_wave, "launches"),
             "band_chase_wave_dl": (band_chase_wave, "launches_dl"),
             "band_chase_wave_rec": (band_chase_wave, "launches_rec"),
+            "band_chase_wave_l2": (band_chase_wave, "launches_l2"),
+            "band_chase_wave_rec_l2": (band_chase_wave, "launches_rec_l2"),
             "band_chase_staged": (band_chase, "launches_staged"),
             "band_chase_vmem": (band_chase_vmem, "launches")}
 
@@ -616,6 +630,15 @@ def phase_variants(band_state):
     errs["band_chase_wave_rec"] = float((bidiag_sigma(rec_k[0], rec_k[1])
                                          - bidiag_sigma(rec_p[0], rec_p[1])).abs().max())
     del rec_p, rec_k, seq_p
+    # the L2 tick of both entries (off the path at b <= 128) on the same band
+    for k, fn in (("band_chase_wave_l2", band_chase_wave.band_to_bidiagonal_wave),
+                  ("band_chase_wave_rec_l2", band_chase_wave.band_to_bidiagonal_wave_accum)):
+        got = fn(Ab1, band=b1, _tick="l2")
+        torch.cuda.synchronize()
+        require_bit_equal(f"{k} n={n1} b={b1}", got[:2], (d1, e1))
+        errs[k] = float((bidiag_sigma(got[0], got[1]) - bidiag_sigma(dp1, ep1)).abs().max())
+        say(f"[variants] {k} n={n1} b={b1}: (d, e) bit-equal to band_chase; spectrum vs "
+            f"the plain chase {errs[k]:.3e}")
     s_a = torch.linalg.svdvals(Ab1.double())
     smax = float(s_a[0])
     for k, (name, (dp, ep)) in plains.items():
@@ -648,6 +671,29 @@ def phase_variants(band_state):
     check_wave_rec(f"n={n2} b={b2}", A2, b2, ctas=ctas)
     del A2
 
+    # past b = 128 both wavefront entries take the L2 tick (the deferred-left
+    # entry always does: its count is its own)
+    nw, bwide = WIDE_BAND
+    g = torch.from_numpy(np.random.default_rng(3).normal(size=(nw, nw)).astype(np.float32)).to(DEV)
+    Aw = torch.triu(torch.tril(g, bwide)).contiguous()
+    torch.cuda.synchronize()
+    reset_counts()
+    got = band_chase_wave.band_to_bidiagonal_wave(Aw, band=bwide)
+    got_rec = band_chase_wave.band_to_bidiagonal_wave_accum(Aw, band=bwide)
+    torch.cuda.synchronize()
+    wide = read_counts()
+    require(wide["band_chase_wave_l2"] == 1 and wide["band_chase_wave_rec_l2"] == 1
+            and wide["band_chase_wave"] == 0 and wide["band_chase_wave_rec"] == 0,
+            f"b={bwide} takes the L2 tick: {wide}")
+    require_bit_equal(f"wave n={nw} b={bwide} (L2 tick)", got,
+                      band_chase.band_to_bidiagonal(Aw, band=bwide))
+    require(all(torch.equal(x, y) for x, y in
+                zip(got_rec, band_chase.band_to_bidiagonal_accum(Aw, band=bwide))),
+            f"wave_accum n={nw} b={bwide} (L2 tick) bit-equal to band_chase_rec")
+    say(f"[variants] n={nw} b={bwide}: both wavefront entries took the L2 tick "
+        f"(launches {wide}); (d, e) and records bit-equal to the sequential kernels")
+    del Aw, g, got, got_rec
+
     # the slice at full width: every entry point once, on the Stage I band
     n, b, khops = VAR_PATH
     A = uniform_matrix(n)
@@ -671,6 +717,8 @@ def phase_variants(band_state):
     timed = {
         "band_chase": lambda A, b: band_chase.band_to_bidiagonal(A, band=b),
         "band_chase_wave": lambda A, b: band_chase_wave.band_to_bidiagonal_wave(A, band=b),
+        "band_chase_wave_l2": lambda A, b: band_chase_wave.band_to_bidiagonal_wave(
+            A, band=b, _tick="l2"),
         "band_chase_wave_dl": lambda A, b: band_chase_wave.band_to_bidiagonal_wave_dl(A, band=b),
         "band_chase_staged": lambda A, b: band_chase.band_to_bidiagonal(A, band=b, pipelined=True),
         "band_chase_vmem": lambda A, b: band_chase_vmem.band_to_bidiagonal_vmem(A, band=b),
@@ -880,20 +928,93 @@ def phase_route_times():
         Ab = panel_qr.dense_to_band_fused(uniform_matrix(n), band=b)
         reps = 1 if n > 4000 else SVD_REPS
         for record, (seq, wave) in entries.items():
-            s1 = cuda_ms(lambda: seq(Ab, band=b), reps, warm=n <= 4000)
-            w1 = cuda_ms(lambda: wave(Ab, band=b), reps)
-            w2 = cuda_ms(lambda: wave(Ab, band=b), reps)
+            res = {}
+
+            def run_seq():
+                res["seq"] = seq(Ab, band=b)
+
+            def run_wave():
+                res["wave"] = wave(Ab, band=b)
+
+            s1 = cuda_ms(run_seq, reps, warm=n <= 4000)
+            w1 = cuda_ms(run_wave, reps)
+            w2 = cuda_ms(run_wave, reps)
             # at 7680 the sequential kernel's 3.4 s runs once
-            s2 = cuda_ms(lambda: seq(Ab, band=b), reps, warm=False) if n <= 4000 else s1
+            s2 = cuda_ms(run_seq, reps, warm=False) if n <= 4000 else s1
             out[n, b, record] = (min(w1, w2), min(s1, s2))
+            same = all(torch.equal(x, y) for x, y in zip(res["wave"], res["seq"]))
+            require(same, f"n={n} b={b}: the wavefront chase bit-equal to the sequential one")
+            del res
             say(f"[route] n={n} b={b} {'recording' if record else 'plain'}: "
                 f"sequential {s1:.3f} / {s2:.3f} ms, wavefront {w1:.3f} / "
                 f"{w2:.3f} ms (medians of {reps}, in turns, "
-                f"{band_chase_wave.last_ctas} CTAs); the predicate takes the "
+                f"{band_chase_wave.last_ctas} CTAs, {band_chase_wave.last_tick} tick; "
+                f"outputs bit-equal); the predicate takes the "
                 f"{'wavefront' if chase_entry(n, b, record)[0].startswith('band_chase_wave') else 'sequential'}")
         del Ab
         torch.cuda.empty_cache()
     return out
+
+
+def schedule_bytes(n, b):
+    """Bytes the shared-memory tick's copies move on its critical path: at
+    each tick the most any one pair moves (its boxes of b rows x b + 4
+    columns in and out, the head pair's window row both ways too)."""
+    from svdsolver_tpu_torch.ops.chase_schedule import wave_pairs
+
+    box = 4 * b * (b + 4)
+    most = {}
+    for p in wave_pairs(n, b):
+        nbytes = (len(p.loads) + len(p.stores)) * box + (16 * b if p.s == 0 else 0)
+        most[p.t] = max(most.get(p.t, 0), nbytes)
+    return sum(most.values())
+
+
+def phase_tick_times(band_state):
+    """The wavefront kernel's two ticks in turns (L2, shared memory, shared
+    memory, L2) at TICK_SHAPES, plain and recording entries; one CTA's copy
+    rate for a chase window at b = 128 (three b x (b + 4) boxes into shared
+    memory and back, 1000 times); and the shared-memory tick's schedule
+    bound, its critical path's copy bytes over that rate."""
+    from svdsolver_tpu_torch.ops.chase_schedule import wave_ticks
+    from svdsolver_tpu_torch.ops.cuda import band_chase_wave as bw, panel_qr
+
+    out, sched = {}, {}
+    rate = None
+    for n, b in TICK_SHAPES:
+        Ab = (band_state[0] if (n, b) == VAR_CHECK[:2]
+              else panel_qr.dense_to_band_fused(uniform_matrix(n), band=b))
+        reps = 1 if n > 4000 else SVD_REPS
+        for record in (False, True):
+            fn = bw.band_to_bidiagonal_wave_accum if record else bw.band_to_bidiagonal_wave
+            l1 = cuda_ms(lambda: fn(Ab, band=b, _tick="l2"), reps)
+            s1 = cuda_ms(lambda: fn(Ab, band=b, _tick="smem"), reps)
+            s2 = cuda_ms(lambda: fn(Ab, band=b, _tick="smem"), reps)
+            l2 = cuda_ms(lambda: fn(Ab, band=b, _tick="l2"), reps)
+            out[n, b, record] = (min(s1, s2), min(l1, l2))
+            say(f"[ticks] n={n} b={b} {'recording' if record else 'plain'}: shared-memory "
+                f"tick {s1:.3f} / {s2:.3f} ms, L2 tick {l1:.3f} / {l2:.3f} ms (medians of "
+                f"{reps}, in turns, {bw.last_ctas} CTAs, {wave_ticks(n, b)} ticks: "
+                f"{min(s1, s2) / wave_ticks(n, b) * 1e3:.2f} against "
+                f"{min(l1, l2) / wave_ticks(n, b) * 1e3:.2f} us a tick)")
+        if b == 128 and rate is None:
+            reps_copy = 1000
+            r = n // 2
+            t = cuda_ms(lambda: bw.window_copy(Ab, b, r, r + b, reps_copy))
+            moved = 6 * 4 * b * (b + 4)
+            rate = moved * reps_copy / t  # bytes a millisecond
+            say(f"[ticks] one CTA's window copy b={b}: {t / reps_copy * 1e3:.3f} us for "
+                f"{moved} bytes in and out, {rate / 1e6:.2f} GB/s (median of {REPS} runs of "
+                f"{reps_copy})")
+        del Ab
+        torch.cuda.empty_cache()
+    for n, b in TICK_SHAPES:
+        nbytes = schedule_bytes(n, b)
+        sched[n, b] = nbytes / rate
+        say(f"[ticks] schedule bound n={n} b={b}: {nbytes:.4g} bytes on the critical "
+            f"path over {rate / 1e6:.2f} GB/s = {sched[n, b]:.3f} ms (shared-memory tick "
+            f"{out[n, b, False][0]:.3f} ms)")
+    return out, sched, rate
 
 
 def phase_times(band_state):
@@ -1022,11 +1143,12 @@ def phase_profile(label, fn):
         f"kernels {busy:.3f} ms = {100 * busy / wall_ms:.1f}% of wall")
 
 
-def kernel_table(errs, counts_vals, counts_svd, kt, lib, variants, route, k1):
+def kernel_table(errs, counts_vals, counts_svd, kt, lib, variants, route, k1, ticks):
     from svdsolver_tpu_torch.models import two_stage
     from svdsolver_tpu_torch.models.diagonalize import default_bisect_iters
 
     counts_var, errs_var, plain_var, times_var = variants
+    tick_ms, sched, rate = ticks
     src = "svdsolver_tpu_torch/csrc/{}.cu"
     replaces = {
         "panel_qr": "svdsolver_tpu/ops/pallas/panel_qr.py:30",
@@ -1118,6 +1240,7 @@ def kernel_table(errs, counts_vals, counts_svd, kt, lib, variants, route, k1):
         if on_path:
             rows[-1]["variant_launches"] = counts_var[k]
             rows[-1]["path_launches"] = {n: c[k] for n, c in counts_vals.items()}
+            rows[-1].update(tick_keys(tick_ms, sched, rate, record=False))
 
     # the recording wavefront entry (svd's chase): ms at the check band from
     # the routing evidence, in turns with the sequential recording entry
@@ -1133,8 +1256,41 @@ def kernel_table(errs, counts_vals, counts_svd, kt, lib, variants, route, k1):
         "path_ms": route[n3, b3, True][0], "path_bound_ms": b_path[0],
         "band_chase_rec_path_ms": route[n3, b3, True][1],
         "path_launches": {n: c[k] for n, c in counts_svd.items()},
+        **tick_keys(tick_ms, sched, rate, record=True),
     })
+
+    # the L2 tick of both entries: off the main paths for b <= 128, kept for
+    # wider bands; ms from the ticks in turns at the check band
+    b_path_plain = bound(*work_chase(n3, b3, record=False))
+    for k, record in (("band_chase_wave_l2", False), ("band_chase_wave_rec_l2", True)):
+        b_k = b_chk if record else bound(*work_chase(n1, b1, record=False))
+        side = counts_svd if record else counts_vals
+        rows.append({
+            "name": k, "route": "cuda", "source": src.format("band_chase_wave"),
+            "replaces": ("svdsolver_tpu/ops/pallas/band_chase_wave.py:959" if record else
+                         replaces["band_chase_wave"]),
+            "launches": sum(c[k] for c in side.values()),
+            "max_abs_err": errs_var[k], "ms": tick_ms[n1, b1, record][1],
+            "plain_ms": plain_var["band_chase_wave_rec" if record else "band_chase_wave"],
+            "bound_ms": b_k[0], "bound_by": b_k[1], "library_ms": None,
+            "shape": f"n={n1} b={b1}", "path_shape": f"n={n3} b={b3}",
+            "path_ms": tick_ms[n3, b3, record][1],
+            "path_bound_ms": (b_path if record else b_path_plain)[0],
+            "variant_launches": counts_var[k],
+        })
     return rows
+
+
+def tick_keys(tick_ms, sched, rate, record):
+    """The two ticks of a wavefront entry in turns at TICK_SHAPES, and the
+    shared-memory tick's schedule bound."""
+    return {
+        "ticks_ms": {f"n={n} b={b}": {"smem": tick_ms[n, b, record][0],
+                                      "l2": tick_ms[n, b, record][1],
+                                      "schedule_bound_ms": sched[n, b]}
+                     for n, b in TICK_SHAPES},
+        "window_copy_gb_s": rate / 1e6,
+    }
 
 
 def main():
@@ -1157,11 +1313,12 @@ def main():
     counts_svd = phase_svd()
     _, kt, lib, k1 = phase_times(band_state)
     route = phase_route_times()
+    ticks = phase_tick_times(band_state)
     A = uniform_matrix(3840)
     phase_profile("svdvals n=3840", lambda: svdvals(A))
     phase_profile("svd n=3840", lambda: svd(A))
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all")
-    rows = kernel_table(errs, counts_vals, counts_svd, kt, lib, variants, route, k1)
+    rows = kernel_table(errs, counts_vals, counts_svd, kt, lib, variants, route, k1, ticks)
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

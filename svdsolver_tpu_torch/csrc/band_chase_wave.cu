@@ -53,10 +53,43 @@
 // bit-equal again.  One extra tick a sweep (slot nc + 1) flushes its last
 // pending left.
 //
+// Two ticks run this schedule.  The L2 tick (wave_chase_kernel) runs the
+// one chase_pair on the matrix through L2; it serves bands 128 < b <= 256,
+// shapes the copy engine cannot take, and DeferLeft.  The shared-memory
+// tick (wave_smem_kernel: svdt_band_chase_wave_smem and _smem_rec, where
+// the wrapper's smem_tick_takes holds: 4 <= b <= 128, b and n multiples of
+// 4, every band of the main paths) stages each pair's window in dynamic
+// shared memory by the copy engine (TMA, one tensor map of A):
+//   - thread 0 copies the window's tiles (r, c), (r + b, c), (r + b, c + b)
+//     in, each on its own mbarrier, so warp 0 builds the right reflector
+//     from the pivot row while the other tiles land; a box starts at a
+//     16-byte column (c & ~3) and is b + 4 columns wide; entries past n read
+//     zero and writes past n are dropped, as chase_pair's masks do;
+//   - smem_pair runs chase_pair's arithmetic and reduction trees on the
+//     tiles, entry for entry, with base pointers and one row stride, so
+//     (d, e) and the records stay bit-equal to svdt_band_chase's;
+//   - tile (r, c) goes back as soon as the right apply is done, the others
+//     after the left apply, by bulk stores drained and fenced before the
+//     grid barrier; the 4 columns two boxes of a row band share are copied
+//     between them first, so both write the same values;
+//   - with one CTA a unit (no striding), lane u keeps tile (r + b, c + b)
+//     in shared memory for its next slot, whose tile (r, c) it is (no other
+//     pair touches it at either tick), so two ticks of three copy two tiles
+//     in instead of three, and two of three two out;
+//   - the head pair's window, (b + 1) x 2b, is two boxes and its last row,
+//     which the threads copy.
+//
 // What bounds it on the H100: ~3n ticks (11,544 at n = 3840, b = 128) in
-// order, each one pair's chain of L2 round trips on each busy SM plus a grid
-// barrier; FLOPs and device memory bandwidth are far from bounding it.
+// order, each the slowest pair of the tick plus a grid barrier.  The L2
+// tick is a chain of dependent L2 round trips a pair; the shared-memory
+// tick's floor is one SM's copy rate for the window's boxes (the schedule
+// bound of chip_smoke.py), with the pair's shared-memory passes and the
+// barrier on top.  FLOPs and device memory bandwidth are far from
+// bounding either.
+#include <cuda.h>  // CUtensorMap (the encoder is reached through the runtime)
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "chase_pair.cuh"
 
@@ -282,6 +315,7 @@ wave_chase_kernel(float* __restrict__ A, float* __restrict__ d,
   const int G = gridDim.x;
   unsigned target = 0;
   for (int t = 0; t < T; ++t) {
+    SVDT_SPLIT_TICK(t);
     const int q = t >= 1 ? (t - 1) / 3 : -1;  // newest sweep past its head
     for (int u = blockIdx.x; u <= L; u += G) {
       if (u == 0) {  // the head pair of sweep t / 3
@@ -308,12 +342,467 @@ wave_chase_kernel(float* __restrict__ A, float* __restrict__ d,
                              Rec ? rec.left(i, s, b) : none);
       }
     }
+    SVDT_SPLIT(7);
     target += G;
     grid_sync(ctr, target);
+    SVDT_SPLIT(8);
   }
   for (int k = blockIdx.x * kThreads + threadIdx.x; k < n; k += G * kThreads) {
     d[k] = __ldcg(A + (size_t)k * n + k);
     if (k + 1 < n) e[k] = __ldcg(A + (size_t)k * n + k + 1);
+  }
+}
+
+// ---- the shared-memory tick (b <= 128; TMA) ----
+
+constexpr int kSmemBand = 128;  // widest band of the shared-memory tick
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// Thread 0: arrive on `bar`, expecting `bytes` from the copies issued next.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// The box of `map` with corner (row, col) into shared memory, completion on
+// `bar`; entries past the matrix read as zero.
+__device__ __forceinline__ void tma_load(float* dst, const CUtensorMap* map,
+                                         int row, int col, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];"
+      ::"r"(smem_u32(dst)), "l"(map), "r"(col), "r"(row), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The box at (row, col) back from shared memory; entries past the matrix
+// are dropped.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, int row,
+                                          int col, const float* src) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];"
+      ::"l"(map), "r"(col), "r"(row), "r"(smem_u32(src)) : "memory");
+}
+
+// Thread 0: every bulk store it issued has written device memory.
+__device__ __forceinline__ void tma_store_drain() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// Orders this thread's plain accesses against the copy engine's, both
+// ways, in shared and device memory.
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async;" ::: "memory");
+}
+
+// Where a pair's window lives in shared memory.  Right view (the right
+// apply's rows 0 .. wr - 1, columns 0 .. b - 1): row i at r0 + i * ld below
+// `split`, else at r1 + (i - split) * ld.  Left view (the left apply's rows
+// 0 .. b - 1, right-view rows lr0 .. lr0 + b - 1; columns 0 .. 2b - 1):
+// column k at l0 + k below b, else at l1 + k - b; row j at j * ld from there.
+struct Win {
+  float *r0, *r1, *l0, *l1;
+  int ld, wr, split, lr0;
+};
+
+// The copies a pair waits for, by tile slot: each thread waits on a slot's
+// barrier once a pair, before it first reads that slot.
+struct Waits {
+  uint64_t* bar;
+  unsigned parity;  // bit k: the phase of slot k's pending copy
+  unsigned done;
+  __device__ void on(int k) {
+    if (k < 0 || (done >> k & 1u)) return;
+    mbar_wait(bar + k, parity >> k & 1u);
+    done |= 1u << k;
+  }
+};
+
+// One elimination pair on a window in shared memory, waiting on slot sa
+// (the box of the pivot row; -1: already there), sb (the other right rows)
+// and sc (the box only the left apply reads).  chase_pair's arithmetic,
+// reduction trees and thread mapping entry for entry, so (d, e) and the
+// records are bit-equal to it, without its per-entry predicates: the copies
+// read zero past n and drop the writes past n, so entries past n take part
+// as the zeros chase_pair reads there (a +-0 term changes no sum).  The
+// right apply's lane 0 keeps the left reflector's pivot column in `col` as
+// it writes it, so warp 0 reads a vector, not a tile column; the left apply
+// keeps its rows of one column in registers between its two passes and
+// reads the reflector by row group from `vg`.  BF: b as a constant (0: b at
+// run time).  With `map`, thread 0 writes the box at st_src (rows [0, b) of
+// the right view) back at (st_r, st_c) once the right apply is done (the
+// left apply never touches them).  Ends with the window complete in shared
+// memory.
+template <int KPL, int BF, bool Rec>
+__device__ __forceinline__ void smem_pair(const Win& w, int b, Waits& wt,
+                                          int sa, int sb, int sc,
+                                          const CUtensorMap* map, int st_r,
+                                          int st_c, const float* st_src,
+                                          float* v, float* vg,
+                                          float* col, float* part,
+                                          float* s_tau, Slot rr, Slot rl_) {
+  constexpr int R = right_rows<KPL>();
+  constexpr int NRM = BF ? BF / (kThreads / (2 * BF)) : 4 * KPL * KPL;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  // ---- right elimination ----
+  if (warp == 0) {
+    wt.on(sa);
+    SVDT_SPLIT(1);
+    float x[KPL];
+#pragma unroll
+    for (int t = 0; t < KPL; ++t) {
+      const int k = lane + 32 * t;
+      x[t] = k < b ? w.r0[k] : 0.f;
+    }
+    const float tau = warp_reflector<KPL>(x, b, v);
+    if (lane == 0) s_tau[0] = tau;
+    if constexpr (Rec) record(v, tau, b, rr.v, rr.t);
+  }
+  __syncthreads();
+  SVDT_SPLIT(2);
+  const float tau = s_tau[0];
+  wt.on(sa);
+  if (tau != 0.f) {
+    float vk[KPL];
+#pragma unroll
+    for (int t = 0; t < KPL; ++t) {
+      const int k = lane + 32 * t;
+      vk[t] = k < b ? v[k] : 0.f;
+    }
+    for (int i0 = warp * R; i0 < w.wr; i0 += kWarps * R) {
+      if (i0 + R > w.split) wt.on(sb);
+      float* row[R];
+      float x[R][KPL];
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const int i = i0 + q;
+        row[q] = i < w.split ? w.r0 + i * w.ld : w.r1 + (i - w.split) * w.ld;
+#pragma unroll
+        for (int t = 0; t < KPL; ++t) {
+          const int k = lane + 32 * t;
+          x[q][t] = (i < w.wr && k < b) ? row[q][k] : 0.f;
+        }
+      }
+      float f[R];
+#pragma unroll
+      for (int q = 0; q < R; ++q) f[q] = row_dot<KPL>(x[q], vk);
+#pragma unroll
+      for (int q = 0; q < R; ++q) f[q] = tau * warp_sum(f[q]);
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const int i = i0 + q;
+        if (i >= w.wr) continue;
+#pragma unroll
+        for (int t = 0; t < KPL; ++t) {
+          const float y = rank1(x[q][t], f[q], vk[t]);
+          if (vk[t] != 0.f) row[q][lane + 32 * t] = y;
+          if (t == 0 && lane == 0 && i >= w.lr0 && i < w.lr0 + b) col[i - w.lr0] = y;
+        }
+      }
+    }
+  }
+  wt.on(sb);
+  fence_async();  // the right apply's writes before the copy engine reads them
+  __syncthreads();
+  SVDT_SPLIT(3);
+  if (map != nullptr && tid == 0) tma_store(map, st_r, st_c, st_src);
+
+  // ---- left elimination ----
+  const int cols = 2 * b;
+  const int groups = kThreads / cols;
+  const int nrm = BF ? NRM : (b + groups - 1) / groups;  // vg's entries a group
+  if (warp == 0) {
+    float x[KPL];
+#pragma unroll
+    for (int t = 0; t < KPL; ++t) {
+      const int k = lane + 32 * t;
+      x[t] = k < b ? (tau != 0.f ? col[k] : w.l0[k * w.ld]) : 0.f;
+    }
+    const float tau2 = warp_reflector<KPL>(x, b, v);
+    if (lane == 0) s_tau[1] = tau2;
+    if constexpr (Rec) record(v, tau2, b, rl_.v, rl_.t);
+    __syncwarp();
+    for (int k = lane; k < b; k += 32) vg[(k % groups) * nrm + k / groups] = v[k];
+  }
+  __syncthreads();
+  SVDT_SPLIT(4);
+  const float tau2 = s_tau[1];
+  wt.on(sc);
+  if (tau2 != 0.f) {
+    // thread (g, c): column c, rows g, g + groups, ... in registers
+    const int g = tid / cols;
+    const int c = tid - g * cols;
+    const bool live = g < groups;
+    const int nr = BF ? NRM : (b - g + groups - 1) / groups;
+    float* p = (c < b ? w.l0 + c : w.l1 + (c - b)) + g * w.ld;
+    const int step = groups * w.ld;
+    const float* vr = vg + g * nrm;
+    float x[NRM];
+    if (live) {
+      float s = 0.f;
+#pragma unroll
+      for (int j = 0; j < NRM; ++j)
+        if (j < nr) x[j] = p[j * step];
+      if constexpr (BF != 0 && NRM % 4 == 0) {
+#pragma unroll
+        for (int j = 0; j < NRM; j += 4) {
+          const float4 v4 = *reinterpret_cast<const float4*>(vr + j);
+          s += v4.x * x[j];
+          s += v4.y * x[j + 1];
+          s += v4.z * x[j + 2];
+          s += v4.w * x[j + 3];
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < NRM; ++j)
+          if (j < nr) s += vr[j] * x[j];
+      }
+      part[g * cols + c] = s;
+    }
+    __syncthreads();
+    SVDT_SPLIT(5);
+    if (live) {
+      const float f = tau2 * left_total(part, b, c);
+      if constexpr (BF != 0 && NRM % 4 == 0) {
+#pragma unroll
+        for (int j = 0; j < NRM; j += 4) {
+          const float4 v4 = *reinterpret_cast<const float4*>(vr + j);
+          p[j * step] = rank1(x[j], f, v4.x);
+          p[(j + 1) * step] = rank1(x[j + 1], f, v4.y);
+          p[(j + 2) * step] = rank1(x[j + 2], f, v4.z);
+          p[(j + 3) * step] = rank1(x[j + 3], f, v4.w);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < NRM; ++j)
+          if (j < nr) p[j * step] = rank1(x[j], f, vr[j]);
+      }
+    }
+  }
+  fence_async();
+  __syncthreads();
+  SVDT_SPLIT(6);
+}
+
+// The copy engine starts a box at a 16-byte column: a b x b tile at column
+// c travels in a box of b rows of b + 4 columns from c & ~3, the tile at
+// column offset c & 3 of its slot.  A slot holds the box and one more row
+// (the head pair's last window row), rounded up to 128 bytes.
+__host__ __device__ constexpr int box_cols(int b) { return b + 4; }
+__host__ __device__ constexpr int tile_floats(int b) {
+  return ((b + 1) * box_cols(b) + 31) & ~31;
+}
+
+// Two boxes of one row band, `hi` starting b columns after `lo`, overlap in
+// 4 columns; the pair updated each entry in the box whose tile holds it.
+// Copy it into the other box, so both write back the same values.
+__device__ __forceinline__ void share_overlap(float* lo, float* hi, int b,
+                                              int delta) {
+  const int ld = box_cols(b);
+  for (int k = threadIdx.x; k < 4 * b; k += kThreads) {
+    const int j = k >> 2, o = k & 3;
+    if (o < delta)
+      hi[j * ld + o] = lo[j * ld + o + b];
+    else
+      lo[j * ld + o + b] = hi[j * ld + o];
+  }
+}
+
+// The copy engine writes shared memory at 128-byte boundaries: the first
+// such boundary of the dynamic shared memory (128 bytes more are asked for).
+__device__ __forceinline__ float* align128(float* raw) {
+  return raw + ((128u - (smem_u32(raw) & 127u)) & 127u) / 4u;
+}
+
+// Whether chase pair (i, s) keeps its (r + b, c + b) tile for the lane's
+// next pair (ops/chase_schedule._carries): not the lane's last slot, and
+// that pair exists and has work.
+__device__ __forceinline__ bool carries(int i, int s, int n, int b) {
+  return s % 3 != 0 && s + 1 <= nc_of(i, n, b) && i + 1 + (s + 1) * b < n;
+}
+
+template <int KPL, int BF, bool Rec>
+__global__ void __launch_bounds__(kThreads, 1)
+wave_smem_kernel(const __grid_constant__ CUtensorMap tile_map,
+                 float* __restrict__ A, float* __restrict__ d,
+                 float* __restrict__ e, int n, int b_rt, int L, int T,
+                 unsigned* ctr, Records rec) {
+  extern __shared__ __align__(128) float smem_raw[];
+  float* tiles = align128(smem_raw);
+  __shared__ float v[kSmemBand];
+  __shared__ __align__(16) float vg[2 * kSmemBand];
+  __shared__ float col[kSmemBand];
+  __shared__ float part[kThreads];
+  __shared__ float s_tau[2];
+  __shared__ __align__(8) uint64_t bar[3];
+  const int b = BF ? BF : b_rt;
+  const int G = gridDim.x;
+  const bool carry = G == L + 1;  // a unit a CTA: a lane's tile can stay
+  const int tsz = tile_floats(b);
+  const int ldt = box_cols(b);
+  const unsigned tile_bytes = 4u * b * ldt;
+  const Slot none = {nullptr, nullptr};
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < 3; ++k) mbar_init(bar + k);
+    fence_async();
+  }
+  __syncthreads();
+  unsigned parity = 0;
+  int cur = 0;                   // the slot of the (r, c) tile
+  int kept_i = -1, kept_s = -1;  // the pair whose (r, c) tile slot `cur` holds
+  unsigned target = 0;
+  for (int t = 0; t < T; ++t) {
+    SVDT_SPLIT_TICK(t);
+    const int q = t >= 1 ? (t - 1) / 3 : -1;  // newest sweep past its head
+    for (int u = blockIdx.x; u <= L; u += G) {
+      Waits wt = {bar, parity, 0u};
+      if (u == 0) {  // the head pair of sweep t / 3
+        // window rows [i, i + b] x columns [i + 1, i + 2b]: two b x b boxes
+        // by the copy engine, in slots 0 and 1, and row i + b by the threads
+        // after each box (so each slot is b + 1 rows of b)
+        const int i = t / 3;
+        if (t % 3 != 0 || i > n - 2) continue;
+        const int dl = (i + 1) & 3;
+        const int a = i + 1 - dl;
+        float* h0 = tiles;
+        float* h1 = tiles + tsz;
+        if (threadIdx.x == 0) {
+          mbar_expect(bar, 2 * tile_bytes);
+          tma_load(h0, &tile_map, i, a, bar);
+          tma_load(h1, &tile_map, i, a + b, bar);
+        }
+        const int hr = i + b;
+        float* x0 = h0 + b * ldt + dl;  // row i + b, columns [i + 1, i + 1 + b)
+        float* x1 = h1 + b * ldt + dl - b;
+        for (int k = threadIdx.x; k < 2 * b; k += kThreads) {
+          const int hc = i + 1 + k;
+          (k < b ? x0 : x1)[k] = hr < n && hc < n ? __ldcg(A + (size_t)hr * n + hc) : 0.f;
+        }
+        const Win w = {h0 + dl, h0 + dl, h0 + dl + ldt, h1 + dl + ldt, ldt, b + 1, b + 1, 1};
+        smem_pair<KPL, BF, Rec>(w, b, wt, 0, -1, -1, nullptr, 0, 0, nullptr, v, vg,
+                                col, part, s_tau, Rec ? rec.right(i, 0, b) : none,
+                                Rec ? rec.left(i, 0, b) : none);
+        share_overlap(h0, h1, b, dl);
+        fence_async();
+        __syncthreads();
+        if (threadIdx.x == 0) {
+          tma_store(&tile_map, i, a, h0);
+          tma_store(&tile_map, i, a + b, h1);
+          tma_store_drain();
+          fence_async();
+        }
+        for (int k = threadIdx.x; k < 2 * b; k += kThreads) {
+          const int hc = i + 1 + k;
+          if (hr < n && hc < n) __stcg(A + (size_t)hr * n + hc, (k < b ? x0 : x1)[k]);
+        }
+        parity ^= 1u;
+        kept_i = -1;  // the head's window took slots 0 and 1
+        continue;
+      }
+      const int i = q - (u - 1);
+      const int s = t - 3 * i;
+      if (i < 0 || i > n - 2 || s > nc_of(i, n, b)) continue;
+      const int r = i + 1 + (s - 1) * b;
+      const int c = r + b;
+      if (c >= n) continue;  // all-zero window: both reflectors the identity
+      const int dl = c & 3;  // the tiles' column in their boxes
+      const int a = c - dl;
+      const bool cin = kept_i == i && kept_s == s;
+      const bool cout = carry && carries(i, s, n, b);
+      const int s00 = cur, s10 = (cur + 1) % 3, s11 = (cur + 2) % 3;
+      float* t00 = tiles + s00 * tsz;
+      float* t10 = tiles + s10 * tsz;
+      float* t11 = tiles + s11 * tsz;
+      if (threadIdx.x == 0) {
+        if (!cin) {
+          mbar_expect(bar + s00, tile_bytes);
+          tma_load(t00, &tile_map, r, a, bar + s00);
+        }
+        mbar_expect(bar + s10, tile_bytes);
+        tma_load(t10, &tile_map, r + b, a, bar + s10);
+        mbar_expect(bar + s11, tile_bytes);
+        tma_load(t11, &tile_map, r + b, a + b, bar + s11);
+      }
+      const Win w = {t00 + dl, t10 + dl, t10 + dl, t11 + dl, ldt, 2 * b, b, b};
+      smem_pair<KPL, BF, Rec>(w, b, wt, cin ? -1 : s00, s10, s11, &tile_map, r,
+                              a, t00, v, vg, col, part, s_tau,
+                              Rec ? rec.right(i, s, b) : none,
+                              Rec ? rec.left(i, s, b) : none);
+      share_overlap(t10, t11, b, dl);
+      fence_async();
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        tma_store(&tile_map, r + b, a, t10);
+        if (!cout) tma_store(&tile_map, r + b, a + b, t11);
+        tma_store_drain();
+        fence_async();
+      }
+      parity ^= (cin ? 0u : 1u << s00) | 1u << s10 | 1u << s11;
+      kept_i = cout ? i : -1;
+      kept_s = s + 1;
+      if (cout) cur = s11;
+    }
+    SVDT_SPLIT(7);
+    target += G;
+    grid_sync(ctr, target);
+    if (threadIdx.x == 0) fence_async();  // the barrier before the next copies
+    SVDT_SPLIT(8);
+  }
+  for (int k = blockIdx.x * kThreads + threadIdx.x; k < n; k += G * kThreads) {
+    d[k] = __ldcg(A + (size_t)k * n + k);
+    if (k + 1 < n) e[k] = __ldcg(A + (size_t)k * n + k + 1);
+  }
+}
+
+// One CTA moving a chase pair's three b x b tiles at (r, c) from device
+// memory into shared memory and back, `reps` times: the copy rate behind
+// the shared-memory tick's schedule bound.
+__global__ void __launch_bounds__(kThreads, 1)
+wave_copy_kernel(const __grid_constant__ CUtensorMap tile_map, int b, int r,
+                 int c, int reps) {
+  extern __shared__ __align__(128) float smem_raw[];
+  float* tiles = align128(smem_raw);
+  __shared__ __align__(8) uint64_t bar[1];
+  if (threadIdx.x != 0) return;
+  mbar_init(bar);
+  fence_async();
+  const int tsz = tile_floats(b);
+  unsigned parity = 0;
+  for (int k = 0; k < reps; ++k) {
+    mbar_expect(bar, 12u * b * box_cols(b));
+    tma_load(tiles, &tile_map, r, c, bar);
+    tma_load(tiles + tsz, &tile_map, r + b, c, bar);
+    tma_load(tiles + 2 * tsz, &tile_map, r + b, c + b, bar);
+    mbar_wait(bar, parity);
+    parity ^= 1u;
+    tma_store(&tile_map, r, c, tiles);
+    tma_store(&tile_map, r + b, c, tiles + tsz);
+    tma_store(&tile_map, r + b, c + b, tiles + 2 * tsz);
+    tma_store_drain();
+    fence_async();
   }
 }
 
@@ -322,21 +811,92 @@ int lanes_of(int S) { return (S + 2) / 3; }
 
 template <class Kernel>
 int coop_launch(Kernel kernel, int units, int max_ctas, void** args,
-                cudaStream_t s, int* ctas) {
+                size_t smem, cudaStream_t s, int* ctas) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && smem > 0)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, 0);
+                                                        kThreads, smem);
   if (err != cudaSuccess) return (int)err;
   int G = units < per_sm * sms ? units : per_sm * sms;
   if (max_ctas > 0 && max_ctas < G) G = max_ctas;
   if (G < 1) return (int)cudaErrorInvalidConfiguration;
   *ctas = G;
   return (int)cudaLaunchCooperativeKernel((const void*)kernel, dim3(G),
-                                          dim3(kThreads), args, 0, s);
+                                          dim3(kThreads), args, smem, s);
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// A tensor map of the n x n row-major A with box (rows, cols): no swizzle,
+// zero fill past the edges.  Returns a cudaError_t.
+int encode_map(CUtensorMap* map, float* A, int n, int rows, int cols) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                              cudaEnableDefault, &found);
+    if (err != cudaSuccess) return (int)err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return (int)cudaErrorSymbolNotFound;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)n, (cuuint64_t)n};
+  const cuuint64_t strides[1] = {(cuuint64_t)n * sizeof(float)};
+  const cuuint32_t box[2] = {(cuuint32_t)cols, (cuuint32_t)rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, A, dims,
+                              strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_NONE,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Whether the shared-memory tick takes an (n, n) band b at address A: the
+// copy engine needs 16-byte rows strides and box rows, b <= 128.
+bool smem_tick_takes(const float* A, int n, int b) {
+  return b >= 4 && b <= kSmemBand && b % 4 == 0 && n % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(A) % 16 == 0;
+}
+
+size_t smem_tick_bytes(int b) { return sizeof(float) * 3 * (size_t)tile_floats(b) + 128; }
+
+template <bool Rec>
+int launch_smem(float* A, float* d, float* e, int n, int b, unsigned* ctr,
+                Records rec, int max_ctas, int* ctas, int smem_req,
+                void* stream) {
+  if (n < 2 || !smem_tick_takes(A, n, b)) return (int)cudaErrorInvalidValue;
+  alignas(64) CUtensorMap tile_map;
+  int err = encode_map(&tile_map, A, n, b, box_cols(b));
+  if (err != 0) return err;
+  int L = lanes_of(nc_of(0, n, b));
+  int T = 3 * (n - 2) + nc_of(0, n, b) + 1;
+  const size_t smem = smem_req > 0 ? (size_t)smem_req : smem_tick_bytes(b);
+  cudaStream_t s = (cudaStream_t)stream;
+  void* args[] = {&tile_map, &A, &d, &e, &n, &b, &L, &T, &ctr, &rec};
+#define SVDT_SMEM_LAUNCH(KPL, BF)                                             \
+  err = coop_launch(wave_smem_kernel<KPL, BF, Rec>, L + 1, max_ctas, args,    \
+                    smem, s, ctas)
+  if (b == 32) SVDT_SMEM_LAUNCH(1, 32);
+  else if (b < 32) SVDT_SMEM_LAUNCH(1, 0);
+  else if (b == 64) SVDT_SMEM_LAUNCH(2, 64);
+  else if (b < 64) SVDT_SMEM_LAUNCH(2, 0);
+  else if (b == 128) SVDT_SMEM_LAUNCH(4, 128);
+  else SVDT_SMEM_LAUNCH(4, 0);
+#undef SVDT_SMEM_LAUNCH
+  return err;
 }
 
 template <bool DeferLeft, bool Rec>
@@ -353,7 +913,7 @@ int launch(float* A, float* d, float* e, int n, int b, unsigned* ctr,
   void* args[] = {&A, &d, &e, &n, &b, &L, &T, &ctr, &ring, &rec};
   int err = 0;
   SVDT_KPL_DISPATCH(b, err = coop_launch(wave_chase_kernel<KPL, DeferLeft, Rec>,
-                                         L + 1, max_ctas, args, s, ctas));
+                                         L + 1, max_ctas, args, 0, s, ctas));
   return err;
 }
 
@@ -393,4 +953,47 @@ extern "C" int svdt_band_chase_wave_dl(float* A, float* d, float* e, int n,
   return launch<true, false>(A, d, e, n, b, ctr, ring_v, ring_t, ring_slots,
                              {nullptr, nullptr, nullptr, nullptr, 0}, max_ctas,
                              ctas, stream);
+}
+
+// The wavefront chase with the shared-memory tick, as svdt_band_chase_wave:
+// A's address 16-byte aligned, n % 4 == 0, b % 4 == 0, 4 <= b <= 128
+// (ops/cuda/band_chase_wave routes the rest to the L2 tick).  smem: dynamic
+// shared memory a CTA (0: the three tiles).  Returns the launch's
+// cudaError_t.
+extern "C" int svdt_band_chase_wave_smem(float* A, float* d, float* e, int n,
+                                         int b, unsigned* ctr, int max_ctas,
+                                         int* ctas, int smem, void* stream) {
+  return launch_smem<false>(A, d, e, n, b, ctr,
+                            {nullptr, nullptr, nullptr, nullptr, 0}, max_ctas,
+                            ctas, smem, stream);
+}
+
+// As svdt_band_chase_wave_smem, and writes the records of
+// svdt_band_chase_wave_rec.
+extern "C" int svdt_band_chase_wave_smem_rec(float* A, float* d, float* e,
+                                             int n, int b, float* VL, float* TL,
+                                             float* VR, float* TR, int s_max,
+                                             unsigned* ctr, int max_ctas,
+                                             int* ctas, int smem, void* stream) {
+  return launch_smem<true>(A, d, e, n, b, ctr, {VL, TL, VR, TR, s_max},
+                           max_ctas, ctas, smem, stream);
+}
+
+// One CTA copying the three b x b tiles at (r, c) of A (n x n) into shared
+// memory and back `reps` times, as the shared-memory tick copies a window.
+extern "C" int svdt_wave_copy(float* A, int n, int b, int r, int c, int reps,
+                              void* stream) {
+  if (!smem_tick_takes(A, n, b) || reps < 1) return (int)cudaErrorInvalidValue;
+  alignas(64) CUtensorMap tile_map;
+  int err = encode_map(&tile_map, A, n, b, box_cols(b));
+  if (err != 0) return err;
+  c &= ~3;
+  const size_t smem = smem_tick_bytes(b);
+  err = (int)cudaFuncSetAttribute(wave_copy_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem);
+  if (err != 0) return err;
+  wave_copy_kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>(tile_map, b, r,
+                                                                c, reps);
+  return (int)cudaGetLastError();
 }

@@ -28,6 +28,15 @@
 
 #include <cuda_runtime.h>
 
+// Phase marks of a pair and a tick: tools/chase_split.py defines them to
+// take time stamps; empty in the package's builds.
+#ifndef SVDT_SPLIT
+#define SVDT_SPLIT(k)
+#endif
+#ifndef SVDT_SPLIT_TICK
+#define SVDT_SPLIT_TICK(t)
+#endif
+
 namespace svdt {
 
 constexpr int kThreads = 512;
@@ -277,6 +286,7 @@ __device__ void apply_left(const Acc& a, int n, int b, int rl, int c0,
                            const float* v, float tau2, float* part) {
   left_partials(a, n, b, rl, c0, v, part);
   __syncthreads();
+  SVDT_SPLIT(5);
   const LeftThread lt(b);
   const int rows = min(b, n - rl);
   if (lt.g < lt.groups && c0 + lt.c < n) {
@@ -321,9 +331,11 @@ __device__ void chase_pair(const Acc& a, int n, int b, int r0, int c0, int wr,
     if constexpr (Rec) record(v, tau, b, rr.v, rr.t);
   }
   __syncthreads();
+  SVDT_SPLIT(2);
   const float tau = s_tau[0];
   if (tau != 0.f) apply_right<KPL>(a, n, b, r0, c0, wr, v, tau);
   __syncthreads();
+  SVDT_SPLIT(3);
 
   // ---- left elimination ----
   const int rl = r0 + lr0;
@@ -335,9 +347,11 @@ __device__ void chase_pair(const Acc& a, int n, int b, int r0, int c0, int wr,
     if constexpr (Rec) record(v, tau2, b, rl_.v, rl_.t);
   }
   __syncthreads();
+  SVDT_SPLIT(4);
   const float tau2 = s_tau[1];
   if (tau2 != 0.f) apply_left(a, n, b, rl, c0, v, tau2, part);
   else __syncthreads();
+  SVDT_SPLIT(6);
 }
 
 // nc_of: chase pairs of sweep i, max(0, ceil((n - (i + 2b + 1)) / b)) + 1

@@ -13,7 +13,7 @@ reflectors, for the singular-vector back-transforms of ``models/vectors.py``.
 
 import torch
 
-from svdsolver_tpu_torch.ops.chase_schedule import nc_of_static, s_max_of
+from svdsolver_tpu_torch.ops.chase_schedule import nc_of_static, s_max_of, wave_pairs
 from svdsolver_tpu_torch.ops.householder import householder_vector
 from svdsolver_tpu_torch.ops.precision import pdot
 
@@ -326,6 +326,73 @@ def band_to_bidiagonal_wavefront(A, band=32, defer_left=False, record=False):
                 pending[i] = (W, b) + _left_reflector(W, b)
     B = Ap[:n, :n]
     d, e = torch.diagonal(B).clone(), torch.diagonal(B, 1).clone()
+    return (d, e, VL, TL, VR, TR) if record else (d, e)
+
+
+def _box_in(M, r, c, h, w):
+    """An ``h x w`` box of ``M`` at ``(r, c)``; zero past ``M``'s edge (the
+    TMA copy's out-of-bounds fill)."""
+    n = M.shape[0]
+    box = M.new_zeros((h, w))
+    rh, cw = max(0, min(h, n - r)), max(0, min(w, n - c))
+    box[:rh, :cw] = M[r : r + rh, c : c + cw]
+    return box
+
+
+def _box_out(M, box, r, c):
+    """Write ``box`` back at ``(r, c)``, dropping what lies past the edge."""
+    n = M.shape[0]
+    h, w = box.shape
+    rh, cw = max(0, min(h, n - r)), max(0, min(w, n - c))
+    M[r : r + rh, c : c + cw] = box[:rh, :cw]
+
+
+def band_to_bidiagonal_wavefront_tiles(A, band=32, record=False, carry=True):
+    """The shared-memory tick of the wavefront chase kernel, plain: each
+    pair of :func:`~svdsolver_tpu_torch.ops.chase_schedule.wave_pairs` copies
+    its boxes out of an unpadded copy of ``A`` (zeros past ``n``), runs the
+    one pair of :func:`make_window_pairs` on a window built from them, and
+    writes back only the boxes the kernel writes back: a chase lane keeps
+    its ``(r + b, c + b)`` tile for its next pair (``carry=True``), which
+    then loads two tiles, not three.  Writes past ``n`` are dropped.
+    Returns what :func:`band_to_bidiagonal_wavefront` returns, bit-equal.
+    """
+    n = A.shape[0]
+    if n < 2:
+        if record:
+            raise ValueError("band_to_bidiagonal_accum needs n >= 2")
+        return torch.abs(torch.diagonal(A)), A.new_zeros((0,))
+    b = int(band)
+    M = A.clone()
+    top_pair, chase_pair = make_window_pairs(b + 1, record=record)
+    if record:
+        s_max = s_max_of(n, b)
+        VL, VR = A.new_zeros((2, n - 1, s_max, b))
+        TL, TR = A.new_zeros((2, n - 1, s_max))
+    kept = {}  # lane -> the tile it carries to its next pair
+    for p in wave_pairs(n, b, carry=carry):
+        if p.s == 0:
+            W = _box_in(M, p.r, p.c, b + 1, 2 * b)
+            out = top_pair(W)
+            _box_out(M, W, p.r, p.c)
+        else:
+            W = A.new_zeros((2 * b, 2 * b))  # (r, c + b) is never touched
+            W[:b, :b] = kept.pop(p.unit) if p.carry_in else _box_in(M, p.r, p.c, b, b)
+            W[b:, :b] = _box_in(M, p.r + b, p.c, b, b)
+            W[b:, b:] = _box_in(M, p.r + b, p.c + b, b, b)
+            out = chase_pair(W)
+            for rr, cc in p.stores:
+                _box_out(M, W[rr - p.r : rr - p.r + b, cc - p.c : cc - p.c + b], rr, cc)
+            if p.carry_out:
+                kept[p.unit] = W[b:, b:].clone()
+        if record:
+            _, VR[p.i, p.s], TR[p.i, p.s], VL[p.i, p.s], TL[p.i, p.s] = out
+    if record:  # pairs past n run nothing: the plain records' identity, e_0
+        for i in range(n - 1):
+            for s in range(1, nc_of_static(i, n, b) + 1):
+                if i + 1 + s * b >= n:
+                    VL[i, s, 0] = VR[i, s, 0] = 1
+    d, e = torch.diagonal(M).clone(), torch.diagonal(M, 1).clone()
     return (d, e, VL, TL, VR, TR) if record else (d, e)
 
 

@@ -18,8 +18,16 @@ bit-equal to the sequential chase kernel's.  Their plain versions are
 ``defer_left``); a CPU tensor runs those.
 
 The wavefront runs sweeps three slots apart at once, each lane on its own
-CTA of a cooperative launch with a grid barrier between ticks.  The main
-paths route by :func:`wave_chase_preferred` (``svdvals``) and
+CTA of a cooperative launch with a grid barrier between ticks.  A tick runs
+in one of two ways: the shared-memory tick copies each pair's window into
+shared memory by TMA and keeps a lane's shared tile for its next slot
+(:func:`smem_tick_takes`: every band of the main paths, b <= 128), the L2
+tick runs the pair on the matrix through L2 (wider bands, other shapes,
+the deferred-left entry).  Each tick counts its own launches; the plain
+version of the shared-memory tick is ``two_stage.
+band_to_bidiagonal_wavefront_tiles`` (tiles copied in and out as the
+kernel copies them).  The main paths route by
+:func:`wave_chase_preferred` (``svdvals``) and
 :func:`wave_chase_accum_preferred` (``svd``, ``svds``), measured on the
 card; elsewhere they take the sequential kernel (``band_chase``).
 """
@@ -32,12 +40,18 @@ from svdsolver_tpu_torch.models import two_stage
 from svdsolver_tpu_torch.ops.chase_schedule import s_max_of
 from svdsolver_tpu_torch.ops.cuda import _build
 
-launches = 0  # kernel launches by band_to_bidiagonal_wave since the last reset
-launches_dl = 0  # kernel launches by band_to_bidiagonal_wave_dl likewise
-launches_rec = 0  # kernel launches by band_to_bidiagonal_wave_accum likewise
+# Launches since the last reset, by entry and tick: the shared-memory tick
+# (b <= 128) and the L2 tick (wider bands, other shapes, deferred left).
+launches = 0  # band_to_bidiagonal_wave, shared-memory tick
+launches_l2 = 0  # band_to_bidiagonal_wave, L2 tick
+launches_rec = 0  # band_to_bidiagonal_wave_accum, shared-memory tick
+launches_rec_l2 = 0  # band_to_bidiagonal_wave_accum, L2 tick
+launches_dl = 0  # band_to_bidiagonal_wave_dl (L2 tick)
 last_ctas = 0  # CTAs of the last launch (lanes stride over them)
+last_tick = ""  # "smem" or "l2": the tick of the last launch
 
 MAX_BAND = 256  # the one chase pair's 2b window columns on 512 threads
+SMEM_BAND = 128  # the widest band of the shared-memory tick (3 b x b tiles)
 
 _ENTRIES = {
     "svdt_band_chase_wave": (
@@ -52,7 +66,37 @@ _ENTRIES = {
         [_build.VOIDP] * 3 + [_build.INT] * 2 + [_build.VOIDP] * 3
         + [_build.INT] * 2 + [_build.VOIDP] * 2
     ),
+    "svdt_band_chase_wave_smem": (
+        [_build.VOIDP] * 3 + [_build.INT] * 2 + [_build.VOIDP, _build.INT]
+        + [_build.VOIDP, _build.INT, _build.VOIDP]
+    ),
+    "svdt_band_chase_wave_smem_rec": (
+        [_build.VOIDP] * 3 + [_build.INT] * 2 + [_build.VOIDP] * 4
+        + [_build.INT, _build.VOIDP, _build.INT, _build.VOIDP, _build.INT,
+           _build.VOIDP]
+    ),
+    "svdt_wave_copy": [_build.VOIDP] + [_build.INT] * 5 + [_build.VOIDP],
 }
+
+
+def smem_tick_takes(A, band):
+    """Whether the shared-memory tick takes ``A`` with ``band``: the copy
+    engine moves boxes of whole 16-byte rows, so ``band`` and ``n`` are
+    multiples of 4 and ``A`` is 16-byte aligned; three ``band x band``
+    tiles fit a CTA's shared memory up to ``band = 128``."""
+    b, n = int(band), A.shape[0]
+    return 4 <= b <= SMEM_BAND and b % 4 == 0 and n % 4 == 0 and A.data_ptr() % 16 == 0
+
+
+def _tick_of(A, b, tick):
+    """The tick a launch takes: the shared-memory one where it can, or the
+    one ``tick`` names ("smem" raises where it cannot)."""
+    if tick not in (None, "smem", "l2"):
+        raise ValueError(f"_tick must be None, 'smem' or 'l2', got {tick!r}")
+    takes = smem_tick_takes(A, b)
+    if tick == "smem" and not takes:
+        raise ValueError(f"the shared-memory tick does not take n={A.shape[0]}, band={b}")
+    return tick or ("smem" if takes else "l2")
 
 
 def band_to_bidiagonal_wave_plain(A, band=128):
@@ -67,6 +111,13 @@ def band_to_bidiagonal_wave_dl_plain(A, band=128):
     return two_stage.band_to_bidiagonal_wavefront(A, band=band, defer_left=True)
 
 
+def band_to_bidiagonal_wave_tiles_plain(A, band=128, record=False, carry=True):
+    """Plain version of the shared-memory tick: boxes copied in and out, a
+    lane's tile carried (``carry``: one CTA a unit)."""
+    return two_stage.band_to_bidiagonal_wavefront_tiles(A, band=band, record=record,
+                                                        carry=carry)
+
+
 def _check_band(A, b):
     """``n`` of a square ``A`` whose band ``b`` the wave kernel takes."""
     if A.ndim != 2 or A.shape[0] != A.shape[1]:
@@ -76,8 +127,17 @@ def _check_band(A, b):
     return A.shape[0]
 
 
-def _launch(A, b, defer_left, ctas, record=False):
-    global last_ctas
+def _plain(A, b, record, ctas, tick):
+    """A CPU tensor: the plain version of the tick the card would take."""
+    if _tick_of(A, b, tick) == "l2":
+        return (band_to_bidiagonal_wave_accum_plain if record
+                else band_to_bidiagonal_wave_plain)(A, band=b)
+    carry = ctas is None or int(ctas) >= two_stage.wave_lanes(A.shape[0], b) + 1
+    return band_to_bidiagonal_wave_tiles_plain(A, band=b, record=record, carry=carry)
+
+
+def _launch(A, b, defer_left, ctas, record=False, tick="l2", smem=None):
+    global last_ctas, last_tick
     n = A.shape[0]
     work = A.clone()
     d = torch.empty((n,), dtype=A.dtype, device=A.device)
@@ -87,19 +147,24 @@ def _launch(A, b, defer_left, ctas, record=False):
     max_ctas = 0 if ctas is None else int(ctas)
     if ctas is not None and max_ctas < 1:
         raise ValueError(f"_ctas must be >= 1, got {ctas}")
+    smem = 0 if smem is None else int(smem)
     lib = _build.load("band_chase_wave", _ENTRIES)
+    stream = _build.stream_of(A)
     with torch.cuda.device(A.device):
         if record:
             s_max = s_max_of(n, b)
             # zeros: the kernel writes only the slots the schedule reaches
             VL, VR = torch.zeros((2, n - 1, s_max, b), dtype=A.dtype, device=A.device)
             TL, TR = torch.zeros((2, n - 1, s_max), dtype=A.dtype, device=A.device)
-            err = lib.svdt_band_chase_wave_rec(
-                work.data_ptr(), d.data_ptr(), e.data_ptr(), n, b,
-                VL.data_ptr(), TL.data_ptr(), VR.data_ptr(), TR.data_ptr(),
-                s_max, ctr.data_ptr(), max_ctas, ctypes.addressof(got),
-                _build.stream_of(A),
-            )
+            recs = (VL.data_ptr(), TL.data_ptr(), VR.data_ptr(), TR.data_ptr(), s_max)
+            if tick == "smem":
+                err = lib.svdt_band_chase_wave_smem_rec(
+                    work.data_ptr(), d.data_ptr(), e.data_ptr(), n, b, *recs,
+                    ctr.data_ptr(), max_ctas, ctypes.addressof(got), smem, stream)
+            else:
+                err = lib.svdt_band_chase_wave_rec(
+                    work.data_ptr(), d.data_ptr(), e.data_ptr(), n, b, *recs,
+                    ctr.data_ptr(), max_ctas, ctypes.addressof(got), stream)
         elif defer_left:
             slots = two_stage.wave_lanes(n, b, defer_left=True) + 2
             ring_v = torch.zeros((slots, b), dtype=A.dtype, device=A.device)
@@ -107,21 +172,25 @@ def _launch(A, b, defer_left, ctas, record=False):
             err = lib.svdt_band_chase_wave_dl(
                 work.data_ptr(), d.data_ptr(), e.data_ptr(), n, b,
                 ctr.data_ptr(), ring_v.data_ptr(), ring_t.data_ptr(), slots,
-                max_ctas, ctypes.addressof(got), _build.stream_of(A),
+                max_ctas, ctypes.addressof(got), stream,
             )
+        elif tick == "smem":
+            err = lib.svdt_band_chase_wave_smem(
+                work.data_ptr(), d.data_ptr(), e.data_ptr(), n, b,
+                ctr.data_ptr(), max_ctas, ctypes.addressof(got), smem, stream)
         else:
             err = lib.svdt_band_chase_wave(
                 work.data_ptr(), d.data_ptr(), e.data_ptr(), n, b,
-                ctr.data_ptr(), max_ctas, ctypes.addressof(got),
-                _build.stream_of(A),
+                ctr.data_ptr(), max_ctas, ctypes.addressof(got), stream,
             )
-    name = "_rec" if record else "_dl" if defer_left else ""
+    name = ("_rec" if record else "_dl" if defer_left else "") + ("_smem" if tick == "smem" else "")
     _build.raise_on_error(err, "band_chase_wave" + name)
     last_ctas = got.value
+    last_tick = tick
     return (d, e, VL, TL, VR, TR) if record else (d, e)
 
 
-def band_to_bidiagonal_wave(A, band=128, _ctas=None):
+def band_to_bidiagonal_wave(A, band=128, _ctas=None, _tick=None, _smem=None):
     """Bulge-chase the upper-band ``A`` (n, n; ``band`` superdiagonals) to
     bidiagonal on the wavefront schedule; returns ``(d, e)``, bit-equal to
     the sequential chase's.
@@ -129,17 +198,25 @@ def band_to_bidiagonal_wave(A, band=128, _ctas=None):
     A CUDA tensor must be contiguous float32 with ``1 <= band <= 256``; it
     launches the kernel on a copy of ``A`` over as many CTAs as lanes, or as
     fit on the card at once (``_ctas`` caps them; lanes stride over CTAs).
-    A CPU tensor runs the plain version.
+    Where :func:`smem_tick_takes` holds (every band of the main paths) the
+    kernel runs the shared-memory tick, else the L2 tick; ``_tick`` ("smem"
+    or "l2") forces one, ``_smem`` sets the shared-memory tick's dynamic
+    shared memory a CTA (bytes).  A failed launch raises.  A CPU tensor runs
+    the plain version of the tick the card would take.
     """
-    global launches
+    global launches, launches_l2
     b = int(band)
     n = _check_band(A, b)
     if not _build.check_input(A, "A", 2):
-        return band_to_bidiagonal_wave_plain(A, band=b)
+        return _plain(A, b, False, _ctas, _tick)
     if n < 2:
         return torch.abs(torch.diagonal(A)), A.new_zeros((0,))
-    out = _launch(A, b, False, _ctas)
-    launches += 1
+    tick = _tick_of(A, b, _tick)
+    out = _launch(A, b, False, _ctas, tick=tick, smem=_smem)
+    if tick == "smem":
+        launches += 1
+    else:
+        launches_l2 += 1
     return out
 
 
@@ -162,27 +239,50 @@ def band_to_bidiagonal_wave_dl(A, band=128, _ctas=None):
     return out
 
 
-def band_to_bidiagonal_wave_accum(A, band=128, _ctas=None):
+def band_to_bidiagonal_wave_accum(A, band=128, _ctas=None, _tick=None, _smem=None):
     """As :func:`band_to_bidiagonal_wave`, recording every reflector;
     returns ``(d, e, VL, TL, VR, TR)`` as ``band_chase.
     band_to_bidiagonal_accum``, whose kernel fills the same slots with the
     same values, bit for bit (zero rows with tau 0 for identity reflectors
     and the slots the schedule never reaches).  Counterpart of the JAX
-    ``band_to_bidiagonal_pallas_wave_accum``.  A CPU tensor runs the plain
-    version (``band_to_bidiagonal_wavefront(record=True)``, whose records
-    keep ``v = e_0`` for identity reflectors, as the plain sequential
-    chase's do).
+    ``band_to_bidiagonal_pallas_wave_accum``.  The tick is chosen as there.
+    A CPU tensor runs the plain version (``band_to_bidiagonal_wavefront
+    (record=True)`` or its tile twin, whose records keep ``v = e_0`` for
+    identity reflectors, as the plain sequential chase's do).
     """
-    global launches_rec
+    global launches_rec, launches_rec_l2
     b = int(band)
     n = _check_band(A, b)
     if not _build.check_input(A, "A", 2):
-        return band_to_bidiagonal_wave_accum_plain(A, band=b)
+        if n < 2:
+            raise ValueError("band_to_bidiagonal_accum needs n >= 2")
+        return _plain(A, b, True, _ctas, _tick)
     if n < 2:
         raise ValueError("band_to_bidiagonal_accum needs n >= 2")
-    out = _launch(A, b, False, _ctas, record=True)
-    launches_rec += 1
+    tick = _tick_of(A, b, _tick)
+    out = _launch(A, b, False, _ctas, record=True, tick=tick, smem=_smem)
+    if tick == "smem":
+        launches_rec += 1
+    else:
+        launches_rec_l2 += 1
     return out
+
+
+def window_copy(A, band, r, c, reps):
+    """Time base of the shared-memory tick's schedule bound: one CTA copies
+    the three ``band x band`` tiles of a chase window at corner ``(r, c)``
+    of the CUDA float32 ``A`` into shared memory and back, ``reps`` times,
+    as the tick does (entries past ``n`` read zero, writes dropped).  ``A``
+    is left as it was.  Not a chase: it counts no launch."""
+    b = int(band)
+    if not (A.is_cuda and A.dtype == torch.float32 and A.is_contiguous()
+            and smem_tick_takes(A, b)):
+        raise ValueError("window_copy takes a CUDA float32 matrix the shared-memory tick takes")
+    lib = _build.load("band_chase_wave", _ENTRIES)
+    with torch.cuda.device(A.device):
+        err = lib.svdt_wave_copy(A.data_ptr(), A.shape[0], b, int(r), int(c), int(reps),
+                                 _build.stream_of(A))
+    _build.raise_on_error(err, "wave_copy")
 
 
 def wave_chase_preferred(n, band):
@@ -193,16 +293,16 @@ def wave_chase_preferred(n, band):
 
     Measured on one NVIDIA H100 80GB HBM3 at 700 W (``chip_smoke.py``,
     ``phase_route_times``: Stage I bands of a uniform matrix, the two
-    kernels in turns), ms:
+    kernels in turns; the wavefront on its shared-memory tick), ms:
 
     ==========  =====  ==========  =========  ======
     n / band    lanes  sequential  wavefront  routed
     ==========  =====  ==========  =========  ======
-    256 / 64    1      2.883       4.495      sequential
-    1024 / 64   5      43.576      22.820     wavefront
-    2048 / 128  5      239.883     116.476    wavefront
-    3840 / 128  10     849.720     228.468    wavefront
-    7680 / 128  20     3409.467    473.094    wavefront
+    256 / 64    1      3.060       4.621      sequential
+    1024 / 64   5      43.848      20.051     wavefront
+    2048 / 128  5      240.571     72.685     wavefront
+    3840 / 128  10     852.738     141.137    wavefront
+    7680 / 128  20     3420.831    288.618    wavefront
     ==========  =====  ==========  =========  ======
     """
     return two_stage.wave_lanes(int(n), int(band)) >= 2
@@ -217,11 +317,11 @@ def wave_chase_accum_preferred(n, band):
     ==========  =====  ==========  =========  ======
     n / band    lanes  sequential  wavefront  routed
     ==========  =====  ==========  =========  ======
-    256 / 64    1      3.123       4.790      sequential
-    1024 / 64   5      46.521      24.034     wavefront
-    2048 / 128  5      244.518     121.407    wavefront
-    3840 / 128  10     865.095     237.936    wavefront
-    7680 / 128  20     3469.747    490.250    wavefront
+    256 / 64    1      3.356       4.656      sequential
+    1024 / 64   5      46.662      21.164     wavefront
+    2048 / 128  5      245.098     73.894     wavefront
+    3840 / 128  10     867.969     141.522    wavefront
+    7680 / 128  20     3481.447    289.947    wavefront
     ==========  =====  ==========  =========  ======
     """
     return two_stage.wave_lanes(int(n), int(band)) >= 2

@@ -268,3 +268,64 @@ def test_main_paths_launch_the_routed_chases(dev, rng):
         svdvals(A)
         svd(A)
         assert [getattr(mod, attr) for mod, attr in counters] == want, n
+
+
+def _counts():
+    return {k: getattr(band_chase_wave, k) for k in
+            ("launches", "launches_l2", "launches_rec", "launches_rec_l2", "launches_dl")}
+
+
+def _reset():
+    for k in _counts():
+        setattr(band_chase_wave, k, 0)
+
+
+@pytest.mark.parametrize("n,b", [(256, 32), (384, 64), (512, 128), (200, 8), (1000, 64),
+                                 (1000, 128), (1024, 64)])
+def test_smem_tick_bit_equal_to_sequential_kernels(dev, rng, n, b):
+    # the shared-memory tick, plain and recording, against the sequential
+    # kernels; n = 1000 at b = 128: the copies read and write past n
+    Ab = _band(dev, rng, n, b)
+    _reset()
+    got = band_chase_wave.band_to_bidiagonal_wave(Ab, band=b)
+    got_rec = band_chase_wave.band_to_bidiagonal_wave_accum(Ab, band=b)
+    torch.cuda.synchronize()
+    assert _counts() == {"launches": 1, "launches_l2": 0, "launches_rec": 1,
+                         "launches_rec_l2": 0, "launches_dl": 0}
+    for g, w in zip(got, band_chase.band_to_bidiagonal(Ab, band=b)):
+        assert torch.equal(g, w)
+    for g, w in zip(got_rec, band_chase.band_to_bidiagonal_accum(Ab, band=b)):
+        assert torch.equal(g, w)
+
+
+def test_smem_tick_striding_lanes_without_carry(dev):
+    # 3840 / b128 on 4 CTAs: lanes stride, each pair copies its whole window
+    n, b = 3840, 128
+    A = torch.from_numpy(np.random.default_rng(0).uniform(0, 5, (n, n)).astype(np.float32)).to(dev)
+    Ab = panel_qr.dense_to_band_fused(A, band=b)
+    d, e = band_chase_wave.band_to_bidiagonal_wave(Ab, band=b, _ctas=4)
+    assert band_chase_wave.last_ctas == 4 and band_chase_wave.last_tick == "smem"
+    d0, e0 = band_chase.band_to_bidiagonal(Ab, band=b)
+    assert torch.equal(d, d0) and torch.equal(e, e0)
+
+
+def test_wide_band_and_deferred_left_take_the_l2_tick(dev, rng):
+    Ab = _band(dev, rng, 640, 160)
+    _reset()
+    d, e = band_chase_wave.band_to_bidiagonal_wave(Ab, band=160)
+    band_chase_wave.band_to_bidiagonal_wave_accum(Ab, band=160)
+    band_chase_wave.band_to_bidiagonal_wave_dl(_band(dev, rng, 256, 32), band=32)
+    assert _counts() == {"launches": 0, "launches_l2": 1, "launches_rec": 0,
+                         "launches_rec_l2": 1, "launches_dl": 1}
+    d0, e0 = band_chase.band_to_bidiagonal(Ab, band=160)
+    assert torch.equal(d, d0) and torch.equal(e, e0)
+
+
+def test_smem_tick_raises_on_impossible_shared_memory(dev, rng):
+    # more dynamic shared memory than a CTA has: the launch fails and the
+    # wrapper raises, with no fallback to the L2 tick
+    Ab = _band(dev, rng, 256, 32)
+    _reset()
+    with pytest.raises(RuntimeError, match="band_chase_wave_smem"):
+        band_chase_wave.band_to_bidiagonal_wave(Ab, band=32, _smem=240 * 1024)
+    assert _counts()["launches"] == 0 and _counts()["launches_l2"] == 0

@@ -11,7 +11,12 @@ band of a uniform [0, 5) matrix (CUDA events, median of 3) at n = 1024
 * staged kernel (khops = 1): in full, without the tile copies, without the
   pairs on the tiles, the head pairs alone, the tile copies alone, and the
   loop with no work;
-* wavefront kernel: in full, and its grid barriers alone (no pair runs).
+* wavefront kernel, each tick (the L2 tick and the shared-memory one): in
+  full, its grid barriers alone (no pair runs), and a per-phase split of one
+  busy lane (CTA 1): its thread 0 stamps ``clock64()`` at the phase marks
+  ``SVDT_SPLIT`` of ``csrc/chase_pair.cuh`` and ``band_chase_wave.cu`` (empty
+  in the package's builds) into a device buffer, a tick a row, and the
+  global timer at each tick's start turns cycles into microseconds.
 
 A run with skipped work computes a wrong (d, e); only the full runs are
 held bit-equal to the chase kernel.  The shipped kernels are not changed.
@@ -29,6 +34,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
+from svdsolver_tpu_torch.ops.chase_schedule import wave_ticks  # noqa: E402
 from svdsolver_tpu_torch.ops.cuda import _build, band_chase, panel_qr  # noqa: E402
 
 OUT = ROOT / "build" / "chase_split"
@@ -59,13 +65,64 @@ def staged_source():
     return s
 
 
+# Phase marks of one CTA (tick start, the pivot box landed, after the right
+# reflector, the right apply, the left reflector, the left partials, the left
+# apply, before and after the grid barrier): clock64 stamps, and the global
+# timer at each tick's start to turn cycles into time.
+SPLIT_PRELUDE = r"""
+__device__ long long* g_split;
+__device__ long long* g_split_row;
+__device__ int g_split_cta;
+__device__ int g_split_skip;
+__device__ __forceinline__ long long split_gtime() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return (long long)t;
+}
+#define SPLIT_MINE (g_split != nullptr && threadIdx.x == 0 && blockIdx.x == g_split_cta)
+#define SVDT_SPLIT(k) do { if (SPLIT_MINE) g_split_row[k] = clock64(); } while (0)
+#define SVDT_SPLIT_TICK(t)                                            \
+  do {                                                                \
+    if (SPLIT_MINE) {                                                 \
+      g_split_row = g_split + 10 * (size_t)(t);                       \
+      g_split_row[0] = clock64();                                     \
+      g_split_row[9] = split_gtime();                                 \
+    }                                                                 \
+  } while (0)
+"""
+SPLIT_SETTER = """
+extern "C" int svdt_split_set(long long* buf, int cta, int skip) {
+  cudaError_t err = cudaMemcpyToSymbol(g_split, &buf, sizeof(buf));
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_split_cta, &cta, sizeof(cta));
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_split_skip, &skip, sizeof(skip));
+  return (int)err;
+}
+"""
+PHASES = ("copy-in wait", "right reflector", "right apply", "left reflector",
+          "left partials", "left apply", "stores", "grid barrier")
+
+
 def wave_source():
+    """band_chase_wave.cu with the phase marks defined and a switch that
+    skips every pair (both ticks: the grid barriers alone)."""
     s = (_build.CSRC / "band_chase_wave.cu").read_text()
-    s = patch(s, "using namespace svdt;\n", "using namespace svdt;\nint g_skip = 0;\n")
-    s = patch(s, "Ring ring, Records rec) {", "Ring ring, Records rec, int skip) {")
-    s = patch(s, "u <= L; u += G)", "u <= L && !skip; u += G)")
-    s = patch(s, "&ctr, &ring, &rec};", "&ctr, &ring, &rec, &g_skip};")
-    return s + '\nextern "C" void svdt_set_skip(int v) { g_skip = v; }\n'
+    s = patch(s, "u <= L; u += G)", "u <= L && !g_split_skip; u += G)", count=2)
+    return SPLIT_PRELUDE + s + SPLIT_SETTER
+
+
+def phase_split(stamps):
+    """Mean microseconds a tick of each phase, over the ticks in which the
+    stamped CTA ran a pair; a mark the tick lacks takes the one before it
+    (the L2 tick has no copies, a pair without a left apply no partials)."""
+    st = stamps.astype(np.float64)
+    ran = st[:, 2] > 0
+    ns_per_clk = (st[-1, 9] - st[0, 9]) / (st[-1, 0] - st[0, 0])
+    rows = st[ran][:, :9].copy()
+    for k in range(1, 9):
+        rows[:, k] = np.where(rows[:, k] > 0, rows[:, k], rows[:, k - 1])
+    per = np.diff(rows, axis=1).mean(axis=0) * ns_per_clk / 1e3
+    tick = (rows[:, 8] - rows[:, 0]).mean() * ns_per_clk / 1e3
+    return dict(zip(PHASES, per)), tick, int(ran.sum()), 1e3 / ns_per_clk
 
 
 def build(name, text):
@@ -101,7 +158,8 @@ def main():
     staged.svdt_band_chase_staged.argtypes = [V, V, V, I, I, I, I, V]
     wave = build("wave", wave_source())
     wave.svdt_band_chase_wave.argtypes = [V, V, V, I, I, V, I, V, V]
-    wave.svdt_set_skip.argtypes = [I]
+    wave.svdt_band_chase_wave_smem.argtypes = [V, V, V, I, I, V, I, V, I, V]
+    wave.svdt_split_set.argtypes = [V, I, I]
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
     for n, b in SHAPES:
         a = np.random.default_rng(0).uniform(0, 5, (n, n)).astype(np.float32)
@@ -130,22 +188,41 @@ def main():
                 note = ", (d, e) bit-equal to the chase kernel"
             print(f"[split] staged n={n} b={b} khops=1 {label}: {ms:.3f} ms{note}", flush=True)
 
-        def run_wave():
+        def run_wave(tick):
             W = Ab.clone()
             d, e = torch.empty(n, device="cuda"), torch.empty(n - 1, device="cuda")
             ctr = torch.zeros(1, dtype=torch.int32, device="cuda")
             got = ctypes.c_int(0)
-            err = wave.svdt_band_chase_wave(W.data_ptr(), d.data_ptr(), e.data_ptr(), n, b,
-                                            ctr.data_ptr(), 0, ctypes.addressof(got), stream())
+            args = (W.data_ptr(), d.data_ptr(), e.data_ptr(), n, b, ctr.data_ptr(), 0,
+                    ctypes.addressof(got))
+            if tick == "smem":
+                err = wave.svdt_band_chase_wave_smem(*args, 0, stream())
+            else:
+                err = wave.svdt_band_chase_wave(*args, stream())
             if err:
                 raise RuntimeError(f"wave launch failed: {err}")
-            out["ctas"] = got.value
+            out["ctas"], out["de"] = got.value, (d, e)
 
-        for skip, label in ((0, "full"), (1, "grid barriers only")):
-            wave.svdt_set_skip(skip)
-            ms = median_ms(run_wave)
-            print(f"[split] wave n={n} b={b} {label}: {ms:.3f} ms on {out['ctas']} CTAs",
-                  flush=True)
+        T = wave_ticks(n, b)
+        for tick in ("l2", "smem"):
+            wave.svdt_split_set(None, 1, 0)
+            ms = median_ms(lambda: run_wave(tick))
+            if not all(torch.equal(x, y) for x, y in zip(out["de"], want)):
+                raise RuntimeError(f"wave {tick} tick copy not bit-equal to the chase kernel")
+            wave.svdt_split_set(None, 1, 1)
+            bar_ms = median_ms(lambda: run_wave(tick))
+            stamps = torch.zeros((T, 10), dtype=torch.int64, device="cuda")
+            wave.svdt_split_set(stamps.data_ptr(), 1, 0)
+            run_wave(tick)
+            torch.cuda.synchronize()
+            wave.svdt_split_set(None, 1, 0)
+            split, per_tick, ran, mhz = phase_split(stamps.cpu().numpy())
+            print(f"[split] wave {tick} tick n={n} b={b}: {ms:.3f} ms on {out['ctas']} CTAs "
+                  f"({T} ticks, {ms / T * 1e3:.2f} us a tick), (d, e) bit-equal to the chase "
+                  f"kernel; grid barriers only {bar_ms:.3f} ms", flush=True)
+            print(f"[split] wave {tick} tick n={n} b={b}, CTA 1 (lane 1), {ran} ticks with a pair, "
+                  f"{per_tick:.2f} us a tick at {mhz:.0f} MHz: "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in split.items()) + " (us)", flush=True)
     return 0
 
 
