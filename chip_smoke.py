@@ -44,7 +44,18 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    rate for a chase window and the shared-memory tick's schedule bound,
    and computes each kernel's bound from its shapes;
 6. profiles one ``svdvals`` and one ``svd`` call and one wavefront chase at
-   n = 3840: device time by kernel and the card's busy share.
+   n = 3840: device time by kernel and the card's busy share;
+7. holds the redesigned kernels to their first designs: the bisection tree
+   (K2, every group G of 4, 8, 16, 32 threads a sigma) bit-equal to the
+   one-thread kernel at n = 1, 2, 33, 1024, 3840 and 7680 for probes 1 and
+   3, the staged TGK solve (K9/K10) bit-equal to the first design at n =
+   512, 1280, 3840 and at 997 and 250 lanes; drives ``svds`` at n = 1000,
+   k = 250; times K2 at every G and both solve designs in turns at n =
+   1024, 3840, 7680; and runs the scale net: the panel QR at m = 15,360
+   and 23,040, ``svdvals`` at 15,360 (against float64 svdvals, timed) and
+   23,040 (against a spectrum known by construction), ``svd`` at 7680 with
+   its gates and its peak device memory.  Every main-path run shows the
+   tree and the staged solve in the launch counts, never a first design.
 
 Any failure raises and exits non-zero.  The second-to-last line is the
 kernel table as JSON, the last ``{"ok": true, "device": {...}}``.  With no
@@ -87,11 +98,25 @@ CHASES = ("band_chase", "band_chase_rec", "band_chase_wave", "band_chase_wave_re
 # the two wavefront ticks in turns (n, band): the check band and the widest
 # chases of the main paths
 TICK_SHAPES = ((1024, 64), (3840, 128), (7680, 128))
+# the redesigned K2 and K9/K10 against their first designs: bit-equality at
+# these n (1 and 2: the smallest trees), times in turns at DESIGN_TIMES
+K2_CHECK = (1, 2, 33, 1024, 3840, 7680)
+TGK_CHECK = (512, 1280, 3840)
+DESIGN_TIMES = (1024, 3840, 7680)
+GROUPS = (1, 4, 8, 16, 32)  # K2's threads a sigma (1: the first design)
+SVDS_CASE = (1000, 250)  # (n, k): k lanes not a multiple of 4
+# the scale net: svdvals at SCALE_VALS (sigma against float64 svdvals at
+# 15,360, against a spectrum known by construction at 23,040) and svd at
+# SCALE_SVD with its gates and peak device memory
+SCALE_VALS = (15360, 23040)
+SCALE_SVD = 7680
 WIDE_BAND = (640, 160)  # past the shared-memory tick's 128: the L2 tick
 # K1 (b, m, r_off): the first Stage I panel at 3840, an LQ panel whose last
 # 64 pivots lie past m, the first panel at 1000 (padded to 1024, b = 64) and
-# the first at 7680 (the large-panel route)
-K1_SHAPES = ((128, 3840, 0), (128, 3840, 3776), (64, 1024, 0), (128, 7680, 0))
+# the first at 7680, 15,360 and 23,040 (the large-panel route; past 12,544
+# most of a CTA's columns stay in device memory)
+K1_SHAPES = ((128, 3840, 0), (128, 3840, 3776), (64, 1024, 0), (128, 7680, 0),
+             (128, 15360, 0), (128, 23040, 0))
 TOL_K1 = 1e-4  # |kernel - plain| <= TOL_K1 max|plain|: sums over m in other orders
 TOL_Q = 1e-5  # |Q^T Q - I| and |Q R - P|_F / |P|_F, float64 from the kernel's V, T, R
 # the chase's routing shapes (n, band): svdvals/svd at 1000, svd at 2048,
@@ -111,7 +136,7 @@ DEV = "cuda"
 
 
 CARD = ""  # the card's name and power limit, as nvidia-smi gives them
-TIMED = ("[times]", "[route]", "[profile]", "[slice]", "[svd]", "[ticks]")
+TIMED = ("[times]", "[route]", "[profile]", "[slice]", "[svd]", "[ticks]", "[scale]")
 
 
 def say(*parts):
@@ -185,7 +210,9 @@ def _counters():
             "band_chase": (band_chase, "launches"),
             "band_chase_rec": (band_chase, "launches_rec"),
             "bisect": (bisect, "launches"),
+            "bisect_thread": (bisect, "launches_thread"),
             "tridiag_solve": (tridiag_solve, "launches"),
+            "tridiag_solve_lane": (tridiag_solve, "launches_lane"),
             "band_chase_wave": (band_chase_wave, "launches"),
             "band_chase_wave_dl": (band_chase_wave, "launches_dl"),
             "band_chase_wave_rec": (band_chase_wave, "launches_rec"),
@@ -422,6 +449,32 @@ def check_panel_qr(rng):
     return k1
 
 
+def check_bisect_tree(rng, d1024, e1024):
+    """K2's tree against the one-thread design: sigma bit-equal at every n of
+    K2_CHECK (the chase's bidiagonal at 1024, uniform [0, 5) entries
+    elsewhere), probes 1 and 3, for the routed group and every other."""
+    from svdsolver_tpu_torch.ops.cuda import bisect
+
+    for n in K2_CHECK:
+        if n == 1024:
+            d, e = d1024, e1024
+        else:
+            d = torch.from_numpy(rng.uniform(0, 5, n).astype(np.float32)).to(DEV)
+            e = torch.from_numpy(rng.uniform(0, 5, n - 1).astype(np.float32)).to(DEV)
+        for probes in (1, 3):
+            want = bisect.bisect_svdvals(d, e, probes=probes, _group=1)
+            routed = None
+            for group in (None,) + GROUPS[1:]:
+                bisect.last_group = None  # n = 1 launches nothing
+                got = bisect.bisect_svdvals(d, e, probes=probes, _group=group)
+                routed = routed or bisect.last_group
+                torch.cuda.synchronize()
+                require(torch.equal(got, want), f"bisect tree n={n} probes={probes} "
+                        f"G={bisect.last_group}: {int((got != want).sum())} bit-unequal")
+            say(f"[kernels] bisect tree n={n} probes={probes}: routed G={routed} and "
+                f"G={', '.join(map(str, GROUPS[1:]))} bit-equal to the one-thread design")
+
+
 def phase_kernels(rng):
     """Each kernel against its plain version, same inputs, on the card."""
     from svdsolver_tpu_torch.ops.cuda import band_chase, bisect, panel_qr, tridiag_solve
@@ -474,7 +527,9 @@ def phase_kernels(rng):
     del rec, Ab3
     torch.cuda.empty_cache()
 
-    # K2: bisection at n = 1024 on the chase's bidiagonal, probes 1 and 3.
+    # K2: bisection at n = 1024 on the chase's bidiagonal, probes 1 and 3:
+    # the tree kernel against the plain version, and against the
+    # one-thread design at K2_CHECK for every group
     k2 = 0.0
     for probes in (1, 3):
         s = bisect.bisect_svdvals(d, e, probes=probes)
@@ -482,28 +537,45 @@ def phase_kernels(rng):
         torch.cuda.synchronize()
         err = float((s - sp).abs().max())
         top = float(sp.abs().max())
-        say(f"[kernels] bisect n={n} probes={probes}: max_abs_err {err:.3e} "
-            f"(sigma_max {top:.3e})")
+        say(f"[kernels] bisect n={n} probes={probes} (G={bisect.last_group}): "
+            f"max_abs_err {err:.3e} (sigma_max {top:.3e}), {int((s != sp).sum())} "
+            f"of {n} bit-unequal to the plain version")
         require(torch.allclose(s, sp, rtol=1e-6, atol=1e-7 * top),
                 f"bisect probes={probes} vs plain")
         require(torch.allclose(s.double(), s_k, rtol=2e-5, atol=1e-5 * top),
                 f"bisect probes={probes} vs float64")
         k2 = max(k2, err)
     errs["bisect"] = k2
+    check_bisect_tree(rng, d, e)
 
-    # K9 + K10: the TGK solve, normalized columns within 64 eps.
+    # K9 + K10: the TGK solve, normalized columns within 64 eps of the
+    # plain version, bit-equal to the first design (also at svds' lane
+    # counts, not multiples of 4)
     eps = torch.finfo(torch.float32).eps
     k9 = 0.0
-    for nt in (512, 1280, 3840):
-        args = tgk_problem(rng, nt)
+    for nt, kt in [(nt, None) for nt in TGK_CHECK] + [(SVDS_CASE[0], 997), (SVDS_CASE[0], 250)]:
+        z, sig, rhs, pivmin, big = tgk_problem(rng, nt)
+        if kt is not None:
+            sig, rhs = sig[:kt].contiguous(), rhs[:, :kt].contiguous()
+        args = (z, sig, rhs, pivmin, big)
+        tridiag_solve.launches = tridiag_solve.launches_lane = 0
         x = tridiag_solve.tgk_solve(*args)
+        old = tridiag_solve.tgk_solve(*args, _staged=False)
+        torch.cuda.synchronize()
+        require((tridiag_solve.launches, tridiag_solve.launches_lane) == (1, 1),
+                "tridiag_solve counts each design's launches")
+        shape = f"n={nt} ({2 * nt} rows, {sig.shape[0]} lanes)"
+        require(torch.equal(x, old), f"tridiag_solve {shape}: staged bit-equal to the first design")
+        if kt is not None:
+            say(f"[kernels] tridiag_solve {shape}: staged kernel bit-equal to the first design")
+            continue
         xp = tridiag_solve.tgk_solve_plain(*args)
         torch.cuda.synchronize()
         unequal = int((x != xp).sum())
         err = float((x / x.norm(dim=0) - xp / xp.norm(dim=0)).abs().max())
-        say(f"[kernels] tridiag_solve n={nt} ({2 * nt} rows, {nt} lanes): "
-            f"normalized max_abs_err {err:.3e} (64 eps = {64 * eps:.3e}), "
-            f"{unequal} of {x.numel()} entries bit-unequal")
+        say(f"[kernels] tridiag_solve {shape}: staged kernel bit-equal to the first "
+            f"design; normalized max_abs_err {err:.3e} against the plain version "
+            f"(64 eps = {64 * eps:.3e}), {unequal} of {x.numel()} entries bit-unequal")
         require(err < 64 * eps, f"tridiag_solve n={nt} vs plain")
         k9 = max(k9, err)
     errs["tridiag_solve"] = k9
@@ -777,6 +849,7 @@ def phase_slice():
     """svdvals, the first main path, at each size; returns the launch counts
     at each n."""
     from svdsolver_tpu_torch import svdvals
+    from svdsolver_tpu_torch.ops.cuda import bisect
 
     counts_by_n = {}
     for n in SLICE_SIZES:
@@ -792,6 +865,8 @@ def phase_slice():
             f"at this size) launches {counts}")
         for k in ("panel_qr", "bisect"):
             require(counts[k] > 0, f"kernel {k} not launched by svdvals at n={n}")
+        require(counts["bisect_thread"] == 0, f"svdvals at n={n} took the one-thread K2")
+        say(f"[slice] n={n}: K2 took the tree, G={bisect.last_group}")
         chase = require_route(path_band(n), counts, record=False)
         say(f"[slice] n={n}: the chase took {chase} (wave_chase_preferred"
             f"{path_band(n)} = {chase == 'band_chase_wave'})")
@@ -814,23 +889,32 @@ def phase_svd():
     at each n."""
     from svdsolver_tpu_torch import svd
     from svdsolver_tpu_torch.models import vectors
+    from svdsolver_tpu_torch.ops.cuda import bisect
 
     counts_by_n = {}
     eps = torch.finfo(torch.float32).eps
     for n, kind in SVD_CASES:
         A = uniform_matrix(n) if kind == "uniform" else gauss_matrix(n)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         reset_counts()
         t0 = time.perf_counter()
         U, s, Vh = svd(A)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() - base
         say(f"[svd] n={n} {kind}: svd {seconds:.3f} s (host clock, first call "
             f"at this size) launches {counts}")
         for k in SVD_PATH:
             require(counts[k] > 0, f"kernel {k} not launched by svd at n={n}")
         require(counts["tridiag_solve"] == 2, "two TGK solves (iters = 2)")
+        require(counts["bisect_thread"] == 0 and counts["tridiag_solve_lane"] == 0,
+                f"svd at n={n} took a first design of K2 or K9/K10")
+        say(f"[svd] n={n}: K2 took the tree (G={bisect.last_group}), K9/K10 the "
+            f"staged solve; peak device memory {peak / 2**30:.3f} GiB "
+            f"({peak / (4 * n * n):.2f} floats per n^2)")
         chase = require_route(path_band(n), counts, record=True)
         say(f"[svd] n={n}: the chase took {chase} (wave_chase_accum_preferred"
             f"{path_band(n)} = {chase == 'band_chase_wave_rec'})")
@@ -868,6 +952,188 @@ def phase_svd():
         del A
         torch.cuda.empty_cache()
     return counts_by_n
+
+
+def phase_svds():
+    """svds, the partial path, at SVDS_CASE (k lanes not a multiple of 4):
+    the top-k sigma against float64, |A Vh^T - U diag(s)| / sigma_max and
+    the orthogonality of U and Vh; returns the launch counts."""
+    from svdsolver_tpu_torch import svds
+
+    n, k = SVDS_CASE
+    A = uniform_matrix(n, seed=4)
+    torch.cuda.synchronize()
+    reset_counts()
+    U, s, Vh = svds(A, k)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    say(f"[svd] svds n={n} k={k}: launches {counts}")
+    for k_ in SVD_PATH:
+        require(counts[k_] > 0, f"kernel {k_} not launched by svds")
+    require(counts["tridiag_solve"] == 2 and counts["tridiag_solve_lane"] == 0
+            and counts["bisect_thread"] == 0, "svds took the staged solve and the tree")
+    require(U.shape == (n, k) and s.shape == (k,) and Vh.shape == (k, n), "svds shapes")
+    ref = torch.linalg.svdvals(A.double())
+    smax = float(ref[0])
+    sig_err = float((s.double() - ref[:k]).abs().max()) / smax
+    Ud, Vd = U.double(), Vh.double()
+    resid = float((A.double() @ Vd.T - Ud * s.double()).abs().max()) / smax
+    eye = torch.eye(k, dtype=torch.float64, device=DEV)
+    orth = max(float((Ud.T @ Ud - eye).abs().max()), float((Vd @ Vd.T - eye).abs().max()))
+    say(f"[svd] svds n={n} k={k}: sigma err {sig_err:.3e}, |A Vh^T - U S| {resid:.3e} "
+        f"(both / sigma_max), orthogonality {orth:.3e}")
+    require(sig_err <= TOL_SIGMA and resid <= TOL_RECON and orth <= TOL_ORTH,
+            f"svds gates at n={n} k={k}")
+    return counts
+
+
+def known_spectrum_matrix(n, seed=5):
+    """A float32 (n, n) matrix Q1 diag(sigma) Q2^T with Q1, Q2 the float64
+    QR factors of Gaussian matrices drawn on the card from ``seed`` and
+    sigma = 100 * 10**(-4 i / (n - 1)) (100 down to 0.01): its singular
+    values are known by construction, to the float32 rounding of A (an
+    oracle where float64 svdvals would take minutes)."""
+    g = torch.Generator(device=DEV)
+    g.manual_seed(seed)
+    q1, _ = torch.linalg.qr(torch.randn((n, n), generator=g, dtype=torch.float64, device=DEV))
+    sig = 100.0 * 10.0 ** (-4.0 * torch.arange(n, dtype=torch.float64, device=DEV) / (n - 1))
+    q1 *= sig
+    q2, _ = torch.linalg.qr(torch.randn((n, n), generator=g, dtype=torch.float64, device=DEV))
+    A = (q1 @ q2.T).float()
+    del q1, q2
+    torch.cuda.empty_cache()
+    return A, sig
+
+
+def phase_scale():
+    """The scale net: svdvals at SCALE_VALS (past the first Stage I panel's
+    old limit of 12,544) and svd at SCALE_SVD, each with the counts set to 0
+    just before and read just after; returns the counts, the host-clock
+    seconds of each call and the svd's peak device memory."""
+    from svdsolver_tpu_torch import svd, svdvals
+    from svdsolver_tpu_torch.ops.cuda import bisect
+
+    counts_by, seconds_by = {}, {}
+    for n in SCALE_VALS:
+        if n == 15360:
+            A = uniform_matrix(n)
+            t0 = time.perf_counter()
+            ref = torch.linalg.svdvals(A.double())
+            torch.cuda.synchronize()
+            oracle = f"float64 torch.linalg.svdvals ({time.perf_counter() - t0:.1f} s)"
+        else:
+            t0 = time.perf_counter()
+            A, ref = known_spectrum_matrix(n)
+            torch.cuda.synchronize()
+            oracle = (f"sigma known by construction, Q1 diag(sigma) Q2^T "
+                      f"({time.perf_counter() - t0:.1f} s to build)")
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        s = svdvals(A)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        say(f"[scale] svdvals n={n}: {seconds:.3f} s (host clock, first call at this "
+            f"size) launches {counts}")
+        for k in ("panel_qr", "bisect"):
+            require(counts[k] > 0, f"kernel {k} not launched by svdvals at n={n}")
+        require(counts["bisect_thread"] == 0, f"svdvals at n={n} took the one-thread K2")
+        require_route(path_band(n), counts, record=False)
+        require(s.shape == (n,) and bool(torch.isfinite(s).all()), f"svdvals output at n={n}")
+        err = float((s.double() - ref).abs().max() / ref[0])
+        say(f"[scale] svdvals n={n}: max|sigma - sigma_ref| / sigma_max = {err:.3e} "
+            f"(oracle: {oracle}; K2 G={bisect.last_group})")
+        require(err <= TOL_SIGMA, f"sigma error {err:.3e} at n={n}")
+        t0 = time.perf_counter()
+        svdvals(A)
+        torch.cuda.synchronize()
+        seconds_by[n] = (seconds, time.perf_counter() - t0)
+        say(f"[scale] svdvals n={n}: second call {seconds_by[n][1]:.3f} s (host clock)")
+        counts_by[n] = counts
+        del A, s, ref
+        torch.cuda.empty_cache()
+
+    n = SCALE_SVD
+    A = uniform_matrix(n)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    t0 = time.perf_counter()
+    U, s, Vh = svd(A)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    say(f"[scale] svd n={n}: {seconds:.3f} s (host clock, first call at this size) "
+        f"launches {counts}; peak device memory {peak / 2**30:.3f} GiB beyond A "
+        f"({peak / (4 * n * n):.2f} floats per n^2)")
+    for k in SVD_PATH:
+        require(counts[k] > 0, f"kernel {k} not launched by svd at n={n}")
+    require(counts["tridiag_solve"] == 2 and counts["tridiag_solve_lane"] == 0
+            and counts["bisect_thread"] == 0, f"svd at n={n} took the new designs")
+    require_route(path_band(n), counts, record=True)
+    require(all(bool(torch.isfinite(t).all()) for t in (U, s, Vh)), f"svd finite at n={n}")
+    ref = torch.linalg.svdvals(A.double())
+    smax = float(ref[0])
+    sig_err = float((s.double() - ref).abs().max()) / smax
+    Ud, Vd = U.double(), Vh.double()
+    recon = float(((Ud * s.double()) @ Vd - A.double()).abs().max()) / smax
+    eye = torch.eye(n, dtype=torch.float64, device=DEV)
+    orth_u = float((Ud.T @ Ud - eye).abs().max())
+    orth_v = float((Vd @ Vd.T - eye).abs().max())
+    say(f"[scale] svd n={n}: sigma err {sig_err:.3e}, |U S Vh - A| {recon:.3e} (both / "
+        f"sigma_max), |U^T U - I| {orth_u:.3e}, |Vh Vh^T - I| {orth_v:.3e}")
+    require(sig_err <= TOL_SIGMA, f"svd sigma error at n={n}")
+    require(recon <= TOL_RECON, f"svd reconstruction at n={n}")
+    require(max(orth_u, orth_v) <= TOL_ORTH, f"svd orthogonality at n={n}")
+    counts_by["svd", n] = counts
+    seconds_by["svd", n] = seconds
+    del U, s, Vh, Ud, Vd, ref, eye, A
+    torch.cuda.empty_cache()
+    return counts_by, seconds_by, peak
+
+
+def phase_design_times():
+    """K2 for each group of GROUPS (1: the one-thread design) and K9/K10's
+    staged and first designs, in turns (A B .. B A), at DESIGN_TIMES on the
+    main path's inputs: K2 on the routed chase's bidiagonal of the uniform
+    matrix, the solve on the tgk-solve parity recipe (2n rows, n lanes)."""
+    from svdsolver_tpu_torch.ops.cuda import bisect, panel_qr, tridiag_solve
+
+    rng = np.random.default_rng(6)
+    k2, tgk = {}, {}
+    for n in DESIGN_TIMES:
+        b = path_band(n)[1]
+        Ab = panel_qr.dense_to_band_fused(uniform_matrix(n), band=b)
+        d, e = chase_entry(n, b, record=False)[1](Ab, band=b)
+        del Ab
+        got = {}
+        for g in GROUPS + GROUPS[::-1]:
+            got.setdefault(g, []).append(
+                cuda_ms(lambda: bisect.bisect_svdvals(d, e, _group=g)))
+        bisect.bisect_svdvals(d, e)
+        routed = bisect.last_group
+        for g, (t1, t2) in got.items():
+            k2[n, g] = min(t1, t2)
+            say(f"[times] bisect n={n} G={g}{' (one thread: first design)' if g == 1 else ''}"
+                f"{' (routed)' if g == routed else ''}: {t1:.3f} / {t2:.3f} ms "
+                f"(medians of {REPS}, in turns)")
+        args = tgk_problem(rng, n)
+        require(torch.equal(tridiag_solve.tgk_solve(*args), tridiag_solve.tgk_solve(
+            *args, _staged=False)), f"tridiag_solve n={n}: staged bit-equal to the first design")
+        l1 = cuda_ms(lambda: tridiag_solve.tgk_solve(*args, _staged=False))
+        s1 = cuda_ms(lambda: tridiag_solve.tgk_solve(*args))
+        s2 = cuda_ms(lambda: tridiag_solve.tgk_solve(*args))
+        l2 = cuda_ms(lambda: tridiag_solve.tgk_solve(*args, _staged=False))
+        tgk[n] = (min(s1, s2), min(l1, l2))
+        say(f"[times] tridiag_solve n={n} ({2 * n} rows, {n} lanes): staged {s1:.3f} / "
+            f"{s2:.3f} ms, first design {l1:.3f} / {l2:.3f} ms (medians of {REPS}, in turns; "
+            "x bit-equal)")
+        del args, d, e
+        torch.cuda.empty_cache()
+    return k2, tgk
 
 
 def stage1_widths(n, b):
@@ -910,6 +1176,19 @@ def phase_k1_times():
                      "full panel": lambda: panel_qr.panel_qr(Pt, 0)}
             for label, fn in split.items():
                 say(f"[times] panel_qr split b=128 m=3840 {label}: {cuda_ms(fn):.3f} ms")
+    for m in SCALE_VALS:  # the first Stage I panel past the old limit
+        Pt = torch.from_numpy(rng.normal(size=(128, m)).astype(np.float32)).to(DEV)
+        (k1, k2), p1 = in_turns(lambda: panel_qr.panel_qr(Pt, 0),
+                                lambda: panel_qr.panel_qr_plain(Pt, 0))
+        panel = Pt.T.contiguous()
+        lib = cuda_ms(lambda: torch.geqrf(panel))
+        plan = panel_qr.cluster_plan(128, m)
+        out[m] = (min(k1, k2), p1, lib)
+        say(f"[times] panel_qr b=128 m={m} ({plan.ctas} CTAs, {plan.smem_cols} of "
+            f"{plan.width} columns a CTA in shared memory): kernel {k1:.3f} / {k2:.3f} "
+            f"ms (medians of {REPS}), plain {p1:.3f} ms (one run), torch.geqrf "
+            f"({m}, 128) {lib:.3f} ms")
+        del Pt, panel
     return out
 
 
@@ -1143,11 +1422,24 @@ def phase_profile(label, fn):
         f"kernels {busy:.3f} ms = {100 * busy / wall_ms:.1f}% of wall")
 
 
-def kernel_table(errs, counts_vals, counts_svd, kt, lib, variants, route, k1, ticks):
+# the TPU kernels (K1-K15 of PERF.md) each row's kernel stands for
+TPU_KERNELS = {
+    "panel_qr": ["K1"], "band_chase": ["K3", "K5"], "band_chase_rec": ["K6", "K8"],
+    "bisect": ["K2"], "tridiag_solve": ["K9", "K10"],
+    "band_chase_wave": ["K4", "K5", "K13"], "band_chase_wave_dl": ["K11"],
+    "band_chase_staged": ["K14", "K15"], "band_chase_vmem": ["K12"],
+    "band_chase_wave_rec": ["K7", "K8"], "band_chase_wave_l2": ["K4", "K13"],
+    "band_chase_wave_rec_l2": ["K7"],
+}
+
+
+def kernel_table(errs, counts_vals, counts_svd, kt, lib, variants, route, k1, ticks,
+                 designs):
     from svdsolver_tpu_torch.models import two_stage
     from svdsolver_tpu_torch.models.diagonalize import default_bisect_iters
 
     counts_var, errs_var, plain_var, times_var = variants
+    k2_ms, tgk_ms = designs
     tick_ms, sched, rate = ticks
     src = "svdsolver_tpu_torch/csrc/{}.cu"
     replaces = {
@@ -1171,8 +1463,10 @@ def kernel_table(errs, counts_vals, counts_svd, kt, lib, variants, route, k1, ti
     svd_side = ("band_chase_rec", "tridiag_solve", "band_chase_wave_rec")
     for k in work:
         b_ms, b_by = bound(*work[k])
-        # every main-path run of phase_slice (svdvals) or phase_svd (svd)
-        launches = sum(c[k] for c in (counts_svd if k in svd_side else counts_vals).values())
+        # every main-path run of svdvals, or of svd and svds; K2 runs on both
+        sides = ((counts_svd,) if k in svd_side else
+                 (counts_vals, counts_svd) if k == "bisect" else (counts_vals,))
+        launches = sum(c[k] for side in sides for c in side.values())
         say(f"[bound] {k} ({kt[k][2]}): {work[k][0]:.4g} flops, {work[k][1]:.4g} "
             f"bytes -> {b_ms:.4f} ms, bound by {b_by}")
         rows.append({
@@ -1186,11 +1480,25 @@ def kernel_table(errs, counts_vals, counts_svd, kt, lib, variants, route, k1, ti
         if k in ("band_chase", "band_chase_rec"):
             side = counts_svd if k in svd_side else counts_vals
             rows[-1]["path_launches"] = {n: c[k] for n, c in side.items()}
-    rows[0]["widths"] = {  # K1 at each Stage I panel length of n = 3840
+    # K2 and K9/K10: each group's and each design's times in turns
+    iters = default_bisect_iters(torch.float32)
+    row = rows[3]
+    row["groups_ms"] = {f"n={n}": {f"G={g}": k2_ms[n, g] for g in GROUPS}
+                        for n in DESIGN_TIMES}
+    row["earlier_design_ms"] = {f"n={n}": k2_ms[n, 1] for n in DESIGN_TIMES}
+    row["path_ms"] = min(v for (n, g), v in k2_ms.items() if n == 3840 and g > 1)
+    row["path_bound_ms"] = bound(*work_bisect(3840, iters, 1))[0]
+    row["path_launches"] = {f"svdvals {n}": c["bisect"] for n, c in counts_vals.items()}
+    row["path_launches"].update({n if isinstance(n, str) else f"svd {n}": c["bisect"]
+                                 for n, c in counts_svd.items()})
+    row = rows[4]
+    row["staged_ms"] = {f"n={n}": tgk_ms[n][0] for n in DESIGN_TIMES}
+    row["earlier_design_ms"] = {f"n={n}": tgk_ms[n][1] for n in DESIGN_TIMES}
+    rows[0]["widths"] = {  # K1 at each Stage I panel length of n = 3840,
+        # and the first panels at SCALE_VALS
         m: {"ms": km, "plain_ms": pm, "library_ms": lm,
             "bound_ms": bound(*work_panel_qr(128, m, 0))[0]}
         for m, (km, pm, lm) in k1.items()}
-    iters = default_bisect_iters(torch.float32)
     at_path = {  # where the ms above were taken at a smaller n
         "band_chase": work_chase(3840, 128, record=False),
         "band_chase_rec": work_chase(3840, 128, record=True),
@@ -1278,6 +1586,10 @@ def kernel_table(errs, counts_vals, counts_svd, kt, lib, variants, route, k1, ti
             "path_bound_ms": (b_path if record else b_path_plain)[0],
             "variant_launches": counts_var[k],
         })
+    for row in rows:
+        row["tpu"] = TPU_KERNELS[row["name"]]
+    covered = {t for row in rows for t in row["tpu"]}
+    require(covered == {f"K{i}" for i in range(1, 16)}, f"the rows cover K1-K15: {covered}")
     return rows
 
 
@@ -1311,14 +1623,23 @@ def main():
     variants = phase_variants(band_state)
     counts_vals = phase_slice()
     counts_svd = phase_svd()
+    counts_svd[f"svds {SVDS_CASE[0]}"] = phase_svds()
+    scale_counts, _, _ = phase_scale()
+    for key, c in scale_counts.items():
+        if isinstance(key, tuple):
+            counts_svd[key[1]] = c
+        else:
+            counts_vals[key] = c
     _, kt, lib, k1 = phase_times(band_state)
+    designs = phase_design_times()
     route = phase_route_times()
     ticks = phase_tick_times(band_state)
     A = uniform_matrix(3840)
     phase_profile("svdvals n=3840", lambda: svdvals(A))
     phase_profile("svd n=3840", lambda: svd(A))
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all")
-    rows = kernel_table(errs, counts_vals, counts_svd, kt, lib, variants, route, k1, ticks)
+    rows = kernel_table(errs, counts_vals, counts_svd, kt, lib, variants, route, k1, ticks,
+                        designs)
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

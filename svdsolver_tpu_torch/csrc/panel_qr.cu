@@ -50,8 +50,12 @@
 // the columns past its shared-memory capacity in device memory: in its own
 // columns of the output Rt, which no other CTA touches, so no cross-CTA
 // visibility is needed (the kernel's Spill instantiation).  The host plan
-// (ops/cuda/panel_qr.cluster_plan) allows at most as many columns there as
-// in shared memory and rejects larger panels.
+// (ops/cuda/panel_qr.cluster_plan) puts no cap on the device-memory share:
+// at m = 23,040 a CTA keeps 392 of its 1,440 columns in shared memory.
+// Nothing here assumes a cap: device-memory indices are size_t, the float4
+// load lands a whole quad on one side of ws (ws, W, m multiples of 4), and
+// a spilled column is read and written by this CTA only, ordered by the
+// same __syncthreads and cluster barriers as the shared-memory ones.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 

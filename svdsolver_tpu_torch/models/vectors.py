@@ -45,6 +45,29 @@ TW = 128  # tile width of the tiled cluster orthogonalization
 _HALF = TW // 2  # clusters up to this width fit a tile of one of two covers
 
 
+_PERTURB_TOL = 4  # eps sig_max: adjacent shifts closer than this are spread
+
+
+def _perturbed_shifts(sig, smax, eps):
+    """The inverse-iteration shifts of ``sig`` (sorted descending):
+    dstein-style, the j-th value of a multiplet becomes
+    ``sig * (1 + 4 eps j)``, so the lanes of a multiplet are amplified
+    toward different split vectors.  A multiplet is a run of values within
+    ``_PERTURB_TOL`` eps sig_max of their neighbours (the shifts' own
+    resolution), not a whole 64-eps cluster as in the JAX package: counting
+    positions over a cluster moves the shifts of a long chain of close
+    values many spacings off (uniform n = 7680: the bulk is one cluster of
+    7446 values, its last shift moved by 3.5e-3 relative, some ten
+    spacings), the lanes collapse onto shared vectors and U loses its
+    orthogonality (0.56 on the H100).  Exact multiplets spread as there."""
+    k = sig.shape[0]
+    dup = torch.abs(sig[1:] - sig[:-1]) <= _PERTURB_TOL * eps * smax
+    is_start = torch.cat([torch.ones((1,), dtype=torch.bool, device=sig.device), ~dup])
+    idx = torch.arange(k, device=sig.device)
+    pic = idx - torch.cummax(torch.where(is_start, idx, 0), 0).values
+    return sig * (1 + 4 * eps * pic.to(sig.dtype))
+
+
 def _larft_closed_form(V, taus):
     """Forward compact-WY ``T`` from reflectors (batched over leading
     dims): ``T^{-1} = striu(V^T V) + diag(1/tau)``.  Columns with tau == 0
@@ -225,11 +248,7 @@ def tgk_vectors(d, e, sig, iters=None, polish=None, x0=None):
     in_cluster = torch.zeros((k,), dtype=torch.bool, device=dev)
     in_cluster[1:] = linked
     in_cluster[:-1] |= linked
-    # dstein-style shift perturbation: spread a multiplet's shifts by ulps
-    is_start = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev), ~linked])
-    idx = torch.arange(k, device=dev)
-    pic = idx - torch.cummax(torch.where(is_start, idx, 0), 0).values
-    lam = (sig * (1 + 4 * eps * pic.to(dtype))).contiguous()
+    lam = _perturbed_shifts(sig, smax, eps).contiguous()
     usable = in_cluster & (sig > 1e-3 * smax)
     # the one host sync: the reference's three lax.cond predicates
     has_cluster, need_un, wide = torch.stack([

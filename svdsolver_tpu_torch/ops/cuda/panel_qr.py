@@ -67,9 +67,11 @@ def cluster_plan(b, m, ctas=None):
     memory with a row stride equal to ``groups`` mod 32 (the warp's rows on
     distinct banks); where it does not fit ``_build.MAX_SMEM`` beside v, the
     CTA's T columns and the exchange arrays, the columns past what fits stay
-    in device memory.  Raises ``ValueError`` for ``b`` outside ``[1, 256]``
-    and for a panel whose CTAs would keep more columns in device memory
-    than in shared memory (``m`` above 12,544 at b = 128).
+    in device memory, in the CTA's own columns of ``Rt`` (the large-panel
+    route: at b = 128 every m above 6,784, e.g. 1,048 of 1,440 columns a
+    CTA at m = 23,040).  Raises ``ValueError`` for ``b`` outside
+    ``[1, 256]`` and for a panel so long that v and the exchange arrays
+    leave the slab no shared memory (m past ~860,000 at b = 128).
     """
     b, m = int(b), int(m)
     if not 1 <= b <= MAX_BAND:
@@ -92,14 +94,13 @@ def cluster_plan(b, m, ctas=None):
     if b * ld <= room:
         ws = W
     else:
+        if room // b < G:
+            raise ValueError(
+                f"panel (b={b}, m={m}) past the kernel's limit: v and the exchange "
+                f"arrays of {W} columns leave no shared memory for the slab"
+            )
         ld = room // b - (room // b - G) % 32  # the largest that fits
         ws = ld
-        if W - ws > ws:
-            raise ValueError(
-                f"panel (b={b}, m={m}) past the kernel's limit: each of {C} CTAs "
-                f"would keep {W - ws} of its {W} columns in device memory, more "
-                f"than the {ws} that fit its shared memory"
-            )
     return ClusterPlan(C, W, ws, ld, tc, tld, G, 4 * (b * ld + other))
 
 

@@ -329,3 +329,107 @@ def test_smem_tick_raises_on_impossible_shared_memory(dev, rng):
     with pytest.raises(RuntimeError, match="band_chase_wave_smem"):
         band_chase_wave.band_to_bidiagonal_wave(Ab, band=32, _smem=240 * 1024)
     assert _counts()["launches"] == 0 and _counts()["launches_l2"] == 0
+
+
+@pytest.mark.parametrize("probes", [1, 3])
+@pytest.mark.parametrize("n", [1, 2, 33, 1000])
+def test_bisect_tree_bit_equal_to_one_thread(dev, rng, n, probes):
+    d = torch.from_numpy(rng.uniform(0, 5, n).astype(np.float32)).to(dev)
+    e = torch.from_numpy(rng.uniform(0, 5, n - 1).astype(np.float32)).to(dev)
+    want = bisect.bisect_svdvals(d, e, probes=probes, _group=1)
+    bisect.launches = 0
+    for group in (None, 4, 8, 16, 32):
+        got = bisect.bisect_svdvals(d, e, probes=probes, _group=group)
+        assert torch.equal(got, want), group
+    assert bisect.launches == (5 if n > 1 else 0)
+
+
+def test_bisect_tree_partial_round(dev, rng):
+    # iters not a multiple of the tree's levels: the last round is partial
+    d = torch.from_numpy(rng.normal(size=300).astype(np.float32)).to(dev)
+    e = torch.from_numpy(rng.normal(size=299).astype(np.float32)).to(dev)
+    for probes, iters in ((1, 7), (1, 33), (3, 5), (2, 9)):
+        want = bisect.bisect_svdvals(d, e, iters=iters, probes=probes, _group=1)
+        got = bisect.bisect_svdvals(d, e, iters=iters, probes=probes)
+        assert torch.equal(got, want), (probes, iters)
+
+
+@pytest.mark.parametrize("n,k", [(160, None), (300, 75), (300, 97), (96, 3)])
+def test_tgk_solve_staged_bit_equal_to_first_design(dev, rng, n, k):
+    # k = 75, 97 and 3: lane counts that are not multiples of 4 or 32
+    d = torch.from_numpy(rng.normal(size=n).astype(np.float32) * 5).to(dev)
+    e = torch.from_numpy(rng.normal(size=n - 1).astype(np.float32) * 5).to(dev)
+    z = torch.zeros(2 * n - 1, device=dev)
+    z[0::2], z[1::2] = d, e
+    sig = torch.linalg.svdvals(torch.diag(d) + torch.diag(e, 1))[: k or n].contiguous()
+    rhs = torch.from_numpy(rng.normal(size=(2 * n, sig.shape[0])).astype(np.float32)).to(dev)
+    pivmin = torch.tensor(float(sig[0]) * 2.0 ** -46, device=dev)
+    big = torch.tensor(torch.finfo(torch.float32).max ** 0.5 / 16, device=dev)
+    tridiag_solve.launches = tridiag_solve.launches_lane = 0
+    x = tridiag_solve.tgk_solve(z, sig, rhs, pivmin, big)
+    old = tridiag_solve.tgk_solve(z, sig, rhs, pivmin, big, _staged=False)
+    assert (tridiag_solve.launches, tridiag_solve.launches_lane) == (1, 1)
+    assert torch.equal(x, old)
+    plain = tridiag_solve.tgk_solve_staged_plain(z, sig, rhs, pivmin, big)
+    assert torch.equal(x, plain)
+
+
+@pytest.mark.parametrize("m", [15360, 23040])
+def test_panel_qr_past_the_old_cap(dev, rng, m):
+    Pt = torch.from_numpy(rng.normal(size=(128, m)).astype(np.float32)).to(dev)
+    plan = panel_qr.cluster_plan(128, m)
+    assert plan.spill and plan.width - plan.smem_cols > plan.smem_cols
+    got = panel_qr.panel_qr(Pt, 0)
+    again = panel_qr.panel_qr(Pt, 0)
+    want = panel_qr.panel_qr_plain(Pt, 0)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+def _sigma_err(A, s):
+    ref = torch.linalg.svdvals(A.double())
+    return float((s.double() - ref).abs().max() / ref[0])
+
+
+def _known_spectrum(n, dev):
+    """Q1 diag(sigma) Q2^T in float32 with float64 Gaussian QR factors and
+    sigma = 100 * 10**(-4 i / (n - 1)): the singular values are known."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    q1, _ = torch.linalg.qr(torch.randn((n, n), generator=g, dtype=torch.float64, device=dev))
+    sig = 100.0 * 10.0 ** (-4.0 * torch.arange(n, dtype=torch.float64, device=dev) / (n - 1))
+    q1 *= sig
+    q2, _ = torch.linalg.qr(torch.randn((n, n), generator=g, dtype=torch.float64, device=dev))
+    return (q1 @ q2.T).float(), sig
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("n", [15360, 23040])
+def test_svdvals_at_scale(dev, n):
+    # past the first Stage I panel's old limit (m = 12,544): against float64
+    # svdvals at 15,360 (~70 s), a spectrum known by construction at 23,040
+    if n == 15360:
+        A = torch.from_numpy(
+            np.random.default_rng(0).uniform(0, 5, (n, n)).astype(np.float32)).to(dev)
+        ref = torch.linalg.svdvals(A.double())
+    else:
+        A, ref = _known_spectrum(n, dev)
+    s = svdvals(A)
+    assert s.shape == (n,) and bool(torch.isfinite(s).all())
+    assert float((s.double() - ref).abs().max() / ref[0]) <= 1e-5
+
+
+@pytest.mark.slow
+def test_svd_at_scale(dev):
+    n = 7680
+    A = torch.from_numpy(np.random.default_rng(0).uniform(0, 5, (n, n)).astype(np.float32)).to(dev)
+    U, s, Vh = svd(A)
+    smax = float(s[0])
+    assert _sigma_err(A, s) <= 1e-5
+    Ud, Vd = U.double(), Vh.double()
+    recon = float(((Ud * s.double()) @ Vd - A.double()).abs().max()) / smax
+    eye = torch.eye(n, dtype=torch.float64, device=dev)
+    assert recon <= 1e-4
+    assert float((Ud.T @ Ud - eye).abs().max()) <= 1e-4
+    assert float((Vd @ Vd.T - eye).abs().max()) <= 1e-4

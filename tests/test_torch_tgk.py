@@ -190,3 +190,30 @@ def test_bidiagonal_svd_residuals_and_topk(rng):
     assert torch.equal(U_again, U_b)
     with pytest.raises(ValueError, match="x0"):
         tv.tgk_vectors(d, e, s, x0=torch.zeros(3, 3))
+
+
+def test_shift_perturbation_spreads_multiplets_only():
+    # an exact multiplet spreads as in the JAX package (sig (1 + 4 eps j));
+    # a chain of values 10 eps sig_max apart (one 64-eps cluster) keeps its
+    # shifts, where counting over the cluster would push the last of a long
+    # chain many spacings off (the n = 7680 collapse)
+    eps = float(EPS32)
+    chain = 1.0 - 10 * eps * 3.0 * np.arange(1, 40)
+    sig = np.concatenate([[3.0], [2.0] * 4, chain]).astype(np.float32)
+    smax = torch.tensor(3.0)
+    lam = tv._perturbed_shifts(torch.from_numpy(sig), smax, eps).numpy()
+    want = sig.copy()
+    want[1:5] = np.float32(2.0) * (1 + 4 * np.float32(eps) * np.arange(4, dtype=np.float32))
+    np.testing.assert_array_equal(lam, want)
+    _, start, end = tv._cluster_bounds(torch.from_numpy(sig), 64 * eps)
+    assert int((end - start).max()) == len(chain) - 1  # the chain is one cluster
+    # with multiplets only, the JAX package's shifts (vectors.py, clusters
+    # counted at 64 eps) and the port's agree bit for bit
+    sig = np.array([5.0, 4.0, 4.0, 4.0, 2.0, 1.0, 1.0], np.float32)
+    linked = np.abs(np.diff(sig)) <= 64 * EPS32 * sig[0]
+    is_start = np.concatenate([[True], ~linked])
+    idx = np.arange(len(sig))
+    pic = idx - np.maximum.accumulate(np.where(is_start, idx, 0))
+    jax_lam = sig * (1 + 4 * EPS32 * pic.astype(np.float32))
+    got = tv._perturbed_shifts(torch.from_numpy(sig), torch.tensor(5.0), eps).numpy()
+    np.testing.assert_array_equal(got, jax_lam)

@@ -116,14 +116,28 @@ def test_cluster_plan_sizes():
 
 def test_cluster_plan_limits():
     assert panel_qr.cluster_plan(128, 12544).spill
+    # no cap on the device-memory share: the limit is where v and the
+    # exchange arrays leave the slab no shared memory
+    assert panel_qr.cluster_plan(128, 861000).spill
     with pytest.raises(ValueError, match="limit"):
-        panel_qr.cluster_plan(128, 12545)
+        panel_qr.cluster_plan(128, 862000)
     with pytest.raises(ValueError, match="range"):
         panel_qr.cluster_plan(257, 1024)
     with pytest.raises(ValueError, match="m="):
         panel_qr.cluster_plan(8, 0)
     with pytest.raises(ValueError, match="cluster"):
         panel_qr.cluster_plan(8, 64, ctas=17)
+
+
+@pytest.mark.parametrize("m", [12545, 15360, 23040])
+def test_cluster_plan_past_the_old_cap(m):
+    """Stage I's first panel at n past 12,544: most of a CTA's columns in
+    device memory (its own columns of Rt), the slab's quads whole."""
+    plan = panel_qr.cluster_plan(128, m)
+    assert plan.ctas == 16 and plan.spill
+    assert plan.ctas * plan.width >= m and plan.width % 4 == 0
+    assert plan.smem_cols % 4 == 0 and plan.width - plan.smem_cols > plan.smem_cols
+    assert plan.ld % 32 == plan.groups % 32 and plan.smem <= _build.MAX_SMEM
 
 
 # (n, band) -> routed to the wavefront: the tables of the predicates'
