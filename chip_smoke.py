@@ -19,7 +19,8 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    the chase variants, every launch count set to 0 before each call and
    read after it: each variant's (d, e), and the recording wavefront's
    (d, e) and records, bit-equal to the sequential kernels' at n = 1024
-   (b = 64), 3840 (b = 128) and, on capped CTAs, 2048 (b = 32); each
+   (b = 64), 3840 (b = 128) and, on capped CTAs, 2048 (b = 32), the
+   staged entries by the TMA design, never the first one; each
    variant against its plain version at 1024; each variant's sigma through
    the bisection kernel at 3840 against float64; the wavefront kernel's
    L2 tick (forced at b = 64, taken at b = 160 by both entries) bit-equal
@@ -42,6 +43,9 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    3840, the wavefront kernel's shared-memory tick in turns with its L2
    tick at n = 1024, 3840 and 7680 (plain and recording), one CTA's copy
    rate for a chase window and the shared-memory tick's schedule bound,
+   the staged chase's TMA design in turns with its first design at 1024
+   (b = 64; K = 1, 3 and the largest that fits, 5) and 3840 (b = 128,
+   K = 1) with its schedule bound (its copy bytes over that copy rate),
    and computes each kernel's bound from its shapes;
 6. profiles one ``svdvals`` and one ``svd`` call and one wavefront chase at
    n = 3840: device time by kernel and the card's busy share;
@@ -219,6 +223,7 @@ def _counters():
             "band_chase_wave_l2": (band_chase_wave, "launches_l2"),
             "band_chase_wave_rec_l2": (band_chase_wave, "launches_rec_l2"),
             "band_chase_staged": (band_chase, "launches_staged"),
+            "band_chase_staged_v1": (band_chase, "launches_staged_v1"),
             "band_chase_vmem": (band_chase_vmem, "launches")}
 
 
@@ -654,6 +659,8 @@ def phase_variants(band_state):
             require(counts[k] >= 1, f"{k} not launched at {label}")
         require(counts["band_chase"] == 0 and counts["band_chase_rec"] == 0,
                 f"a variant took the sequential kernel at {label}")
+        require(counts["band_chase_staged_v1"] == 0,
+                f"the staged entries took the first design at {label}")
         say(f"[variants] {label}: {', '.join(calls)}: (d, e) bit-equal to band_chase")
         return outs, counts
 
@@ -1249,6 +1256,42 @@ def schedule_bytes(n, b):
     return sum(most.values())
 
 
+def phase_staged_times(band_state):
+    """The staged kernel's TMA design in turns with its first design (first,
+    TMA, TMA, first) at the check band (VAR_CHECK: K = 1, its khops, and the
+    largest lookahead that fits) and at the path's band (VAR_PATH: K = 1,
+    which is also what ``mega`` with its khops runs at b = 128); outputs
+    bit-equal to the sequential kernel.  Returns {(n, b, K): (tma_ms,
+    v1_ms)}."""
+    from svdsolver_tpu_torch.ops.cuda import band_chase, panel_qr
+
+    (n1, b1, khops1), (n3, b3, _) = VAR_CHECK, VAR_PATH
+    out = {}
+    for n, b, Ab in ((n1, b1, band_state[0]),
+                     (n3, b3, panel_qr.dense_to_band_fused(uniform_matrix(n3), band=b3))):
+        want = band_chase.band_to_bidiagonal(Ab, band=b)
+        Ks = sorted({1, band_chase.staged_khops(b, khops1), band_chase.staged_khops(b, 99)})
+        reps = 1 if n > 2000 else SVD_REPS
+        for K in Ks:
+            def run(design):  # K = 1 is the pipelined entry, K > 1 mega
+                return band_chase.band_to_bidiagonal(Ab, band=b, pipelined=K == 1,
+                                                     mega=K > 1, khops=K, _design=design)
+            for design in ("tma", "v1"):
+                require_bit_equal(f"staged {design} n={n} b={b} K={K}", run(design), want)
+                require(band_chase.last_khops == K, f"staged n={n} b={b} runs K={K}")
+            v1 = cuda_ms(lambda: run("v1"), reps, warm=n < 2000)
+            t1 = cuda_ms(lambda: run("tma"), reps)
+            t2 = cuda_ms(lambda: run("tma"), reps)
+            v2 = cuda_ms(lambda: run("v1"), reps, warm=n < 2000)
+            out[n, b, K] = (min(t1, t2), min(v1, v2))
+            say(f"[times] staged n={n} b={b} K={K}: TMA design {t1:.3f} / {t2:.3f} ms, first "
+                f"design {v1:.3f} / {v2:.3f} ms (medians of {reps}, in turns; both bit-equal "
+                "to the sequential kernel)")
+        del Ab
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_tick_times(band_state):
     """The wavefront kernel's two ticks in turns (L2, shared memory, shared
     memory, L2) at TICK_SHAPES, plain and recording entries; one CTA's copy
@@ -1434,7 +1477,7 @@ TPU_KERNELS = {
 
 
 def kernel_table(errs, counts_vals, counts_svd, kt, lib, variants, route, k1, ticks,
-                 designs):
+                 designs, staged):
     from svdsolver_tpu_torch.models import two_stage
     from svdsolver_tpu_torch.models.diagonalize import default_bisect_iters
 
@@ -1545,6 +1588,8 @@ def kernel_table(errs, counts_vals, counts_svd, kt, lib, variants, route, k1, ti
             "path_bound_ms": bounds["path"][0],
             "band_chase_path_ms": times_var["band_chase", "path"],
         })
+        if k == "band_chase_staged":
+            rows[-1].update(staged_keys(staged, rate))
         if on_path:
             rows[-1]["variant_launches"] = counts_var[k]
             rows[-1]["path_launches"] = {n: c[k] for n, c in counts_vals.items()}
@@ -1593,6 +1638,25 @@ def kernel_table(errs, counts_vals, counts_svd, kt, lib, variants, route, k1, ti
     return rows
 
 
+def staged_keys(staged, rate):
+    """The staged kernel's two designs in turns, and the TMA design's
+    schedule bound (the bytes of every copy of ``chase_schedule.
+    staged_copies``, the kernel's own order, over one CTA's copy rate), by
+    shape."""
+    from svdsolver_tpu_torch.ops.chase_schedule import staged_copy_bytes
+
+    out = {"designs_ms": {}, "schedule_bound_ms": {}, "window_copy_gb_s": rate / 1e6}
+    for (n, b, K), (tma, v1) in staged.items():
+        out["designs_ms"][f"n={n} b={b} K={K}"] = {"tma": tma, "first_design": v1}
+    for n, b in sorted({(n, b) for n, b, _ in staged}):
+        nbytes = staged_copy_bytes(n, b)
+        out["schedule_bound_ms"][f"n={n} b={b}"] = nbytes / rate
+        say(f"[bound] band_chase_staged schedule n={n} b={b}: {nbytes:.4g} bytes over "
+            f"{rate / 1e6:.2f} GB/s = {nbytes / rate:.3f} ms (TMA design K=1 "
+            f"{staged[n, b, 1][0]:.3f} ms)")
+    return out
+
+
 def tick_keys(tick_ms, sched, rate, record):
     """The two ticks of a wavefront entry in turns at TICK_SHAPES, and the
     shared-memory tick's schedule bound."""
@@ -1634,12 +1698,13 @@ def main():
     designs = phase_design_times()
     route = phase_route_times()
     ticks = phase_tick_times(band_state)
+    staged = phase_staged_times(band_state)
     A = uniform_matrix(3840)
     phase_profile("svdvals n=3840", lambda: svdvals(A))
     phase_profile("svd n=3840", lambda: svd(A))
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     rows = kernel_table(errs, counts_vals, counts_svd, kt, lib, variants, route, k1, ticks,
-                        designs)
+                        designs, staged)
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -86,12 +86,12 @@
 // bound of chip_smoke.py), with the pair's shared-memory passes and the
 // barrier on top.  FLOPs and device memory bandwidth are far from
 // bounding either.
-#include <cuda.h>  // CUtensorMap (the encoder is reached through the runtime)
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "chase_pair.cuh"
+#include "chase_tma.cuh"
 
 namespace {
 
@@ -353,289 +353,7 @@ wave_chase_kernel(float* __restrict__ A, float* __restrict__ d,
   }
 }
 
-// ---- the shared-memory tick (b <= 128; TMA) ----
-
-constexpr int kSmemBand = 128;  // widest band of the shared-memory tick
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar)) : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-
-// Thread 0: arrive on `bar`, expecting `bytes` from the copies issued next.
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// The box of `map` with corner (row, col) into shared memory, completion on
-// `bar`; entries past the matrix read as zero.
-__device__ __forceinline__ void tma_load(float* dst, const CUtensorMap* map,
-                                         int row, int col, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];"
-      ::"r"(smem_u32(dst)), "l"(map), "r"(col), "r"(row), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// The box at (row, col) back from shared memory; entries past the matrix
-// are dropped.
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, int row,
-                                          int col, const float* src) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];"
-      ::"l"(map), "r"(col), "r"(row), "r"(smem_u32(src)) : "memory");
-}
-
-// Thread 0: every bulk store it issued has written device memory.
-__device__ __forceinline__ void tma_store_drain() {
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-}
-
-// Orders this thread's plain accesses against the copy engine's, both
-// ways, in shared and device memory.
-__device__ __forceinline__ void fence_async() {
-  asm volatile("fence.proxy.async;" ::: "memory");
-}
-
-// Where a pair's window lives in shared memory.  Right view (the right
-// apply's rows 0 .. wr - 1, columns 0 .. b - 1): row i at r0 + i * ld below
-// `split`, else at r1 + (i - split) * ld.  Left view (the left apply's rows
-// 0 .. b - 1, right-view rows lr0 .. lr0 + b - 1; columns 0 .. 2b - 1):
-// column k at l0 + k below b, else at l1 + k - b; row j at j * ld from there.
-struct Win {
-  float *r0, *r1, *l0, *l1;
-  int ld, wr, split, lr0;
-};
-
-// The copies a pair waits for, by tile slot: each thread waits on a slot's
-// barrier once a pair, before it first reads that slot.
-struct Waits {
-  uint64_t* bar;
-  unsigned parity;  // bit k: the phase of slot k's pending copy
-  unsigned done;
-  __device__ void on(int k) {
-    if (k < 0 || (done >> k & 1u)) return;
-    mbar_wait(bar + k, parity >> k & 1u);
-    done |= 1u << k;
-  }
-};
-
-// One elimination pair on a window in shared memory, waiting on slot sa
-// (the box of the pivot row; -1: already there), sb (the other right rows)
-// and sc (the box only the left apply reads).  chase_pair's arithmetic,
-// reduction trees and thread mapping entry for entry, so (d, e) and the
-// records are bit-equal to it, without its per-entry predicates: the copies
-// read zero past n and drop the writes past n, so entries past n take part
-// as the zeros chase_pair reads there (a +-0 term changes no sum).  The
-// right apply's lane 0 keeps the left reflector's pivot column in `col` as
-// it writes it, so warp 0 reads a vector, not a tile column; the left apply
-// keeps its rows of one column in registers between its two passes and
-// reads the reflector by row group from `vg`.  BF: b as a constant (0: b at
-// run time).  With `map`, thread 0 writes the box at st_src (rows [0, b) of
-// the right view) back at (st_r, st_c) once the right apply is done (the
-// left apply never touches them).  Ends with the window complete in shared
-// memory.
-template <int KPL, int BF, bool Rec>
-__device__ __forceinline__ void smem_pair(const Win& w, int b, Waits& wt,
-                                          int sa, int sb, int sc,
-                                          const CUtensorMap* map, int st_r,
-                                          int st_c, const float* st_src,
-                                          float* v, float* vg,
-                                          float* col, float* part,
-                                          float* s_tau, Slot rr, Slot rl_) {
-  constexpr int R = right_rows<KPL>();
-  constexpr int NRM = BF ? BF / (kThreads / (2 * BF)) : 4 * KPL * KPL;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
-  // ---- right elimination ----
-  if (warp == 0) {
-    wt.on(sa);
-    SVDT_SPLIT(1);
-    float x[KPL];
-#pragma unroll
-    for (int t = 0; t < KPL; ++t) {
-      const int k = lane + 32 * t;
-      x[t] = k < b ? w.r0[k] : 0.f;
-    }
-    const float tau = warp_reflector<KPL>(x, b, v);
-    if (lane == 0) s_tau[0] = tau;
-    if constexpr (Rec) record(v, tau, b, rr.v, rr.t);
-  }
-  __syncthreads();
-  SVDT_SPLIT(2);
-  const float tau = s_tau[0];
-  wt.on(sa);
-  if (tau != 0.f) {
-    float vk[KPL];
-#pragma unroll
-    for (int t = 0; t < KPL; ++t) {
-      const int k = lane + 32 * t;
-      vk[t] = k < b ? v[k] : 0.f;
-    }
-    for (int i0 = warp * R; i0 < w.wr; i0 += kWarps * R) {
-      if (i0 + R > w.split) wt.on(sb);
-      float* row[R];
-      float x[R][KPL];
-#pragma unroll
-      for (int q = 0; q < R; ++q) {
-        const int i = i0 + q;
-        row[q] = i < w.split ? w.r0 + i * w.ld : w.r1 + (i - w.split) * w.ld;
-#pragma unroll
-        for (int t = 0; t < KPL; ++t) {
-          const int k = lane + 32 * t;
-          x[q][t] = (i < w.wr && k < b) ? row[q][k] : 0.f;
-        }
-      }
-      float f[R];
-#pragma unroll
-      for (int q = 0; q < R; ++q) f[q] = row_dot<KPL>(x[q], vk);
-#pragma unroll
-      for (int q = 0; q < R; ++q) f[q] = tau * warp_sum(f[q]);
-#pragma unroll
-      for (int q = 0; q < R; ++q) {
-        const int i = i0 + q;
-        if (i >= w.wr) continue;
-#pragma unroll
-        for (int t = 0; t < KPL; ++t) {
-          const float y = rank1(x[q][t], f[q], vk[t]);
-          if (vk[t] != 0.f) row[q][lane + 32 * t] = y;
-          if (t == 0 && lane == 0 && i >= w.lr0 && i < w.lr0 + b) col[i - w.lr0] = y;
-        }
-      }
-    }
-  }
-  wt.on(sb);
-  fence_async();  // the right apply's writes before the copy engine reads them
-  __syncthreads();
-  SVDT_SPLIT(3);
-  if (map != nullptr && tid == 0) tma_store(map, st_r, st_c, st_src);
-
-  // ---- left elimination ----
-  const int cols = 2 * b;
-  const int groups = kThreads / cols;
-  const int nrm = BF ? NRM : (b + groups - 1) / groups;  // vg's entries a group
-  if (warp == 0) {
-    float x[KPL];
-#pragma unroll
-    for (int t = 0; t < KPL; ++t) {
-      const int k = lane + 32 * t;
-      x[t] = k < b ? (tau != 0.f ? col[k] : w.l0[k * w.ld]) : 0.f;
-    }
-    const float tau2 = warp_reflector<KPL>(x, b, v);
-    if (lane == 0) s_tau[1] = tau2;
-    if constexpr (Rec) record(v, tau2, b, rl_.v, rl_.t);
-    __syncwarp();
-    for (int k = lane; k < b; k += 32) vg[(k % groups) * nrm + k / groups] = v[k];
-  }
-  __syncthreads();
-  SVDT_SPLIT(4);
-  const float tau2 = s_tau[1];
-  wt.on(sc);
-  if (tau2 != 0.f) {
-    // thread (g, c): column c, rows g, g + groups, ... in registers
-    const int g = tid / cols;
-    const int c = tid - g * cols;
-    const bool live = g < groups;
-    const int nr = BF ? NRM : (b - g + groups - 1) / groups;
-    float* p = (c < b ? w.l0 + c : w.l1 + (c - b)) + g * w.ld;
-    const int step = groups * w.ld;
-    const float* vr = vg + g * nrm;
-    float x[NRM];
-    if (live) {
-      float s = 0.f;
-#pragma unroll
-      for (int j = 0; j < NRM; ++j)
-        if (j < nr) x[j] = p[j * step];
-      if constexpr (BF != 0 && NRM % 4 == 0) {
-#pragma unroll
-        for (int j = 0; j < NRM; j += 4) {
-          const float4 v4 = *reinterpret_cast<const float4*>(vr + j);
-          s += v4.x * x[j];
-          s += v4.y * x[j + 1];
-          s += v4.z * x[j + 2];
-          s += v4.w * x[j + 3];
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < NRM; ++j)
-          if (j < nr) s += vr[j] * x[j];
-      }
-      part[g * cols + c] = s;
-    }
-    __syncthreads();
-    SVDT_SPLIT(5);
-    if (live) {
-      const float f = tau2 * left_total(part, b, c);
-      if constexpr (BF != 0 && NRM % 4 == 0) {
-#pragma unroll
-        for (int j = 0; j < NRM; j += 4) {
-          const float4 v4 = *reinterpret_cast<const float4*>(vr + j);
-          p[j * step] = rank1(x[j], f, v4.x);
-          p[(j + 1) * step] = rank1(x[j + 1], f, v4.y);
-          p[(j + 2) * step] = rank1(x[j + 2], f, v4.z);
-          p[(j + 3) * step] = rank1(x[j + 3], f, v4.w);
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < NRM; ++j)
-          if (j < nr) p[j * step] = rank1(x[j], f, vr[j]);
-      }
-    }
-  }
-  fence_async();
-  __syncthreads();
-  SVDT_SPLIT(6);
-}
-
-// The copy engine starts a box at a 16-byte column: a b x b tile at column
-// c travels in a box of b rows of b + 4 columns from c & ~3, the tile at
-// column offset c & 3 of its slot.  A slot holds the box and one more row
-// (the head pair's last window row), rounded up to 128 bytes.
-__host__ __device__ constexpr int box_cols(int b) { return b + 4; }
-__host__ __device__ constexpr int tile_floats(int b) {
-  return ((b + 1) * box_cols(b) + 31) & ~31;
-}
-
-// Two boxes of one row band, `hi` starting b columns after `lo`, overlap in
-// 4 columns; the pair updated each entry in the box whose tile holds it.
-// Copy it into the other box, so both write back the same values.
-__device__ __forceinline__ void share_overlap(float* lo, float* hi, int b,
-                                              int delta) {
-  const int ld = box_cols(b);
-  for (int k = threadIdx.x; k < 4 * b; k += kThreads) {
-    const int j = k >> 2, o = k & 3;
-    if (o < delta)
-      hi[j * ld + o] = lo[j * ld + o + b];
-    else
-      lo[j * ld + o + b] = hi[j * ld + o];
-  }
-}
-
-// The copy engine writes shared memory at 128-byte boundaries: the first
-// such boundary of the dynamic shared memory (128 bytes more are asked for).
-__device__ __forceinline__ float* align128(float* raw) {
-  return raw + ((128u - (smem_u32(raw) & 127u)) & 127u) / 4u;
-}
+// ---- the shared-memory tick (b <= 128; TMA, chase_tma.cuh) ----
 
 // Whether chase pair (i, s) keeps its (r + b, c + b) tile for the lane's
 // next pair (ops/chase_schedule._carries): not the lane's last slot, and
@@ -702,10 +420,10 @@ wave_smem_kernel(const __grid_constant__ CUtensorMap tile_map,
           (k < b ? x0 : x1)[k] = hr < n && hc < n ? __ldcg(A + (size_t)hr * n + hc) : 0.f;
         }
         const Win w = {h0 + dl, h0 + dl, h0 + dl + ldt, h1 + dl + ldt, ldt, b + 1, b + 1, 1};
-        smem_pair<KPL, BF, Rec>(w, b, wt, 0, -1, -1, nullptr, 0, 0, nullptr, v, vg,
-                                col, part, s_tau, Rec ? rec.right(i, 0, b) : none,
+        smem_pair<KPL, BF, Rec>(w, b, wt, 0, -1, -1, NoMid{}, v, vg, col, part,
+                                s_tau, Rec ? rec.right(i, 0, b) : none,
                                 Rec ? rec.left(i, 0, b) : none);
-        share_overlap(h0, h1, b, dl);
+        share_overlap(h0, h1, b, dl, b);
         fence_async();
         __syncthreads();
         if (threadIdx.x == 0) {
@@ -747,11 +465,15 @@ wave_smem_kernel(const __grid_constant__ CUtensorMap tile_map,
         tma_load(t11, &tile_map, r + b, a + b, bar + s11);
       }
       const Win w = {t00 + dl, t10 + dl, t10 + dl, t11 + dl, ldt, 2 * b, b, b};
-      smem_pair<KPL, BF, Rec>(w, b, wt, cin ? -1 : s00, s10, s11, &tile_map, r,
-                              a, t00, v, vg, col, part, s_tau,
+      // tile (r, c) goes back once the right apply is done
+      const auto store_rc = [&] {
+        if (threadIdx.x == 0) tma_store(&tile_map, r, a, t00);
+      };
+      smem_pair<KPL, BF, Rec>(w, b, wt, cin ? -1 : s00, s10, s11, store_rc, v, vg,
+                              col, part, s_tau,
                               Rec ? rec.right(i, s, b) : none,
                               Rec ? rec.left(i, s, b) : none);
-      share_overlap(t10, t11, b, dl);
+      share_overlap(t10, t11, b, dl, b);
       fence_async();
       __syncthreads();
       if (threadIdx.x == 0) {
@@ -831,53 +553,13 @@ int coop_launch(Kernel kernel, int units, int max_ctas, void** args,
                                           dim3(kThreads), args, smem, s);
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// A tensor map of the n x n row-major A with box (rows, cols): no swizzle,
-// zero fill past the edges.  Returns a cudaError_t.
-int encode_map(CUtensorMap* map, float* A, int n, int rows, int cols) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                              cudaEnableDefault, &found);
-    if (err != cudaSuccess) return (int)err;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
-      return (int)cudaErrorSymbolNotFound;
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
-  const cuuint64_t dims[2] = {(cuuint64_t)n, (cuuint64_t)n};
-  const cuuint64_t strides[1] = {(cuuint64_t)n * sizeof(float)};
-  const cuuint32_t box[2] = {(cuuint32_t)cols, (cuuint32_t)rows};
-  const cuuint32_t unit[2] = {1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, A, dims,
-                              strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_NONE,
-                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
-// Whether the shared-memory tick takes an (n, n) band b at address A: the
-// copy engine needs 16-byte rows strides and box rows, b <= 128.
-bool smem_tick_takes(const float* A, int n, int b) {
-  return b >= 4 && b <= kSmemBand && b % 4 == 0 && n % 4 == 0 &&
-         reinterpret_cast<uintptr_t>(A) % 16 == 0;
-}
-
 size_t smem_tick_bytes(int b) { return sizeof(float) * 3 * (size_t)tile_floats(b) + 128; }
 
 template <bool Rec>
 int launch_smem(float* A, float* d, float* e, int n, int b, unsigned* ctr,
                 Records rec, int max_ctas, int* ctas, int smem_req,
                 void* stream) {
-  if (n < 2 || !smem_tick_takes(A, n, b)) return (int)cudaErrorInvalidValue;
+  if (n < 2 || !tma_takes(A, n, b)) return (int)cudaErrorInvalidValue;
   alignas(64) CUtensorMap tile_map;
   int err = encode_map(&tile_map, A, n, b, box_cols(b));
   if (err != 0) return err;
@@ -983,7 +665,7 @@ extern "C" int svdt_band_chase_wave_smem_rec(float* A, float* d, float* e,
 // memory and back `reps` times, as the shared-memory tick copies a window.
 extern "C" int svdt_wave_copy(float* A, int n, int b, int r, int c, int reps,
                               void* stream) {
-  if (!smem_tick_takes(A, n, b) || reps < 1) return (int)cudaErrorInvalidValue;
+  if (!tma_takes(A, n, b) || reps < 1) return (int)cudaErrorInvalidValue;
   alignas(64) CUtensorMap tile_map;
   int err = encode_map(&tile_map, A, n, b, box_cols(b));
   if (err != 0) return err;

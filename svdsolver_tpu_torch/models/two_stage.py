@@ -13,7 +13,12 @@ reflectors, for the singular-vector back-transforms of ``models/vectors.py``.
 
 import torch
 
-from svdsolver_tpu_torch.ops.chase_schedule import nc_of_static, s_max_of, wave_pairs
+from svdsolver_tpu_torch.ops.chase_schedule import (
+    nc_of_static,
+    s_max_of,
+    staged_copies,
+    wave_pairs,
+)
 from svdsolver_tpu_torch.ops.householder import householder_vector
 from svdsolver_tpu_torch.ops.precision import pdot
 
@@ -394,6 +399,69 @@ def band_to_bidiagonal_wavefront_tiles(A, band=32, record=False, carry=True):
                     VL[i, s, 0] = VR[i, s, 0] = 1
     d, e = torch.diagonal(M).clone(), torch.diagonal(M, 1).clone()
     return (d, e, VL, TL, VR, TR) if record else (d, e)
+
+
+def band_to_bidiagonal_staged_tiles(A, band=32, khops=1):
+    """The staged chase kernel's TMA route, plain: the steps of
+    :func:`~svdsolver_tpu_torch.ops.chase_schedule.staged_copies` on a ring
+    of ``2 khops + 1`` tile slots of ``(band + 1) x (band + 4)`` over an
+    unpadded copy of ``A`` (``band`` a multiple of 4).  Loads read the
+    matrix when issued and stores write it when issued (the schedule never
+    lets a load or a store meet a store in flight); the pairs are
+    :func:`make_window_pairs`' steps on windows built from the slots (a
+    tile found at its row in the box its slot holds), the right elimination
+    on A and B, the left one on B and C, and the 4 columns two boxes of a
+    row band share are copied across after each pair, as the kernel's
+    ``share_overlap`` does.  Returns ``(d, e)``, bit-equal to
+    :func:`band_to_bidiagonal`'s.
+    """
+    n = A.shape[0]
+    if n < 2:
+        return torch.abs(torch.diagonal(A)), A.new_zeros((0,))
+    b = int(band)
+    w = b + 1
+    M = A.clone()
+    slots = [A.new_zeros((b + 1, b + 4)) for _ in range(2 * int(khops) + 1)]
+    box_row = [0] * len(slots)  # the first matrix row of the box a slot holds
+
+    def share_overlap(lo, hi, delta, rows):
+        hi[:rows, :delta] = lo[:rows, b : b + delta]
+        lo[:rows, b + delta : b + 4] = hi[:rows, delta:4]
+
+    def tile(s, r, dl):  # the b x b tile of rows [r, r + b) in slot s
+        o = r - box_row[s]
+        return slots[s][o : o + b, dl : dl + b]
+
+    W = None
+    for op in staged_copies(n, b, int(khops)):
+        if op.kind == "load":
+            slots[op.slot][: op.rows] = _box_in(M, op.r, op.c, op.rows, b + 4)
+            box_row[op.slot] = op.r
+        elif op.kind == "store":
+            _box_out(M, slots[op.slot][: op.rows], op.r, op.c)
+        elif op.kind == "head":
+            dl = op.c & 3
+            h0, h1 = (slots[s] for s in op.slots)
+            W = torch.cat((h0[:, dl : dl + b], h1[:, dl : dl + b]), dim=1)
+            _right_elim(W, w)
+            _left_apply(W, 1, *_left_reflector(W, 1))
+            h0[:, dl : dl + b], h1[:, dl : dl + b] = W[:, :b], W[:, b:]
+            share_overlap(h0, h1, dl, b + 1)
+        elif op.kind == "right":
+            dl = op.c & 3
+            sA, sB, _ = op.slots
+            W = A.new_zeros((2 * b, 2 * b))  # (r, c + b) is never touched
+            W[:b, :b], W[b:, :b] = tile(sA, op.r, dl), tile(sB, op.r + b, dl)
+            _right_elim(W, w)
+            tile(sA, op.r, dl)[:], tile(sB, op.r + b, dl)[:] = W[:b, :b], W[b:, :b]
+        elif op.kind == "left":
+            dl = op.c & 3
+            _, sB, sC = op.slots
+            W[b:, b:] = tile(sC, op.r + b, dl)
+            _left_apply(W, b, *_left_reflector(W, b))
+            tile(sB, op.r + b, dl)[:], tile(sC, op.r + b, dl)[:] = W[b:, :b], W[b:, b:]
+            share_overlap(slots[sB], slots[sC], dl, b)
+    return torch.diagonal(M).clone(), torch.diagonal(M, 1).clone()
 
 
 def bidiagonalize_two_stage(A, band=32, wavefront=False):

@@ -97,3 +97,124 @@ def wave_pairs(n, b, carry=True):
             tiles = ((r, c), (r + b, c), (r + b, c + b))
             yield WavePair(t, u, i, s, r, c, tiles[1:] if cin else tiles,
                            tiles[:2] if cout else tiles, cin, cout)
+
+
+def staged_pairs(i, n, b):
+    """Chase pairs of sweep ``i`` that do work (corner column ``i + 1 +
+    (k + 1) b`` below ``n``): a prefix of its ``nc_of_static`` pairs."""
+    return min(nc_of_static(i, n, b), max(0, (n - i - 2) // b))
+
+
+class StagedOp(NamedTuple):
+    """One step of the staged chase kernel (``csrc/band_chase_staged.cu``,
+    TMA route), in the order its threads take them.
+
+    ``kind``:
+
+    * ``"load"`` / ``"store"``: a box of ``rows`` rows (``b``, or ``b + 1``
+      for the head pair's boxes) of ``b + 4`` columns with corner ``(r, c)``
+      copied into / out of tile slot ``slot`` by the copy engine (``c`` a
+      multiple of 4; entries past ``n`` read zero, writes past ``n`` are
+      dropped); a load lands on the slot's ``mbarrier``, a store joins the
+      bulk stores in flight;
+    * ``"wait_read"`` / ``"wait_all"``: the copying thread waits until every
+      store in flight has read its slot / has written device memory;
+    * ``"head"``: the head pair of sweep ``i`` on ``slots`` = (h0, h1), its
+      window's columns ``[i + 1, i + 1 + b)`` and the next ``b``;
+    * ``"right"`` / ``"left"``: the right / left elimination of chase pair
+      ``k`` of sweep ``i`` on ``slots`` = (A, B, C), the tiles ``(r, c)``,
+      ``(r + b, c)`` and ``(r + b, c + b)`` of its corner ``(r, c)``; the
+      right one reads A and B, the left one B and C.
+
+    ``pair``: the (sweep, chase pair) whose tiles a copy moves (``k = -1``:
+    the head).
+    """
+
+    kind: str
+    slot: int
+    r: int
+    c: int
+    pair: tuple
+    slots: tuple = ()
+    rows: int = 0
+
+
+def staged_copies(n, b, K):
+    """The staged chase kernel's steps for an (n, n) band ``b`` with a ring
+    of ``NS = 2K + 1`` tile slots, as :class:`StagedOp`: sweep by sweep, the
+    head pair, then the sweep's chase pairs, the loads running ``K`` pairs
+    ahead.
+
+    Pair k's A tile sits in slot ``2k mod NS``, B in the next, C in the one
+    after, which is pair k + 1's A (carried).  The head pair is pair -1 of
+    that ring: its two boxes of ``b + 1`` rows, h0 in slot ``NS - 1`` and
+    h1 in slot 0, and h1 from its second row is pair 0's A.  Once pair k's
+    right elimination is done, the copying thread waits for every store to
+    be written (pair k - 1's B, or h0, shares 4 columns with this A), loads
+    pair k - 1 + K's C into pair k - 1's B slot (h0's for k = 0), and stores
+    A (h1 whole for k = 0); after the left elimination it waits for A's
+    store to read its slot, loads pair k + K's B into it, and stores B (and
+    C at the sweep's last pair).  Each wait comes a whole apply after the
+    store it waits for.  A sweep starts once the previous one's stores have
+    read their slots, and have been written where they may meet its loads
+    (the previous sweep had at most ``K + 2`` pairs).
+    """
+    if b % 4:
+        raise ValueError(f"the TMA design takes bands that are multiples of 4, not {b}")
+    NS = 2 * K + 1
+    prev = None  # the previous sweep's pairs with work
+    for i in range(n - 1):
+        a = (i + 1) & ~3
+        head = (i, -1)
+        nk = staged_pairs(i, n, b)
+        if prev is not None:
+            yield StagedOp("wait_all" if prev <= K + 2 else "wait_read", -1, 0, 0, head)
+
+        def corner(k):
+            r = i + 1 + k * b
+            return r, (r + b) & ~3
+
+        yield StagedOp("load", NS - 1, i, a, head, rows=b + 1)
+        yield StagedOp("load", 0, i, a + b, head, rows=b + 1)
+        for j in range(min(K, nk)):
+            r, c = corner(j)
+            yield StagedOp("load", 2 * j + 1, r + b, c, (i, j), rows=b)
+        for j in range(min(K - 1, nk)):
+            r, c = corner(j)
+            yield StagedOp("load", 2 * j + 2, r + b, c + b, (i, j), rows=b)
+        yield StagedOp("head", -1, i, i + 1, head, (NS - 1, 0))
+        yield StagedOp("store", NS - 1, i, a, head, rows=b + 1)
+        if nk == 0:
+            yield StagedOp("store", 0, i, a + b, head, rows=b + 1)
+        for k in range(nk):
+            r, c = corner(k)
+            sA, sB, sC = (2 * k) % NS, (2 * k + 1) % NS, (2 * k + 2) % NS
+            slots = (sA, sB, sC)
+            yield StagedOp("right", -1, r, r + b, (i, k), slots)
+            yield StagedOp("wait_all", -1, 0, 0, (i, k))
+            if k - 1 + K < nk:
+                rc, cc = corner(k - 1 + K)
+                yield StagedOp("load", (2 * k - 1) % NS, rc + b, cc + b, (i, k - 1 + K), rows=b)
+            if k == 0:
+                yield StagedOp("store", sA, i, c, (i, k), rows=b + 1)
+            else:
+                yield StagedOp("store", sA, r, c, (i, k), rows=b)
+            yield StagedOp("left", -1, r, r + b, (i, k), slots)
+            if k + K < nk:
+                ra, ca = corner(k + K)
+                yield StagedOp("wait_read", -1, 0, 0, (i, k))
+                yield StagedOp("load", sA, ra + b, ca, (i, k + K), rows=b)
+            yield StagedOp("store", sB, r + b, c, (i, k), rows=b)
+            if k == nk - 1:
+                yield StagedOp("store", sC, r + b, c + b, (i, k), rows=b)
+        prev = nk
+    yield StagedOp("wait_all", -1, 0, 0, (n - 2, -1))
+
+
+def staged_copy_bytes(n, b, K=1):
+    """Bytes the staged chase kernel's copies move for an (n, n) band ``b``
+    (float32): every load and store of :func:`staged_copies`, a box of its
+    ``rows`` rows of ``b + 4`` floats each.  Each tile is loaded and stored
+    once, whatever ``K``."""
+    return sum(4 * op.rows * (b + 4) for op in staged_copies(n, b, K)
+               if op.kind in ("load", "store"))

@@ -20,7 +20,12 @@ The flags of :func:`band_to_bidiagonal` are those of the JAX package's
 ``band_to_bidiagonal_pallas``: ``wavefront`` runs the wavefront kernel
 (``band_chase_wave``), ``pipelined`` and ``mega`` the staged kernel
 (``csrc/band_chase_staged.cu``, TPU ``_chase_kernel_pipelined`` and
-``_chase_kernel_megapipe``), which holds its windows in shared memory.
+``_chase_kernel_megapipe``), which holds its windows in shared memory: one
+CTA in the sequential order, each tile copied by TMA ``khops`` pairs ahead,
+where :func:`staged_tma_takes` holds; other shapes take the sequential
+kernel (:func:`staged_design`).  The TMA design's plain version is
+``two_stage.band_to_bidiagonal_staged_tiles`` (the copies of
+``chase_schedule.staged_copies``).
 """
 
 import torch
@@ -31,8 +36,9 @@ from svdsolver_tpu_torch.ops.cuda import _build, band_chase_wave
 
 launches = 0  # kernel launches by band_to_bidiagonal since the last reset
 launches_rec = 0  # kernel launches by band_to_bidiagonal_accum likewise
-launches_staged = 0  # staged-kernel launches by band_to_bidiagonal likewise
-last_khops = 0  # pairs a mega-window of the last staged launch
+launches_staged = 0  # staged-kernel launches, TMA design, likewise
+launches_staged_v1 = 0  # staged-kernel launches, first design (``_design="v1"``), likewise
+last_khops = 0  # pairs the copies of the last staged launch ran ahead
 
 _ENTRIES = {
     "svdt_band_chase": [_build.VOIDP] * 3 + [_build.INT] * 2 + [_build.VOIDP],
@@ -43,11 +49,14 @@ _ENTRIES = {
 }
 MAX_BAND = 256  # the kernel's 2b window columns map onto its 512 threads
 STAGED_MAX_BAND = 128  # the staged kernel's tiles fit shared memory up to here
-# the staged kernel's static shared memory: v (128), partial sums (512), 2 taus
-STAGED_STATIC_SMEM = 4 * (STAGED_MAX_BAND + 512 + 2)
+# the TMA design's static shared memory: v, col (128 each), vg (256),
+# partial sums (512), 2 taus, and an 8-byte mbarrier for each of up to
+# STAGED_MAX_SLOTS ring slots (one parity bit each in a 32-bit mask)
+STAGED_MAX_SLOTS = 31
+STAGED_STATIC_SMEM = 4 * (4 * STAGED_MAX_BAND + 512 + 2) + 8 * STAGED_MAX_SLOTS
 
 _STAGED_ENTRIES = {
-    "svdt_band_chase_staged": [_build.VOIDP] * 3 + [_build.INT] * 3 + [_build.VOIDP],
+    "svdt_band_chase_staged": [_build.VOIDP] * 3 + [_build.INT] * 4 + [_build.VOIDP],
 }
 
 band_to_bidiagonal_plain = two_stage.band_to_bidiagonal
@@ -63,16 +72,57 @@ def _check_band(A, b):
     return n
 
 
+def staged_slot_floats(band):
+    """Floats of one ring slot of the staged kernel: a TMA box of ``band``
+    rows of ``band + 4`` columns and one more row, rounded up to 128 bytes
+    (``tile_floats`` of ``csrc/chase_tma.cuh``)."""
+    b = int(band)
+    return ((b + 1) * (b + 4) + 31) & ~31
+
+
 def staged_khops(band, khops):
-    """The largest mega-window ``K <= khops`` whose ``2K + 1`` tiles of
-    ``band x (band + 1)`` floats fit the card's shared memory (0: none)."""
-    tile = 4 * band * (band + 1)
-    fit = (_build.MAX_SMEM - STAGED_STATIC_SMEM) // tile
-    return max(0, min(int(khops), (fit - 1) // 2))
+    """The largest lookahead ``K <= khops`` whose ring of ``2K + 1`` slots
+    (:func:`staged_slot_floats`, plus 128 bytes of alignment) fits the
+    card's shared memory beside the kernel's static arrays, with at most
+    ``STAGED_MAX_SLOTS`` slots (0: none fits)."""
+    fit = (_build.MAX_SMEM - STAGED_STATIC_SMEM - 128) // (4 * staged_slot_floats(band))
+    return max(0, min(int(khops), (min(fit, STAGED_MAX_SLOTS) - 1) // 2))
+
+
+def staged_tma_takes(A, band):
+    """Whether the staged kernel's TMA design takes ``A`` with ``band``: the
+    copy engine moves boxes of whole 16-byte rows, so ``band`` and ``n`` are
+    multiples of 4 and ``A`` is 16-byte aligned, ``4 <= band <= 128``."""
+    b, n = int(band), A.shape[0]
+    return (4 <= b <= STAGED_MAX_BAND and b % 4 == 0 and n % 4 == 0
+            and A.data_ptr() % 16 == 0)
+
+
+def staged_design(A, band, pipelined=False, mega=False, khops=4, _design=None):
+    """The staged kernel's design that :func:`band_to_bidiagonal`'s flags
+    and ``A``'s shape pick, before launch: ``"tma"`` where the staged
+    flags are set and :func:`staged_tma_takes` holds, ``"v1"`` (the first
+    design: plain copies between block barriers) only when ``_design`` asks
+    for it, ``None`` (the sequential kernel) for every other shape and
+    flag.  The first design is slower than the sequential kernel at every
+    shape timed, so it is kept only to time the two designs in turns;
+    ``_design="tma"`` raises where the TMA design cannot run."""
+    b = int(band)
+    if _design not in (None, "tma", "v1"):
+        raise ValueError(f"_design must be None, 'tma' or 'v1', got {_design!r}")
+    if not (pipelined or (mega and khops > 1)) or b > STAGED_MAX_BAND:
+        return None
+    if _design == "v1":
+        return "v1"
+    if staged_tma_takes(A, b):
+        return "tma"
+    if _design == "tma":
+        raise ValueError(f"the staged TMA design does not take n={A.shape[0]}, band={b}")
+    return None
 
 
 def band_to_bidiagonal(A, band=128, wavefront=False, pipelined=False,
-                       mega=False, khops=4):
+                       mega=False, khops=4, _design=None):
     """Bulge-chase the upper-band ``A`` (n, n; ``band`` superdiagonals) to
     bidiagonal; returns ``(d, e)``.
 
@@ -82,22 +132,27 @@ def band_to_bidiagonal(A, band=128, wavefront=False, pipelined=False,
     JAX package's order: ``wavefront`` (the wavefront kernel,
     ``band_chase_wave``), then ``pipelined`` (the staged kernel, one pair a
     window), then ``mega`` with ``khops > 1`` (the staged kernel, up to
-    ``khops`` pairs a window: the largest that fits shared memory, recorded
-    in ``last_khops``), else the sequential kernel.  These routes are
-    decided by shape before launch: a band above 128 takes the sequential
-    kernel under ``pipelined`` or ``mega``, as the TPU sends bands that are
-    not multiples of 128 to its sequential kernel (its 128-lane gates are
-    alignment rules the card does not have).  Every route gives the same
-    ``(d, e)``, bit for bit; on the CPU ``wavefront`` runs the plain
-    wavefront schedule and the others the plain sequential chase.
+    ``khops`` pairs ahead: the largest that fits shared memory, recorded
+    in ``last_khops``), else the sequential kernel.  The staged kernel runs
+    its TMA design where :func:`staged_tma_takes` holds; ``_design="v1"``
+    forces its first design, for timing the two in turns
+    (:func:`staged_design`).  These routes are decided by shape before
+    launch: a shape the TMA design does not take, and a band above 128,
+    take the sequential kernel under ``pipelined`` or ``mega``, as the TPU
+    sends bands that are not multiples of 128 to its sequential kernel (its
+    128-lane gates are alignment rules the card does not have).  Every
+    route gives the same ``(d, e)``, bit for bit; on the CPU ``wavefront``
+    runs the plain wavefront schedule and the others the plain sequential
+    chase.
     """
-    global launches, launches_staged, last_khops
+    global launches, launches_staged, launches_staged_v1, last_khops
     b = int(band)
     if int(khops) < 1:
         raise ValueError(f"khops must be >= 1, got {khops}")
     if wavefront:
         return band_chase_wave.band_to_bidiagonal_wave(A, band=b)
-    staged = (pipelined or (mega and khops > 1)) and b <= STAGED_MAX_BAND
+    design = staged_design(A, b, pipelined, mega, khops, _design)
+    staged = design is not None
     if not _build.check_input(A, "A", 2):
         _check_band(A, b)
         return band_to_bidiagonal_plain(A, band=b)
@@ -113,7 +168,7 @@ def band_to_bidiagonal(A, band=128, wavefront=False, pipelined=False,
             lib = _build.load("band_chase_staged", _STAGED_ENTRIES)
             err = lib.svdt_band_chase_staged(
                 work.data_ptr(), d.data_ptr(), e.data_ptr(), n, b, K,
-                _build.stream_of(A),
+                int(design == "v1"), _build.stream_of(A),
             )
         else:
             lib = _build.load("band_chase", _ENTRIES)
@@ -123,7 +178,10 @@ def band_to_bidiagonal(A, band=128, wavefront=False, pipelined=False,
             )
     _build.raise_on_error(err, "band_chase_staged" if staged else "band_chase")
     if staged:
-        launches_staged += 1
+        if design == "tma":
+            launches_staged += 1
+        else:
+            launches_staged_v1 += 1
         last_khops = K
     else:
         launches += 1

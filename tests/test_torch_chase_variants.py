@@ -169,10 +169,10 @@ def test_wrappers_reject_bad_arguments():
 
 
 def test_staged_khops_fit_shared_memory():
-    # 2K + 1 tiles of b (b + 1) floats in 227 KB: only K = 1 at b = 128
+    # 2K + 1 slots of (b + 1) x (b + 4) floats in 227 KB: only K = 1 at b = 128
     assert band_chase.staged_khops(128, 4) == 1
     assert band_chase.staged_khops(64, 3) == 3
-    assert band_chase.staged_khops(64, 99) == 6
+    assert band_chase.staged_khops(64, 99) == 5
     assert band_chase.staged_khops(32, 4) == 4
 
 

@@ -238,12 +238,62 @@ def test_wave_kernels_stride_lanes_over_ctas(dev, rng):
 
 
 def test_staged_kernel_khops(dev, rng):
-    for b, khops, want in ((128, 4, 1), (64, 3, 3), (64, 99, 6)):
+    for b, khops, want in ((128, 4, 1), (64, 3, 3), (64, 99, 5)):
         Ab = _band(dev, rng, 4 * b, b)
         d0, e0 = band_chase.band_to_bidiagonal(Ab, band=b)
         d, e = band_chase.band_to_bidiagonal(Ab, band=b, mega=True, khops=khops)
         assert band_chase.last_khops == want
         assert torch.equal(d, d0) and torch.equal(e, e0)
+
+
+STAGED = {
+    "pipelined": lambda A, b, d: band_chase.band_to_bidiagonal(A, band=b, pipelined=True,
+                                                              _design=d),
+    "mega": lambda A, b, d: band_chase.band_to_bidiagonal(A, band=b, mega=True, khops=3,
+                                                         _design=d),
+    "mega_widest": lambda A, b, d: band_chase.band_to_bidiagonal(A, band=b, mega=True,
+                                                                khops=99, _design=d),
+}
+
+
+@pytest.mark.parametrize("n,b", [(256, 32), (384, 64), (512, 128), (200, 8), (1000, 64)])
+def test_staged_tma_bit_equal_three_times(dev, rng, n, b):
+    # stores in flight that met would land in no fixed order: a race shows
+    # as a (d, e) that differs only sometimes, so each entry runs three times
+    Ab = _band(dev, rng, n, b)
+    d0, e0 = band_chase.band_to_bidiagonal(Ab, band=b)
+    for name, fn in STAGED.items():
+        for _ in range(3):
+            band_chase.launches_staged = 0
+            d, e = fn(Ab, b, None)
+            torch.cuda.synchronize()
+            assert band_chase.launches_staged == 1, name
+            assert torch.equal(d, d0) and torch.equal(e, e0), name
+        d, e = fn(Ab, b, "v1")  # the first design on the same band
+        assert torch.equal(d, d0) and torch.equal(e, e0), name
+
+
+@pytest.mark.parametrize("n,b", [(201, 8), (150, 6), (130, 128)])
+def test_staged_shapes_tma_does_not_take(dev, rng, n, b):
+    # n or b not a multiple of 4: the sequential kernel, chosen before
+    # launch; the first design only when asked for
+    Ab = _band(dev, rng, n, b)
+    d0, e0 = band_chase.band_to_bidiagonal(Ab, band=b)
+    takes = band_chase.staged_tma_takes(Ab, b)
+    for fn in STAGED.values():
+        band_chase.launches = band_chase.launches_staged = band_chase.launches_staged_v1 = 0
+        d, e = fn(Ab, b, None)
+        torch.cuda.synchronize()
+        assert (band_chase.launches_staged, band_chase.launches_staged_v1,
+                band_chase.launches) == ((1, 0, 0) if takes else (0, 0, 1))
+        assert torch.equal(d, d0) and torch.equal(e, e0)
+        if b <= band_chase.STAGED_MAX_BAND:
+            d, e = fn(Ab, b, "v1")
+            assert band_chase.launches_staged_v1 == 1
+            assert torch.equal(d, d0) and torch.equal(e, e0)
+    if not takes:
+        with pytest.raises(ValueError, match="TMA"):
+            band_chase.band_to_bidiagonal(Ab, band=b, pipelined=True, _design="tma")
 
 
 @pytest.mark.parametrize("n,b", [(256, 32), (384, 64), (512, 128), (200, 8), (1000, 64)])

@@ -8,9 +8,22 @@ copies with the package's nvcc flags, and times each on the Stage I kernel's
 band of a uniform [0, 5) matrix (CUDA events, median of 3) at n = 1024
 (b = 64) and 3840 (b = 128):
 
-* staged kernel (khops = 1): in full, without the tile copies, without the
-  pairs on the tiles, the head pairs alone, the tile copies alone, and the
-  loop with no work;
+* staged kernel, first design (khops = 1, plain copies between block
+  barriers): in full, without the tile copies, without the pairs on the
+  tiles, the head pairs alone, the tile copies alone, and the loop with no
+  work;
+* staged kernel, TMA design (khops = 1, and the largest lookahead that fits
+  at b = 64): in full, and a per-phase split of the chase pairs and heads:
+  thread 0 stamps ``clock64()`` at the ``SVDT_SPLIT`` marks (the A tile
+  landed, each reflector and apply, the C tile landed, the pair's end), the
+  copying thread at ``SVDT_SPLIT_COPY`` (before and after it waits for the
+  stores in flight to land, after it issues a C load and A's store, before
+  and after it waits for A's store to read its slot), a pair a row; and
+  the TMA design with the full ``fence.proxy.async`` where it fences shared
+  memory alone (``fence.proxy.async.shared::cta``), the cheaper fence's
+  gain, and without the copying thread's device-memory fence
+  (``fence.proxy.async.global``) after each wait for the stores to land,
+  that fence's cost, both in turns with the package's build;
 * wavefront kernel, each tick (the L2 tick and the shared-memory one): in
   full, its grid barriers alone (no pair runs), and a per-phase split of one
   busy lane (CTA 1): its thread 0 stamps ``clock64()`` at the phase marks
@@ -34,12 +47,12 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from svdsolver_tpu_torch.ops.chase_schedule import wave_ticks  # noqa: E402
+from svdsolver_tpu_torch.ops.chase_schedule import staged_pairs, wave_ticks  # noqa: E402
 from svdsolver_tpu_torch.ops.cuda import _build, band_chase, panel_qr  # noqa: E402
 
 OUT = ROOT / "build" / "chase_split"
 SHAPES = ((1024, 64), (3840, 128))
-STAGED_MODES = (  # bit 1: skip tile copies, 2: skip tile pairs, 4: skip head pairs
+STAGED_MODES = (  # first design; bit 1: skip tile copies, 2: skip tile pairs, 4: skip heads
     (0, "full"), (1, "no tile copies"), (2, "no tile pairs"),
     (3, "head pairs only"), (6, "tile copies only"), (7, "empty loop"),
 )
@@ -52,6 +65,8 @@ def patch(text, old, new, count=1):
 
 
 def staged_source():
+    """band_chase_staged.cu with the phase marks defined, and the first
+    design's switches (``mode``) that skip parts of its work."""
     s = (_build.CSRC / "band_chase_staged.cu").read_text()
     s = patch(s, "int n, int b, int K) {", "int n, int b, int K, int mode) {")
     s = patch(s, "    chase_pair<KPL, false>(dense,", "    if (!(mode & 4)) chase_pair<KPL, false>(dense,")
@@ -60,15 +75,20 @@ def staged_source():
     s = s.replace("    tile_io<false>(", "    if (!(mode & 1)) tile_io<false>(")
     s = patch(s, "               cudaStream_t s) {", "               cudaStream_t s, int mode) {")
     s = patch(s, "(A, d, e, n, b, K);", "(A, d, e, n, b, K, mode);")
-    s = patch(s, "int b, int khops, void* stream) {", "int b, int khops, int mode, void* stream) {")
-    s = patch(s, "(A, d, e, n, b, khops, s);", "(A, d, e, n, b, khops, s, mode);", count=3)
-    return s
+    s = patch(s, "int v1, void* stream) {", "int v1, int mode, void* stream) {")
+    s = patch(s, "launch_v1<1>(A, d, e, n, b, khops, s);", "launch_v1<1>(A, d, e, n, b, khops, s, mode);")
+    s = patch(s, "launch_v1<2>(A, d, e, n, b, khops, s);", "launch_v1<2>(A, d, e, n, b, khops, s, mode);")
+    s = patch(s, "launch_v1<4>(A, d, e, n, b, khops, s);", "launch_v1<4>(A, d, e, n, b, khops, s, mode);")
+    return SPLIT_PRELUDE + s + SPLIT_SETTER
 
 
-# Phase marks of one CTA (tick start, the pivot box landed, after the right
-# reflector, the right apply, the left reflector, the left partials, the left
-# apply, before and after the grid barrier): clock64 stamps, and the global
-# timer at each tick's start to turn cycles into time.
+# Phase marks of one CTA, a row of ROW stamps a tick (wavefront) or a pair
+# (staged): 0 its start, 1 the pivot box landed, 2 after the right
+# reflector, 3 the right apply, 4 the left reflector, 5 the left partials,
+# 6 the left apply, 7 and 8 before and after the grid barrier (wavefront) or
+# 7 the pair's end (staged), 15 the C tile landed, by thread 0; 10-14 by the
+# staged kernel's copying thread; 9 the global timer at the row's start, to
+# turn cycles into time.
 SPLIT_PRELUDE = r"""
 __device__ long long* g_split;
 __device__ long long* g_split_row;
@@ -81,10 +101,15 @@ __device__ __forceinline__ long long split_gtime() {
 }
 #define SPLIT_MINE (g_split != nullptr && threadIdx.x == 0 && blockIdx.x == g_split_cta)
 #define SVDT_SPLIT(k) do { if (SPLIT_MINE) g_split_row[k] = clock64(); } while (0)
+#define SVDT_SPLIT_COPY(row, k)                                       \
+  do {                                                                \
+    if (g_split != nullptr && blockIdx.x == g_split_cta)              \
+      g_split[16 * (size_t)(row) + (k)] = clock64();                  \
+  } while (0)
 #define SVDT_SPLIT_TICK(t)                                            \
   do {                                                                \
     if (SPLIT_MINE) {                                                 \
-      g_split_row = g_split + 10 * (size_t)(t);                       \
+      g_split_row = g_split + 16 * (size_t)(t);                       \
       g_split_row[0] = clock64();                                     \
       g_split_row[9] = split_gtime();                                 \
     }                                                                 \
@@ -98,8 +123,16 @@ extern "C" int svdt_split_set(long long* buf, int cta, int skip) {
   return (int)err;
 }
 """
+ROW = 16
 PHASES = ("copy-in wait", "right reflector", "right apply", "left reflector",
           "left partials", "left apply", "stores", "grid barrier")
+# the staged TMA design's chase pair: (name, from mark, to mark); "next" is
+# the next row's start
+STAGED_PHASES = (("A wait", 0, 1), ("right reflector", 1, 2), ("right apply", 2, 3),
+                 ("left reflector", 3, 4), ("C wait", 4, 15), ("left partials", 15, 5),
+                 ("left apply", 5, 6), ("share overlap", 6, 7), ("to the next pair", 7, "next"))
+COPIER_PHASES = (("stores in flight landing, then the fence", 10, 11), ("C load and A store issued", 11, 12),
+                 ("A store reading", 13, 14))
 
 
 def wave_source():
@@ -125,9 +158,55 @@ def phase_split(stamps):
     return dict(zip(PHASES, per)), tick, int(ran.sum()), 1e3 / ns_per_clk
 
 
-def build(name, text):
-    OUT.mkdir(parents=True, exist_ok=True)
-    src, lib = OUT / f"{name}.cu", OUT / f"lib{name}.so"
+def staged_split(stamps):
+    """Mean microseconds of each phase of the staged TMA design's chase
+    pairs (rows with a copying-thread stamp) and of its heads, a pair's and
+    a head's whole time (row start to the next row's start), and the clock
+    in MHz.  The copying thread's waits for a read are stamped only where
+    the pair loads a later pair's tile into the slot."""
+    st = stamps.astype(np.float64)
+    ns_per_clk = (st[-1, 9] - st[0, 9]) / (st[-1, 0] - st[0, 0])
+    us = ns_per_clk / 1e3
+    nxt = np.append(st[1:, 0], np.nan)
+    chase = (st[:, 10] > 0) & ~np.isnan(nxt)
+    head = (st[:, 10] == 0) & (st[:, 2] > 0) & ~np.isnan(nxt)
+    rows = st[chase]
+    order = (0, 1, 2, 3, 4, 15, 5, 6, 7)  # a mark a pair lacks takes the one before
+    for k0, k1 in zip(order, order[1:]):
+        rows[:, k1] = np.where(rows[:, k1] > 0, rows[:, k1], rows[:, k0])
+    out = {}
+    for name, a, z in STAGED_PHASES:
+        end = nxt[chase] if z == "next" else rows[:, z]
+        out[name] = float(np.mean(end - rows[:, a])) * us
+    for name, a, z in COPIER_PHASES:
+        has = rows[:, z] > 0
+        out[f"copier: {name}"] = float(np.mean(rows[has, z] - rows[has, a])) * us if has.any() else 0.0
+    pair = float(np.mean(nxt[chase] - rows[:, 0])) * us
+    head_us = float(np.mean(nxt[head] - st[head, 0])) * us
+    return out, pair, int(chase.sum()), head_us, int(head.sum()), 1e3 / ns_per_clk
+
+
+def no_global_fence_source():
+    """staged_source() without the copying thread's fence_async_global
+    after its waits for the stores to land."""
+    return patch(staged_source(), "fence_async_global();", "", count=2)
+
+
+def full_fence_header():
+    """chase_tma.cuh with fence_async_smem as the full proxy fence."""
+    h = (_build.CSRC / "chase_tma.cuh").read_text()
+    return patch(h, 'asm volatile("fence.proxy.async.shared::cta;" ::: "memory");',
+                 'asm volatile("fence.proxy.async;" ::: "memory");')
+
+
+def build(name, text, header=None):
+    """Compile ``text`` into build/chase_split/lib<name>.so; ``header``: a
+    chase_tma.cuh beside it that replaces the package's."""
+    out = OUT / name if header else OUT
+    out.mkdir(parents=True, exist_ok=True)
+    src, lib = out / f"{name}.cu", out / f"lib{name}.so"
+    if header:
+        (out / "chase_tma.cuh").write_text(header)
     src.write_text(text)
     subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
                     "-o", str(lib), str(src)], check=True, capture_output=True)
@@ -155,7 +234,12 @@ def main():
         return 2
     V, I = ctypes.c_void_p, ctypes.c_int
     staged = build("staged", staged_source())
-    staged.svdt_band_chase_staged.argtypes = [V, V, V, I, I, I, I, V]
+    staged.svdt_band_chase_staged.argtypes = [V, V, V, I, I, I, I, I, V]
+    staged.svdt_split_set.argtypes = [V, I, I]
+    full_fence = build("staged_full_fence", staged_source(), full_fence_header())
+    full_fence.svdt_band_chase_staged.argtypes = [V, V, V, I, I, I, I, I, V]
+    no_fence = build("staged_no_global_fence", no_global_fence_source())
+    no_fence.svdt_band_chase_staged.argtypes = [V, V, V, I, I, I, I, I, V]
     wave = build("wave", wave_source())
     wave.svdt_band_chase_wave.argtypes = [V, V, V, I, I, V, I, V, V]
     wave.svdt_band_chase_wave_smem.argtypes = [V, V, V, I, I, V, I, V, I, V]
@@ -169,11 +253,11 @@ def main():
               f"{median_ms(lambda: band_chase.band_to_bidiagonal(Ab, band=b)):.3f} ms", flush=True)
         out = {}
 
-        def run_staged(mode):
+        def run_staged(mode, v1=1, K=1, lib=staged):
             W = Ab.clone()
             d, e = torch.empty(n, device="cuda"), torch.empty(n - 1, device="cuda")
-            err = staged.svdt_band_chase_staged(W.data_ptr(), d.data_ptr(), e.data_ptr(),
-                                                n, b, 1, mode, stream())
+            err = lib.svdt_band_chase_staged(W.data_ptr(), d.data_ptr(), e.data_ptr(),
+                                             n, b, K, v1, mode, stream())
             if err:
                 raise RuntimeError(f"staged launch failed: {err}")
             out["de"] = (d, e)
@@ -186,7 +270,38 @@ def main():
                 if not same:
                     raise RuntimeError("staged copy not bit-equal to the chase kernel")
                 note = ", (d, e) bit-equal to the chase kernel"
-            print(f"[split] staged n={n} b={b} khops=1 {label}: {ms:.3f} ms{note}", flush=True)
+            print(f"[split] staged n={n} b={b} khops=1 first design {label}: {ms:.3f} ms{note}",
+                  flush=True)
+
+        rows = (n - 1) + sum(staged_pairs(i, n, b) for i in range(n - 1))
+        for K in sorted({1, band_chase.staged_khops(b, 99)}):
+            staged.svdt_split_set(None, 0, 0)
+            ms = median_ms(lambda: run_staged(0, v1=0, K=K))
+            if not all(torch.equal(x, y) for x, y in zip(out["de"], want)):
+                raise RuntimeError(f"staged TMA K={K} not bit-equal to the chase kernel")
+            stamps = torch.zeros((rows, ROW), dtype=torch.int64, device="cuda")
+            staged.svdt_split_set(stamps.data_ptr(), 0, 0)
+            run_staged(0, v1=0, K=K)
+            torch.cuda.synchronize()
+            staged.svdt_split_set(None, 0, 0)
+            split, pair, npairs, head, nheads, mhz = staged_split(stamps.cpu().numpy())
+            print(f"[split] staged TMA n={n} b={b} K={K}: {ms:.3f} ms, (d, e) bit-equal to "
+                  f"the chase kernel; {npairs} chase pairs of {pair:.2f} us, {nheads} heads "
+                  f"of {head:.2f} us at {mhz:.0f} MHz: "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in split.items()) + " (us)", flush=True)
+            pkg = median_ms(lambda: run_staged(0, v1=0, K=K))
+            ff = median_ms(lambda: run_staged(0, v1=0, K=K, lib=full_fence))
+            same = all(torch.equal(x, y) for x, y in zip(out["de"], want))
+            nf = median_ms(lambda: run_staged(0, v1=0, K=K, lib=no_fence))
+            same_nf = all(torch.equal(x, y) for x, y in zip(out["de"], want))
+            pkg2 = median_ms(lambda: run_staged(0, v1=0, K=K))
+            print(f"[split] staged TMA n={n} b={b} K={K} with full proxy fences: {ff:.3f} ms "
+                  f"((d, e) {'bit-equal' if same else 'NOT bit-equal'}), in turns with the "
+                  f"package's shared-memory fences {pkg:.3f} / {pkg2:.3f} ms", flush=True)
+            print(f"[split] staged TMA n={n} b={b} K={K} without the device-memory fences "
+                  f"after the drains: {nf:.3f} ms ((d, e) "
+                  f"{'bit-equal' if same_nf else 'NOT bit-equal'}), in turns with the "
+                  f"package's {pkg:.3f} / {pkg2:.3f} ms", flush=True)
 
         def run_wave(tick):
             W = Ab.clone()
@@ -211,7 +326,7 @@ def main():
                 raise RuntimeError(f"wave {tick} tick copy not bit-equal to the chase kernel")
             wave.svdt_split_set(None, 1, 1)
             bar_ms = median_ms(lambda: run_wave(tick))
-            stamps = torch.zeros((T, 10), dtype=torch.int64, device="cuda")
+            stamps = torch.zeros((T, ROW), dtype=torch.int64, device="cuda")
             wave.svdt_split_set(stamps.data_ptr(), 1, 0)
             run_wave(tick)
             torch.cuda.synchronize()
