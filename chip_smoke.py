@@ -6,47 +6,53 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
 1. reports the card (name, power limit), torch, CUDA and nvcc;
 2. builds the seven kernel sources of ``svdsolver_tpu_torch/csrc`` (one
    ``nvcc`` each, all started together): the panel QR (one thread-block
-   cluster), the sequential chase (plain and recording entries), the
-   bisection, the TGK solve, the wavefront chase (plain, recording, and with
-   deferred left applies), the staged chase and the packed chase;
+   cluster), the sequential chase's L2 kernel (plain and recording
+   entries), the bisection, the TGK solve, the wavefront chase (plain,
+   recording, and with deferred left applies), the staged chase (the
+   sequential chase's TMA design, plain and recording) and the packed
+   chase;
 3. holds each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it: the panel QR at (b, m, r_off) = (128,
    3840, 0), (128, 3840, 3776) (identity reflectors past m), (64, 1024, 0)
    and (128, 7680, 0) (the large-panel route), two launches bit-identical,
-   Q = I - V T V^T orthogonal and Q R = P in float64; the recording chase's
-   (d, e) bit-equal to the plain chase kernel's and its records rebuilding
-   the band, the TGK solve's normalized columns within 64 eps; and drives
+   Q = I - V T V^T orthogonal and Q R = P in float64; the L2 kernel's
+   recording (d, e) bit-equal to its plain entry's and its records
+   rebuilding the band; the sequential chase's staged TMA design, plain
+   and recording, bit-equal to the L2 kernel ((d, e) and all four records)
+   at n = 256 and 1024 (b = 64), 3840 (b = 128) and 1024 with five pairs of
+   lookahead, its records rebuilding the band; the TGK solve's normalized
+   columns within 64 eps; and drives
    the chase variants, every launch count set to 0 before each call and
    read after it: each variant's (d, e), and the recording wavefront's
    (d, e) and records, bit-equal to the sequential kernels' at n = 1024
-   (b = 64), 3840 (b = 128) and, on capped CTAs, 2048 (b = 32), the
-   staged entries by the TMA design, never the first one; each
+   (b = 64), 3840 (b = 128) and, on capped CTAs, 2048 (b = 32); each
    variant against its plain version at 1024; each variant's sigma through
    the bisection kernel at 3840 against float64; the wavefront kernel's
    L2 tick (forced at b = 64, taken at b = 160 by both entries) bit-equal
-   to the sequential kernels too;
+   to the L2 kernels too;
 4. drives the two main paths, with every launch count set to 0 just before
    each call and read just after: ``svdvals`` on a uniform [0, 5) float32
-   matrix at n = 3840, 1000, 7680 and 256 (sigma against float64
+   matrix at n = 3840, 1000, 7680, 500 and 256 (sigma against float64
    ``torch.linalg.svdvals`` to 1e-5 sigma_max), and ``svd`` at n = 3840
    (uniform), 2048 (Gaussian), 1000 and 256 (uniform): sigma to 1e-5
    sigma_max, reconstruction to 1e-4 sigma_max, orthogonality of U and Vh
-   to 1e-4; the counts show the chase each routing predicate picked, and at
-   3840 the routed chase is bit-equal to the sequential kernel on the same
-   band;
+   to 1e-4; the counts show the chase each routing predicate picked (the
+   sequential chase by the staged TMA design), and at 3840 the routed chase
+   is bit-equal to the L2 kernel on the same band;
 5. times ``svdvals`` and ``svd`` at 3840 with their stages, each kernel
    beside its plain version and, where one exists, the PyTorch library
    call computing the same function (CUDA events), the panel QR at each
    Stage I panel length of n = 3840 with a split, the sequential and
-   wavefront chases in turns at the routing shapes (outputs bit-equal,
-   7680 included), each chase variant in turns with the chase kernel at
-   3840, the wavefront kernel's shared-memory tick in turns with its L2
-   tick at n = 1024, 3840 and 7680 (plain and recording), one CTA's copy
-   rate for a chase window and the shared-memory tick's schedule bound,
-   the staged chase's TMA design in turns with its first design at 1024
-   (b = 64; K = 1, 3 and the largest that fits, 5) and 3840 (b = 128,
-   K = 1) with its schedule bound (its copy bytes over that copy rate),
-   and computes each kernel's bound from its shapes;
+   wavefront chases in turns at the eleven routing shapes (outputs
+   bit-equal, 7680 included), each chase variant in turns with the L2
+   kernel at 3840, the wavefront kernel's shared-memory tick in turns with
+   its L2 tick at n = 1024, 3840 and 7680 (plain and recording), one CTA's
+   copy rate for a chase window and the shared-memory tick's schedule
+   bound, the sequential chase's staged TMA design in turns with the L2
+   kernel, plain and recording, at 1024 (b = 64; also K = 3 and the
+   largest that fits, 5) and 3840 (b = 128, K = 1) with its schedule
+   bound (its copy bytes over that copy rate), and computes each kernel's
+   bound from its shapes;
 6. profiles one ``svdvals`` and one ``svd`` call and one wavefront chase at
    n = 3840: device time by kernel and the card's busy share;
 7. holds the redesigned kernels to their first designs: the bisection tree
@@ -82,9 +88,9 @@ TOL_SIGMA = 1e-5  # max |sigma - sigma_ref| / sigma_max against float64
 TOL_RECON = 1e-4  # max |U diag(s) Vh - A| / sigma_max (JAX package's scale tests)
 TOL_ORTH = 1e-4  # max |U^T U - I| and max |Vh Vh^T - I|
 TOL_REBUILD = 1e-5  # chase records: max |L B R^T - Ab| / max |Ab|, |L^T L - I|
-# n = 256 (band 64) has one chase lane: the predicates route it to the
-# sequential kernels
-SLICE_SIZES = (3840, 1000, 7680, 256)
+# n = 256 (band 64) has one chase lane, n = 500 (band 64, padded to 512)
+# three: the predicates route both to the sequential chase
+SLICE_SIZES = (3840, 1000, 7680, 500, 256)
 SVD_CASES = ((3840, "uniform"), (2048, "gauss"), (1000, "uniform"), (256, "uniform"))
 REPS = 5
 SVD_REPS = 3
@@ -93,12 +99,15 @@ SOURCES = ("panel_qr", "band_chase", "bisect", "tridiag_solve",
 VARIANTS = ("band_chase_wave", "band_chase_wave_dl", "band_chase_staged",
             "band_chase_vmem")
 KERNELS = ("panel_qr", "band_chase", "band_chase_rec", "bisect",
-           "tridiag_solve") + VARIANTS + ("band_chase_wave_rec",)
+           "tridiag_solve") + VARIANTS + ("band_chase_wave_rec", "band_chase_staged_rec")
 SVD_PATH = ("panel_qr", "bisect", "tridiag_solve")  # and the routed chase
-# the wavefront entries count by tick: "band_chase_wave" and
-# "band_chase_wave_rec" the shared-memory tick, "_l2" the L2 tick
-CHASES = ("band_chase", "band_chase_rec", "band_chase_wave", "band_chase_wave_rec",
-          "band_chase_wave_l2", "band_chase_wave_rec_l2")
+# the chase entries count by the kernel that ran: the sequential chase's
+# "band_chase_staged(_rec)" the staged TMA design, "band_chase(_rec)" the L2
+# kernel; the wavefront's "band_chase_wave(_rec)" the shared-memory tick,
+# "_l2" the L2 tick
+CHASES = ("band_chase", "band_chase_rec", "band_chase_staged", "band_chase_staged_rec",
+          "band_chase_wave", "band_chase_wave_rec", "band_chase_wave_l2",
+          "band_chase_wave_rec_l2")
 # the two wavefront ticks in turns (n, band): the check band and the widest
 # chases of the main paths
 TICK_SHAPES = ((1024, 64), (3840, 128), (7680, 128))
@@ -124,8 +133,25 @@ K1_SHAPES = ((128, 3840, 0), (128, 3840, 3776), (64, 1024, 0), (128, 7680, 0),
 TOL_K1 = 1e-4  # |kernel - plain| <= TOL_K1 max|plain|: sums over m in other orders
 TOL_Q = 1e-5  # |Q^T Q - I| and |Q R - P|_F / |P|_F, float64 from the kernel's V, T, R
 # the chase's routing shapes (n, band): svdvals/svd at 1000, svd at 2048,
-# both paths at 3840, svdvals at 7680, and a one-lane shape (n = 256)
-ROUTE_SHAPES = ((1024, 64), (2048, 128), (3840, 128), (7680, 128), (256, 64))
+# both paths at 3840, svdvals at 7680, the Stage I bands of n = 257 ... 512
+# (padded to 384: two lanes, and 512: three lanes), a one-lane shape
+# (n = 256), two- and three-lane bands of 32 (n = 193 ... 256), and the
+# predicates' boundary on the main paths: 640 / 64 (three lanes,
+# sequential), 704 / 64 (four lanes) and 1024 / 128 (three lanes, the
+# narrowest band-128 input), both wavefront; then, for the bands callers
+# of Stage II may pass, the lane counts on either side of the boundary:
+# three and four lanes from b = 4 to 48 (b = 32 at both ends of four
+# lanes), two lanes at b = 80, 96, 112 and 128, three at 96
+ROUTE_SHAPES = ((1024, 64), (2048, 128), (3840, 128), (7680, 128), (256, 64),
+                (384, 64), (512, 64), (224, 32), (256, 32), (640, 64), (704, 64),
+                (1024, 128), (32, 4), (44, 4), (80, 8), (88, 8), (96, 12), (132, 12),
+                (160, 16), (176, 16), (192, 24), (264, 24), (320, 32), (352, 32),
+                (416, 32), (384, 48), (528, 48), (560, 80), (480, 96), (768, 96),
+                (784, 112), (896, 128))
+# the sequential chase's two kernels held bit-equal (the staged TMA design
+# against the L2 kernel, plain and recording) at (n, band, khops): a
+# one-lane band, the check band, the path's band and the deepest lookahead
+SEQ_CHECK = ((256, 64, 1), (1024, 64, 1), (3840, 128, 1), (1024, 64, 5))
 # the chase variants' shapes: (n, band, khops) of the check against the plain
 # versions (phase_kernels' band), of the slice at full width, and (n, band,
 # CTAs) of the wavefront kernels with lanes striding over capped CTAs
@@ -223,7 +249,7 @@ def _counters():
             "band_chase_wave_l2": (band_chase_wave, "launches_l2"),
             "band_chase_wave_rec_l2": (band_chase_wave, "launches_rec_l2"),
             "band_chase_staged": (band_chase, "launches_staged"),
-            "band_chase_staged_v1": (band_chase, "launches_staged_v1"),
+            "band_chase_staged_rec": (band_chase, "launches_staged_rec"),
             "band_chase_vmem": (band_chase_vmem, "launches")}
 
 
@@ -330,8 +356,10 @@ def phase_build():
             failed.append(name)
             continue
         say(f"[build] {name}: {seconds:.2f} s -> {path}")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+        for line in log.splitlines():  # each kernel instance, then its counts
+            if "entry function" in line:
+                say(f"[build]   {line.split('entry function')[1].strip()}")
+            elif "registers" in line or "spill" in line:
                 say(f"[build]   {line.strip()}")
     require(not failed, f"kernel sources failed to build: {failed}")
 
@@ -373,16 +401,22 @@ def tgk_problem(rng, n):
 
 def chase_entry(n, b, record):
     """The chase the main path takes for an (n, n) band ``b``: (launch
-    counter name, entry point), by the routing predicates."""
+    counter of the kernel that runs, entry point), by the routing
+    predicates and, for the sequential chase, ``band_chase.staged_route``."""
     from svdsolver_tpu_torch.ops.cuda import band_chase, band_chase_wave
 
     if record:
         if band_chase_wave.wave_chase_accum_preferred(n, b):
             return "band_chase_wave_rec", band_chase_wave.band_to_bidiagonal_wave_accum
-        return "band_chase_rec", band_chase.band_to_bidiagonal_accum
-    if band_chase_wave.wave_chase_preferred(n, b):
-        return "band_chase_wave", band_chase_wave.band_to_bidiagonal_wave
-    return "band_chase", band_chase.band_to_bidiagonal
+        fn = band_chase.band_to_bidiagonal_accum
+    else:
+        if band_chase_wave.wave_chase_preferred(n, b):
+            return "band_chase_wave", band_chase_wave.band_to_bidiagonal_wave
+        fn = band_chase.band_to_bidiagonal
+    # the band's shape on the meta device: its address 0 is aligned, as the
+    # main paths' fresh bands are
+    staged = band_chase.staged_route(torch.empty((n, n), device="meta"), b)
+    return ("band_chase_staged" if staged else "band_chase") + ("_rec" if record else ""), fn
 
 
 def path_band(n):
@@ -480,6 +514,43 @@ def check_bisect_tree(rng, d1024, e1024):
                 f"G={', '.join(map(str, GROUPS[1:]))} bit-equal to the one-thread design")
 
 
+def check_sequential():
+    """The sequential chase's two kernels at SEQ_CHECK, on Stage I bands of
+    uniform matrices: the staged TMA design (the routes of K3, with its
+    flags, and of K6) bit-equal to the L2 kernel in (d, e) and all four
+    records, each launch counted by the kernel that ran; the TMA design's
+    records rebuild the band."""
+    from svdsolver_tpu_torch.ops.cuda import band_chase, panel_qr
+
+    for n, b, K in SEQ_CHECK:
+        Ab = panel_qr.dense_to_band_fused(uniform_matrix(n, seed=7), band=b)
+        torch.cuda.synchronize()
+        reset_counts()
+        want = band_chase.band_to_bidiagonal_l2(Ab, band=b)
+        want_rec = band_chase.band_to_bidiagonal_accum_l2(Ab, band=b)
+        got = band_chase.band_to_bidiagonal(Ab, band=b, mega=K > 1, khops=K)
+        # the recording entry runs one pair ahead; K > 1 through its launch
+        got_rec = (band_chase.band_to_bidiagonal_accum(Ab, band=b) if K == 1
+                   else band_chase._launch(Ab, b, band_chase.staged_khops(b, K), True))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        require(band_chase.last_khops == K, f"the staged TMA design ran K={K} at n={n} b={b}")
+        require([counts[k] for k in ("band_chase", "band_chase_rec", "band_chase_staged",
+                                     "band_chase_staged_rec")] == [1, 1, 1, 1],
+                f"each sequential kernel launched once at n={n} b={b}: {counts}")
+        require_bit_equal(f"staged TMA n={n} b={b} K={K}", got, want)
+        require_bit_equal(f"L2 recording n={n} b={b}", want_rec[:2], want)
+        for name, g, w in zip(("d", "e", "VL", "TL", "VR", "TR"), got_rec, want_rec):
+            require(torch.equal(g, w), f"staged TMA recording n={n} b={b} K={K}: {name} "
+                    "bit-equal to the L2 recording kernel's")
+        say(f"[kernels] sequential chase n={n} b={b} K={K}: the staged TMA design's (d, e), "
+            "and its recording entry's (d, e) and VL, TL, VR, TR, bit-equal to the L2 "
+            "kernel's (whose recording (d, e) are its plain entry's)")
+        check_records(f"staged TMA K={K}", Ab, b, got_rec)
+        del Ab, want, want_rec, got, got_rec
+        torch.cuda.empty_cache()
+
+
 def phase_kernels(rng):
     """Each kernel against its plain version, same inputs, on the card."""
     from svdsolver_tpu_torch.ops.cuda import band_chase, bisect, panel_qr, tridiag_solve
@@ -487,11 +558,12 @@ def phase_kernels(rng):
     errs = {}
     errs["panel_qr"] = check_panel_qr(rng)
 
-    # K3: chase of a Stage I band at n = 1024, b = 64.
+    # K3: chase of a Stage I band at n = 1024, b = 64, on the L2 kernel (the
+    # staged TMA design is held bit-equal to it below)
     n, b = 1024, 64
     A = uniform_matrix(n, seed=1)
     Ab = panel_qr.dense_to_band_fused(A, band=b)
-    d, e = band_chase.band_to_bidiagonal(Ab, band=b)
+    d, e = band_chase.band_to_bidiagonal_l2(Ab, band=b)
     dp, ep = band_chase.band_to_bidiagonal_plain(Ab, band=b)
     torch.cuda.synchronize()
     s_a = torch.linalg.svdvals(A.double())
@@ -508,8 +580,8 @@ def phase_kernels(rng):
     require(lead <= 1e-4, "band_chase leading |d| vs plain")
     errs["band_chase"] = float((s_k - s_p).abs().max())
 
-    # K6-K8: the recording chase on the same band, and at n = 3840, b = 128.
-    rec = band_chase.band_to_bidiagonal_accum(Ab, band=b)
+    # K6-K8: the recording chase (L2 kernel) on the same band
+    rec = band_chase.band_to_bidiagonal_accum_l2(Ab, band=b)
     rec_p = band_chase.band_to_bidiagonal_accum_plain(Ab, band=b)
     require(torch.equal(rec[0], d) and torch.equal(rec[1], e),
             "recording chase (d, e) bit-equal to the chase kernel at n=1024")
@@ -520,17 +592,12 @@ def phase_kernels(rng):
     check_records("plain", Ab, b, rec_p)
     errs["band_chase_rec"] = float((bidiag_sigma(rec[0], rec[1])
                                     - bidiag_sigma(rec_p[0], rec_p[1])).abs().max())
-    del rec, rec_p
-    n3, b3 = 3840, 128
-    Ab3 = panel_qr.dense_to_band_fused(uniform_matrix(n3), band=b3)
-    rec = band_chase.band_to_bidiagonal_accum(Ab3, band=b3)
-    d3, e3 = band_chase.band_to_bidiagonal(Ab3, band=b3)
-    require(torch.equal(rec[0], d3) and torch.equal(rec[1], e3),
-            "recording chase (d, e) bit-equal to the chase kernel at n=3840")
-    say(f"[kernels] band_chase_rec n={n3} b={b3}: (d, e) bit-equal to band_chase")
-    check_records("kernel", Ab3, b3, rec)
-    del rec, Ab3
-    torch.cuda.empty_cache()
+    # the staged TMA design's recording entry against the same plain version
+    rec_t = band_chase.band_to_bidiagonal_accum(Ab, band=b)
+    errs["band_chase_staged_rec"] = float((bidiag_sigma(rec_t[0], rec_t[1])
+                                           - bidiag_sigma(rec_p[0], rec_p[1])).abs().max())
+    del rec, rec_p, rec_t
+    check_sequential()
 
     # K2: bisection at n = 1024 on the chase's bidiagonal, probes 1 and 3:
     # the tree kernel against the plain version, and against the
@@ -620,7 +687,7 @@ def check_wave_rec(label, Ab, b, ctas=None):
     on one band: (d, e) and all four records bit-equal."""
     from svdsolver_tpu_torch.ops.cuda import band_chase, band_chase_wave
 
-    want = band_chase.band_to_bidiagonal_accum(Ab, band=b)
+    want = band_chase.band_to_bidiagonal_accum_l2(Ab, band=b)
     got = band_chase_wave.band_to_bidiagonal_wave_accum(Ab, band=b, _ctas=ctas)
     torch.cuda.synchronize()
     if ctas is not None:
@@ -658,9 +725,7 @@ def phase_variants(band_state):
         for k in VARIANTS:
             require(counts[k] >= 1, f"{k} not launched at {label}")
         require(counts["band_chase"] == 0 and counts["band_chase_rec"] == 0,
-                f"a variant took the sequential kernel at {label}")
-        require(counts["band_chase_staged_v1"] == 0,
-                f"the staged entries took the first design at {label}")
+                f"a variant took the L2 kernel at {label}")
         say(f"[variants] {label}: {', '.join(calls)}: (d, e) bit-equal to band_chase")
         return outs, counts
 
@@ -737,7 +802,7 @@ def phase_variants(band_state):
     # the wavefront kernels with more lanes than CTAs: lanes stride over them
     n2, b2, ctas = VAR_CTAS
     A2 = panel_qr.dense_to_band_fused(uniform_matrix(n2, seed=2), band=b2)
-    want2 = band_chase.band_to_bidiagonal(A2, band=b2)
+    want2 = band_chase.band_to_bidiagonal_l2(A2, band=b2)
     for name, fn in (("wave", band_chase_wave.band_to_bidiagonal_wave),
                      ("wave_dl", band_chase_wave.band_to_bidiagonal_wave_dl)):
         got = fn(A2, band=b2, _ctas=ctas)
@@ -765,9 +830,9 @@ def phase_variants(band_state):
             and wide["band_chase_wave"] == 0 and wide["band_chase_wave_rec"] == 0,
             f"b={bwide} takes the L2 tick: {wide}")
     require_bit_equal(f"wave n={nw} b={bwide} (L2 tick)", got,
-                      band_chase.band_to_bidiagonal(Aw, band=bwide))
+                      band_chase.band_to_bidiagonal_l2(Aw, band=bwide))
     require(all(torch.equal(x, y) for x, y in
-                zip(got_rec, band_chase.band_to_bidiagonal_accum(Aw, band=bwide))),
+                zip(got_rec, band_chase.band_to_bidiagonal_accum_l2(Aw, band=bwide))),
             f"wave_accum n={nw} b={bwide} (L2 tick) bit-equal to band_chase_rec")
     say(f"[variants] n={nw} b={bwide}: both wavefront entries took the L2 tick "
         f"(launches {wide}); (d, e) and records bit-equal to the sequential kernels")
@@ -777,7 +842,7 @@ def phase_variants(band_state):
     n, b, khops = VAR_PATH
     A = uniform_matrix(n)
     Ab3 = panel_qr.dense_to_band_fused(A, band=b)
-    want3 = band_chase.band_to_bidiagonal(Ab3, band=b)
+    want3 = band_chase.band_to_bidiagonal_l2(Ab3, band=b)
     outs3, counts = drive(f"n={n} b={b}", variant_calls(b, khops), Ab3, want3)
     check_wave_rec(f"n={n} b={b}", Ab3, b)
     require(band_chase.last_khops == band_chase.staged_khops(b, khops),
@@ -794,7 +859,7 @@ def phase_variants(band_state):
     # times: every variant in turns with the chase kernel (A B C .. C B A),
     # at full width and on the check band (the kernel table's shape)
     timed = {
-        "band_chase": lambda A, b: band_chase.band_to_bidiagonal(A, band=b),
+        "band_chase": lambda A, b: band_chase.band_to_bidiagonal_l2(A, band=b),
         "band_chase_wave": lambda A, b: band_chase_wave.band_to_bidiagonal_wave(A, band=b),
         "band_chase_wave_l2": lambda A, b: band_chase_wave.band_to_bidiagonal_wave(
             A, band=b, _tick="l2"),
@@ -841,7 +906,7 @@ def require_routed_bit_equal(label, A, record):
 
     n, b = path_band(A.shape[0])
     chase, fn = chase_entry(n, b, record)
-    seq = band_chase.band_to_bidiagonal_accum if record else band_chase.band_to_bidiagonal
+    seq = band_chase.band_to_bidiagonal_accum_l2 if record else band_chase.band_to_bidiagonal_l2
     Ab = (panel_qr.dense_to_band_rec_fused(A, band=b)[0] if record
           else panel_qr.dense_to_band_fused(A, band=b))
     got, want = fn(Ab, band=b), seq(Ab, band=b)
@@ -849,7 +914,8 @@ def require_routed_bit_equal(label, A, record):
     require(all(torch.equal(g, w) for g, w in zip(got, want)),
             f"{label}: the routed {chase} bit-equal to the sequential kernel")
     say(f"{label}: the routed {chase} gives {'(d, e) and records' if record else '(d, e)'} "
-        f"bit-equal to {'band_chase_rec' if record else 'band_chase'} on the same band")
+        f"bit-equal to the L2 kernel's {'band_chase_rec' if record else 'band_chase'} on the "
+        "same band")
 
 
 def phase_slice():
@@ -1201,8 +1267,9 @@ def phase_k1_times():
 
 def phase_route_times():
     """The predicates' evidence: at each ROUTE_SHAPES band (Stage I's), the
-    sequential and wavefront chases in turns (seq, wave, wave, seq; at 7680
-    seq, wave, wave), plain and recording entries."""
+    sequential chase (the kernel its route picks: the staged TMA design at
+    every such band) and the wavefront chase in turns (seq, wave, wave,
+    seq; at 7680 seq, wave, wave), plain and recording entries."""
     from svdsolver_tpu_torch.ops.cuda import band_chase, band_chase_wave, panel_qr
 
     entries = {
@@ -1212,7 +1279,7 @@ def phase_route_times():
     out = {}
     for n, b in ROUTE_SHAPES:
         Ab = panel_qr.dense_to_band_fused(uniform_matrix(n), band=b)
-        reps = 1 if n > 4000 else SVD_REPS
+        reps = 1 if n > 4000 else SVD_REPS if n > 1000 else REPS
         for record, (seq, wave) in entries.items():
             res = {}
 
@@ -1222,17 +1289,20 @@ def phase_route_times():
             def run_wave():
                 res["wave"] = wave(Ab, band=b)
 
+            reset_counts()
             s1 = cuda_ms(run_seq, reps, warm=n <= 4000)
+            staged = read_counts()["band_chase_staged_rec" if record else "band_chase_staged"]
             w1 = cuda_ms(run_wave, reps)
             w2 = cuda_ms(run_wave, reps)
-            # at 7680 the sequential kernel's 3.4 s runs once
+            # at 7680 the sequential chase's ~1.7 s runs once
             s2 = cuda_ms(run_seq, reps, warm=False) if n <= 4000 else s1
             out[n, b, record] = (min(w1, w2), min(s1, s2))
             same = all(torch.equal(x, y) for x, y in zip(res["wave"], res["seq"]))
             require(same, f"n={n} b={b}: the wavefront chase bit-equal to the sequential one")
             del res
             say(f"[route] n={n} b={b} {'recording' if record else 'plain'}: "
-                f"sequential {s1:.3f} / {s2:.3f} ms, wavefront {w1:.3f} / "
+                f"sequential ({'staged TMA design' if staged else 'L2 kernel'}) "
+                f"{s1:.3f} / {s2:.3f} ms, wavefront {w1:.3f} / "
                 f"{w2:.3f} ms (medians of {reps}, in turns, "
                 f"{band_chase_wave.last_ctas} CTAs, {band_chase_wave.last_tick} tick; "
                 f"outputs bit-equal); the predicate takes the "
@@ -1256,38 +1326,48 @@ def schedule_bytes(n, b):
     return sum(most.values())
 
 
-def phase_staged_times(band_state):
-    """The staged kernel's TMA design in turns with its first design (first,
-    TMA, TMA, first) at the check band (VAR_CHECK: K = 1, its khops, and the
-    largest lookahead that fits) and at the path's band (VAR_PATH: K = 1,
-    which is also what ``mega`` with its khops runs at b = 128); outputs
-    bit-equal to the sequential kernel.  Returns {(n, b, K): (tma_ms,
-    v1_ms)}."""
+def phase_sequential_times(band_state):
+    """The sequential chase's two kernels in turns (L2, staged TMA, staged
+    TMA, L2), plain and recording entries, at the check band (VAR_CHECK)
+    and the path's band (VAR_PATH), the TMA design at K = 1 (the route of
+    both entries, and ``pipelined``); at the check band also the deeper
+    lookaheads of ``mega`` (its khops and the largest that fits), plain.
+    Every output bit-equal to the L2 kernel's.  Returns {(n, b, K, record):
+    (tma_ms, l2_ms)} (l2_ms None where only the TMA design was timed)."""
     from svdsolver_tpu_torch.ops.cuda import band_chase, panel_qr
 
     (n1, b1, khops1), (n3, b3, _) = VAR_CHECK, VAR_PATH
     out = {}
     for n, b, Ab in ((n1, b1, band_state[0]),
                      (n3, b3, panel_qr.dense_to_band_fused(uniform_matrix(n3), band=b3))):
-        want = band_chase.band_to_bidiagonal(Ab, band=b)
-        Ks = sorted({1, band_chase.staged_khops(b, khops1), band_chase.staged_khops(b, 99)})
         reps = 1 if n > 2000 else SVD_REPS
-        for K in Ks:
-            def run(design):  # K = 1 is the pipelined entry, K > 1 mega
-                return band_chase.band_to_bidiagonal(Ab, band=b, pipelined=K == 1,
-                                                     mega=K > 1, khops=K, _design=design)
-            for design in ("tma", "v1"):
-                require_bit_equal(f"staged {design} n={n} b={b} K={K}", run(design), want)
-                require(band_chase.last_khops == K, f"staged n={n} b={b} runs K={K}")
-            v1 = cuda_ms(lambda: run("v1"), reps, warm=n < 2000)
-            t1 = cuda_ms(lambda: run("tma"), reps)
-            t2 = cuda_ms(lambda: run("tma"), reps)
-            v2 = cuda_ms(lambda: run("v1"), reps, warm=n < 2000)
-            out[n, b, K] = (min(t1, t2), min(v1, v2))
-            say(f"[times] staged n={n} b={b} K={K}: TMA design {t1:.3f} / {t2:.3f} ms, first "
-                f"design {v1:.3f} / {v2:.3f} ms (medians of {reps}, in turns; both bit-equal "
-                "to the sequential kernel)")
-        del Ab
+        for record in (False, True):
+            tma = band_chase.band_to_bidiagonal_accum if record else band_chase.band_to_bidiagonal
+            l2 = (band_chase.band_to_bidiagonal_accum_l2 if record
+                  else band_chase.band_to_bidiagonal_l2)
+            res = {}
+            l1 = cuda_ms(lambda: res.setdefault("l2", l2(Ab, band=b)), reps, warm=n < 2000)
+            t1 = cuda_ms(lambda: res.setdefault("tma", tma(Ab, band=b)), reps)
+            t2 = cuda_ms(lambda: tma(Ab, band=b), reps)
+            l2_ms = cuda_ms(lambda: l2(Ab, band=b), reps, warm=n < 2000)
+            require(all(torch.equal(x, y) for x, y in zip(res["tma"], res["l2"])),
+                    f"sequential n={n} b={b}: the staged TMA design bit-equal to the L2 kernel")
+            out[n, b, 1, record] = (min(t1, t2), min(l1, l2_ms))
+            say(f"[times] sequential {'recording' if record else 'plain'} n={n} b={b}: "
+                f"staged TMA design (K=1) {t1:.3f} / {t2:.3f} ms, L2 kernel {l1:.3f} / "
+                f"{l2_ms:.3f} ms (medians of {reps}, in turns; "
+                f"{'(d, e) and records' if record else '(d, e)'} bit-equal)")
+        want = band_chase.band_to_bidiagonal_l2(Ab, band=b)
+        for K in sorted({band_chase.staged_khops(b, khops1), band_chase.staged_khops(b, 99)} - {1}):
+            require_bit_equal(f"staged n={n} b={b} K={K}", band_chase.band_to_bidiagonal(
+                Ab, band=b, mega=True, khops=K), want)
+            require(band_chase.last_khops == K, f"staged n={n} b={b} runs K={K}")
+            t = cuda_ms(lambda: band_chase.band_to_bidiagonal(Ab, band=b, mega=True, khops=K),
+                        reps)
+            out[n, b, K, False] = (t, None)
+            say(f"[times] sequential plain n={n} b={b}: staged TMA design K={K} (mega) "
+                f"{t:.3f} ms (median of {reps}; (d, e) bit-equal to the L2 kernel's)")
+        del Ab, want
         torch.cuda.empty_cache()
     return out
 
@@ -1396,11 +1476,11 @@ def phase_times(band_state):
     Ab1, d1, e1 = band_state[:3]
     tgk = {nt: tgk_problem(rng, nt) for nt in (1024, 3840)}
     pairs = {
-        "band_chase": (lambda: band_chase.band_to_bidiagonal(Ab1, band=64),
+        "band_chase": (lambda: band_chase.band_to_bidiagonal_l2(Ab1, band=64),
                        lambda: band_chase.band_to_bidiagonal_plain(Ab1, band=64),
                        "n=1024 b=64"),
         "band_chase_rec": (
-            lambda: band_chase.band_to_bidiagonal_accum(Ab1, band=64),
+            lambda: band_chase.band_to_bidiagonal_accum_l2(Ab1, band=64),
             lambda: band_chase.band_to_bidiagonal_accum_plain(Ab1, band=64),
             "n=1024 b=64"),
         "bisect": (lambda: bisect.bisect_svdvals(d1, e1),
@@ -1465,14 +1545,26 @@ def phase_profile(label, fn):
         f"kernels {busy:.3f} ms = {100 * busy / wall_ms:.1f}% of wall")
 
 
-# the TPU kernels (K1-K15 of PERF.md) each row's kernel stands for
+# the TPU kernels (K1-K15 of PERF.md) each row's kernel stands for; the
+# sequential chase (K3, K5, K6, K8) runs the staged TMA design on the shapes
+# the copy engine takes and the L2 kernel on the others
 TPU_KERNELS = {
     "panel_qr": ["K1"], "band_chase": ["K3", "K5"], "band_chase_rec": ["K6", "K8"],
     "bisect": ["K2"], "tridiag_solve": ["K9", "K10"],
     "band_chase_wave": ["K4", "K5", "K13"], "band_chase_wave_dl": ["K11"],
-    "band_chase_staged": ["K14", "K15"], "band_chase_vmem": ["K12"],
+    "band_chase_staged": ["K3", "K5", "K14", "K15"], "band_chase_vmem": ["K12"],
+    "band_chase_staged_rec": ["K6", "K8"],
     "band_chase_wave_rec": ["K7", "K8"], "band_chase_wave_l2": ["K4", "K13"],
     "band_chase_wave_rec_l2": ["K7"],
+}
+
+
+# which kernel each sequential-chase row runs, and on which shapes
+SEQ_KERNEL = {
+    "band_chase": "L2 kernel: shapes the staged TMA design does not take; the bitwise oracle",
+    "band_chase_rec": "L2 kernel, recording: shapes the staged TMA design does not take",
+    "band_chase_staged": "staged TMA design: every shape it takes (all main-path bands)",
+    "band_chase_staged_rec": "staged TMA design, recording: every shape it takes",
 }
 
 
@@ -1503,7 +1595,8 @@ def kernel_table(errs, counts_vals, counts_svd, kt, lib, variants, route, k1, ti
         "tridiag_solve": work_tgk(2 * 3840, 3840),
     }
     rows = []
-    svd_side = ("band_chase_rec", "tridiag_solve", "band_chase_wave_rec")
+    svd_side = ("band_chase_rec", "tridiag_solve", "band_chase_wave_rec",
+                "band_chase_staged_rec")
     for k in work:
         b_ms, b_by = bound(*work[k])
         # every main-path run of svdvals, or of svd and svds; K2 runs on both
@@ -1557,8 +1650,9 @@ def kernel_table(errs, counts_vals, counts_svd, kt, lib, variants, route, k1, ti
         "band_chase_wave": "svdsolver_tpu/ops/pallas/band_chase.py:676 "
                            "+ band_chase_wave.py:687",
         "band_chase_wave_dl": "svdsolver_tpu/ops/pallas/band_chase_wave.py:581",
-        "band_chase_staged": "svdsolver_tpu/ops/pallas/band_chase.py:405 "
-                             "+ band_chase.py:541",
+        "band_chase_staged": "svdsolver_tpu/ops/pallas/band_chase.py:331 "
+                             "+ band_chase.py:405 + band_chase.py:541 "
+                             "+ band_chase_stream.py:118",
         "band_chase_vmem": "svdsolver_tpu/ops/pallas/band_chase_vmem.py:180",
     })
     (n1, b1, _), (n3, b3, _) = VAR_CHECK, VAR_PATH
@@ -1571,7 +1665,7 @@ def kernel_table(errs, counts_vals, counts_svd, kt, lib, variants, route, k1, ti
             bounds[label] = bound(flops, nbytes)
             say(f"[bound] {k} (n={n} b={b}): {flops:.4g} flops, {nbytes:.4g} "
                 f"bytes -> {bounds[label][0]:.4f} ms, bound by {bounds[label][1]}")
-        on_path = k == "band_chase_wave"
+        on_path = k in ("band_chase_wave", "band_chase_staged")
         rows.append({
             "name": k, "route": "cuda",
             "source": src.format("band_chase_wave" if k == "band_chase_wave_dl" else k),
@@ -1589,16 +1683,32 @@ def kernel_table(errs, counts_vals, counts_svd, kt, lib, variants, route, k1, ti
             "band_chase_path_ms": times_var["band_chase", "path"],
         })
         if k == "band_chase_staged":
-            rows[-1].update(staged_keys(staged, rate))
+            rows[-1].update(staged_keys(staged, rate, record=False))
         if on_path:
             rows[-1]["variant_launches"] = counts_var[k]
             rows[-1]["path_launches"] = {n: c[k] for n, c in counts_vals.items()}
+        if k == "band_chase_wave":
             rows[-1].update(tick_keys(tick_ms, sched, rate, record=False))
+
+    # the staged TMA design's recording entry (svd's sequential chase):
+    # ms in turns with the L2 recording kernel (phase_sequential_times)
+    k = "band_chase_staged_rec"
+    b_chk, b_path = (bound(*work_chase(n, b, record=True)) for n, b in ((n1, b1), (n3, b3)))
+    rows.append({
+        "name": k, "route": "cuda", "source": src.format("band_chase_staged"),
+        "replaces": replaces["band_chase_rec"],
+        "launches": sum(c[k] for c in counts_svd.values()), "max_abs_err": errs[k],
+        "ms": staged[n1, b1, 1, True][0], "plain_ms": kt["band_chase_rec"][1],
+        "bound_ms": b_chk[0], "bound_by": b_chk[1], "library_ms": None,
+        "shape": f"n={n1} b={b1}", "path_shape": f"n={n3} b={b3}",
+        "path_ms": staged[n3, b3, 1, True][0], "path_bound_ms": b_path[0],
+        "path_launches": {n: c[k] for n, c in counts_svd.items()},
+        **staged_keys(staged, rate, record=True),
+    })
 
     # the recording wavefront entry (svd's chase): ms at the check band from
     # the routing evidence, in turns with the sequential recording entry
     k = "band_chase_wave_rec"
-    b_chk, b_path = (bound(*work_chase(n, b, record=True)) for n, b in ((n1, b1), (n3, b3)))
     rows.append({
         "name": k, "route": "cuda", "source": src.format("band_chase_wave"),
         "replaces": "svdsolver_tpu/ops/pallas/band_chase_wave.py:959",
@@ -1633,27 +1743,31 @@ def kernel_table(errs, counts_vals, counts_svd, kt, lib, variants, route, k1, ti
         })
     for row in rows:
         row["tpu"] = TPU_KERNELS[row["name"]]
+        if row["name"] in SEQ_KERNEL:
+            row["kernel"] = SEQ_KERNEL[row["name"]]
     covered = {t for row in rows for t in row["tpu"]}
     require(covered == {f"K{i}" for i in range(1, 16)}, f"the rows cover K1-K15: {covered}")
     return rows
 
 
-def staged_keys(staged, rate):
-    """The staged kernel's two designs in turns, and the TMA design's
-    schedule bound (the bytes of every copy of ``chase_schedule.
+def staged_keys(staged, rate, record):
+    """The sequential chase's two kernels in turns, and the staged TMA
+    design's schedule bound (the bytes of every copy of ``chase_schedule.
     staged_copies``, the kernel's own order, over one CTA's copy rate), by
-    shape."""
+    shape; the records' stores are not copies and add nothing to it."""
     from svdsolver_tpu_torch.ops.chase_schedule import staged_copy_bytes
 
     out = {"designs_ms": {}, "schedule_bound_ms": {}, "window_copy_gb_s": rate / 1e6}
-    for (n, b, K), (tma, v1) in staged.items():
-        out["designs_ms"][f"n={n} b={b} K={K}"] = {"tma": tma, "first_design": v1}
-    for n, b in sorted({(n, b) for n, b, _ in staged}):
+    for (n, b, K, rec), (tma, l2) in staged.items():
+        if rec == record:
+            out["designs_ms"][f"n={n} b={b} K={K}"] = {"staged_tma": tma, "l2": l2}
+    for n, b in sorted({(n, b) for n, b, _, _ in staged}):
         nbytes = staged_copy_bytes(n, b)
         out["schedule_bound_ms"][f"n={n} b={b}"] = nbytes / rate
-        say(f"[bound] band_chase_staged schedule n={n} b={b}: {nbytes:.4g} bytes over "
-            f"{rate / 1e6:.2f} GB/s = {nbytes / rate:.3f} ms (TMA design K=1 "
-            f"{staged[n, b, 1][0]:.3f} ms)")
+        say(f"[bound] {'band_chase_staged_rec' if record else 'band_chase_staged'} schedule "
+            f"n={n} b={b}: {nbytes:.4g} bytes over {rate / 1e6:.2f} GB/s = "
+            f"{nbytes / rate:.3f} ms (staged TMA design K=1 {staged[n, b, 1, record][0]:.3f} "
+            "ms)")
     return out
 
 
@@ -1698,7 +1812,7 @@ def main():
     designs = phase_design_times()
     route = phase_route_times()
     ticks = phase_tick_times(band_state)
-    staged = phase_staged_times(band_state)
+    staged = phase_sequential_times(band_state)
     A = uniform_matrix(3840)
     phase_profile("svdvals n=3840", lambda: svdvals(A))
     phase_profile("svd n=3840", lambda: svd(A))

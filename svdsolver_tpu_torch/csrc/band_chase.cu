@@ -1,40 +1,39 @@
 // Band -> bidiagonal bulge chase, the whole Stage II in one launch, with or
-// without recording its reflectors.
+// without recording its reflectors, on the matrix in device memory (the L2
+// kernel).
 //
-// The sequential chase: the bitwise oracle of every chase kernel, and the
-// route of the main paths wherever ops/cuda/band_chase_wave's predicates
-// (wave_chase_preferred, wave_chase_accum_preferred) say the wavefront
-// kernel loses.  svdt_band_chase stands, with band_chase_wave.cu's
-// wavefront entry, for three TPU kernels that compute the same chase and
-// differ only in where the TPU keeps the band:
-//   svdsolver_tpu/ops/pallas/band_chase.py        _chase_kernel (dense matrix
-//       in HBM, one DMA'd window per pair);
-//   svdsolver_tpu/ops/pallas/band_chase_wave.py   _wave_chase_kernel (packed
-//       band resident in VMEM, wavefront schedule; on the card, the
-//       wavefront entry of band_chase_wave.cu);
+// The sequential chase through L2: the bitwise oracle of every chase
+// kernel, and the card's sequential chase for the shapes the staged TMA
+// design (band_chase_staged.cu) does not take: b > 128, b or n not a
+// multiple of 4, or A not 16-byte aligned (ops/cuda/band_chase.
+// staged_route, decided by shape before launch).  For those shapes
+// svdt_band_chase stands for the TPU kernels
+//   svdsolver_tpu/ops/pallas/band_chase.py        _chase_kernel (K3: dense
+//       matrix in HBM, one DMA'd window per pair);
 //   svdsolver_tpu/ops/pallas/band_chase_stream.py _stream_chase_kernel with
-//       rec=False (packed band streamed through VMEM windows).
-// svdt_band_chase_rec likewise stands for their recording twins, which also
-// emit every reflector for the singular-vector back-transform:
-//   band_chase.py        _chase_kernel_rec;
-//   band_chase_wave.py   _wave_chase_rec_kernel (on the card, the recording
-//       wavefront entry svdt_band_chase_wave_rec);
-//   band_chase_stream.py _stream_chase_kernel with rec=True.
-// Both instantiate the one chase_pair of chase_pair.cuh (template flag Rec),
-// so the recording chase's arithmetic is the very code of the plain one and
-// its (d, e) are bit-equal to it.  Recording: after each warp_reflector,
-// warp 0 stores the b entries of v and tau straight into slot (i, s) of
-// VR/TR (right) or VL/TL (left), in the canonical (n-1, s_max, b) layout
-// (Records, chase_pair.cuh), so the TPU's lane rotations of the records have
-// no counterpart here.  tau is stored as computed, not recovered as 2/v^Tv;
-// an identity reflector (tau = 0) is stored as a zero row; entries past n
-// are zero because the reads past n are.  Slots the schedule never reaches
-// are left as the caller allocated them (zeros).  The records add 2 (b + 1)
-// floats of stores a pair, under 1 % of the pair's window traffic, but warp
-// 0 issues them before the pair's barrier: on the H100 (700 W) the recording
-// entry took 865.7 ms against the plain entry's 850.1 ms at n = 3840,
-// b = 128, in turns in one run of chip_smoke.py; storing from registers
-// after the barrier is later work.
+//       rec=False (K5, packed band streamed through VMEM windows) where the
+//       main paths' predicate picks the sequential chase;
+// and svdt_band_chase_rec for their recording twins, which also emit every
+// reflector for the singular-vector back-transform:
+//   band_chase.py        _chase_kernel_rec (K6);
+//   band_chase_stream.py _stream_chase_kernel with rec=True (K8).
+// Every other shape of those TPU kernels runs svdt_band_chase_staged(_rec),
+// the staged TMA design, bit-equal to this kernel.
+// Both entries instantiate the one chase_pair of chase_pair.cuh (template
+// flag Rec), so the recording chase's arithmetic is the very code of the
+// plain one and its (d, e) are bit-equal to it.  Recording: after each
+// warp_reflector, warp 0 stores the b entries of v and tau straight into
+// slot (i, s) of VR/TR (right) or VL/TL (left), in the canonical
+// (n-1, s_max, b) layout (Records, chase_pair.cuh), so the TPU's lane
+// rotations of the records have no counterpart here.  tau is stored as
+// computed, not recovered as 2/v^Tv; an identity reflector (tau = 0) is
+// stored as a zero row; entries past n are zero because the reads past n
+// are.  Slots the schedule never reaches, and the pairs whose window lies
+// wholly past n, are left as the caller allocated them (zeros).  The
+// records add 2 (b + 1) floats of stores a pair, under 1 % of the pair's
+// window traffic, but warp 0 issues them before the pair's barrier: on the
+// H100 (700 W) the recording entry took 865.7 ms against the plain entry's
+// 850.1 ms at n = 3840, b = 128, in turns in one run of chip_smoke.py.
 // Schedule and arithmetic are those of models/two_stage.band_to_bidiagonal:
 // sweep i runs a head pair at (i, i+1) and nc_of(i, n, b) chase pairs at
 // (r, r+b), r = i+1+k*b; each pair is a right Householder elimination of the

@@ -1,17 +1,32 @@
 // Band -> bidiagonal bulge chase on the sequential schedule with the windows
-// staged in shared memory, one CTA.
+// staged in shared memory, one CTA: the card's sequential chase wherever
+// the copy engine takes the shape (ops/cuda/band_chase.staged_route).
 //
-// svdt_band_chase_staged with khops = 1 replaces the TPU kernel
-//   svdsolver_tpu/ops/pallas/band_chase.py  _chase_kernel_pipelined (the
-//       `pipelined=True` route: windows stay on chip, the (b, b) overlap is
-//       carried to the next window, only the L-strips are copied in);
+// svdt_band_chase_staged with khops = 1 replaces the TPU kernels
+//   svdsolver_tpu/ops/pallas/band_chase.py  _chase_kernel (K3: the dense
+//       chase, one DMA'd window per pair; band_to_bidiagonal with no flags);
+//   band_chase.py  _chase_kernel_pipelined (K14, the `pipelined=True`
+//       route: windows stay on chip, the (b, b) overlap is carried to the
+//       next window, only the L-strips are copied in);
+//   band_chase_stream.py  _stream_chase_kernel with rec=False (K5) where
+//       the main paths' predicate picks the sequential chase;
 // with khops = K > 1 it replaces
-//   band_chase.py  _chase_kernel_megapipe (the `mega=True` route: the
+//   band_chase.py  _chase_kernel_megapipe (K15, the `mega=True` route: the
 //       copies of K pairs ahead in flight).
+// svdt_band_chase_staged_rec, the same kernel with Rec, replaces the
+// recording twins band_chase.py _chase_kernel_rec (K6) and
+// band_chase_stream.py _stream_chase_kernel with rec=True (K8) likewise.
+// Shapes the copy engine does not take run svdt_band_chase(_rec)
+// (band_chase.cu), chosen by shape before launch.
 // Schedule and arithmetic: models/two_stage.band_to_bidiagonal, through the
 // one pair of chase_pair.cuh (smem_pair of chase_tma.cuh: the same
 // arithmetic on shared-memory tiles), so (d, e) are bit-equal to
-// svdt_band_chase's.
+// svdt_band_chase's, and the records to svdt_band_chase_rec's: warp 0
+// stores each reflector into its slot (i, s) after building it (the head
+// slot 0, chase pair k slot k + 1), from shared memory straight to device
+// memory, as the recording wavefront tick does.  The pairs past n, which
+// the kernel skips, keep the zero rows and tau 0 of the zeroed buffers,
+// which is what svdt_band_chase_rec leaves there too.
 //
 // Design (staged_tma_kernel, where the copy engine takes the shape:
 // tma_takes, 4 <= b <= 128, b and n multiples of 4): one block of 512
@@ -52,13 +67,6 @@
 // chase_schedule.staged_copies is this order in Python, and two_stage.
 // band_to_bidiagonal_staged_tiles its twin.
 //
-// The first design, staged_v1_kernel (2K + 1 slots of b x (b + 1) floats,
-// copies by all threads between block barriers, head pairs on device
-// memory), runs only when `v1` asks for it, to time the two designs in
-// turns.  Shapes the TMA design does not take (b or n not a multiple of 4,
-// a misaligned A) go to svdt_band_chase: the wrapper routes by shape before
-// launch.
-//
 // Shared memory: 2K + 1 slots of tile_floats(b) floats (a box and one more
 // row); at b = 128 three fit (K = 1), at b = 64 twelve (K <= 5).  Bands
 // above 128 go to svdt_band_chase (the wrapper's route).
@@ -84,153 +92,15 @@ namespace {
 
 using namespace svdt;
 
-constexpr int kMaxStagedBand = 128;
 constexpr int kMaxSlots = 31;  // 2K + 1 <= 31: one mbarrier and parity bit a slot
 constexpr int kCopier = 32;    // the thread that issues every copy
 
-// ---- the first design (shapes the copy engine does not take) ----
-
-// The three staged tiles of one pair with corner (r0, c0): ring slots of
-// (R0, C0), (R1, C0) and (R1, C1); a tile row is tld floats.
-struct TileAt {
-  float* s;
-  int tsz, tld, b, r0, c0, s00, s10, s11;
-  __device__ float* at(int r, int c) const {
-    int dr = r - r0, dc = c - c0;
-    const int slot = dr < b ? s00 : (dc < b ? s10 : s11);
-    if (dr >= b) dr -= b;
-    if (dc >= b) dc -= b;
-    return s + slot * tsz + dr * tld + dc;
-  }
-  __device__ float load(int r, int c) const { return *at(r, c); }
-  __device__ void store(int r, int c, float x) const { *at(r, c) = x; }
-};
-
-constexpr int kTileLoads = 16;  // loads a thread keeps in flight per tile copy
-
-// Copy the b x b tile at (r0, c0) of A into a tile slot (Load) or back.
-// Thread (i0, j) owns column j of rows i0, i0 + p, i0 + 2p, ... (p = 512 / b
-// rows a pass; the 512 % b threads left over idle), so the addresses step by
-// a constant and no entry pays an index division: on one SM the copy is
-// bound by instruction issue, not by L2.  A load issues kTileLoads reads
-// before it stores any to shared memory.
-template <bool Load>
-__device__ void tile_io(float* t, int tld, float* A, int n, int b, int r0,
-                        int c0) {
-  if (r0 >= n || c0 >= n) return;  // never read: every entry is past n
-  const int p = kThreads / b;
-  const int i0 = threadIdx.x / b;
-  const int j = threadIdx.x - i0 * b;
-  if (i0 >= p) return;
-  const bool col_in = c0 + j < n;
-  const size_t gstep = (size_t)p * n;
-  const int sstep = p * tld;
-  float* g = A + (size_t)(r0 + i0) * n + c0 + j;
-  float* s = t + i0 * tld + j;
-  for (int i = i0; i < b; i += p * kTileLoads) {
-    float x[kTileLoads];
-#pragma unroll
-    for (int u = 0; u < kTileLoads; ++u) {
-      const int ii = i + u * p;
-      if constexpr (Load)
-        x[u] = (ii < b && col_in && r0 + ii < n) ? g[u * gstep] : 0.f;
-      else
-        x[u] = ii < b ? s[u * sstep] : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < kTileLoads; ++u) {
-      const int ii = i + u * p;
-      if constexpr (Load) {
-        if (ii < b) s[u * sstep] = x[u];
-      } else if (ii < b && col_in && r0 + ii < n) {
-        g[u * gstep] = x[u];
-      }
-    }
-    g += kTileLoads * gstep;
-    s += kTileLoads * sstep;
-  }
-}
-
-template <int KPL>
-__global__ void __launch_bounds__(kThreads)
-staged_v1_kernel(float* __restrict__ A, float* __restrict__ d,
-                    float* __restrict__ e, int n, int b, int K) {
-  extern __shared__ float tiles[];
-  __shared__ float v[kMaxStagedBand];
-  __shared__ float part[kThreads];
-  __shared__ float s_tau[2];
-  const int NT = 2 * K + 1;
-  const int tld = b + 1;
-  const int tsz = b * tld;
-  const DenseAt dense = {A, (size_t)n};
-  const Slot none = {nullptr, nullptr};
-  auto slot = [&](int base, int q) { return (base + q) % NT; };
-  auto tile = [&](int sl) { return tiles + sl * tsz; };
-  for (int i = 0; i < n - 1; ++i) {
-    chase_pair<KPL, false>(dense, n, b, i, i + 1, b + 1, 1, v, part, s_tau,
-                           none, none);  // chase_pair ends with a barrier
-    const int nc = nc_of(i, n, b);
-    const int r00 = i + 1;  // rows R_0 of chase pair 0; its columns C_0 start b later
-    int base = 0;
-    tile_io<true>(tile(0), tld, A, n, b, r00, r00 + b);
-    for (int k0 = 0; k0 < nc; k0 += K) {
-      const int kk = min(K, nc - k0);
-      const int rm = r00 + k0 * b;
-      const int cm = rm + b;
-      for (int j = 0; j < kk; ++j) {  // S_j, then D_{j+1}
-        tile_io<true>(tile(slot(base, 2 * j + 1)), tld, A, n, b, rm + (j + 1) * b,
-                      cm + j * b);
-        tile_io<true>(tile(slot(base, 2 * j + 2)), tld, A, n, b, rm + (j + 1) * b,
-                      cm + (j + 1) * b);
-      }
-      __syncthreads();
-      for (int j = 0; j < kk; ++j) {
-        const TileAt acc = {tiles, tsz, tld, b, rm + j * b, cm + j * b,
-                            slot(base, 2 * j), slot(base, 2 * j + 1),
-                            slot(base, 2 * j + 2)};
-        chase_pair<KPL, false>(acc, n, b, rm + j * b, cm + j * b, 2 * b, b, v,
-                               part, s_tau, none, none);
-      }
-      for (int j = 0; j < kk; ++j) {  // D_j, S_j; D_kk is carried
-        tile_io<false>(tile(slot(base, 2 * j)), tld, A, n, b, rm + j * b,
-                       cm + j * b);
-        tile_io<false>(tile(slot(base, 2 * j + 1)), tld, A, n, b,
-                       rm + (j + 1) * b, cm + j * b);
-      }
-      __syncthreads();
-      base = slot(base, 2 * kk);
-    }
-    const int rc = r00 + nc * b;  // the carried tile D_0 of the next mega
-    tile_io<false>(tile(base), tld, A, n, b, rc, rc + b);
-    __syncthreads();
-  }
-  for (int k = threadIdx.x; k < n; k += kThreads) {
-    d[k] = A[(size_t)k * n + k];
-    if (k + 1 < n) e[k] = A[(size_t)k * n + k + 1];
-  }
-}
-
-template <int KPL>
-int launch_v1(float* A, float* d, float* e, int n, int b, int K,
-               cudaStream_t s) {
-  const size_t smem = sizeof(float) * (size_t)(2 * K + 1) * b * (b + 1);
-  cudaError_t err = cudaFuncSetAttribute(
-      staged_v1_kernel<KPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  staged_v1_kernel<KPL><<<1, kThreads, smem, s>>>(A, d, e, n, b, K);
-  return (int)cudaGetLastError();
-}
-
-
-// ---- the TMA design ----
-
-template <int KPL, int BF>
+template <int KPL, int BF, bool Rec>
 __global__ void __launch_bounds__(kThreads, 1)
 staged_tma_kernel(const __grid_constant__ CUtensorMap map,
                   const __grid_constant__ CUtensorMap hmap, float* __restrict__ A,
                   float* __restrict__ d, float* __restrict__ e, int n, int b_rt,
-                  int K) {
+                  int K, Records rec) {
   extern __shared__ __align__(128) float smem_raw[];
   float* tiles = align128(smem_raw);
   __shared__ float v[kSmemBand];
@@ -298,8 +168,9 @@ staged_tma_kernel(const __grid_constant__ CUtensorMap map,
       ++pc;
       Waits wt = {bar, pend, 0u};
       const Win w = {h0 + dl, h0 + dl, h0 + dl + ldt, h1 + dl + ldt, ldt, b + 1, b + 1, 1};
-      smem_pair<KPL, BF, false>(w, b, wt, h0s, -1, 0, NoMid{}, v, vg, col, part, s_tau,
-                                none, none);
+      smem_pair<KPL, BF, Rec>(w, b, wt, h0s, -1, 0, NoMid{}, v, vg, col, part, s_tau,
+                              Rec ? rec.right(i, 0, b) : none,
+                              Rec ? rec.left(i, 0, b) : none);
       share_overlap(h0, h1, b, dl, b + 1);
       fence_async_smem();
       __syncthreads();
@@ -344,8 +215,9 @@ staged_tma_kernel(const __grid_constant__ CUtensorMap map,
         }
       };
       const Win w = {tA + dl + (k == 0 ? ldt : 0), tB + dl, tB + dl, tC + dl, ldt, 2 * b, b, b};
-      smem_pair<KPL, BF, false>(w, b, wt, -1, sB, sC, mid, v, vg, col, part, s_tau,
-                                none, none);
+      smem_pair<KPL, BF, Rec>(w, b, wt, -1, sB, sC, mid, v, vg, col, part, s_tau,
+                              Rec ? rec.right(i, k + 1, b) : none,
+                              Rec ? rec.left(i, k + 1, b) : none);
       share_overlap(tB, tC, b, dl, b);
       fence_async_smem();
       __syncthreads();
@@ -382,8 +254,11 @@ size_t tma_smem_bytes(int b, int K) {
   return sizeof(float) * (2 * K + 1) * (size_t)tile_floats(b) + 128;
 }
 
-int launch_tma(float* A, float* d, float* e, int n, int b, int K, cudaStream_t s) {
-  if (!tma_takes(A, n, b) || 2 * K + 1 > kMaxSlots) return (int)cudaErrorInvalidValue;
+template <bool Rec>
+int launch_tma(float* A, float* d, float* e, int n, int b, int K, Records rec,
+               cudaStream_t s) {
+  if (n < 2 || K < 1 || !tma_takes(A, n, b) || 2 * K + 1 > kMaxSlots)
+    return (int)cudaErrorInvalidValue;
   alignas(64) CUtensorMap map, hmap;  // boxes of b rows, and the head's of b + 1
   int err = encode_map(&map, A, n, b, box_cols(b));
   if (err == 0) err = encode_map(&hmap, A, n, b + 1, box_cols(b));
@@ -391,12 +266,12 @@ int launch_tma(float* A, float* d, float* e, int n, int b, int K, cudaStream_t s
   const size_t smem = tma_smem_bytes(b, K);
 #define SVDT_TMA_LAUNCH(KPL, BF)                                                  \
   do {                                                                            \
-    err = (int)cudaFuncSetAttribute(staged_tma_kernel<KPL, BF>,                   \
+    err = (int)cudaFuncSetAttribute(staged_tma_kernel<KPL, BF, Rec>,              \
                                     cudaFuncAttributeMaxDynamicSharedMemorySize,  \
                                     (int)smem);                                   \
     if (err != 0) return err;                                                     \
-    staged_tma_kernel<KPL, BF><<<1, kThreads, smem, s>>>(map, hmap, A, d, e, n, b,  \
-                                                           K);                    \
+    staged_tma_kernel<KPL, BF, Rec><<<1, kThreads, smem, s>>>(map, hmap, A, d, e, \
+                                                                n, b, K, rec);    \
   } while (0)
   if (b == 32) SVDT_TMA_LAUNCH(1, 32);
   else if (b < 32) SVDT_TMA_LAUNCH(1, 0);
@@ -410,21 +285,26 @@ int launch_tma(float* A, float* d, float* e, int n, int b, int K, cudaStream_t s
 
 }  // namespace
 
-// The staged chase on `stream`, overwriting A (n x n, row-major, upper band
-// b <= 128) with the copies of khops pairs in flight ahead of the pair
-// that runs; (d, e) as svdt_band_chase's.  v1 = 0: the TMA design (A's
-// address 16-byte aligned, n % 4 == 0, b % 4 == 0, 4 <= b, 2 khops + 1 <=
-// 31); v1 = 1: the first design (any shape; kept for timing the two in
-// turns).  Returns the launch's
-// cudaError_t (an invalid value for a shape the design does not take or
-// slots that do not fit shared memory).
+// The staged chase's TMA design on `stream`, overwriting A (n x n,
+// row-major, upper band b) with the copies of khops pairs in flight ahead
+// of the pair that runs; (d, e) as svdt_band_chase's.  It takes A's
+// address 16-byte aligned, n % 4 == 0, b % 4 == 0, 4 <= b <= 128 and
+// 2 khops + 1 <= 31 slots that fit shared memory (the wrapper's route);
+// returns the launch's cudaError_t (an invalid value for any other shape).
 extern "C" int svdt_band_chase_staged(float* A, float* d, float* e, int n,
-                                      int b, int khops, int v1, void* stream) {
-  if (n < 2 || b < 1 || b > kMaxStagedBand || khops < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (!v1) return launch_tma(A, d, e, n, b, khops, s);
-  if (b <= 32) return launch_v1<1>(A, d, e, n, b, khops, s);
-  if (b <= 64) return launch_v1<2>(A, d, e, n, b, khops, s);
-  return launch_v1<4>(A, d, e, n, b, khops, s);
+                                      int b, int khops, void* stream) {
+  return launch_tma<false>(A, d, e, n, b, khops,
+                           {nullptr, nullptr, nullptr, nullptr, 0},
+                           (cudaStream_t)stream);
+}
+
+// As svdt_band_chase_staged, and writes every reflector into the
+// zero-initialised records VL, VR (n-1, s_max, b) and TL, TR (n-1, s_max),
+// as svdt_band_chase_rec does, bit for bit.
+extern "C" int svdt_band_chase_staged_rec(float* A, float* d, float* e, int n,
+                                          int b, float* VL, float* TL, float* VR,
+                                          float* TR, int s_max, int khops,
+                                          void* stream) {
+  return launch_tma<true>(A, d, e, n, b, khops, {VL, TL, VR, TR, s_max},
+                          (cudaStream_t)stream);
 }

@@ -3,7 +3,8 @@
 
 Ported methods: ``tpu2`` (Stage I through the panel kernel, the chase
 routed by ``band_chase_wave.wave_chase_preferred`` to the wavefront or the
-sequential chase kernel, the bisection kernel) and ``tpu1`` (the plain
+sequential chase, whose staged TMA design takes every band of this path,
+the bisection kernel) and ``tpu1`` (the plain
 PyTorch path).  The kernels run for float32 CUDA tensors (:func:`use_kernels`); any other
 device or dtype takes the plain path, chosen by the input and never as a
 fallback on failure.
@@ -96,8 +97,9 @@ def bidiagonalize(A, method="tpu2", block=None):
     ``tpu2``: Stage I through the panel kernel and the chase for float32
     CUDA input, else as ``tpu1``; the chase is the wavefront kernel where
     :func:`band_chase_wave.wave_chase_preferred` holds (its docstring has
-    the card's times), else the sequential kernel, with the same ``(d, e)``
-    bit for bit.  ``tpu1``: plain two-stage
+    the card's times: from n = 641 on), else the sequential chase
+    (``band_chase.band_to_bidiagonal``), with the same ``(d, e)`` bit for
+    bit.  ``tpu1``: plain two-stage
     reduction.  ``block=None`` picks the band width by size.
     """
     if method in _NOT_PORTED:

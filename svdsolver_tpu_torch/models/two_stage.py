@@ -17,6 +17,7 @@ from svdsolver_tpu_torch.ops.chase_schedule import (
     nc_of_static,
     s_max_of,
     staged_copies,
+    staged_pairs,
     wave_pairs,
 )
 from svdsolver_tpu_torch.ops.householder import householder_vector
@@ -401,7 +402,7 @@ def band_to_bidiagonal_wavefront_tiles(A, band=32, record=False, carry=True):
     return (d, e, VL, TL, VR, TR) if record else (d, e)
 
 
-def band_to_bidiagonal_staged_tiles(A, band=32, khops=1):
+def band_to_bidiagonal_staged_tiles(A, band=32, khops=1, record=False):
     """The staged chase kernel's TMA route, plain: the steps of
     :func:`~svdsolver_tpu_torch.ops.chase_schedule.staged_copies` on a ring
     of ``2 khops + 1`` tile slots of ``(band + 1) x (band + 4)`` over an
@@ -413,14 +414,22 @@ def band_to_bidiagonal_staged_tiles(A, band=32, khops=1):
     on A and B, the left one on B and C, and the 4 columns two boxes of a
     row band share are copied across after each pair, as the kernel's
     ``share_overlap`` does.  Returns ``(d, e)``, bit-equal to
-    :func:`band_to_bidiagonal`'s.
+    :func:`band_to_bidiagonal`'s; with ``record`` (the recording entry)
+    ``(d, e, VL, TL, VR, TR)``, each pair's reflectors in its slot as
+    they are made, bit-equal to :func:`band_to_bidiagonal_accum`'s.
     """
     n = A.shape[0]
     if n < 2:
+        if record:
+            raise ValueError("band_to_bidiagonal_accum needs n >= 2")
         return torch.abs(torch.diagonal(A)), A.new_zeros((0,))
     b = int(band)
     w = b + 1
     M = A.clone()
+    if record:
+        s_max = s_max_of(n, b)
+        VL, VR = A.new_zeros((2, n - 1, s_max, b))
+        TL, TR = A.new_zeros((2, n - 1, s_max))
     slots = [A.new_zeros((b + 1, b + 4)) for _ in range(2 * int(khops) + 1)]
     box_row = [0] * len(slots)  # the first matrix row of the box a slot holds
 
@@ -443,8 +452,11 @@ def band_to_bidiagonal_staged_tiles(A, band=32, khops=1):
             dl = op.c & 3
             h0, h1 = (slots[s] for s in op.slots)
             W = torch.cat((h0[:, dl : dl + b], h1[:, dl : dl + b]), dim=1)
-            _right_elim(W, w)
-            _left_apply(W, 1, *_left_reflector(W, 1))
+            right = _right_elim(W, w)
+            left = _left_reflector(W, 1)
+            _left_apply(W, 1, *left)
+            if record:  # the head's slot 0
+                (VR[op.r, 0], TR[op.r, 0]), (VL[op.r, 0], TL[op.r, 0]) = right, left
             h0[:, dl : dl + b], h1[:, dl : dl + b] = W[:, :b], W[:, b:]
             share_overlap(h0, h1, dl, b + 1)
         elif op.kind == "right":
@@ -452,16 +464,28 @@ def band_to_bidiagonal_staged_tiles(A, band=32, khops=1):
             sA, sB, _ = op.slots
             W = A.new_zeros((2 * b, 2 * b))  # (r, c + b) is never touched
             W[:b, :b], W[b:, :b] = tile(sA, op.r, dl), tile(sB, op.r + b, dl)
-            _right_elim(W, w)
+            right = _right_elim(W, w)
+            if record:  # chase pair k's slot k + 1
+                i, k = op.pair
+                VR[i, k + 1], TR[i, k + 1] = right
             tile(sA, op.r, dl)[:], tile(sB, op.r + b, dl)[:] = W[:b, :b], W[b:, :b]
         elif op.kind == "left":
             dl = op.c & 3
             _, sB, sC = op.slots
             W[b:, b:] = tile(sC, op.r + b, dl)
-            _left_apply(W, b, *_left_reflector(W, b))
+            left = _left_reflector(W, b)
+            _left_apply(W, b, *left)
+            if record:
+                i, k = op.pair
+                VL[i, k + 1], TL[i, k + 1] = left
             tile(sB, op.r + b, dl)[:], tile(sC, op.r + b, dl)[:] = W[b:, :b], W[b:, b:]
             share_overlap(slots[sB], slots[sC], dl, b)
-    return torch.diagonal(M).clone(), torch.diagonal(M, 1).clone()
+    if record:  # pairs past n run nothing: the plain records' identity, e_0
+        for i in range(n - 1):
+            for k in range(staged_pairs(i, n, b), nc_of_static(i, n, b)):
+                VL[i, k + 1, 0] = VR[i, k + 1, 0] = 1
+    d, e = torch.diagonal(M).clone(), torch.diagonal(M, 1).clone()
+    return (d, e, VL, TL, VR, TR) if record else (d, e)
 
 
 def bidiagonalize_two_stage(A, band=32, wavefront=False):

@@ -11,14 +11,14 @@
 * :func:`svd`, :func:`svds`: the public entry points.
 
 On float32 CUDA tensors the path runs four hand-written kernels: the panel
-QR (Stage I), the recording chase (the wavefront or the sequential
-kernel, by ``band_chase_wave.wave_chase_accum_preferred``), the bisection
-and the TGK solve.  The
-back-transforms and cluster orthogonalization are GEMMs, batched Cholesky
-and triangular solves (``torch.matmul``, ``torch.linalg.cholesky_ex``,
-``torch.linalg.solve_triangular``), full float32 with TF32 off, as they are
-XLA ops outside any Pallas kernel in the reference.  Any other input takes
-the plain PyTorch versions.
+QR (Stage I), the recording chase (the wavefront kernel or the sequential
+chase's staged TMA design, by
+``band_chase_wave.wave_chase_accum_preferred``), the bisection and the TGK
+solve.  The back-transforms and cluster orthogonalization are GEMMs,
+batched Cholesky and triangular solves (``torch.matmul``,
+``torch.linalg.cholesky_ex``, ``torch.linalg.solve_triangular``), full
+float32 with TF32 off, as they are XLA ops outside any Pallas kernel in the
+reference.  Any other input takes the plain PyTorch versions.
 
 Host syncs: :func:`tgk_vectors` reads three flags (any cluster, any
 near-zero cluster, any cluster wider than 64 columns) in one device-to-host
@@ -442,7 +442,8 @@ def svd_two_stage(A, band=None, k=None):
     (``B = Ub diag(s) Vb^T``), then ``U = U1 (L Ub)``, ``V = V1 (R Vb)``.
     For float32 CUDA input the recording chase is the wavefront kernel
     where ``band_chase_wave.wave_chase_accum_preferred`` holds, else the
-    sequential one; both give the same records bit for bit.
+    sequential one (``band_chase.band_to_bidiagonal_accum``); both give the
+    same records bit for bit.
 
     ``band=None`` picks the band by size, halved while ``band >= n``; the
     matrix is zero-padded to a multiple of it.  ``k``: only the top-``k``

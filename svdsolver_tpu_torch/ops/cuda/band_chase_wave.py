@@ -29,7 +29,8 @@ band_to_bidiagonal_wavefront_tiles`` (tiles copied in and out as the
 kernel copies them).  The main paths route by
 :func:`wave_chase_preferred` (``svdvals``) and
 :func:`wave_chase_accum_preferred` (``svd``, ``svds``), measured on the
-card; elsewhere they take the sequential kernel (``band_chase``).
+card; elsewhere they take the sequential chase (``band_chase``: its staged
+TMA design on every band of the main paths).
 """
 
 import ctypes
@@ -79,13 +80,21 @@ _ENTRIES = {
 }
 
 
+def tma_shape_takes(n, band):
+    """Whether the copy engine takes an (n, n) band of ``band`` by its shape
+    (``tma_takes`` of ``csrc/chase_tma.cuh``, the address aside): it moves
+    boxes of whole 16-byte rows, so ``band`` and ``n`` are multiples of 4;
+    three ``band x band`` tiles fit a CTA's shared memory up to
+    ``band = 128``.  The shared-memory tick and the sequential chase's
+    staged TMA design share this rule."""
+    b, n = int(band), int(n)
+    return 4 <= b <= SMEM_BAND and b % 4 == 0 and n % 4 == 0
+
+
 def smem_tick_takes(A, band):
-    """Whether the shared-memory tick takes ``A`` with ``band``: the copy
-    engine moves boxes of whole 16-byte rows, so ``band`` and ``n`` are
-    multiples of 4 and ``A`` is 16-byte aligned; three ``band x band``
-    tiles fit a CTA's shared memory up to ``band = 128``."""
-    b, n = int(band), A.shape[0]
-    return 4 <= b <= SMEM_BAND and b % 4 == 0 and n % 4 == 0 and A.data_ptr() % 16 == 0
+    """Whether the shared-memory tick takes ``A`` with ``band``:
+    :func:`tma_shape_takes` and ``A`` 16-byte aligned."""
+    return tma_shape_takes(A.shape[0], band) and A.data_ptr() % 16 == 0
 
 
 def _tick_of(A, b, tick):
@@ -285,43 +294,88 @@ def window_copy(A, band, r, c, reps):
     _build.raise_on_error(err, "wave_copy")
 
 
+def wave_lanes_needed(n, band):
+    """The fewest wavefront lanes (``two_stage.wave_lanes``) at which the
+    wavefront chase beats the sequential chase for an (n, n) band of
+    ``band``, by shape.  Where both run their copy-engine designs
+    (:func:`tma_shape_takes`): four lanes up to ``band = 64``, three at
+    ``band = 128``, and two between, where the sequential design runs its
+    run-time-band instance of four columns a thread; elsewhere both run
+    through L2, and two lanes, as measured against the L2 sequential
+    kernel (one lane at 256 / 64: 3.060 against 4.621 ms).
+
+    Measured on one NVIDIA H100 80GB HBM3 at 700.00 W, all rows in one run
+    (``chip_smoke.py``, ``phase_route_times``: Stage I bands of a uniform
+    matrix, the two chases in turns, the faster of two medians, ms; the
+    sequential chase on its staged TMA design, the wavefront on its
+    shared-memory tick):
+
+    ===========  =====  ==========  =========  ==========  =========  ==========
+    n / band     lanes  sequential  wavefront  seq. rec.   wave rec.  routed
+    ===========  =====  ==========  =========  ==========  =========  ==========
+    32 / 4       3      0.542       0.646      0.728       0.829      sequential
+    44 / 4       4      0.914       0.854      1.028       0.967      wavefront
+    80 / 8       3      1.373       1.434      1.640       1.658      sequential
+    88 / 8       4      1.713       1.576      1.893       1.814      wavefront
+    96 / 12      3      1.408       1.663      1.585       1.787      sequential
+    132 / 12     4      2.457       2.219      2.574       2.385      wavefront
+    160 / 16     3      2.673       2.728      2.869       2.836      sequential
+    176 / 16     4      3.185       2.955      3.397       3.119      wavefront
+    192 / 24     3      2.827       3.205      2.894       3.389      sequential
+    264 / 24     4      4.911       4.512      5.160       4.731      wavefront
+    224 / 32     2      2.131       3.034      2.076       2.982      sequential
+    256 / 32     3      2.605       3.506      2.719       3.621      sequential
+    320 / 32     3      3.948       4.444      4.042       4.501      sequential
+    352 / 32     4      4.678       4.824      4.816       4.910      wavefront
+    416 / 32     4      6.440       5.940      6.517       5.829      wavefront
+    384 / 48     3      7.223       7.415      7.764       7.942      sequential
+    528 / 48     4      12.925      10.391     13.793      10.931     wavefront
+    256 / 64     1      2.071       3.925      2.150       3.874      sequential
+    384 / 64     2      4.086       6.214      4.328       6.392      sequential
+    512 / 64     3      6.905       8.513      7.167       8.515      sequential
+    640 / 64     3      10.383      10.889     10.720      10.868     sequential
+    704 / 64     4      12.516      12.143     12.786      12.153     wavefront
+    1024 / 64    5      25.318      17.579     26.102      18.379     wavefront
+    560 / 80     2      21.463      18.133     22.298      18.430     wavefront
+    480 / 96     2      13.942      15.095     14.804      15.437     wavefront
+    768 / 96     3      33.036      25.822     34.626      26.788     wavefront
+    784 / 112    2      34.317      28.870     36.285      30.631     wavefront
+    896 / 128    2      25.901      26.771     25.952      27.500     sequential
+    1024 / 128   3      33.072      30.959     33.122      32.133     wavefront
+    2048 / 128   5      124.589     66.678     122.831     68.066     wavefront
+    3840 / 128   10     424.280     129.612    417.687     131.033    wavefront
+    7680 / 128   20     1667.585    266.095    1645.510    269.329    wavefront
+    ===========  =====  ==========  =========  ==========  =========  ==========
+
+    Two shapes lose a little to the rule in this run: 352 / 32 (four
+    lanes; the sequential chase 3 % faster, a near tie that other runs
+    read the other way) and 480 / 96 (two lanes; 8 %).  At 640 / 64 the
+    two tie within the spread between runs (the recording entries 1.4 %
+    apart here), as do 80 / 8 and 160 / 16 at three lanes.
+    """
+    b = int(band)
+    if not tma_shape_takes(n, b):
+        return 2
+    if b <= 64:
+        return 4
+    return 3 if b == SMEM_BAND else 2
+
+
 def wave_chase_preferred(n, band):
     """Whether ``svdvals`` takes the wavefront chase for an (n, n) band of
-    ``band``: where its sweeps run in two lanes or more
-    (``two_stage.wave_lanes(n, band) >= 2``).  With one lane the head pair
-    and the one chase lane cannot hide the grid barrier a tick.
-
-    Measured on one NVIDIA H100 80GB HBM3 at 700 W (``chip_smoke.py``,
-    ``phase_route_times``: Stage I bands of a uniform matrix, the two
-    kernels in turns; the wavefront on its shared-memory tick), ms:
-
-    ==========  =====  ==========  =========  ======
-    n / band    lanes  sequential  wavefront  routed
-    ==========  =====  ==========  =========  ======
-    256 / 64    1      3.060       4.621      sequential
-    1024 / 64   5      43.848      20.051     wavefront
-    2048 / 128  5      240.571     72.685     wavefront
-    3840 / 128  10     852.738     141.137    wavefront
-    7680 / 128  20     3420.831    288.618    wavefront
-    ==========  =====  ==========  =========  ======
-    """
-    return two_stage.wave_lanes(int(n), int(band)) >= 2
+    ``band``: where its sweeps run in at least :func:`wave_lanes_needed`
+    lanes (whose docstring holds the measurements).  With fewer lanes the
+    head pair and the few chase lanes cannot hide the grid barrier a tick,
+    and the sequential chase's staged TMA design (one CTA, ~3.6 us a pair
+    at b = 64, ~7.7 at b = 128) wins: on the main paths every input up to
+    n = 640 (b = 32 or 64) takes the sequential chase, and from 641 on
+    (b = 64 at four lanes or more, b = 128 at three or more) the
+    wavefront."""
+    return two_stage.wave_lanes(int(n), int(band)) >= wave_lanes_needed(n, band)
 
 
 def wave_chase_accum_preferred(n, band):
     """Whether ``svd`` and ``svds`` take the recording wavefront chase: the
-    rule of :func:`wave_chase_preferred`, two lanes or more.
-
-    Measured as there (recording entries, ms):
-
-    ==========  =====  ==========  =========  ======
-    n / band    lanes  sequential  wavefront  routed
-    ==========  =====  ==========  =========  ======
-    256 / 64    1      3.356       4.656      sequential
-    1024 / 64   5      46.662      21.164     wavefront
-    2048 / 128  5      245.098     73.894     wavefront
-    3840 / 128  10     867.969     141.522    wavefront
-    7680 / 128  20     3481.447    289.947    wavefront
-    ==========  =====  ==========  =========  ======
-    """
-    return two_stage.wave_lanes(int(n), int(band)) >= 2
+    rule of :func:`wave_chase_preferred`, :func:`wave_lanes_needed` lanes
+    or more (the recording entries were measured beside the plain ones)."""
+    return two_stage.wave_lanes(int(n), int(band)) >= wave_lanes_needed(n, band)

@@ -68,9 +68,13 @@ def test_panel_qr_cluster_kernel(dev, rng, r_off):
 
 
 def test_chase_kernel_matches_plain(dev, rng):
+    # the staged TMA design (the route at this shape), bit-equal to the L2
+    # kernel, against the plain version
     A = torch.from_numpy(rng.normal(size=(96, 96)).astype(np.float32)).to(dev)
     Ab = panel_qr.dense_to_band_fused(A, band=16)
     d, e = band_chase.band_to_bidiagonal(Ab, band=16)
+    d2, e2 = band_chase.band_to_bidiagonal_l2(Ab, band=16)
+    assert torch.equal(d, d2) and torch.equal(e, e2)
     dp, _ = band_chase.band_to_bidiagonal_plain(Ab, band=16)
     torch.testing.assert_close(d.abs()[:8], dp.abs()[:8], rtol=1e-4, atol=0)
     want = torch.linalg.svdvals(A.double())
@@ -90,13 +94,15 @@ def test_bisect_kernel_matches_plain(dev, rng):
 
 
 def test_svdvals_goes_through_kernels(dev, rng):
-    # n = 200: band 32, padded to 224, two chase lanes: the wavefront chase
+    # n = 200: band 32, padded to 224, two chase lanes: the sequential chase
+    # on its staged TMA design
     A = torch.from_numpy(rng.uniform(0, 5, (200, 200)).astype(np.float32)).to(dev)
     for mod in (panel_qr, band_chase, band_chase_wave, bisect):
         mod.launches = 0
+    band_chase.launches_staged = 0
     s = svdvals(A)
-    assert panel_qr.launches and band_chase_wave.launches == 1 and bisect.launches
-    assert band_chase.launches == 0
+    assert panel_qr.launches and band_chase.launches_staged == 1 and bisect.launches
+    assert band_chase.launches == 0 and band_chase_wave.launches == 0
     want = torch.linalg.svdvals(A.double())
     torch.testing.assert_close(s.double(), want, rtol=2e-5,
                                atol=1e-5 * float(want[0]))
@@ -121,9 +127,10 @@ def test_recording_chase_matches_plain(dev, rng):
     d0, e0 = band_chase.band_to_bidiagonal(Ab, band=b)
     eye = torch.eye(96, device=dev)
     for fn in (band_chase.band_to_bidiagonal_accum,
+               band_chase.band_to_bidiagonal_accum_l2,
                band_chase.band_to_bidiagonal_accum_plain):
         d, e, VL, TL, VR, TR = fn(Ab, band=b)
-        if fn is band_chase.band_to_bidiagonal_accum:
+        if fn is not band_chase.band_to_bidiagonal_accum_plain:
             assert torch.equal(d, d0) and torch.equal(e, e0)
         L = _apply_chase_reflectors(VL, TL, eye, b, reverse=True)
         R = _apply_chase_reflectors(VR, TR, eye, b, reverse=True)
@@ -155,13 +162,15 @@ def test_svd_goes_through_kernels(dev, rng):
     n = 200
     A = torch.from_numpy(rng.uniform(0, 5, (n, n)).astype(np.float32)).to(dev)
     for mod, attr in ((panel_qr, "launches"), (band_chase, "launches_rec"),
+                      (band_chase, "launches_staged_rec"),
                       (band_chase_wave, "launches_rec"), (bisect, "launches"),
                       (tridiag_solve, "launches")):
         setattr(mod, attr, 0)
     U, s, Vh = svd(A)
-    # two chase lanes at n = 200 (band 32): the recording wavefront chase
-    assert panel_qr.launches and band_chase_wave.launches_rec == 1 and bisect.launches
-    assert band_chase.launches_rec == 0
+    # two chase lanes at n = 200 (band 32): the sequential chase's
+    # recording entry, on the staged TMA design
+    assert panel_qr.launches and band_chase.launches_staged_rec == 1 and bisect.launches
+    assert band_chase.launches_rec == 0 and band_chase_wave.launches_rec == 0
     assert tridiag_solve.launches == 2
     want = torch.linalg.svdvals(A.double())
     smax = float(want[0])
@@ -198,10 +207,10 @@ VARIANTS = {
 
 @pytest.mark.parametrize("n,b", [(256, 32), (384, 64), (512, 128), (200, 8), (1000, 64)])
 def test_chase_variants_bit_equal_to_chase_kernel(dev, rng, n, b):
-    # every variant runs the one chase pair: (d, e) bit-equal to the
-    # sequential kernel's
+    # every variant runs the one chase pair: (d, e) bit-equal to the L2
+    # kernel's
     Ab = _band(dev, rng, n, b)
-    d0, e0 = band_chase.band_to_bidiagonal(Ab, band=b)
+    d0, e0 = band_chase.band_to_bidiagonal_l2(Ab, band=b)
     for name, fn in VARIANTS.items():
         d, e = fn(Ab, b)
         torch.cuda.synchronize()
@@ -229,7 +238,7 @@ def test_chase_variants_count_launches(dev, rng):
 def test_wave_kernels_stride_lanes_over_ctas(dev, rng):
     n, b = 300, 16  # the head and 6 chase lanes (7 deferred) on 2 CTAs
     Ab = _band(dev, rng, n, b)
-    d0, e0 = band_chase.band_to_bidiagonal(Ab, band=b)
+    d0, e0 = band_chase.band_to_bidiagonal_l2(Ab, band=b)
     for fn in (band_chase_wave.band_to_bidiagonal_wave,
                band_chase_wave.band_to_bidiagonal_wave_dl):
         d, e = fn(Ab, band=b, _ctas=2)
@@ -240,66 +249,115 @@ def test_wave_kernels_stride_lanes_over_ctas(dev, rng):
 def test_staged_kernel_khops(dev, rng):
     for b, khops, want in ((128, 4, 1), (64, 3, 3), (64, 99, 5)):
         Ab = _band(dev, rng, 4 * b, b)
-        d0, e0 = band_chase.band_to_bidiagonal(Ab, band=b)
+        d0, e0 = band_chase.band_to_bidiagonal_l2(Ab, band=b)
         d, e = band_chase.band_to_bidiagonal(Ab, band=b, mega=True, khops=khops)
         assert band_chase.last_khops == want
         assert torch.equal(d, d0) and torch.equal(e, e0)
 
 
 STAGED = {
-    "pipelined": lambda A, b, d: band_chase.band_to_bidiagonal(A, band=b, pipelined=True,
-                                                              _design=d),
-    "mega": lambda A, b, d: band_chase.band_to_bidiagonal(A, band=b, mega=True, khops=3,
-                                                         _design=d),
-    "mega_widest": lambda A, b, d: band_chase.band_to_bidiagonal(A, band=b, mega=True,
-                                                                khops=99, _design=d),
+    "plain": lambda A, b: band_chase.band_to_bidiagonal(A, band=b),
+    "pipelined": lambda A, b: band_chase.band_to_bidiagonal(A, band=b, pipelined=True),
+    "mega": lambda A, b: band_chase.band_to_bidiagonal(A, band=b, mega=True, khops=3),
+    "mega_widest": lambda A, b: band_chase.band_to_bidiagonal(A, band=b, mega=True,
+                                                             khops=99),
 }
+STAGED_REC = {
+    "accum": lambda A, b: band_chase.band_to_bidiagonal_accum(A, band=b),
+    # the recording launch at the widest lookahead the route allows (the
+    # entry itself runs one pair ahead)
+    "accum_widest": lambda A, b: band_chase._launch(A, b, band_chase.staged_route(A, b, 99),
+                                                    True),
+}
+
+
+def _seq_counts():
+    return [band_chase.launches, band_chase.launches_rec, band_chase.launches_staged,
+            band_chase.launches_staged_rec]
+
+
+def _seq_reset():
+    band_chase.launches = band_chase.launches_rec = 0
+    band_chase.launches_staged = band_chase.launches_staged_rec = 0
 
 
 @pytest.mark.parametrize("n,b", [(256, 32), (384, 64), (512, 128), (200, 8), (1000, 64)])
 def test_staged_tma_bit_equal_three_times(dev, rng, n, b):
     # stores in flight that met would land in no fixed order: a race shows
-    # as a (d, e) that differs only sometimes, so each entry runs three times
+    # as an output that differs only sometimes, so each entry runs three
+    # times, plain against the L2 kernel's (d, e) and recording against its
+    # (d, e) and records
     Ab = _band(dev, rng, n, b)
-    d0, e0 = band_chase.band_to_bidiagonal(Ab, band=b)
-    for name, fn in STAGED.items():
+    d0, e0 = band_chase.band_to_bidiagonal_l2(Ab, band=b)
+    want = band_chase.band_to_bidiagonal_accum_l2(Ab, band=b)
+    for name, fn in {**STAGED, **STAGED_REC}.items():
         for _ in range(3):
-            band_chase.launches_staged = 0
-            d, e = fn(Ab, b, None)
+            _seq_reset()
+            got = fn(Ab, b)
             torch.cuda.synchronize()
-            assert band_chase.launches_staged == 1, name
-            assert torch.equal(d, d0) and torch.equal(e, e0), name
-        d, e = fn(Ab, b, "v1")  # the first design on the same band
-        assert torch.equal(d, d0) and torch.equal(e, e0), name
+            if name in STAGED:
+                assert _seq_counts() == [0, 0, 1, 0], name
+                assert torch.equal(got[0], d0) and torch.equal(got[1], e0), name
+            else:
+                assert _seq_counts() == [0, 0, 0, 1], name
+                assert all(torch.equal(g, w) for g, w in zip(got, want)), name
 
 
-@pytest.mark.parametrize("n,b", [(201, 8), (150, 6), (130, 128)])
+@pytest.mark.parametrize("n,b,K", [(256, 64, 1), (1024, 64, 1), (3840, 128, 1), (1024, 64, 5)])
+def test_sequential_routes_bit_equal_to_l2_kernel(dev, n, b, K):
+    # K3's and K6's routes on the Stage I band of a uniform matrix: the
+    # staged TMA design, (d, e) and all four records bit-equal to the L2
+    # kernels', each launch counted by the kernel that ran
+    A = torch.from_numpy(np.random.default_rng(7).uniform(0, 5, (n, n)).astype(np.float32))
+    Ab = panel_qr.dense_to_band_fused(A.to(dev), band=b)
+    _seq_reset()
+    want = band_chase.band_to_bidiagonal_l2(Ab, band=b)
+    want_rec = band_chase.band_to_bidiagonal_accum_l2(Ab, band=b)
+    got = band_chase.band_to_bidiagonal(Ab, band=b, mega=K > 1, khops=K)
+    got_rec = (band_chase.band_to_bidiagonal_accum(Ab, band=b) if K == 1
+               else band_chase._launch(Ab, b, band_chase.staged_khops(b, K), True))
+    torch.cuda.synchronize()
+    assert _seq_counts() == [1, 1, 1, 1] and band_chase.last_khops == K
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(torch.equal(g, w) for g, w in zip(got_rec, want_rec))
+
+
+@pytest.mark.parametrize("n,b", [(201, 8), (150, 6), (130, 128), (640, 160)])
 def test_staged_shapes_tma_does_not_take(dev, rng, n, b):
-    # n or b not a multiple of 4: the sequential kernel, chosen before
-    # launch; the first design only when asked for
+    # n or b not a multiple of 4, or b above 128: the L2 kernel, chosen
+    # before launch, for every entry
     Ab = _band(dev, rng, n, b)
-    d0, e0 = band_chase.band_to_bidiagonal(Ab, band=b)
-    takes = band_chase.staged_tma_takes(Ab, b)
-    for fn in STAGED.values():
-        band_chase.launches = band_chase.launches_staged = band_chase.launches_staged_v1 = 0
-        d, e = fn(Ab, b, None)
+    assert not band_chase.staged_tma_takes(Ab, b)
+    d0, e0 = band_chase.band_to_bidiagonal_l2(Ab, band=b)
+    want = band_chase.band_to_bidiagonal_accum_l2(Ab, band=b)
+    for name, fn in {**STAGED, **STAGED_REC}.items():
+        _seq_reset()
+        got = fn(Ab, b)
         torch.cuda.synchronize()
-        assert (band_chase.launches_staged, band_chase.launches_staged_v1,
-                band_chase.launches) == ((1, 0, 0) if takes else (0, 0, 1))
-        assert torch.equal(d, d0) and torch.equal(e, e0)
-        if b <= band_chase.STAGED_MAX_BAND:
-            d, e = fn(Ab, b, "v1")
-            assert band_chase.launches_staged_v1 == 1
-            assert torch.equal(d, d0) and torch.equal(e, e0)
-    if not takes:
-        with pytest.raises(ValueError, match="TMA"):
-            band_chase.band_to_bidiagonal(Ab, band=b, pipelined=True, _design="tma")
+        assert _seq_counts() == ([1, 0, 0, 0] if name in STAGED else [0, 1, 0, 0]), name
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), name
+
+
+def test_staged_tma_misaligned_takes_the_l2_kernel(dev, rng):
+    # A 4 bytes into its storage: the copy engine refuses it, the route
+    # sends it to the L2 kernel before launch
+    Ab = _band(dev, rng, 200, 8)
+    mis = torch.empty(200 * 200 + 1, device=dev)[1:].view(200, 200)
+    mis.copy_(Ab)
+    _seq_reset()
+    got = band_chase.band_to_bidiagonal(mis, band=8)
+    got_rec = band_chase.band_to_bidiagonal_accum(mis, band=8)
+    torch.cuda.synchronize()
+    assert _seq_counts() == [1, 1, 0, 0]
+    for g, w in zip(got_rec, band_chase.band_to_bidiagonal_accum(Ab, band=8)):
+        assert torch.equal(g, w)
+    assert torch.equal(got[0], got_rec[0]) and torch.equal(got[1], got_rec[1])
 
 
 @pytest.mark.parametrize("n,b", [(256, 32), (384, 64), (512, 128), (200, 8), (1000, 64)])
 def test_recording_wavefront_bit_equal_to_recording_chase(dev, rng, n, b):
     Ab = _band(dev, rng, n, b)
-    want = band_chase.band_to_bidiagonal_accum(Ab, band=b)
+    want = band_chase.band_to_bidiagonal_accum_l2(Ab, band=b)
     got = band_chase_wave.band_to_bidiagonal_wave_accum(Ab, band=b)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
@@ -307,11 +365,14 @@ def test_recording_wavefront_bit_equal_to_recording_chase(dev, rng, n, b):
 
 
 def test_main_paths_launch_the_routed_chases(dev, rng):
-    # n = 64 (band 32): one chase lane, the sequential kernels; n = 1000
-    # (band 64): five lanes, the wavefront kernels
-    counters = ((band_chase, "launches"), (band_chase, "launches_rec"),
-                (band_chase_wave, "launches"), (band_chase_wave, "launches_rec"))
-    for n, want in ((64, [1, 1, 0, 0]), (1000, [0, 0, 1, 1])):
+    # n = 64 (band 32): one chase lane, and n = 500 (band 64, padded to
+    # 512): three lanes, the sequential chase's staged TMA design; n = 1000
+    # (band 64): five lanes, the wavefront kernels; never the L2 kernels
+    counters = ((band_chase, "launches_staged"), (band_chase, "launches_staged_rec"),
+                (band_chase_wave, "launches"), (band_chase_wave, "launches_rec"),
+                (band_chase, "launches"), (band_chase, "launches_rec"))
+    for n, want in ((64, [1, 1, 0, 0, 0, 0]), (500, [1, 1, 0, 0, 0, 0]),
+                    (1000, [0, 0, 1, 1, 0, 0])):
         A = torch.from_numpy(rng.uniform(0, 5, (n, n)).astype(np.float32)).to(dev)
         for mod, attr in counters:
             setattr(mod, attr, 0)
@@ -342,9 +403,9 @@ def test_smem_tick_bit_equal_to_sequential_kernels(dev, rng, n, b):
     torch.cuda.synchronize()
     assert _counts() == {"launches": 1, "launches_l2": 0, "launches_rec": 1,
                          "launches_rec_l2": 0, "launches_dl": 0}
-    for g, w in zip(got, band_chase.band_to_bidiagonal(Ab, band=b)):
+    for g, w in zip(got, band_chase.band_to_bidiagonal_l2(Ab, band=b)):
         assert torch.equal(g, w)
-    for g, w in zip(got_rec, band_chase.band_to_bidiagonal_accum(Ab, band=b)):
+    for g, w in zip(got_rec, band_chase.band_to_bidiagonal_accum_l2(Ab, band=b)):
         assert torch.equal(g, w)
 
 
@@ -355,7 +416,7 @@ def test_smem_tick_striding_lanes_without_carry(dev):
     Ab = panel_qr.dense_to_band_fused(A, band=b)
     d, e = band_chase_wave.band_to_bidiagonal_wave(Ab, band=b, _ctas=4)
     assert band_chase_wave.last_ctas == 4 and band_chase_wave.last_tick == "smem"
-    d0, e0 = band_chase.band_to_bidiagonal(Ab, band=b)
+    d0, e0 = band_chase.band_to_bidiagonal_l2(Ab, band=b)
     assert torch.equal(d, d0) and torch.equal(e, e0)
 
 
@@ -367,7 +428,7 @@ def test_wide_band_and_deferred_left_take_the_l2_tick(dev, rng):
     band_chase_wave.band_to_bidiagonal_wave_dl(_band(dev, rng, 256, 32), band=32)
     assert _counts() == {"launches": 0, "launches_l2": 1, "launches_rec": 0,
                          "launches_rec_l2": 1, "launches_dl": 1}
-    d0, e0 = band_chase.band_to_bidiagonal(Ab, band=160)
+    d0, e0 = band_chase.band_to_bidiagonal_l2(Ab, band=160)
     assert torch.equal(d, d0) and torch.equal(e, e0)
 
 

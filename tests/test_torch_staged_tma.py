@@ -4,7 +4,8 @@ load and store is issued and waited on) checked for hazards at small n and
 at the index arithmetic of 3840/b128 and 1024/b64, and the plain twin of its
 copies (``two_stage.band_to_bidiagonal_staged_tiles``) held bit-equal to
 the sequential chase and to the JAX package; the lookahead that fits shared
-memory and the route by shape."""
+memory, the route by shape (``band_chase.staged_route``) and the kernel
+each entry and flag launches."""
 
 import jax
 import jax.numpy as jnp
@@ -16,7 +17,7 @@ from svdsolver_tpu.models.two_stage import band_to_bidiagonal as jax_band_to_bid
 from svdsolver_tpu_torch.models import two_stage
 from svdsolver_tpu_torch.ops.chase_schedule import (nc_of_static, staged_copies,
                                                     staged_copy_bytes, staged_pairs)
-from svdsolver_tpu_torch.ops.cuda import band_chase
+from svdsolver_tpu_torch.ops.cuda import _build, band_chase
 from svdsolver_tpu_torch.utils.convert import from_numpy, to_numpy
 
 SHAPES = [(40, 8), (70, 8), (100, 32), (97, 32), (130, 64), (64, 64), (33, 4)]
@@ -198,40 +199,112 @@ def test_staged_khops_from_the_slot_size():
         assert 2 * K + 1 <= band_chase.STAGED_MAX_SLOTS
 
 
-@pytest.mark.parametrize("n,b,takes", [(3840, 128, True), (1024, 64, True), (200, 8, True),
-                                       (201, 8, False), (200, 6, False), (200, 2, False),
-                                       (512, 132, False)])
-def test_staged_route_by_shape(n, b, takes):
+# (n, band, khops) -> the lookahead the route takes: the TMA design's K
+# where the copy engine takes the shape, 0 (the L2 kernel) where not
+ROUTES = [
+    (3840, 128, 1, 1), (3840, 128, 4, 1), (1024, 64, 1, 1), (1024, 64, 5, 5),
+    (1024, 64, 99, 5), (256, 64, 1, 1), (384, 64, 1, 1), (224, 32, 1, 1), (200, 8, 1, 1),
+    (201, 8, 1, 0),  # n not a multiple of 4
+    (150, 6, 1, 0), (200, 6, 1, 0),  # b not a multiple of 4
+    (130, 128, 1, 0), (512, 132, 1, 0), (640, 160, 1, 0),  # n or b past the copy engine's
+    (64, 2, 1, 0), (200, 2, 1, 0),  # b below 4
+]
+
+
+@pytest.mark.parametrize("n,b,khops,K", ROUTES)
+def test_staged_route_by_shape(n, b, khops, K):
     A = torch.zeros((n, n))
-    assert band_chase.staged_tma_takes(A, b) == takes
+    assert band_chase.staged_tma_takes(A, b) == (K > 0)
+    assert band_chase.staged_route(A, b, khops) == K
 
 
-@pytest.mark.parametrize("n,b,flags,want", [
-    (200, 8, {"pipelined": True}, "tma"),
-    (1024, 64, {"mega": True, "khops": 3}, "tma"),
-    (3840, 128, {"mega": True, "khops": 4}, "tma"),
-    (201, 8, {"pipelined": True}, None),  # n not a multiple of 4
-    (200, 6, {"mega": True, "khops": 3}, None),  # b not a multiple of 4
-    (512, 132, {"pipelined": True}, None),  # above the staged kernel's 128
-    (200, 8, {}, None),  # the sequential kernel's flags
-    (200, 8, {"mega": True, "khops": 1}, None),  # mega with one pair ahead
-    (201, 8, {"pipelined": True, "_design": "v1"}, "v1"),
-    (200, 8, {"mega": True, "khops": 3, "_design": "v1"}, "v1"),
+def test_staged_route_misaligned():
+    # a view one float into its storage: A's address is not 16-byte aligned
+    A = torch.zeros(200 * 200 + 1)[1:].view(200, 200)
+    assert band_chase.staged_route(A, 8) == 0
+    assert band_chase.staged_route(torch.zeros((200, 200)), 8) == 1
+    with pytest.raises(ValueError, match="khops"):
+        band_chase.staged_route(A, 8, khops=0)
+
+
+@pytest.fixture
+def launched(monkeypatch):
+    """Send CPU tensors down the wrappers' kernel path and log each launch
+    as (kernel, lookahead, record) in place of running it."""
+    calls = []
+
+    class OnCard:
+        def __getattr__(self, k):
+            return getattr(_build, k)
+
+        @staticmethod
+        def check_input(t, name, ndim):
+            return True
+
+    def launch(A, b, K, record):
+        calls.append(("staged" if K else "l2", K, record))
+
+    monkeypatch.setattr(band_chase, "_build", OnCard())
+    monkeypatch.setattr(band_chase, "_launch", launch)
+    return calls
+
+
+ENTRIES = {
+    "plain": band_chase.band_to_bidiagonal,
+    "accum": band_chase.band_to_bidiagonal_accum,
+    "l2": band_chase.band_to_bidiagonal_l2,
+    "accum_l2": band_chase.band_to_bidiagonal_accum_l2,
+}
+TMA, TMA_REC, L2, L2_REC = ("staged", 1, False), ("staged", 1, True), ("l2", 0, False), \
+    ("l2", 0, True)
+
+
+@pytest.mark.parametrize("n,b,entry,flags,want", [
+    (200, 8, "plain", {"pipelined": True}, TMA),
+    (1024, 64, "plain", {"mega": True, "khops": 3}, ("staged", 3, False)),
+    (1024, 64, "plain", {"mega": True, "khops": 99}, ("staged", 5, False)),  # the widest
+    (1024, 64, "plain", {"mega": True, "pipelined": True, "khops": 99}, TMA),
+    (3840, 128, "plain", {"mega": True, "khops": 4}, TMA),
+    (201, 8, "plain", {"pipelined": True}, L2),  # n not a multiple of 4
+    (200, 6, "plain", {"mega": True, "khops": 3}, L2),  # b not a multiple of 4
+    (512, 132, "plain", {"pipelined": True}, L2),  # above the staged kernel's 128
+    (200, 8, "plain", {}, TMA),  # no flag: the sequential chase, on the TMA design
+    (200, 8, "plain", {"mega": True, "khops": 1}, TMA),  # mega with one pair ahead
+    (256, 64, "plain", {}, TMA),  # the main paths' one-lane band
+    (3840, 128, "plain", {}, TMA),
+    (640, 160, "plain", {}, L2),  # a band the TMA design does not take
+    (64, 2, "plain", {}, L2),
+    # the recording entry: the TMA design one pair ahead where it takes the
+    # shape, the L2 kernel's recording entry elsewhere
+    (3840, 128, "accum", {}, TMA_REC), (1024, 64, "accum", {}, TMA_REC),
+    (256, 64, "accum", {}, TMA_REC), (224, 32, "accum", {}, TMA_REC),
+    (201, 8, "accum", {}, L2_REC), (150, 6, "accum", {}, L2_REC),
+    (130, 128, "accum", {}, L2_REC), (640, 160, "accum", {}, L2_REC),
+    # the oracle entries: the L2 kernel at every shape
+    (3840, 128, "l2", {}, L2), (201, 8, "l2", {}, L2),
+    (1024, 64, "accum_l2", {}, L2_REC), (150, 6, "accum_l2", {}, L2_REC),
 ])
-def test_staged_design_by_shape(n, b, flags, want):
-    # shapes the TMA design does not take go to the sequential kernel; the
-    # first design runs only when asked for
-    assert band_chase.staged_design(torch.zeros((n, n)), b, **flags) == want
+def test_staged_design_by_shape(launched, n, b, entry, flags, want):
+    # the kernel and lookahead an entry with its flags launches for A's
+    # shape, decided before launch
+    ENTRIES[entry](torch.zeros((n, n)), band=b, **flags)
+    assert launched == [want]
 
 
 def test_staged_design_argument(rng):
+    # khops below 1 is refused on every route; on the CPU every entry and
+    # flag runs the plain sequential chase
     A = _band(rng, 40, 8)
-    with pytest.raises(ValueError, match="_design"):
-        band_chase.band_to_bidiagonal(A, band=8, pipelined=True, _design="v2")
-    with pytest.raises(ValueError, match="TMA"):
-        band_chase.staged_design(torch.zeros((41, 41)), 8, pipelined=True, _design="tma")
-    want = two_stage.band_to_bidiagonal(A, band=8)
-    for design in ("tma", "v1", None):
-        got = band_chase.band_to_bidiagonal(A, band=8, pipelined=True, _design=design)
-        for g, w in zip(got, want):
-            assert torch.equal(g, w)
+    for flags in ({}, {"pipelined": True}, {"mega": True}, {"wavefront": True}):
+        with pytest.raises(ValueError, match="khops"):
+            band_chase.band_to_bidiagonal(A, band=8, khops=0, **flags)
+    want = two_stage.band_to_bidiagonal_accum(A, band=8)
+    for flags in ({}, {"pipelined": True}, {"mega": True, "khops": 5}):
+        got = band_chase.band_to_bidiagonal(A, band=8, **flags)
+        assert all(torch.equal(g, w) for g, w in zip(got, want[:2]))
+    assert all(torch.equal(g, w) for g, w in zip(band_chase.band_to_bidiagonal_l2(A, band=8),
+                                                  want[:2]))
+    for fn in (band_chase.band_to_bidiagonal_accum, band_chase.band_to_bidiagonal_accum_l2):
+        assert all(torch.equal(g, w) for g, w in zip(fn(A, band=8), want))
+    with pytest.raises(ValueError, match="n >= 2"):
+        band_chase.band_to_bidiagonal_accum(torch.ones((1, 1)), band=4)

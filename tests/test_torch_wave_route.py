@@ -140,10 +140,18 @@ def test_cluster_plan_past_the_old_cap(m):
     assert plan.ld % 32 == plan.groups % 32 and plan.smem <= _build.MAX_SMEM
 
 
-# (n, band) -> routed to the wavefront: the tables of the predicates'
-# docstrings, measured on the card
-ROUTES = {(256, 64): False, (1024, 64): True, (2048, 128): True,
-          (3840, 128): True, (7680, 128): True}
+# (n, band) -> routed to the wavefront: the table of wave_lanes_needed's
+# docstring, measured on the card (the sequential chase on its staged TMA
+# design): the main-path shapes of the route table and the lane counts on
+# either side of the boundary at every band measured
+ROUTES = {(1024, 64): True, (2048, 128): True, (3840, 128): True, (7680, 128): True,
+          (256, 64): False, (384, 64): False, (512, 64): False, (224, 32): False,
+          (256, 32): False, (640, 64): False, (704, 64): True, (1024, 128): True,
+          (32, 4): False, (44, 4): True, (80, 8): False, (88, 8): True, (96, 12): False,
+          (132, 12): True, (160, 16): False, (176, 16): True, (192, 24): False,
+          (264, 24): True, (320, 32): False, (352, 32): True, (416, 32): True,
+          (384, 48): False, (528, 48): True, (560, 80): True, (480, 96): True,
+          (768, 96): True, (784, 112): True, (896, 128): False}
 
 
 @pytest.mark.parametrize("pred", [band_chase_wave.wave_chase_preferred,
@@ -151,12 +159,29 @@ ROUTES = {(256, 64): False, (1024, 64): True, (2048, 128): True,
 def test_predicates_match_their_tables(pred):
     for (n, b), wave in ROUTES.items():
         assert pred(n, b) is wave, (n, b)
-        doc_row = f"{n} / {b}"
-        assert doc_row in pred.__doc__
+        doc_row = f"{n} / {b} "
+        assert doc_row in band_chase_wave.wave_lanes_needed.__doc__, doc_row
     for n in range(2, 600, 7):
-        for b in (8, 32, 64, 128):
+        for b in (8, 32, 64, 96, 128):
             assert isinstance(pred(n, b), bool)
-            assert pred(n, b) == (two_stage.wave_lanes(n, b) >= 2)
+            # where both chases stage their windows by TMA (n a multiple of
+            # 4): four lanes up to b = 64, three at 128, two between; two
+            # lanes elsewhere
+            need = (4 if b <= 64 else 3 if b == 128 else 2) if n % 4 == 0 else 2
+            assert pred(n, b) == (two_stage.wave_lanes(n, b) >= need)
+    for n, b in ((200, 6), (640, 160), (201, 8)):  # the L2 kernels of both chases
+        assert band_chase_wave.wave_lanes_needed(n, b) == 2
+
+
+def test_main_paths_switch_at_641():
+    # the main paths' bands (band by size, n padded to a multiple of it):
+    # the sequential chase up to n = 640, the wavefront from 641 on
+    for n in range(2, 2600):
+        b = _auto_block(n)
+        padded = -(-n // b) * b
+        for pred in (band_chase_wave.wave_chase_preferred,
+                     band_chase_wave.wave_chase_accum_preferred):
+            assert pred(padded, b) is (n > 640), (n, padded, b)
 
 
 @pytest.fixture
@@ -180,13 +205,15 @@ def routed(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize("n,wave", [(200, True), (64, False)])
-def test_main_paths_follow_the_predicates(rng, routed, n, wave):
-    # n = 200: band 32, padded to 224, two lanes; n = 64: one lane
+@pytest.mark.parametrize("n,band,wave", [(200, None, False), (200, 16, True),
+                                         (64, None, False)])
+def test_main_paths_follow_the_predicates(rng, routed, n, band, wave):
+    # n = 200: band 32, padded to 224, two lanes: the sequential chase;
+    # band 16 (padded to 208): four lanes, the wavefront; n = 64: one lane
     A = torch.from_numpy(rng.uniform(0, 5, (n, n)).astype(np.float32))
     want = np.linalg.svd(to_numpy(A).astype(np.float64), compute_uv=False)
-    s = svd_mod.svdvals(A)
-    U, s2, Vh = vectors.svd(A)
+    s = svd_mod.svdvals(A, block=band)
+    U, s2, Vh = vectors.svd(A, band=band)
     assert routed == (["band_to_bidiagonal_wave", "band_to_bidiagonal_wave_accum"] if wave
                       else ["band_to_bidiagonal", "band_to_bidiagonal_accum"])
     for got in (s, s2):

@@ -3,23 +3,22 @@
 
 Run from the repository root: ``python3 tools/chase_split.py``.  It copies
 ``csrc/band_chase_staged.cu`` and ``csrc/band_chase_wave.cu`` into
-``build/chase_split/`` with switches that skip parts of the work, builds the
-copies with the package's nvcc flags, and times each on the Stage I kernel's
-band of a uniform [0, 5) matrix (CUDA events, median of 3) at n = 1024
-(b = 64) and 3840 (b = 128):
+``build/chase_split/`` with the phase marks defined (and, for the
+wavefront, a switch that skips every pair), builds the copies with the
+package's nvcc flags, and times each on the Stage I kernel's band of a
+uniform [0, 5) matrix (CUDA events, median of 3) at n = 1024 (b = 64) and
+3840 (b = 128), beside the L2 kernel of the sequential chase:
 
-* staged kernel, first design (khops = 1, plain copies between block
-  barriers): in full, without the tile copies, without the pairs on the
-  tiles, the head pairs alone, the tile copies alone, and the loop with no
-  work;
 * staged kernel, TMA design (khops = 1, and the largest lookahead that fits
-  at b = 64): in full, and a per-phase split of the chase pairs and heads:
+  at b = 64), plain and recording entries (the two in turns): in full, and
+  a per-phase split of the chase pairs and heads:
   thread 0 stamps ``clock64()`` at the ``SVDT_SPLIT`` marks (the A tile
   landed, each reflector and apply, the C tile landed, the pair's end), the
   copying thread at ``SVDT_SPLIT_COPY`` (before and after it waits for the
   stores in flight to land, after it issues a C load and A's store, before
-  and after it waits for A's store to read its slot), a pair a row; and
-  the TMA design with the full ``fence.proxy.async`` where it fences shared
+  and after it waits for A's store to read its slot), a pair a row (the
+  records' stores land in the reflector phases); and the TMA design, plain,
+  with the full ``fence.proxy.async`` where it fences shared
   memory alone (``fence.proxy.async.shared::cta``), the cheaper fence's
   gain, and without the copying thread's device-memory fence
   (``fence.proxy.async.global``) after each wait for the stores to land,
@@ -31,8 +30,9 @@ band of a uniform [0, 5) matrix (CUDA events, median of 3) at n = 1024
   in the package's builds) into a device buffer, a tick a row, and the
   global timer at each tick's start turns cycles into microseconds.
 
-A run with skipped work computes a wrong (d, e); only the full runs are
-held bit-equal to the chase kernel.  The shipped kernels are not changed.
+A wavefront run with skipped work computes a wrong (d, e); every other run
+is held bit-equal to the L2 kernel's (d, e) and records.  The shipped
+kernels are not changed.
 """
 
 import ctypes
@@ -52,10 +52,6 @@ from svdsolver_tpu_torch.ops.cuda import _build, band_chase, panel_qr  # noqa: E
 
 OUT = ROOT / "build" / "chase_split"
 SHAPES = ((1024, 64), (3840, 128))
-STAGED_MODES = (  # first design; bit 1: skip tile copies, 2: skip tile pairs, 4: skip heads
-    (0, "full"), (1, "no tile copies"), (2, "no tile pairs"),
-    (3, "head pairs only"), (6, "tile copies only"), (7, "empty loop"),
-)
 
 
 def patch(text, old, new, count=1):
@@ -65,21 +61,8 @@ def patch(text, old, new, count=1):
 
 
 def staged_source():
-    """band_chase_staged.cu with the phase marks defined, and the first
-    design's switches (``mode``) that skip parts of its work."""
-    s = (_build.CSRC / "band_chase_staged.cu").read_text()
-    s = patch(s, "int n, int b, int K) {", "int n, int b, int K, int mode) {")
-    s = patch(s, "    chase_pair<KPL, false>(dense,", "    if (!(mode & 4)) chase_pair<KPL, false>(dense,")
-    s = patch(s, "        chase_pair<KPL, false>(acc,", "        if (!(mode & 2)) chase_pair<KPL, false>(acc,")
-    s = s.replace("    tile_io<true>(", "    if (!(mode & 1)) tile_io<true>(")
-    s = s.replace("    tile_io<false>(", "    if (!(mode & 1)) tile_io<false>(")
-    s = patch(s, "               cudaStream_t s) {", "               cudaStream_t s, int mode) {")
-    s = patch(s, "(A, d, e, n, b, K);", "(A, d, e, n, b, K, mode);")
-    s = patch(s, "int v1, void* stream) {", "int v1, int mode, void* stream) {")
-    s = patch(s, "launch_v1<1>(A, d, e, n, b, khops, s);", "launch_v1<1>(A, d, e, n, b, khops, s, mode);")
-    s = patch(s, "launch_v1<2>(A, d, e, n, b, khops, s);", "launch_v1<2>(A, d, e, n, b, khops, s, mode);")
-    s = patch(s, "launch_v1<4>(A, d, e, n, b, khops, s);", "launch_v1<4>(A, d, e, n, b, khops, s, mode);")
-    return SPLIT_PRELUDE + s + SPLIT_SETTER
+    """band_chase_staged.cu with the phase marks defined."""
+    return SPLIT_PRELUDE + (_build.CSRC / "band_chase_staged.cu").read_text() + SPLIT_SETTER
 
 
 # Phase marks of one CTA, a row of ROW stamps a tick (wavefront) or a pair
@@ -234,12 +217,13 @@ def main():
         return 2
     V, I = ctypes.c_void_p, ctypes.c_int
     staged = build("staged", staged_source())
-    staged.svdt_band_chase_staged.argtypes = [V, V, V, I, I, I, I, I, V]
+    staged.svdt_band_chase_staged.argtypes = [V, V, V, I, I, I, V]
+    staged.svdt_band_chase_staged_rec.argtypes = [V, V, V, I, I, V, V, V, V, I, I, V]
     staged.svdt_split_set.argtypes = [V, I, I]
     full_fence = build("staged_full_fence", staged_source(), full_fence_header())
-    full_fence.svdt_band_chase_staged.argtypes = [V, V, V, I, I, I, I, I, V]
+    full_fence.svdt_band_chase_staged.argtypes = [V, V, V, I, I, I, V]
     no_fence = build("staged_no_global_fence", no_global_fence_source())
-    no_fence.svdt_band_chase_staged.argtypes = [V, V, V, I, I, I, I, I, V]
+    no_fence.svdt_band_chase_staged.argtypes = [V, V, V, I, I, I, V]
     wave = build("wave", wave_source())
     wave.svdt_band_chase_wave.argtypes = [V, V, V, I, I, V, I, V, V]
     wave.svdt_band_chase_wave_smem.argtypes = [V, V, V, I, I, V, I, V, I, V]
@@ -248,55 +232,66 @@ def main():
     for n, b in SHAPES:
         a = np.random.default_rng(0).uniform(0, 5, (n, n)).astype(np.float32)
         Ab = panel_qr.dense_to_band_fused(torch.from_numpy(a).cuda(), band=b)
-        want = band_chase.band_to_bidiagonal(Ab, band=b)
-        print(f"[split] chase kernel n={n} b={b}: "
-              f"{median_ms(lambda: band_chase.band_to_bidiagonal(Ab, band=b)):.3f} ms", flush=True)
+        want = band_chase.band_to_bidiagonal_l2(Ab, band=b)
+        want_rec = band_chase.band_to_bidiagonal_accum_l2(Ab, band=b)
+        l2_ms = median_ms(lambda: band_chase.band_to_bidiagonal_l2(Ab, band=b))
+        l2_rec_ms = median_ms(lambda: band_chase.band_to_bidiagonal_accum_l2(Ab, band=b))
+        print(f"[split] L2 kernel n={n} b={b}: plain {l2_ms:.3f} ms, recording "
+              f"{l2_rec_ms:.3f} ms", flush=True)
         out = {}
 
-        def run_staged(mode, v1=1, K=1, lib=staged):
+        def run_staged(K=1, lib=staged, record=False):
             W = Ab.clone()
             d, e = torch.empty(n, device="cuda"), torch.empty(n - 1, device="cuda")
-            err = lib.svdt_band_chase_staged(W.data_ptr(), d.data_ptr(), e.data_ptr(),
-                                             n, b, K, v1, mode, stream())
+            recs = [torch.zeros_like(t) for t in want_rec[2:]] if record else []
+            if record:
+                err = lib.svdt_band_chase_staged_rec(W.data_ptr(), d.data_ptr(), e.data_ptr(),
+                                                     n, b, *(t.data_ptr() for t in recs),
+                                                     recs[0].shape[1], K, stream())
+            else:
+                err = lib.svdt_band_chase_staged(W.data_ptr(), d.data_ptr(), e.data_ptr(),
+                                                 n, b, K, stream())
             if err:
                 raise RuntimeError(f"staged launch failed: {err}")
-            out["de"] = (d, e)
+            out["de"] = (d, e, *recs)
 
-        for mode, label in STAGED_MODES:
-            ms = median_ms(lambda: run_staged(mode))
-            note = ""
-            if mode == 0:
-                same = all(torch.equal(x, y) for x, y in zip(out["de"], want))
-                if not same:
-                    raise RuntimeError("staged copy not bit-equal to the chase kernel")
-                note = ", (d, e) bit-equal to the chase kernel"
-            print(f"[split] staged n={n} b={b} khops=1 first design {label}: {ms:.3f} ms{note}",
-                  flush=True)
+        def same(record=False):
+            return all(torch.equal(x, y) for x, y in zip(out["de"], want_rec if record else want))
 
         rows = (n - 1) + sum(staged_pairs(i, n, b) for i in range(n - 1))
         for K in sorted({1, band_chase.staged_khops(b, 99)}):
-            staged.svdt_split_set(None, 0, 0)
-            ms = median_ms(lambda: run_staged(0, v1=0, K=K))
-            if not all(torch.equal(x, y) for x, y in zip(out["de"], want)):
-                raise RuntimeError(f"staged TMA K={K} not bit-equal to the chase kernel")
-            stamps = torch.zeros((rows, ROW), dtype=torch.int64, device="cuda")
-            staged.svdt_split_set(stamps.data_ptr(), 0, 0)
-            run_staged(0, v1=0, K=K)
-            torch.cuda.synchronize()
-            staged.svdt_split_set(None, 0, 0)
-            split, pair, npairs, head, nheads, mhz = staged_split(stamps.cpu().numpy())
-            print(f"[split] staged TMA n={n} b={b} K={K}: {ms:.3f} ms, (d, e) bit-equal to "
-                  f"the chase kernel; {npairs} chase pairs of {pair:.2f} us, {nheads} heads "
-                  f"of {head:.2f} us at {mhz:.0f} MHz: "
-                  + ", ".join(f"{k} {v:.2f}" for k, v in split.items()) + " (us)", flush=True)
-            pkg = median_ms(lambda: run_staged(0, v1=0, K=K))
-            ff = median_ms(lambda: run_staged(0, v1=0, K=K, lib=full_fence))
-            same = all(torch.equal(x, y) for x, y in zip(out["de"], want))
-            nf = median_ms(lambda: run_staged(0, v1=0, K=K, lib=no_fence))
-            same_nf = all(torch.equal(x, y) for x, y in zip(out["de"], want))
-            pkg2 = median_ms(lambda: run_staged(0, v1=0, K=K))
+            first = {}
+            for record in (False, True):
+                entry = "recording" if record else "plain"
+                staged.svdt_split_set(None, 0, 0)
+                first[record] = median_ms(lambda: run_staged(K, record=record))
+                if not same(record):
+                    raise RuntimeError(f"staged TMA K={K} {entry} not bit-equal to the L2 kernel")
+                stamps = torch.zeros((rows, ROW), dtype=torch.int64, device="cuda")
+                staged.svdt_split_set(stamps.data_ptr(), 0, 0)
+                run_staged(K, record=record)
+                torch.cuda.synchronize()
+                staged.svdt_split_set(None, 0, 0)
+                split, pair, npairs, head, nheads, mhz = staged_split(stamps.cpu().numpy())
+                print(f"[split] staged TMA {entry} n={n} b={b} K={K}: {first[record]:.3f} ms, "
+                      f"{'(d, e) and records' if record else '(d, e)'} bit-equal to the L2 "
+                      f"kernel's; {npairs} chase pairs of {pair:.2f} us, {nheads} heads of "
+                      f"{head:.2f} us at {mhz:.0f} MHz: "
+                      + ", ".join(f"{k} {v:.2f}" for k, v in split.items()) + " (us)",
+                      flush=True)
+            rec2 = median_ms(lambda: run_staged(K, record=True))
+            plain2 = median_ms(lambda: run_staged(K))
+            print(f"[split] staged TMA n={n} b={b} K={K} in turns (plain, recording, "
+                  f"recording, plain; stamps off): plain {first[False]:.3f} / {plain2:.3f} ms, "
+                  f"recording {first[True]:.3f} / {rec2:.3f} ms", flush=True)
+            pkg = median_ms(lambda: run_staged(K))
+            ff = median_ms(lambda: run_staged(K, lib=full_fence))
+            same_ff = same()
+            nf = median_ms(lambda: run_staged(K, lib=no_fence))
+            same_nf = same()
+            pkg2 = median_ms(lambda: run_staged(K))
             print(f"[split] staged TMA n={n} b={b} K={K} with full proxy fences: {ff:.3f} ms "
-                  f"((d, e) {'bit-equal' if same else 'NOT bit-equal'}), in turns with the "
+                  f"((d, e) {'bit-equal' if same_ff else 'NOT bit-equal'}), in turns with the "
                   f"package's shared-memory fences {pkg:.3f} / {pkg2:.3f} ms", flush=True)
             print(f"[split] staged TMA n={n} b={b} K={K} without the device-memory fences "
                   f"after the drains: {nf:.3f} ms ((d, e) "
@@ -323,7 +318,7 @@ def main():
             wave.svdt_split_set(None, 1, 0)
             ms = median_ms(lambda: run_wave(tick))
             if not all(torch.equal(x, y) for x, y in zip(out["de"], want)):
-                raise RuntimeError(f"wave {tick} tick copy not bit-equal to the chase kernel")
+                raise RuntimeError(f"wave {tick} tick copy not bit-equal to the L2 kernel")
             wave.svdt_split_set(None, 1, 1)
             bar_ms = median_ms(lambda: run_wave(tick))
             stamps = torch.zeros((T, ROW), dtype=torch.int64, device="cuda")
@@ -333,7 +328,7 @@ def main():
             wave.svdt_split_set(None, 1, 0)
             split, per_tick, ran, mhz = phase_split(stamps.cpu().numpy())
             print(f"[split] wave {tick} tick n={n} b={b}: {ms:.3f} ms on {out['ctas']} CTAs "
-                  f"({T} ticks, {ms / T * 1e3:.2f} us a tick), (d, e) bit-equal to the chase "
+                  f"({T} ticks, {ms / T * 1e3:.2f} us a tick), (d, e) bit-equal to the L2 "
                   f"kernel; grid barriers only {bar_ms:.3f} ms", flush=True)
             print(f"[split] wave {tick} tick n={n} b={b}, CTA 1 (lane 1), {ran} ticks with a pair, "
                   f"{per_tick:.2f} us a tick at {mhz:.0f} MHz: "
