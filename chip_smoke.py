@@ -9,8 +9,9 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    cluster), the sequential chase's L2 kernel (plain and recording
    entries), the bisection, the TGK solve, the wavefront chase (plain,
    recording, and with deferred left applies), the staged chase (the
-   sequential chase's TMA design, plain and recording) and the packed
-   chase;
+   sequential chase's TMA design, plain and recording, and the packed
+   chase's: the same kernel on a band store) and the packed chase's L2
+   kernel;
 3. holds each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it: the panel QR at (b, m, r_off) = (128,
    3840, 0), (128, 3840, 3776) (identity reflectors past m), (64, 1024, 0)
@@ -29,7 +30,12 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    variant against its plain version at 1024; each variant's sigma through
    the bisection kernel at 3840 against float64; the wavefront kernel's
    L2 tick (forced at b = 64, taken at b = 160 by both entries) bit-equal
-   to the L2 kernels too;
+   to the L2 kernels too; the packed chase (K12) on its route, the TMA
+   design on the band store at 1024 (b = 64), 3840 (b = 128) and the
+   VMEM_ODD shapes (n not a multiple of 4, odd, and below one box), the
+   L2 packed kernel at 96 (b = 6) and launched directly at 1024 and 3840,
+   each bit-equal to the L2 kernel, and its peak
+   device memory beyond A at most the store, d, e and 1 MB;
 4. drives the two main paths, with every launch count set to 0 just before
    each call and read just after: ``svdvals`` on a uniform [0, 5) float32
    matrix at n = 3840, 1000, 7680, 500 and 256 (sigma against float64
@@ -51,8 +57,9 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    bound, the sequential chase's staged TMA design in turns with the L2
    kernel, plain and recording, at 1024 (b = 64; also K = 3 and the
    largest that fits, 5) and 3840 (b = 128, K = 1) with its schedule
-   bound (its copy bytes over that copy rate), and computes each kernel's
-   bound from its shapes;
+   bound (its copy bytes over that copy rate), the packed chase's TMA
+   design in turns with its L2 packed kernel at 1024 and 3840 with the
+   same schedule bound, and computes each kernel's bound from its shapes;
 6. profiles one ``svdvals`` and one ``svd`` call and one wavefront chase at
    n = 3840: device time by kernel and the card's busy share;
 7. holds the redesigned kernels to their first designs: the bisection tree
@@ -96,10 +103,12 @@ REPS = 5
 SVD_REPS = 3
 SOURCES = ("panel_qr", "band_chase", "bisect", "tridiag_solve",
            "band_chase_wave", "band_chase_staged", "band_chase_vmem")
+# the variants' entries, counted by the kernel that ran: the packed chase
+# runs "band_chase_vmem_tma" (the TMA design on the band store) at every
+# band of these checks; "band_chase_vmem", its L2 packed kernel, takes the
+# bands the copy engine does not (VMEM_OFF)
 VARIANTS = ("band_chase_wave", "band_chase_wave_dl", "band_chase_staged",
-            "band_chase_vmem")
-KERNELS = ("panel_qr", "band_chase", "band_chase_rec", "bisect",
-           "tridiag_solve") + VARIANTS + ("band_chase_wave_rec", "band_chase_staged_rec")
+            "band_chase_vmem_tma")
 SVD_PATH = ("panel_qr", "bisect", "tridiag_solve")  # and the routed chase
 # the chase entries count by the kernel that ran: the sequential chase's
 # "band_chase_staged(_rec)" the staged TMA design, "band_chase(_rec)" the L2
@@ -158,6 +167,12 @@ SEQ_CHECK = ((256, 64, 1), (1024, 64, 1), (3840, 128, 1), (1024, 64, 5))
 VAR_CHECK = (1024, 64, 3)
 VAR_PATH = (3840, 128, 4)
 VAR_CTAS = (2048, 32, 4)
+# the packed chase's TMA design at n that are not multiples of 4 (2 mod 4,
+# odd) and at n narrower than one box (n < band + 4, every box clipped),
+# and a band off the copy engine (the L2 packed kernel): (n, band)
+VMEM_ODD = ((1002, 64), (1001, 64), (1003, 128), (130, 128), (37, 4), (5, 4))
+VMEM_OFF = (96, 6)
+VMEM_SLACK = 2**20  # peak device memory beyond A, store, d and e: at most 1 MB
 # published H100 SXM peaks (NVIDIA's data sheet, 700 W): float32 outside
 # the tensor cores, and HBM3
 PEAK_FP32 = 67e12
@@ -250,7 +265,8 @@ def _counters():
             "band_chase_wave_rec_l2": (band_chase_wave, "launches_rec_l2"),
             "band_chase_staged": (band_chase, "launches_staged"),
             "band_chase_staged_rec": (band_chase, "launches_staged_rec"),
-            "band_chase_vmem": (band_chase_vmem, "launches")}
+            "band_chase_vmem": (band_chase_vmem, "launches"),
+            "band_chase_vmem_tma": (band_chase_vmem, "launches_tma")}
 
 
 def reset_counts():
@@ -671,7 +687,7 @@ def variant_calls(b, khops):
         f"mega=True khops={khops}": (
             "band_chase_staged",
             lambda A: band_chase.band_to_bidiagonal(A, band=b, mega=True, khops=khops)),
-        "vmem": ("band_chase_vmem",
+        "vmem": ("band_chase_vmem_tma",
                  lambda A: band_chase_vmem.band_to_bidiagonal_vmem(A, band=b)),
     }
 
@@ -724,8 +740,9 @@ def phase_variants(band_state):
             require_bit_equal(f"{name} {label}", outs[name], want)
         for k in VARIANTS:
             require(counts[k] >= 1, f"{k} not launched at {label}")
-        require(counts["band_chase"] == 0 and counts["band_chase_rec"] == 0,
-                f"a variant took the L2 kernel at {label}")
+        require(counts["band_chase"] == 0 and counts["band_chase_rec"] == 0
+                and counts["band_chase_vmem"] == 0,
+                f"a variant took an L2 kernel at {label}")
         say(f"[variants] {label}: {', '.join(calls)}: (d, e) bit-equal to band_chase")
         return outs, counts
 
@@ -740,7 +757,7 @@ def phase_variants(band_state):
     plains = {
         "band_chase_wave": ("wave", band_chase_wave.band_to_bidiagonal_wave_plain),
         "band_chase_wave_dl": ("wave_dl", band_chase_wave.band_to_bidiagonal_wave_dl_plain),
-        "band_chase_vmem": ("vmem", band_chase_vmem.band_to_bidiagonal_vmem_plain),
+        "band_chase_vmem_tma": ("vmem", band_chase_vmem.band_to_bidiagonal_vmem_plain),
     }
     errs, plain_ms = {}, {}
     for k, (name, plain) in plains.items():
@@ -756,6 +773,7 @@ def phase_variants(band_state):
             f"(one run), (d, e) {'bit-equal' if same else 'not bit-equal'} to "
             "the plain chase's")
         plains[k] = (name, (dp, ep))
+    plain_ms["band_chase_vmem"] = plain_ms["band_chase_vmem_tma"]  # one plain version
     plains["band_chase_staged"] = ("pipelined=True", (dp1, ep1))  # its plain version
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -847,6 +865,8 @@ def phase_variants(band_state):
     check_wave_rec(f"n={n} b={b}", Ab3, b)
     require(band_chase.last_khops == band_chase.staged_khops(b, khops),
             f"mega khops={khops} at b={b} runs the largest window that fits")
+    errs["band_chase_vmem"], off_counts = check_vmem(Ab1, b1, plains["band_chase_vmem_tma"][1],
+                                                     Ab3, b, want3)
     s_ref = torch.linalg.svdvals(A.double())
     for name, (d, e) in outs3.items():
         s = bisect.bisect_svdvals(d, e)
@@ -865,7 +885,8 @@ def phase_variants(band_state):
             A, band=b, _tick="l2"),
         "band_chase_wave_dl": lambda A, b: band_chase_wave.band_to_bidiagonal_wave_dl(A, band=b),
         "band_chase_staged": lambda A, b: band_chase.band_to_bidiagonal(A, band=b, pipelined=True),
-        "band_chase_vmem": lambda A, b: band_chase_vmem.band_to_bidiagonal_vmem(A, band=b),
+        "band_chase_vmem_tma": lambda A, b: band_chase_vmem.band_to_bidiagonal_vmem(A, band=b),
+        "band_chase_vmem": lambda A, b: band_chase_vmem._launch(A, b, "packed"),
     }
     times = {}
     for label, Ab_, n_, b_ in (("path", Ab3, n, b), ("check", Ab1, n1, b1)):
@@ -880,7 +901,67 @@ def phase_variants(band_state):
                   lambda: band_chase_wave.band_to_bidiagonal_wave(Ab3, band=b))
     del Ab3, A
     torch.cuda.empty_cache()
-    return counts, errs, plain_ms, times
+    return counts, errs, plain_ms, times, off_counts
+
+
+def check_vmem(Ab1, b1, plain1, Ab3, b3, want3):
+    """The packed chase (K12) beyond the variants' drives: the TMA design
+    on the band store at each VMEM_ODD shape and the L2 packed kernel on
+    its route (VMEM_OFF), counts set to 0 just before and read just after
+    each, and the L2 packed kernel launched directly at the check band and
+    the path's (``want3``: the L2 kernel's (d, e) there), each bit-equal to
+    the L2 kernel; the peak device
+    memory of a call beyond its input at the check band and the path's
+    (the store, d, e and at most VMEM_SLACK).  Returns the L2 packed
+    kernel's spectrum difference from the plain version at the check band
+    and the launch counts of its route's run."""
+    from svdsolver_tpu_torch.ops.chase_schedule import store_floats
+    from svdsolver_tpu_torch.ops.cuda import band_chase, band_chase_vmem
+
+    def band(n, b, seed):
+        g = np.random.default_rng(seed).normal(size=(n, n)).astype(np.float32)
+        return torch.triu(torch.tril(torch.from_numpy(g).to(DEV), b)).contiguous()
+
+    for (n, b), kernel in ([(nb, "band_chase_vmem_tma") for nb in VMEM_ODD]
+                           + [(VMEM_OFF, "band_chase_vmem")]):
+        Ab = band(n, b, seed=4)
+        want = band_chase.band_to_bidiagonal_l2(Ab, band=b)
+        torch.cuda.synchronize()
+        reset_counts()
+        got = band_chase_vmem.band_to_bidiagonal_vmem(Ab, band=b)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        require(counts[kernel] == 1 and sum(counts.values()) == 1,
+                f"the packed chase at n={n} b={b} runs {kernel} alone: {counts}")
+        require_bit_equal(f"vmem n={n} b={b} ({kernel})", got, want)
+        say(f"[variants] vmem n={n} b={b}: route {band_chase_vmem.vmem_route(Ab, b)}, "
+            f"launches {counts}; (d, e) bit-equal to band_chase")
+        if kernel == "band_chase_vmem":
+            off = counts
+    for Ab, b, want in ((Ab3, b3, want3),
+                        (Ab1, b1, band_chase.band_to_bidiagonal_l2(Ab1, band=b1))):
+        got = band_chase_vmem._launch(Ab, b, "packed")
+        require_bit_equal(f"vmem n={Ab.shape[0]} b={b} (L2 packed kernel, launched directly)",
+                          got, want)
+        say(f"[variants] vmem n={Ab.shape[0]} b={b}: the L2 packed kernel, launched directly, "
+            "bit-equal to band_chase")
+    err = float((bidiag_sigma(*got) - bidiag_sigma(*plain1)).abs().max())
+    say(f"[variants] vmem n={Ab1.shape[0]} b={b1}: the L2 packed kernel's spectrum vs the "
+        f"plain version {err:.3e}")
+    for Ab, b in ((Ab1, b1), (Ab3, b3)):
+        n = Ab.shape[0]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        band_chase_vmem.band_to_bidiagonal_vmem(Ab, band=b)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        store = 4 * store_floats(n, b)
+        say(f"[variants] vmem n={n} b={b}: peak device memory beyond A {peak} bytes "
+            f"(store {store}, d and e {4 * (2 * n - 1)}, slack {VMEM_SLACK})")
+        require(peak <= store + 4 * (2 * n - 1) + VMEM_SLACK,
+                f"the packed chase at n={n} b={b} holds no more than its store, d and e")
+    return err, off
 
 
 def require_route(label, counts, record):
@@ -893,7 +974,7 @@ def require_route(label, counts, record):
             require(counts[k] == 1, f"{k} launched once at n={n} b={b}")
         else:
             require(counts[k] == 0, f"{k} launched at n={n} b={b}, the route is {chase}")
-    for k in VARIANTS:
+    for k in VARIANTS + ("band_chase_vmem",):
         if k != chase:
             require(counts[k] == 0, f"{k} launched at n={n} b={b}")
     return chase
@@ -1553,6 +1634,7 @@ TPU_KERNELS = {
     "bisect": ["K2"], "tridiag_solve": ["K9", "K10"],
     "band_chase_wave": ["K4", "K5", "K13"], "band_chase_wave_dl": ["K11"],
     "band_chase_staged": ["K3", "K5", "K14", "K15"], "band_chase_vmem": ["K12"],
+    "band_chase_vmem_tma": ["K12"],
     "band_chase_staged_rec": ["K6", "K8"],
     "band_chase_wave_rec": ["K7", "K8"], "band_chase_wave_l2": ["K4", "K13"],
     "band_chase_wave_rec_l2": ["K7"],
@@ -1570,10 +1652,9 @@ SEQ_KERNEL = {
 
 def kernel_table(errs, counts_vals, counts_svd, kt, lib, variants, route, k1, ticks,
                  designs, staged):
-    from svdsolver_tpu_torch.models import two_stage
     from svdsolver_tpu_torch.models.diagonalize import default_bisect_iters
 
-    counts_var, errs_var, plain_var, times_var = variants
+    counts_var, errs_var, plain_var, times_var, vmem_off = variants
     k2_ms, tgk_ms = designs
     tick_ms, sched, rate = ticks
     src = "svdsolver_tpu_torch/csrc/{}.cu"
@@ -1645,7 +1726,7 @@ def kernel_table(errs, counts_vals, counts_svd, kt, lib, variants, route, k1, ti
         say(f"[bound] {k} at the path's n=3840: {w[0]:.4g} flops, {w[1]:.4g} "
             f"bytes -> {b_ms:.4f} ms, bound by {b_by}")
 
-    # the chase variants: the chase's work; the packed kernel also writes P
+    # the chase variants: the chase's work
     replaces.update({
         "band_chase_wave": "svdsolver_tpu/ops/pallas/band_chase.py:676 "
                            "+ band_chase_wave.py:687",
@@ -1653,22 +1734,21 @@ def kernel_table(errs, counts_vals, counts_svd, kt, lib, variants, route, k1, ti
         "band_chase_staged": "svdsolver_tpu/ops/pallas/band_chase.py:331 "
                              "+ band_chase.py:405 + band_chase.py:541 "
                              "+ band_chase_stream.py:118",
-        "band_chase_vmem": "svdsolver_tpu/ops/pallas/band_chase_vmem.py:180",
+        "band_chase_vmem_tma": "svdsolver_tpu/ops/pallas/band_chase_vmem.py:180",
     })
     (n1, b1, _), (n3, b3, _) = VAR_CHECK, VAR_PATH
     for k in VARIANTS:
         bounds = {}
         for label, n, b in (("check", n1, b1), ("path", n3, b3)):
             flops, nbytes = work_chase(n, b, record=False)
-            if k == "band_chase_vmem":
-                nbytes += 4 * two_stage.packed_rows(n, b) * two_stage.PACK_WIDTH
             bounds[label] = bound(flops, nbytes)
             say(f"[bound] {k} (n={n} b={b}): {flops:.4g} flops, {nbytes:.4g} "
                 f"bytes -> {bounds[label][0]:.4f} ms, bound by {bounds[label][1]}")
         on_path = k in ("band_chase_wave", "band_chase_staged")
         rows.append({
             "name": k, "route": "cuda",
-            "source": src.format("band_chase_wave" if k == "band_chase_wave_dl" else k),
+            "source": src.format({"band_chase_wave_dl": "band_chase_wave",
+                                  "band_chase_vmem_tma": "band_chase_staged"}.get(k, k)),
             "replaces": replaces[k],
             "launches": (sum(c[k] for c in counts_vals.values()) if on_path
                          else counts_var[k]),
@@ -1684,11 +1764,29 @@ def kernel_table(errs, counts_vals, counts_svd, kt, lib, variants, route, k1, ti
         })
         if k == "band_chase_staged":
             rows[-1].update(staged_keys(staged, rate, record=False))
+        if k == "band_chase_vmem_tma":
+            rows[-1].update(vmem_keys(times_var, rate))
         if on_path:
             rows[-1]["variant_launches"] = counts_var[k]
             rows[-1]["path_launches"] = {n: c[k] for n, c in counts_vals.items()}
         if k == "band_chase_wave":
             rows[-1].update(tick_keys(tick_ms, sched, rate, record=False))
+
+    # the packed chase's L2 kernel: the bands the copy engine does not take
+    # (its launches: the run at VMEM_OFF); ms launched directly at the
+    # check band, in turns with the TMA design
+    k = "band_chase_vmem"
+    b_var = bound(*work_chase(n1, b1, record=False))
+    rows.append({
+        "name": k, "route": "cuda", "source": src.format(k),
+        "replaces": replaces["band_chase_vmem_tma"], "launches": vmem_off[k],
+        "launches_shape": f"n={VMEM_OFF[0]} b={VMEM_OFF[1]}",
+        "max_abs_err": errs_var[k], "ms": times_var[k, "check"], "plain_ms": plain_var[k],
+        "bound_ms": b_var[0], "bound_by": b_var[1], "library_ms": None,
+        "shape": f"n={n1} b={b1}", "path_shape": f"n={n3} b={b3}",
+        "path_ms": times_var[k, "path"],
+        "path_bound_ms": bound(*work_chase(n3, b3, record=False))[0],
+    })
 
     # the staged TMA design's recording entry (svd's sequential chase):
     # ms in turns with the L2 recording kernel (phase_sequential_times)
@@ -1768,6 +1866,26 @@ def staged_keys(staged, rate, record):
             f"n={n} b={b}: {nbytes:.4g} bytes over {rate / 1e6:.2f} GB/s = "
             f"{nbytes / rate:.3f} ms (staged TMA design K=1 {staged[n, b, 1, record][0]:.3f} "
             "ms)")
+    return out
+
+
+def vmem_keys(times_var, rate):
+    """The packed chase's two kernels in turns at the check band and the
+    path's, and the TMA design's schedule bound (its copies are the staged
+    design's: ``chase_schedule.staged_copy_bytes`` over one CTA's copy
+    rate)."""
+    from svdsolver_tpu_torch.ops.chase_schedule import staged_copy_bytes
+
+    out = {"designs_ms": {}, "schedule_bound_ms": {}, "window_copy_gb_s": rate / 1e6}
+    for label, (n, b, _) in (("check", VAR_CHECK), ("path", VAR_PATH)):
+        key = f"n={n} b={b}"
+        out["designs_ms"][key] = {"staged_tma_store": times_var["band_chase_vmem_tma", label],
+                                  "l2_packed": times_var["band_chase_vmem", label]}
+        out["schedule_bound_ms"][key] = staged_copy_bytes(n, b) / rate
+        say(f"[bound] band_chase_vmem_tma schedule {key}: {staged_copy_bytes(n, b):.4g} bytes "
+            f"over {rate / 1e6:.2f} GB/s = {out['schedule_bound_ms'][key]:.3f} ms (TMA design "
+            f"{times_var['band_chase_vmem_tma', label]:.3f} ms, L2 packed kernel "
+            f"{times_var['band_chase_vmem', label]:.3f} ms)")
     return out
 
 

@@ -18,6 +18,26 @@
 // band_chase_stream.py _stream_chase_kernel with rec=True (K8) likewise.
 // Shapes the copy engine does not take run svdt_band_chase(_rec)
 // (band_chase.cu), chosen by shape before launch.
+// svdt_band_chase_vmem_tma runs the same kernel on a band store and
+// replaces
+//   band_chase_vmem.py  _vmem_chase_kernel (K12: the sequential chase on
+//       the band block-packed into VMEM, d and e read out of it).
+// The port keeps its own layout, not the TPU's: the block packing lined up
+// VMEM lanes, and on the card it would cut a b-row tile that crosses a
+// 128-row block into two pieces 128 columns apart, which no one TMA box
+// fetches.  The store is skewed: entry (g, j) at S g + j, S = 3b + 8, for
+// j - g in [-b - 2, 2b + 4], the offsets every box of the schedule touches
+// inside the matrix (chase_schedule.store_range; the tests walk every box).
+// Seen by the copy engine it is the n x n matrix with row pitch S < n
+// (cuTensorMapEncodeTiled accepts a pitch below the row's width, rows
+// overlapping in memory, with CUDA 12.8 on the H100; bounds are checked on
+// coordinates), so one tensor map describes it and the kernel runs
+// unchanged with the pitch where it had n.  Entry
+// (g, j) sits at (S + 1) g + (j - g), and 3b + 7 offsets fit in S + 1, so
+// no two entries a box touches share an address.  The store takes
+// (n - 1) S + n floats (6.0 MB at n = 3840, b = 128, against 59 MB dense),
+// S a multiple of 4 for any n.  A pack kernel (one thread an address)
+// builds it from the dense band first, on the same stream.
 // Schedule and arithmetic: models/two_stage.band_to_bidiagonal, through the
 // one pair of chase_pair.cuh (smem_pair of chase_tma.cuh: the same
 // arithmetic on shared-memory tiles), so (d, e) are bit-equal to
@@ -29,7 +49,8 @@
 // which is what svdt_band_chase_rec leaves there too.
 //
 // Design (staged_tma_kernel, where the copy engine takes the shape:
-// tma_takes, 4 <= b <= 128, b and n multiples of 4): one block of 512
+// tma_takes, 4 <= b <= 128, b and the row pitch multiples of 4; for the
+// dense matrix the pitch is n): one block of 512
 // threads walks the pairs in order.  Chase pair k of sweep i, at (r, c =
 // r + b), touches three b x b tiles, A = (r, c), B = (r + b, c) and C =
 // (r + b, c + b), each copied by TMA in a box of b rows of b + 4 columns
@@ -99,8 +120,8 @@ template <int KPL, int BF, bool Rec>
 __global__ void __launch_bounds__(kThreads, 1)
 staged_tma_kernel(const __grid_constant__ CUtensorMap map,
                   const __grid_constant__ CUtensorMap hmap, float* __restrict__ A,
-                  float* __restrict__ d, float* __restrict__ e, int n, int b_rt,
-                  int K, Records rec) {
+                  float* __restrict__ d, float* __restrict__ e, int n, int ld,
+                  int b_rt, int K, Records rec) {
   extern __shared__ __align__(128) float smem_raw[];
   float* tiles = align128(smem_raw);
   __shared__ float v[kSmemBand];
@@ -238,15 +259,15 @@ staged_tma_kernel(const __grid_constant__ CUtensorMap map,
       sA = sC;
     }
   }
-  // every store landed, then d and e through L2
+  // every store landed, then d and e through L2 (entry (k, j) at ld k + j)
   if (copier) {
     tma_wait_all();
     fence_async();
   }
   __syncthreads();
   for (int k = threadIdx.x; k < n; k += kThreads) {
-    d[k] = __ldcg(A + (size_t)k * n + k);
-    if (k + 1 < n) e[k] = __ldcg(A + (size_t)k * n + k + 1);
+    d[k] = __ldcg(A + (size_t)k * ld + k);
+    if (k + 1 < n) e[k] = __ldcg(A + (size_t)k * ld + k + 1);
   }
 }
 
@@ -254,14 +275,16 @@ size_t tma_smem_bytes(int b, int K) {
   return sizeof(float) * (2 * K + 1) * (size_t)tile_floats(b) + 128;
 }
 
+// The kernel on the n x n matrix whose entry (g, j) sits at A[ld g + j]:
+// ld = n for the dense matrix, the store's pitch for the band store.
 template <bool Rec>
-int launch_tma(float* A, float* d, float* e, int n, int b, int K, Records rec,
-               cudaStream_t s) {
-  if (n < 2 || K < 1 || !tma_takes(A, n, b) || 2 * K + 1 > kMaxSlots)
+int launch_tma(float* A, float* d, float* e, int n, int ld, int b, int K,
+               Records rec, cudaStream_t s) {
+  if (n < 2 || K < 1 || !tma_takes(A, ld, b) || 2 * K + 1 > kMaxSlots)
     return (int)cudaErrorInvalidValue;
   alignas(64) CUtensorMap map, hmap;  // boxes of b rows, and the head's of b + 1
-  int err = encode_map(&map, A, n, b, box_cols(b));
-  if (err == 0) err = encode_map(&hmap, A, n, b + 1, box_cols(b));
+  int err = encode_map(&map, A, n, ld, b, box_cols(b));
+  if (err == 0) err = encode_map(&hmap, A, n, ld, b + 1, box_cols(b));
   if (err != 0) return err;
   const size_t smem = tma_smem_bytes(b, K);
 #define SVDT_TMA_LAUNCH(KPL, BF)                                                  \
@@ -271,7 +294,7 @@ int launch_tma(float* A, float* d, float* e, int n, int b, int K, Records rec,
                                     (int)smem);                                   \
     if (err != 0) return err;                                                     \
     staged_tma_kernel<KPL, BF, Rec><<<1, kThreads, smem, s>>>(map, hmap, A, d, e, \
-                                                                n, b, K, rec);    \
+                                                              n, ld, b, K, rec);  \
   } while (0)
   if (b == 32) SVDT_TMA_LAUNCH(1, 32);
   else if (b < 32) SVDT_TMA_LAUNCH(1, 0);
@@ -281,6 +304,28 @@ int launch_tma(float* A, float* d, float* e, int n, int b, int K, Records rec,
   else SVDT_TMA_LAUNCH(4, 0);
 #undef SVDT_TMA_LAUNCH
   return (int)cudaGetLastError();
+}
+
+// The band store's row pitch: dense entry (g, j) lives at S g + j.
+__host__ __device__ constexpr int store_pitch(int b) { return 3 * b + 8; }
+
+// Packs the dense A (n x n, row-major) into the band store St of
+// (n - 1) S + n floats, one thread an address: entry (g, j) with j - g in
+// [-b - 2, 2b + 4] at S g + j = (S + 1) g + (j - g), every other address
+// zero.  3b + 7 offsets in a period of S + 1 = 3b + 9: no two entries
+// share an address.
+__global__ void store_pack_kernel(const float* __restrict__ A, float* __restrict__ St,
+                                  int n, int b) {
+  const size_t period = store_pitch(b) + 1;
+  const size_t total = (size_t)(n - 1) * store_pitch(b) + n;
+  for (size_t a = (size_t)blockIdx.x * blockDim.x + threadIdx.x; a < total;
+       a += (size_t)gridDim.x * blockDim.x) {
+    const size_t u = a + b + 2;  // (S + 1) g + (j - g + b + 2)
+    const int g = (int)(u / period);
+    const int t = (int)(u - g * period) - (b + 2);  // j - g
+    const int j = g + t;
+    St[a] = (t <= 2 * b + 4 && j >= 0 && j < n) ? A[(size_t)g * n + j] : 0.f;
+  }
 }
 
 }  // namespace
@@ -293,7 +338,7 @@ int launch_tma(float* A, float* d, float* e, int n, int b, int K, Records rec,
 // returns the launch's cudaError_t (an invalid value for any other shape).
 extern "C" int svdt_band_chase_staged(float* A, float* d, float* e, int n,
                                       int b, int khops, void* stream) {
-  return launch_tma<false>(A, d, e, n, b, khops,
+  return launch_tma<false>(A, d, e, n, n, b, khops,
                            {nullptr, nullptr, nullptr, nullptr, 0},
                            (cudaStream_t)stream);
 }
@@ -305,6 +350,27 @@ extern "C" int svdt_band_chase_staged_rec(float* A, float* d, float* e, int n,
                                           int b, float* VL, float* TL, float* VR,
                                           float* TR, int s_max, int khops,
                                           void* stream) {
-  return launch_tma<true>(A, d, e, n, b, khops, {VL, TL, VR, TR, s_max},
+  return launch_tma<true>(A, d, e, n, n, b, khops, {VL, TL, VR, TR, s_max},
                           (cudaStream_t)stream);
+}
+
+// The packed chase (K12) on the band store: packs the dense A (n x n,
+// row-major, upper band b; not modified) into St ((n - 1)(3b + 8) + n
+// floats) and chases St with the copies of khops pairs in flight, on
+// `stream`; (d, e) as svdt_band_chase's.  It takes St 16-byte aligned,
+// b % 4 == 0 and 4 <= b <= 128, any n >= 2; returns the first failing
+// launch's cudaError_t (an invalid value for any other shape).
+extern "C" int svdt_band_chase_vmem_tma(const float* A, float* St, float* d,
+                                        float* e, int n, int b, int khops,
+                                        void* stream) {
+  const int S = store_pitch(b);
+  if (n < 2 || !tma_takes(St, S, b)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const size_t total = (size_t)(n - 1) * S + n;
+  const int blocks = (int)((total + 255) / 256 < 8192 ? (total + 255) / 256 : 8192);
+  store_pack_kernel<<<blocks, 256, 0, s>>>(A, St, n, b);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_tma<false>(St, d, e, n, S, b, khops,
+                           {nullptr, nullptr, nullptr, nullptr, 0}, s);
 }

@@ -1,9 +1,13 @@
-// Band -> bidiagonal bulge chase on the packed band.
+// Band -> bidiagonal bulge chase on the packed band: the L2 packed kernel.
 //
 // svdt_band_chase_vmem replaces the TPU kernel
 //   svdsolver_tpu/ops/pallas/band_chase_vmem.py  _vmem_chase_kernel (the
 //       sequential chase on the block-packed band held whole in VMEM, d and
-//       e read out of it in the kernel).
+//       e read out of it in the kernel)
+// for the bands the copy engine does not take (b < 4 or b % 4 != 0); the
+// others run the staged TMA design on a band store
+// (svdt_band_chase_vmem_tma, band_chase_staged.cu), chosen by shape before
+// launch (ops/cuda/band_chase_vmem.vmem_route).
 // Layout, as there (models/two_stage.pack_band):
 //   P[row, l] = A[row, 128 * (row / 128) - 128 + l],  l < 512,
 // P of Npad = ceil((n + 3b + 8) / 128) * 128 rows.  For b <= 128 every

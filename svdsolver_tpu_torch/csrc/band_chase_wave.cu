@@ -561,7 +561,7 @@ int launch_smem(float* A, float* d, float* e, int n, int b, unsigned* ctr,
                 void* stream) {
   if (n < 2 || !tma_takes(A, n, b)) return (int)cudaErrorInvalidValue;
   alignas(64) CUtensorMap tile_map;
-  int err = encode_map(&tile_map, A, n, b, box_cols(b));
+  int err = encode_map(&tile_map, A, n, n, b, box_cols(b));
   if (err != 0) return err;
   int L = lanes_of(nc_of(0, n, b));
   int T = 3 * (n - 2) + nc_of(0, n, b) + 1;
@@ -667,7 +667,7 @@ extern "C" int svdt_wave_copy(float* A, int n, int b, int r, int c, int reps,
                               void* stream) {
   if (!tma_takes(A, n, b) || reps < 1) return (int)cudaErrorInvalidValue;
   alignas(64) CUtensorMap tile_map;
-  int err = encode_map(&tile_map, A, n, b, box_cols(b));
+  int err = encode_map(&tile_map, A, n, n, b, box_cols(b));
   if (err != 0) return err;
   c &= ~3;
   const size_t smem = smem_tick_bytes(b);

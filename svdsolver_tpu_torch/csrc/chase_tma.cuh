@@ -349,9 +349,11 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  CUtensorMapInterleave, CUtensorMapSwizzle,
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// A tensor map of the n x n row-major A with box (rows, cols): no swizzle,
-// zero fill past the edges.  Returns a cudaError_t.
-inline int encode_map(CUtensorMap* map, float* A, int n, int rows, int cols) {
+// A tensor map of the n x n matrix whose entry (g, j) sits at A[ld g + j]
+// (ld = n: row-major; ld < n: the skewed band store of band_chase_staged.cu,
+// rows overlapping in memory) with box (rows, cols): no swizzle, zero fill
+// past the edges.  Returns a cudaError_t.
+inline int encode_map(CUtensorMap* map, float* A, int n, int ld, int rows, int cols) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -364,7 +366,7 @@ inline int encode_map(CUtensorMap* map, float* A, int n, int rows, int cols) {
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
   const cuuint64_t dims[2] = {(cuuint64_t)n, (cuuint64_t)n};
-  const cuuint64_t strides[1] = {(cuuint64_t)n * sizeof(float)};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * sizeof(float)};
   const cuuint32_t box[2] = {(cuuint32_t)cols, (cuuint32_t)rows};
   const cuuint32_t unit[2] = {1, 1};
   const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, A, dims,
@@ -375,10 +377,10 @@ inline int encode_map(CUtensorMap* map, float* A, int n, int rows, int cols) {
   return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// Whether the copy engine takes an (n, n) band b at address A: 16-byte row
-// strides and box rows, 4 <= b <= 128.
-inline bool tma_takes(const float* A, int n, int b) {
-  return b >= 4 && b <= kSmemBand && b % 4 == 0 && n % 4 == 0 &&
+// Whether the copy engine takes a band b at address A with row pitch ld
+// (floats): 16-byte row strides and box rows, 4 <= b <= 128.
+inline bool tma_takes(const float* A, int ld, int b) {
+  return b >= 4 && b <= kSmemBand && b % 4 == 0 && ld % 4 == 0 &&
          reinterpret_cast<uintptr_t>(A) % 16 == 0;
 }
 

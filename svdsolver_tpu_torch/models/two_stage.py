@@ -18,6 +18,9 @@ from svdsolver_tpu_torch.ops.chase_schedule import (
     s_max_of,
     staged_copies,
     staged_pairs,
+    store_floats,
+    store_pitch,
+    store_range,
     wave_pairs,
 )
 from svdsolver_tpu_torch.ops.householder import householder_vector
@@ -423,14 +426,25 @@ def band_to_bidiagonal_staged_tiles(A, band=32, khops=1, record=False):
         if record:
             raise ValueError("band_to_bidiagonal_accum needs n >= 2")
         return torch.abs(torch.diagonal(A)), A.new_zeros((0,))
-    b = int(band)
-    w = b + 1
     M = A.clone()
+    out = _staged_tiles(A, int(band), int(khops), record,
+                        lambda r, c, h, w: _box_in(M, r, c, h, w),
+                        lambda box, r, c: _box_out(M, box, r, c))
+    d, e = torch.diagonal(M).clone(), torch.diagonal(M, 1).clone()
+    return (d, e, *out) if record else (d, e)
+
+
+def _staged_tiles(A, b, khops, record, box_in, box_out):
+    """The steps of the staged kernel's TMA route over the matrix that
+    ``box_in(r, c, h, w)`` and ``box_out(box, r, c)`` copy boxes of;
+    returns the records ``(VL, TL, VR, TR)`` with ``record``, else ()."""
+    n = A.shape[0]
+    w = b + 1
     if record:
         s_max = s_max_of(n, b)
         VL, VR = A.new_zeros((2, n - 1, s_max, b))
         TL, TR = A.new_zeros((2, n - 1, s_max))
-    slots = [A.new_zeros((b + 1, b + 4)) for _ in range(2 * int(khops) + 1)]
+    slots = [A.new_zeros((b + 1, b + 4)) for _ in range(2 * khops + 1)]
     box_row = [0] * len(slots)  # the first matrix row of the box a slot holds
 
     def share_overlap(lo, hi, delta, rows):
@@ -442,12 +456,12 @@ def band_to_bidiagonal_staged_tiles(A, band=32, khops=1, record=False):
         return slots[s][o : o + b, dl : dl + b]
 
     W = None
-    for op in staged_copies(n, b, int(khops)):
+    for op in staged_copies(n, b, khops):
         if op.kind == "load":
-            slots[op.slot][: op.rows] = _box_in(M, op.r, op.c, op.rows, b + 4)
+            slots[op.slot][: op.rows] = box_in(op.r, op.c, op.rows, b + 4)
             box_row[op.slot] = op.r
         elif op.kind == "store":
-            _box_out(M, slots[op.slot][: op.rows], op.r, op.c)
+            box_out(slots[op.slot][: op.rows], op.r, op.c)
         elif op.kind == "head":
             dl = op.c & 3
             h0, h1 = (slots[s] for s in op.slots)
@@ -480,12 +494,66 @@ def band_to_bidiagonal_staged_tiles(A, band=32, khops=1, record=False):
                 VL[i, k + 1], TL[i, k + 1] = left
             tile(sB, op.r + b, dl)[:], tile(sC, op.r + b, dl)[:] = W[b:, :b], W[b:, b:]
             share_overlap(slots[sB], slots[sC], dl, b)
-    if record:  # pairs past n run nothing: the plain records' identity, e_0
-        for i in range(n - 1):
-            for k in range(staged_pairs(i, n, b), nc_of_static(i, n, b)):
-                VL[i, k + 1, 0] = VR[i, k + 1, 0] = 1
-    d, e = torch.diagonal(M).clone(), torch.diagonal(M, 1).clone()
-    return (d, e, VL, TL, VR, TR) if record else (d, e)
+    if not record:
+        return ()
+    for i in range(n - 1):  # pairs past n run nothing: the plain records' identity, e_0
+        for k in range(staged_pairs(i, n, b), nc_of_static(i, n, b)):
+            VL[i, k + 1, 0] = VR[i, k + 1, 0] = 1
+    return VL, TL, VR, TR
+
+
+def pack_store(A, band):
+    """The band store of the packed chase's TMA design (``csrc/
+    band_chase_staged.cu``): a flat buffer of ``store_floats(n, band)``
+    floats holding ``A[g, j]`` at ``store_pitch(band) * g + j`` for
+    ``j - g`` in :func:`~svdsolver_tpu_torch.ops.chase_schedule.
+    store_range`, zero at every other address."""
+    n = A.shape[0]
+    S = store_pitch(band)
+    lo, hi = store_range(band)
+    St = A.new_zeros((store_floats(n, band),))
+    for t in range(lo, hi + 1):  # diagonal t's rows [g0, g1) at (S + 1) g + t
+        g0, g1 = max(0, -t), min(n, n - t)
+        if g0 < g1:
+            St[(S + 1) * g0 + t:(S + 1) * (g1 - 1) + t + 1:S + 1] = torch.diagonal(A, t)
+    return St
+
+
+def band_to_bidiagonal_store_tiles(A, band=32, khops=1):
+    """The packed chase's TMA design, plain: :func:`pack_store`, then the
+    steps of :func:`band_to_bidiagonal_staged_tiles` with every box copied
+    out of and into the store (row ``g`` of a box at ``store_pitch * g``;
+    zero past ``n``, writes past ``n`` dropped), each box's entries
+    checked to lie in the store's range; ``(d, e)`` read from the store.
+    Bit-equal to :func:`band_to_bidiagonal`."""
+    n = A.shape[0]
+    if n < 2:
+        return torch.abs(torch.diagonal(A)), A.new_zeros((0,))
+    b = int(band)
+    S = store_pitch(b)
+    lo, hi = store_range(b)
+    St = pack_store(A, b)
+
+    def view(r, c, h, w):  # the box's entries inside the matrix, in the store
+        rh, cw = max(0, min(h, n - r)), max(0, min(w, n - c))
+        if rh and cw and not (lo <= c - (r + rh - 1) and c + cw - 1 - r <= hi):
+            raise AssertionError(f"box ({r}, {c}) leaves the store's range")
+        return St.as_strided((rh, cw), (S, 1), S * r + c)
+
+    def box_in(r, c, h, w):
+        box = A.new_zeros((h, w))
+        part = view(r, c, h, w)
+        box[: part.shape[0], : part.shape[1]] = part
+        return box
+
+    def box_out(box, r, c):
+        part = view(r, c, *box.shape)
+        part.copy_(box[: part.shape[0], : part.shape[1]])
+
+    _staged_tiles(A, b, int(khops), False, box_in, box_out)
+    d = St.as_strided((n,), (S + 1,), 0).clone()
+    e = St.as_strided((n - 1,), (S + 1,), 1).clone()
+    return d, e
 
 
 def bidiagonalize_two_stage(A, band=32, wavefront=False):

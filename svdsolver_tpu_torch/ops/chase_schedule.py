@@ -218,3 +218,23 @@ def staged_copy_bytes(n, b, K=1):
     once, whatever ``K``."""
     return sum(4 * op.rows * (b + 4) for op in staged_copies(n, b, K)
                if op.kind in ("load", "store"))
+
+
+def store_pitch(b):
+    """Row pitch (floats) of the packed chase's band store: dense entry
+    ``(g, j)`` lives at ``store_pitch(b) * g + j``; a multiple of 4 (16
+    bytes, as the copy engine needs) wherever ``b`` is."""
+    return 3 * int(b) + 8
+
+
+def store_range(b):
+    """The offsets ``j - g`` the band store keeps, ``(-b - 2, 2b + 4)``
+    inclusive: every entry a box of :func:`staged_copies` touches inside
+    the matrix (the tests walk every box)."""
+    return -int(b) - 2, 2 * int(b) + 4
+
+
+def store_floats(n, b):
+    """Floats of the band store of an (n, n) band ``b``: the last entry
+    ``(n - 1, n - 1)`` sits at ``(n - 1) * pitch + n - 1``."""
+    return (n - 1) * store_pitch(b) + n

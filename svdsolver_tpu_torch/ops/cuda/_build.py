@@ -82,16 +82,17 @@ def load(name, entries):
     """The loaded library of kernel ``name``, building it if needed.
 
     ``entries`` maps each C entry point to its ``argtypes``; every entry
-    returns the ``cudaError_t`` of its launch as an int.
+    returns the ``cudaError_t`` of its launch as an int.  They are set on
+    every call: two modules may load one library for different entries.
     """
     lib = _LIBS.get(name)
     if lib is None:
         path, _, _ = build(name)
         lib = ctypes.CDLL(str(path))
-        for fn, argtypes in entries.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
         _LIBS[name] = lib
+    for fn, argtypes in entries.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
     return lib
 
 

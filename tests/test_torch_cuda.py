@@ -224,15 +224,47 @@ def test_chase_variants_bit_equal_to_chase_kernel(dev, rng, n, b):
 def test_chase_variants_count_launches(dev, rng):
     Ab = _band(dev, rng, 128, 16)
     counters = ((band_chase_wave, "launches"), (band_chase_wave, "launches_dl"),
-                (band_chase, "launches_staged"), (band_chase_vmem, "launches"),
+                (band_chase, "launches_staged"), (band_chase_vmem, "launches_tma"),
                 (band_chase, "launches"))
     for mod, attr in counters:
         setattr(mod, attr, 0)
     for fn in VARIANTS.values():
         fn(Ab, 16)
     got = [getattr(mod, attr) for mod, attr in counters]
-    # wave + wavefront flag, wave_dl, pipelined + mega, vmem; no sequential
+    # wave + wavefront flag, wave_dl, pipelined + mega, vmem (the TMA design
+    # on the band store at b = 16); no sequential
     assert got == [2, 1, 2, 1, 0]
+    assert band_chase_vmem.launches == 0
+
+
+@pytest.mark.parametrize("n,b", [(1024, 64), (1002, 64), (256, 32), (37, 4), (1001, 64),
+                                 (1003, 128), (5, 4), (130, 128)])
+def test_packed_chase_tma_bit_equal_to_l2(dev, rng, n, b):
+    # K12 on the band store against the L2 oracle: n % 4 == 2 at 1002 and
+    # 130, odd n at 37, 1001, 1003 and 5, and n narrower than one box
+    # (n < b + 4: every box clipped at n) at 5/b4 and 130/b128; A is read,
+    # not modified
+    Ab = _band(dev, rng, n, b)
+    keep = Ab.clone()
+    d0, e0 = band_chase.band_to_bidiagonal_l2(Ab, band=b)
+    band_chase_vmem.launches = band_chase_vmem.launches_tma = 0
+    d, e = band_chase_vmem.band_to_bidiagonal_vmem(Ab, band=b)
+    torch.cuda.synchronize()
+    assert (band_chase_vmem.launches_tma, band_chase_vmem.launches) == (1, 0)
+    assert torch.equal(d, d0) and torch.equal(e, e0)
+    assert torch.equal(Ab, keep)
+
+
+@pytest.mark.parametrize("n,b", [(96, 6), (150, 3)])
+def test_packed_chase_l2_off_the_copy_engine(dev, rng, n, b):
+    # bands the copy engine does not take run the L2 packed kernel
+    Ab = _band(dev, rng, n, b)
+    d0, e0 = band_chase.band_to_bidiagonal_l2(Ab, band=b)
+    band_chase_vmem.launches = band_chase_vmem.launches_tma = 0
+    d, e = band_chase_vmem.band_to_bidiagonal_vmem(Ab, band=b)
+    torch.cuda.synchronize()
+    assert (band_chase_vmem.launches_tma, band_chase_vmem.launches) == (0, 1)
+    assert torch.equal(d, d0) and torch.equal(e, e0)
 
 
 def test_wave_kernels_stride_lanes_over_ctas(dev, rng):
