@@ -26,11 +26,12 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    the chase variants, every launch count set to 0 before each call and
    read after it: each variant's (d, e), and the recording wavefront's
    (d, e) and records, bit-equal to the sequential kernels' at n = 1024
-   (b = 64), 3840 (b = 128) and, on capped CTAs, 2048 (b = 32); each
+   (b = 64), 3840 (b = 128) and, on capped CTAs, 2048 (b = 32) (the
+   deferred-left entry on its shared-memory tick at all three); each
    variant against its plain version at 1024; each variant's sigma through
    the bisection kernel at 3840 against float64; the wavefront kernel's
-   L2 tick (forced at b = 64, taken at b = 160 by both entries) bit-equal
-   to the L2 kernels too; the packed chase (K12) on its route, the TMA
+   L2 tick (forced at b = 64, taken at b = 160 by all three entries)
+   bit-equal to the L2 kernels too; the packed chase (K12) on its route, the TMA
    design on the band store at 1024 (b = 64), 3840 (b = 128) and the
    VMEM_ODD shapes (n not a multiple of 4, odd, and below one box), the
    L2 packed kernel at 96 (b = 6) and launched directly at 1024 and 3840,
@@ -51,7 +52,9 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    Stage I panel length of n = 3840 with a split, the sequential and
    wavefront chases in turns at the eleven routing shapes (outputs
    bit-equal, 7680 included), each chase variant in turns with the L2
-   kernel at 3840, the wavefront kernel's shared-memory tick in turns with
+   kernel at 1024 and 3840 (the deferred-left entry on both its ticks
+   beside the plain shared-memory tick, with its own schedule bound), the
+   wavefront kernel's shared-memory tick in turns with
    its L2 tick at n = 1024, 3840 and 7680 (plain and recording), one CTA's
    copy rate for a chase window and the shared-memory tick's schedule
    bound, the sequential chase's staged TMA design in turns with the L2
@@ -260,6 +263,7 @@ def _counters():
             "tridiag_solve_lane": (tridiag_solve, "launches_lane"),
             "band_chase_wave": (band_chase_wave, "launches"),
             "band_chase_wave_dl": (band_chase_wave, "launches_dl"),
+            "band_chase_wave_dl_l2": (band_chase_wave, "launches_dl_l2"),
             "band_chase_wave_rec": (band_chase_wave, "launches_rec"),
             "band_chase_wave_l2": (band_chase_wave, "launches_l2"),
             "band_chase_wave_rec_l2": (band_chase_wave, "launches_rec_l2"),
@@ -741,7 +745,7 @@ def phase_variants(band_state):
         for k in VARIANTS:
             require(counts[k] >= 1, f"{k} not launched at {label}")
         require(counts["band_chase"] == 0 and counts["band_chase_rec"] == 0
-                and counts["band_chase_vmem"] == 0,
+                and counts["band_chase_vmem"] == 0 and counts["band_chase_wave_dl_l2"] == 0,
                 f"a variant took an L2 kernel at {label}")
         say(f"[variants] {label}: {', '.join(calls)}: (d, e) bit-equal to band_chase")
         return outs, counts
@@ -774,6 +778,7 @@ def phase_variants(band_state):
             "the plain chase's")
         plains[k] = (name, (dp, ep))
     plain_ms["band_chase_vmem"] = plain_ms["band_chase_vmem_tma"]  # one plain version
+    plain_ms["band_chase_wave_dl_l2"] = plain_ms["band_chase_wave_dl"]
     plains["band_chase_staged"] = ("pipelined=True", (dp1, ep1))  # its plain version
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -792,9 +797,10 @@ def phase_variants(band_state):
     errs["band_chase_wave_rec"] = float((bidiag_sigma(rec_k[0], rec_k[1])
                                          - bidiag_sigma(rec_p[0], rec_p[1])).abs().max())
     del rec_p, rec_k, seq_p
-    # the L2 tick of both entries (off the path at b <= 128) on the same band
+    # the L2 tick of the three entries (off the path at b <= 128) on the same band
     for k, fn in (("band_chase_wave_l2", band_chase_wave.band_to_bidiagonal_wave),
-                  ("band_chase_wave_rec_l2", band_chase_wave.band_to_bidiagonal_wave_accum)):
+                  ("band_chase_wave_rec_l2", band_chase_wave.band_to_bidiagonal_wave_accum),
+                  ("band_chase_wave_dl_l2", band_chase_wave.band_to_bidiagonal_wave_dl)):
         got = fn(Ab1, band=b1, _tick="l2")
         torch.cuda.synchronize()
         require_bit_equal(f"{k} n={n1} b={b1}", got[:2], (d1, e1))
@@ -826,15 +832,16 @@ def phase_variants(band_state):
         got = fn(A2, band=b2, _ctas=ctas)
         torch.cuda.synchronize()
         require(band_chase_wave.last_ctas == ctas, "the _ctas cap holds")
+        require(band_chase_wave.last_tick == "smem", f"{name} n={n2} b={b2} takes the "
+                "shared-memory tick")
         require_bit_equal(f"{name} n={n2} b={b2} on {ctas} CTAs", got, want2)
         lanes = two_stage.wave_lanes(n2, b2, defer_left=name == "wave_dl") + 1
         say(f"[variants] {name} n={n2} b={b2}: {lanes} lanes (the head's "
-            f"included) on {ctas} CTAs, (d, e) bit-equal to band_chase")
+            f"included) on {ctas} CTAs, shared-memory tick, (d, e) bit-equal to band_chase")
     check_wave_rec(f"n={n2} b={b2}", A2, b2, ctas=ctas)
     del A2
 
-    # past b = 128 both wavefront entries take the L2 tick (the deferred-left
-    # entry always does: its count is its own)
+    # past b = 128 the three wavefront entries take the L2 tick
     nw, bwide = WIDE_BAND
     g = torch.from_numpy(np.random.default_rng(3).normal(size=(nw, nw)).astype(np.float32)).to(DEV)
     Aw = torch.triu(torch.tril(g, bwide)).contiguous()
@@ -842,19 +849,22 @@ def phase_variants(band_state):
     reset_counts()
     got = band_chase_wave.band_to_bidiagonal_wave(Aw, band=bwide)
     got_rec = band_chase_wave.band_to_bidiagonal_wave_accum(Aw, band=bwide)
+    got_dl = band_chase_wave.band_to_bidiagonal_wave_dl(Aw, band=bwide)
     torch.cuda.synchronize()
     wide = read_counts()
     require(wide["band_chase_wave_l2"] == 1 and wide["band_chase_wave_rec_l2"] == 1
-            and wide["band_chase_wave"] == 0 and wide["band_chase_wave_rec"] == 0,
+            and wide["band_chase_wave_dl_l2"] == 1 and wide["band_chase_wave"] == 0
+            and wide["band_chase_wave_rec"] == 0 and wide["band_chase_wave_dl"] == 0,
             f"b={bwide} takes the L2 tick: {wide}")
-    require_bit_equal(f"wave n={nw} b={bwide} (L2 tick)", got,
-                      band_chase.band_to_bidiagonal_l2(Aw, band=bwide))
+    want_w = band_chase.band_to_bidiagonal_l2(Aw, band=bwide)
+    require_bit_equal(f"wave n={nw} b={bwide} (L2 tick)", got, want_w)
+    require_bit_equal(f"wave_dl n={nw} b={bwide} (L2 tick)", got_dl, want_w)
     require(all(torch.equal(x, y) for x, y in
                 zip(got_rec, band_chase.band_to_bidiagonal_accum_l2(Aw, band=bwide))),
             f"wave_accum n={nw} b={bwide} (L2 tick) bit-equal to band_chase_rec")
-    say(f"[variants] n={nw} b={bwide}: both wavefront entries took the L2 tick "
+    say(f"[variants] n={nw} b={bwide}: the three wavefront entries took the L2 tick "
         f"(launches {wide}); (d, e) and records bit-equal to the sequential kernels")
-    del Aw, g, got, got_rec
+    del Aw, g, got, got_rec, got_dl
 
     # the slice at full width: every entry point once, on the Stage I band
     n, b, khops = VAR_PATH
@@ -884,6 +894,8 @@ def phase_variants(band_state):
         "band_chase_wave_l2": lambda A, b: band_chase_wave.band_to_bidiagonal_wave(
             A, band=b, _tick="l2"),
         "band_chase_wave_dl": lambda A, b: band_chase_wave.band_to_bidiagonal_wave_dl(A, band=b),
+        "band_chase_wave_dl_l2": lambda A, b: band_chase_wave.band_to_bidiagonal_wave_dl(
+            A, band=b, _tick="l2"),
         "band_chase_staged": lambda A, b: band_chase.band_to_bidiagonal(A, band=b, pipelined=True),
         "band_chase_vmem_tma": lambda A, b: band_chase_vmem.band_to_bidiagonal_vmem(A, band=b),
         "band_chase_vmem": lambda A, b: band_chase_vmem._launch(A, b, "packed"),
@@ -901,7 +913,7 @@ def phase_variants(band_state):
                   lambda: band_chase_wave.band_to_bidiagonal_wave(Ab3, band=b))
     del Ab3, A
     torch.cuda.empty_cache()
-    return counts, errs, plain_ms, times, off_counts
+    return counts, errs, plain_ms, times, off_counts, wide
 
 
 def check_vmem(Ab1, b1, plain1, Ab3, b3, want3):
@@ -974,7 +986,7 @@ def require_route(label, counts, record):
             require(counts[k] == 1, f"{k} launched once at n={n} b={b}")
         else:
             require(counts[k] == 0, f"{k} launched at n={n} b={b}, the route is {chase}")
-    for k in VARIANTS + ("band_chase_vmem",):
+    for k in VARIANTS + ("band_chase_vmem", "band_chase_wave_dl_l2"):
         if k != chase:
             require(counts[k] == 0, f"{k} launched at n={n} b={b}")
     return chase
@@ -1393,20 +1405,6 @@ def phase_route_times():
     return out
 
 
-def schedule_bytes(n, b):
-    """Bytes the shared-memory tick's copies move on its critical path: at
-    each tick the most any one pair moves (its boxes of b rows x b + 4
-    columns in and out, the head pair's window row both ways too)."""
-    from svdsolver_tpu_torch.ops.chase_schedule import wave_pairs
-
-    box = 4 * b * (b + 4)
-    most = {}
-    for p in wave_pairs(n, b):
-        nbytes = (len(p.loads) + len(p.stores)) * box + (16 * b if p.s == 0 else 0)
-        most[p.t] = max(most.get(p.t, 0), nbytes)
-    return sum(most.values())
-
-
 def phase_sequential_times(band_state):
     """The sequential chase's two kernels in turns (L2, staged TMA, staged
     TMA, L2), plain and recording entries, at the check band (VAR_CHECK)
@@ -1459,7 +1457,7 @@ def phase_tick_times(band_state):
     rate for a chase window at b = 128 (three b x (b + 4) boxes into shared
     memory and back, 1000 times); and the shared-memory tick's schedule
     bound, its critical path's copy bytes over that rate."""
-    from svdsolver_tpu_torch.ops.chase_schedule import wave_ticks
+    from svdsolver_tpu_torch.ops.chase_schedule import wave_copy_bytes, wave_ticks
     from svdsolver_tpu_torch.ops.cuda import band_chase_wave as bw, panel_qr
 
     out, sched = {}, {}
@@ -1492,7 +1490,7 @@ def phase_tick_times(band_state):
         del Ab
         torch.cuda.empty_cache()
     for n, b in TICK_SHAPES:
-        nbytes = schedule_bytes(n, b)
+        nbytes = wave_copy_bytes(n, b)
         sched[n, b] = nbytes / rate
         say(f"[ticks] schedule bound n={n} b={b}: {nbytes:.4g} bytes on the critical "
             f"path over {rate / 1e6:.2f} GB/s = {sched[n, b]:.3f} ms (shared-memory tick "
@@ -1633,6 +1631,7 @@ TPU_KERNELS = {
     "panel_qr": ["K1"], "band_chase": ["K3", "K5"], "band_chase_rec": ["K6", "K8"],
     "bisect": ["K2"], "tridiag_solve": ["K9", "K10"],
     "band_chase_wave": ["K4", "K5", "K13"], "band_chase_wave_dl": ["K11"],
+    "band_chase_wave_dl_l2": ["K11"],
     "band_chase_staged": ["K3", "K5", "K14", "K15"], "band_chase_vmem": ["K12"],
     "band_chase_vmem_tma": ["K12"],
     "band_chase_staged_rec": ["K6", "K8"],
@@ -1654,7 +1653,7 @@ def kernel_table(errs, counts_vals, counts_svd, kt, lib, variants, route, k1, ti
                  designs, staged):
     from svdsolver_tpu_torch.models.diagonalize import default_bisect_iters
 
-    counts_var, errs_var, plain_var, times_var, vmem_off = variants
+    counts_var, errs_var, plain_var, times_var, vmem_off, wide = variants
     k2_ms, tgk_ms = designs
     tick_ms, sched, rate = ticks
     src = "svdsolver_tpu_torch/csrc/{}.cu"
@@ -1766,6 +1765,8 @@ def kernel_table(errs, counts_vals, counts_svd, kt, lib, variants, route, k1, ti
             rows[-1].update(staged_keys(staged, rate, record=False))
         if k == "band_chase_vmem_tma":
             rows[-1].update(vmem_keys(times_var, rate))
+        if k == "band_chase_wave_dl":
+            rows[-1].update(dl_keys(times_var, rate))
         if on_path:
             rows[-1]["variant_launches"] = counts_var[k]
             rows[-1]["path_launches"] = {n: c[k] for n, c in counts_vals.items()}
@@ -1839,6 +1840,21 @@ def kernel_table(errs, counts_vals, counts_svd, kt, lib, variants, route, k1, ti
             "path_bound_ms": (b_path if record else b_path_plain)[0],
             "variant_launches": counts_var[k],
         })
+    # the deferred-left entry's L2 tick: shapes the copy engine does not
+    # take (its launches: the run at WIDE_BAND); ms forced at the check band
+    # and the path's, in turns with its shared-memory tick
+    k = "band_chase_wave_dl_l2"
+    b_var = bound(*work_chase(n1, b1, record=False))
+    rows.append({
+        "name": k, "route": "cuda", "source": src.format("band_chase_wave"),
+        "replaces": replaces["band_chase_wave_dl"], "launches": wide[k],
+        "launches_shape": f"n={WIDE_BAND[0]} b={WIDE_BAND[1]}",
+        "max_abs_err": errs_var[k], "ms": times_var[k, "check"], "plain_ms": plain_var[k],
+        "bound_ms": b_var[0], "bound_by": b_var[1], "library_ms": None,
+        "shape": f"n={n1} b={b1}", "path_shape": f"n={n3} b={b3}",
+        "path_ms": times_var[k, "path"],
+        "path_bound_ms": bound(*work_chase(n3, b3, record=False))[0],
+    })
     for row in rows:
         row["tpu"] = TPU_KERNELS[row["name"]]
         if row["name"] in SEQ_KERNEL:
@@ -1886,6 +1902,29 @@ def vmem_keys(times_var, rate):
             f"over {rate / 1e6:.2f} GB/s = {out['schedule_bound_ms'][key]:.3f} ms (TMA design "
             f"{times_var['band_chase_vmem_tma', label]:.3f} ms, L2 packed kernel "
             f"{times_var['band_chase_vmem', label]:.3f} ms)")
+    return out
+
+
+def dl_keys(times_var, rate):
+    """The deferred-left entry's two ticks and the plain entry's
+    shared-memory tick in turns at the check band and the path's, and the
+    deferred-left tick's schedule bound (its own copies, ``chase_schedule.
+    wave_copy_bytes(defer_left=True)``, over one CTA's copy rate)."""
+    from svdsolver_tpu_torch.ops.chase_schedule import wave_copy_bytes
+
+    out = {"ticks_ms": {}, "schedule_bound_ms": {}, "window_copy_gb_s": rate / 1e6}
+    for label, (n, b, _) in (("check", VAR_CHECK), ("path", VAR_PATH)):
+        key = f"n={n} b={b}"
+        nbytes = wave_copy_bytes(n, b, defer_left=True)
+        out["ticks_ms"][key] = {"smem": times_var["band_chase_wave_dl", label],
+                                "l2": times_var["band_chase_wave_dl_l2", label],
+                                "plain_smem_tick": times_var["band_chase_wave", label]}
+        out["schedule_bound_ms"][key] = nbytes / rate
+        say(f"[bound] band_chase_wave_dl schedule {key}: {nbytes:.4g} bytes over "
+            f"{rate / 1e6:.2f} GB/s = {nbytes / rate:.3f} ms (shared-memory tick "
+            f"{times_var['band_chase_wave_dl', label]:.3f} ms, L2 tick "
+            f"{times_var['band_chase_wave_dl_l2', label]:.3f} ms, the plain entry's "
+            f"shared-memory tick {times_var['band_chase_wave', label]:.3f} ms)")
     return out
 
 

@@ -12,7 +12,9 @@
 //       slot (i, 0) (head pair) or (i, s) (chase pair of slot s), the slots
 //       svdt_band_chase_rec fills, through the one chase_pair, so (d, e) and
 //       every record are bit-equal to it;
-// svdt_band_chase_wave_dl (template flag DeferLeft) replaces
+// svdt_band_chase_wave_smem_dl (wave_smem_dl_kernel) and, on the shapes
+// the copy engine does not take, svdt_band_chase_wave_dl (template flag
+// DeferLeft) replace
 //   svdsolver_tpu/ops/pallas/band_chase_wave.py  _wave_chase_dl_kernel (each
 //       pair's left apply deferred one tick and fused into the same sweep's
 //       next right apply; tick _wave_tick_dl, _pend_correct,
@@ -54,12 +56,13 @@
 // pending left.
 //
 // Two ticks run this schedule.  The L2 tick (wave_chase_kernel) runs the
-// one chase_pair on the matrix through L2; it serves bands 128 < b <= 256,
-// shapes the copy engine cannot take, and DeferLeft.  The shared-memory
-// tick (wave_smem_kernel: svdt_band_chase_wave_smem and _smem_rec, where
-// the wrapper's smem_tick_takes holds: 4 <= b <= 128, b and n multiples of
-// 4, every band of the main paths) stages each pair's window in dynamic
-// shared memory by the copy engine (TMA, one tensor map of A):
+// one chase_pair (or the deferred-left slot) on the matrix through L2; it
+// serves bands 128 < b <= 256 and shapes the copy engine cannot take.  The
+// shared-memory tick (wave_smem_kernel: svdt_band_chase_wave_smem and
+// _smem_rec; wave_smem_dl_kernel: _smem_dl; where the wrapper's
+// smem_tick_takes holds: 4 <= b <= 128, b and n multiples of 4, every band
+// of the main paths) stages each pair's window in dynamic shared memory by
+// the copy engine (TMA, one tensor map of A):
 //   - thread 0 copies the window's tiles (r, c), (r + b, c), (r + b, c + b)
 //     in, each on its own mbarrier, so warp 0 builds the right reflector
 //     from the pivot row while the other tiles land; a box starts at a
@@ -78,6 +81,25 @@
 //     in instead of three, and two of three two out;
 //   - the head pair's window, (b + 1) x 2b, is two boxes and its last row,
 //     which the threads copy.
+// The deferred-left tick (wave_smem_dl_kernel) runs the L2 tick's slot
+// arithmetic (dl_head on an accessor of its window in shared memory; dl_slot's
+// passes specialised to pointers into the tiles, tiles_partials,
+// tiles_pending_left and tiles_right_apply: the same sums, entry for entry,
+// by the same threads in the same order) on a window of its own: slot
+// (r, c) copies (r, c - b), (r, c) and (r + b, c) in (the pending apply's
+// row band and the right apply's rows; the new reflector is column c of the
+// last), a slot whose corner column c is past n only its (r, c - b) tile
+// (pending only: no right elimination, no new reflector), and the head its
+// (b + 1) x b box.  With one CTA a unit, lane u keeps tile (r + b, c), the
+// next slot's (r, c - b), and the reflector it made, which that slot
+// applies, in shared memory (dl_carries); every other hand-off (the head to
+// slot 1, lane u to lane u + 1, every slot when lanes stride) goes through
+// the device ring, written through L2 before the grid barrier.  Each box
+// goes back as soon as it is final, under the work that follows: (r, c - b)
+// once its pending update, done by warps 1-15 while warp 0 builds the right
+// reflector, is in; (r, c) after the right apply's rows in it; (r + b, c)
+// after the rest, while warp 0 builds the new left reflector.  The stores
+// are drained and fenced before the barrier.
 //
 // What bounds it on the H100: ~3n ticks (11,544 at n = 3840, b = 128) in
 // order, each the slowest pair of the tick plus a grid barrier.  The L2
@@ -216,9 +238,10 @@ struct Ring {
 };
 
 // Deferred-left head pair of sweep i: its right elimination, and its left
-// reflector into the ring.
-template <int KPL>
-__device__ void dl_head(const DenseL2At& a, int n, int b, int i, Ring ring,
+// reflector into the ring.  Acc: the matrix through L2 (the L2 tick) or the
+// head's window in shared memory (the shared-memory tick).
+template <int KPL, class Acc>
+__device__ void dl_head(const Acc& a, int n, int b, int i, Ring ring,
                         Smem sm) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -243,24 +266,18 @@ __device__ void dl_head(const DenseL2At& a, int n, int b, int i, Ring ring,
   __syncthreads();
 }
 
-// Deferred-left chase slot s >= 1 of sweep i: the pending left of slot s - 1
-// fused with the right elimination of pair (i, s) (when it exists: c < n),
-// whose left reflector becomes the new pending one.
-template <int KPL>
-__device__ void dl_lane(const DenseL2At& a, int n, int b, int i, int s,
-                        Ring ring, Smem sm) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int r = i + 1 + (s - 1) * b;
-  const int c = r + b;
-  float* pv = ring.v + (size_t)(i % ring.slots) * b;
-  float* pt = ring.t + i % ring.slots;
-  for (int k = tid; k < b; k += kThreads) sm.vp[k] = __ldcg(pv + k);
-  if (tid == 0) sm.s_tau[1] = __ldcg(pt);
-  __syncthreads();
-  const float taup = sm.s_tau[1];
+// Deferred-left slot (r, c): the pending left reflector (sm.vp, taup) of the
+// slot before, fused with the right elimination of the pair at (r, c) when it
+// exists (c < n; else the slot is "pending only"), whose left reflector warp
+// 0 writes to sm.v; returns its tau to warp 0 (0: none).
+template <int KPL, class Acc>
+__device__ float dl_slot(const Acc& a, int n, int b, int r, int c, float taup,
+                         const Smem& sm) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const bool pend = taup != 0.f;
+  const bool right = c < n;
+  SVDT_SPLIT(1);
   if (pend) {
     left_partials(a, n, b, r, c - b, sm.vp, sm.part);
     __syncthreads();
@@ -269,7 +286,7 @@ __device__ void dl_lane(const DenseL2At& a, int n, int b, int i, int s,
       sm.fcol[lt.c] = c - b + lt.c < n ? taup * left_total(sm.part, b, lt.c) : 0.f;
     __syncthreads();
   }
-  const bool right = c < n;
+  SVDT_SPLIT(2);
   if (right && warp == 0) {
     float x[KPL];
     load_row<KPL>(a, n, b, r, c, x);
@@ -283,19 +300,41 @@ __device__ void dl_lane(const DenseL2At& a, int n, int b, int i, int s,
     if (lane == 0) sm.s_tau[0] = tau;
   }
   __syncthreads();
+  SVDT_SPLIT(3);
   pend_right_apply<KPL>(a, n, b, r, c, pend, sm.vp, sm.fcol, sm.v,
                         right ? sm.s_tau[0] : 0.f);
   __syncthreads();
-  if (warp == 0) {
-    float tau2 = 0.f;
-    if (right) {
-      float x[KPL];
-      load_col<KPL>(a, n, b, r + b, c, x);
-      tau2 = warp_reflector<KPL>(x, b, sm.v);
-      for (int k = lane; k < b; k += 32) __stcg(pv + k, sm.v[k]);
-    }
-    if (lane == 0) __stcg(pt, tau2);
+  SVDT_SPLIT(4);
+  float tau2 = 0.f;
+  if (right && warp == 0) {
+    float x[KPL];
+    load_col<KPL>(a, n, b, r + b, c, x);
+    tau2 = warp_reflector<KPL>(x, b, sm.v);
   }
+  SVDT_SPLIT(5);
+  return tau2;
+}
+
+// Deferred-left chase slot s >= 1 of sweep i on the L2 tick: its pending
+// reflector from the ring, its new one back there.
+template <int KPL>
+__device__ void dl_lane(const DenseL2At& a, int n, int b, int i, int s,
+                        Ring ring, Smem sm) {
+  const int tid = threadIdx.x;
+  const int r = i + 1 + (s - 1) * b;
+  const int c = r + b;
+  float* pv = ring.v + (size_t)(i % ring.slots) * b;
+  float* pt = ring.t + i % ring.slots;
+  for (int k = tid; k < b; k += kThreads) sm.vp[k] = __ldcg(pv + k);
+  if (tid == 0) sm.s_tau[1] = __ldcg(pt);
+  __syncthreads();
+  const float tau2 = dl_slot<KPL>(a, n, b, r, c, sm.s_tau[1], sm);
+  if (tid < 32) {
+    if (c < n)
+      for (int k = tid; k < b; k += 32) __stcg(pv + k, sm.v[k]);
+    if (tid == 0) __stcg(pt, tau2);
+  }
+  SVDT_SPLIT(6);
   __syncthreads();
 }
 
@@ -499,6 +538,409 @@ wave_smem_kernel(const __grid_constant__ CUtensorMap tile_map,
   }
 }
 
+// ---- the deferred-left shared-memory tick ----
+
+// A window in shared memory whose entry (r, c) sits at p, rows ld apart.
+struct SmemAt {
+  float* p;
+  int r, c, ld;
+  __device__ float load(int i, int k) const { return p[(i - r) * ld + (k - c)]; }
+  __device__ void store(int i, int k, float x) const { p[(i - r) * ld + (k - c)] = x; }
+};
+
+// A deferred-left slot's tiles in shared memory: t0 the tile (r, c - b),
+// t1 (r, c), t2 (r + b, c), each at its entry (0, 0), rows box_cols(b)
+// apart.  The passes below are dl_slot's (left_partials, pend_right_apply):
+// the same sums and updates, entry for entry, the sums by the same threads
+// in the same order, through pointers (through an accessor, the index
+// arithmetic of every entry bounded them by issue).  BF: b as a constant
+// (0: b at run time).
+struct DlTiles {
+  float *t0, *t1, *t2;
+  int r, c, b;
+};
+
+// left_partials over rows [r, r + b) x columns [c - b, c + b).
+template <int BF>
+__device__ __forceinline__ void tiles_partials(const DlTiles& w, int n,
+                                               const float* vp, float* part) {
+  const int b = BF ? BF : w.b;
+  const int ld = box_cols(b);
+  const LeftThread lt(b);
+  const int rows = min(b, n - w.r);
+  float s = 0.f;
+  if (lt.g < lt.groups && w.c - b + lt.c < n) {
+    const int step = lt.groups * ld;
+    const float* q = (lt.c < b ? w.t0 + lt.c : w.t1 + (lt.c - b)) + lt.g * ld;
+    for (int i0 = lt.g; i0 < rows; i0 += lt.groups * kChunk, q += kChunk * step) {
+      float x[kChunk];
+#pragma unroll
+      for (int t = 0; t < kChunk; ++t) x[t] = i0 + t * lt.groups < rows ? q[t * step] : 0.f;
+#pragma unroll
+      for (int t = 0; t < kChunk; ++t) {
+        const int i = i0 + t * lt.groups;
+        if (i < rows) s += vp[i] * x[t];
+      }
+    }
+  }
+  if (lt.g < lt.groups) part[lt.g * lt.cols + lt.c] = s;
+}
+
+// The pending update of rows [r, r + b) x columns [c - b, c) (t0), by warps
+// 1 .. 15 while warp 0 builds the right reflector.
+template <int BF>
+__device__ __forceinline__ void tiles_pending_left(const DlTiles& w, int n,
+                                                   const float* vp, const float* fcol) {
+  const int b = BF ? BF : w.b;
+  const int ld = box_cols(b);
+  const int p = (kThreads - 32) / b;
+  const int i0 = (threadIdx.x - 32) / b;
+  const int k = threadIdx.x - 32 - i0 * b;
+  const int prows = min(b, n - w.r);
+  if (i0 >= p || w.c - b + k >= n) return;
+  const float f = fcol[k];
+  for (int i = i0; i < prows; i += p * kChunk) {
+    float* q = w.t0 + i * ld + k;
+    float x[kChunk];
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) x[u] = i + u * p < prows ? q[u * p * ld] : 0.f;
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u)
+      if (i + u * p < prows) q[u * p * ld] = rank1(x[u], f, vp[i + u * p]);
+  }
+}
+
+// pend_right_apply's rows [r + lo, r + hi) x columns [c, c + b), in t1
+// below row r + b and in t2 from there; R rows a warp at once (any R gives
+// each row the same sum: one warp's row_dot and warp_sum).  Each row reads
+// its pending factor vp[i] once, and a row or column without a pending
+// update gets x - fk * 0 or x - 0 * vp[i] there: x itself, in an entry the
+// row's sum masks out and that is not stored.  Interior: the window lies
+// inside the matrix (c + b <= n, r + 2b <= n) and b == 32 KPL, so the
+// masks at n fold away.
+template <int KPL, int R, int BF, bool Interior>
+__device__ __forceinline__ void tiles_right_apply(const DlTiles& w, int n, int lo, int hi,
+                                                  bool pend, const float* vp,
+                                                  const float* fcol, const float* v,
+                                                  float tau) {
+  const int b = BF ? BF : w.b;
+  const int ld = box_cols(b);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float vk[KPL], fk[KPL];
+  bool in[KPL];
+#pragma unroll
+  for (int t = 0; t < KPL; ++t) {
+    const int k = lane + 32 * t;
+    in[t] = Interior || (k < b && w.c + k < n);
+    vk[t] = (tau != 0.f && in[t]) ? v[k] : 0.f;
+    fk[t] = (pend && in[t]) ? fcol[b + k] : 0.f;
+  }
+  const int rows = Interior ? hi : min(hi, n - w.r);
+  const int prows = pend ? (Interior ? b : min(b, n - w.r)) : 0;
+  if (tau == 0.f && !pend) return;
+  for (int i0 = lo + warp * R; i0 < rows; i0 += kWarps * R) {
+    float* row[R];
+    float x[R][KPL];
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int i = i0 + q;
+      row[q] = (i < b ? w.t1 + i * ld : w.t2 + (i - b) * ld) + lane;
+      const bool pi = i < prows;
+      const float vpi = pi ? vp[i] : 0.f;
+#pragma unroll
+      for (int t = 0; t < KPL; ++t) {
+        x[q][t] = (i < rows && (vk[t] != 0.f || (pi && in[t]))) ? row[q][32 * t] : 0.f;
+        if (pend) x[q][t] = rank1(x[q][t], fk[t], vpi);
+      }
+    }
+    float f[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      float xm[KPL];
+#pragma unroll
+      for (int t = 0; t < KPL; ++t) xm[t] = vk[t] != 0.f ? x[q][t] : 0.f;
+      f[q] = row_dot<KPL>(xm, vk);
+    }
+#pragma unroll
+    for (int q = 0; q < R; ++q) f[q] = tau * warp_sum(f[q]);
+#pragma unroll
+    for (int q = 0; q < R; ++q)
+#pragma unroll
+      for (int t = 0; t < KPL; ++t) {
+        const int i = i0 + q;
+        if (i < rows && vk[t] != 0.f)
+          row[q][32 * t] = rank1(x[q][t], f[q], vk[t]);
+        else if (i < prows && in[t])
+          row[q][32 * t] = x[q][t];
+      }
+  }
+}
+
+// Where a deferred-left slot's boxes live and go: b0, b1, b2 in slots s0
+// (-1: carried in, not loaded), s1 and s2 (-1: not loaded, the slot is
+// pending only), copied from and to (r, a - b), (r, a) and (r + b, a), the
+// tiles at column dl of each (c = a + dl); b2 stays in shared memory where
+// `keep`.
+struct DlBoxes {
+  const CUtensorMap* map;
+  float *b0, *b1, *b2;
+  int s0, s1, s2, r, a, dl;
+  bool keep;
+};
+
+// dl_slot on the shared-memory tick (the L2 tick's arithmetic; the pending
+// update of t0 moved under the right reflector's build, as the entries it
+// writes are read by nothing else in the slot), waiting on each box before
+// it is first read.  Its boxes go back as they become final, each store
+// overlapping the work that follows: t0 once its pending update is done
+// (its 4 columns shared with t1 then hold t1's old values; t1's store,
+// issued after t0's has landed, writes them again), t1 after the right
+// apply's rows in it, t2 after the rest, while warp 0 builds the new left
+// reflector (into vout).  Returns its tau to warp 0 (0: none).
+template <int KPL, int BF>
+__device__ float smem_dl_slot(const DlBoxes& x, int n, int b_rt, float taup,
+                              const Smem& sm, float* vout, Waits& wt) {
+  // the right apply's rows a warp at once: a half of 2b rows over all warps
+  constexpr int R = BF >= kWarps ? (BF / kWarps < right_rows<KPL>() ? BF / kWarps
+                                                                     : right_rows<KPL>())
+                                 : 1;
+  const int b = BF ? BF : b_rt;
+  const int ld = box_cols(b);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int r = x.r, c = x.a + x.dl;
+  const DlTiles w = {x.b0 + x.dl, x.b1 + x.dl, x.b2 + x.dl, r, c, b};
+  const bool pend = taup != 0.f;
+  const bool right = c < n;
+  if (pend) {
+    wt.on(x.s0);
+    wt.on(x.s1);
+    SVDT_SPLIT(1);
+    tiles_partials<BF>(w, n, sm.vp, sm.part);
+    __syncthreads();
+    const LeftThread lt(b);
+    if (lt.g == 0)
+      sm.fcol[lt.c] = c - b + lt.c < n ? taup * left_total(sm.part, b, lt.c) : 0.f;
+    __syncthreads();
+  }
+  SVDT_SPLIT(2);
+  if (warp == 0) {
+    if (right) {
+      wt.on(x.s1);
+      float xr[KPL];
+#pragma unroll
+      for (int t = 0; t < KPL; ++t) {
+        const int k = lane + 32 * t;
+        xr[t] = k < b && c + k < n ? w.t1[k] : 0.f;
+        if (pend && k < b && c + k < n) xr[t] = rank1(xr[t], sm.fcol[b + k], sm.vp[0]);
+      }
+      const float tau = warp_reflector<KPL>(xr, b, sm.v);
+      if (lane == 0) sm.s_tau[0] = tau;
+    }
+  } else if (pend) {
+    tiles_pending_left<BF>(w, n, sm.vp, sm.fcol);
+    fence_async_smem();  // t0's writes before its store
+  }
+  __syncthreads();
+  SVDT_SPLIT(3);
+  if (threadIdx.x == 0 && (pend || x.s0 < 0)) {  // t0 final: back now
+    wt.on(x.s0);
+    tma_store(x.map, r, x.a - b, x.b0);
+    tma_commit();
+  }
+  if (right) {
+    const float tau = sm.s_tau[0];
+    // rows [r + lo, r + hi): the interior instance where the window lies
+    // inside the matrix (every compile-time band is 32 KPL)
+    const bool interior = c + b <= n && r + 2 * b <= n;
+    const auto apply = [&](int lo, int hi, bool p) {
+      if constexpr (BF != 0)
+        if (interior)
+          return tiles_right_apply<KPL, R, BF, true>(w, n, lo, hi, p, sm.vp, sm.fcol, sm.v, tau);
+      tiles_right_apply<KPL, R, BF, false>(w, n, lo, hi, p, sm.vp, sm.fcol, sm.v, tau);
+    };
+    wt.on(x.s0);
+    wt.on(x.s1);
+    for (int k = threadIdx.x; k < 4 * b; k += kThreads)  // t0's last dl columns into t1's box
+      if ((k & 3) < x.dl) x.b1[(k >> 2) * ld + (k & 3)] = x.b0[(k >> 2) * ld + (k & 3) + b];
+    apply(0, b, pend);
+    fence_async_smem();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      tma_wait_all();  // t0's store has written the 4 shared columns
+      tma_store(x.map, r, x.a, x.b1);
+      tma_commit();
+    }
+    wt.on(x.s2);
+    apply(b, 2 * b, false);
+    fence_async_smem();
+    __syncthreads();
+    if (threadIdx.x == 0 && !x.keep) tma_store(x.map, r + b, x.a, x.b2);
+  } else {
+    wt.on(x.s0);  // t0 landed before the slot ends
+  }
+  SVDT_SPLIT(4);
+  float tau2 = 0.f;
+  if (right && warp == 0) {
+    float xc[KPL];
+#pragma unroll
+    for (int t = 0; t < KPL; ++t) {
+      const int k = lane + 32 * t;
+      xc[t] = k < b && r + b + k < n ? w.t2[k * ld] : 0.f;
+    }
+    tau2 = warp_reflector<KPL>(xc, b, vout);
+  }
+  SVDT_SPLIT(5);
+  return tau2;
+}
+
+// Whether deferred-left slot (i, s) keeps its (r + b, c) tile and its new
+// left reflector for the lane's next slot (ops/chase_schedule._dl_carries):
+// not the lane's last slot, that slot exists, and this one makes a
+// reflector (c < n).
+__device__ __forceinline__ bool dl_carries(int i, int s, int n, int b) {
+  return s % 3 != 0 && s + 1 <= nc_of(i, n, b) + 1 && i + 1 + s * b < n;
+}
+
+template <int KPL, int BF>
+__global__ void __launch_bounds__(kThreads, 1)
+wave_smem_dl_kernel(const __grid_constant__ CUtensorMap tile_map,
+                    float* __restrict__ A, float* __restrict__ d,
+                    float* __restrict__ e, int n, int b_rt, int L, int T,
+                    unsigned* ctr, Ring ring) {
+  extern __shared__ __align__(128) float smem_raw[];
+  float* tiles = align128(smem_raw);
+  __shared__ float v[kSmemBand];
+  __shared__ float vp[kSmemBand];
+  __shared__ float fcol[2 * kSmemBand];
+  __shared__ float part[kThreads];
+  __shared__ float s_tau[2];
+  __shared__ __align__(8) uint64_t bar[3];
+  const Smem sm = {v, vp, fcol, part, s_tau};
+  const int b = BF ? BF : b_rt;
+  const int G = gridDim.x;
+  const bool carry = G == L + 1;  // a unit a CTA: a lane's tile can stay
+  const int tsz = tile_floats(b);
+  const int ldt = box_cols(b);
+  const unsigned tile_bytes = 4u * b * ldt;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int k = 0; k < 3; ++k) mbar_init(bar + k);
+    fence_async();
+  }
+  __syncthreads();
+  unsigned parity = 0;
+  int cur = 0;                   // the slot of the (r, c - b) tile
+  int kept_i = -1, kept_s = -1;  // the slot whose tile and reflector are kept
+  unsigned target = 0;
+  for (int t = 0; t < T; ++t) {
+    SVDT_SPLIT_TICK(t);
+    const int q = t >= 1 ? (t - 1) / 3 : -1;  // newest sweep past its head
+    for (int u = blockIdx.x; u <= L; u += G) {
+      if (u == 0) {  // the head pair of sweep t / 3
+        // window rows [i, i + b] x columns [i + 1, i + 1 + b): a b x b box
+        // by the copy engine in slot 0 and row i + b by the threads
+        const int i = t / 3;
+        if (t % 3 != 0 || i > n - 2) continue;
+        const int dl = (i + 1) & 3;
+        const int a = i + 1 - dl;
+        float* h0 = tiles;
+        if (tid == 0) {
+          mbar_expect(bar, tile_bytes);
+          tma_load(h0, &tile_map, i, a, bar);
+        }
+        const int hr = i + b;
+        float* xr = h0 + b * ldt + dl;  // row i + b, columns [i + 1, i + 1 + b)
+        for (int k = tid; k < b; k += kThreads)
+          xr[k] = hr < n && i + 1 + k < n ? __ldcg(A + (size_t)hr * n + i + 1 + k) : 0.f;
+        mbar_wait(bar, parity & 1u);
+        __syncthreads();
+        dl_head<KPL>(SmemAt{h0 + dl, i, i + 1, ldt}, n, b, i, ring, sm);
+        fence_async_smem();
+        __syncthreads();
+        if (tid == 0) {
+          tma_store(&tile_map, i, a, h0);
+          tma_store_drain();
+          fence_async();
+        }
+        for (int k = tid; k < b; k += kThreads)
+          if (hr < n && i + 1 + k < n) __stcg(A + (size_t)hr * n + i + 1 + k, xr[k]);
+        parity ^= 1u;
+        kept_i = -1;  // the head's window took slot 0
+        continue;
+      }
+      const int i = q - (u - 1);
+      const int s = t - 3 * i;
+      if (i < 0 || i > n - 2 || s > nc_of(i, n, b) + 1) continue;
+      const int r = i + 1 + (s - 1) * b;
+      const int c = r + b;
+      if (c - b >= n) continue;  // nothing pending, no pair
+      const bool right = c < n;
+      const int dl = c & 3;  // the tiles' column in their boxes
+      const int a = c - dl;
+      const bool cin = kept_i == i && kept_s == s;
+      const bool cout = carry && dl_carries(i, s, n, b);
+      const int s0 = cur, s1 = (cur + 1) % 3, s2 = (cur + 2) % 3;
+      float* t0 = tiles + s0 * tsz;
+      float* t1 = tiles + s1 * tsz;
+      float* t2 = tiles + s2 * tsz;
+      if (tid == 0) {
+        if (!cin) {
+          mbar_expect(bar + s0, tile_bytes);
+          tma_load(t0, &tile_map, r, a - b, bar + s0);
+        }
+        if (right) {
+          mbar_expect(bar + s1, tile_bytes);
+          tma_load(t1, &tile_map, r, a, bar + s1);
+          mbar_expect(bar + s2, tile_bytes);
+          tma_load(t2, &tile_map, r + b, a, bar + s2);
+        }
+      }
+      // the pending reflector: kept from the lane's last slot, or the ring's
+      float* pv = ring.v + (size_t)(i % ring.slots) * b;
+      float* pt = ring.t + i % ring.slots;
+      if (!cin) {
+        for (int k = tid; k < b; k += kThreads) vp[k] = __ldcg(pv + k);
+        if (tid == 0) s_tau[1] = __ldcg(pt);
+      }
+      __syncthreads();
+      Waits wt = {bar, parity, 0u};
+      const DlBoxes boxes = {&tile_map, t0, t1, t2, cin ? -1 : s0, right ? s1 : -1,
+                             right ? s2 : -1, r, a, dl, cout};
+      const float tau2 = smem_dl_slot<KPL, BF>(boxes, n, b, s_tau[1], sm, cout ? vp : v, wt);
+      if (tid < 32) {
+        if (cout) {
+          if (tid == 0) s_tau[1] = tau2;
+        } else {
+          if (right)
+            for (int k = tid; k < b; k += 32) __stcg(pv + k, v[k]);
+          if (tid == 0) __stcg(pt, tau2);
+        }
+      }
+      if (tid == 0) {
+        tma_store_drain();
+        fence_async();
+      }
+      SVDT_SPLIT(6);
+      __syncthreads();
+      parity ^= (cin ? 0u : 1u << s0) | (right ? 1u << s1 | 1u << s2 : 0u);
+      kept_i = cout ? i : -1;
+      kept_s = s + 1;
+      if (cout) cur = s2;
+    }
+    SVDT_SPLIT(7);
+    target += G;
+    grid_sync(ctr, target);
+    if (tid == 0) fence_async();  // the barrier before the next copies
+    SVDT_SPLIT(8);
+  }
+  for (int k = blockIdx.x * kThreads + tid; k < n; k += G * kThreads) {
+    d[k] = __ldcg(A + (size_t)k * n + k);
+    if (k + 1 < n) e[k] = __ldcg(A + (size_t)k * n + k + 1);
+  }
+}
+
 // One CTA moving a chase pair's three b x b tiles at (r, c) from device
 // memory into shared memory and back, `reps` times: the copy rate behind
 // the shared-memory tick's schedule bound.
@@ -555,22 +997,31 @@ int coop_launch(Kernel kernel, int units, int max_ctas, void** args,
 
 size_t smem_tick_bytes(int b) { return sizeof(float) * 3 * (size_t)tile_floats(b) + 128; }
 
-template <bool Rec>
+template <bool DeferLeft, bool Rec>
 int launch_smem(float* A, float* d, float* e, int n, int b, unsigned* ctr,
-                Records rec, int max_ctas, int* ctas, int smem_req,
+                Ring ring, Records rec, int max_ctas, int* ctas, int smem_req,
                 void* stream) {
   if (n < 2 || !tma_takes(A, n, b)) return (int)cudaErrorInvalidValue;
+  const int S = nc_of(0, n, b) + (DeferLeft ? 1 : 0);  // slots past the head
+  int L = lanes_of(S);
+  int T = 3 * (n - 2) + S + 1;
+  if (DeferLeft && ring.slots < L + 2) return (int)cudaErrorInvalidValue;
   alignas(64) CUtensorMap tile_map;
   int err = encode_map(&tile_map, A, n, n, b, box_cols(b));
   if (err != 0) return err;
-  int L = lanes_of(nc_of(0, n, b));
-  int T = 3 * (n - 2) + nc_of(0, n, b) + 1;
   const size_t smem = smem_req > 0 ? (size_t)smem_req : smem_tick_bytes(b);
   cudaStream_t s = (cudaStream_t)stream;
-  void* args[] = {&tile_map, &A, &d, &e, &n, &b, &L, &T, &ctr, &rec};
-#define SVDT_SMEM_LAUNCH(KPL, BF)                                             \
-  err = coop_launch(wave_smem_kernel<KPL, BF, Rec>, L + 1, max_ctas, args,    \
-                    smem, s, ctas)
+  void* args[] = {&tile_map, &A, &d, &e, &n, &b, &L, &T, &ctr,
+                  DeferLeft ? (void*)&ring : (void*)&rec};
+#define SVDT_SMEM_LAUNCH(KPL, BF)                                               \
+  do {                                                                          \
+    if constexpr (DeferLeft)                                                    \
+      err = coop_launch(wave_smem_dl_kernel<KPL, BF>, L + 1, max_ctas, args,    \
+                        smem, s, ctas);                                         \
+    else                                                                        \
+      err = coop_launch(wave_smem_kernel<KPL, BF, Rec>, L + 1, max_ctas, args,  \
+                        smem, s, ctas);                                         \
+  } while (0)
   if (b == 32) SVDT_SMEM_LAUNCH(1, 32);
   else if (b < 32) SVDT_SMEM_LAUNCH(1, 0);
   else if (b == 64) SVDT_SMEM_LAUNCH(2, 64);
@@ -645,9 +1096,9 @@ extern "C" int svdt_band_chase_wave_dl(float* A, float* d, float* e, int n,
 extern "C" int svdt_band_chase_wave_smem(float* A, float* d, float* e, int n,
                                          int b, unsigned* ctr, int max_ctas,
                                          int* ctas, int smem, void* stream) {
-  return launch_smem<false>(A, d, e, n, b, ctr,
-                            {nullptr, nullptr, nullptr, nullptr, 0}, max_ctas,
-                            ctas, smem, stream);
+  return launch_smem<false, false>(A, d, e, n, b, ctr, {nullptr, nullptr, 0},
+                                   {nullptr, nullptr, nullptr, nullptr, 0},
+                                   max_ctas, ctas, smem, stream);
 }
 
 // As svdt_band_chase_wave_smem, and writes the records of
@@ -657,8 +1108,23 @@ extern "C" int svdt_band_chase_wave_smem_rec(float* A, float* d, float* e,
                                              float* VR, float* TR, int s_max,
                                              unsigned* ctr, int max_ctas,
                                              int* ctas, int smem, void* stream) {
-  return launch_smem<true>(A, d, e, n, b, ctr, {VL, TL, VR, TR, s_max},
-                           max_ctas, ctas, smem, stream);
+  return launch_smem<false, true>(A, d, e, n, b, ctr, {nullptr, nullptr, 0},
+                                  {VL, TL, VR, TR, s_max}, max_ctas, ctas, smem,
+                                  stream);
+}
+
+// As svdt_band_chase_wave_dl with the shared-memory tick (the shapes of
+// svdt_band_chase_wave_smem): each slot's tiles staged in shared memory,
+// a lane's (r + b, c) tile and pending reflector kept for its next slot.
+extern "C" int svdt_band_chase_wave_smem_dl(float* A, float* d, float* e,
+                                            int n, int b, unsigned* ctr,
+                                            float* ring_v, float* ring_t,
+                                            int ring_slots, int max_ctas,
+                                            int* ctas, int smem, void* stream) {
+  return launch_smem<true, false>(A, d, e, n, b, ctr,
+                                  {ring_v, ring_t, ring_slots},
+                                  {nullptr, nullptr, nullptr, nullptr, 0},
+                                  max_ctas, ctas, smem, stream);
 }
 
 // One CTA copying the three b x b tiles at (r, c) of A (n x n) into shared

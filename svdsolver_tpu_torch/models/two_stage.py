@@ -356,7 +356,8 @@ def _box_out(M, box, r, c):
     M[r : r + rh, c : c + cw] = box[:rh, :cw]
 
 
-def band_to_bidiagonal_wavefront_tiles(A, band=32, record=False, carry=True):
+def band_to_bidiagonal_wavefront_tiles(A, band=32, record=False, carry=True,
+                                       defer_left=False):
     """The shared-memory tick of the wavefront chase kernel, plain: each
     pair of :func:`~svdsolver_tpu_torch.ops.chase_schedule.wave_pairs` copies
     its boxes out of an unpadded copy of ``A`` (zeros past ``n``), runs the
@@ -365,13 +366,23 @@ def band_to_bidiagonal_wavefront_tiles(A, band=32, record=False, carry=True):
     its ``(r + b, c + b)`` tile for its next pair (``carry=True``), which
     then loads two tiles, not three.  Writes past ``n`` are dropped.
     Returns what :func:`band_to_bidiagonal_wavefront` returns, bit-equal.
+
+    ``defer_left=True``: the deferred-left entry's tick (the slots of
+    ``wave_pairs(defer_left=True)``), bit-equal to
+    ``band_to_bidiagonal_wavefront(defer_left=True)``; it does not combine
+    with ``record``.
     """
     n = A.shape[0]
+    if record and defer_left:
+        raise ValueError("record=True runs without defer_left")
     if n < 2:
         if record:
             raise ValueError("band_to_bidiagonal_accum needs n >= 2")
         return torch.abs(torch.diagonal(A)), A.new_zeros((0,))
     b = int(band)
+    if defer_left:
+        M = _wavefront_dl_tiles(A, b, carry)
+        return torch.diagonal(M).clone(), torch.diagonal(M, 1).clone()
     M = A.clone()
     top_pair, chase_pair = make_window_pairs(b + 1, record=record)
     if record:
@@ -403,6 +414,52 @@ def band_to_bidiagonal_wavefront_tiles(A, band=32, record=False, carry=True):
                     VL[i, s, 0] = VR[i, s, 0] = 1
     d, e = torch.diagonal(M).clone(), torch.diagonal(M, 1).clone()
     return (d, e, VL, TL, VR, TR) if record else (d, e)
+
+
+def _wavefront_dl_tiles(A, b, carry):
+    """The deferred-left tick over an unpadded copy of ``A``; returns it.
+    Each slot applies its pending left reflector to a ``b x 2b`` window
+    built from tiles ``(r, c - b)`` and ``(r, c)``, then (``c < n``) the
+    right elimination of pair ``(i, s)`` to a ``2b x 2b`` window whose left
+    half is tiles ``(r, c)`` and ``(r + b, c)``, and takes the new left
+    reflector from its column 0, rows ``[b, 2b)``: the shapes the plain
+    wavefront's windows give the same steps, so every entry is bit-equal
+    to it.  Pending reflectors of every sweep sit in one dict, the device
+    ring and the lanes' shared memory alike (the arithmetic does not
+    depend on where they are kept); the tiles move as the kernel moves
+    them."""
+    n = A.shape[0]
+    M = A.clone()
+    kept = {}  # lane -> the (r + b, c) tile it carries to its next slot
+    pending = {}  # sweep -> (v, tau) of its pending left reflector
+    for p in wave_pairs(n, b, carry=carry, defer_left=True):
+        if p.s == 0:  # the head: its right elimination, its left reflector pending
+            W = A.new_zeros((b + 1, 2 * b))  # (i, i + 1 + b) is never touched
+            W[:, :b] = _box_in(M, p.r, p.c, b + 1, b)
+            _right_elim(W, b + 1)
+            pending[p.i] = _left_reflector(W, 1)
+            _box_out(M, W[:, :b], p.r, p.c)
+            continue
+        r, c = p.r, p.c
+        P = A.new_zeros((b, 2 * b))  # rows [r, r + b) x columns [c - b, c + b)
+        P[:, :b] = kept.pop(p.unit) if p.carry_in else _box_in(M, r, c - b, b, b)
+        right = c < n
+        if right:
+            P[:, b:] = _box_in(M, r, c, b, b)
+        _left_apply(P, 0, *pending.pop(p.i))
+        tiles = {(r, c - b): P[:, :b]}
+        if right:
+            W = A.new_zeros((2 * b, 2 * b))  # (r, c + b) and (r + b, c + b): not read
+            W[:b, :b] = P[:, b:]
+            W[b:, :b] = _box_in(M, r + b, c, b, b)
+            _right_elim(W, b + 1)
+            pending[p.i] = _left_reflector(W, b)
+            tiles[r, c], tiles[r + b, c] = W[:b, :b], W[b:, :b]
+            if p.carry_out:
+                kept[p.unit] = W[b:, :b].clone()
+        for rc in p.stores:
+            _box_out(M, tiles[rc], *rc)
+    return M
 
 
 def band_to_bidiagonal_staged_tiles(A, band=32, khops=1, record=False):

@@ -22,16 +22,23 @@ def s_max_of(n, b):
     return nc_of_static(0, n, b) + 1
 
 
-def wave_ticks(n, b):
+def wave_slots(n, b, defer_left=False):
+    """Slots past the head of the longest sweep: ``S = nc_of_static(0, n,
+    b)``, one more with ``defer_left`` (the flush of the last pending
+    left)."""
+    return nc_of_static(0, n, b) + (1 if defer_left else 0)
+
+
+def wave_ticks(n, b, defer_left=False):
     """Ticks of the wavefront schedule: sweep ``i`` runs slot ``s`` at tick
     ``3 i + s``, the last sweep (``n - 2``) its last slot at the end."""
-    return 3 * (n - 2) + nc_of_static(0, n, b) + 1
+    return 3 * (n - 2) + wave_slots(n, b, defer_left) + 1
 
 
-def wave_units(n, b):
+def wave_units(n, b, defer_left=False):
     """Work units of a wavefront tick: the head pair (unit 0) and
-    ``ceil(S / 3)`` chase lanes, ``S = nc_of_static(0, n, b)``."""
-    return -(-nc_of_static(0, n, b) // 3) + 1
+    ``ceil(S / 3)`` chase lanes, ``S`` of :func:`wave_slots`."""
+    return -(-wave_slots(n, b, defer_left) // 3) + 1
 
 
 class WavePair(NamedTuple):
@@ -49,6 +56,15 @@ class WavePair(NamedTuple):
     lane's next pair (``carry_out``)
     stays in shared memory, and that pair (``carry_in``) does not load its
     ``(r, c)`` tile.
+
+    With deferred left applies (``wave_pairs(defer_left=True)``) a slot's
+    tiles are ``(r, c - b)``, ``(r, c)`` and ``(r + b, c)``: the pending
+    left reflector of slot ``s - 1`` acts on the first two, the right
+    elimination of pair ``(i, s)`` on the last two, and the new left
+    reflector is column ``c`` of the last.  The head slot is one
+    ``(b + 1) x b`` box at ``(i, i + 1)`` (its last row copied by the
+    threads); a carried tile is ``(r + b, c)``, the next slot's ``(r,
+    c - b)``, and with it the pending reflector stays in shared memory.
     """
 
     t: int
@@ -71,11 +87,33 @@ def _carries(i, s, n, b):
     return s % 3 != 0 and s + 1 <= nc_of_static(i, n, b) and c + b < n
 
 
-def wave_pairs(n, b, carry=True):
+def _dl_carries(i, s, n, b):
+    """Whether deferred-left slot ``(i, s)`` keeps its ``(r + b, c)`` tile
+    and its new left reflector for the same lane's next slot: not the
+    lane's last slot, that slot exists (``s + 1 <= nc + 1``), and its
+    pending columns ``[c, c + 2b)`` start below ``n`` (this slot made a
+    reflector)."""
+    c = i + 1 + s * b
+    return s % 3 != 0 and s + 1 <= nc_of_static(i, n, b) + 1 and c < n
+
+
+def wave_pairs(n, b, carry=True, defer_left=False):
     """The pairs of the wavefront schedule that do work (corner column below
     ``n``), in tick order and unit order within a tick, as
     :class:`WavePair`.  ``carry=False``: every pair copies its whole window
-    in and out (lanes striding over fewer CTAs than units)."""
+    in and out (lanes striding over fewer CTAs than units).
+
+    ``defer_left=True``: the slots of the deferred-left tick, one more a
+    sweep (the flush ``s = nc + 1``).  A slot runs while its pending columns
+    ``[c - b, c + b)`` start below ``n``; one whose corner column ``c`` is
+    past ``n`` applies its pending reflector alone ("pending only": it
+    copies only its ``(r, c - b)`` tile, and makes no reflector).  A slot
+    that does not carry its tile in takes its pending reflector from the
+    device ring (``s % 3 == 1`` with ``carry``: from the head or from the
+    previous lane); one that does not carry out puts its new one there."""
+    if defer_left:
+        yield from _wave_dl_pairs(n, b, carry)
+        return
     S = nc_of_static(0, n, b)
     for t in range(wave_ticks(n, b)):
         q = (t - 1) // 3 if t >= 1 else -1  # newest sweep past its head
@@ -97,6 +135,45 @@ def wave_pairs(n, b, carry=True):
             tiles = ((r, c), (r + b, c), (r + b, c + b))
             yield WavePair(t, u, i, s, r, c, tiles[1:] if cin else tiles,
                            tiles[:2] if cout else tiles, cin, cout)
+
+
+def _wave_dl_pairs(n, b, carry):
+    S = wave_slots(n, b, defer_left=True)
+    for t in range(wave_ticks(n, b, defer_left=True)):
+        q = (t - 1) // 3 if t >= 1 else -1  # newest sweep past its head
+        if t % 3 == 0 and t // 3 <= n - 2:
+            i = t // 3
+            head = ((i, i + 1),)
+            yield WavePair(t, 0, i, 0, i, i + 1, head, head, False, False)
+        for u in range(1, -(-S // 3) + 1):
+            i = q - (u - 1)
+            s = t - 3 * i
+            if i < 0 or i > n - 2 or s > nc_of_static(i, n, b) + 1:
+                continue
+            r = i + 1 + (s - 1) * b
+            c = r + b
+            if c - b >= n:
+                continue  # nothing pending, no pair
+            cin = carry and s >= 2 and _dl_carries(i, s - 1, n, b)
+            cout = carry and _dl_carries(i, s, n, b)
+            tiles = ((r, c - b), (r, c), (r + b, c)) if c < n else ((r, c - b),)
+            yield WavePair(t, u, i, s, r, c, tiles[1:] if cin else tiles,
+                           tiles[:2] if cout else tiles, cin, cout)
+
+
+def wave_copy_bytes(n, b, defer_left=False):
+    """Bytes the shared-memory tick's copies move on its critical path (the
+    schedule bound's, over one CTA's copy rate): at each tick the most any
+    one pair of :func:`wave_pairs` (one CTA a unit) moves, its boxes of
+    ``b`` rows of ``b + 4`` float32 in and out, and the head pair's window
+    row (``2b`` columns; ``b`` deferring the left applies) both ways."""
+    box = 4 * b * (b + 4)
+    row = 8 * b * (1 if defer_left else 2)
+    most = {}
+    for p in wave_pairs(n, b, defer_left=defer_left):
+        nbytes = (len(p.loads) + len(p.stores)) * box + (row if p.s == 0 else 0)
+        most[p.t] = max(most.get(p.t, 0), nbytes)
+    return sum(most.values())
 
 
 def staged_pairs(i, n, b):

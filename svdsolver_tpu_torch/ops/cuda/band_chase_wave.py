@@ -12,21 +12,24 @@ _wave_chase_rec_kernel`` (``band_to_bidiagonal_pallas_wave_accum``): it also
 records every reflector, bit-equal to the sequential recording chase's.
 ``band_to_bidiagonal_wave_dl`` stands for ``band_chase_wave.
 _wave_chase_dl_kernel``: each pair's left apply is deferred one tick and
-fused into the same sweep's next right apply.  All give ``(d, e)``
+fused into the same sweep's next right apply (a slot's tiles are ``(r, c -
+b)``, ``(r, c)`` and ``(r + b, c)``).  All give ``(d, e)``
 bit-equal to the sequential chase kernel's.  Their plain versions are
 ``models.two_stage.band_to_bidiagonal_wavefront`` (``record``,
 ``defer_left``); a CPU tensor runs those.
 
 The wavefront runs sweeps three slots apart at once, each lane on its own
 CTA of a cooperative launch with a grid barrier between ticks.  A tick runs
-in one of two ways: the shared-memory tick copies each pair's window into
-shared memory by TMA and keeps a lane's shared tile for its next slot
-(:func:`smem_tick_takes`: every band of the main paths, b <= 128), the L2
-tick runs the pair on the matrix through L2 (wider bands, other shapes,
-the deferred-left entry).  Each tick counts its own launches; the plain
+in one of two ways, chosen by shape before the launch for every entry: the
+shared-memory tick copies each pair's window into shared memory by TMA and
+keeps a lane's shared tile (and, deferring the left applies, its pending
+reflector) for its next slot (:func:`smem_tick_takes`: every band of the
+main paths, b <= 128), the L2 tick runs the pair on the matrix through L2
+(wider bands, other shapes).  Each tick counts its own launches; the plain
 version of the shared-memory tick is ``two_stage.
 band_to_bidiagonal_wavefront_tiles`` (tiles copied in and out as the
-kernel copies them).  The main paths route by
+kernel copies them; ``defer_left`` for the deferred-left entry's).  The
+main paths route by
 :func:`wave_chase_preferred` (``svdvals``) and
 :func:`wave_chase_accum_preferred` (``svd``, ``svds``), measured on the
 card; elsewhere they take the sequential chase (``band_chase``: its staged
@@ -42,12 +45,13 @@ from svdsolver_tpu_torch.ops.chase_schedule import s_max_of
 from svdsolver_tpu_torch.ops.cuda import _build
 
 # Launches since the last reset, by entry and tick: the shared-memory tick
-# (b <= 128) and the L2 tick (wider bands, other shapes, deferred left).
+# (b <= 128) and the L2 tick (wider bands, other shapes).
 launches = 0  # band_to_bidiagonal_wave, shared-memory tick
 launches_l2 = 0  # band_to_bidiagonal_wave, L2 tick
 launches_rec = 0  # band_to_bidiagonal_wave_accum, shared-memory tick
 launches_rec_l2 = 0  # band_to_bidiagonal_wave_accum, L2 tick
-launches_dl = 0  # band_to_bidiagonal_wave_dl (L2 tick)
+launches_dl = 0  # band_to_bidiagonal_wave_dl, shared-memory tick
+launches_dl_l2 = 0  # band_to_bidiagonal_wave_dl, L2 tick
 last_ctas = 0  # CTAs of the last launch (lanes stride over them)
 last_tick = ""  # "smem" or "l2": the tick of the last launch
 
@@ -75,6 +79,10 @@ _ENTRIES = {
         [_build.VOIDP] * 3 + [_build.INT] * 2 + [_build.VOIDP] * 4
         + [_build.INT, _build.VOIDP, _build.INT, _build.VOIDP, _build.INT,
            _build.VOIDP]
+    ),
+    "svdt_band_chase_wave_smem_dl": (
+        [_build.VOIDP] * 3 + [_build.INT] * 2 + [_build.VOIDP] * 3
+        + [_build.INT] * 2 + [_build.VOIDP, _build.INT, _build.VOIDP]
     ),
     "svdt_wave_copy": [_build.VOIDP] + [_build.INT] * 5 + [_build.VOIDP],
 }
@@ -120,11 +128,12 @@ def band_to_bidiagonal_wave_dl_plain(A, band=128):
     return two_stage.band_to_bidiagonal_wavefront(A, band=band, defer_left=True)
 
 
-def band_to_bidiagonal_wave_tiles_plain(A, band=128, record=False, carry=True):
+def band_to_bidiagonal_wave_tiles_plain(A, band=128, record=False, carry=True,
+                                        defer_left=False):
     """Plain version of the shared-memory tick: boxes copied in and out, a
     lane's tile carried (``carry``: one CTA a unit)."""
     return two_stage.band_to_bidiagonal_wavefront_tiles(A, band=band, record=record,
-                                                        carry=carry)
+                                                        carry=carry, defer_left=defer_left)
 
 
 def _check_band(A, b):
@@ -136,13 +145,16 @@ def _check_band(A, b):
     return A.shape[0]
 
 
-def _plain(A, b, record, ctas, tick):
+def _plain(A, b, record, ctas, tick, defer_left=False):
     """A CPU tensor: the plain version of the tick the card would take."""
     if _tick_of(A, b, tick) == "l2":
         return (band_to_bidiagonal_wave_accum_plain if record
+                else band_to_bidiagonal_wave_dl_plain if defer_left
                 else band_to_bidiagonal_wave_plain)(A, band=b)
-    carry = ctas is None or int(ctas) >= two_stage.wave_lanes(A.shape[0], b) + 1
-    return band_to_bidiagonal_wave_tiles_plain(A, band=b, record=record, carry=carry)
+    lanes = two_stage.wave_lanes(A.shape[0], b, defer_left=defer_left)
+    carry = ctas is None or int(ctas) >= lanes + 1
+    return band_to_bidiagonal_wave_tiles_plain(A, band=b, record=record, carry=carry,
+                                               defer_left=defer_left)
 
 
 def _launch(A, b, defer_left, ctas, record=False, tick="l2", smem=None):
@@ -178,11 +190,13 @@ def _launch(A, b, defer_left, ctas, record=False, tick="l2", smem=None):
             slots = two_stage.wave_lanes(n, b, defer_left=True) + 2
             ring_v = torch.zeros((slots, b), dtype=A.dtype, device=A.device)
             ring_t = torch.zeros((slots,), dtype=A.dtype, device=A.device)
-            err = lib.svdt_band_chase_wave_dl(
-                work.data_ptr(), d.data_ptr(), e.data_ptr(), n, b,
-                ctr.data_ptr(), ring_v.data_ptr(), ring_t.data_ptr(), slots,
-                max_ctas, ctypes.addressof(got), stream,
-            )
+            args = (work.data_ptr(), d.data_ptr(), e.data_ptr(), n, b, ctr.data_ptr(),
+                    ring_v.data_ptr(), ring_t.data_ptr(), slots, max_ctas,
+                    ctypes.addressof(got))
+            if tick == "smem":
+                err = lib.svdt_band_chase_wave_smem_dl(*args, smem, stream)
+            else:
+                err = lib.svdt_band_chase_wave_dl(*args, stream)
         elif tick == "smem":
             err = lib.svdt_band_chase_wave_smem(
                 work.data_ptr(), d.data_ptr(), e.data_ptr(), n, b,
@@ -229,22 +243,29 @@ def band_to_bidiagonal_wave(A, band=128, _ctas=None, _tick=None, _smem=None):
     return out
 
 
-def band_to_bidiagonal_wave_dl(A, band=128, _ctas=None):
+def band_to_bidiagonal_wave_dl(A, band=128, _ctas=None, _tick=None):
     """As :func:`band_to_bidiagonal_wave`, each pair's left apply deferred
     one tick and fused into the same sweep's next right apply (two passes
     over a pair's rows instead of three); ``(d, e)`` bit-equal to
-    :func:`band_to_bidiagonal_wave`'s.  A CPU tensor runs the plain
-    version (``band_to_bidiagonal_wavefront(defer_left=True)``).
+    :func:`band_to_bidiagonal_wave`'s.  The tick is chosen as there, by
+    shape before the launch (``_tick`` forces one); a failed launch raises.
+    A CPU tensor runs the plain version of the tick the card would take
+    (``band_to_bidiagonal_wavefront_tiles(defer_left=True)``, or
+    ``band_to_bidiagonal_wavefront(defer_left=True)`` for the L2 tick).
     """
-    global launches_dl
+    global launches_dl, launches_dl_l2
     b = int(band)
     n = _check_band(A, b)
     if not _build.check_input(A, "A", 2):
-        return band_to_bidiagonal_wave_dl_plain(A, band=b)
+        return _plain(A, b, False, _ctas, _tick, defer_left=True)
     if n < 2:
         return torch.abs(torch.diagonal(A)), A.new_zeros((0,))
-    out = _launch(A, b, True, _ctas)
-    launches_dl += 1
+    tick = _tick_of(A, b, _tick)
+    out = _launch(A, b, True, _ctas, tick=tick)
+    if tick == "smem":
+        launches_dl += 1
+    else:
+        launches_dl_l2 += 1
     return out
 
 

@@ -415,7 +415,8 @@ def test_main_paths_launch_the_routed_chases(dev, rng):
 
 def _counts():
     return {k: getattr(band_chase_wave, k) for k in
-            ("launches", "launches_l2", "launches_rec", "launches_rec_l2", "launches_dl")}
+            ("launches", "launches_l2", "launches_rec", "launches_rec_l2", "launches_dl",
+             "launches_dl_l2")}
 
 
 def _reset():
@@ -434,7 +435,7 @@ def test_smem_tick_bit_equal_to_sequential_kernels(dev, rng, n, b):
     got_rec = band_chase_wave.band_to_bidiagonal_wave_accum(Ab, band=b)
     torch.cuda.synchronize()
     assert _counts() == {"launches": 1, "launches_l2": 0, "launches_rec": 1,
-                         "launches_rec_l2": 0, "launches_dl": 0}
+                         "launches_rec_l2": 0, "launches_dl": 0, "launches_dl_l2": 0}
     for g, w in zip(got, band_chase.band_to_bidiagonal_l2(Ab, band=b)):
         assert torch.equal(g, w)
     for g, w in zip(got_rec, band_chase.band_to_bidiagonal_accum_l2(Ab, band=b)):
@@ -453,15 +454,46 @@ def test_smem_tick_striding_lanes_without_carry(dev):
 
 
 def test_wide_band_and_deferred_left_take_the_l2_tick(dev, rng):
+    # past b = 128 the entries take the L2 tick; the deferred-left entry
+    # takes it where the copy engine does not take the shape (n = 250: rows
+    # of n % 4 != 0 floats), and its shared-memory tick everywhere else
     Ab = _band(dev, rng, 640, 160)
+    Ad = _band(dev, rng, 250, 32)
     _reset()
     d, e = band_chase_wave.band_to_bidiagonal_wave(Ab, band=160)
     band_chase_wave.band_to_bidiagonal_wave_accum(Ab, band=160)
-    band_chase_wave.band_to_bidiagonal_wave_dl(_band(dev, rng, 256, 32), band=32)
+    dd, ed = band_chase_wave.band_to_bidiagonal_wave_dl(Ad, band=32)
     assert _counts() == {"launches": 0, "launches_l2": 1, "launches_rec": 0,
-                         "launches_rec_l2": 1, "launches_dl": 1}
+                         "launches_rec_l2": 1, "launches_dl": 0, "launches_dl_l2": 1}
+    assert band_chase_wave.last_tick == "l2"
     d0, e0 = band_chase.band_to_bidiagonal_l2(Ab, band=160)
     assert torch.equal(d, d0) and torch.equal(e, e0)
+    d0, e0 = band_chase.band_to_bidiagonal_l2(Ad, band=32)
+    assert torch.equal(dd, d0) and torch.equal(ed, e0)
+
+
+@pytest.mark.parametrize("n,b,ctas,tick", [
+    (1024, 64, None, "smem"), (3840, 128, None, "smem"),
+    (2048, 32, 4, "smem"),  # lanes striding over 4 CTAs: every hand-off through the ring
+    (132, 128, None, "smem"), (64, 64, None, "smem"), (8, 4, None, "smem"),  # slots past n
+    (1001, 64, None, "l2"), (1002, 64, None, "l2"),  # odd, and rows of n % 4 != 0 floats
+])
+def test_deferred_left_tick_bit_equal_to_l2_kernel(dev, rng, n, b, ctas, tick):
+    # the deferred-left entry on the tick its shape takes, and forced onto
+    # the L2 tick, against the sequential L2 kernel
+    Ab = _band(dev, rng, n, b)
+    want = band_chase.band_to_bidiagonal_l2(Ab, band=b)
+    _reset()
+    got = band_chase_wave.band_to_bidiagonal_wave_dl(Ab, band=b, _ctas=ctas)
+    torch.cuda.synchronize()
+    assert band_chase_wave.last_tick == tick
+    assert (_counts()["launches_dl"], _counts()["launches_dl_l2"]) == \
+        ((1, 0) if tick == "smem" else (0, 1))
+    if ctas is not None:
+        assert band_chase_wave.last_ctas == ctas
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    got = band_chase_wave.band_to_bidiagonal_wave_dl(Ab, band=b, _ctas=ctas, _tick="l2")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_smem_tick_raises_on_impossible_shared_memory(dev, rng):

@@ -23,12 +23,13 @@ uniform [0, 5) matrix (CUDA events, median of 3) at n = 1024 (b = 64) and
   gain, and without the copying thread's device-memory fence
   (``fence.proxy.async.global``) after each wait for the stores to land,
   that fence's cost, both in turns with the package's build;
-* wavefront kernel, each tick (the L2 tick and the shared-memory one): in
-  full, its grid barriers alone (no pair runs), and a per-phase split of one
-  busy lane (CTA 1): its thread 0 stamps ``clock64()`` at the phase marks
-  ``SVDT_SPLIT`` of ``csrc/chase_pair.cuh`` and ``band_chase_wave.cu`` (empty
-  in the package's builds) into a device buffer, a tick a row, and the
-  global timer at each tick's start turns cycles into microseconds.
+* wavefront kernel, each tick (the L2 tick and the shared-memory one) of
+  the plain and the deferred-left entries: in full, its grid barriers
+  alone (no pair runs), and a per-phase split of one busy lane (CTA 1):
+  its thread 0 stamps ``clock64()`` at the phase marks ``SVDT_SPLIT`` of
+  ``csrc/chase_pair.cuh`` and ``band_chase_wave.cu`` (empty in the
+  package's builds) into a device buffer, a tick a row, and the global
+  timer at each tick's start turns cycles into microseconds.
 
 A wavefront run with skipped work computes a wrong (d, e); every other run
 is held bit-equal to the L2 kernel's (d, e) and records.  The shipped
@@ -47,7 +48,11 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from svdsolver_tpu_torch.ops.chase_schedule import staged_pairs, wave_ticks  # noqa: E402
+from svdsolver_tpu_torch.ops.chase_schedule import (  # noqa: E402
+    staged_pairs,
+    wave_ticks,
+    wave_units,
+)
 from svdsolver_tpu_torch.ops.cuda import _build, band_chase, panel_qr  # noqa: E402
 
 OUT = ROOT / "build" / "chase_split"
@@ -109,6 +114,14 @@ extern "C" int svdt_split_set(long long* buf, int cta, int skip) {
 ROW = 16
 PHASES = ("copy-in wait", "right reflector", "right apply", "left reflector",
           "left partials", "left apply", "stores", "grid barrier")
+# a deferred-left slot's marks (band_chase_wave.cu dl_slot, smem_dl_slot):
+# 1 the pending tiles landed (and the ring read), 2 the pending partials,
+# 3 the right reflector (the shared-memory tick: with the pending update of
+# the (r, c - b) tile beside it), 4 the fused apply (the shared-memory tick:
+# the right apply, (r, c)'s store issued between its two tiles), 5 the new
+# left reflector, 6 the stores drained and the ring written
+DL_PHASES = ("pending tiles wait", "pending partials", "right reflector", "fused apply",
+             "new reflector", "drain, ring", "to the barrier", "grid barrier")
 # the staged TMA design's chase pair: (name, from mark, to mark); "next" is
 # the next row's start
 STAGED_PHASES = (("A wait", 0, 1), ("right reflector", 1, 2), ("right apply", 2, 3),
@@ -122,11 +135,11 @@ def wave_source():
     """band_chase_wave.cu with the phase marks defined and a switch that
     skips every pair (both ticks: the grid barriers alone)."""
     s = (_build.CSRC / "band_chase_wave.cu").read_text()
-    s = patch(s, "u <= L; u += G)", "u <= L && !g_split_skip; u += G)", count=2)
+    s = patch(s, "u <= L; u += G)", "u <= L && !g_split_skip; u += G)", count=3)
     return SPLIT_PRELUDE + s + SPLIT_SETTER
 
 
-def phase_split(stamps):
+def phase_split(stamps, names=PHASES):
     """Mean microseconds a tick of each phase, over the ticks in which the
     stamped CTA ran a pair; a mark the tick lacks takes the one before it
     (the L2 tick has no copies, a pair without a left apply no partials)."""
@@ -138,7 +151,7 @@ def phase_split(stamps):
         rows[:, k] = np.where(rows[:, k] > 0, rows[:, k], rows[:, k - 1])
     per = np.diff(rows, axis=1).mean(axis=0) * ns_per_clk / 1e3
     tick = (rows[:, 8] - rows[:, 0]).mean() * ns_per_clk / 1e3
-    return dict(zip(PHASES, per)), tick, int(ran.sum()), 1e3 / ns_per_clk
+    return dict(zip(names, per)), tick, int(ran.sum()), 1e3 / ns_per_clk
 
 
 def staged_split(stamps):
@@ -227,6 +240,8 @@ def main():
     wave = build("wave", wave_source())
     wave.svdt_band_chase_wave.argtypes = [V, V, V, I, I, V, I, V, V]
     wave.svdt_band_chase_wave_smem.argtypes = [V, V, V, I, I, V, I, V, I, V]
+    wave.svdt_band_chase_wave_dl.argtypes = [V, V, V, I, I, V, V, V, I, I, V, V]
+    wave.svdt_band_chase_wave_smem_dl.argtypes = [V, V, V, I, I, V, V, V, I, I, V, I, V]
     wave.svdt_split_set.argtypes = [V, I, I]
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
     for n, b in SHAPES:
@@ -298,41 +313,52 @@ def main():
                   f"{'bit-equal' if same_nf else 'NOT bit-equal'}), in turns with the "
                   f"package's {pkg:.3f} / {pkg2:.3f} ms", flush=True)
 
-        def run_wave(tick):
+        def run_wave(tick, dl=False):
             W = Ab.clone()
             d, e = torch.empty(n, device="cuda"), torch.empty(n - 1, device="cuda")
             ctr = torch.zeros(1, dtype=torch.int32, device="cuda")
             got = ctypes.c_int(0)
-            args = (W.data_ptr(), d.data_ptr(), e.data_ptr(), n, b, ctr.data_ptr(), 0,
-                    ctypes.addressof(got))
-            if tick == "smem":
-                err = wave.svdt_band_chase_wave_smem(*args, 0, stream())
+            head = (W.data_ptr(), d.data_ptr(), e.data_ptr(), n, b, ctr.data_ptr())
+            if dl:  # the pending reflectors' ring, as band_chase_wave._launch sizes it
+                slots = wave_units(n, b, defer_left=True) + 1
+                ring_v, ring_t = torch.zeros((slots, b), device="cuda"), torch.zeros(slots, device="cuda")
+                args = head + (ring_v.data_ptr(), ring_t.data_ptr(), slots, 0, ctypes.addressof(got))
+                out["ring"] = ring_v, ring_t
             else:
-                err = wave.svdt_band_chase_wave(*args, stream())
+                args = head + (0, ctypes.addressof(got))
+            if tick == "smem":
+                err = (wave.svdt_band_chase_wave_smem_dl if dl
+                       else wave.svdt_band_chase_wave_smem)(*args, 0, stream())
+            else:
+                err = (wave.svdt_band_chase_wave_dl if dl else wave.svdt_band_chase_wave)(
+                    *args, stream())
             if err:
                 raise RuntimeError(f"wave launch failed: {err}")
             out["ctas"], out["de"] = got.value, (d, e)
 
-        T = wave_ticks(n, b)
-        for tick in ("l2", "smem"):
-            wave.svdt_split_set(None, 1, 0)
-            ms = median_ms(lambda: run_wave(tick))
-            if not all(torch.equal(x, y) for x, y in zip(out["de"], want)):
-                raise RuntimeError(f"wave {tick} tick copy not bit-equal to the L2 kernel")
-            wave.svdt_split_set(None, 1, 1)
-            bar_ms = median_ms(lambda: run_wave(tick))
-            stamps = torch.zeros((T, ROW), dtype=torch.int64, device="cuda")
-            wave.svdt_split_set(stamps.data_ptr(), 1, 0)
-            run_wave(tick)
-            torch.cuda.synchronize()
-            wave.svdt_split_set(None, 1, 0)
-            split, per_tick, ran, mhz = phase_split(stamps.cpu().numpy())
-            print(f"[split] wave {tick} tick n={n} b={b}: {ms:.3f} ms on {out['ctas']} CTAs "
-                  f"({T} ticks, {ms / T * 1e3:.2f} us a tick), (d, e) bit-equal to the L2 "
-                  f"kernel; grid barriers only {bar_ms:.3f} ms", flush=True)
-            print(f"[split] wave {tick} tick n={n} b={b}, CTA 1 (lane 1), {ran} ticks with a pair, "
-                  f"{per_tick:.2f} us a tick at {mhz:.0f} MHz: "
-                  + ", ".join(f"{k} {v:.2f}" for k, v in split.items()) + " (us)", flush=True)
+        for dl in (False, True):
+            T = wave_ticks(n, b, defer_left=dl)
+            entry = "wave_dl" if dl else "wave"
+            for tick in ("l2", "smem"):
+                wave.svdt_split_set(None, 1, 0)
+                ms = median_ms(lambda: run_wave(tick, dl))
+                if not all(torch.equal(x, y) for x, y in zip(out["de"], want)):
+                    raise RuntimeError(f"{entry} {tick} tick copy not bit-equal to the L2 kernel")
+                wave.svdt_split_set(None, 1, 1)
+                bar_ms = median_ms(lambda: run_wave(tick, dl))
+                stamps = torch.zeros((T, ROW), dtype=torch.int64, device="cuda")
+                wave.svdt_split_set(stamps.data_ptr(), 1, 0)
+                run_wave(tick, dl)
+                torch.cuda.synchronize()
+                wave.svdt_split_set(None, 1, 0)
+                split, per_tick, ran, mhz = phase_split(stamps.cpu().numpy(),
+                                                        DL_PHASES if dl else PHASES)
+                print(f"[split] {entry} {tick} tick n={n} b={b}: {ms:.3f} ms on {out['ctas']} "
+                      f"CTAs ({T} ticks, {ms / T * 1e3:.2f} us a tick), (d, e) bit-equal to the "
+                      f"L2 kernel; grid barriers only {bar_ms:.3f} ms", flush=True)
+                print(f"[split] {entry} {tick} tick n={n} b={b}, CTA 1 (lane 1), {ran} ticks with "
+                      f"a slot, {per_tick:.2f} us a tick at {mhz:.0f} MHz: "
+                      + ", ".join(f"{k} {v:.2f}" for k, v in split.items()) + " (us)", flush=True)
     return 0
 
 
