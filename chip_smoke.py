@@ -4,14 +4,14 @@
 Run from the repository root: ``python3 chip_smoke.py``.  It
 
 1. reports the card (name, power limit), torch, CUDA and nvcc;
-2. builds the seven kernel sources of ``svdsolver_tpu_torch/csrc`` (one
+2. builds the nine kernel sources of ``svdsolver_tpu_torch/csrc`` (one
    ``nvcc`` each, all started together): the panel QR (one thread-block
    cluster), the sequential chase's L2 kernel (plain and recording
    entries), the bisection, the TGK solve, the wavefront chase (plain,
    recording, and with deferred left applies), the staged chase (the
    sequential chase's TMA design, plain and recording, and the packed
-   chase's: the same kernel on a band store) and the packed chase's L2
-   kernel;
+   chase's: the same kernel on a band store), the packed chase's L2
+   kernel, and the QR and dqds diagonalizers (each loop in one launch);
 3. holds each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it: the panel QR at (b, m, r_off) = (128,
    3840, 0), (128, 3840, 3776) (identity reflectors past m), (64, 1024, 0)
@@ -75,7 +75,19 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    and 23,040, ``svdvals`` at 15,360 (against float64 svdvals, timed) and
    23,040 (against a spectrum known by construction), ``svd`` at 7680 with
    its gates and its peak device memory.  Every main-path run shows the
-   tree and the staged solve in the launch counts, never a first design.
+   tree and the staged solve in the launch counts, never a first design;
+8. holds the two diagonalizer kernels bit-equal to their plain versions
+   run on the card (``check_diag``: n = 2, 5, 16, 64, float32 and float64,
+   both memory instances, the QR driver in chunks, the sweep entry on a
+   sub-block; dqds's sweep count and shift-type histogram; dqds in float64
+   on the stall spectrum within 900 sweeps), drives ``svdvals(A,
+   diag="qr")`` and ``svdvals(A, diag="dqds")`` at n = 3840 and 1000 with
+   the counts set to 0 before each call (``phase_diag``: Stage I, the
+   routed chase and the diagonalizer's kernel launched, no plain
+   diagonalizer loop, sigma against float64), times each diagonalizer
+   alone, ``diag_reduce_fixed_iter`` at 3840 and ``torch.linalg.svdvals``
+   of the dense bidiagonal, and calls each ``linalg`` function once on the
+   card against float64 ``torch.linalg`` (``phase_linalg``).
 
 Any failure raises and exits non-zero.  The second-to-last line is the
 kernel table as JSON, the last ``{"ok": true, "device": {...}}``.  With no
@@ -105,7 +117,7 @@ SVD_CASES = ((3840, "uniform"), (2048, "gauss"), (1000, "uniform"), (256, "unifo
 REPS = 5
 SVD_REPS = 3
 SOURCES = ("panel_qr", "band_chase", "bisect", "tridiag_solve",
-           "band_chase_wave", "band_chase_staged", "band_chase_vmem")
+           "band_chase_wave", "band_chase_staged", "band_chase_vmem", "bidiag_qr", "dqds")
 # the variants' entries, counted by the kernel that ran: the packed chase
 # runs "band_chase_vmem_tma" (the TMA design on the band store) at every
 # band of these checks; "band_chase_vmem", its L2 packed kernel, takes the
@@ -176,6 +188,28 @@ VAR_CTAS = (2048, 32, 4)
 VMEM_ODD = ((1002, 64), (1001, 64), (1003, 128), (130, 128), (37, 4), (5, 4))
 VMEM_OFF = (96, 6)
 VMEM_SLACK = 2**20  # peak device memory beyond A, store, d and e: at most 1 MB
+# the diagonalizers (bidiag_qr, dqds): svdvals(diag=...) at DIAG_SIZES; each
+# kernel bit-equal to its plain version run on the card at DIAG_CHECK (the
+# plain side costs a launch an operation), float32 and float64, both memory
+# instances, the QR driver in chunks of DIAG_CHUNK sweeps, the sweep entry
+# on the sub-block DIAG_SUB (n, lo, hi); dqds in float64 on the stall
+# spectrum (random n = 120, seed 0) within STALL_SWEEPS sweeps
+DIAG_SIZES = (3840, 1000)
+DIAG_CHECK = (2, 5, 16, 64)
+DIAG_CHUNK = 7
+DIAG_SUB = (16, 3, 7)
+# sweeps held bit-equal on the main path's (d, e) at each of DIAG_SIZES: enough
+# that each window holds a deflation (the QR driver hard-zeroes an e, dqds's
+# hi drops), so later sweeps run on a moved block
+DIAG_PATH_SWEEPS = {"bidiag_qr": {3840: 8, 1000: 6}, "dqds": {3840: 15, 1000: 15}}
+STALL_SWEEPS = 900
+TOL_STALL = 1e-10  # max relative error of every sigma of the stall spectrum
+# the linalg applications: one call each on the card, gated against
+# float64 torch.linalg (phase_linalg has the sizes and the gates)
+TOL_LINALG = 1e-3  # pinv's Penrose conditions, eigh's residual, rsvd's sigma (relative)
+LINALG = {"pinv": 2048, "lstsq": (4096, 2048, 4), "eigh": 3840, "polar": 2048,
+          "rsvd": (3840, 64), "values": 3840, "rank": 3000, "orth": (1024, 700),
+          "lowrank": (1000, 250)}
 # published H100 SXM peaks (NVIDIA's data sheet, 700 W): float32 outside
 # the tensor cores, and HBM3
 PEAK_FP32 = 67e12
@@ -184,7 +218,8 @@ DEV = "cuda"
 
 
 CARD = ""  # the card's name and power limit, as nvidia-smi gives them
-TIMED = ("[times]", "[route]", "[profile]", "[slice]", "[svd]", "[ticks]", "[scale]")
+TIMED = ("[times]", "[route]", "[profile]", "[slice]", "[svd]", "[ticks]", "[scale]",
+         "[diag]", "[linalg]")
 
 
 def say(*parts):
@@ -250,9 +285,10 @@ def bidiag_sigma(d, e):
 
 
 def _counters():
+    from svdsolver_tpu_torch.models import diagonalize
     from svdsolver_tpu_torch.ops.cuda import (band_chase, band_chase_vmem,
-                                              band_chase_wave, bisect, panel_qr,
-                                              tridiag_solve)
+                                              band_chase_wave, bidiag_qr, bisect, dqds,
+                                              panel_qr, tridiag_solve)
 
     return {"panel_qr": (panel_qr, "launches"),
             "band_chase": (band_chase, "launches"),
@@ -270,7 +306,14 @@ def _counters():
             "band_chase_staged": (band_chase, "launches_staged"),
             "band_chase_staged_rec": (band_chase, "launches_staged_rec"),
             "band_chase_vmem": (band_chase_vmem, "launches"),
-            "band_chase_vmem_tma": (band_chase_vmem, "launches_tma")}
+            "band_chase_vmem_tma": (band_chase_vmem, "launches_tma"),
+            "bidiag_qr": (bidiag_qr, "launches"),
+            "bidiag_qr_sweeps": (bidiag_qr, "launches_sweeps"),
+            "dqds": (dqds, "launches"),
+            # not launches: runs of a plain diagonalizer loop, and dqds runs
+            # that ended unconverged and took the bisection
+            "plain_diag_loops": (diagonalize, "plain_loops"),
+            "dqds_safety_nets": (diagonalize, "safety_nets")}
 
 
 def reset_counts():
@@ -1153,16 +1196,16 @@ def phase_svds():
     return counts
 
 
-def known_spectrum_matrix(n, seed=5):
+def known_spectrum_matrix(n, seed=5, decades=4.0):
     """A float32 (n, n) matrix Q1 diag(sigma) Q2^T with Q1, Q2 the float64
     QR factors of Gaussian matrices drawn on the card from ``seed`` and
-    sigma = 100 * 10**(-4 i / (n - 1)) (100 down to 0.01): its singular
-    values are known by construction, to the float32 rounding of A (an
-    oracle where float64 svdvals would take minutes)."""
+    sigma = 100 * 10**(-decades i / (n - 1)) (100 down to 0.01 by default):
+    its singular values are known by construction, to the float32 rounding
+    of A (an oracle where float64 svdvals would take minutes)."""
     g = torch.Generator(device=DEV)
     g.manual_seed(seed)
     q1, _ = torch.linalg.qr(torch.randn((n, n), generator=g, dtype=torch.float64, device=DEV))
-    sig = 100.0 * 10.0 ** (-4.0 * torch.arange(n, dtype=torch.float64, device=DEV) / (n - 1))
+    sig = 100.0 * 10.0 ** (-decades * torch.arange(n, dtype=torch.float64, device=DEV) / (n - 1))
     q1 *= sig
     q2, _ = torch.linalg.qr(torch.randn((n, n), generator=g, dtype=torch.float64, device=DEV))
     A = (q1 @ q2.T).float()
@@ -1624,6 +1667,455 @@ def phase_profile(label, fn):
         f"kernels {busy:.3f} ms = {100 * busy / wall_ms:.1f}% of wall")
 
 
+# ---- the diagonalizers (bidiag_qr, dqds) and the linalg applications ----
+
+def work_qr(n, steps_zero, steps_shift, size=4):
+    """The QR driver's work from the steps it reports: a Givens rotation is
+    7 operations (three divisions, a square root, a product, a sum, a
+    product), a zero-shift step two rotations and 4 products, a shifted
+    step two rotations and 16 products and sums.  Bytes: d and e in and
+    out."""
+    return 18 * steps_zero + 30 * steps_shift, 4 * size * n
+
+
+def work_dqds(n, steps, size=4):
+    """The dqds loop's work from the steps it reports (every sweep run,
+    retries included): a step is 5 operations (a sum, a division, two
+    products, a difference).  Bytes: q and E in, the estimates out."""
+    return 5 * steps, 3 * size * n
+
+
+def _bidiag_on_card(rng, n, dtype):
+    d = torch.from_numpy(rng.normal(size=n)).to(DEV, dtype)
+    e = torch.from_numpy(rng.normal(size=n - 1)).to(DEV, dtype)
+    return d, e
+
+
+def require_same(label, pairs):
+    """Each (name, got, want) bit-equal (tensors) or equal (numbers);
+    returns the largest |got - want| of the tensors."""
+    worst = 0.0
+    for name, got, want in pairs:
+        if isinstance(got, torch.Tensor):
+            same = got.shape == want.shape and torch.equal(got, want)
+            diff = (float((got.double() - want.double()).abs().max())
+                    if got.shape == want.shape and got.numel() else 0.0)
+            require(same, f"{label}: {name} bit-equal to the plain version "
+                          f"(max |diff| {diff:.3e})")
+            worst = max(worst, diff)
+        else:
+            require(got == want, f"{label}: {name} {got} == plain {want}")
+    return worst
+
+
+def _event_ms(fn):
+    """One run of ``fn`` bracketed by CUDA events: (result, ms)."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def check_diag():
+    """The two diagonalizer kernels held bit-equal to their plain versions
+    run on the card: at n in DIAG_CHECK, float32 and float64, the QR
+    driver's (d, e), threshold, sweep count and convergence on both memory
+    instances and in chunks of DIAG_CHUNK sweeps, dqds's sigma, sweep
+    count and shift-type histogram on both instances; the sweep entry on the
+    sub-block DIAG_SUB (one and three zero-shift sweeps, a shifted sweep;
+    the entries outside it untouched) and four full sweeps
+    (diag_reduce_fixed_iter); dqds in float64 on the stall spectrum within
+    STALL_SWEEPS sweeps to TOL_STALL with no safety net; other dtypes
+    refused.  Returns each kernel's row at n = 64 float32: kernel ms
+    (median of REPS), plain ms (one run), library ms, work."""
+    from svdsolver_tpu_torch.models import diagonalize as dg
+    from svdsolver_tpu_torch.ops.cuda import bidiag_qr, dqds
+
+    rng = np.random.default_rng(12)
+    rows = {}
+    errs = {"bidiag_qr": 0.0, "dqds": 0.0}  # largest |kernel - plain| over the checks
+    for dtype in (torch.float32, torch.float64):
+        tag = str(dtype).removeprefix("torch.")
+        for n in DIAG_CHECK:
+            d, e = _bidiag_on_card(rng, n, dtype)
+            (dp, ep, tp, sw, conv), qr_plain = _event_ms(lambda: dg.qr_converge_plain(d, e))
+            for mem in ("smem", "global"):
+                dk, ek, tk, info = bidiag_qr.converge(d, e, _memory=mem)
+                info = info.tolist()
+                errs["bidiag_qr"] = max(errs["bidiag_qr"], require_same(
+                    f"[diag] bidiag_qr {tag} n={n} {mem}", [
+                    ("d", dk, dp), ("e", ek, ep), ("threshold", tk, tp),
+                    ("sweeps", info[0], sw), ("converged", bool(info[1]), conv)]))
+            dk, ek, _, info_c = bidiag_qr.converge(d, e, chunk_sweeps=DIAG_CHUNK)
+            require_same(f"[diag] bidiag_qr {tag} n={n} chunks of {DIAG_CHUNK}", [
+                ("d", dk, dp), ("e", ek, ep), ("sweeps", int(info_c[0]), sw)])
+            require_same(f"[diag] bidiag_qr {tag} n={n} sigma", [
+                ("sigma", bidiag_qr.bidiagonal_svdvals(d, e),
+                 dg.bidiagonal_svdvals_plain(d, e))])
+            (sp, swp, hp), dqds_plain = _event_ms(
+                lambda: dg.dqds_svdvals_plain(d, e, with_info="debug"))
+            for mem in ("smem", "global"):
+                sk, swk, hk = dqds.dqds_svdvals(d, e, with_info="debug", _memory=mem)
+                errs["dqds"] = max(errs["dqds"], require_same(
+                    f"[diag] dqds {tag} n={n} {mem}",
+                    [("sigma", sk, sp), ("sweeps", swk, swp), ("histogram", hk, hp)]))
+            say(f"[diag] check {tag} n={n}: bidiag_qr (d, e, threshold, {sw} sweeps) and "
+                f"dqds (sigma, {swp} sweeps, histogram) bit-equal to the plain versions on "
+                f"both memory instances; plain runs {qr_plain:.1f} / "
+                f"{dqds_plain:.1f} ms")
+            if n == DIAG_CHECK[-1] and dtype == torch.float32:
+                lib = cuda_ms(lambda: torch.linalg.svdvals(torch.diag(d) + torch.diag(e, 1)))
+                rows["bidiag_qr"] = {
+                    "ms": cuda_ms(lambda: bidiag_qr.bidiagonal_svdvals(d, e)),
+                    "plain_ms": qr_plain, "library_ms": lib,
+                    "work": work_qr(n, int(info[2]), int(info[3])), "sweeps": sw}
+                rows["dqds"] = {
+                    "ms": cuda_ms(lambda: dqds.dqds_svdvals(d, e)),
+                    "plain_ms": dqds_plain, "library_ms": lib,
+                    "work": work_dqds(n, dqds.last_steps), "sweeps": swp}
+        # the sweep entry on a sub-block, and full sweeps
+        n, lo, hi = DIAG_SUB
+        d, e = _bidiag_on_card(rng, n, dtype)
+        shift = torch.tensor(0.3, dtype=dtype, device=DEV)
+
+        def zero_shift_plain(k, lo_, hi_):
+            dd, ee = d, e
+            for _ in range(k):
+                dd, ee = dg.zero_shift_sweep_plain(dd, ee, lo_, hi_)
+            return dd, ee
+
+        cases = {
+            "zero-shift sweep": ((lo, hi, 1, None), lambda: zero_shift_plain(1, lo, hi)),
+            "3 zero-shift sweeps": ((lo, hi, 3, None), lambda: zero_shift_plain(3, lo, hi)),
+            "shifted sweep": ((lo, hi, 1, shift),
+                              lambda: dg.shifted_sweep_plain(d, e, lo, hi, shift)),
+            "diag_reduce_fixed_iter(4)": ((0, n - 1, 4, None),
+                                          lambda: zero_shift_plain(4, 0, n - 1)),
+        }
+        for name, ((lo_, hi_, k, sh), plain) in cases.items():
+            want = plain()
+            for mem in ("smem", "global"):
+                got = bidiag_qr.sweeps(d, e, lo_, hi_, n_iter=k, shift=sh, _memory=mem)
+                require_same(f"[diag] {name} {tag} [{lo_}, {hi_}] {mem}",
+                             [("d", got[0], want[0]), ("e", got[1], want[1])])
+                if lo_ > 0:
+                    require(torch.equal(got[0][:lo_], d[:lo_]) and torch.equal(
+                        got[0][hi_ + 1:], d[hi_ + 1:]) and torch.equal(got[1][:lo_], e[:lo_])
+                        and torch.equal(got[1][hi_:], e[hi_:]),
+                        f"{name}: the entries outside [{lo_}, {hi_}] untouched")
+        say(f"[diag] check {tag}: the sweep entry bit-equal on [{lo}, {hi}] of n={n} (one "
+            "and three zero-shift sweeps, a shifted sweep) and on four full sweeps, both "
+            "memory instances")
+    # dqds in float64 on the stall spectrum
+    g = np.random.default_rng(0)
+    d64, e64 = g.standard_normal(120), g.standard_normal(119)
+    nets = dg.safety_nets
+    sig, sweeps = dqds.dqds_svdvals(torch.from_numpy(d64).to(DEV), torch.from_numpy(e64).to(DEV),
+                                    with_info=True)
+    want = np.linalg.svd(np.diag(d64) + np.diag(e64, 1), compute_uv=False)
+    rel = float(np.max(np.abs(sig.cpu().numpy() - want) / want))
+    say(f"[diag] dqds float64 stall spectrum n=120: {sweeps} sweeps (JAX package 865, "
+        f"LAPACK dlasq2 877), max relative error {rel:.3e}, safety net "
+        f"{'fired' if dg.safety_nets != nets else 'not fired'}")
+    require(sweeps <= STALL_SWEEPS and rel < TOL_STALL and dg.safety_nets == nets,
+            "dqds on the stall spectrum")
+    for fn in (bidiag_qr.bidiagonal_svdvals, dqds.dqds_svdvals):
+        try:
+            fn(torch.ones(4, dtype=torch.float16, device=DEV),
+               torch.ones(3, dtype=torch.float16, device=DEV))
+        except TypeError:
+            continue
+        raise RuntimeError(f"check failed: {fn.__module__} took float16")
+    for k, err in errs.items():
+        rows[k]["max_abs_err"] = err
+    return rows
+
+
+def phase_diag(rows):
+    """The diagonalizers on the main path: svdvals(A, diag="qr") and
+    svdvals(A, diag="dqds") on the uniform matrix at DIAG_SIZES, every
+    launch count set to 0 just before each call and read just after (Stage
+    I, the routed chase and the diagonalizer's kernel launched, no plain
+    diagonalizer loop, K2 only where dqds's safety net fired), sigma within
+    TOL_SIGMA of float64 svdvals; then on the (d, e) of the reduction, both
+    kernels held bit-equal to their plain versions over DIAG_PATH_SWEEPS
+    sweeps, each window holding a deflation, on both memory instances (the
+    QR driver's d, e, threshold, sweep
+    count and convergence; dqds's loop on the scaled qd arrays: the
+    estimates, hi, sweep count and histogram), each diagonalizer alone
+    (one run each: seconds at 3840), diag_reduce_fixed_iter(d, e, 200)
+    at 3840 (the reference's ``diagonal`` benchmark) and
+    torch.linalg.svdvals of the dense bidiagonal (the library yardstick).
+    Adds the path's numbers to ``rows``; returns the launch counts."""
+    from svdsolver_tpu_torch import diag_reduce_fixed_iter, svdvals
+    from svdsolver_tpu_torch.models import diagonalize as dg
+    from svdsolver_tpu_torch.models.svd import bidiagonalize
+    from svdsolver_tpu_torch.ops.cuda import bidiag_qr, dqds
+
+    counts_by_run = {}
+    for k in ("bidiag_qr", "dqds"):
+        rows[k].update({"path_ms": {}, "path_bound_ms": {}, "path_library_ms": {},
+                        "path_sweeps": {}})
+    for n in DIAG_SIZES:
+        A = uniform_matrix(n)
+        ref = torch.linalg.svdvals(A.double())
+        for diag, kernel, other in (("qr", "bidiag_qr", "dqds"), ("dqds", "dqds", "bidiag_qr")):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            s = svdvals(A, diag=diag)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = read_counts()
+            say(f"[diag] n={n}: svdvals(diag={diag!r}) {seconds:.3f} s (host clock) launches "
+                f"{counts}")
+            require(counts["panel_qr"] > 0 and counts[kernel] == 1 and counts[other] == 0
+                    and counts["bidiag_qr_sweeps"] == 0,
+                    f"svdvals(diag={diag!r}) at n={n} launched Stage I and {kernel} once")
+            require(counts["plain_diag_loops"] == 0,
+                    f"svdvals(diag={diag!r}) at n={n} ran a plain diagonalizer loop")
+            chase = require_route(path_band(n), counts, record=False)
+            nets = counts["dqds_safety_nets"]
+            require(counts["bisect"] == nets and counts["bisect_thread"] == 0,
+                    f"svdvals(diag={diag!r}) at n={n}: K2 only for the safety net")
+            if diag == "dqds":
+                fired = "FIRED (K2 gave sigma)" if nets else "not fired"
+                say(f"[diag] n={n}: dqds's safety net {fired}")
+            require(s.shape == (n,) and bool(torch.isfinite(s).all()), f"svdvals output n={n}")
+            err = float((s.double() - ref).abs().max() / ref[0])
+            say(f"[diag] n={n} diag={diag!r}: the chase took {chase}; max|sigma - sigma_ref| / "
+                f"sigma_max = {err:.3e}")
+            require(err <= TOL_SIGMA, f"sigma error {err:.3e} at n={n} diag={diag!r}")
+            counts_by_run[f"svdvals {n} {diag}"] = counts
+        # each diagonalizer alone on the reduction's (d, e)
+        B = bidiagonalize(A)
+        d, e = B.d.contiguous(), B.e.contiguous()
+        kq, kd = DIAG_PATH_SWEEPS["bidiag_qr"][n], DIAG_PATH_SWEEPS["dqds"][n]
+        (dp, ep, tp, swp, convp), qr_plain = _event_ms(
+            lambda: dg.qr_converge_plain(d, e, max_sweeps=kq))
+        q0, E0, _ = dg.dqds_prepare(d, e)
+        (outp, hip, itp, thp), dqds_plain = _event_ms(lambda: dg._dqds_loop_plain(q0, E0, kd))
+        zeroed = int((ep == 0).sum())
+        require(zeroed > 0 and hip < n - 1,
+                f"the windows of {kq} QR and {kd} dqds sweeps at n={n} each hold a deflation "
+                f"(e hard-zeroed: {zeroed}; dqds hi = {hip})")
+        for mem in ("smem", "global"):
+            dk, ek, tk, info_k = bidiag_qr.converge(d, e, max_sweeps=kq, _memory=mem)
+            info_k = info_k.tolist()
+            rows["bidiag_qr"]["max_abs_err"] = max(rows["bidiag_qr"]["max_abs_err"], require_same(
+                f"[diag] bidiag_qr on the path's (d, e) n={n} {kq} sweeps {mem}", [
+                    ("d", dk, dp), ("e", ek, ep), ("threshold", tk, tp),
+                    ("sweeps", info_k[0], swp), ("converged", bool(info_k[1]), convp)]))
+            outk, hik, itk, thk = dqds.dqds_loop(q0, E0, kd, mem)
+            rows["dqds"]["max_abs_err"] = max(rows["dqds"]["max_abs_err"], require_same(
+                f"[diag] dqds on the path's (d, e) n={n} {kd} sweeps {mem}", [
+                    ("estimates", outk, outp), ("hi", hik, hip), ("sweeps", itk, itp),
+                    ("histogram", thk, thp)]))
+        say(f"[diag] check n={n}: on the path's (d, e), {kq} sweeps of bidiag_qr (d, e, "
+            f"threshold, {swp} sweeps, {zeroed} e hard-zeroed) and {kd} of the dqds loop "
+            f"(estimates, hi = {hip}, {itp} sweeps, histogram {thp}) bit-equal to the plain "
+            f"versions on both memory instances; plain runs {qr_plain:.1f} / "
+            f"{dqds_plain:.1f} ms")
+        (_, _, _, info), qr_ms = _event_ms(lambda: bidiag_qr.converge(d, e))
+        info = info.tolist()
+        (_, sweeps, hist), dqds_ms = _event_ms(lambda: dqds.dqds_svdvals(d, e, with_info="debug"))
+        steps = dqds.last_steps
+        _, lib_ms = _event_ms(lambda: torch.linalg.svdvals(torch.diag(d) + torch.diag(e, 1)))
+        say(f"[diag] n={n} alone (one run each, CUDA events): bidiag_qr {qr_ms:.3f} ms "
+            f"({info[0]} sweeps, {info[2]} zero-shift and {info[3]} shifted steps), dqds "
+            f"{dqds_ms:.3f} ms ({sweeps} sweeps, {steps} steps, histogram {hist.tolist()}), "
+            "torch.linalg.svdvals of the dense bidiagonal "
+            f"{lib_ms:.3f} ms")
+        for k, ms, w, sw in (("bidiag_qr", qr_ms, work_qr(n, info[2], info[3]), info[0]),
+                             ("dqds", dqds_ms, work_dqds(n, steps), sweeps)):
+            b_ms, b_by = bound(*w)
+            rows[k]["path_ms"][f"n={n}"] = ms
+            rows[k]["path_bound_ms"][f"n={n}"] = b_ms
+            rows[k]["path_library_ms"][f"n={n}"] = lib_ms
+            rows[k]["path_sweeps"][f"n={n}"] = sw
+            say(f"[bound] {k} n={n}: {w[0]:.4g} flops, {w[1]:.4g} bytes -> {b_ms:.6f} ms, "
+                f"bound by {b_by} ({ms / b_ms:.0f}x)")
+        if n == 3840:
+            _, fixed_ms = _event_ms(lambda: diag_reduce_fixed_iter(d, e, 200))
+            rows["bidiag_qr"]["fixed_iter_200_ms"] = fixed_ms
+            say(f"[diag] n={n}: diag_reduce_fixed_iter(d, e, 200) {fixed_ms:.3f} ms (one run, "
+                f"{200 * (n - 1)} zero-shift steps)")
+        del A, ref, B, d, e, dp, ep, q0, E0, outp
+        torch.cuda.empty_cache()
+    return counts_by_run
+
+
+def phase_linalg():
+    """One call of each linalg application on the card, gated against
+    float64 torch.linalg on the same float32 input, host seconds printed:
+    pinv (Gaussian 2048: Penrose conditions 1 and 2 to TOL_LINALG of
+    sigma_max, of 1 / sigma_min), lstsq (Gaussian 4096 x 2048, 4
+    right-hand sides: x and the residual norms to 1e-4 relative, full
+    rank), eigh (symmetric Gaussian 3840: eigenvalues to 1e-4 of max|w|,
+    |A V - V W| and |V^T V - I| to TOL_LINALG), polar (Gaussian 2048: W P = A
+    to TOL_RECON sigma_max, W orthogonal to TOL_ORTH), rsvd (3840, k = 64,
+    sigma_i = 100 * 10**(-i/20) known by construction: sigma_1..k to
+    TOL_LINALG relative), norm2 (uniform 3840: to TOL_SIGMA), cond
+    (Gaussian 3840: to 2 eps32 cond relative, what float32 reaches: a
+    float32 sigma_min is off by a small multiple of eps32 sigma_max, so
+    cond by that multiple of eps32 cond), matrix_rank (3840 x 3000 times 3000 x 3840:
+    3000 and the float64 count), orth and null_space (rank-700 1024^2: the
+    ranks, and the projectors against float64 to 1e-4), lowrank (uniform
+    1000, k = 250: the Eckart-Young error)."""
+    from svdsolver_tpu_torch import linalg as la
+
+    f64 = torch.float64
+    eye = lambda k: torch.eye(k, dtype=f64, device=DEV)  # noqa: E731
+    rng = np.random.default_rng(21)
+
+    def gauss(m, n):
+        return torch.from_numpy(rng.normal(size=(m, n)).astype(np.float32)).to(DEV)
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def gate(name, seconds, checks):
+        say(f"[linalg] {name}: {seconds:.3f} s (host clock, first call); " + ", ".join(
+            f"{label} {value:.3e} (limit {limit:.1e})" for label, value, limit in checks))
+        for label, value, limit in checks:
+            require(value <= limit, f"linalg {name}: {label} {value:.3e} > {limit:.1e}")
+
+    n = LINALG["pinv"]
+    A = gauss(n, n)
+    P, sec = timed("pinv", lambda: la.pinv(A))
+    Ad, Pd = A.double(), P.double()
+    s64 = torch.linalg.svdvals(Ad)
+    gate(f"pinv n={n}", sec, [
+        ("|A P A - A| / sigma_max", float((Ad @ Pd @ Ad - Ad).abs().max() / s64[0]), TOL_LINALG),
+        ("|P A P - P| sigma_min", float((Pd @ Ad @ Pd - Pd).abs().max() * s64[-1]), TOL_LINALG)])
+
+    m, n, nrhs = LINALG["lstsq"]
+    A, Bm = gauss(m, n), gauss(m, nrhs)
+    (x, resid, rank), sec = timed("lstsq", lambda: la.lstsq(A, Bm))
+    x64 = torch.linalg.lstsq(A.double(), Bm.double()).solution
+    r64 = torch.linalg.norm(A.double() @ x64 - Bm.double(), dim=0)
+    gate(f"lstsq {m}x{n}, {nrhs} rhs", sec, [
+        ("|x - x64|_F / |x64|_F",
+         float(torch.linalg.norm(x.double() - x64) / torch.linalg.norm(x64)), 1e-4),
+        ("max |resid - resid64| / resid64",
+         float(((resid.double() - r64) / r64).abs().max()), 1e-4),
+        ("rank deficit", float(n - int(rank)), 0.0)])
+
+    n = LINALG["eigh"]
+    M = gauss(n, n)
+    A = 0.5 * (M + M.T)
+    (w, V), sec = timed("eigh", lambda: la.eigh(A))
+    w64 = torch.linalg.eigvalsh(A.double())
+    wmax = float(w64.abs().max())
+    Vd = V.double()
+    gate(f"eigh n={n}", sec, [
+        ("|w - w64| / max|w64|", float((w.double() - w64).abs().max()) / wmax, 1e-4),
+        ("|A V - V W| / max|w64|", float((A.double() @ Vd - Vd * w.double()).abs().max()) / wmax,
+         TOL_LINALG),
+        ("|V^T V - I|", float((Vd.T @ Vd - eye(n)).abs().max()), TOL_LINALG)])
+    del M, A, V, Vd
+
+    n = LINALG["polar"]
+    A = gauss(n, n)
+    (W, Pp), sec = timed("polar", lambda: la.polar(A))
+    smax = float(torch.linalg.svdvals(A.double())[0])
+    Wd = W.double()
+    gate(f"polar n={n}", sec, [
+        ("|W P - A| / sigma_max", float((Wd @ Pp.double() - A.double()).abs().max()) / smax,
+         TOL_RECON),
+        ("|W^T W - I|", float((Wd.T @ Wd - eye(n)).abs().max()), TOL_ORTH)])
+
+    n, k = LINALG["rsvd"]
+    A, sig = known_spectrum_matrix(n, seed=7, decades=(n - 1) / 20)
+    (U, s, Vh), sec = timed("rsvd", lambda: la.rsvd(A, k))
+    Ud = U.double()
+    gate(f"rsvd n={n} k={k}", sec, [
+        ("max |sigma - sigma_known| / sigma_known",
+         float(((s.double() - sig[:k]) / sig[:k]).abs().max()), TOL_LINALG),
+        ("|U^T U - I|", float((Ud.T @ Ud - eye(k)).abs().max()), TOL_LINALG)])
+
+    n = LINALG["values"]
+    A = uniform_matrix(n)
+    val, sec = timed("norm2", lambda: la.norm2(A))
+    s1 = float(torch.linalg.svdvals(A.double())[0])
+    gate(f"norm2 uniform {n}", sec, [("|norm2 - sigma_1| / sigma_1", abs(float(val) - s1) / s1,
+                                      TOL_SIGMA)])
+    A = gauss(n, n)
+    val, sec = timed("cond", lambda: la.cond(A))
+    s64 = torch.linalg.svdvals(A.double())
+    c64 = float(s64[0] / s64[-1])
+    eps32 = torch.finfo(torch.float32).eps
+    gate(f"cond Gaussian {n}", sec, [("|cond - cond64| / cond64", abs(float(val) - c64) / c64,
+                                      2 * eps32 * c64)])
+    say(f"[linalg] cond Gaussian {n}: {float(val):.6g} (float64 {c64:.6g})")
+    r = LINALG["rank"]
+    A = gauss(n, r) @ gauss(r, n)
+    val, sec = timed("matrix_rank", lambda: la.matrix_rank(A))
+    s64 = torch.linalg.svdvals(A.double())
+    r64 = int((s64 > n * torch.finfo(torch.float32).eps * s64[0]).sum())
+    gate(f"matrix_rank {n} (rank {r})", sec, [("|rank - r|", abs(int(val) - r), 0.0),
+                                              ("|rank - rank64|", abs(int(val) - r64), 0.0)])
+    del A, s64
+
+    n, r = LINALG["orth"]
+    A = gauss(n, r) @ gauss(r, n)
+    U64, _, Vh64 = torch.linalg.svd(A.double())
+    Q, sec = timed("orth", lambda: la.orth(A))
+    Qd = Q.double()
+    gate(f"orth rank-{r} {n}", sec, [
+        ("|rank - r|", abs(Q.shape[1] - r), 0.0),
+        ("|Q Q^T - U U^T|", float((Qd @ Qd.T - U64[:, :r] @ U64[:, :r].T).abs().max()), 1e-4)])
+    N, sec = timed("null_space", lambda: la.null_space(A))
+    Nd, V0 = N.double(), Vh64[r:].T
+    gate(f"null_space rank-{r} {n}", sec, [
+        ("|nullity - (n - r)|", abs(N.shape[1] - (n - r)), 0.0),
+        ("|N N^T - V0 V0^T|", float((Nd @ Nd.T - V0 @ V0.T).abs().max()), 1e-4),
+        ("|N^T N - I|", float((Nd.T @ Nd - eye(N.shape[1])).abs().max()), TOL_ORTH)])
+
+    n, k = LINALG["lowrank"]
+    A = uniform_matrix(n, seed=3)
+    (L, R), sec = timed("lowrank", lambda: la.lowrank(A, k))
+    s64 = torch.linalg.svdvals(A.double())
+    best = float(torch.sqrt((s64[k:] ** 2).sum()))
+    err = float(torch.linalg.norm(L.double() @ R.double() - A.double()))
+    gate(f"lowrank {n} k={k}", sec, [
+        ("|A - L R|_F / best - 1", err / best - 1, 1e-3 + 1e-4 * float(s64[0]) / best)])
+
+
+def diag_rows(rows, counts_diag):
+    """The kernel line's rows of the two diagonalizers: no TPU kernel, each
+    the counterpart of an XLA-compiled loop; ms, plain ms, library ms and
+    bound at n = 64 float32 (where the plain version runs), the path's at
+    DIAG_SIZES."""
+    src = "svdsolver_tpu_torch/csrc/{}.cu"
+    replaces = {
+        "bidiag_qr": "svdsolver_tpu/models/diagonalize.py:186 (the lax.while_loop of "
+                     "_qr_diag_chunk; the sweeps :27, :145, :68 and the threshold :80)",
+        "dqds": "svdsolver_tpu/models/diagonalize.py:280 (the lax.while_loop of "
+                "dqds_svdvals at :958)",
+    }
+    out = []
+    for k in ("bidiag_qr", "dqds"):
+        r = dict(rows[k])
+        b_ms, b_by = bound(*r.pop("work"))
+        out.append({
+            "name": k, "route": "cuda", "source": src.format(k), "replaces": replaces[k],
+            "tpu": [], "launches": sum(c[k] for c in counts_diag.values()),
+            "max_abs_err": r.pop("max_abs_err"), "ms": r.pop("ms"),
+            "plain_ms": r.pop("plain_ms"),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": r.pop("library_ms"),
+            "shape": f"n={DIAG_CHECK[-1]} float32", **r,
+        })
+    return out
+
+
 # the TPU kernels (K1-K15 of PERF.md) each row's kernel stands for; the
 # sequential chase (K3, K5, K6, K8) runs the staged TMA design on the shapes
 # the copy engine takes and the L2 kernel on the others
@@ -1637,6 +2129,8 @@ TPU_KERNELS = {
     "band_chase_staged_rec": ["K6", "K8"],
     "band_chase_wave_rec": ["K7", "K8"], "band_chase_wave_l2": ["K4", "K13"],
     "band_chase_wave_rec_l2": ["K7"],
+    # no TPU kernel: the counterparts of XLA-compiled loops
+    "bidiag_qr": [], "dqds": [],
 }
 
 
@@ -1955,6 +2449,7 @@ def main():
     phase_build()
     say(f"[build] total {time.perf_counter() - t0:.2f} s")
     errs, band_state = phase_kernels(np.random.default_rng(0))
+    diag = check_diag()
     variants = phase_variants(band_state)
     counts_vals = phase_slice()
     counts_svd = phase_svd()
@@ -1965,6 +2460,8 @@ def main():
             counts_svd[key[1]] = c
         else:
             counts_vals[key] = c
+    counts_diag = phase_diag(diag)
+    phase_linalg()
     _, kt, lib, k1 = phase_times(band_state)
     designs = phase_design_times()
     route = phase_route_times()
@@ -1975,7 +2472,7 @@ def main():
     phase_profile("svd n=3840", lambda: svd(A))
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     rows = kernel_table(errs, counts_vals, counts_svd, kt, lib, variants, route, k1, ticks,
-                        designs, staged)
+                        designs, staged) + diag_rows(diag, counts_diag)
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

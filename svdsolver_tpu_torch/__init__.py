@@ -1,17 +1,23 @@
 """svdsolver_tpu_torch — the PyTorch/CUDA port of svdsolver_tpu for one
 NVIDIA H100.
 
-Three slices are ported: ``svdvals(A)`` (two-stage reduction and
-bisection), the full SVD ``svd(A)`` / ``svds(A, k)`` (recording
-reduction, bisection, TGK inverse iteration, back-transforms), and the
-chase variants (``bidiagonalize_two_stage``, the wavefront schedule, the
-flags of ``ops.cuda.band_chase.band_to_bidiagonal`` and the packed and
-deferred-left chases of ``ops.cuda``).  They are plain PyTorch functions
-on tensors, with hand-written CUDA kernels (``csrc/``) for float32 tensors
-on the card: the Stage I panel QR, the band -> bidiagonal chase (plain,
-recording, wavefront with and without deferred left applies, staged in
-shared memory, packed), the bisection and the TGK tridiagonal solve.  Names and signatures follow ``svdsolver_tpu`` for what
-is ported.  This package imports torch and never jax.
+Ported: ``svdvals(A)`` with all three diagonalizers (bisection, QR with
+deflation, dqds), the full SVD ``svd(A)`` / ``svds(A, k)`` (recording
+reduction, bisection, TGK inverse iteration, back-transforms), the chase
+variants (``bidiagonalize_two_stage``, the wavefront schedule, the flags of
+``ops.cuda.band_chase.band_to_bidiagonal`` and the packed and
+deferred-left chases of ``ops.cuda``), the bidiagonal diagonalizers
+themselves (``givens``, the QR sweeps and driver, ``dqds_svdvals``) and the
+SVD applications of ``linalg`` (``pinv``, ``lstsq``, ``matrix_rank``,
+``cond``, ``norm2``, ``lowrank``, ``rsvd``, ``polar``, ``eigh``, ``orth``,
+``null_space``).  They are plain PyTorch functions on tensors, with
+hand-written CUDA kernels (``csrc/``) on the card: for float32 tensors the
+Stage I panel QR, the band -> bidiagonal chase (plain, recording, wavefront
+with and without deferred left applies, staged in shared memory, packed),
+the bisection and the TGK tridiagonal solve; for float32 and float64
+tensors the QR and dqds diagonalizers, each loop in one launch.  Names and
+signatures follow ``svdsolver_tpu`` for what is ported.  This package
+imports torch and never jax.
 """
 
 from svdsolver_tpu_torch.ops.householder import (
@@ -24,9 +30,31 @@ from svdsolver_tpu_torch.models.two_stage import (
     band_to_bidiagonal,
     bidiagonalize_two_stage,
 )
+from svdsolver_tpu_torch.ops.givens import givens
 from svdsolver_tpu_torch.models.diagonalize import bisect_svdvals
+from svdsolver_tpu_torch.ops.cuda.bidiag_qr import (
+    zero_shift_sweep,
+    shifted_sweep,
+    diag_reduce_fixed_iter,
+    bidiagonal_svdvals,
+    convergence_threshold,
+)
+from svdsolver_tpu_torch.ops.cuda.dqds import dqds_svdvals
 from svdsolver_tpu_torch.models.svd import svdvals, Bidiagonal
 from svdsolver_tpu_torch.models.vectors import svd, svds, bidiagonal_svd
+from svdsolver_tpu_torch.linalg import (
+    pinv,
+    lstsq,
+    matrix_rank,
+    cond,
+    norm2,
+    lowrank,
+    rsvd,
+    polar,
+    eigh,
+    orth,
+    null_space,
+)
 
 __version__ = "0.1.0"
 
@@ -34,13 +62,31 @@ __all__ = [
     "householder_vector",
     "apply_left",
     "apply_right",
+    "givens",
     "dense_to_band",
     "band_to_bidiagonal",
     "bidiagonalize_two_stage",
+    "zero_shift_sweep",
+    "shifted_sweep",
+    "diag_reduce_fixed_iter",
+    "bidiagonal_svdvals",
     "bisect_svdvals",
+    "dqds_svdvals",
+    "convergence_threshold",
     "svdvals",
     "Bidiagonal",
     "svd",
     "svds",
     "bidiagonal_svd",
+    "pinv",
+    "lstsq",
+    "matrix_rank",
+    "cond",
+    "norm2",
+    "lowrank",
+    "rsvd",
+    "polar",
+    "eigh",
+    "orth",
+    "null_space",
 ]

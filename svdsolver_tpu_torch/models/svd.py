@@ -7,7 +7,9 @@ sequential chase, whose staged TMA design takes every band of this path,
 the bisection kernel) and ``tpu1`` (the plain
 PyTorch path).  The kernels run for float32 CUDA tensors (:func:`use_kernels`); any other
 device or dtype takes the plain path, chosen by the input and never as a
-fallback on failure.
+fallback on failure.  All three diagonalizers are ported: ``bisect``,
+``qr`` and ``dqds`` (the last two run their ``bidiag_qr`` / ``dqds``
+kernel on any CUDA tensor).
 """
 
 from typing import NamedTuple
@@ -17,15 +19,20 @@ import torch
 
 from svdsolver_tpu_torch.models.diagonalize import bisect_svdvals
 from svdsolver_tpu_torch.models.two_stage import band_to_bidiagonal, dense_to_band
-from svdsolver_tpu_torch.ops.cuda import band_chase, band_chase_wave, bisect, panel_qr
+from svdsolver_tpu_torch.ops.cuda import (
+    band_chase,
+    band_chase_wave,
+    bidiag_qr,
+    bisect,
+    dqds,
+    panel_qr,
+)
 
 METHODS = ("base", "singlecore", "multicore", "tpu1", "tpu2")
 _NOT_PORTED = {
     "base": "ROADMAP queue 1, item 9 (ladder rungs)",
     "singlecore": "ROADMAP queue 1, item 9 (ladder rungs)",
     "multicore": "ROADMAP queue 1, item 9 (ladder rungs)",
-    "qr": "ROADMAP queue 1, item 7 (the rest of models/diagonalize.py)",
-    "dqds": "ROADMAP queue 1, item 7 (the rest of models/diagonalize.py)",
 }
 
 
@@ -124,16 +131,16 @@ def bidiagonalize(A, method="tpu2", block=None):
 def svdvals(A, method="tpu2", block=None, diag="bisect"):
     """Singular values of ``A`` (any shape), sorted descending.
 
-    Bidiagonalize with the chosen method, then bisect (``diag='bisect'``,
-    the only ported diagonalizer).  A rectangular input is first reduced to
-    its square triangular factor by QR (sigma-preserving).  ``A``: a tensor
-    runs on its own device; a numpy array or array-like goes to the CUDA
-    card as float32 (:func:`as_input`).
+    Bidiagonalize with the chosen method, then diagonalize: ``diag``
+    'bisect' (default, parallel bisection), 'qr' (implicit-shift QR with
+    deflation, the reference's ``qrd``) or 'dqds' (high relative accuracy,
+    with the bisection as its safety net).  A rectangular input is first
+    reduced to its square triangular factor by QR (sigma-preserving).
+    ``A``: a tensor runs on its own device; a numpy array or array-like goes
+    to the CUDA card as float32 (:func:`as_input`).
     """
     A = as_input(A)
-    if diag in _NOT_PORTED:
-        _not_ported(diag)
-    if diag != "bisect":
+    if diag not in ("bisect", "qr", "dqds"):
         raise ValueError(f"unknown diag {diag!r}; 'bisect', 'qr' or 'dqds'")
     m, n = A.shape
     if m != n:
@@ -142,6 +149,10 @@ def svdvals(A, method="tpu2", block=None, diag="bisect"):
             m, n = n, m
         A = torch.linalg.qr(A, mode="r")[1][:n, :n].contiguous()
     B = bidiagonalize(A, method=method, block=block)
+    if diag == "qr":
+        return bidiag_qr.bidiagonal_svdvals(B.d, B.e)[:n]
+    if diag == "dqds":
+        return dqds.dqds_svdvals(B.d, B.e)[:n]
     if method == "tpu2" and use_kernels(A):
         return bisect.bisect_svdvals(B.d.contiguous(), B.e.contiguous())[:n]
     return bisect_svdvals(B.d, B.e)[:n]

@@ -9,6 +9,9 @@ every kernel module and never builds.
 
 No ``--use_fast_math``: bisection relies on IEEE division and on ``inf``
 for zero pivots, which flush-to-zero or approximate division would change.
+The diagonalizers (``SOURCE_FLAGS``) also build with ``-fmad=false``: their
+results are bit-equal to the plain versions only if no ``a*b + c`` is
+contracted into one rounding.
 """
 
 import ctypes
@@ -29,8 +32,12 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
+# flags of one source beside NVCC_FLAGS
+SOURCE_FLAGS = {"bidiag_qr": ("-fmad=false",), "dqds": ("-fmad=false",)}
+
 _LIBS = {}  # name -> ctypes.CDLL, loaded once per process
 MAX_SMEM = 227 * 1024  # dynamic shared memory one block may use on the H100
+STATIC_SMEM = 1024  # room kept for a kernel's static shared variables
 
 
 def nvcc_path():
@@ -50,8 +57,12 @@ def _source_key(name):
     key = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         key.update(header.name.encode() + b"\0" + header.read_bytes())
-    key.update(" ".join(NVCC_FLAGS).encode())
+    key.update(" ".join(_flags(name)).encode())
     return key.hexdigest()[:16]
+
+
+def _flags(name):
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
 
 
 def build(name):
@@ -67,7 +78,7 @@ def build(name):
         return out, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [nvcc_path(), *_flags(name), "-o", str(tmp), str(src)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
@@ -96,9 +107,10 @@ def load(name, entries):
     return lib
 
 
-def check_input(t, name, ndim):
+def check_input(t, name, ndim, dtypes=(torch.float32,)):
     """Validate a kernel input; returns True when it lies on a CUDA device
-    (launch the kernel) and False on the CPU (run the plain version)."""
+    (launch the kernel) and False on the CPU (run the plain version).  On
+    the card it must have one of ``dtypes``."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor")
     if t.ndim != ndim:
@@ -107,11 +119,25 @@ def check_input(t, name, ndim):
         return False
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be on a CPU or CUDA device, not {t.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"the CUDA kernel takes float32 {name}, got {t.dtype}")
+    if t.dtype not in dtypes:
+        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise TypeError(f"the CUDA kernel takes {names} {name}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"the CUDA kernel takes a contiguous {name}")
     return True
+
+
+def check_bidiagonal(d, e, dtypes):
+    """Validate a bidiagonal {d (n,), e (n-1,)} of one device and dtype;
+    returns :func:`check_input`'s answer for it (True: launch)."""
+    on_card = check_input(d, "d", 1, dtypes)
+    check_input(e, "e", 1, dtypes)
+    if e.shape[0] != max(d.shape[0] - 1, 0):
+        raise ValueError(
+            f"need d (n,) and e (n-1,), got {tuple(d.shape)} and {tuple(e.shape)}")
+    if d.device != e.device or d.dtype != e.dtype:
+        raise ValueError("d and e must share device and dtype")
+    return on_card
 
 
 def stream_of(t):
@@ -126,3 +152,4 @@ def raise_on_error(err, kernel):
 
 VOIDP = ctypes.c_void_p
 INT = ctypes.c_int
+DOUBLE = ctypes.c_double

@@ -608,3 +608,154 @@ def test_svd_at_scale(dev):
     assert recon <= 1e-4
     assert float((Ud.T @ Ud - eye).abs().max()) <= 1e-4
     assert float((Vd @ Vd.T - eye).abs().max()) <= 1e-4
+
+
+# ---- the diagonalizers (bidiag_qr, dqds): bit-equal to their plain versions
+# run on the card (a launch an operation: n <= 64), both memory instances
+
+def _bidiag_card(rng, n, dtype, dev):
+    d = torch.from_numpy(rng.normal(size=n)).to(dev, dtype)
+    e = torch.from_numpy(rng.normal(size=n - 1)).to(dev, dtype)
+    return d, e
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [2, 5, 16, 64])
+def test_bidiag_qr_kernel_bit_equal(dev, rng, dtype, n):
+    from svdsolver_tpu_torch.models import diagonalize as dg
+    from svdsolver_tpu_torch.ops.cuda import bidiag_qr
+
+    d, e = _bidiag_card(rng, n, dtype, dev)
+    dp, ep, tp, sweeps, converged = dg.qr_converge_plain(d, e)
+    for mem in ("smem", "global"):
+        dk, ek, tk, info = bidiag_qr.converge(d, e, _memory=mem)
+        assert torch.equal(dk, dp) and torch.equal(ek, ep) and torch.equal(tk, tp)
+        assert int(info[0]) == sweeps and bool(info[1]) == converged
+    dk, ek, _, info = bidiag_qr.converge(d, e, chunk_sweeps=7)
+    assert torch.equal(dk, dp) and torch.equal(ek, ep) and int(info[0]) == sweeps
+    s = bidiag_qr.bidiagonal_svdvals(d, e)
+    assert torch.equal(s, dg.bidiagonal_svdvals_plain(d, e))
+    want = torch.linalg.svdvals(torch.diag(d.double()) + torch.diag(e.double(), 1))
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert float((s.double() - want).abs().max()) <= tol * float(want[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bidiag_qr_sweep_entry_bit_equal(dev, rng, dtype):
+    from svdsolver_tpu_torch.models import diagonalize as dg
+    from svdsolver_tpu_torch.ops.cuda import bidiag_qr
+
+    d, e = _bidiag_card(rng, 16, dtype, dev)
+    shift = torch.tensor(0.3, dtype=dtype, device=dev)
+    for mem in ("smem", "global"):
+        got = bidiag_qr.sweeps(d, e, 3, 7, _memory=mem)
+        want = dg.zero_shift_sweep_plain(d, e, 3, 7)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert torch.equal(got[0][:3], d[:3]) and torch.equal(got[0][8:], d[8:])
+        assert torch.equal(got[1][:3], e[:3]) and torch.equal(got[1][7:], e[7:])
+        got = bidiag_qr.sweeps(d, e, 3, 7, shift=shift, _memory=mem)
+        want = dg.shifted_sweep_plain(d, e, 3, 7, shift)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        got = bidiag_qr.sweeps(d, e, n_iter=4, _memory=mem)
+        want = (d, e)
+        for _ in range(4):
+            want = dg.zero_shift_sweep_plain(*want)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [2, 5, 16, 64])
+def test_dqds_kernel_bit_equal(dev, rng, dtype, n):
+    from svdsolver_tpu_torch.models import diagonalize as dg
+    from svdsolver_tpu_torch.ops.cuda import dqds
+
+    d, e = _bidiag_card(rng, n, dtype, dev)
+    sp, swp, hp = dg.dqds_svdvals_plain(d, e, with_info="debug")
+    for mem in ("smem", "global"):
+        sk, swk, hk = dqds.dqds_svdvals(d, e, with_info="debug", _memory=mem)
+        assert torch.equal(sk, sp) and swk == swp and torch.equal(hk, hp)
+
+
+@pytest.mark.parametrize("kernel", ["bidiag_qr", "dqds"])
+def test_diag_kernels_bit_equal_on_the_path_bidiagonal(dev, kernel):
+    # the (d, e) that bidiagonalize gives the uniform 1000 matrix (a graded
+    # spectrum; many strides a thread in the passes between sweeps): 6 QR or
+    # 15 dqds sweeps on both sides, a window that holds a deflation, both
+    # memory instances, everything bit-equal
+    from svdsolver_tpu_torch.models import diagonalize as dg
+    from svdsolver_tpu_torch.models.svd import bidiagonalize
+    from svdsolver_tpu_torch.ops.cuda import bidiag_qr, dqds
+
+    A = torch.from_numpy(np.random.default_rng(0).uniform(0, 5, (1000, 1000))
+                         .astype(np.float32)).to(dev)
+    B = bidiagonalize(A)
+    d, e = B.d.contiguous(), B.e.contiguous()
+    if kernel == "bidiag_qr":
+        k = 6
+        dp, ep, tp, sweeps, converged = dg.qr_converge_plain(d, e, max_sweeps=k)
+        assert int((ep == 0).sum()) > 0
+        for mem in ("smem", "global"):
+            dk, ek, tk, info = bidiag_qr.converge(d, e, max_sweeps=k, _memory=mem)
+            assert torch.equal(dk, dp) and torch.equal(ek, ep) and torch.equal(tk, tp)
+            assert int(info[0]) == sweeps and bool(info[1]) == converged
+    else:
+        k = 15
+        q, E, _ = dg.dqds_prepare(d, e)
+        want = dg._dqds_loop_plain(q, E, k)
+        assert want[1] < 999
+        for mem in ("smem", "global"):
+            out, hi, sweeps, hist = dqds.dqds_loop(q, E, k, mem)
+            assert torch.equal(out, want[0])
+            assert (hi, sweeps, list(hist)) == (want[1], want[2], list(want[3]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bidiag_qr_threshold_rejects_n1_on_card(dev, dtype):
+    from svdsolver_tpu_torch.ops.cuda import bidiag_qr
+
+    d, e = torch.tensor([-2.0], dtype=dtype, device=dev), torch.zeros(0, dtype=dtype, device=dev)
+    with pytest.raises(ValueError, match="n >= 2"):
+        bidiag_qr.convergence_threshold(d, e)
+    with pytest.raises(ValueError, match="n >= 2"):
+        bidiag_qr.converge(d, e)
+    assert bidiag_qr.bidiagonal_svdvals(d, e).tolist() == [2.0]
+
+
+def test_dqds_stall_spectrum_on_card(dev):
+    # float64, the stall spectrum (random n = 120, seed 0): at most 900
+    # sweeps, every sigma to 1e-10 relative, no safety net
+    from svdsolver_tpu_torch.models import diagonalize as dg
+    from svdsolver_tpu_torch.ops.cuda import dqds
+
+    g = np.random.default_rng(0)
+    d, e = g.standard_normal(120), g.standard_normal(119)
+    nets, launches = dg.safety_nets, dqds.launches
+    sig, sweeps = dqds.dqds_svdvals(torch.from_numpy(d).to(dev), torch.from_numpy(e).to(dev),
+                                    with_info=True)
+    want = np.linalg.svd(np.diag(d) + np.diag(e, 1), compute_uv=False)
+    assert sweeps <= 900
+    assert np.max(np.abs(sig.cpu().numpy() - want) / want) < 1e-10
+    assert dg.safety_nets == nets and dqds.launches == launches + 1
+
+
+def test_diag_kernels_refuse_float16(dev):
+    from svdsolver_tpu_torch.ops.cuda import bidiag_qr, dqds
+
+    d, e = torch.ones(4, dtype=torch.float16, device=dev), torch.ones(3, dtype=torch.float16,
+                                                                      device=dev)
+    for fn in (bidiag_qr.bidiagonal_svdvals, dqds.dqds_svdvals):
+        with pytest.raises(TypeError, match="float32 or float64"):
+            fn(d, e)
+
+
+@pytest.mark.parametrize("diag,kernel", [("qr", "bidiag_qr"), ("dqds", "dqds")])
+def test_svdvals_diag_runs_its_kernel(dev, rng, diag, kernel):
+    from svdsolver_tpu_torch.models import diagonalize as dg
+    from svdsolver_tpu_torch.ops.cuda import bidiag_qr, dqds
+
+    mods = {"bidiag_qr": bidiag_qr, "dqds": dqds}
+    A = torch.from_numpy(rng.uniform(0, 5, (256, 256)).astype(np.float32)).to(dev)
+    before, loops = mods[kernel].launches, dg.plain_loops
+    s = svdvals(A, diag=diag)
+    assert mods[kernel].launches == before + 1 and dg.plain_loops == loops
+    assert _sigma_err(A, s) <= 1e-5

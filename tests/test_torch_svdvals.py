@@ -55,8 +55,8 @@ def test_use_kernels_is_cuda_float32_only():
         ({"method": "base"}, NotImplementedError),
         ({"method": "singlecore"}, NotImplementedError),
         ({"method": "multicore"}, NotImplementedError),
-        ({"diag": "qr"}, NotImplementedError),
-        ({"diag": "dqds"}, NotImplementedError),
+        ({"method": "base", "diag": "qr"}, NotImplementedError),
+        ({"method": "multicore", "diag": "dqds"}, NotImplementedError),
         ({"method": "nope"}, ValueError),
         ({"diag": "nope"}, ValueError),
     ],
