@@ -210,9 +210,10 @@ TOL_LINALG = 1e-3  # pinv's Penrose conditions, eigh's residual, rsvd's sigma (r
 LINALG = {"pinv": 2048, "lstsq": (4096, 2048, 4), "eigh": 3840, "polar": 2048,
           "rsvd": (3840, 64), "values": 3840, "rank": 3000, "orth": (1024, 700),
           "lowrank": (1000, 250)}
-# published H100 SXM peaks (NVIDIA's data sheet, 700 W): float32 outside
-# the tensor cores, and HBM3
+# published H100 SXM peaks (NVIDIA's data sheet, 700 W): float32 and
+# float64 outside the tensor cores, and HBM3
 PEAK_FP32 = 67e12
+PEAK_FP64 = 34e12
 PEAK_BYTES = 3.35e12
 DEV = "cuda"
 
@@ -327,10 +328,10 @@ def read_counts():
 
 # ---- work of each kernel, from its shapes (for its bound) ----
 
-def bound(flops, nbytes):
-    """(bound_ms, bound_by): the larger of float32 operations over the peak
-    rate and bytes over the HBM rate."""
-    t_ops = flops / PEAK_FP32 * 1e3
+def bound(flops, nbytes, peak=PEAK_FP32):
+    """(bound_ms, bound_by): the larger of operations over the peak rate
+    (float32's unless ``peak`` is given) and bytes over the HBM rate."""
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -1771,11 +1772,13 @@ def check_diag():
                 rows["bidiag_qr"] = {
                     "ms": cuda_ms(lambda: bidiag_qr.bidiagonal_svdvals(d, e)),
                     "plain_ms": qr_plain, "library_ms": lib,
-                    "work": work_qr(n, int(info[2]), int(info[3])), "sweeps": sw}
+                    "work": work_qr(n, int(info[2]), int(info[3])), "sweeps": sw,
+                    "steps": (int(info[2]), int(info[3]))}
                 rows["dqds"] = {
                     "ms": cuda_ms(lambda: dqds.dqds_svdvals(d, e)),
                     "plain_ms": dqds_plain, "library_ms": lib,
-                    "work": work_dqds(n, dqds.last_steps), "sweeps": swp}
+                    "work": work_dqds(n, dqds.last_steps), "sweeps": swp,
+                    "steps": dqds.last_steps}
         # the sweep entry on a sub-block, and full sweeps
         n, lo, hi = DIAG_SUB
         d, e = _bidiag_on_card(rng, n, dtype)
@@ -1834,6 +1837,28 @@ def check_diag():
     return rows
 
 
+def diag_chains(rows):
+    """ns a step of each diagonalizer's dependent chain alone, float32 and
+    float64 (the chain entries: one thread, operands in registers, no
+    memory; the faster of two launches): QR's zero-shift and shifted
+    steps, dqds's step.  Adds them to ``rows``; returns {(kind, dtype):
+    ns}, kind "zero", "shifted" or "dqds"."""
+    from svdsolver_tpu_torch.ops.cuda import bidiag_qr, dqds
+
+    chain = {}
+    for dtype in (torch.float32, torch.float64):
+        tag = str(dtype).removeprefix("torch.")
+        for kind in bidiag_qr.CHAINS:
+            chain[(kind, tag)] = min(bidiag_qr.chain_ns(dtype, kind) for _ in range(2))
+        chain[("dqds", tag)] = min(dqds.chain_ns(dtype) for _ in range(2))
+        say(f"[diag] chain {tag}: QR zero-shift step {chain[('zero', tag)]:.2f} ns, shifted "
+            f"step {chain[('shifted', tag)]:.2f} ns, dqds step {chain[('dqds', tag)]:.2f} ns "
+            "(one thread, operands in registers, CUDA events)")
+    rows["bidiag_qr"]["chain_ns"] = {f"{k} {t}": v for (k, t), v in chain.items() if k != "dqds"}
+    rows["dqds"]["chain_ns"] = {t: v for (k, t), v in chain.items() if k == "dqds"}
+    return chain
+
+
 def phase_diag(rows):
     """The diagonalizers on the main path: svdvals(A, diag="qr") and
     svdvals(A, diag="dqds") on the uniform matrix at DIAG_SIZES, every
@@ -1848,8 +1873,11 @@ def phase_diag(rows):
     estimates, hi, sweep count and histogram), each diagonalizer alone
     (one run each: seconds at 3840), diag_reduce_fixed_iter(d, e, 200)
     at 3840 (the reference's ``diagonal`` benchmark) and
-    torch.linalg.svdvals of the dense bidiagonal (the library yardstick).
-    Adds the path's numbers to ``rows``; returns the launch counts."""
+    torch.linalg.svdvals of the dense bidiagonal (the library yardstick),
+    the alone runs and the yardstick in float32 and float64, each beside
+    its chain bound (steps times the chain's ns a step, ``diag_chains``)
+    and its sweep overhead ((ms - chain bound) / sweeps).  Adds the path's
+    numbers to ``rows``; returns the launch counts."""
     from svdsolver_tpu_torch import diag_reduce_fixed_iter, svdvals
     from svdsolver_tpu_torch.models import diagonalize as dg
     from svdsolver_tpu_torch.models.svd import bidiagonalize
@@ -1858,7 +1886,9 @@ def phase_diag(rows):
     counts_by_run = {}
     for k in ("bidiag_qr", "dqds"):
         rows[k].update({"path_ms": {}, "path_bound_ms": {}, "path_library_ms": {},
-                        "path_sweeps": {}})
+                        "path_sweeps": {}, "path_ns_step": {}, "path_chain_bound_ms": {},
+                        "path_sweep_overhead_us": {}})
+    chain = diag_chains(rows)
     for n in DIAG_SIZES:
         A = uniform_matrix(n)
         ref = torch.linalg.svdvals(A.double())
@@ -1919,30 +1949,55 @@ def phase_diag(rows):
             f"(estimates, hi = {hip}, {itp} sweeps, histogram {thp}) bit-equal to the plain "
             f"versions on both memory instances; plain runs {qr_plain:.1f} / "
             f"{dqds_plain:.1f} ms")
-        (_, _, _, info), qr_ms = _event_ms(lambda: bidiag_qr.converge(d, e))
-        info = info.tolist()
-        (_, sweeps, hist), dqds_ms = _event_ms(lambda: dqds.dqds_svdvals(d, e, with_info="debug"))
-        steps = dqds.last_steps
-        _, lib_ms = _event_ms(lambda: torch.linalg.svdvals(torch.diag(d) + torch.diag(e, 1)))
-        say(f"[diag] n={n} alone (one run each, CUDA events): bidiag_qr {qr_ms:.3f} ms "
-            f"({info[0]} sweeps, {info[2]} zero-shift and {info[3]} shifted steps), dqds "
-            f"{dqds_ms:.3f} ms ({sweeps} sweeps, {steps} steps, histogram {hist.tolist()}), "
-            "torch.linalg.svdvals of the dense bidiagonal "
-            f"{lib_ms:.3f} ms")
-        for k, ms, w, sw in (("bidiag_qr", qr_ms, work_qr(n, info[2], info[3]), info[0]),
-                             ("dqds", dqds_ms, work_dqds(n, steps), sweeps)):
-            b_ms, b_by = bound(*w)
-            rows[k]["path_ms"][f"n={n}"] = ms
-            rows[k]["path_bound_ms"][f"n={n}"] = b_ms
-            rows[k]["path_library_ms"][f"n={n}"] = lib_ms
-            rows[k]["path_sweeps"][f"n={n}"] = sw
-            say(f"[bound] {k} n={n}: {w[0]:.4g} flops, {w[1]:.4g} bytes -> {b_ms:.6f} ms, "
-                f"bound by {b_by} ({ms / b_ms:.0f}x)")
+        lib_ms = {}
+        for dtype in (torch.float32, torch.float64):
+            tag = str(dtype).removeprefix("torch.")
+            key = f"n={n}" if dtype == torch.float32 else f"n={n} {tag}"
+            dd, ee = d.to(dtype), e.to(dtype)
+            (_, _, _, info), qr_ms = _event_ms(lambda: bidiag_qr.converge(dd, ee))
+            info = info.tolist()
+            (_, sweeps, hist), dqds_ms = _event_ms(
+                lambda: dqds.dqds_svdvals(dd, ee, with_info="debug"))
+            steps = dqds.last_steps
+            _, lib_ms[tag] = _event_ms(
+                lambda: torch.linalg.svdvals(torch.diag(dd) + torch.diag(ee, 1)))
+            say(f"[diag] n={n} {tag} alone (one run each, CUDA events): bidiag_qr "
+                f"{qr_ms:.3f} ms ({info[0]} sweeps, {info[2]} zero-shift and {info[3]} shifted "
+                f"steps), dqds {dqds_ms:.3f} ms ({sweeps} sweeps, {steps} steps, histogram "
+                f"{hist.tolist()}), torch.linalg.svdvals of the dense bidiagonal "
+                f"{lib_ms[tag]:.3f} ms")
+            ns = {k: chain[(k, tag)] for k in ("zero", "shifted", "dqds")}
+            for k, ms, w, sw, nsteps, chain_ms in (
+                    ("bidiag_qr", qr_ms, work_qr(n, info[2], info[3], dtype.itemsize), info[0],
+                     info[2] + info[3], bidiag_qr.chain_bound_ms(
+                         info[2], info[3], ns["zero"], ns["shifted"])),
+                    ("dqds", dqds_ms, work_dqds(n, steps, dtype.itemsize), sweeps, steps,
+                     dqds.chain_bound_ms(steps, ns["dqds"]))):
+                peak = PEAK_FP32 if dtype == torch.float32 else PEAK_FP64
+                b_ms, b_by = bound(*w, peak=peak)
+                ns_step = ms * 1e6 / nsteps
+                over_us = (ms - chain_ms) * 1e3 / sw
+                r = rows[k]
+                r["path_ms"][key] = ms
+                r["path_bound_ms"][key] = b_ms
+                r["path_library_ms"][key] = lib_ms[tag]
+                r["path_sweeps"][key] = sw
+                r["path_ns_step"][key] = ns_step
+                r["path_chain_bound_ms"][key] = chain_ms
+                r["path_sweep_overhead_us"][key] = over_us
+                say(f"[diag] {k} n={n} {tag}: {ms:.3f} ms, {nsteps} steps at "
+                    f"{ns_step:.2f} ns a step; chain bound {chain_ms:.3f} ms "
+                    f"({ms / chain_ms:.3f}x); sweep overhead {over_us:.3f} us a sweep "
+                    f"({sw} sweeps); library {lib_ms[tag]:.3f} ms ({ms / lib_ms[tag]:.3f}x)")
+                say(f"[bound] {k} n={n} {tag}: {w[0]:.4g} flops, {w[1]:.4g} bytes -> "
+                    f"{b_ms:.6f} ms, bound by {b_by} ({ms / b_ms:.0f}x)")
         if n == 3840:
             _, fixed_ms = _event_ms(lambda: diag_reduce_fixed_iter(d, e, 200))
             rows["bidiag_qr"]["fixed_iter_200_ms"] = fixed_ms
+            fixed_steps = 200 * (n - 1)
             say(f"[diag] n={n}: diag_reduce_fixed_iter(d, e, 200) {fixed_ms:.3f} ms (one run, "
-                f"{200 * (n - 1)} zero-shift steps)")
+                f"{fixed_steps} zero-shift steps: {fixed_ms * 1e6 / fixed_steps:.2f} ns a step; "
+                f"chain bound {fixed_steps * chain[('zero', 'float32')] / 1e6:.3f} ms)")
         del A, ref, B, d, e, dp, ep, q0, E0, outp
         torch.cuda.empty_cache()
     return counts_by_run
@@ -2091,9 +2146,10 @@ def phase_linalg():
 
 def diag_rows(rows, counts_diag):
     """The kernel line's rows of the two diagonalizers: no TPU kernel, each
-    the counterpart of an XLA-compiled loop; ms, plain ms, library ms and
-    bound at n = 64 float32 (where the plain version runs), the path's at
-    DIAG_SIZES."""
+    the counterpart of an XLA-compiled loop; ms, plain ms, library ms,
+    bound and chain bound at n = 64 float32 (where the plain version runs),
+    the path's at DIAG_SIZES in float32 and float64 (``path_*``), the
+    chains' ns a step (``chain_ns``)."""
     src = "svdsolver_tpu_torch/csrc/{}.cu"
     replaces = {
         "bidiag_qr": "svdsolver_tpu/models/diagonalize.py:186 (the lax.while_loop of "
@@ -2101,10 +2157,16 @@ def diag_rows(rows, counts_diag):
         "dqds": "svdsolver_tpu/models/diagonalize.py:280 (the lax.while_loop of "
                 "dqds_svdvals at :958)",
     }
+    from svdsolver_tpu_torch.ops.cuda import bidiag_qr, dqds
+
     out = []
     for k in ("bidiag_qr", "dqds"):
         r = dict(rows[k])
         b_ms, b_by = bound(*r.pop("work"))
+        steps, ns = r.pop("steps"), r["chain_ns"]
+        r["chain_bound_ms"] = (
+            bidiag_qr.chain_bound_ms(*steps, ns["zero float32"], ns["shifted float32"])
+            if k == "bidiag_qr" else dqds.chain_bound_ms(steps, ns["float32"]))
         out.append({
             "name": k, "route": "cuda", "source": src.format(k), "replaces": replaces[k],
             "tpu": [], "launches": sum(c[k] for c in counts_diag.values()),

@@ -10,22 +10,30 @@
 //
 // What bounds it on the H100: one dependent chain of Givens steps a sweep,
 // two rotations a step, each a division, a square root and two more
-// divisions (IEEE, so multi-instruction sequences): latency, not operations
-// or bytes.  The card's issue rate is nearly unused by that.
+// divisions (IEEE, so multi-instruction sequences): latency, not
+// operations or bytes.  The card's issue rate is nearly unused by that.
+// The chain entry svdt_bidiag_qr_chain_* times a zero-shift and a shifted
+// step's recurrence alone on one thread from registers: the steps of a
+// run times those ns a step are its chain bound (PERF.md).
 //
-// Design (a simple kernel that is right): one block.  d and e live in
-// shared memory where they fit beside the threshold's reduction (Smem =
-// true: n <= 28,672 in float32, 14,208 in float64 at 256 threads), in
-// device memory otherwise (the wrapper decides by shape); the two instances run the
-// same code and give the same bits.  Thread 0 runs each sweep's chain.
-// Between sweeps the block finds the live entries (|e| > thresh),
-// hard-zeroes the dead ones and locates the bottom-most unreduced block
-// [lo, hi] with two strided passes and shared-memory atomics (kThreads
-// threads: 14 % faster than thread 0 doing the passes alone at n = 3840,
-// PERF.md).  The threshold
-// (convergence_threshold, with its absolute floor) is the prologue: thread
-// 0 runs the mu recurrence, another thread the lambda recurrence, the block
-// takes the maxima.
+// Design: one block; thread 0 runs each sweep's chain with no memory
+// round trip and no branch on it.  A step's d and e come from registers
+// loaded kAhead steps ahead (svdt::pipelined); the values a step hands the
+// next (d[i+1], e[i+1] of the shifted sweep, d[k+1] of the zero-shift one)
+// stay in registers, and each value is stored once and never reloaded.
+// givens is branch-free (selects around one division, one square root and
+// two divisions), so the zero-shift sweep's two rotation chains (rot1 via
+// c, rot2 via c_ and r1) may overlap.  d and e live in shared memory where
+// they fit beside the threshold's reduction (Smem = true: n <= 28,672 in
+// float32, 14,208 in float64 at 256 threads), in device memory otherwise
+// (the wrapper decides by shape); the two instances run the same code and
+// give the same bits.  Between sweeps the block finds the live entries
+// (|e| > thresh), hard-zeroes the dead ones and locates the bottom-most
+// unreduced block [lo, hi] with two strided passes and shared-memory
+// atomics (kThreads threads: 14 % faster than thread 0 doing the passes
+// alone at n = 3840, PERF.md).  The threshold (convergence_threshold, with
+// its absolute floor) is the prologue: thread 0 runs the mu recurrence,
+// another thread the lambda recurrence, the block takes the maxima.
 //
 // Bits: compiled with -fmad=false and IEEE division and square root, in
 // the plain version's order of operations (models/diagonalize.py), so d, e,
@@ -41,34 +49,45 @@ using svdt::givens;
 using svdt::Limits;
 using svdt::nan_max;
 using svdt::nan_min;
+using svdt::pipelined;
 
 constexpr int kThreads = 256;  // the converged driver's block
 
-// One zero-shift sweep on d[lo..hi] (diagonalize.py:27).  d[k] is read
-// before step k writes it, so it is carried in a register.
+constexpr int kAhead = 8;  // steps whose d and e are loaded ahead of the chain
+
+// One zero-shift sweep on d[lo..hi] (diagonalize.py:27).  Step k takes the
+// original e[k] and d[k + 1] (loaded ahead) and stores e[k - 1] and d[k]
+// once; d[k] is carried from step k - 1 in a register.  rot1's chain (via
+// c) and rot2's (via c_ and r1) are independent but for r1 / s1, so the
+// compiler may overlap step k + 1's rot1 with step k's rot2.
 template <typename T>
 __device__ void zero_shift_sweep(T* __restrict__ d, T* __restrict__ e, int lo, int hi) {
   if (hi <= lo) return;
   T c = T(1), c_ = T(1), s_ = T(0);
   T dk = d[lo];
-  for (int k = lo; k < hi; ++k) {
+  auto step = [&](int k, T ek, T dk1, bool store_e) {
     T c1, s1, r1, c2, s2, r2;
-    givens(c * dk, e[k], c1, s1, r1);
-    if (k > lo) e[k - 1] = r1 * s_;
-    const T dk1 = d[k + 1];
+    givens(c * dk, ek, c1, s1, r1);
+    if (store_e) e[k - 1] = r1 * s_;
     givens(c_ * r1, dk1 * s1, c2, s2, r2);
     d[k] = r2;
     c = c1;
     c_ = c2;
     s_ = s2;
     dk = dk1;
-  }
+  };
+  step(lo, e[lo], d[lo + 1], false);
+  pipelined<kAhead, 0, 1>(e, d, lo + 1, hi,
+                          [&](int k, T ek, T dk1) { step(k, ek, dk1, true); });
   const T h = c * dk;
   e[hi - 1] = h * s_;
   d[hi] = h * c_;
 }
 
 // One shifted sweep on d[lo..hi] (diagonalize.py:145, dbdsqr's forward path).
+// Step i takes the original d[i + 1] and e[i + 1] (loaded ahead) and the
+// current d[i] and e[i] from step i - 1 in registers; it stores d[i] and
+// e[i - 1] once and reloads nothing.
 template <typename T>
 __device__ void shifted_sweep(T* __restrict__ d, T* __restrict__ e, int lo, int hi, T shift) {
   if (hi <= lo) return;
@@ -76,27 +95,35 @@ __device__ void shifted_sweep(T* __restrict__ d, T* __restrict__ e, int lo, int 
   const T sgn = dl >= T(0) ? T(1) : T(-1);
   T f = (fabs(dl) - shift) * (sgn + shift / (dl == T(0) ? T(1) : dl));
   T g = e[lo];
-  for (int i = lo; i < hi; ++i) {
+  T di = dl, ei = g;  // the current d[i] and e[i]
+  // has_next: i < hi - 1, so e[i + 1] exists and feeds g
+  auto step = [&](int i, T di1, T ei1, bool store_e, bool has_next) {
     T cosr, sinr, r, cosl, sinl, r2;
     givens(f, g, cosr, sinr, r);
-    if (i > lo) e[i - 1] = r;
-    const T di = d[i], ei = e[i], di1 = d[i + 1];
+    if (store_e) e[i - 1] = r;
     const T f2 = cosr * di + sinr * ei;
     const T ei_new = cosr * ei - sinr * di;
     const T g2 = sinr * di1;
     const T di1_a = cosr * di1;
     givens(f2, g2, cosl, sinl, r2);
     d[i] = r2;
-    e[i] = ei_new;
     f = cosl * ei_new + sinl * di1_a;
-    d[i + 1] = cosl * di1_a - sinl * ei_new;
-    if (i < hi - 1) {
-      const T ei1 = e[i + 1];
+    di = cosl * di1_a - sinl * ei_new;
+    if (has_next) {
       g = sinl * ei1;
-      e[i + 1] = cosl * ei1;
+      ei = cosl * ei1;
     }
+  };
+  if (hi - lo == 1) {
+    step(lo, d[hi], T(0), false, false);
+  } else {
+    step(lo, d[lo + 1], e[lo + 1], false, true);
+    pipelined<kAhead, 1, 1>(d, e, lo + 1, hi - 1,
+                            [&](int i, T di1, T ei1) { step(i, di1, ei1, true, true); });
+    step(hi - 1, d[hi], T(0), true, false);
   }
   e[hi - 1] = f;
+  d[hi] = di;
 }
 
 // Smaller singular value of [[f, g], [0, h]] (dlas2-style): the shift.
@@ -285,6 +312,66 @@ qr_converge_kernel(T* dg, T* eg, int n, T* thresh, int compute_thresh, T tol_fac
   stage_out<T, Smem>(d, e, dg, eg, n);
 }
 
+// The chain bound: `steps` (a multiple of kChainVals) steps of one sweep's
+// dependent recurrence on one thread, every operand in registers (kChainVals
+// d and e values cycled, d in [1, 2) above e in [0.25, 0.5) so the
+// rotations stay away from zeros and overflow), nothing stored but the final
+// state.  kind 0: zero-shift steps (both rotations, rot1's chain overlapping
+// rot2's as in zero_shift_sweep); 1: shifted steps.  The stores a sweep
+// makes and the values only they take are left out.
+constexpr int kChainVals = 8;
+
+template <typename T>
+__global__ void qr_chain_kernel(T* out, long long steps, int kind) {
+  T dv[kChainVals], ev[kChainVals];
+#pragma unroll
+  for (int j = 0; j < kChainVals; ++j) {
+    dv[j] = T(1) + T(j) / T(kChainVals);
+    ev[j] = T(0.25) + T(j) / T(4 * kChainVals);
+  }
+  if (kind == 0) {
+    T c = T(1), c_ = T(1), s_ = T(0), dk = dv[kChainVals - 1];
+    for (long long k = 0; k < steps; k += kChainVals) {
+#pragma unroll
+      for (int j = 0; j < kChainVals; ++j) {
+        T c1, s1, r1, c2, s2, r2;
+        givens(c * dk, ev[j], c1, s1, r1);
+        givens(c_ * r1, dv[j] * s1, c2, s2, r2);
+        c = c1;
+        c_ = c2;
+        s_ = s2;
+        dk = dv[j];
+      }
+    }
+    out[0] = c;
+    out[1] = c_;
+    out[2] = s_;
+    out[3] = dk;
+  } else {
+    T f = dv[0], g = ev[0], di = dv[0], ei = ev[0];
+    for (long long k = 0; k < steps; k += kChainVals) {
+#pragma unroll
+      for (int j = 0; j < kChainVals; ++j) {
+        T cosr, sinr, r, cosl, sinl, r2;
+        givens(f, g, cosr, sinr, r);
+        const T f2 = cosr * di + sinr * ei;
+        const T ei_new = cosr * ei - sinr * di;
+        const T g2 = sinr * dv[j];
+        const T di1_a = cosr * dv[j];
+        givens(f2, g2, cosl, sinl, r2);
+        f = cosl * ei_new + sinl * di1_a;
+        di = cosl * di1_a - sinl * ei_new;
+        g = sinl * ev[j];
+        ei = cosl * ev[j];
+      }
+    }
+    out[0] = f;
+    out[1] = g;
+    out[2] = di;
+    out[3] = ei;
+  }
+}
+
 // Dynamic shared memory: the threshold's reduction (2 values a thread),
 // then d and e in the Smem instance.
 template <typename T>
@@ -317,6 +404,12 @@ int launch_converge(T* d, T* e, int n, T* thresh, int compute_thresh, double tol
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_chain(T* out, long long steps, int kind, cudaStream_t stream) {
+  qr_chain_kernel<T><<<1, 1, 0, stream>>>(out, steps, kind);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -343,6 +436,14 @@ int svdt_bidiag_qr_converge_f64(double* d, double* e, int n, double* thresh,
                                 long long* info, int smem, cudaStream_t stream) {
   return launch_converge<double>(d, e, n, thresh, compute_thresh, tol_factor, max_sweeps,
                                  info, smem, stream);
+}
+
+int svdt_bidiag_qr_chain_f32(float* out, long long steps, int kind, cudaStream_t stream) {
+  return launch_chain<float>(out, steps, kind, stream);
+}
+
+int svdt_bidiag_qr_chain_f64(double* out, long long steps, int kind, cudaStream_t stream) {
+  return launch_chain<double>(out, steps, kind, stream);
 }
 
 }  // extern "C"

@@ -150,6 +150,29 @@ def raise_on_error(err, kernel):
         raise RuntimeError(f"{kernel} launch failed: cudaError_t {err}")
 
 
+def chain_ns(fn, dtype, steps, *args):
+    """ns a step of a chain-bound entry ``fn(out, steps, *args, stream)``
+    (one thread running a sweep's dependent recurrence from registers, its
+    final state to ``out``, ``steps`` a multiple of 8): a short warm-up
+    launch, then one launch between CUDA events.  Returns ns a step;
+    raises if a launch fails or the state left the finite range (the
+    chain would then time another path of the division)."""
+    out = torch.zeros(4, dtype=dtype, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    raise_on_error(fn(out.data_ptr(), 64, *args, stream), "chain")
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    err = fn(out.data_ptr(), steps, *args, stream)
+    stop.record()
+    raise_on_error(err, "chain")
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(out).all()):
+        raise RuntimeError(f"chain state not finite: {out.tolist()}")
+    return start.elapsed_time(stop) * 1e6 / steps
+
+
 VOIDP = ctypes.c_void_p
 INT = ctypes.c_int
+LONG = ctypes.c_longlong
 DOUBLE = ctypes.c_double

@@ -21,6 +21,8 @@ scalar recurrences, so the plain version on a CUDA tensor costs a launch an
 operation in any dtype.  d and e live in shared memory where they fit
 (:func:`memory_instance`), in device memory otherwise, with the same bits.
 CPU tensors run the plain versions of ``models/diagonalize.py``.
+:func:`chain_ns` times a sweep's dependent chain alone (the chain bound,
+:func:`chain_bound_ms`).
 """
 
 import torch
@@ -33,13 +35,15 @@ launches_sweeps = 0  # sweep-entry launches (the sweeps, diag_reduce_fixed_iter)
 
 THREADS = 256  # the converged driver's block: the passes between sweeps
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
-_P, _I, _D = _build.VOIDP, _build.INT, _build.DOUBLE
+_P, _I, _L, _D = _build.VOIDP, _build.INT, _build.LONG, _build.DOUBLE
 _ENTRIES = {
     **{f"svdt_bidiag_qr_sweeps_{s}": [_P, _P, _I, _I, _I, _I, _P, _I, _P]
        for s in _DTYPES.values()},
     **{f"svdt_bidiag_qr_converge_{s}": [_P, _P, _I, _P, _I, _D, _I, _P, _I, _P]
        for s in _DTYPES.values()},
+    **{f"svdt_bidiag_qr_chain_{s}": [_P, _L, _I, _P] for s in _DTYPES.values()},
 }
+CHAINS = ("zero", "shifted")  # the chain entry's kinds: zero-shift and shifted steps
 
 
 def memory_instance(n, dtype, reduction=True):
@@ -154,6 +158,24 @@ def converge(d, e, max_sweeps=None, chunk_sweeps=None, tol_factor=100.0, _memory
         done += k
         if done >= max_sweeps or bool(info[1]):
             return d, e, thresh.reshape(()), info
+
+
+def chain_ns(dtype, kind, steps=1 << 20):
+    """ns a step of a QR sweep's dependent chain alone on the card
+    (``svdt_bidiag_qr_chain_*``: one thread, operands in registers, no
+    memory); ``kind`` ``"zero"`` (zero-shift steps, rot1's chain overlapping
+    rot2's) or ``"shifted"``, timed over ``steps`` steps (rounded down to a
+    multiple of 8); float32 or float64."""
+    lib = _build.load("bidiag_qr", _ENTRIES)
+    fn = getattr(lib, f"svdt_bidiag_qr_chain_{_DTYPES[dtype]}")
+    return _build.chain_ns(fn, dtype, steps - steps % 8, CHAINS.index(kind))
+
+
+def chain_bound_ms(steps_zero, steps_shift, ns_zero, ns_shift):
+    """The chain bound of a run, in ms: its zero-shift and shifted steps
+    (``converge``'s ``info[2]``, ``info[3]``), each times its own ns a
+    step."""
+    return (steps_zero * ns_zero + steps_shift * ns_shift) / 1e6
 
 
 def convergence_threshold(d, e, tol_factor=100.0, _memory=None):

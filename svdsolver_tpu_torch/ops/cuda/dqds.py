@@ -17,9 +17,13 @@ algorithm's own safety net, the bisection on the same {d, e}, gives the
 values (``dqds_finish``, counted by ``diagonalize.safety_nets``; on a
 float32 tensor the ``bisect`` kernel, else the plain bisection).  It
 takes float32 and float64 CUDA tensors (dqds exists for float64 relative
-accuracy); q and E live in shared memory where they fit
-(:func:`memory_instance`), in device memory otherwise, with the same bits.
-CPU tensors run the plain version.
+accuracy).  The kernel keeps two (q, E) pairs, a sweep reading one and
+writing the other, and the accumulated shifts: 5n values, in shared
+memory where they fit (:func:`memory_instance`: n <= 11,571 in float32,
+5,785 in float64), else in a device workspace the wrapper allocates, with
+the same code and the same bits.  CPU tensors run the plain version.
+:func:`chain_ns` times the sweep's dependent chain alone (the chain
+bound, :func:`chain_bound_ms`).
 """
 
 import torch
@@ -30,16 +34,21 @@ from svdsolver_tpu_torch.ops.cuda import _build, bisect
 launches = 0  # dqds kernel launches since the last reset
 
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
-_P, _I = _build.VOIDP, _build.INT
-_ENTRIES = {f"svdt_dqds_{s}": [_P] * 6 + [_I, _I, _P, _I, _P] for s in _DTYPES.values()}
+_P, _I, _L = _build.VOIDP, _build.INT, _build.LONG
+_ENTRIES = {
+    **{f"svdt_dqds_{s}": [_P] * 4 + [_I, _I, _P, _I, _P] for s in _DTYPES.values()},
+    **{f"svdt_dqds_chain_{s}": [_P, _L, _P] for s in _DTYPES.values()},
+}
+FOOTPRINT = 5  # values an entry: the two (q, E) pairs and the accumulated shifts
 
 
 def memory_instance(n, dtype):
-    """``"smem"`` where q and E (2n values) fit one block's shared memory
-    beside the kernel's static shared variables: n <= 28,928 in float32
-    and 14,464 in float64; else ``"global"``."""
+    """``"smem"`` where the kernel's 5n values fit one block's shared
+    memory beside its static shared variables: n <= 11,571 in float32 and
+    5,785 in float64; else ``"global"``."""
     size = torch.finfo(dtype).bits // 8
-    return "smem" if size * 2 * n + _build.STATIC_SMEM <= _build.MAX_SMEM else "global"
+    fits = size * FOOTPRINT * n + _build.STATIC_SMEM <= _build.MAX_SMEM
+    return "smem" if fits else "global"
 
 
 def _launch(q, *args):
@@ -67,14 +76,31 @@ def dqds_loop(q, E, max_sweeps, _memory=None):
         raise ValueError(f"memory must be 'smem' or 'global', got {memory!r}")
     if memory == "smem" and memory_instance(n, q.dtype) != "smem":
         raise ValueError(f"n={n} does not fit shared memory in {q.dtype}")
-    q, E = q.contiguous().clone(), E.contiguous().clone()
-    accv, out, qb, Eb = (torch.zeros_like(q) for _ in range(4))
+    q, E = q.contiguous(), E.contiguous()  # read only: the kernel works on its own pairs
+    out = torch.zeros_like(q)
+    work = None if memory == "smem" else q.new_empty((FOOTPRINT * n,))
     info = torch.zeros((3 + dg.HIST_BINS,), dtype=torch.int64, device=q.device)
-    _launch(q, E, accv, out, qb, Eb, n, int(max_sweeps), info, int(memory == "smem"))
+    _launch(q, E, out, work, n, int(max_sweeps), info, int(memory == "smem"))
     launches += 1
     info = info.tolist()
     last_steps = info[2]
     return out, info[0], info[1], info[3:]
+
+
+def chain_ns(dtype, steps=1 << 22):
+    """ns a step of the dqds sweep's dependent chain alone on the card
+    (``svdt_dqds_chain_*``: ``dd <- dd * (q / (dd + E)) - tau`` on one
+    thread from registers, no memory), timed over ``steps`` steps (rounded
+    down to a multiple of 8); float32 or float64."""
+    lib = _build.load("dqds", _ENTRIES)
+    fn = getattr(lib, f"svdt_dqds_chain_{_DTYPES[dtype]}")
+    return _build.chain_ns(fn, dtype, steps - steps % 8)
+
+
+def chain_bound_ms(steps, ns):
+    """The chain bound of a run: its dqds steps (every sweep run, retries
+    included) times ``ns`` a step, in ms."""
+    return steps * ns / 1e6
 
 
 def dqds_svdvals(d, e, max_sweeps=None, with_info=False, _memory=None):

@@ -759,3 +759,147 @@ def test_svdvals_diag_runs_its_kernel(dev, rng, diag, kernel):
     s = svdvals(A, diag=diag)
     assert mods[kernel].launches == before + 1 and dg.plain_loops == loops
     assert _sigma_err(A, s) <= 1e-5
+
+
+# ---- the diagonalizers' second design: whole runs down the paths it changed ----
+
+def _same_bits(got, want):
+    """Bit-equal where not NaN, NaN where NaN (a NaN's payload aside)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return False
+    nan = torch.isnan(want)
+    return torch.equal(torch.isnan(got), nan) and torch.equal(got[~nan], want[~nan])
+
+
+def _dqds_whole_run(d, e):
+    """dqds_svdvals on both memory instances bit-equal to the plain version
+    run on the card (sigma, sweeps, histogram); returns the histogram."""
+    from svdsolver_tpu_torch.models import diagonalize as dg
+    from svdsolver_tpu_torch.ops.cuda import dqds
+
+    sp, swp, hp = dg.dqds_svdvals_plain(d, e, with_info="debug")
+    for mem in ("smem", "global"):
+        sk, swk, hk = dqds.dqds_svdvals(d, e, with_info="debug", _memory=mem)
+        assert torch.equal(sk, sp) and swk == swp and torch.equal(hk, hp)
+    return hp.tolist()
+
+
+@pytest.mark.parametrize("dtype,seed", [(torch.float64, 27), (torch.float32, 0)])
+def test_dqds_retries_and_fallback_bit_equal(dev, dtype, seed):
+    # random n = 64 bidiagonals whose runs take corrected retries (bin 18)
+    # and zero-shift fallbacks (bin 0): every failed sweep re-reads the
+    # untouched source pair
+    g = np.random.default_rng(seed)
+    d = torch.from_numpy(g.standard_normal(64)).to(dev, dtype)
+    e = torch.from_numpy(g.standard_normal(63)).to(dev, dtype)
+    hist = _dqds_whole_run(d, e)
+    assert hist[18] > 0 and hist[0] > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dqds_flip_on_the_first_iteration(dev, dtype):
+    # an ascending graded d: the window's large values at the bottom, so
+    # the first iteration (which deflates nothing) flips the whole source
+    from svdsolver_tpu_torch.models import diagonalize as dg
+    from svdsolver_tpu_torch.ops.cuda import dqds
+
+    n = 60
+    d = torch.from_numpy(10.0 ** np.linspace(-6, 0, n)).to(dev, dtype)
+    e = torch.from_numpy(0.3 * 10.0 ** np.linspace(-6, 0, n - 1)).to(dev, dtype)
+    q, E, _ = dg.dqds_prepare(d, e)
+    assert float(1.5 * q[0]) < float(q[-1])
+    for mem in ("smem", "global"):
+        out, hi, sweeps, hist = dqds.dqds_loop(q, E, 1, mem)
+        want = dg._dqds_loop_plain(q, E, 1)
+        assert hi == n - 1 and sweeps == 1  # nothing deflated: the flip took [0, n - 1]
+        assert torch.equal(out, want[0]) and list(hist) == list(want[3])
+    _dqds_whole_run(d, e)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dqds_trailing_2x2_deflation(dev, rng, dtype):
+    # e[9] = 0 splits off an unreduced trailing 2x2 block: the first
+    # iteration deflates it whole (hi 11 -> 9, its E not negligible)
+    from svdsolver_tpu_torch.models import diagonalize as dg
+    from svdsolver_tpu_torch.ops.cuda import dqds
+
+    n = 12
+    d = torch.from_numpy(rng.normal(size=n)).to(dev, dtype)
+    e = torch.from_numpy(rng.normal(size=n - 1)).to(dev, dtype)
+    e[9] = 0
+    q, E, _ = dg.dqds_prepare(d, e)
+    assert float(E[10]) > 1e-4 * float(torch.maximum(q[10], q[11]))
+    for mem in ("smem", "global"):
+        out, hi, sweeps, _ = dqds.dqds_loop(q, E, 1, mem)
+        want = dg._dqds_loop_plain(q, E, 1)
+        assert hi == 9 and want[1] == 9 and torch.equal(out, want[0])
+    _dqds_whole_run(d, e)
+
+
+@pytest.mark.parametrize("dtype,n", [(torch.float32, 11571), (torch.float32, 11572),
+                                     (torch.float64, 5785), (torch.float64, 5786)])
+def test_dqds_at_the_memory_limits(dev, rng, dtype, n):
+    # both sides of memory_instance's limit: two sweeps bit-equal to the
+    # plain loop on the instance the shape takes (and on the device one,
+    # forced, below the limit); the whole run on each instance the shape
+    # allows, bit-equal between them, sigma to the float64 reference
+    from svdsolver_tpu_torch.models import diagonalize as dg
+    from svdsolver_tpu_torch.ops.cuda import dqds
+
+    d = torch.from_numpy(rng.normal(size=n)).to(dev, dtype)
+    e = torch.from_numpy(rng.normal(size=n - 1)).to(dev, dtype)
+    q, E, _ = dg.dqds_prepare(d, e)
+    want = dg._dqds_loop_plain(q, E, 2)
+    fits = dqds.memory_instance(n, dtype) == "smem"
+    assert fits == (n in (11571, 5785))
+    mems = ("smem", "global") if fits else ("global",)
+    for mem in mems:
+        out, hi, sweeps, hist = dqds.dqds_loop(q, E, 2, mem)
+        assert torch.equal(out, want[0]) and (hi, sweeps) == (want[1], want[2])
+        assert list(hist) == list(want[3])
+    runs = [dqds.dqds_svdvals(d, e, with_info=True, _memory=mem) for mem in mems]
+    assert all(torch.equal(s, runs[0][0]) and sw == runs[0][1] for s, sw in runs)
+    ref = torch.linalg.svdvals(torch.diag(d.double()) + torch.diag(e.double(), 1))
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert float((runs[0][0].double() - ref).abs().max()) <= tol * float(ref[0])
+
+
+_GIVENS_CASES = {
+    # (d, e, shift): the first rotation of the sweep meets the case
+    "f == 0": ([0.0, 1.0, 2.0, 3.0], [1.0, 0.5, 2.0], None),
+    "f == 0 shifted": ([0.5, 1.0, 2.0, 3.0], [1.0, 0.5, 2.0], 0.5),
+    "|f| == |g|": ([1.5, -1.0, 2.0, 1.0], [1.5, -1.0, 1.0], None),
+    "|f| == |g| shifted": ([2.0, -1.0, 2.0, 1.0], [1.5, -1.0, 1.0], 1.0),
+    "g == 0": ([2.0, 0.0, 3.0, 1.0], [0.0, 0.0, 3.0], None),
+    "g == 0 shifted": ([2.0, 1.0, 3.0, 1.0], [0.0, 1.0, 3.0], 0.5),
+    "NaN": ([1.0, float("nan"), 2.0, 3.0], [0.5, 1.0, 2.0], None),
+    "NaN shifted": ([1.0, 2.0, 3.0, 4.0], [float("nan"), 1.0, 1.0], 0.5),
+    "all zero": ([0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0], None),
+}
+
+
+@pytest.mark.parametrize("case", list(_GIVENS_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bidiag_qr_givens_cases_bit_equal(dev, dtype, case):
+    # the branch-free rotation at each of the plain version's sides,
+    # through the sweep entry (one and two zero-shift sweeps, or a shifted
+    # sweep), both memory instances
+    from svdsolver_tpu_torch.models import diagonalize as dg
+    from svdsolver_tpu_torch.ops.cuda import bidiag_qr
+
+    d, e, shift = _GIVENS_CASES[case]
+    d = torch.tensor(d, dtype=dtype, device=dev)
+    e = torch.tensor(e, dtype=dtype, device=dev)
+    if shift is None:
+        runs = {1: dg.zero_shift_sweep_plain(d, e)}
+        runs[2] = dg.zero_shift_sweep_plain(*runs[1])
+        got = {k: [bidiag_qr.sweeps(d, e, n_iter=k, _memory=m) for m in ("smem", "global")]
+               for k in runs}
+    else:
+        shift = torch.tensor(shift, dtype=dtype, device=dev)
+        runs = {1: dg.shifted_sweep_plain(d, e, 0, 3, shift)}
+        got = {1: [bidiag_qr.sweeps(d, e, 0, 3, shift=shift, _memory=m)
+                   for m in ("smem", "global")]}
+    for k, want in runs.items():
+        for dk, ek in got[k]:
+            assert _same_bits(dk, want[0]) and _same_bits(ek, want[1])

@@ -323,7 +323,7 @@ def launched(monkeypatch):
 
     def dqds_launch(q, *args):
         calls.append(("dqds", "loop", "smem" if args[-1] else "global", q.dtype))
-        args[7][0] = -1  # info: hi < 0, every eigenvalue deflated
+        args[5][0] = -1  # info: hi < 0, every eigenvalue deflated
 
     for mod in (bidiag_qr, dqds):
         monkeypatch.setattr(mod, "_build", OnCard())
@@ -356,8 +356,8 @@ def test_qr_memory_instance_by_shape(launched, n, dtype, memory):
 
 
 @pytest.mark.parametrize("n,dtype,memory", [
-    (1000, F32, "smem"), (28928, F32, "smem"), (28929, F32, "global"),
-    (3840, F64, "smem"), (14464, F64, "smem"), (14465, F64, "global"),
+    (1000, F32, "smem"), (11571, F32, "smem"), (11572, F32, "global"),
+    (3840, F64, "smem"), (5785, F64, "smem"), (5786, F64, "global"),
 ])
 def test_dqds_memory_instance_by_shape(launched, n, dtype, memory):
     assert dqds.memory_instance(n, dtype) == memory
