@@ -4,14 +4,15 @@
 Run from the repository root: ``python3 chip_smoke.py``.  It
 
 1. reports the card (name, power limit), torch, CUDA and nvcc;
-2. builds the nine kernel sources of ``svdsolver_tpu_torch/csrc`` (one
+2. builds the ten kernel sources of ``svdsolver_tpu_torch/csrc`` (one
    ``nvcc`` each, all started together): the panel QR (one thread-block
    cluster), the sequential chase's L2 kernel (plain and recording
    entries), the bisection, the TGK solve, the wavefront chase (plain,
    recording, and with deferred left applies), the staged chase (the
    sequential chase's TMA design, plain and recording, and the packed
    chase's: the same kernel on a band store), the packed chase's L2
-   kernel, and the QR and dqds diagonalizers (each loop in one launch);
+   kernel, the QR and dqds diagonalizers (each loop in one launch), and
+   the tiled Stage I's slab factorization (its t steps in one launch);
 3. holds each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it: the panel QR at (b, m, r_off) = (128,
    3840, 0), (128, 3840, 3776) (identity reflectors past m), (64, 1024, 0)
@@ -87,7 +88,25 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    diagonalizer loop, sigma against float64), times each diagonalizer
    alone, ``diag_reduce_fixed_iter`` at 3840 and ``torch.linalg.svdvals``
    of the dense bidiagonal, and calls each ``linalg`` function once on the
-   card against float64 ``torch.linalg`` (``phase_linalg``).
+   card against float64 ``torch.linalg`` (``phase_linalg``);
+9. drives the ladder rungs and the batch entries (``phase_ladder``,
+   ``phase_batch``), every launch count set to 0 just before each call
+   and read just after: the slab kernel against its plain version at t =
+   32, 64, 128 on rows of the 3840 and 1024 matrices (a diagonal slab, a
+   TS slab, a TS slab shaped as the LQ mirror's; two launches
+   bit-identical, within 1e-4 of max |A|) and timed beside its plain
+   version, its bound and ``torch.geqrf`` + ``torch.ormqr``;
+   ``svdvals(A, method=m)`` for m = base, singlecore, multicore at 3840
+   and 1000 (sigma to 1e-5 sigma_max; multicore: (n/t)^2 slab launches,
+   the routed chase, K2); ``dense_to_band_tiled`` at 3840 beside
+   ``dense_to_band_fused`` and at 1024 beside its plain version;
+   ``svd(A, method="singlecore")`` at 3840 and 1000 with svd's gates;
+   ``svdvals_batch`` at (B, n) = (64, 256), (16, 1024) (rows bit-equal to
+   ``svdvals(As[i])``); ``svd_batch`` at (64, 256) Gaussian and (8, 1024)
+   with svd's gates for every matrix; each batch beside B calls and the
+   library on the batch; ``dense_to_band_uv_fused`` at 3840 (Ab bit-equal
+   to ``dense_to_band_fused(segments=1)``, the factors' reconstruction and
+   orthogonality in float64).
 
 Any failure raises and exits non-zero.  The second-to-last line is the
 kernel table as JSON, the last ``{"ok": true, "device": {...}}``.  With no
@@ -117,7 +136,8 @@ SVD_CASES = ((3840, "uniform"), (2048, "gauss"), (1000, "uniform"), (256, "unifo
 REPS = 5
 SVD_REPS = 3
 SOURCES = ("panel_qr", "band_chase", "bisect", "tridiag_solve",
-           "band_chase_wave", "band_chase_staged", "band_chase_vmem", "bidiag_qr", "dqds")
+           "band_chase_wave", "band_chase_staged", "band_chase_vmem", "bidiag_qr", "dqds",
+           "tiled_slab")
 # the variants' entries, counted by the kernel that ran: the packed chase
 # runs "band_chase_vmem_tma" (the TMA design on the band store) at every
 # band of these checks; "band_chase_vmem", its L2 packed kernel, takes the
@@ -210,6 +230,18 @@ TOL_LINALG = 1e-3  # pinv's Penrose conditions, eigh's residual, rsvd's sigma (r
 LINALG = {"pinv": 2048, "lstsq": (4096, 2048, 4), "eigh": 3840, "polar": 2048,
           "rsvd": (3840, 64), "values": 3840, "rank": 3000, "orth": (1024, 700),
           "lowrank": (1000, 250)}
+# the ladder rungs and the batch entries (phase_ladder, phase_batch)
+LADDER = ("base", "singlecore", "multicore")
+LADDER_SIZES = (3840, 1000)
+SLAB_SIZES = (3840, 1024)  # the slab kernel's checks: rows of these matrices
+SLAB_TILES = (32, 64, 128)
+TOL_SLAB = 1e-4  # max |kernel - plain| / max |A| after a slab's t steps (float32 sums
+# in another order); the tiled band at 1024: |kernel - plain|_F / |A|_F
+BATCH_VALS = ((64, 256), (16, 1024))  # (B, n) of svdvals_batch
+BATCH_SVD = ((64, 256, "gauss"), (8, 1024, "uniform"))  # (B, n, matrix) of svd_batch
+UV_FUSED = 3840  # dense_to_band_uv_fused against dense_to_band_fused(segments=1)
+# dense_to_band_tiled alone (n, t): in turns with dense_to_band_fused; beside its plain version
+TILED_TIMES = ((3840, 128), (1024, 64))
 # published H100 SXM peaks (NVIDIA's data sheet, 700 W): float32 and
 # float64 outside the tensor cores, and HBM3
 PEAK_FP32 = 67e12
@@ -220,7 +252,7 @@ DEV = "cuda"
 
 CARD = ""  # the card's name and power limit, as nvidia-smi gives them
 TIMED = ("[times]", "[route]", "[profile]", "[slice]", "[svd]", "[ticks]", "[scale]",
-         "[diag]", "[linalg]")
+         "[diag]", "[linalg]", "[ladder]", "[batch]")
 
 
 def say(*parts):
@@ -289,7 +321,7 @@ def _counters():
     from svdsolver_tpu_torch.models import diagonalize
     from svdsolver_tpu_torch.ops.cuda import (band_chase, band_chase_vmem,
                                               band_chase_wave, bidiag_qr, bisect, dqds,
-                                              panel_qr, tridiag_solve)
+                                              panel_qr, tiled_slab, tridiag_solve)
 
     return {"panel_qr": (panel_qr, "launches"),
             "band_chase": (band_chase, "launches"),
@@ -311,6 +343,7 @@ def _counters():
             "bidiag_qr": (bidiag_qr, "launches"),
             "bidiag_qr_sweeps": (bidiag_qr, "launches_sweeps"),
             "dqds": (dqds, "launches"),
+            "tiled_slab": (tiled_slab, "launches"),
             # not launches: runs of a plain diagonalizer loop, and dqds runs
             # that ended unconverged and took the bisection
             "plain_diag_loops": (diagonalize, "plain_loops"),
@@ -2144,6 +2177,303 @@ def phase_linalg():
         ("|A - L R|_F / best - 1", err / best - 1, 1e-3 + 1e-4 * float(s64[0]) / best)])
 
 
+def slab_cases(n, t):
+    """(label, top, pc, bot) of the slab checks at (n, t): a diagonal slab
+    (tile row 1), a TS slab (tile row 1 over the last tile row) and a TS
+    slab shaped as the LQ mirror's (its pivot columns a tile left of its
+    rows: the pivots' rows lie past the pivot block)."""
+    return (("1-slab", t, t, None), ("2-slab", t, t, n - t),
+            ("2-slab lq", 2 * t, t, n - t))
+
+
+def work_slab(n, t, rows):
+    """A slab's t steps: step j's reflector is zero above its pivot, so it
+    needs a dot and an update of every column over rows j..rows-1 only, 4
+    operations an entry (4 n sum_j (rows - j): 2 t^2 n for a 1-slab, 6 t^2 n
+    for a 2-slab); bytes: the slab read once and written once."""
+    return 4 * n * (t * rows - t * (t - 1) // 2), 4 * 2 * rows * n
+
+
+def slab_library_ms(A, top, pc, t, bot):
+    """The yardstick: torch.geqrf of the pivot block and torch.ormqr of its
+    reflectors on the slab (the same QR and the same update, with LAPACK's
+    reflectors), on copies made beforehand."""
+    S = torch.cat([A[top:top + t]] + ([] if bot is None else [A[bot:bot + t]]))
+    blk = S[:, pc:pc + t].contiguous()
+
+    def fn():
+        a, tau = torch.geqrf(blk)
+        return torch.ormqr(a, tau, S, left=True, transpose=True)
+
+    return cuda_ms(fn)
+
+
+def check_slabs():
+    """The slab kernel against its plain version on the card, at SLAB_TILES
+    on rows of the SLAB_SIZES matrices (``slab_cases``): two launches
+    bit-identical, the plain version within TOL_SLAB of max |A|, the rows
+    outside the slab untouched; then ms a slab (1-slab and 2-slab) beside
+    its plain version (one run), its bound and geqrf + ormqr.  Returns
+    (max error, {(n, t, rows): (ms, plain_ms, library_ms, bound)})."""
+    from svdsolver_tpu_torch.models import tiled
+    from svdsolver_tpu_torch.ops.cuda import tiled_slab
+
+    worst, times = 0.0, {}
+    for n in SLAB_SIZES:
+        A = uniform_matrix(n, seed=4)
+        amax = float(A.abs().max())
+        for t in SLAB_TILES:
+            for label, top, pc, bot in slab_cases(n, t):
+                got, again, want = A.clone(), A.clone(), A.clone()
+                tiled_slab.factor_slab(got, top, pc, t, bot)
+                tiled_slab.factor_slab(again, top, pc, t, bot)
+                tiled._factor_slab(want, top, pc, t, bot)
+                torch.cuda.synchronize()
+                require(torch.equal(got, again), f"tiled_slab {label} n={n} t={t}: two "
+                        "launches bit-identical")
+                err = float((got - want).abs().max()) / amax
+                keep = torch.ones(n, dtype=torch.bool, device=DEV)
+                for r in (top, bot):
+                    if r is not None:
+                        keep[r:r + t] = False
+                require(torch.equal(got[keep], A[keep]), f"tiled_slab {label} n={n} t={t}: "
+                        "rows outside the slab untouched")
+                say(f"[ladder] tiled_slab {label} n={n} t={t} (rows {top}, pivots {pc}, TS "
+                    f"rows {bot}): two launches bit-identical; max|kernel - plain| / max|A| "
+                    f"= {err:.3e}")
+                require(err <= TOL_SLAB, f"tiled_slab {label} n={n} t={t}: {err:.3e}")
+                worst = max(worst, err * amax)
+            for label, top, pc, bot in slab_cases(n, t)[:2]:
+                rows = t if bot is None else 2 * t
+                S = A.clone()
+                (k1, k2), p1 = in_turns(lambda: tiled_slab.factor_slab(S, top, pc, t, bot),
+                                        lambda: tiled._factor_slab(S, top, pc, t, bot))
+                lib = slab_library_ms(A, top, pc, t, bot)
+                b_ms, b_by = bound(*work_slab(n, t, rows))
+                times[n, t, rows] = (min(k1, k2), p1, lib, (b_ms, b_by))
+                say(f"[ladder] tiled_slab {label} n={n} t={t}: kernel {k1:.4f} / {k2:.4f} ms "
+                    f"(medians of {REPS}; {min(k1, k2) * 1e3 / t:.3f} us a step), plain "
+                    f"{p1:.3f} ms (one run), torch.geqrf + torch.ormqr {lib:.4f} ms, bound "
+                    f"{b_ms:.4f} ms ({b_by}; kernel {min(k1, k2) / b_ms:.1f}x)")
+        del A
+        torch.cuda.empty_cache()
+    return worst, times
+
+
+def svd_gates(label, A, U, s, Vh, ref):
+    """svd's gates in float64: sigma to TOL_SIGMA sigma_max, U diag(s) Vh
+    to TOL_RECON sigma_max, U and Vh orthogonal to TOL_ORTH."""
+    n = A.shape[-1]
+    eye = torch.eye(n, dtype=torch.float64, device=DEV)
+    Ud, Vd = U.double(), Vh.double()
+    smax = float(ref[0])
+    errs = {"sigma": float((s.double() - ref).abs().max()) / smax,
+            "recon": float((Ud * s.double() @ Vd - A.double()).abs().max()) / smax,
+            "orth U": float((Ud.T @ Ud - eye).abs().max()),
+            "orth Vh": float((Vd @ Vd.T - eye).abs().max())}
+    limits = {"sigma": TOL_SIGMA, "recon": TOL_RECON, "orth U": TOL_ORTH, "orth Vh": TOL_ORTH}
+    for k, v in errs.items():
+        require(v <= limits[k], f"{label}: {k} {v:.3e} > {limits[k]:.1e}")
+    return errs
+
+
+def phase_ladder():
+    """The ladder rungs on the card.  The slab kernel first (check_slabs).
+    Then svdvals(A, method=m) for m in LADDER at LADDER_SIZES on the
+    uniform matrix, every launch count set to 0 just before each call and
+    read just after: sigma within TOL_SIGMA of float64 svdvals; K2 launched
+    once by every rung; ``multicore``: (n/t)^2 slab launches, the routed
+    chase, no panel QR; ``base`` and ``singlecore``: no Stage I or chase
+    kernel.  dense_to_band_tiled at 3840 in turns with dense_to_band_fused,
+    and at 1024 beside its plain version (one run; the bands within
+    TOL_SLAB in Frobenius norm).  svd(A, method="singlecore") at
+    LADDER_SIZES with svd's gates.  Returns (counts by run for the
+    svdvals side, counts by run for the svd side, the kernel's row)."""
+    from svdsolver_tpu_torch import svd, svdvals
+    from svdsolver_tpu_torch.models import tiled
+    from svdsolver_tpu_torch.ops.cuda import panel_qr, tiled_slab
+
+    worst, times = check_slabs()
+    counts_vals, counts_svd = {}, {}
+    for n in LADDER_SIZES:
+        A = uniform_matrix(n)
+        ref = torch.linalg.svdvals(A.double())
+        np_, b = path_band(n)
+        for m in LADDER:
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            s = svdvals(A, method=m)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = read_counts()
+            require(s.shape == (n,) and bool(torch.isfinite(s).all()), f"{m} output n={n}")
+            err = float((s.double() - ref).abs().max() / ref[0])
+            require(counts["bisect"] == 1 and counts["bisect_thread"] == 0,
+                    f"svdvals({m}) at n={n} launched the K2 tree once")
+            if m == "multicore":
+                want = (np_ // b) ** 2
+                require(counts["tiled_slab"] == want and counts["panel_qr"] == 0,
+                        f"svdvals(multicore) at n={n}: {counts['tiled_slab']} slab launches, "
+                        f"want {want}, and no panel QR")
+                chase = require_route((np_, b), counts, record=False)
+            else:
+                require(all(counts[k] == 0 for k in ("tiled_slab", "panel_qr") + CHASES),
+                        f"svdvals({m}) at n={n} launched no Stage I or chase kernel")
+                chase = "none (one-stage)"
+            say(f"[ladder] n={n}: svdvals(method={m!r}) {seconds:.3f} s (host clock, one "
+                f"call); max|sigma - sigma_ref| / sigma_max = {err:.3e}; chase {chase}; "
+                f"launches {counts}")
+            require(err <= TOL_SIGMA, f"svdvals({m}) sigma error {err:.3e} at n={n}")
+            counts_vals[f"{m} {n}"] = counts
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        U, s, Vh = svd(A, method="singlecore")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        require(counts["bisect"] == 1 and counts["tridiag_solve"] > 0 and all(
+            counts[k] == 0 for k in ("panel_qr", "tiled_slab") + CHASES),
+            f"svd(singlecore) at n={n}: K2 and the TGK solve, no two-stage kernel")
+        errs = svd_gates(f"svd(singlecore) n={n}", A, U, s, Vh, ref)
+        say(f"[ladder] n={n}: svd(method='singlecore') {seconds:.3f} s (host clock, one "
+            f"call); " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+        counts_svd[f"svd singlecore {n}"] = counts
+        del A, ref, U, s, Vh
+        torch.cuda.empty_cache()
+
+    # the tiled Stage I alone: in turns with the panel Stage I, and beside
+    # its plain version
+    (n1, t1), (n2, t2) = TILED_TIMES
+    A = uniform_matrix(n1)
+    tiled_ms = [cuda_ms(lambda: tiled_slab.dense_to_band_tiled(A, band=t1), reps=3)
+                for _ in range(2)]
+    fused_ms = cuda_ms(lambda: panel_qr.dense_to_band_fused(A, band=t1), reps=3)
+    say(f"[ladder] dense_to_band_tiled n={n1} t={t1} ({(n1 // t1) ** 2} launches): "
+        f"{tiled_ms[0]:.3f} / {tiled_ms[1]:.3f} ms (medians of 3) beside "
+        f"dense_to_band_fused {fused_ms:.3f} ms")
+    A = uniform_matrix(n2)
+    Ab_k, k_ms = _event_ms(lambda: tiled_slab.dense_to_band_tiled(A, band=t2))
+    Ab_p, p_ms = _event_ms(lambda: tiled.dense_to_band_tiled_plain(A, band=t2))
+    rel = float(torch.linalg.norm(Ab_k - Ab_p) / torch.linalg.norm(A))
+    say(f"[ladder] dense_to_band_tiled n={n2} t={t2}: kernel {k_ms:.3f} ms, plain "
+        f"{p_ms:.3f} ms (one run each); |kernel - plain|_F / |A|_F = {rel:.3e}")
+    require(rel <= TOL_SLAB, f"dense_to_band_tiled at {n2}: {rel:.3e}")
+    del A, Ab_k, Ab_p
+
+    n, t = SLAB_SIZES[0], SLAB_TILES[-1]
+    ms, plain_ms, lib_ms, (b_ms, b_by) = times[n, t, 2 * t]
+    row = {
+        "name": "tiled_slab", "route": "cuda", "source": "svdsolver_tpu_torch/csrc/tiled_slab.cu",
+        "replaces": "svdsolver_tpu/models/tiled.py:59 + :72 (the lax.fori_loop of "
+                    "_factor_1slab / _factor_2slab over _slab_factor_step :33)",
+        "tpu": [], "launches": sum(c["tiled_slab"] for c in counts_vals.values()),
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": lib_ms, "shape": f"2-slab n={n} t={t}",
+        "slabs_ms": {f"n={n_} t={t_} rows={r}": {"ms": v[0], "plain_ms": v[1],
+                                                 "library_ms": v[2], "bound_ms": v[3][0]}
+                     for (n_, t_, r), v in times.items()},
+        "dense_to_band_tiled_ms": {f"n={n1} t={t1}": min(tiled_ms), f"n={n2} t={t2}": k_ms,
+                                   f"plain n={n2} t={t2}": p_ms},
+        "dense_to_band_fused_ms": {f"n={n1} b={t1}": fused_ms},
+    }
+    return counts_vals, counts_svd, row
+
+
+def batch_of(B, n, kind, seed):
+    rng = np.random.default_rng(seed)
+    a = (rng.normal(size=(B, n, n)) if kind == "gauss"
+         else rng.uniform(0, 5, (B, n, n))).astype(np.float32)
+    return torch.from_numpy(a).to(DEV)
+
+
+def phase_batch():
+    """The batch entries on the card, every launch count set to 0 just
+    before each batch call and read just after.  svdvals_batch at
+    BATCH_VALS (uniform): each row bit-equal to svdvals(As[i]), K1, the
+    routed chase and K2 launched for every matrix; svd_batch at BATCH_SVD
+    (one Gaussian batch): svd's gates for every matrix, the recording
+    chase and K2 for every matrix; each batch's ms (one run, CUDA events)
+    beside B times one call (svdvals / svd of one matrix, a median of 3)
+    and torch.linalg.svdvals / torch.linalg.svd of the batch.
+    dense_to_band_uv_fused at UV_FUSED: Ab bit-equal to
+    dense_to_band_fused(segments=1), |A - U1 Ab V1^T|_F / |A|_F and the
+    orthogonality of U1, V1 in float64 within TOL_Q.  Returns (counts by
+    run for svdvals_batch, counts by run for svd_batch)."""
+    from svdsolver_tpu_torch import svd, svd_batch, svdvals, svdvals_batch
+    from svdsolver_tpu_torch.ops.cuda import panel_qr
+
+    counts_vals, counts_svd = {}, {}
+    for B, n in BATCH_VALS:
+        As = batch_of(B, n, "uniform", seed=8)
+        torch.cuda.synchronize()
+        reset_counts()
+        S, ms = _event_ms(lambda: svdvals_batch(As))
+        counts = read_counts()
+        np_, b = path_band(n)
+        chase, _ = chase_entry(np_, b, record=False)
+        require(counts["panel_qr"] > 0 and counts["bisect"] == B and counts[chase] == B,
+                f"svdvals_batch ({B}, {n}): K1, {chase} and K2 for every matrix: {counts}")
+        require(all(torch.equal(S[i], svdvals(As[i])) for i in range(B)),
+                f"svdvals_batch ({B}, {n}): every row bit-equal to svdvals(As[i])")
+        one = cuda_ms(lambda: svdvals(As[0]), reps=3)
+        lib = cuda_ms(lambda: torch.linalg.svdvals(As), reps=3)
+        ref = torch.linalg.svdvals(As.double())
+        err = float(((S.double() - ref).abs().amax(1) / ref[:, 0]).max())
+        require(err <= TOL_SIGMA, f"svdvals_batch ({B}, {n}): sigma error {err:.3e}")
+        say(f"[batch] svdvals_batch B={B} n={n}: {ms:.3f} ms (one run), B x svdvals "
+            f"{B * one:.3f} ms ({one:.3f} a call, median of 3), torch.linalg.svdvals of the "
+            f"batch {lib:.3f} ms; rows bit-equal to svdvals(As[i]); max sigma error "
+            f"{err:.3e}; chase {chase}")
+        counts_vals[f"svdvals_batch {B}x{n}"] = counts
+        del As, S, ref
+    for B, n, kind in BATCH_SVD:
+        As = batch_of(B, n, kind, seed=9)
+        torch.cuda.synchronize()
+        reset_counts()
+        (U, S, Vh), ms = _event_ms(lambda: svd_batch(As))
+        counts = read_counts()
+        b = path_band(n)[1]
+        chase, _ = chase_entry(path_band(n)[0], b, record=True)
+        require(counts["panel_qr"] > 0 and counts["bisect"] == B and counts[chase] == B
+                and counts["tridiag_solve"] >= B,
+                f"svd_batch ({B}, {n}): K1, {chase}, K2 and the TGK solve: {counts}")
+        ref = torch.linalg.svdvals(As.double())
+        worst = {}
+        for i in range(B):
+            for k, v in svd_gates(f"svd_batch ({B}, {n}) matrix {i}", As[i], U[i], S[i],
+                                  Vh[i], ref[i]).items():
+                worst[k] = max(worst.get(k, 0.0), v)
+        one = cuda_ms(lambda: svd(As[0]), reps=3)
+        lib = cuda_ms(lambda: torch.linalg.svd(As, full_matrices=False), reps=3)
+        say(f"[batch] svd_batch B={B} n={n} ({kind}): {ms:.3f} ms (one run), B x svd "
+            f"{B * one:.3f} ms ({one:.3f} a call, median of 3), torch.linalg.svd of the batch "
+            f"{lib:.3f} ms; worst over the batch " + ", ".join(
+                f"{k} {v:.3e}" for k, v in worst.items()) + f"; chase {chase}")
+        counts_svd[f"svd_batch {B}x{n}"] = counts
+        del As, U, S, Vh, ref
+        torch.cuda.empty_cache()
+    n = UV_FUSED
+    b = path_band(n)[1]
+    A = uniform_matrix(n)
+    (Ab, U1, V1), ms = _event_ms(lambda: panel_qr.dense_to_band_uv_fused(A, band=b))
+    Ab1 = panel_qr.dense_to_band_fused(A, band=b, segments=1)
+    require(torch.equal(Ab, Ab1), f"dense_to_band_uv_fused n={n}: Ab bit-equal to "
+            "dense_to_band_fused(segments=1)")
+    eye = torch.eye(n, dtype=torch.float64, device=DEV)
+    Ud, Vd = U1.double(), V1.double()
+    rec = float(torch.linalg.norm(Ud @ Ab.double() @ Vd.T - A.double()) /
+                torch.linalg.norm(A.double()))
+    orth = max(float((Ud.T @ Ud - eye).abs().max()), float((Vd.T @ Vd - eye).abs().max()))
+    say(f"[batch] dense_to_band_uv_fused n={n} b={b}: {ms:.3f} ms (one run); Ab bit-equal to "
+        f"dense_to_band_fused(segments=1); |A - U1 Ab V1^T|_F / |A|_F = {rec:.3e}, "
+        f"orthogonality {orth:.3e}")
+    require(rec <= TOL_Q and orth <= TOL_Q, f"dense_to_band_uv_fused n={n}: {rec:.3e}, "
+            f"{orth:.3e}")
+    return counts_vals, counts_svd
+
+
 def diag_rows(rows, counts_diag):
     """The kernel line's rows of the two diagonalizers: no TPU kernel, each
     the counterpart of an XLA-compiled loop; ms, plain ms, library ms,
@@ -2524,6 +2854,14 @@ def main():
             counts_vals[key] = c
     counts_diag = phase_diag(diag)
     phase_linalg()
+    t0 = time.perf_counter()
+    ladder_vals, ladder_svd, slab_row = phase_ladder()
+    batch_vals, batch_svd = phase_batch()
+    say(f"[done] the ladder and the batches {time.perf_counter() - t0:.1f} s")
+    counts_vals.update(ladder_vals)
+    counts_vals.update(batch_vals)
+    counts_svd.update(ladder_svd)
+    counts_svd.update(batch_svd)
     _, kt, lib, k1 = phase_times(band_state)
     designs = phase_design_times()
     route = phase_route_times()
@@ -2534,7 +2872,7 @@ def main():
     phase_profile("svd n=3840", lambda: svd(A))
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     rows = kernel_table(errs, counts_vals, counts_svd, kt, lib, variants, route, k1, ticks,
-                        designs, staged) + diag_rows(diag, counts_diag)
+                        designs, staged) + diag_rows(diag, counts_diag) + [slab_row]
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -2,8 +2,13 @@
 NVIDIA H100.
 
 Ported: ``svdvals(A)`` with all three diagonalizers (bisection, QR with
-deflation, dqds), the full SVD ``svd(A)`` / ``svds(A, k)`` (recording
-reduction, bisection, TGK inverse iteration, back-transforms), the chase
+deflation, dqds) on every rung of the ladder (``base``: Golub-Kahan
+``bidiagonalize_gk``; ``singlecore``: the blocked ``bidiagonalize_blocked``;
+``multicore``: the tiled Stage I; ``tpu1``, ``tpu2``: two-stage), the full
+SVD ``svd(A)`` / ``svds(A, k)`` (recording reduction, bisection, TGK
+inverse iteration, back-transforms; ``svd(method="singlecore")`` the
+one-stage reduction with factors), the batch entries ``svdvals_batch`` and
+``svd_batch`` (a loop over the batch), the chase
 variants (``bidiagonalize_two_stage``, the wavefront schedule, the flags of
 ``ops.cuda.band_chase.band_to_bidiagonal`` and the packed and
 deferred-left chases of ``ops.cuda``), the bidiagonal diagonalizers
@@ -14,7 +19,8 @@ SVD applications of ``linalg`` (``pinv``, ``lstsq``, ``matrix_rank``,
 hand-written CUDA kernels (``csrc/``) on the card: for float32 tensors the
 Stage I panel QR, the band -> bidiagonal chase (plain, recording, wavefront
 with and without deferred left applies, staged in shared memory, packed),
-the bisection and the TGK tridiagonal solve; for float32 and float64
+the bisection, the TGK tridiagonal solve and the tiled Stage I's slab
+factorization; for float32 and float64
 tensors the QR and dqds diagonalizers, each loop in one launch.  Names and
 signatures follow ``svdsolver_tpu`` for what is ported.  This package
 imports torch and never jax.
@@ -31,6 +37,8 @@ from svdsolver_tpu_torch.models.two_stage import (
     bidiagonalize_two_stage,
 )
 from svdsolver_tpu_torch.ops.givens import givens
+from svdsolver_tpu_torch.models.golub_kahan import bidiagonalize_gk
+from svdsolver_tpu_torch.models.blocked import bidiagonalize_blocked
 from svdsolver_tpu_torch.models.diagonalize import bisect_svdvals
 from svdsolver_tpu_torch.ops.cuda.bidiag_qr import (
     zero_shift_sweep,
@@ -40,8 +48,8 @@ from svdsolver_tpu_torch.ops.cuda.bidiag_qr import (
     convergence_threshold,
 )
 from svdsolver_tpu_torch.ops.cuda.dqds import dqds_svdvals
-from svdsolver_tpu_torch.models.svd import svdvals, Bidiagonal
-from svdsolver_tpu_torch.models.vectors import svd, svds, bidiagonal_svd
+from svdsolver_tpu_torch.models.svd import svdvals, svdvals_batch, Bidiagonal
+from svdsolver_tpu_torch.models.vectors import svd, svds, svd_batch, bidiagonal_svd
 from svdsolver_tpu_torch.linalg import (
     pinv,
     lstsq,
@@ -63,6 +71,8 @@ __all__ = [
     "apply_left",
     "apply_right",
     "givens",
+    "bidiagonalize_gk",
+    "bidiagonalize_blocked",
     "dense_to_band",
     "band_to_bidiagonal",
     "bidiagonalize_two_stage",
@@ -74,9 +84,11 @@ __all__ = [
     "dqds_svdvals",
     "convergence_threshold",
     "svdvals",
+    "svdvals_batch",
     "Bidiagonal",
     "svd",
     "svds",
+    "svd_batch",
     "bidiagonal_svd",
     "pinv",
     "lstsq",

@@ -1,15 +1,19 @@
-"""Top-level singular-value entry points (twin of a subset of
-``svdsolver_tpu/models/svd.py``).
+"""Top-level singular-value entry points (twin of
+``svdsolver_tpu/models/svd.py``): the capability ladder ``base``,
+``singlecore``, ``multicore``, ``tpu1``, ``tpu2`` and the batch entry.
 
-Ported methods: ``tpu2`` (Stage I through the panel kernel, the chase
-routed by ``band_chase_wave.wave_chase_preferred`` to the wavefront or the
-sequential chase, whose staged TMA design takes every band of this path,
-the bisection kernel) and ``tpu1`` (the plain
-PyTorch path).  The kernels run for float32 CUDA tensors (:func:`use_kernels`); any other
-device or dtype takes the plain path, chosen by the input and never as a
-fallback on failure.  All three diagonalizers are ported: ``bisect``,
-``qr`` and ``dqds`` (the last two run their ``bidiag_qr`` / ``dqds``
-kernel on any CUDA tensor).
+``tpu2``: Stage I through the panel kernel, the chase routed by
+``band_chase_wave.wave_chase_preferred`` to the wavefront or the
+sequential chase (whose staged TMA design takes every band of this path).
+``multicore``: the tiled Stage I (``ops/cuda/tiled_slab.py``: one kernel
+launch a slab) and the same routed chase.  ``base`` (Golub-Kahan) and
+``singlecore`` (blocked one-stage) reduce straight to (d, e) in PyTorch
+ops.  ``tpu1``: the plain two-stage path.  The kernels run for float32
+CUDA tensors (:func:`use_kernels`), and there every method but ``tpu1``
+diagonalizes with the bisection kernel; any other device or dtype takes the
+plain path, chosen by the input and never as a fallback on failure.  All
+three diagonalizers are ported: ``bisect``, ``qr`` and ``dqds`` (the last
+two run their ``bidiag_qr`` / ``dqds`` kernel on any CUDA tensor).
 """
 
 from typing import NamedTuple
@@ -17,7 +21,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from svdsolver_tpu_torch.models.blocked import bidiagonalize_blocked
 from svdsolver_tpu_torch.models.diagonalize import bisect_svdvals
+from svdsolver_tpu_torch.models.golub_kahan import bidiagonalize_gk
+from svdsolver_tpu_torch.models.tiled import dense_to_band_tiled_plain
 from svdsolver_tpu_torch.models.two_stage import band_to_bidiagonal, dense_to_band
 from svdsolver_tpu_torch.ops.cuda import (
     band_chase,
@@ -26,14 +33,10 @@ from svdsolver_tpu_torch.ops.cuda import (
     bisect,
     dqds,
     panel_qr,
+    tiled_slab,
 )
 
 METHODS = ("base", "singlecore", "multicore", "tpu1", "tpu2")
-_NOT_PORTED = {
-    "base": "ROADMAP queue 1, item 9 (ladder rungs)",
-    "singlecore": "ROADMAP queue 1, item 9 (ladder rungs)",
-    "multicore": "ROADMAP queue 1, item 9 (ladder rungs)",
-}
 
 
 def as_input(A):
@@ -41,21 +44,34 @@ def as_input(A):
     dtype.  A numpy array or array-like goes to the CUDA card as float32
     (the JAX package's default placement and dtype); with no card this
     raises, it never runs on the CPU.  Complex input is not ported."""
-    if isinstance(A, torch.Tensor):
-        if A.is_complex():
-            _complex()
-    else:
-        if np.iscomplexobj(A):
-            _complex()
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "a numpy or array-like input runs on the CUDA card, and none "
-                "is available; pass a torch.Tensor to run on its device"
-            )
-        A = torch.as_tensor(np.asarray(A, dtype=np.float32), device="cuda")
+    A = _placed(A)
     if A.ndim != 2:
         raise ValueError(f"A must be 2-D, got shape {tuple(A.shape)}")
     return A
+
+
+def as_batch(As, name):
+    """The (B, n, n) batch entry ``name`` works on, placed as
+    :func:`as_input` places a matrix; any other shape raises."""
+    As = _placed(As)
+    if As.ndim != 3 or As.shape[-1] != As.shape[-2]:
+        raise ValueError(f"{name} expects (B, n, n), got {tuple(As.shape)}")
+    return As
+
+
+def _placed(A):
+    if isinstance(A, torch.Tensor):
+        if A.is_complex():
+            _complex()
+        return A
+    if np.iscomplexobj(A):
+        _complex()
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "a numpy or array-like input runs on the CUDA card, and none "
+            "is available; pass a torch.Tensor to run on its device"
+        )
+    return torch.as_tensor(np.asarray(A, dtype=np.float32), device="cuda")
 
 
 def _complex():
@@ -94,37 +110,43 @@ def _auto_block(n):
     return 32
 
 
-def _not_ported(name):
-    raise NotImplementedError(f"{name!r} is not ported yet: {_NOT_PORTED[name]}")
-
-
 def bidiagonalize(A, method="tpu2", block=None):
     """Reduce square ``A`` to bidiagonal form; returns :class:`Bidiagonal`.
 
-    ``tpu2``: Stage I through the panel kernel and the chase for float32
-    CUDA input, else as ``tpu1``; the chase is the wavefront kernel where
-    :func:`band_chase_wave.wave_chase_preferred` holds (its docstring has
-    the card's times: from n = 641 on), else the sequential chase
-    (``band_chase.band_to_bidiagonal``), with the same ``(d, e)`` bit for
-    bit.  ``tpu1``: plain two-stage
-    reduction.  ``block=None`` picks the band width by size.
+    ``base``: Golub-Kahan, unblocked (the reference's ``brd``).
+    ``singlecore``: blocked one-stage compact-WY, panel width ``block``
+    (``block_brd``).  ``multicore``: the tiled Stage I (``brd_p1``), tiles
+    of ``block``, through the slab kernel for float32 CUDA input.
+    ``tpu2``: Stage I through the panel kernel for float32 CUDA input.
+    ``multicore`` and ``tpu2`` then take the chase kernel routed by
+    :func:`band_chase_wave.wave_chase_preferred` (the wavefront kernel from
+    n = 641, else the sequential chase, with the same ``(d, e)`` bit for
+    bit); other input runs the plain versions.  ``tpu1``: the plain
+    two-stage reduction.  ``block=None`` picks the band width by size.
     """
-    if method in _NOT_PORTED:
-        _not_ported(method)
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; choose from {METHODS}")
     if block is None:
         block = _auto_block(A.shape[0])
+    if method == "base":
+        return Bidiagonal(*bidiagonalize_gk(A))
+    if method == "singlecore":
+        return Bidiagonal(*bidiagonalize_blocked(A, panel=block))
     Ap, n = _pad_to_multiple(A, block)
-    if method == "tpu2" and use_kernels(A):
+    on_card = method != "tpu1" and use_kernels(A)
+    if method == "multicore":
+        Ab = (tiled_slab.dense_to_band_tiled(Ap, band=block) if on_card
+              else dense_to_band_tiled_plain(Ap, band=block))
+    elif on_card:
         Ab = panel_qr.dense_to_band_fused(Ap, band=block)
-        if band_chase_wave.wave_chase_preferred(Ab.shape[0], block):
-            d, e = band_chase_wave.band_to_bidiagonal_wave(Ab, band=block)
-        else:
-            d, e = band_chase.band_to_bidiagonal(Ab, band=block)
     else:
         Ab = dense_to_band(Ap, band=block)
+    if not on_card:
         d, e = band_to_bidiagonal(Ab, band=block)
+    elif band_chase_wave.wave_chase_preferred(Ab.shape[0], block):
+        d, e = band_chase_wave.band_to_bidiagonal_wave(Ab, band=block)
+    else:
+        d, e = band_chase.band_to_bidiagonal(Ab, band=block)
     return Bidiagonal(d[:n], e[: n - 1])
 
 
@@ -153,6 +175,23 @@ def svdvals(A, method="tpu2", block=None, diag="bisect"):
         return bidiag_qr.bidiagonal_svdvals(B.d, B.e)[:n]
     if diag == "dqds":
         return dqds.dqds_svdvals(B.d, B.e)[:n]
-    if method == "tpu2" and use_kernels(A):
+    if method != "tpu1" and use_kernels(A):
         return bisect.bisect_svdvals(B.d.contiguous(), B.e.contiguous())[:n]
     return bisect_svdvals(B.d, B.e)[:n]
+
+
+def svdvals_batch(As, block=None):
+    """Singular values of a batch of square matrices: (B, n, n) -> (B, n).
+
+    A loop over the batch, one :func:`svdvals` call a matrix (``jax.vmap``,
+    which the reference batches with, has no counterpart over the
+    hand-written kernels): on float32 CUDA input each matrix runs the panel
+    kernel, the routed chase and the bisection kernel, elsewhere the plain
+    path.  ``block=None`` takes ``_auto_block(n)`` as the reference does,
+    with no halving when it reaches ``n``.  Input placement as
+    :func:`as_input`, for (B, n, n).
+    """
+    As = as_batch(As, "svdvals_batch")
+    n = As.shape[-1]
+    block = _auto_block(n) if block is None else block
+    return torch.stack([svdvals(A, block=block) for A in As])

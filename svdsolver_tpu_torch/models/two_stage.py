@@ -107,6 +107,28 @@ def dense_to_band(A, band=32, segments=1):
     return A
 
 
+def dense_to_band_uv(A, band=32):
+    """Stage I accumulating the orthogonal factors (twin of the JAX
+    ``dense_to_band_uv``): returns ``(Ab, U1, V1)`` with ``A = U1 @ Ab @
+    V1^T``.  Per QR panel ``U1 <- U1 (I - V T V^T)``, per LQ panel ``V1 <-
+    V1 (I - V2 T2 V2^T)``, compact-WY GEMMs; identity reflectors are zero
+    columns of ``V``.  Full width, no segments.
+    """
+    b = int(band)
+    _check_stage1(A, b, "dense_to_band_uv")
+    n = A.shape[0]
+    U1 = torch.eye(n, dtype=A.dtype, device=A.device)
+    V1 = U1.clone()
+    for k in range(n // b):
+        c = k * b
+        A, V, T = _panel_qr_step(A, c, c, b)
+        U1 = U1 - pdot(pdot(pdot(U1, V), T), V.T)
+        At, V2, T2 = _panel_qr_step(A.T, c, c + b, b)
+        A = At.T
+        V1 = V1 - pdot(pdot(pdot(V1, V2), T2), V2.T)
+    return A, U1, V1
+
+
 def dense_to_band_rec(A, band=32):
     """Stage I recording the panel block reflectors (twin of the JAX
     ``dense_to_band_rec``).  Full width, no segments.

@@ -8,7 +8,10 @@
 * :func:`svd_two_stage`: the two-stage pipeline with reflector recording
   (Stage I panels, chase reflectors) and the back-transforms
   ``U = U1 (L Ub)``, ``V = V1 (R Vb)`` as GEMM walks over the records.
-* :func:`svd`, :func:`svds`: the public entry points.
+* :func:`bidiagonalize_blocked_uv`: the one-stage blocked reduction with
+  the orthogonal factors accumulated per panel (``U <- U (I - V T
+  V^T)``, ``T`` in closed form), the ``singlecore`` path of :func:`svd`.
+* :func:`svd`, :func:`svds`, :func:`svd_batch`: the public entry points.
 
 On float32 CUDA tensors the path runs four hand-written kernels: the panel
 QR (Stage I), the recording chase (the wavefront kernel or the sequential
@@ -29,8 +32,15 @@ that one sync and no other.
 import torch
 
 from svdsolver_tpu_torch.models import two_stage
+from svdsolver_tpu_torch.models.blocked import labrd_step, panel_buffers
 from svdsolver_tpu_torch.models.diagonalize import bisect_svdvals
-from svdsolver_tpu_torch.models.svd import _auto_block, as_input, use_kernels
+from svdsolver_tpu_torch.models.svd import (
+    _auto_block,
+    _pad_to_multiple,
+    as_batch,
+    as_input,
+    use_kernels,
+)
 from svdsolver_tpu_torch.ops.chase_schedule import nc_of_static
 from svdsolver_tpu_torch.ops.cuda import (
     band_chase,
@@ -77,6 +87,35 @@ def _larft_closed_form(V, taus):
     Tinv = torch.triu(pdot(V.transpose(-1, -2), V), 1) + torch.diag_embed(1.0 / safe)
     eye = torch.eye(b, dtype=V.dtype, device=V.device).expand_as(Tinv)
     return torch.linalg.solve_triangular(Tinv, eye, upper=True)
+
+
+def bidiagonalize_blocked_uv(A, panel=32):
+    """Blocked one-stage bidiagonalization accumulating the orthogonal
+    factors: returns ``(d, e, U, V)`` with ``A = U @ bidiag(d, e) @ V.T``
+    (square ``A``).  The panel loop of ``models/blocked.py`` with the
+    reference's masks for this variant (``v`` kept where ``tau != 0``,
+    ``u`` where ``tau_r != 0``), then per panel ``U <- U - ((U V) T_L)
+    V^T`` and ``V <- V - ((V U_p) T_R) U_p^T`` with each ``T`` in closed
+    form (:func:`_larft_closed_form`).  No host sync.
+    """
+    m, n = A.shape
+    if m != n:
+        raise ValueError("bidiagonalize_blocked_uv expects a square matrix")
+    b = int(panel)
+    d = A.new_zeros((n,))
+    e = A.new_zeros((n,))
+    Uacc = torch.eye(n, dtype=A.dtype, device=A.device)
+    Vacc = Uacc.clone()
+    for k in range(-(-n // b)):
+        V, Y, X, U = panel_buffers(A, b)
+        tl = A.new_zeros((b,))
+        tr = A.new_zeros((b,))
+        for j in range(b):
+            tl[j], tr[j] = labrd_step(A, V, Y, X, U, d, e, k * b + j, j, uv=True)
+        A = A - pdot(V, Y.T) - pdot(X, U.T)
+        Uacc = Uacc - pdot(pdot(pdot(Uacc, V), _larft_closed_form(V, tl)), V.T)
+        Vacc = Vacc - pdot(pdot(pdot(Vacc, U), _larft_closed_form(U, tr)), U.T)
+    return d, e[: n - 1], Uacc, Vacc
 
 
 def _cluster_bounds(sig, ctol):
@@ -488,20 +527,18 @@ def svd(A, panel=32, method="tpu2", band=None):
     ``A``: a tensor runs on its own device (float32 CUDA through the
     kernels); a numpy array or array-like goes to the CUDA card as float32
     and raises when there is none.  ``method``: ``tpu2``, ``tpu1`` and
-    ``multicore`` run :func:`svd_two_stage`; ``jacobi`` and the one-stage
-    methods are not ported yet.  A rectangular input is reduced by a
-    reduced QR first.  ``panel`` is the one-stage methods' panel width.
+    ``multicore`` run :func:`svd_two_stage`; ``jacobi`` is not ported yet;
+    every other name (``singlecore``, ``base``) runs the one-stage path, as
+    the reference does: :func:`bidiagonalize_blocked_uv` with panel width
+    ``panel``, then :func:`bidiagonal_svd` (the bisection and TGK solve
+    kernels on the card), then ``U = Ug U_b``, ``V = Vg V_b``.  A
+    rectangular input is reduced by a reduced QR first.
     """
     A = as_input(A)
     if method == "jacobi":
         raise NotImplementedError(
             "method 'jacobi' is not ported yet: ROADMAP queue 1, item 11 "
             "(models/jacobi.py)"
-        )
-    if method not in _TWO_STAGE:
-        raise NotImplementedError(
-            f"method {method!r} is not ported yet: ROADMAP queue 1, item 6 "
-            "(bidiagonalize_blocked_uv, the one-stage reduction with factors)"
         )
     m, n = A.shape
     if m < n:
@@ -511,7 +548,11 @@ def svd(A, panel=32, method="tpu2", band=None):
         Q, R = torch.linalg.qr(A, mode="reduced")  # (m, n), (n, n)
         Ur, s, Vh = svd(R, panel=panel, method=method, band=band)
         return pdot(Q, Ur), s, Vh
-    return svd_two_stage(A, band=band)
+    if method in _TWO_STAGE:
+        return svd_two_stage(A, band=band)
+    d, e, Ug, Vg = bidiagonalize_blocked_uv(A, panel=panel)
+    U_b, s, V_b = bidiagonal_svd(d, e)
+    return pdot(Ug, U_b), s, pdot(Vg, V_b).T
 
 
 def svds(A, k, band=None):
@@ -533,3 +574,48 @@ def svds(A, k, band=None):
         Ur, s, Vh = svds(R, k, band=band)
         return pdot(Q, Ur), s, Vh
     return svd_two_stage(A, band=band, k=k)
+
+
+def svd_batch(As, block=None):
+    """Full SVD of a batch of square matrices: (B, n, n) -> (U (B, n, n),
+    s (B, n) descending, Vh (B, n, n)).
+
+    A loop over the batch (``jax.vmap``, which the reference batches with,
+    has no counterpart over the hand-written kernels), each matrix through
+    the reference's own sequence: zero-pad to a multiple of the band (by
+    size, halved while it is ``>= n``); Stage I accumulating ``U1``, ``V1``
+    (``panel_qr.dense_to_band_uv_fused`` on float32 CUDA input,
+    ``two_stage.dense_to_band_uv`` elsewhere); the recording chase (on the
+    card routed by ``band_chase_wave.wave_chase_accum_preferred``); the
+    bisection and :func:`tgk_vectors`; the two chase back-transforms
+    (:func:`_apply_chase_reflectors_wy`); ``U = U1 (L U_b)``, ``V = V1 (R
+    V_b)``.  Input placement as :func:`as_input`, for (B, n, n).
+    """
+    As = as_batch(As, "svd_batch")
+    n = As.shape[-1]
+    b = int(block) if block else _auto_block(n)
+    while b >= n and b > 2:
+        b //= 2
+    out = [_svd_one(A, n, b) for A in As]
+    return tuple(torch.stack(x) for x in zip(*out))
+
+
+def _svd_one(A, n, b):
+    """One matrix of :func:`svd_batch`: ``(U, s, Vh)``, each ``n`` wide."""
+    Ap, _ = _pad_to_multiple(A, b)
+    if use_kernels(A):
+        Ab, U1, V1 = panel_qr.dense_to_band_uv_fused(Ap, band=b)
+        if band_chase_wave.wave_chase_accum_preferred(Ab.shape[0], b):
+            chase = band_chase_wave.band_to_bidiagonal_wave_accum
+        else:
+            chase = band_chase.band_to_bidiagonal_accum
+        d, e, VL, TL, VR, TR = chase(Ab, band=b)
+        sig = bisect.bisect_svdvals(d.contiguous(), e.contiguous())
+    else:
+        Ab, U1, V1 = two_stage.dense_to_band_uv(Ap, band=b)
+        d, e, VL, TL, VR, TR = two_stage.band_to_bidiagonal_accum(Ab, band=b)
+        sig = bisect_svdvals(d, e)
+    U_b, V_b = tgk_vectors(d, e, sig)
+    U = pdot(U1, _apply_chase_reflectors_wy(VL, TL, U_b, b))
+    V = pdot(V1, _apply_chase_reflectors_wy(VR, TR, V_b, b))
+    return U[:n, :n], sig[:n], V[:n, :n].T

@@ -9,12 +9,24 @@ schedule; the tests hold both formulas to the JAX package as integers.
 
 from typing import NamedTuple
 
+import torch
+
 
 def nc_of_static(i, n, b):
     """Chase-hop count of sweep ``i`` on Python ints:
     ``max(0, ceil((n - (i + 2b + 1)) / b)) + 1``."""
     w2 = 2 * (b + 1) - 1  # i + w2 = first row past the head pair's window
     return max(0, -(-(n - (i + w2)) // b)) + 1
+
+
+def nc_of(i, n, b):
+    """:func:`nc_of_static` on an int tensor ``i`` (a scalar or a vector of
+    sweeps; ``n``, ``b`` Python ints): the twin of the JAX package's traced
+    ``nc_of``, elementwise, in ``i``'s dtype."""
+    i = torch.as_tensor(i)
+    w2 = 2 * (b + 1) - 1
+    ceil = -torch.div(-(n - (i + w2)), b, rounding_mode="floor")
+    return torch.clamp_min(ceil, 0) + 1
 
 
 def s_max_of(n, b):

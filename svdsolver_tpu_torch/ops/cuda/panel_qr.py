@@ -272,3 +272,25 @@ def dense_to_band_rec_fused(A, band=128, segments=None):
     :func:`dense_to_band_fused`).
     """
     return _stage1_fused(A, int(band), segments, record=True)
+
+
+def dense_to_band_uv_fused(A, band=128):
+    """Stage I through the panel kernel accumulating the orthogonal factors
+    (twin of ``dense_to_band_uv_pallas``): returns ``(Ab, U1, V1)`` with
+    ``A = U1 @ Ab @ V1^T``.  Full width, no segments: every step is
+    :func:`_fused_panel_pair_step` on the whole matrix, then ``U1 <- U1 -
+    ((U1 Vt^T) Tt^T) Vt`` and ``V1 <- V1 - ((V1 Vt2^T) Tt2^T) Vt2`` on the
+    kernel's transposed outputs.  ``Ab`` is bit-equal to
+    :func:`dense_to_band_fused` with ``segments=1``.
+    """
+    b = int(band)
+    _check_stage1(A, b, "dense_to_band_uv_fused")
+    n = A.shape[0]
+    A = A.clone(memory_format=torch.contiguous_format)
+    U1 = torch.eye(n, dtype=A.dtype, device=A.device)
+    V1 = U1.clone()
+    for k in range(n // b):
+        _, (Vt, Tt, Vt2, Tt2) = _fused_panel_pair_step(b, A, k * b)
+        U1 = U1 - pdot(pdot(pdot(U1, Vt.T), Tt.T), Vt)
+        V1 = V1 - pdot(pdot(pdot(V1, Vt2.T), Tt2.T), Vt2)
+    return A, U1, V1

@@ -903,3 +903,70 @@ def test_bidiag_qr_givens_cases_bit_equal(dev, dtype, case):
     for k, want in runs.items():
         for dk, ek in got[k]:
             assert _same_bits(dk, want[0]) and _same_bits(ek, want[1])
+
+
+# ---- the tiled Stage I's slab kernel (the multicore rung) and the batches
+
+@pytest.mark.parametrize("t", [32, 64, 128])
+@pytest.mark.parametrize("kind", ["1-slab", "2-slab", "2-slab lq"])
+def test_tiled_slab_kernel_matches_plain(dev, rng, t, kind):
+    # on rows of a 1024 matrix: a diagonal slab, a TS slab over the last
+    # tile row, and a TS slab shaped as the LQ mirror's (its pivot columns a
+    # tile left of its rows, so each pivot's row lies past the pivot block);
+    # two launches bit-identical, the plain version within 1e-4 of max |A|
+    # (float32 sums in another order over t steps), other rows untouched
+    from svdsolver_tpu_torch.models import tiled
+    from svdsolver_tpu_torch.ops.cuda import tiled_slab
+
+    n = 1024
+    top, pc, bot = {"1-slab": (t, t, None), "2-slab": (t, t, n - t),
+                    "2-slab lq": (2 * t, t, n - t)}[kind]
+    A = torch.from_numpy(rng.uniform(0, 5, (n, n)).astype(np.float32)).to(dev)
+    got, again, want = A.clone(), A.clone(), A.clone()
+    before = tiled_slab.launches
+    tiled_slab.factor_slab(got, top, pc, t, bot)
+    tiled_slab.factor_slab(again, top, pc, t, bot)
+    assert tiled_slab.launches == before + 2
+    tiled._factor_slab(want, top, pc, t, bot)
+    assert torch.equal(got, again)
+    assert float((got - want).abs().max()) <= 1e-4 * float(A.abs().max())
+    keep = torch.ones(n, dtype=torch.bool, device=dev)
+    for r in (top, bot):
+        if r is not None:
+            keep[r:r + t] = False
+    assert torch.equal(got[keep], A[keep])
+
+
+def test_tiled_slab_refuses_a_tile_past_shared_memory(dev):
+    from svdsolver_tpu_torch.ops.cuda import tiled_slab
+
+    A = torch.zeros((1024, 1024), device=dev)
+    before = tiled_slab.launches
+    with pytest.raises(ValueError, match="shared-memory limit"):
+        tiled_slab.factor_slab(A, 0, 0, 192, bot=512)
+    with pytest.raises(ValueError, match="shared-memory limit"):
+        tiled_slab.dense_to_band_tiled(A, band=256)
+    assert tiled_slab.launches == before
+
+
+def test_svdvals_multicore_on_card(dev):
+    # n = 1024, tiles of 128 (the band by size): 64 slab launches, then the
+    # routed chase and K2
+    from svdsolver_tpu_torch.ops.cuda import tiled_slab
+
+    n = 1024
+    A = torch.from_numpy(np.random.default_rng(0).uniform(0, 5, (n, n)).astype(np.float32)).to(dev)
+    before = tiled_slab.launches
+    s = svdvals(A, method="multicore")
+    assert tiled_slab.launches - before == (n // 128) ** 2
+    assert _sigma_err(A, s) <= 1e-5
+
+
+def test_svdvals_batch_rows_bit_equal_on_card(dev, rng):
+    from svdsolver_tpu_torch import svdvals_batch
+
+    As = torch.from_numpy(rng.uniform(0, 5, (4, 200, 200)).astype(np.float32)).to(dev)
+    S = svdvals_batch(As)
+    for i in range(4):
+        assert torch.equal(S[i], svdvals(As[i]))
+    assert _sigma_err(As[0], S[0]) <= 1e-5

@@ -154,8 +154,18 @@ def test_unported_method_raises_its_item(rng):
     A = from_numpy(_f32(rng, (16, 16)))
     with pytest.raises(NotImplementedError, match="item 11"):
         pinv(A, method="jacobi")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        polar(A, method="singlecore")
+
+
+def test_polar_singlecore_matches_jax(rng):
+    # method= passes through to svd's one-stage path, once refused: W and P
+    # are unique for a full-rank A, so they agree with the JAX package's
+    A = _f32(rng, (16, 16))
+    (W, P), (Wj, Pj) = _both(polar, jla.polar, A, method="singlecore")
+    W, P = to_numpy(W).astype(np.float64), to_numpy(P).astype(np.float64)
+    np.testing.assert_allclose(W, np.asarray(Wj), atol=1e-4)
+    np.testing.assert_allclose(P, np.asarray(Pj), atol=1e-4 * np.abs(P).max())
+    assert np.abs(W @ P - A).max() <= 1e-4 * np.abs(A).max()
+    assert np.abs(W.T @ W - np.eye(16)).max() <= 1e-4
 
 
 def test_orth_null_space_match_jax(rng):

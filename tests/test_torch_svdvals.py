@@ -50,13 +50,29 @@ def test_use_kernels_is_cuda_float32_only():
 
 
 @pytest.mark.parametrize(
+    "kwargs",
+    [
+        {"method": "base"},
+        {"method": "singlecore"},
+        {"method": "multicore"},
+        {"method": "base", "diag": "qr"},
+        {"method": "multicore", "diag": "dqds"},
+    ],
+)
+def test_svdvals_ladder_options_run(rng, kwargs):
+    # the ladder rungs, once refused, run and agree with the JAX package
+    # and LAPACK (n = 20: multicore pads to the band, 32)
+    A = rng.normal(size=(20, 20)).astype(np.float32)
+    got = to_numpy(svdvals(from_numpy(A), **kwargs))
+    ref = np.asarray(jax_svdvals(jnp.asarray(A), **kwargs))
+    want = np.linalg.svd(A.astype(np.float64), compute_uv=False)
+    np.testing.assert_allclose(got, ref, rtol=2e-5, atol=1e-5 * want[0])
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-5 * want[0])
+
+
+@pytest.mark.parametrize(
     "kwargs,err",
     [
-        ({"method": "base"}, NotImplementedError),
-        ({"method": "singlecore"}, NotImplementedError),
-        ({"method": "multicore"}, NotImplementedError),
-        ({"method": "base", "diag": "qr"}, NotImplementedError),
-        ({"method": "multicore", "diag": "dqds"}, NotImplementedError),
         ({"method": "nope"}, ValueError),
         ({"diag": "nope"}, ValueError),
     ],
