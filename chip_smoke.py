@@ -12,7 +12,9 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    sequential chase's TMA design, plain and recording, and the packed
    chase's: the same kernel on a band store), the packed chase's L2
    kernel, the QR and dqds diagonalizers (each loop in one launch), and
-   the tiled Stage I's slab factorization (its t steps in one launch);
+   the tiled Stage I's kernels (a half-sweep's pivot-block chain, its apply
+   to the other columns, and the first design: a slab's t steps in one
+   launch);
 3. holds each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it: the panel QR at (b, m, r_off) = (128,
    3840, 0), (128, 3840, 3776) (identity reflectors past m), (64, 1024, 0)
@@ -91,15 +93,24 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    card against float64 ``torch.linalg`` (``phase_linalg``);
 9. drives the ladder rungs and the batch entries (``phase_ladder``,
    ``phase_batch``), every launch count set to 0 just before each call
-   and read just after: the slab kernel against its plain version at t =
-   32, 64, 128 on rows of the 3840 and 1024 matrices (a diagonal slab, a
-   TS slab, a TS slab shaped as the LQ mirror's; two launches
-   bit-identical, within 1e-4 of max |A|) and timed beside its plain
-   version, its bound and ``torch.geqrf`` + ``torch.ormqr``;
-   ``svdvals(A, method=m)`` for m = base, singlecore, multicore at 3840
-   and 1000 (sigma to 1e-5 sigma_max; multicore: (n/t)^2 slab launches,
-   the routed chase, K2); ``dense_to_band_tiled`` at 3840 beside
-   ``dense_to_band_fused`` and at 1024 beside its plain version;
+   and read just after: the first design's slab kernel against its plain
+   version at t = 32, 64, 128 on rows of the 3840 and 1024 matrices (a
+   diagonal slab, a TS slab, a TS slab shaped as the LQ mirror's; two
+   launches bit-identical, within 1e-4 of max |A|) and timed beside its
+   plain version, its bound and ``torch.geqrf`` + ``torch.ormqr``;
+   ``dense_to_band_tiled`` (a chain and an apply launch a half-sweep)
+   ``torch.equal`` to every slab through the first design at 3840/t128,
+   1024/t64 and 1024/t32; the chain and the apply kernels against their
+   plain versions on a 4-slab half-sweep (QR- and LQ-shaped) at 3840/t128
+   and 1024/t64 (within 1e-4 of max |A|, two launches bit-identical), a
+   1-slab and a 2-slab half-sweep timed through them beside the chain
+   alone (its latency bound), the plain versions, geqrf / ormqr of the
+   same slabs and the bounds; ``svdvals(A, method=m)`` for m = base,
+   singlecore, multicore at 3840 and 1000 (sigma to 1e-5 sigma_max;
+   multicore: 2 n / t - 1 chain and apply launches each, no slab launch,
+   the routed chase, K2); ``dense_to_band_tiled`` at 3840/t128 and
+   1024/t64 in turns with the first design, beside ``dense_to_band_fused``
+   at 3840 and its plain version at 1024;
    ``svd(A, method="singlecore")`` at 3840 and 1000 with svd's gates;
    ``svdvals_batch`` at (B, n) = (64, 256), (16, 1024) (rows bit-equal to
    ``svdvals(As[i])``); ``svd_batch`` at (64, 256) Gaussian and (8, 1024)
@@ -137,7 +148,7 @@ REPS = 5
 SVD_REPS = 3
 SOURCES = ("panel_qr", "band_chase", "bisect", "tridiag_solve",
            "band_chase_wave", "band_chase_staged", "band_chase_vmem", "bidiag_qr", "dqds",
-           "tiled_slab")
+           "tiled_slab", "tiled_chain", "tiled_apply")
 # the variants' entries, counted by the kernel that ran: the packed chase
 # runs "band_chase_vmem_tma" (the TMA design on the band store) at every
 # band of these checks; "band_chase_vmem", its L2 packed kernel, takes the
@@ -240,8 +251,13 @@ TOL_SLAB = 1e-4  # max |kernel - plain| / max |A| after a slab's t steps (float3
 BATCH_VALS = ((64, 256), (16, 1024))  # (B, n) of svdvals_batch
 BATCH_SVD = ((64, 256, "gauss"), (8, 1024, "uniform"))  # (B, n, matrix) of svd_batch
 UV_FUSED = 3840  # dense_to_band_uv_fused against dense_to_band_fused(segments=1)
-# dense_to_band_tiled alone (n, t): in turns with dense_to_band_fused; beside its plain version
+# dense_to_band_tiled alone (n, t): in turns with the first design and beside
+# dense_to_band_fused at the first; beside its plain version at the second
 TILED_TIMES = ((3840, 128), (1024, 64))
+# dense_to_band_tiled (two kernels a half-sweep) torch.equal to every slab
+# through the first design's kernel at these (n, t)
+SWEEP_CHECK = ((3840, 128), (1024, 64), (1024, 32))
+SWEEP_SLABS = 4  # the half-sweep (top = n - 4t) each new kernel is held to its plain version on
 # published H100 SXM peaks (NVIDIA's data sheet, 700 W): float32 and
 # float64 outside the tensor cores, and HBM3
 PEAK_FP32 = 67e12
@@ -288,6 +304,24 @@ def cuda_ms(fn, reps=REPS, warm=True):
         stop.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def fresh_ms(fn, restore, reps=REPS):
+    """Median milliseconds of ``fn()`` over ``reps`` runs after one warm-up,
+    each on the state ``restore()`` sets up before its CUDA events (a
+    factorization timed on its own output would time other numbers)."""
+    times = []
+    for rep in range(reps + 1):
+        restore()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        if rep:
+            times.append(start.elapsed_time(stop))
     return statistics.median(times)
 
 
@@ -344,6 +378,8 @@ def _counters():
             "bidiag_qr_sweeps": (bidiag_qr, "launches_sweeps"),
             "dqds": (dqds, "launches"),
             "tiled_slab": (tiled_slab, "launches"),
+            "tiled_chain": (tiled_slab, "launches_chain"),
+            "tiled_apply": (tiled_slab, "launches_apply"),
             # not launches: runs of a plain diagonalizer loop, and dqds runs
             # that ended unconverged and took the bisection
             "plain_diag_loops": (diagonalize, "plain_loops"),
@@ -2246,8 +2282,10 @@ def check_slabs():
             for label, top, pc, bot in slab_cases(n, t)[:2]:
                 rows = t if bot is None else 2 * t
                 S = A.clone()
-                (k1, k2), p1 = in_turns(lambda: tiled_slab.factor_slab(S, top, pc, t, bot),
-                                        lambda: tiled._factor_slab(S, top, pc, t, bot))
+                k1, k2 = (fresh_ms(lambda: tiled_slab.factor_slab(S, top, pc, t, bot),
+                                   lambda: S.copy_(A)) for _ in range(2))
+                S.copy_(A)
+                _, p1 = _event_ms(lambda: tiled._factor_slab(S, top, pc, t, bot))
                 lib = slab_library_ms(A, top, pc, t, bot)
                 b_ms, b_by = bound(*work_slab(n, t, rows))
                 times[n, t, rows] = (min(k1, k2), p1, lib, (b_ms, b_by))
@@ -2258,6 +2296,161 @@ def check_slabs():
         del A
         torch.cuda.empty_cache()
     return worst, times
+
+
+def work_sweep(n, t, slabs):
+    """A half-sweep of ``slabs`` slabs (the 1-slab, then TS slabs): every
+    column takes 4 sum_j (R - j) operations a slab (step j's reflector is
+    zero above its pivot), the chain's t pivot columns and the apply's
+    n - t others.  Bytes: the chain reads and writes the pivot columns of
+    the half-sweep's rows and writes the history (v and tau); the apply
+    reads and writes the other columns and reads the history.  Returns
+    ((flops, bytes) of the chain, (flops, bytes) of the apply)."""
+    per_col = sum(4 * (t * R - t * (t - 1) // 2) for R in [t] + [2 * t] * (slabs - 1))
+    rows = slabs * t
+    hist = 4 * slabs * t * (2 * t + 1)
+    return ((t * per_col, 4 * 2 * rows * t + hist),
+            ((n - t) * per_col, 4 * 2 * rows * (n - t) + hist))
+
+
+def sweep_library_ms(A, top, pc, t, slabs):
+    """The yardstick of a half-sweep's kernels: for each of its slabs,
+    torch.geqrf of the stacked pivot block (the chain's QR) and torch.ormqr
+    of its reflectors on the stack's other columns (the apply), on copies
+    made beforehand.  Returns (geqrf ms, ormqr ms), summed over the slabs."""
+    n = A.shape[1]
+    others = torch.cat([torch.arange(pc), torch.arange(pc + t, n)]).to(A.device)
+    geqrf_ms = ormqr_ms = 0.0
+    for s_ in range(slabs):
+        rows = [A[top:top + t]] + ([] if s_ == 0 else [A[top + s_ * t:top + s_ * t + t]])
+        S = torch.cat(rows)
+        blk = S[:, pc:pc + t].contiguous()
+        rest = S[:, others].contiguous()
+        geqrf_ms += cuda_ms(lambda: torch.geqrf(blk))
+        a, tau = torch.geqrf(blk)
+        ormqr_ms += cuda_ms(lambda: torch.ormqr(a, tau, rest, left=True, transpose=True))
+    return geqrf_ms, ormqr_ms
+
+
+def check_sweeps():
+    """The two-kernel tiled Stage I (``tiled_chain``, ``tiled_apply``)
+    against the first design and the plain versions.  dense_to_band_tiled
+    ``torch.equal`` to dense_to_band_slabs (every slab through the first
+    design's kernel) at SWEEP_CHECK, with its 2 (2 n / t - 1) launches
+    counted; each kernel against its plain version (``models/tiled.
+    chain_plain``, ``apply_plain`` on the kernel's history) on a half-sweep
+    of SWEEP_SLABS slabs, QR-shaped and LQ-shaped (pivots a tile left of the
+    rows), at TILED_TIMES, within TOL_SLAB of max |A|, two launches
+    bit-identical.  Then, at TILED_TIMES: a 1-slab half-sweep (top = n - t)
+    and a 2-slab one (top = n - 2t) through the kernels, each kernel and
+    the chain alone (its latency bound: ``tiled_slab.chain_alone_ms``)
+    timed, beside its plain version, geqrf / ormqr of the same slabs and
+    the bound.  Returns ({kernel: max abs error}, {(n, t, slabs): times})."""
+    from svdsolver_tpu_torch.models import tiled
+    from svdsolver_tpu_torch.ops.cuda import tiled_slab
+
+    for n, t in SWEEP_CHECK:
+        A = uniform_matrix(n, seed=6)
+        reset_counts()
+        got = tiled_slab.dense_to_band_tiled(A, band=t)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = tiled_slab.dense_to_band_slabs(A.clone(), t)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        half = 2 * (n // t) - 1
+        say(f"[ladder] dense_to_band_tiled n={n} t={t}: torch.equal to the first design's "
+            f"{(n // t) ** 2} slab launches: {same}; launches: chain {counts['tiled_chain']}, "
+            f"apply {counts['tiled_apply']}, slab {counts['tiled_slab']}")
+        require(same, f"dense_to_band_tiled n={n} t={t} bit-equal to the first design")
+        require(counts["tiled_chain"] == counts["tiled_apply"] == half
+                and counts["tiled_slab"] == 0, f"dense_to_band_tiled n={n} t={t}: launches")
+        del A, got, want
+    errs, times = {"tiled_chain": 0.0, "tiled_apply": 0.0}, {}
+    for n, t in TILED_TIMES:
+        A = uniform_matrix(n, seed=7)
+        amax = float(A.abs().max())
+        for label, pc_off in (("QR", 0), ("LQ", t)):
+            top = n - SWEEP_SLABS * t
+            pc = top - pc_off
+            got, again, want = A.clone(), A.clone(), A.clone()
+            V, tau = tiled_slab.factor_sweep(got, top, pc, t)
+            V2, tau2 = tiled_slab.factor_sweep(again, top, pc, t)
+            Vp, taup = tiled.chain_plain(want, top, pc, t)
+            torch.cuda.synchronize()
+            require(torch.equal(got, again) and torch.equal(V, V2) and torch.equal(tau, tau2),
+                    f"tiled_chain {label} n={n} t={t}: two launches bit-identical")
+            e_chain = float((got - want).abs().max())
+            e_v = max(float((V[:, :, :2 * t] - Vp).abs().max()), float((tau - taup).abs().max()))
+            plain = got.clone()
+            tiled_slab.apply_sweep(got, top, pc, t, V, tau)
+            tiled_slab.apply_sweep(again, top, pc, t, V, tau)
+            tiled.apply_plain(plain, top, pc, t, V, tau)
+            torch.cuda.synchronize()
+            require(torch.equal(got, again), f"tiled_apply {label} n={n} t={t}: two launches "
+                    "bit-identical")
+            e_apply = float((got - plain).abs().max())
+            require(torch.equal(got[:top], A[:top]), f"tiled sweep {label} n={n} t={t}: rows "
+                    "above the half-sweep untouched")
+            say(f"[ladder] tiled_chain / tiled_apply {label} half-sweep n={n} t={t} (rows {top}, "
+                f"pivots {pc}, {SWEEP_SLABS} slabs): two launches bit-identical; chain "
+                f"max|kernel - plain| / max|A| = {e_chain / amax:.3e} (v, tau {e_v:.3e}); "
+                f"apply {e_apply / amax:.3e}")
+            require(max(e_chain, e_apply) <= TOL_SLAB * amax and e_v <= TOL_SLAB,
+                    f"tiled sweep kernels {label} n={n} t={t} against their plain versions")
+            errs["tiled_chain"] = max(errs["tiled_chain"], e_chain)
+            errs["tiled_apply"] = max(errs["tiled_apply"], e_apply)
+        for slabs in (1, 2):  # every run on fresh rows of A
+            top = n - slabs * t
+            M = A.clone()
+            V, tau = tiled_slab.factor_sweep(M, top, 0, t)
+            chained = M.clone()  # the chain's output: the apply's input
+
+            def both():
+                tiled_slab.apply_sweep(M, top, 0, t, *tiled_slab.factor_sweep(M, top, 0, t))
+
+            c_ms = fresh_ms(lambda: tiled_slab.factor_sweep(M, top, 0, t), lambda: M.copy_(A))
+            a_ms = fresh_ms(lambda: tiled_slab.apply_sweep(M, top, 0, t, V, tau),
+                            lambda: M.copy_(chained))
+            b_ms = fresh_ms(both, lambda: M.copy_(A))
+            alone = []
+            for _ in range(REPS + 1):  # the first a warm-up
+                M.copy_(A)
+                alone.append(tiled_slab.chain_alone_ms(M, top, 0, t))
+            alone = statistics.median(alone[1:])
+            M.copy_(A)
+            _, cp_ms = _event_ms(lambda: tiled.chain_plain(M, top, 0, t))
+            M.copy_(chained)
+            _, ap_ms = _event_ms(lambda: tiled.apply_plain(M, top, 0, t, V, tau))
+            g_ms, o_ms = sweep_library_ms(A, top, 0, t, slabs)
+            (cw, cb), (aw, ab) = work_sweep(n, t, slabs)
+            cbound, abound = bound(cw, cb), bound(aw, ab)
+            times[n, t, slabs] = {
+                "chain_ms": c_ms, "apply_ms": a_ms, "both_ms": b_ms, "chain_alone_ms": alone,
+                "chain_plain_ms": cp_ms, "apply_plain_ms": ap_ms, "geqrf_ms": g_ms,
+                "ormqr_ms": o_ms, "chain_bound": cbound, "apply_bound": abound,
+                "steps": slabs * t}
+            say(f"[ladder] tiled sweep n={n} t={t} {slabs} slab(s) (top {top}): chain + apply "
+                f"{b_ms:.4f} ms (chain {c_ms:.4f}, {c_ms * 1e3 / (slabs * t):.3f} us a step; "
+                f"apply {a_ms:.4f}); chain alone {alone:.4f} ms ({alone * 1e3 / (slabs * t):.3f} "
+                f"us a step); plain chain {cp_ms:.3f}, apply {ap_ms:.3f} ms (one run); "
+                f"torch.geqrf {g_ms:.4f} + torch.ormqr {o_ms:.4f} ms; bound chain "
+                f"{cbound[0]:.5f} ({cbound[1]}), apply {abound[0]:.5f} ms ({abound[1]}) "
+                f"(medians of {REPS})")
+        one, two = times[n, t, 1], times[n, t, 2]
+        ts_ms = two["both_ms"] - one["both_ms"]
+        lib1 = slab_library_ms(A, n - t, 0, t, None)
+        lib2 = slab_library_ms(A, n - 2 * t, 0, t, n - t)
+        say(f"[ladder] one slab through the two kernels n={n} t={t}: 1-slab {one['both_ms']:.4f} "
+            f"ms (torch.geqrf + torch.ormqr {lib1:.4f}, bound "
+            f"{bound(*work_slab(n, t, t))[0]:.5f}); TS slab {ts_ms:.4f} ms (the 2-slab "
+            f"half-sweep less the 1-slab; torch.geqrf + torch.ormqr {lib2:.4f}, bound "
+            f"{bound(*work_slab(n, t, 2 * t))[0]:.5f})")
+        times[n, t, "slab"] = {"1-slab": one["both_ms"], "TS slab": ts_ms,
+                               "1-slab library": lib1, "TS slab library": lib2}
+        del A
+        torch.cuda.empty_cache()
+    return errs, times
 
 
 def svd_gates(label, A, U, s, Vh, ref):
@@ -2278,22 +2471,26 @@ def svd_gates(label, A, U, s, Vh, ref):
 
 
 def phase_ladder():
-    """The ladder rungs on the card.  The slab kernel first (check_slabs).
+    """The ladder rungs on the card.  The tiled Stage I's kernels first
+    (check_slabs: the first design; check_sweeps: the chain and the apply).
     Then svdvals(A, method=m) for m in LADDER at LADDER_SIZES on the
     uniform matrix, every launch count set to 0 just before each call and
     read just after: sigma within TOL_SIGMA of float64 svdvals; K2 launched
-    once by every rung; ``multicore``: (n/t)^2 slab launches, the routed
-    chase, no panel QR; ``base`` and ``singlecore``: no Stage I or chase
-    kernel.  dense_to_band_tiled at 3840 in turns with dense_to_band_fused,
-    and at 1024 beside its plain version (one run; the bands within
-    TOL_SLAB in Frobenius norm).  svd(A, method="singlecore") at
-    LADDER_SIZES with svd's gates.  Returns (counts by run for the
-    svdvals side, counts by run for the svd side, the kernel's row)."""
+    once by every rung; ``multicore``: a chain and an apply launch for each
+    of its 2 n / t - 1 half-sweeps, no slab launch, the routed chase, no
+    panel QR; ``base`` and ``singlecore``: no Stage I or chase kernel.
+    dense_to_band_tiled at TILED_TIMES in turns with the first design
+    (dense_to_band_slabs), dense_to_band_fused at 3840, and at 1024 beside
+    its plain version (one run; the bands within TOL_SLAB in Frobenius
+    norm).  svd(A, method="singlecore") at LADDER_SIZES with svd's gates.
+    Returns (counts by run for the svdvals side, counts by run for the svd
+    side, the rows of tiled_slab, tiled_chain and tiled_apply)."""
     from svdsolver_tpu_torch import svd, svdvals
     from svdsolver_tpu_torch.models import tiled
     from svdsolver_tpu_torch.ops.cuda import panel_qr, tiled_slab
 
     worst, times = check_slabs()
+    sweep_errs, sweep_times = check_sweeps()
     counts_vals, counts_svd = {}, {}
     for n in LADDER_SIZES:
         A = uniform_matrix(n)
@@ -2312,13 +2509,16 @@ def phase_ladder():
             require(counts["bisect"] == 1 and counts["bisect_thread"] == 0,
                     f"svdvals({m}) at n={n} launched the K2 tree once")
             if m == "multicore":
-                want = (np_ // b) ** 2
-                require(counts["tiled_slab"] == want and counts["panel_qr"] == 0,
-                        f"svdvals(multicore) at n={n}: {counts['tiled_slab']} slab launches, "
-                        f"want {want}, and no panel QR")
+                want = 2 * (np_ // b) - 1  # half-sweeps: a chain and an apply launch each
+                require(counts["tiled_chain"] == counts["tiled_apply"] == want
+                        and counts["tiled_slab"] == 0 and counts["panel_qr"] == 0,
+                        f"svdvals(multicore) at n={n}: chain {counts['tiled_chain']}, apply "
+                        f"{counts['tiled_apply']} launches, want {want} each; slab "
+                        f"{counts['tiled_slab']}, panel QR {counts['panel_qr']}, want 0")
                 chase = require_route((np_, b), counts, record=False)
             else:
-                require(all(counts[k] == 0 for k in ("tiled_slab", "panel_qr") + CHASES),
+                require(all(counts[k] == 0 for k in ("tiled_slab", "tiled_chain", "tiled_apply",
+                                                     "panel_qr") + CHASES),
                         f"svdvals({m}) at n={n} launched no Stage I or chase kernel")
                 chase = "none (one-stage)"
             say(f"[ladder] n={n}: svdvals(method={m!r}) {seconds:.3f} s (host clock, one "
@@ -2334,7 +2534,8 @@ def phase_ladder():
         seconds = time.perf_counter() - t0
         counts = read_counts()
         require(counts["bisect"] == 1 and counts["tridiag_solve"] > 0 and all(
-            counts[k] == 0 for k in ("panel_qr", "tiled_slab") + CHASES),
+            counts[k] == 0 for k in ("panel_qr", "tiled_slab", "tiled_chain", "tiled_apply")
+            + CHASES),
             f"svd(singlecore) at n={n}: K2 and the TGK solve, no two-stage kernel")
         errs = svd_gates(f"svd(singlecore) n={n}", A, U, s, Vh, ref)
         say(f"[ladder] n={n}: svd(method='singlecore') {seconds:.3f} s (host clock, one "
@@ -2343,16 +2544,24 @@ def phase_ladder():
         del A, ref, U, s, Vh
         torch.cuda.empty_cache()
 
-    # the tiled Stage I alone: in turns with the panel Stage I, and beside
-    # its plain version
+    # the tiled Stage I alone: in turns with its first design (first, new,
+    # new, first), beside the panel Stage I and its plain version
     (n1, t1), (n2, t2) = TILED_TIMES
+    tiled_ms, first_ms = {}, {}
+    for n_, t_ in TILED_TIMES:
+        A = uniform_matrix(n_)
+        f1 = cuda_ms(lambda: tiled_slab.dense_to_band_slabs(A.clone(), t_), reps=3)
+        k1 = cuda_ms(lambda: tiled_slab.dense_to_band_tiled(A, band=t_), reps=3)
+        k2 = cuda_ms(lambda: tiled_slab.dense_to_band_tiled(A, band=t_), reps=3)
+        f2 = cuda_ms(lambda: tiled_slab.dense_to_band_slabs(A.clone(), t_), reps=3)
+        tiled_ms[n_, t_], first_ms[n_, t_] = min(k1, k2), min(f1, f2)
+        say(f"[ladder] dense_to_band_tiled n={n_} t={t_} ({2 * (2 * n_ // t_ - 1)} launches): "
+            f"{k1:.3f} / {k2:.3f} ms in turns with the first design ({(n_ // t_) ** 2} slab "
+            f"launches) {f1:.3f} / {f2:.3f} ms (medians of 3; the first design's include a "
+            f"copy of A, {cuda_ms(lambda: A.clone(), reps=3):.3f} ms)")
     A = uniform_matrix(n1)
-    tiled_ms = [cuda_ms(lambda: tiled_slab.dense_to_band_tiled(A, band=t1), reps=3)
-                for _ in range(2)]
     fused_ms = cuda_ms(lambda: panel_qr.dense_to_band_fused(A, band=t1), reps=3)
-    say(f"[ladder] dense_to_band_tiled n={n1} t={t1} ({(n1 // t1) ** 2} launches): "
-        f"{tiled_ms[0]:.3f} / {tiled_ms[1]:.3f} ms (medians of 3) beside "
-        f"dense_to_band_fused {fused_ms:.3f} ms")
+    say(f"[ladder] dense_to_band_fused n={n1} b={t1}: {fused_ms:.3f} ms (median of 3)")
     A = uniform_matrix(n2)
     Ab_k, k_ms = _event_ms(lambda: tiled_slab.dense_to_band_tiled(A, band=t2))
     Ab_p, p_ms = _event_ms(lambda: tiled.dense_to_band_tiled_plain(A, band=t2))
@@ -2364,21 +2573,50 @@ def phase_ladder():
 
     n, t = SLAB_SIZES[0], SLAB_TILES[-1]
     ms, plain_ms, lib_ms, (b_ms, b_by) = times[n, t, 2 * t]
-    row = {
+    replaces = ("svdsolver_tpu/models/tiled.py:59 + :72 (the lax.fori_loop of "
+                "_factor_1slab / _factor_2slab over _slab_factor_step :33)")
+    first = {
         "name": "tiled_slab", "route": "cuda", "source": "svdsolver_tpu_torch/csrc/tiled_slab.cu",
-        "replaces": "svdsolver_tpu/models/tiled.py:59 + :72 (the lax.fori_loop of "
-                    "_factor_1slab / _factor_2slab over _slab_factor_step :33)",
-        "tpu": [], "launches": sum(c["tiled_slab"] for c in counts_vals.values()),
+        "replaces": replaces, "tpu": [],
+        "role": "first design: the bitwise oracle of tiled_chain + tiled_apply, and the route "
+                "for bands past 128; the main path launches it no time",
+        "launches": sum(c["tiled_slab"] for c in counts_vals.values()),
         "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": lib_ms, "shape": f"2-slab n={n} t={t}",
         "slabs_ms": {f"n={n_} t={t_} rows={r}": {"ms": v[0], "plain_ms": v[1],
                                                  "library_ms": v[2], "bound_ms": v[3][0]}
                      for (n_, t_, r), v in times.items()},
-        "dense_to_band_tiled_ms": {f"n={n1} t={t1}": min(tiled_ms), f"n={n2} t={t2}": k_ms,
-                                   f"plain n={n2} t={t2}": p_ms},
-        "dense_to_band_fused_ms": {f"n={n1} b={t1}": fused_ms},
+        "dense_to_band_tiled_ms": {f"n={n_} t={t_}": v for (n_, t_), v in first_ms.items()},
     }
-    return counts_vals, counts_svd, row
+    rows = [first]
+    for name, src in (("tiled_chain", "chain"), ("tiled_apply", "apply")):
+        tm = sweep_times[n1, t1, 2]
+        bnd = tm[f"{src}_bound"]
+        row = {
+            "name": name, "route": "cuda",
+            "source": f"svdsolver_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces, "tpu": [],
+            "launches": sum(c[name] for c in counts_vals.values()),
+            "max_abs_err": sweep_errs[name], "ms": tm[f"{src}_ms"],
+            "plain_ms": tm[f"{src}_plain_ms"], "bound_ms": bnd[0], "bound_by": bnd[1],
+            "library_ms": tm["geqrf_ms" if src == "chain" else "ormqr_ms"],
+            "shape": f"2-slab half-sweep n={n1} t={t1} (top = n - 2t)",
+            "half_sweeps_ms": {f"n={n_} t={t_} slabs={k}": {
+                key: (val if not isinstance(val, tuple) else val[0]) for key, val in v.items()
+                if key.startswith(src) or key in ("both_ms", "steps", "geqrf_ms", "ormqr_ms")}
+                for (n_, t_, k), v in sweep_times.items() if k != "slab"},
+        }
+        if name == "tiled_chain":
+            row["chain_bound_ms"] = tm["chain_alone_ms"]
+            row["us_a_step"] = tm["chain_ms"] * 1e3 / tm["steps"]
+            row["one_slab_ms"] = {f"n={n_} t={t_}": v for (n_, t_, k), v in sweep_times.items()
+                                  if k == "slab"}
+            row["dense_to_band_tiled_ms"] = {f"n={n1} t={t1}": tiled_ms[n1, t1],
+                                             f"n={n2} t={t2}": tiled_ms[n2, t2],
+                                             f"plain n={n2} t={t2}": p_ms}
+            row["dense_to_band_fused_ms"] = {f"n={n1} b={t1}": fused_ms}
+        rows.append(row)
+    return counts_vals, counts_svd, rows
 
 
 def batch_of(B, n, kind, seed):
@@ -2855,7 +3093,7 @@ def main():
     counts_diag = phase_diag(diag)
     phase_linalg()
     t0 = time.perf_counter()
-    ladder_vals, ladder_svd, slab_row = phase_ladder()
+    ladder_vals, ladder_svd, slab_rows = phase_ladder()
     batch_vals, batch_svd = phase_batch()
     say(f"[done] the ladder and the batches {time.perf_counter() - t0:.1f} s")
     counts_vals.update(ladder_vals)
@@ -2872,7 +3110,7 @@ def main():
     phase_profile("svd n=3840", lambda: svd(A))
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     rows = kernel_table(errs, counts_vals, counts_svd, kt, lib, variants, route, k1, ticks,
-                        designs, staged) + diag_rows(diag, counts_diag) + [slab_row]
+                        designs, staged) + diag_rows(diag, counts_diag) + slab_rows
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

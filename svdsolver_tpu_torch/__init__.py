@@ -19,8 +19,8 @@ SVD applications of ``linalg`` (``pinv``, ``lstsq``, ``matrix_rank``,
 hand-written CUDA kernels (``csrc/``) on the card: for float32 tensors the
 Stage I panel QR, the band -> bidiagonal chase (plain, recording, wavefront
 with and without deferred left applies, staged in shared memory, packed),
-the bisection, the TGK tridiagonal solve and the tiled Stage I's slab
-factorization; for float32 and float64
+the bisection, the TGK tridiagonal solve and the tiled Stage I (a chain
+and an apply kernel a half-sweep); for float32 and float64
 tensors the QR and dqds diagonalizers, each loop in one launch.  Names and
 signatures follow ``svdsolver_tpu`` for what is ported.  This package
 imports torch and never jax.

@@ -39,53 +39,40 @@
 // the bytes, the slab in and out once (7.9 MB: 2.3 us).  But a step is a
 // chain (reflector, barrier, dot, butterfly, update) and every CTA repeats
 // the pivot block's R t updates: with ~30 chunk columns a CTA the redundant
-// block is most of its work.  A simple kernel that is right; the redesign
-// (the pivot block split across a cluster, steps pipelined) is later work.
+// block is most of its work.  The main path no longer runs it: a half-sweep
+// (a tile column's slabs) runs as tiled_chain.cu (the pivot-block column on
+// one CTA) and tiled_apply.cu (the other columns on every SM), bit-equal to
+// this kernel, which stays as their bitwise oracle and as the route for
+// bands they do not take (ops/cuda/tiled_slab.tiled_route).  The column
+// arithmetic is tiled_slab.cuh's, shared with them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tiled_slab.cuh"
+
 namespace {
+
+using svdt_tiled::dot_part;
+using svdt_tiled::rank1;
+using svdt_tiled::warp_sum;
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float warp_sum(float s) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
-  return s;
-}
-
-// The reflector of the column whose row lane + 32 k is x[k], pivot at local
-// row p < R: v (R floats, shared memory) and *tau.  Products, sums and
-// quotients rounded one at a time, as the plain version's tensor ops are.
+// svdt_tiled::reflector, its v stored to shared memory (rows < R) and tau by
+// lane 0.
 template <int RPL>
 __device__ __forceinline__ void reflector(const float (&x)[RPL], int p, int R, float* v,
                                           float* tau, int lane) {
-  float piv = 0.f, s2 = 0.f;
+  float vr[RPL];
+  const float tv = svdt_tiled::reflector<RPL>(x, p, R, vr, lane);
 #pragma unroll
   for (int k = 0; k < RPL; ++k) {
     const int r = lane + 32 * k;
-    if (r == p) piv = x[k];
-    if (r > p && r < R) s2 = __fadd_rn(s2, __fmul_rn(x[k], x[k]));
+    if (r < R) v[r] = vr[k];
   }
-  piv = __shfl_sync(kFull, piv, p & 31);
-  s2 = warp_sum(s2);
-  const float nrm = sqrtf(__fadd_rn(__fmul_rn(piv, piv), s2));
-  const float sign = piv >= 0.f ? 1.f : -1.f;
-  const float beta = -sign * nrm;
-  const bool trivial = s2 == 0.f;
-  const float denom = trivial ? 1.f : __fsub_rn(piv, beta);
-#pragma unroll
-  for (int k = 0; k < RPL; ++k) {
-    const int r = lane + 32 * k;
-    if (r < R) v[r] = r > p ? __fdiv_rn(x[k], denom) : (r == p ? 1.f : 0.f);
-  }
-  if (lane == 0) {
-    const float safe = beta == 0.f ? 1.f : beta;
-    *tau = trivial ? 0.f : __fdiv_rn(__fsub_rn(beta, piv), safe);
-  }
+  if (lane == 0) *tau = tv;
 }
 
 template <int RPL>
@@ -142,21 +129,16 @@ tiled_slab_kernel(float* __restrict__ A, int ld, int n, int top, int bot, int t,
     for (int q = warp; q < nq; q += kWarps) {
       float* col = S + q * LD;
       float x[RPL];
-      float s = 0.f;
 #pragma unroll
       for (int k = 0; k < RPL; ++k) {
         const int r = lane + 32 * k;
         x[k] = (k >= k0 && r < R) ? col[r] : 0.f;
-        s = __fadd_rn(s, __fmul_rn(vr[k], x[k]));
       }
-      s = warp_sum(s);
+      rank1(x, vr, tau, warp_sum(dot_part(vr, x, k0, RPL)), k0, RPL);
 #pragma unroll
       for (int k = 0; k < RPL; ++k) {
         const int r = lane + 32 * k;
-        if (k >= k0 && r < R) {
-          x[k] = __fsub_rn(x[k], __fmul_rn(tau, __fmul_rn(vr[k], s)));
-          col[r] = x[k];
-        }
+        if (k >= k0 && r < R) col[r] = x[k];
       }
       if (q == j + 1 && q < t)  // the next step's pivot column, final now
         reflector<RPL>(x, j + 1, R, V + ((j + 1) & 1) * R, T + ((j + 1) & 1), lane);

@@ -5,8 +5,8 @@
 ``tpu2``: Stage I through the panel kernel, the chase routed by
 ``band_chase_wave.wave_chase_preferred`` to the wavefront or the
 sequential chase (whose staged TMA design takes every band of this path).
-``multicore``: the tiled Stage I (``ops/cuda/tiled_slab.py``: one kernel
-launch a slab) and the same routed chase.  ``base`` (Golub-Kahan) and
+``multicore``: the tiled Stage I (``ops/cuda/tiled_slab.py``: a chain
+and an apply kernel launch a half-sweep) and the same routed chase.  ``base`` (Golub-Kahan) and
 ``singlecore`` (blocked one-stage) reduce straight to (d, e) in PyTorch
 ops.  ``tpu1``: the plain two-stage path.  The kernels run for float32
 CUDA tensors (:func:`use_kernels`), and there every method but ``tpu1``
@@ -116,7 +116,7 @@ def bidiagonalize(A, method="tpu2", block=None):
     ``base``: Golub-Kahan, unblocked (the reference's ``brd``).
     ``singlecore``: blocked one-stage compact-WY, panel width ``block``
     (``block_brd``).  ``multicore``: the tiled Stage I (``brd_p1``), tiles
-    of ``block``, through the slab kernel for float32 CUDA input.
+    of ``block``, through the chain and apply kernels for float32 CUDA input.
     ``tpu2``: Stage I through the panel kernel for float32 CUDA input.
     ``multicore`` and ``tpu2`` then take the chase kernel routed by
     :func:`band_chase_wave.wave_chase_preferred` (the wavefront kernel from

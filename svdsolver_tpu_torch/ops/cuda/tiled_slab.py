@@ -1,18 +1,25 @@
-"""The tiled Stage I's slab factorization on the card
-(``csrc/tiled_slab.cu``), and the public ``dense_to_band_tiled``.
+"""The tiled Stage I on the card, and the public ``dense_to_band_tiled``.
 
 It stands for no TPU kernel: the JAX package's ``_factor_1slab`` and
 ``_factor_2slab`` (``svdsolver_tpu/models/tiled.py:59``, ``:72``) are a
 ``lax.fori_loop`` over ``_slab_factor_step`` (``:33``) that XLA compiles
 to one device program; as plain PyTorch launches a step is ~20 of them.
-:func:`factor_slab` runs the ``t`` steps of one slab in one launch on a
-float32 CUDA tensor and the plain version (``models/tiled._factor_slab``)
-on a CPU tensor.  :func:`dense_to_band_tiled` runs the tiled schedule
-(``models/tiled.tile_sweeps``) on either: on the card ``(n / t)^2``
-launches (the LQ half on a transposed contiguous copy, made once a tile
-sweep), on the CPU the plain version.  The kernel's plan
-(:func:`slab_plan`) is plain Python; a ``t`` whose pivot block does not fit
-one block's shared memory raises ``ValueError`` before any launch.
+
+A half-sweep (a tile column's slabs, ``models/tiled.sweep_slabs``) runs
+as two kernels: :func:`factor_sweep` (``csrc/tiled_chain.cu``, one CTA)
+factors the pivot-block column through every slab and leaves the (v, tau)
+history; :func:`apply_sweep` (``csrc/tiled_apply.cu``, every SM) applies
+it to the other columns.  Both give the first design's bits.  The first
+design, :func:`factor_slab` (``csrc/tiled_slab.cu``, one launch a slab),
+stays as their bitwise oracle and runs the bands they do not take.
+
+:func:`dense_to_band_tiled` picks by shape (:func:`tiled_route`): bands up
+to 128 run the two kernels, ``2 (2 n / t - 1)`` launches (the LQ half on
+a transposed contiguous copy, made once a tile sweep); bands up to 168
+(238 for a single tile) the first design, ``(n / t)^2`` launches; a wider
+band raises ``ValueError`` before any launch.  On a CPU tensor every entry
+runs its plain version (``models/tiled``).  The plans (:func:`slab_plan`,
+:func:`chain_plan`, :func:`apply_plan`) are plain Python.
 """
 
 from typing import NamedTuple
@@ -22,11 +29,19 @@ import torch
 from svdsolver_tpu_torch.models import tiled
 from svdsolver_tpu_torch.ops.cuda import _build
 
-launches = 0  # kernel launches by factor_slab since the last reset
+launches = 0  # kernel launches by factor_slab (the first design) since the last reset
+launches_chain = 0  # by the chain kernel (factor_sweep)
+launches_apply = 0  # by the apply kernel (apply_sweep)
 
-ROWS_PER_LANE = (1, 2, 4, 8, 11)  # the kernel's instances: rows of a column a lane holds
+ROWS_PER_LANE = (1, 2, 4, 8, 11)  # the slab kernel's instances: rows of a column a lane holds
+SWEEP_RPL = (1, 2, 4, 8)  # the chain's and the apply's: rows a lane (the chain: columns a warp)
+APPLY_COLS = 2  # columns a warp of the apply kernel (its kCols)
+APPLY_WIDTH = 32  # most columns an apply CTA takes (16 warps)
 _P, _I = _build.VOIDP, _build.INT
 _ENTRIES = {"svdt_tiled_slab": [_P] + [_I] * 10 + [_P, _P]}
+_CHAIN_ENTRIES = {e: [_P] + [_I] * 5 + [_P, _P, _I, _I, _P]
+                  for e in ("svdt_tiled_chain", "svdt_tiled_chain_alone")}
+_APPLY_ENTRIES = {"svdt_tiled_apply": [_P] + [_I] * 11 + [_P, _P, _P]}
 
 
 class SlabPlan(NamedTuple):
@@ -69,6 +84,78 @@ def slab_plan(n, t, rows, sms):
     ctas = max(1, -(-other // width))
     rpl = next(r for r in ROWS_PER_LANE if 32 * r >= rows)
     return SlabPlan(width, ctas, rpl, _smem_bytes(t, rows, width))
+
+
+class ChainPlan(NamedTuple):
+    """The chain kernel's instance (``rpl`` rows a lane, columns a warp) and
+    its dynamic shared-memory bytes."""
+
+    rpl: int
+    smem: int
+
+
+class ApplyPlan(NamedTuple):
+    """How the apply kernel cuts the columns outside the pivot block:
+    ``width`` columns a CTA, ``ctas`` CTAs of ``threads`` threads, ``rpl``
+    rows a lane, ``smem`` dynamic bytes a CTA (two tile-row chunks)."""
+
+    width: int
+    ctas: int
+    threads: int
+    rpl: int
+    smem: int
+
+
+def _room():
+    return _build.MAX_SMEM - _build.STATIC_SMEM
+
+
+def chain_plan(t):
+    """The chain kernel for bands of ``t``: 16 warps, ``rpl`` the least of
+    :data:`SWEEP_RPL` with ``16 rpl >= t`` (a warp's columns and a lane's
+    rows of the 2t-row stack); shared memory for the slab's t reflectors
+    (32 rpl floats each), their barriers and taus, and the prefetched
+    t x (t + 1) tile.
+    Raises ``ValueError`` past t = 128 (no instance) or the limit."""
+    t = int(t)
+    rpl = next((r for r in SWEEP_RPL if 16 * r >= t), None)
+    if t < 1 or rpl is None:
+        raise ValueError(f"t={t}: the chain kernel takes bands of 1 to {16 * SWEEP_RPL[-1]}")
+    smem = 8 * t + 4 * (t * 32 * rpl + t + t * (t + 1))
+    if smem > _room():
+        raise ValueError(f"t={t}: the chain's {smem} bytes pass the {_room()}-byte "
+                         "shared-memory limit of one block")
+    return ChainPlan(rpl, smem)
+
+
+def apply_plan(n, t, sms):
+    """The apply kernel's launch for ``n`` columns and bands of ``t`` on a
+    card of ``sms`` multiprocessors: the ``n - t`` columns outside the pivot
+    block in chunks of ``ceil((n - t) / sms)`` (1 to :data:`APPLY_WIDTH`),
+    a warp for every :data:`APPLY_COLS` of them, rows a lane as
+    :func:`chain_plan`'s."""
+    n, t = int(n), int(t)
+    rpl = chain_plan(t).rpl
+    other = n - t
+    width = max(1, min(APPLY_WIDTH, -(-other // max(int(sms), 1))))
+    ctas = max(1, -(-other // width))
+    threads = 32 * -(-width // APPLY_COLS)
+    return ApplyPlan(width, ctas, threads, rpl, 4 * 2 * t * (width | 1))
+
+
+def tiled_route(n, t, sms):
+    """Which design runs ``dense_to_band_tiled`` at ``(n, t)``: ``"sweeps"``
+    (the chain and the apply kernels, two launches a half-sweep) for every
+    band :func:`chain_plan` takes (t <= 128); else ``"slabs"`` (the first
+    design, a launch a slab) where :func:`slab_plan` takes both slab shapes
+    (t <= 168; 238 when ``n == t``); else ``ValueError``."""
+    n, t = int(n), int(t)
+    if 1 <= t <= 16 * SWEEP_RPL[-1]:
+        return "sweeps"
+    slab_plan(n, t, t, sms)
+    if n > t:
+        slab_plan(n, t, 2 * t, sms)
+    return "slabs"
 
 
 _sm_count = {}
@@ -129,12 +216,146 @@ def factor_slab(A, top, pc, t, bot=None):
     return A
 
 
+def _launch_chain(M, top, pc, t, m, V, tau, plan):
+    lib = _build.load("tiled_chain", _CHAIN_ENTRIES)
+    with torch.cuda.device(M.device):
+        err = lib.svdt_tiled_chain(M.data_ptr(), M.stride(0), top, pc, t, m, V.data_ptr(),
+                                   tau.data_ptr(), plan.rpl, plan.smem, _build.stream_of(M))
+    _build.raise_on_error(err, "tiled_chain")
+
+
+def _launch_apply(M, top, pc, t, m, V, tau, plan):
+    lib = _build.load("tiled_apply", _APPLY_ENTRIES)
+    with torch.cuda.device(M.device):
+        err = lib.svdt_tiled_apply(
+            M.data_ptr(), M.stride(0), M.shape[1], top, pc, t, m, plan.width, plan.ctas,
+            plan.threads, plan.rpl, plan.smem, V.data_ptr(), tau.data_ptr(),
+            _build.stream_of(M))
+    _build.raise_on_error(err, "tiled_apply")
+
+
+def _check_sweep(M, top, pc, t):
+    """A half-sweep ``(top, pc)`` of square ``M``: its slabs fill rows
+    ``[top, n)``; returns the number of TS slabs."""
+    n = M.shape[0]
+    if M.shape[1] != n or not (0 <= top and top + t <= n and (n - top) % t == 0
+                               and 0 <= pc and pc + t <= n):
+        raise ValueError(f"half-sweep from row {top}, pivots [{pc}, {pc + t}): needs a square "
+                         f"M whose rows from {top} on are whole tiles, got {tuple(M.shape)}")
+    return (n - top) // t - 1
+
+
+def _history(M, t, slabs, rpl):
+    """The chain's (v, tau) history: ``slabs`` x ``t`` reflectors of 32
+    ``rpl`` floats (every slot written whole by the kernel)."""
+    return (torch.empty((slabs, t, 32 * rpl), dtype=M.dtype, device=M.device),
+            torch.empty((slabs, t), dtype=M.dtype, device=M.device))
+
+
+def factor_sweep(M, top, pc, t):
+    """The pivot-block column of half-sweep ``(top, pc)`` of square ``M``,
+    in place (``models/tiled.chain_plain``): columns ``[pc, pc + t)``,
+    rows ``[top, n)``.  Returns the history ``(V, tau)`` for
+    :func:`apply_sweep`.  A CUDA ``M`` (contiguous float32, ``t`` <= 128)
+    launches the chain kernel once (``V`` 32 rpl floats a reflector, zeros
+    past its rows); a CPU ``M`` runs the plain version."""
+    global launches_chain
+    top, pc, t = int(top), int(pc), int(t)
+    m = _check_sweep(M, top, pc, t)
+    if not _build.check_input(M, "M", 2):
+        return tiled.chain_plain(M, top, pc, t)
+    plan = chain_plan(t)
+    V, tau = _history(M, t, m + 1, plan.rpl)
+    _launch_chain(M, top, pc, t, m, V, tau, plan)
+    launches_chain += 1
+    return V, tau
+
+
+def apply_sweep(M, top, pc, t, V, tau):
+    """Half-sweep ``(top, pc)``'s history (:func:`factor_sweep`'s) on the
+    columns of square ``M`` outside ``[pc, pc + t)``, rows ``[top, n)``, in
+    place (``models/tiled.apply_plain``).  A CUDA ``M`` launches the apply
+    kernel once (``V`` as the chain kernel leaves it); a CPU ``M`` runs the
+    plain version.  Returns ``M``."""
+    global launches_apply
+    top, pc, t = int(top), int(pc), int(t)
+    m = _check_sweep(M, top, pc, t)
+    if not _build.check_input(M, "M", 2):
+        return tiled.apply_plain(M, top, pc, t, V, tau)
+    plan = apply_plan(M.shape[0], t, _sms(M.device))
+    if tuple(V.shape) != (m + 1, t, 32 * plan.rpl) or tuple(tau.shape) != (m + 1, t):
+        raise ValueError(f"history of shape {tuple(V.shape)}, {tuple(tau.shape)}: want "
+                         f"{(m + 1, t, 32 * plan.rpl)}, {(m + 1, t)}")
+    _build.check_input(V, "V", 3)
+    _build.check_input(tau, "tau", 2)
+    if V.device != M.device or tau.device != M.device:
+        raise ValueError("the history must lie on M's device")
+    _launch_apply(M, top, pc, t, m, V, tau, plan)
+    launches_apply += 1
+    return M
+
+
+def chain_alone_ms(M, top, pc, t):
+    """ms of the chain alone on half-sweep ``(top, pc)`` of float32 CUDA
+    ``M`` (``svdt_tiled_chain_alone``: the waits, pivot-column updates,
+    reflectors and slab hand-overs of the chain kernel, no other column's
+    apply), one launch between CUDA events.  The chain's latency bound;
+    uncounted, and it leaves ``M`` as no half-sweep does."""
+    top, pc, t = int(top), int(pc), int(t)
+    m = _check_sweep(M, top, pc, t)
+    if not _build.check_input(M, "M", 2):
+        raise ValueError("chain_alone_ms times the kernel: M must be a CUDA tensor")
+    plan = chain_plan(t)
+    V, tau = _history(M, t, m + 1, plan.rpl)
+    lib = _build.load("tiled_chain", _CHAIN_ENTRIES)
+    args = (M.data_ptr(), M.stride(0), top, pc, t, m, V.data_ptr(), tau.data_ptr(), plan.rpl,
+            plan.smem, _build.stream_of(M))
+    with torch.cuda.device(M.device):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        err = lib.svdt_tiled_chain_alone(*args)
+        stop.record()
+    _build.raise_on_error(err, "tiled_chain_alone")
+    torch.cuda.synchronize(M.device)
+    return start.elapsed_time(stop)
+
+
+def _transposer(A):
+    """``transpose`` of ``models/tiled.tile_sweeps`` on the card: the other
+    of two contiguous buffers takes ``M.T``."""
+    At = torch.empty_like(A)
+
+    def transpose(M):
+        other = At if M is A else A
+        return other.copy_(M.T)
+
+    return transpose
+
+
+def dense_to_band_slabs(A, band):
+    """The first design's tiled Stage I on float32 CUDA ``A`` in place: every
+    slab through :func:`factor_slab`, ``(n / band)^2`` launches, after
+    checking that both slab shapes fit (``ValueError`` before any launch).
+    The bitwise oracle of the two-kernel design, and its route for bands
+    past 128.  Returns ``A``."""
+    t = int(band)
+    n = A.shape[0]
+    sms = _sms(A.device)
+    slab_plan(n, t, t, sms)
+    if n > t:
+        slab_plan(n, t, 2 * t, sms)
+    return tiled.tile_sweeps(A, t, tiled.slab_sweep(factor_slab), _transposer(A))
+
+
 def dense_to_band_tiled(A, band=32):
     """Tiled Stage I (the reference's ``brd_p1``, the ``multicore`` rung):
     reduce square ``A`` to upper-band form with ``band`` superdiagonals
-    (``n % band == 0``).  A float32 CUDA tensor runs every slab through the
-    kernel, ``(n / band)^2`` launches, after checking that both slab shapes
-    fit (``ValueError`` before any launch); a CPU tensor runs
+    (``n % band == 0``).  A float32 CUDA tensor takes :func:`tiled_route`'s
+    design: bands up to 128 run each half-sweep as one chain and one apply
+    launch, ``2 (2 n / band - 1)`` launches; bands up to 168 the first
+    design, ``(n / band)^2``; a wider band raises ``ValueError`` before any
+    launch.  Both designs give the same bits.  A CPU tensor runs
     ``models/tiled.dense_to_band_tiled_plain``.  Returns a new tensor."""
     t = int(band)
     tiled.check_tiled(A, t)
@@ -142,15 +363,17 @@ def dense_to_band_tiled(A, band=32):
     if not _build.check_input(A, "A", 2):
         return tiled.dense_to_band_tiled_plain(A, t)
     n = A.shape[0]
-    sms = _sms(A.device)
-    slab_plan(n, t, t, sms)
-    if n > t:
-        slab_plan(n, t, 2 * t, sms)
-    At = torch.empty_like(A)
+    if tiled_route(n, t, _sms(A.device)) == "slabs":
+        return dense_to_band_slabs(A, t)
+    chain, apply = chain_plan(t), apply_plan(n, t, _sms(A.device))
+    V, tau = _history(A, t, n // t, chain.rpl)
 
-    def transpose(M):
-        other = At if M is A else A
-        return other.copy_(M.T)
+    def sweep(M, top, pc, t):
+        global launches_chain, launches_apply
+        m = (n - top) // t - 1
+        _launch_chain(M, top, pc, t, m, V, tau, chain)
+        launches_chain += 1
+        _launch_apply(M, top, pc, t, m, V, tau, apply)
+        launches_apply += 1
 
-    return tiled.tile_sweeps(A, t, factor_slab, transpose)
-
+    return tiled.tile_sweeps(A, t, sweep, _transposer(A))

@@ -950,16 +950,67 @@ def test_tiled_slab_refuses_a_tile_past_shared_memory(dev):
 
 
 def test_svdvals_multicore_on_card(dev):
-    # n = 1024, tiles of 128 (the band by size): 64 slab launches, then the
-    # routed chase and K2
+    # n = 1024, tiles of 128 (the band by size): a chain and an apply launch
+    # for each of the 15 half-sweeps and no slab launch, then the routed
+    # chase and K2
     from svdsolver_tpu_torch.ops.cuda import tiled_slab
 
     n = 1024
     A = torch.from_numpy(np.random.default_rng(0).uniform(0, 5, (n, n)).astype(np.float32)).to(dev)
-    before = tiled_slab.launches
+    before = (tiled_slab.launches, tiled_slab.launches_chain, tiled_slab.launches_apply)
     s = svdvals(A, method="multicore")
-    assert tiled_slab.launches - before == (n // 128) ** 2
+    half_sweeps = 2 * (n // 128) - 1
+    assert (tiled_slab.launches - before[0], tiled_slab.launches_chain - before[1],
+            tiled_slab.launches_apply - before[2]) == (0, half_sweeps, half_sweeps)
     assert _sigma_err(A, s) <= 1e-5
+
+
+@pytest.mark.parametrize("n,t", [(1024, 64), (1024, 32), (200, 8)])
+def test_tiled_sweeps_bit_equal_to_the_first_design(dev, rng, n, t):
+    # dense_to_band_tiled (a chain and an apply a half-sweep) against every
+    # slab through the first design's kernel on the same matrix
+    from svdsolver_tpu_torch.ops.cuda import tiled_slab
+
+    A = torch.from_numpy(rng.uniform(0, 5, (n, n)).astype(np.float32)).to(dev)
+    before = tiled_slab.launches_chain
+    got = tiled_slab.dense_to_band_tiled(A, band=t)
+    assert tiled_slab.launches_chain - before == 2 * (n // t) - 1
+    want = tiled_slab.dense_to_band_slabs(A.clone(), t)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("t", [32, 64, 128])
+@pytest.mark.parametrize("half", ["qr", "lq"])
+def test_tiled_chain_and_apply_kernels_match_plain(dev, rng, t, half):
+    # one half-sweep on rows of a 1024 matrix (QR-shaped, and LQ-shaped:
+    # pivots a tile left of the rows): the chain kernel against
+    # models/tiled.chain_plain (the block, v and tau), then the apply kernel
+    # against apply_plain on the kernel's history; each within 1e-4 of
+    # max |A| (float32 sums in another order over the half-sweep's steps),
+    # two launches bit-identical, the rows above the half-sweep untouched
+    from svdsolver_tpu_torch.models import tiled
+    from svdsolver_tpu_torch.ops.cuda import tiled_slab
+
+    n = 1024
+    top, pc = (n - 4 * t, n - 4 * t) if half == "qr" else (n - 4 * t, n - 5 * t)
+    A = torch.from_numpy(rng.uniform(0, 5, (n, n)).astype(np.float32)).to(dev)
+    amax = float(A.abs().max())
+    got, again, want = A.clone(), A.clone(), A.clone()
+    V, tau = tiled_slab.factor_sweep(got, top, pc, t)
+    V2, tau2 = tiled_slab.factor_sweep(again, top, pc, t)
+    Vp, taup = tiled.chain_plain(want, top, pc, t)
+    assert torch.equal(got, again) and torch.equal(V, V2) and torch.equal(tau, tau2)
+    assert float((got - want).abs().max()) <= 1e-4 * amax
+    assert float((V[:, :, :2 * t] - Vp).abs().max()) <= 1e-4
+    assert float((tau - taup).abs().max()) <= 1e-4
+    assert torch.equal(V[:, :, 2 * t:], torch.zeros_like(V[:, :, 2 * t:]))
+    plain = got.clone()
+    tiled_slab.apply_sweep(got, top, pc, t, V, tau)
+    tiled_slab.apply_sweep(again, top, pc, t, V, tau)
+    tiled.apply_plain(plain, top, pc, t, V, tau)
+    assert torch.equal(got, again)
+    assert float((got - plain).abs().max()) <= 1e-4 * amax
+    assert torch.equal(got[:top], A[:top])
 
 
 def test_svdvals_batch_rows_bit_equal_on_card(dev, rng):

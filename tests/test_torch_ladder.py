@@ -1,8 +1,8 @@
 """The ladder rungs of the port (``base``: Golub-Kahan, ``singlecore``: the
 blocked one-stage reduction, ``multicore``: the tiled Stage I) and the
 one-stage ``svd``, held to the JAX package on the CPU, where the port takes
-its plain paths; the slab kernel's wrapper and plan with its launch
-patched out.
+its plain paths; the tiled Stage I's wrappers and plans with their
+launches patched out.
 
 Tolerances: float64 comparisons with the JAX package (x64, jitted on the
 CPU) take 1e-10 of the matrix's scale: the same arithmetic in another
@@ -205,8 +205,10 @@ def test_slab_plan_refuses_past_shared_memory(t, rows):
 
 @pytest.fixture
 def launched(monkeypatch):
-    """Send CPU tensors down the slab wrapper's kernel path and log each
-    launch as (top, pc, t, bot, ctas) in place of running it."""
+    """Send CPU tensors down the tiled Stage I's kernel paths and log each
+    launch in place of running it: ("slab", top, pc, t, bot, ctas) for the
+    first design, ("chain", top, pc, t, m) and ("apply", top, pc, t, m,
+    ctas) for a half-sweep's two kernels."""
     calls = []
 
     class OnCard:
@@ -218,28 +220,43 @@ def launched(monkeypatch):
             return True
 
     def launch(A, top, pc, t, bot, plan):
-        calls.append((top, pc, t, bot, plan.ctas))
+        calls.append(("slab", top, pc, t, bot, plan.ctas))
+
+    def launch_chain(M, top, pc, t, m, V, tau, plan):
+        calls.append(("chain", top, pc, t, m))
+
+    def launch_apply(M, top, pc, t, m, V, tau, plan):
+        calls.append(("apply", top, pc, t, m, plan.ctas))
 
     monkeypatch.setattr(tiled_slab, "_build", OnCard())
     monkeypatch.setattr(tiled_slab, "_launch", launch)
+    monkeypatch.setattr(tiled_slab, "_launch_chain", launch_chain)
+    monkeypatch.setattr(tiled_slab, "_launch_apply", launch_apply)
     monkeypatch.setattr(tiled_slab, "_sms", lambda device: 132)
     return calls
 
 
 @pytest.mark.parametrize("n,t", [(64, 16), (96, 32), (256, 64), (32, 32)])
 def test_dense_to_band_tiled_launches_per_slab(launched, n, t):
-    before = tiled_slab.launches
+    # every band up to 128 runs two kernels a half-sweep, 2 (2 n / t - 1)
+    # launches, in the reference's order of half-sweeps: QR (c, c), LQ
+    # (c + t, c); each chain over the half-sweep's m TS slabs; no launch of
+    # the first design
+    before = (tiled_slab.launches, tiled_slab.launches_chain, tiled_slab.launches_apply)
     tiled_slab.dense_to_band_tiled(torch.zeros((n, n)), band=t)
     nbt = n // t
-    assert len(launched) == nbt * nbt == tiled_slab.launches - before
-    # the reference's order: QR (c, c), (c, i t); LQ (c + t, c), (c + t, i t)
+    assert len(launched) == 2 * (2 * nbt - 1)
+    assert (tiled_slab.launches - before[0], tiled_slab.launches_chain - before[1],
+            tiled_slab.launches_apply - before[2]) == (0, 2 * nbt - 1, 2 * nbt - 1)
     want = []
     for k in range(nbt):
         c = k * t
-        want += [(c, c, t, None)] + [(c, c, t, i * t) for i in range(k + 1, nbt)]
-        if k < nbt - 1:
-            want += [(c + t, c, t, None)] + [(c + t, c, t, i * t) for i in range(k + 2, nbt)]
-    assert [x[:4] for x in launched] == want
+        sweeps = [(c, nbt - k - 1)] + ([(c + t, nbt - k - 2)] if k < nbt - 1 else [])
+        for top, m in sweeps:
+            want += [("chain", top, c, t, m), ("apply", top, c, t, m)]
+    assert [x[:5] for x in launched] == want
+    ctas = max(1, -(-(n - t) // max(1, min(32, -(-(n - t) // 132)))))
+    assert all(x[5] == ctas for x in launched if x[0] == "apply")
 
 
 def test_tile_past_the_limit_raises_before_any_launch(launched):
@@ -249,14 +266,23 @@ def test_tile_past_the_limit_raises_before_any_launch(launched):
 
 
 def test_failed_launch_raises_with_no_fallback(monkeypatch, launched):
-    def fail(*a):
-        _build.raise_on_error(2, "tiled_slab")
+    # each kernel's failure raises; nothing falls back to another path
+    for name in ("tiled_slab", "tiled_chain", "tiled_apply"):
+        def fail(*a, _name=name):
+            _build.raise_on_error(2, _name)
 
-    monkeypatch.setattr(tiled_slab, "_launch", fail)
-    with pytest.raises(RuntimeError, match="tiled_slab launch failed"):
+        monkeypatch.setattr(tiled_slab, {"tiled_slab": "_launch", "tiled_chain": "_launch_chain",
+                                         "tiled_apply": "_launch_apply"}[name], fail)
+    with pytest.raises(RuntimeError, match="tiled_chain launch failed"):
         tiled_slab.dense_to_band_tiled(torch.zeros((64, 64)), band=16)
     with pytest.raises(RuntimeError, match="tiled_slab launch failed"):
         tiled_slab.factor_slab(torch.zeros((64, 64)), 0, 0, 16)
+    with pytest.raises(RuntimeError, match="tiled_slab launch failed"):
+        tiled_slab.dense_to_band_tiled(torch.zeros((272, 272)), band=136)
+    V, tau = torch.zeros((2, 16, 32)), torch.zeros((2, 16))
+    with pytest.raises(RuntimeError, match="tiled_apply launch failed"):
+        tiled_slab.apply_sweep(torch.zeros((64, 64)), 32, 16, 16, V, tau)
+    assert launched == []
 
 
 def test_factor_slab_checks_its_rows():
