@@ -4,7 +4,7 @@
 Run from the repository root: ``python3 chip_smoke.py``.  It
 
 1. reports the card (name, power limit), torch, CUDA and nvcc;
-2. builds the ten kernel sources of ``svdsolver_tpu_torch/csrc`` (one
+2. builds the thirteen kernel sources of ``svdsolver_tpu_torch/csrc`` (one
    ``nvcc`` each, all started together): the panel QR (one thread-block
    cluster), the sequential chase's L2 kernel (plain and recording
    entries), the bisection, the TGK solve, the wavefront chase (plain,
@@ -13,8 +13,8 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    chase's: the same kernel on a band store), the packed chase's L2
    kernel, the QR and dqds diagonalizers (each loop in one launch), and
    the tiled Stage I's kernels (a half-sweep's pivot-block chain, its apply
-   to the other columns, and the first design: a slab's t steps in one
-   launch);
+   to the other columns, the first design: a slab's t steps in one launch,
+   and the wide instance for bands past it);
 3. holds each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it: the panel QR at (b, m, r_off) = (128,
    3840, 0), (128, 3840, 3776) (identity reflectors past m), (64, 1024, 0)
@@ -75,8 +75,8 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    512, 1280, 3840 and at 997 and 250 lanes; drives ``svds`` at n = 1000,
    k = 250; times K2 at every G and both solve designs in turns at n =
    1024, 3840, 7680; and runs the scale net: the panel QR at m = 15,360
-   and 23,040, ``svdvals`` at 15,360 (against float64 svdvals, timed) and
-   23,040 (against a spectrum known by construction), ``svd`` at 7680 with
+   and 23,040, ``svdvals`` at 15,360 and 23,040 (against a spectrum known
+   by construction), ``svd`` at 7680 with
    its gates and its peak device memory.  Every main-path run shows the
    tree and the staged solve in the launch counts, never a first design;
 8. holds the two diagonalizer kernels bit-equal to their plain versions
@@ -117,7 +117,30 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    with svd's gates for every matrix; each batch beside B calls and the
    library on the batch; ``dense_to_band_uv_fused`` at 3840 (Ab bit-equal
    to ``dense_to_band_fused(segments=1)``, the factors' reconstruction and
-   orthogonality in float64).
+   orthogonality in float64);
+10. runs the widths past the narrow instances, which the reference takes
+   too (``phase_wide``): K1 past b = 256 against its plain version (Q R = P
+   and Q orthogonal at b up to 1536, block = n; entries within 1e-4 where
+   m >= 2b) and timed beside ``torch.geqrf``, Stage I on it (fused,
+   recording, with factors) against the plain Stage I; the chases' wide
+   pair (b >
+   256) on the L2 sequential kernel and the wavefront's L2 tick, plain and
+   recording, bit-equal to each other, against the plain chase, records
+   rebuilding the band, both timed; the tiled Stage I's wide instance
+   (``csrc/tiled_wide.cu``) ``torch.equal`` to the first design at t = 160
+   and to the two-kernel design at t = 64 and 128, within 1e-4 of the plain
+   Stage I at 960/t192 and 1024/t256, its two kernels against their plain
+   versions and timed beside ``geqrf`` / ``ormqr``; and ``svdvals`` with
+   tpu2 at blocks 384 and 512 (n = 2048), multicore at 192 and 256, block
+   = n at 256 and 640, ``svd`` at bands 384 and 512 (n = 2048), the counts
+   set to 0 before each call and read after (the path's kernels, the wide
+   pair on the routed chase);
+11. runs one-sided block Jacobi (``phase_jacobi``, PyTorch ops, no kernel
+   of its own): ``svd(A, method="jacobi")`` at n = 1024 and 3840,
+   ``svd_jacobi_pre`` at 1024, ``svd_jacobi_batch`` at (8, 256) (each
+   matrix's sweeps those of its single solve) and float64 ``svd_jacobi``
+   at 512, gated at 30 n eps, with sweeps, launches a round (profiler),
+   ms a round and ``torch.linalg.svd`` at the same shape.
 
 Any failure raises and exits non-zero.  The second-to-last line is the
 kernel table as JSON, the last ``{"ok": true, "device": {...}}``.  With no
@@ -148,7 +171,7 @@ REPS = 5
 SVD_REPS = 3
 SOURCES = ("panel_qr", "band_chase", "bisect", "tridiag_solve",
            "band_chase_wave", "band_chase_staged", "band_chase_vmem", "bidiag_qr", "dqds",
-           "tiled_slab", "tiled_chain", "tiled_apply")
+           "tiled_slab", "tiled_chain", "tiled_apply", "tiled_wide")
 # the variants' entries, counted by the kernel that ran: the packed chase
 # runs "band_chase_vmem_tma" (the TMA design on the band store) at every
 # band of these checks; "band_chase_vmem", its L2 packed kernel, takes the
@@ -173,9 +196,8 @@ TGK_CHECK = (512, 1280, 3840)
 DESIGN_TIMES = (1024, 3840, 7680)
 GROUPS = (1, 4, 8, 16, 32)  # K2's threads a sigma (1: the first design)
 SVDS_CASE = (1000, 250)  # (n, k): k lanes not a multiple of 4
-# the scale net: svdvals at SCALE_VALS (sigma against float64 svdvals at
-# 15,360, against a spectrum known by construction at 23,040) and svd at
-# SCALE_SVD with its gates and peak device memory
+# the scale net: svdvals at SCALE_VALS (sigma against a spectrum known by
+# construction) and svd at SCALE_SVD with its gates and peak device memory
 SCALE_VALS = (15360, 23040)
 SCALE_SVD = 7680
 WIDE_BAND = (640, 160)  # past the shared-memory tick's 128: the L2 tick
@@ -258,6 +280,37 @@ TILED_TIMES = ((3840, 128), (1024, 64))
 # through the first design's kernel at these (n, t)
 SWEEP_CHECK = ((3840, 128), (1024, 64), (1024, 32))
 SWEEP_SLABS = 4  # the half-sweep (top = n - 4t) each new kernel is held to its plain version on
+# the wide instances (phase_wide): K1 (b, m, r_off) past b = 256 (2 lanes a
+# row to 512, 1 past it; T in device memory), an LQ panel whose last pivots
+# lie past m, and one past 1024 rows (rows looped over the threads)
+WIDE_K1 = ((257, 1024, 0), (384, 2048, 0), (512, 2048, 0), (512, 2048, 1792),
+           (1024, 1024, 0), (1536, 1536, 0))
+WIDE_K1_TIME = (512, 2048, 0)  # timed beside torch.geqrf of the same panel
+WIDE_STAGE1 = (1152, 384)  # the fused Stage I entries against the plain Stage I
+# the chases' wide pair (n, band): the L2 sequential kernel and the
+# wavefront's L2 tick, plain and recording, bit-equal to each other, each
+# against the plain chase; the first has one wavefront lane, the second two
+WIDE_CHASE = ((1152, 384), (2048, 512), (1440, 288))
+WIDE_CHASE_TIME = (2048, 512)  # the rows' shape: both kernels, medians of 3
+# the tiled Stage I's wide instance forced where the first design (t = 160)
+# and the two-kernel design (t = 64, 128) run: torch.equal to them
+WIDE_TILED_BITS = ((640, 160), (512, 64), (1024, 128))
+# the wide instance on its route against the plain Stage I, and its kernels
+# on a 2-slab half-sweep against their plain versions and timed
+WIDE_TILED = ((960, 192), (1024, 256))
+# the entry points at the new widths: (entry, method, n, block)
+WIDE_PATHS = (("svdvals", "tpu2", 2048, 384), ("svdvals", "tpu2", 2048, 512),
+              ("svdvals", "multicore", 1024, 192), ("svdvals", "multicore", 1024, 256),
+              ("svdvals", "tpu2", 256, 256), ("svdvals", "multicore", 256, 256),
+              ("svdvals", "tpu2", 640, 640), ("svdvals", "multicore", 640, 640),
+              ("svd", "tpu2", 2048, 512), ("svd", "tpu2", 2048, 384))
+# one-sided block Jacobi (phase_jacobi): svd(method="jacobi") at these n,
+# svd_jacobi_pre, svd_jacobi_batch (B, n) and svd_jacobi in float64
+JACOBI_SVD = (1024, 3840)
+JACOBI_PRE = 1024
+JACOBI_BATCH = (8, 256)
+JACOBI_F64 = 512
+TOL_JACOBI = 30  # sigma, reconstruction and orthogonality: at most 30 n eps
 # published H100 SXM peaks (NVIDIA's data sheet, 700 W): float32 and
 # float64 outside the tensor cores, and HBM3
 PEAK_FP32 = 67e12
@@ -268,7 +321,7 @@ DEV = "cuda"
 
 CARD = ""  # the card's name and power limit, as nvidia-smi gives them
 TIMED = ("[times]", "[route]", "[profile]", "[slice]", "[svd]", "[ticks]", "[scale]",
-         "[diag]", "[linalg]", "[ladder]", "[batch]")
+         "[diag]", "[linalg]", "[ladder]", "[batch]", "[wide]", "[jacobi]")
 
 
 def say(*parts):
@@ -380,6 +433,8 @@ def _counters():
             "tiled_slab": (tiled_slab, "launches"),
             "tiled_chain": (tiled_slab, "launches_chain"),
             "tiled_apply": (tiled_slab, "launches_apply"),
+            "tiled_wide_chain": (tiled_slab, "launches_wide_chain"),
+            "tiled_wide_apply": (tiled_slab, "launches_wide_apply"),
             # not launches: runs of a plain diagonalizer loop, and dqds runs
             # that ended unconverged and took the bisection
             "plain_diag_loops": (diagonalize, "plain_loops"),
@@ -562,15 +617,16 @@ def path_band(n):
     return -(-n // b) * b, b
 
 
-def check_panel_qr(rng):
-    """K1 against its plain version at K1_SHAPES: outputs within TOL_K1,
+def check_panel_qr(rng, shapes=None):
+    """K1 against its plain version at ``shapes`` (K1_SHAPES): outputs within TOL_K1
+    (panels with m >= 2b),
     exact zeros and ones of the contract, identity reflectors past m, two
     launches bit-identical, Q = I - V T V^T orthogonal and Q R = P within
     TOL_Q (float64).  Returns the largest |kernel - plain|."""
     from svdsolver_tpu_torch.ops.cuda import panel_qr
 
     k1 = 0.0
-    for b, m, r_off in K1_SHAPES:
+    for b, m, r_off in shapes or K1_SHAPES:
         plan = panel_qr.cluster_plan(b, m)
         Pt = torch.from_numpy(rng.normal(size=(b, m)).astype(np.float32)).to(DEV)
         panel_qr.launches = 0
@@ -583,11 +639,17 @@ def check_panel_qr(rng):
                 f"panel_qr {shape}: two launches bit-identical")
         say(f"[kernels] panel_qr {shape}: one cluster of {plan.ctas} CTAs x "
             f"{plan.width} columns ({plan.smem_cols} in shared memory"
-            f"{', the rest in device memory' if plan.spill else ''}), "
+            f"{', the rest in device memory' if plan.spill else ''}), {plan.groups} "
+            f"lane(s) a row, T in {'device' if plan.tdev else 'shared'} memory, "
             f"{plan.smem} B shared memory a CTA; two launches bit-identical")
         want = panel_qr.panel_qr_plain(Pt, r_off)
         torch.cuda.synchronize()
-        for label, g, w in zip("RVT", got, want):
+        # entry by entry where the panel is at least twice as long as wide
+        # (every Stage I panel of b <= 256 at n >= 2b): the reflectors of a
+        # panel nearly as long as wide (block = n) end on tails of a few
+        # rounding-level entries, whose directions differ between two
+        # summation orders; both are held by Q R = P and Q^T Q = I below
+        for label, g, w in zip("RVT", got, want) if m >= 2 * b else ():
             err = float((g - w).abs().max())
             scale = float(w.abs().max())
             require(err <= TOL_K1 * scale, f"panel_qr {label} {shape}: "
@@ -1294,18 +1356,14 @@ def phase_scale():
 
     counts_by, seconds_by = {}, {}
     for n in SCALE_VALS:
-        if n == 15360:
-            A = uniform_matrix(n)
-            t0 = time.perf_counter()
-            ref = torch.linalg.svdvals(A.double())
-            torch.cuda.synchronize()
-            oracle = f"float64 torch.linalg.svdvals ({time.perf_counter() - t0:.1f} s)"
-        else:
-            t0 = time.perf_counter()
-            A, ref = known_spectrum_matrix(n)
-            torch.cuda.synchronize()
-            oracle = (f"sigma known by construction, Q1 diag(sigma) Q2^T "
-                      f"({time.perf_counter() - t0:.1f} s to build)")
+        # the spectrum known by construction at both sizes: float64 svdvals
+        # took 66 s at 15,360, a tenth of the script; the card test
+        # test_svdvals_at_scale keeps that oracle there (marked slow)
+        t0 = time.perf_counter()
+        A, ref = known_spectrum_matrix(n)
+        torch.cuda.synchronize()
+        oracle = (f"sigma known by construction, Q1 diag(sigma) Q2^T "
+                  f"({time.perf_counter() - t0:.1f} s to build)")
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
@@ -2712,6 +2770,501 @@ def phase_batch():
     return counts_vals, counts_svd
 
 
+def check_wide_chases(rng):
+    """The chases' wide pair at WIDE_CHASE, on the wide K1's Stage I band:
+    the L2 sequential kernel and the wavefront's L2 tick bit-equal to each
+    other, plain ((d, e)) and recording ((d, e) and the four records); the
+    recording (d, e) bit-equal to the plain; each against the plain chase
+    run on the card (spectra against float64 sigma(A), leading |d|); the
+    records rebuilding the band (but at the largest shape, whose rank-1
+    rebuild is slow); each run timed once (CUDA events), and both kernels
+    at WIDE_CHASE_TIME as medians of 3.  Returns ({row: max |sigma_kernel -
+    sigma_plain|}, {(n, b): times})."""
+    from svdsolver_tpu_torch.ops.cuda import band_chase, band_chase_wave, panel_qr
+    from svdsolver_tpu_torch.models import two_stage
+
+    errs = {"band_chase_wide": 0.0, "band_chase_rec_wide": 0.0,
+            "band_chase_wave_wide": 0.0, "band_chase_wave_rec_wide": 0.0}
+    times = {}
+    for n, b in WIDE_CHASE:
+        A = uniform_matrix(n, seed=11)
+        Ab = panel_qr.dense_to_band_fused(A, band=b)
+        reset_counts()
+        (d, e), l2 = _event_ms(lambda: band_chase.band_to_bidiagonal_l2(Ab, band=b))
+        (dw, ew), wv = _event_ms(lambda: band_chase_wave.band_to_bidiagonal_wave(Ab, band=b))
+        rec, l2r = _event_ms(lambda: band_chase.band_to_bidiagonal_accum_l2(Ab, band=b))
+        recw, wvr = _event_ms(lambda: band_chase_wave.band_to_bidiagonal_wave_accum(Ab, band=b))
+        c = read_counts()
+        lanes = two_stage.wave_lanes(n, b)
+        shape = f"n={n} b={b}"
+        require((c["band_chase"], c["band_chase_rec"], c["band_chase_wave_l2"],
+                 c["band_chase_wave_rec_l2"]) == (1, 1, 1, 1),
+                f"wide chases {shape}: one launch of each L2 entry, got {c}")
+        require(torch.equal(d, dw) and torch.equal(e, ew),
+                f"wide chase {shape}: wavefront L2 tick bit-equal to the L2 kernel")
+        require(all(torch.equal(x, y) for x, y in zip(rec, recw)),
+                f"wide recording chase {shape}: wavefront bit-equal to the L2 kernel")
+        require(torch.equal(rec[0], d) and torch.equal(rec[1], e),
+                f"wide recording chase {shape}: (d, e) bit-equal to the plain entry's")
+        say(f"[wide] chase {shape} ({lanes} wavefront lane(s)): L2 kernel and wavefront L2 "
+            "tick bit-equal, plain and recording ((d, e) and the four records)")
+        (dp, ep), pl = _event_ms(lambda: band_chase.band_to_bidiagonal_plain(Ab, band=b))
+        _, plr = _event_ms(lambda: band_chase.band_to_bidiagonal_accum_plain(Ab, band=b))
+        s_a = torch.linalg.svdvals(A.double())
+        smax = float(s_a[0])
+        s_k, s_p = bidiag_sigma(d, e), bidiag_sigma(dp, ep)
+        for label, sg in (("kernel", s_k), ("plain", s_p)):
+            err = float((sg - s_a).abs().max())
+            say(f"[wide] chase {shape} {label} spectrum vs float64 sigma(A): "
+                f"{err / smax:.3e} * sigma_max")
+            require(err <= TOL_SIGMA * smax, f"wide chase {shape} {label} spectrum")
+        lead = float(((d.abs() - dp.abs())[:8].abs() / dp.abs()[:8]).max())
+        say(f"[wide] chase {shape} |d|[:8] rel diff kernel vs plain: {lead:.3e}")
+        require(lead <= 1e-4, f"wide chase {shape}: leading |d| vs plain")
+        err = float((s_k - s_p).abs().max())
+        for k in errs:
+            errs[k] = max(errs[k], err)
+        if (n, b) != WIDE_CHASE_TIME:
+            check_records(f"wide kernel {shape}", Ab, b, rec)
+        del rec, recw
+        times[n, b] = {"l2": l2, "wave": wv, "l2_rec": l2r, "wave_rec": wvr, "plain": pl,
+                       "plain_rec": plr}
+        if (n, b) == WIDE_CHASE_TIME:
+            times[n, b].update({
+                "l2": cuda_ms(lambda: band_chase.band_to_bidiagonal_l2(Ab, band=b), reps=3),
+                "wave": cuda_ms(lambda: band_chase_wave.band_to_bidiagonal_wave(Ab, band=b),
+                                reps=3)})
+        tm = times[n, b]
+        bnd, bnd_r = bound(*work_chase(n, b, False)), bound(*work_chase(n, b, True))
+        say(f"[wide] chase {shape}: L2 kernel {tm['l2']:.3f} ms, wavefront L2 tick "
+            f"{tm['wave']:.3f} ms, recording {l2r:.3f} / {wvr:.3f} ms; plain {pl:.1f} / "
+            f"{plr:.1f} ms (one run each{'' if (n, b) != WIDE_CHASE_TIME else '; the L2 kernel '
+            'and the wavefront medians of 3'}); bound {bnd[0]:.4f} ({bnd[1]}) / {bnd_r[0]:.4f} ms")
+        del A, Ab
+        torch.cuda.empty_cache()
+    return errs, times
+
+
+def check_wide_tiled():
+    """The tiled Stage I's wide instance: forced at WIDE_TILED_BITS,
+    torch.equal to the first design (t = 160) and to the two-kernel design
+    (t <= 128); on its route at WIDE_TILED, its 2 (2 n / t - 1) launches
+    counted and the band within TOL_SLAB of the plain Stage I run on the
+    card (|kernel - plain|_F / |A|_F); its two kernels against their plain
+    versions on a 2-slab half-sweep (top = n - 2t, QR- and LQ-shaped, two
+    launches bit-identical), timed beside the plain versions, torch.geqrf /
+    torch.ormqr of the same slabs and the bounds; the Stage I timed beside
+    dense_to_band_fused at the same band.  Returns ({row: max abs error},
+    {(n, t): times})."""
+    from svdsolver_tpu_torch.models import tiled
+    from svdsolver_tpu_torch.ops.cuda import panel_qr, tiled_slab
+
+    for n, t in WIDE_TILED_BITS:
+        A = uniform_matrix(n, seed=12)
+        reset_counts()
+        got = tiled_slab.dense_to_band_wide(A.clone(), t)
+        torch.cuda.synchronize()
+        c = read_counts()
+        half = 2 * (n // t) - 1
+        require(c["tiled_wide_chain"] == c["tiled_wide_apply"] == half,
+                f"dense_to_band_wide n={n} t={t}: {half} launches of each kernel, got {c}")
+        if tiled_slab.tiled_route(n, t, tiled_slab._sms(A.device)) == "slabs":
+            want, other = tiled_slab.dense_to_band_slabs(A.clone(), t), "first design"
+        else:
+            want, other = tiled_slab.dense_to_band_tiled(A, band=t), "two-kernel design"
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        say(f"[wide] tiled n={n} t={t}: the wide instance ({half} chain and apply launches) "
+            f"torch.equal to the {other}: {same}")
+        require(same, f"tiled wide instance n={n} t={t} bit-equal to the {other}")
+        del A, got, want
+    errs, times = {"tiled_wide_chain": 0.0, "tiled_wide_apply": 0.0}, {}
+    for n, t in WIDE_TILED:
+        A = uniform_matrix(n, seed=13)
+        amax = float(A.abs().max())
+        require(tiled_slab.tiled_route(n, t, tiled_slab._sms(A.device)) == "wide",
+                f"tiled_route n={n} t={t} is the wide instance")
+        reset_counts()
+        got, ms = _event_ms(lambda: tiled_slab.dense_to_band_tiled(A, band=t))
+        c = read_counts()
+        half = 2 * (n // t) - 1
+        require(c["tiled_wide_chain"] == c["tiled_wide_apply"] == half
+                and c["tiled_chain"] == c["tiled_apply"] == c["tiled_slab"] == 0,
+                f"dense_to_band_tiled n={n} t={t}: the wide instance's launches, got {c}")
+        want, p_ms = _event_ms(lambda: tiled.dense_to_band_tiled_plain(A, t))
+        rel = float(torch.linalg.norm(got - want) / torch.linalg.norm(A))
+        fused = cuda_ms(lambda: panel_qr.dense_to_band_fused(A, band=t), reps=3)
+        wide_ms = cuda_ms(lambda: tiled_slab.dense_to_band_tiled(A, band=t), reps=3)
+        say(f"[wide] dense_to_band_tiled n={n} t={t} (the wide instance): |kernel - plain|_F "
+            f"/ |A|_F = {rel:.3e}; {wide_ms:.3f} ms (first run {ms:.3f}), plain {p_ms:.1f} ms "
+            f"(one run), dense_to_band_fused at b={t} {fused:.3f} ms")
+        require(rel <= TOL_SLAB, f"dense_to_band_tiled n={n} t={t} against the plain Stage I")
+        top = n - 2 * t
+        for label, pc_off in (("QR", 0), ("LQ", t)):
+            pc = top - pc_off
+            g1, g2, w = A.clone(), A.clone(), A.clone()
+            V, tau = tiled_slab.wide_chain(g1, top, pc, t)
+            V2, tau2 = tiled_slab.wide_chain(g2, top, pc, t)
+            Vp, taup = tiled.chain_plain(w, top, pc, t)
+            torch.cuda.synchronize()
+            require(torch.equal(g1, g2) and torch.equal(V, V2) and torch.equal(tau, tau2),
+                    f"tiled_wide_chain {label} n={n} t={t}: two launches bit-identical")
+            e_chain = float((g1 - w).abs().max())
+            e_v = max(float((V - Vp).abs().max()), float((tau - taup).abs().max()))
+            plain = g1.clone()
+            tiled_slab.wide_apply(g1, top, pc, t, V, tau)
+            tiled_slab.wide_apply(g2, top, pc, t, V, tau)
+            tiled.apply_plain(plain, top, pc, t, V, tau)
+            torch.cuda.synchronize()
+            require(torch.equal(g1, g2), f"tiled_wide_apply {label} n={n} t={t}: two launches "
+                    "bit-identical")
+            e_apply = float((g1 - plain).abs().max())
+            say(f"[wide] tiled_wide_chain / tiled_wide_apply {label} half-sweep n={n} t={t} "
+                f"(rows {top}, pivots {pc}, 2 slabs): two launches bit-identical; chain "
+                f"max|kernel - plain| / max|A| = {e_chain / amax:.3e} (v, tau {e_v:.3e}); "
+                f"apply {e_apply / amax:.3e}")
+            require(max(e_chain, e_apply) <= TOL_SLAB * amax and e_v <= TOL_SLAB,
+                    f"tiled wide kernels {label} n={n} t={t} against their plain versions")
+            errs["tiled_wide_chain"] = max(errs["tiled_wide_chain"], e_chain)
+            errs["tiled_wide_apply"] = max(errs["tiled_wide_apply"], e_apply)
+        M = A.clone()
+        V, tau = tiled_slab.wide_chain(M, top, 0, t)
+        chained = M.clone()
+        c_ms = fresh_ms(lambda: tiled_slab.wide_chain(M, top, 0, t), lambda: M.copy_(A))
+        a_ms = fresh_ms(lambda: tiled_slab.wide_apply(M, top, 0, t, V, tau),
+                        lambda: M.copy_(chained))
+        M.copy_(A)
+        _, cp_ms = _event_ms(lambda: tiled.chain_plain(M, top, 0, t))
+        M.copy_(chained)
+        _, ap_ms = _event_ms(lambda: tiled.apply_plain(M, top, 0, t, V, tau))
+        g_ms, o_ms = sweep_library_ms(A, top, 0, t, 2)
+        (cw, cb), (aw, ab) = work_sweep(n, t, 2)
+        cbound, abound = bound(cw, cb), bound(aw, ab)
+        times[n, t] = {"chain_ms": c_ms, "apply_ms": a_ms, "chain_plain_ms": cp_ms,
+                       "apply_plain_ms": ap_ms, "geqrf_ms": g_ms, "ormqr_ms": o_ms,
+                       "chain_bound": cbound, "apply_bound": abound, "stage1_ms": wide_ms,
+                       "stage1_plain_ms": p_ms, "fused_ms": fused, "steps": 2 * t}
+        say(f"[wide] tiled wide half-sweep n={n} t={t} 2 slabs (top {top}): chain {c_ms:.4f} "
+            f"ms ({c_ms * 1e3 / (2 * t):.3f} us a step), apply {a_ms:.4f} ms; plain chain "
+            f"{cp_ms:.3f}, apply {ap_ms:.3f} ms (one run); torch.geqrf {g_ms:.4f} + "
+            f"torch.ormqr {o_ms:.4f} ms; bound chain {cbound[0]:.5f} ({cbound[1]}), apply "
+            f"{abound[0]:.5f} ms ({abound[1]}) (medians of {REPS})")
+        del A, M, chained
+        torch.cuda.empty_cache()
+    return errs, times
+
+
+def check_wide_stage1():
+    """Stage I at WIDE_STAGE1 through K1's wide instance against the plain
+    Stage I run on the card, output by output: ``dense_to_band_fused``
+    against ``two_stage.dense_to_band``, ``dense_to_band_rec_fused`` (band
+    and records) against ``dense_to_band_rec``, ``dense_to_band_uv_fused``
+    (band, U1, V1) against ``dense_to_band_uv``; each |kernel - plain|_F /
+    |plain|_F within TOL_SLAB (the same reflectors, float32 sums in other
+    orders).  Returns the largest."""
+    from svdsolver_tpu_torch.models import two_stage
+    from svdsolver_tpu_torch.ops.cuda import panel_qr
+
+    n, b = WIDE_STAGE1
+    A = uniform_matrix(n, seed=18)
+    worst = 0.0
+    for name, kern, plain in (
+            ("dense_to_band_fused", lambda: (panel_qr.dense_to_band_fused(A, band=b),),
+             lambda: (two_stage.dense_to_band(A, band=b),)),
+            ("dense_to_band_rec_fused", lambda: panel_qr.dense_to_band_rec_fused(A, band=b),
+             lambda: two_stage.dense_to_band_rec(A, band=b)),
+            ("dense_to_band_uv_fused", lambda: panel_qr.dense_to_band_uv_fused(A, band=b),
+             lambda: two_stage.dense_to_band_uv(A, band=b))):
+        reset_counts()
+        got = kern()
+        c = read_counts()["panel_qr"]
+        want = plain()
+        errs = [float(torch.linalg.norm(g - w) / torch.linalg.norm(w)) for g, w in zip(got, want)]
+        say(f"[wide] {name} n={n} b={b} ({c} K1 launches, 2 lanes a row, T in device memory) "
+            f"against the plain Stage I: |kernel - plain|_F / |plain|_F = "
+            f"{', '.join(f'{e:.3e}' for e in errs)} (outputs in order)")
+        require(c == 2 * (n // b) and max(errs) <= TOL_SLAB, f"{name} n={n} b={b} vs plain")
+        worst = max(worst, max(errs))
+    return worst
+
+
+def time_wide_k1():
+    """K1 at WIDE_K1_TIME beside its plain version (one run) and
+    torch.geqrf of the same (m, b) panel: (ms, plain ms, library ms)."""
+    from svdsolver_tpu_torch.ops.cuda import panel_qr
+
+    b, m, r_off = WIDE_K1_TIME
+    Pt = uniform_matrix(m, seed=14)[:b].contiguous()
+    P = Pt.T.contiguous()
+    (k_ms, k2_ms), p_ms = in_turns(lambda: panel_qr.panel_qr(Pt, r_off),
+                                   lambda: panel_qr.panel_qr_plain(Pt, r_off))
+    lib_ms = cuda_ms(lambda: torch.geqrf(P))
+    bnd = bound(*work_panel_qr(b, m, r_off))
+    say(f"[wide] panel_qr b={b} m={m}: {min(k_ms, k2_ms):.3f} ms, plain {p_ms:.1f} ms (one "
+        f"run), torch.geqrf of the (m, b) panel {lib_ms:.3f} ms, bound {bnd[0]:.5f} ms "
+        f"({bnd[1]})")
+    return min(k_ms, k2_ms), p_ms, lib_ms
+
+
+def phase_wide(rng):
+    """F3's repair, on the card: K1 past b = 256 against its plain version
+    (check_panel_qr at WIDE_K1), the three fused Stage I entries on it
+    against the plain Stage I (check_wide_stage1), K1 timed; the chases'
+    wide pair
+    (check_wide_chases); the tiled Stage I's wide instance
+    (check_wide_tiled); then every entry of WIDE_PATHS with the launch
+    counts set to 0 just before each call and read just after: sigma
+    against float64 torch.linalg.svdvals to TOL_SIGMA sigma_max, svd's
+    gates, and the counts showing the kernels of the path (K1 or the tiled
+    Stage I's wide instance, the routed chase, K2; no first-design slab
+    launch).  The narrow instances' bits are the other phases' checks.
+    Returns (errors, times, {label: counts})."""
+    from svdsolver_tpu_torch import svd, svdvals
+    from svdsolver_tpu_torch.ops.cuda import band_chase_wave, tiled_slab
+
+    t0 = time.perf_counter()
+    errs = {"panel_qr_wide": check_panel_qr(rng, WIDE_K1)}
+    check_wide_stage1()
+    k1_times = time_wide_k1()
+    e_chase, chase_times = check_wide_chases(rng)
+    e_tiled, tiled_times = check_wide_tiled()
+    errs.update(e_chase)
+    errs.update(e_tiled)
+    counts, refs = {}, {}
+    for entry, method, n, b in WIDE_PATHS:
+        A = uniform_matrix(n, seed=15)
+        if n not in refs:
+            refs[n] = torch.linalg.svdvals(A.double())
+        ref = refs[n]
+        label = f"{entry} {method} n={n} block={b}"
+        reset_counts()
+        if entry == "svdvals":
+            s, ms = _event_ms(lambda: svdvals(A, method=method, block=b))
+            c = read_counts()
+            err = float((s.double() - ref).abs().max() / ref[0])
+            require(err <= TOL_SIGMA, f"{label}: sigma {err:.3e}")
+            gates = f"sigma err {err:.3e} * sigma_max"
+        else:
+            (U, s, Vh), ms = _event_ms(lambda: svd(A, method=method, band=b))
+            c = read_counts()
+            g = svd_gates(label, A, U, s, Vh, ref)
+            gates = ", ".join(f"{k} {v:.3e}" for k, v in g.items())
+            del U, Vh
+        fired = {k: v for k, v in c.items() if v}
+        say(f"[wide] {label}: {ms:.1f} ms (one run, builds done); {gates}; launches {fired}")
+        stage1 = c["tiled_wide_chain"] if method == "multicore" else c["panel_qr"]
+        require(stage1 > 0 and c["tiled_slab"] == 0 and c["bisect"] > 0,
+                f"{label}: the path's kernels, got {fired}")
+        chase = sum(c[k] for k in ("band_chase", "band_chase_rec", "band_chase_wave_l2",
+                                   "band_chase_wave_rec_l2", "band_chase_staged",
+                                   "band_chase_staged_rec", "band_chase_wave",
+                                   "band_chase_wave_rec"))
+        require(chase == 1, f"{label}: one chase launch, got {fired}")
+        if b > band_chase_wave.NARROW_BAND and n > b:
+            lanes = band_chase_wave.wave_chase_preferred(n, b)
+            key = ("band_chase_wave" if lanes else "band_chase") + (
+                "_rec" if entry == "svd" else "") + ("_l2" if lanes else "")
+            require(c[key] == 1, f"{label}: the wide pair on the routed chase {key}")
+        if method == "multicore" and b > 168:
+            require(tiled_slab.tiled_route(n, b, tiled_slab._sms(A.device)) == "wide",
+                    f"{label}: the wide tiled route")
+        counts[label] = c
+        del A
+        torch.cuda.empty_cache()
+    say(f"[done] phase_wide {time.perf_counter() - t0:.1f} s")
+    return errs, {"k1": k1_times, "chase": chase_times, "tiled": tiled_times}, counts
+
+
+def jacobi_gates(label, A, U, s, Vh):
+    """The Jacobi checks of tests/test_jacobi.py in float64: sigma against
+    float64 torch.linalg.svdvals over sigma_max, |U diag(s) Vh - A|_F /
+    |A|_F, and U, Vh orthogonal on the numerical range (max entry of
+    U^T U - I), each gated at TOL_JACOBI n eps (LAPACK's SVD test ratio:
+    Jacobi's rounding grows with the rotations a column takes, so the
+    JAX package's float32 gates at n = 192 do not carry to n = 3840; on the
+    CPU at n = 512 float32 the JAX package itself gives a reconstruction of
+    7.1e-05 and the port 9.9e-05, both over its n = 192 gate)."""
+    from svdsolver_tpu_torch.models import jacobi
+
+    lim = TOL_JACOBI * A.shape[-1] * jacobi._eps_eff(A.dtype)
+    Ad, Ud, Vd, sd = A.double(), U.double(), Vh.double(), s.double()
+    ref = torch.linalg.svdvals(Ad)
+    k = s.shape[-1]
+    errs = {"sigma": float((sd - ref).abs().max() / ref[0]),
+            "recon": float(torch.linalg.norm(Ud * sd @ Vd - Ad) / torch.linalg.norm(Ad))}
+    alive = sd > np.sqrt(k) * jacobi._eps_eff(A.dtype) * float(sd[0])
+    Ua, Va = Ud[:, alive], Vd[alive]
+    eye = torch.eye(int(alive.sum()), dtype=torch.float64, device=A.device)
+    errs["orth"] = max(float((Ua.T @ Ua - eye).abs().max()), float((Va @ Va.T - eye).abs().max()))
+    for key in ("sigma", "recon", "orth"):
+        require(errs[key] <= lim, f"{label}: {key} {errs[key]:.3e} > {lim:.3e}")
+    errs["gate"] = lim
+    return errs
+
+
+def jacobi_rounds(A, b):
+    """One tournament round of ``A``'s Jacobi solve at block ``b``, measured
+    eagerly: launches a round (torch.profiler's device events), ms a round
+    (CUDA events, median of REPS), host ms a round, rounds a sweep, the
+    device's busy share of a round; and a sweep of rounds replayed from
+    the solve's CUDA graph (``jacobi._Rounds``): ms a round, and the one-off
+    ms of the capture."""
+    from torch.profiler import ProfilerActivity, profile
+    from svdsolver_tpu_torch.models import jacobi
+
+    n = A.shape[0]
+    n_pad = -(-n // (2 * b)) * (2 * b)
+    W = torch.nn.functional.pad(A, (0, n_pad - n))[None].contiguous()
+    V = torch.eye(n_pad, dtype=A.dtype, device=A.device)[None].contiguous()
+    perms, iperms = jacobi._schedule_cols(n_pad, b, A.device)
+    ip, ii = jacobi._schedule_cols(2 * b, 1, A.device)
+    eps = jacobi._eps_eff(A.dtype)
+
+    def one():
+        return jacobi._jacobi_round(W, V, perms[1], iperms[1], ip, ii, b, eps)
+
+    ms = cuda_ms(one)
+    t0 = time.perf_counter()
+    for _ in range(REPS):
+        one()
+    host = (time.perf_counter() - t0) * 1e3 / REPS
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        one()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    launches = sum(e.count for e in events)
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    sched = (perms, iperms, ip, ii)
+    rounds, capture_ms = _event_ms(lambda: jacobi._Rounds(W, V, sched, b, eps))
+    graph_ms = cuda_ms(lambda: rounds.sweep(W, V), reps=3) / perms.shape[0]
+    return (launches, ms, host, perms.shape[0], busy / ms if ms else 0.0, graph_ms,
+            capture_ms)
+
+
+def phase_jacobi():
+    """One-sided block Jacobi on the card (PyTorch ops; no kernel of its
+    own): ``svd(A, method="jacobi")`` at JACOBI_SVD (float32 uniform),
+    ``svd_jacobi_pre`` at JACOBI_PRE, ``svd_jacobi_batch`` at JACOBI_BATCH
+    (each matrix held to its own single solve), ``svd_jacobi`` in float64
+    at JACOBI_F64, each with the JAX package's gates, its sweeps, one
+    round's launches, device ms and host ms, and ``torch.linalg.svd`` at the
+    same shape.  Returns {label: numbers}."""
+    from svdsolver_tpu_torch import svd, svd_jacobi, svd_jacobi_batch, svd_jacobi_pre
+    from svdsolver_tpu_torch.models import jacobi
+
+    t0 = time.perf_counter()
+    out = {}
+
+    cases = [("svd jacobi", n, torch.float32, 64) for n in JACOBI_SVD]
+    cases += [("svd_jacobi_pre", JACOBI_PRE, torch.float32, 16),
+              ("svd_jacobi float64", JACOBI_F64, torch.float64, 64)]
+    calls = {"svd jacobi": lambda A: svd(A, method="jacobi"), "svd_jacobi_pre": svd_jacobi_pre,
+             "svd_jacobi float64": svd_jacobi}
+    for entry, n, dtype, b in cases:
+        A = uniform_matrix(n, seed=16).to(dtype)
+        label = f"{entry} n={n} {str(dtype).split('.')[1]}"
+        (U, s, Vh), ms = _event_ms(lambda: calls[entry](A))
+        sweeps = int(jacobi.last_sweeps[0])
+        g = jacobi_gates(label, A, U, s, Vh)
+        lib_ms = cuda_ms(lambda: torch.linalg.svd(A, full_matrices=False), reps=3)
+        launches, r_ms, r_host, rounds, busy, g_ms, cap_ms = jacobi_rounds(A, b)
+        out[label] = {"ms": ms, "sweeps": sweeps, "rounds_a_sweep": rounds,
+                      "launches_a_round": launches, "round_eager_ms": r_ms,
+                      "round_host_ms": r_host, "round_busy": busy, "round_graph_ms": g_ms,
+                      "capture_ms": cap_ms, "library_ms": lib_ms, **g}
+        say(f"[jacobi] {label} (block {b}): {ms:.1f} ms (one run), {sweeps} sweeps of "
+            f"{rounds} rounds; a round replayed from the graph {g_ms:.3f} ms (capture "
+            f"{cap_ms:.1f} ms once a solve); eagerly {r_ms:.3f} ms on CUDA events ({r_host:.3f} "
+            f"ms of host time), {launches} launches ({r_ms * 1e3 / max(launches, 1):.1f} us "
+            f"each), kernels {100 * busy:.1f}% of it; torch.linalg.svd {lib_ms:.2f} ms; sigma "
+            f"{g['sigma']:.3e}, recon {g['recon']:.3e}, orth {g['orth']:.3e} (gate "
+            f"{g['gate']:.3e})")
+        del A, U, Vh
+        torch.cuda.empty_cache()
+    B, n = JACOBI_BATCH
+    rng = np.random.default_rng(17)
+    As = torch.from_numpy(rng.uniform(0, 5, (B, n, n)).astype(np.float32)).to(DEV)
+    (U, s, Vh), ms = _event_ms(lambda: svd_jacobi_batch(As))
+    sweeps = jacobi.last_sweeps.tolist()
+    worst = 0.0
+    for i in range(B):
+        jacobi_gates(f"svd_jacobi_batch ({B}, {n}) [{i}]", As[i], U[i], s[i], Vh[i])
+        Ui, si, Vhi = svd_jacobi(As[i], block=16)
+        one = int(jacobi.last_sweeps[0])
+        require(one == sweeps[i], f"svd_jacobi_batch [{i}]: {sweeps[i]} sweeps, alone {one}")
+        worst = max(worst, float((s[i] - si).abs().max() / si[0]))
+    lib_ms = cuda_ms(lambda: torch.linalg.svd(As, full_matrices=False), reps=3)
+    launches, r_ms, r_host, rounds, busy, g_ms, _ = jacobi_rounds(As[0], 16)
+    out[f"svd_jacobi_batch ({B}, {n})"] = {"ms": ms, "sweeps": sweeps, "library_ms": lib_ms,
+                                           "vs_single": worst}
+    say(f"[jacobi] svd_jacobi_batch ({B}, {n}) float32 (block 16): {ms:.1f} ms (one run), "
+        f"sweeps {sweeps} (each as its single solve's; sigma within {worst:.3e} sigma_max of "
+        f"it); torch.linalg.svd on the batch {lib_ms:.2f} ms; one matrix's round {g_ms:.3f} "
+        f"ms replayed, {r_ms:.3f} ms eagerly, {launches} launches")
+    say(f"[done] phase_jacobi {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def wide_rows(errs, times, counts):
+    """The kernel line's rows of the wide instances: launches from
+    phase_wide's entry runs."""
+    src = "svdsolver_tpu_torch/csrc/{}.cu"
+    total = {k: sum(c[k] for c in counts.values()) for k in next(iter(counts.values()))}
+    rows = []
+    b, m, r_off = WIDE_K1_TIME
+    k_ms, p_ms, lib_ms = times["k1"]
+    bnd = bound(*work_panel_qr(b, m, r_off))
+    rows.append({
+        "name": "panel_qr_wide", "route": "cuda", "source": src.format("panel_qr"),
+        "replaces": "svdsolver_tpu/ops/pallas/panel_qr.py:30", "tpu": ["K1"],
+        "launches": total["panel_qr"], "max_abs_err": errs["panel_qr_wide"], "ms": k_ms,
+        "plain_ms": p_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib_ms,
+        "shape": f"b={b} m={m}", "instance": "b > 256: 2 lanes a row (1 past 512), T in "
+                                            "device memory"})
+    for name, key, record, kernel, tpu, repl in (
+            ("band_chase_wide", "l2", False, "band_chase", ["K3", "K5"],
+             "svdsolver_tpu/ops/pallas/band_chase.py:331 + band_chase_stream.py:118"),
+            ("band_chase_rec_wide", "l2_rec", True, "band_chase", ["K6", "K8"],
+             "svdsolver_tpu/ops/pallas/band_chase.py:191 + band_chase_stream.py:118 (rec=True)"),
+            ("band_chase_wave_wide", "wave", False, "band_chase_wave", ["K4", "K13"],
+             "svdsolver_tpu/ops/pallas/band_chase.py:676 + band_chase_wave.py:687"),
+            ("band_chase_wave_rec_wide", "wave_rec", True, "band_chase_wave", ["K7"],
+             "svdsolver_tpu/ops/pallas/band_chase_wave.py:959")):
+        n, bw = WIDE_CHASE_TIME
+        tm = times["chase"][n, bw]
+        bnd = bound(*work_chase(n, bw, record))
+        count = {"band_chase_wide": "band_chase", "band_chase_rec_wide": "band_chase_rec",
+                 "band_chase_wave_wide": "band_chase_wave_l2",
+                 "band_chase_wave_rec_wide": "band_chase_wave_rec_l2"}[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": src.format(kernel), "replaces": repl,
+            "tpu": tpu, "launches": sum(c[count] for lbl, c in counts.items()
+                                        if int(lbl.split("block=")[1]) > 256),
+            "max_abs_err": errs[name], "ms": tm[key],
+            "plain_ms": tm["plain_rec" if record else "plain"], "bound_ms": bnd[0],
+            "bound_by": bnd[1], "library_ms": None, "shape": f"n={n} b={bw}",
+            "instance": "the wide pair of chase_pair.cuh (b > 256)",
+            "designs_ms": {f"n={n_} b={b_}": v for (n_, b_), v in times["chase"].items()}})
+    n, t = WIDE_TILED[1]
+    tm = times["tiled"][n, t]
+    for name, part, lib in (("tiled_wide_chain", "chain", "geqrf_ms"),
+                            ("tiled_wide_apply", "apply", "ormqr_ms")):
+        bnd = tm[f"{part}_bound"]
+        rows.append({
+            "name": name, "route": "cuda", "source": src.format("tiled_wide"),
+            "replaces": ("svdsolver_tpu/models/tiled.py:59 + :72 (the lax.fori_loop of "
+                         "_slab_factor_step :33, no Pallas kernel)"),
+            "tpu": [], "launches": total[name], "max_abs_err": errs[name],
+            "ms": tm[f"{part}_ms"], "plain_ms": tm[f"{part}_plain_ms"], "bound_ms": bnd[0],
+            "bound_by": bnd[1], "library_ms": tm[lib],
+            "shape": f"2-slab half-sweep n={n} t={t} (top = n - 2t)",
+            "dense_to_band_tiled_ms": {f"n={n_} t={t_}": v["stage1_ms"]
+                                       for (n_, t_), v in times["tiled"].items()}})
+    return rows
+
+
 def diag_rows(rows, counts_diag):
     """The kernel line's rows of the two diagonalizers: no TPU kernel, each
     the counterpart of an XLA-compiled loop; ms, plain ms, library ms,
@@ -3096,6 +3649,8 @@ def main():
     ladder_vals, ladder_svd, slab_rows = phase_ladder()
     batch_vals, batch_svd = phase_batch()
     say(f"[done] the ladder and the batches {time.perf_counter() - t0:.1f} s")
+    wide_errs, wide_times, wide_counts = phase_wide(np.random.default_rng(1))
+    phase_jacobi()
     counts_vals.update(ladder_vals)
     counts_vals.update(batch_vals)
     counts_svd.update(ladder_svd)
@@ -3111,6 +3666,7 @@ def main():
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     rows = kernel_table(errs, counts_vals, counts_svd, kt, lib, variants, route, k1, ticks,
                         designs, staged) + diag_rows(diag, counts_diag) + slab_rows
+    rows += wide_rows(wide_errs, wide_times, wide_counts)
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -7,7 +7,9 @@ deflation, dqds) on every rung of the ladder (``base``: Golub-Kahan
 ``multicore``: the tiled Stage I; ``tpu1``, ``tpu2``: two-stage), the full
 SVD ``svd(A)`` / ``svds(A, k)`` (recording reduction, bisection, TGK
 inverse iteration, back-transforms; ``svd(method="singlecore")`` the
-one-stage reduction with factors), the batch entries ``svdvals_batch`` and
+one-stage reduction with factors; ``svd(method="jacobi")``, one-sided
+block Jacobi: ``svd_jacobi``, ``svd_jacobi_batch``, ``svd_jacobi_pre``, on
+PyTorch ops), the batch entries ``svdvals_batch`` and
 ``svd_batch`` (a loop over the batch), the chase
 variants (``bidiagonalize_two_stage``, the wavefront schedule, the flags of
 ``ops.cuda.band_chase.band_to_bidiagonal`` and the packed and
@@ -50,6 +52,11 @@ from svdsolver_tpu_torch.ops.cuda.bidiag_qr import (
 from svdsolver_tpu_torch.ops.cuda.dqds import dqds_svdvals
 from svdsolver_tpu_torch.models.svd import svdvals, svdvals_batch, Bidiagonal
 from svdsolver_tpu_torch.models.vectors import svd, svds, svd_batch, bidiagonal_svd
+from svdsolver_tpu_torch.models.jacobi import (
+    svd_jacobi,
+    svd_jacobi_batch,
+    svd_jacobi_pre,
+)
 from svdsolver_tpu_torch.linalg import (
     pinv,
     lstsq,
@@ -90,6 +97,9 @@ __all__ = [
     "svds",
     "svd_batch",
     "bidiagonal_svd",
+    "svd_jacobi",
+    "svd_jacobi_batch",
+    "svd_jacobi_pre",
     "pinv",
     "lstsq",
     "matrix_rank",

@@ -6,7 +6,7 @@
 // kernel, and the card's sequential chase for the shapes the staged TMA
 // design (band_chase_staged.cu) does not take: b > 128, b or n not a
 // multiple of 4, or A not 16-byte aligned (ops/cuda/band_chase.
-// staged_route, decided by shape before launch).  For those shapes
+// staged_route, decided by shape before launch), every band up to n.  For those shapes
 // svdt_band_chase stands for the TPU kernels
 //   svdsolver_tpu/ops/pallas/band_chase.py        _chase_kernel (K3: dense
 //       matrix in HBM, one DMA'd window per pair);
@@ -46,6 +46,10 @@
 // barriers.  So one SM's latency to L2 and the barriers bound it, not FLOPs
 // or device memory bandwidth.
 //
+// Bands past 256 run the wide pair of chase_pair.cuh (KPL = kWide, v in
+// dynamic shared memory), as the wavefront's L2 tick does: the two give the
+// same (d, e) and records at every band.
+//
 // Design: one block of 512 threads walks the sequential schedule over the
 // dense n x n matrix in device memory, in place, with the one chase_pair of
 // chase_pair.cuh (dense accessor).  The window does not fit shared memory
@@ -72,9 +76,11 @@ template <int KPL, bool Rec>
 __global__ void __launch_bounds__(kThreads)
 band_chase_kernel(float* __restrict__ A, float* __restrict__ d,
                   float* __restrict__ e, int n, int b, Records rec) {
-  __shared__ float v[kMaxBand];
+  __shared__ float v_narrow[kMaxBand];
   __shared__ float part[kThreads];
   __shared__ float s_tau[2];
+  extern __shared__ float v_wide[];  // b floats for the wide pair
+  float* v = KPL == kWide ? v_wide : v_narrow;
   const Slot none = {nullptr, nullptr};
   const DenseAt acc = {A, (size_t)n};
   for (int i = 0; i < n - 1; ++i) {
@@ -96,14 +102,29 @@ band_chase_kernel(float* __restrict__ A, float* __restrict__ d,
   }
 }
 
+// The wide pair's v: dynamic shared memory of b floats.
+template <int KPL, bool Rec>
+int launch_one(float* A, float* d, float* e, int n, int b, Records rec,
+               cudaStream_t s) {
+  const size_t smem = KPL == kWide ? sizeof(float) * (size_t)b : 0;
+  if (smem > 0) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        band_chase_kernel<KPL, Rec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  band_chase_kernel<KPL, Rec><<<1, kThreads, smem, s>>>(A, d, e, n, b, rec);
+  return (int)cudaGetLastError();
+}
+
 template <bool Rec>
 int launch(float* A, float* d, float* e, int n, int b, Records rec,
            void* stream) {
-  if (n < 2 || b < 1 || b > kMaxBand) return (int)cudaErrorInvalidValue;
+  if (n < 2 || b < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  SVDT_KPL_DISPATCH(
-      b, band_chase_kernel<KPL, Rec><<<1, kThreads, 0, s>>>(A, d, e, n, b, rec));
-  return (int)cudaGetLastError();
+  int err = 0;
+  SVDT_BAND_DISPATCH(b, err = launch_one<KPL, Rec>(A, d, e, n, b, rec, s));
+  return err;
 }
 
 }  // namespace

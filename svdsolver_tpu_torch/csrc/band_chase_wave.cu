@@ -57,7 +57,9 @@
 //
 // Two ticks run this schedule.  The L2 tick (wave_chase_kernel) runs the
 // one chase_pair (or the deferred-left slot) on the matrix through L2; it
-// serves bands 128 < b <= 256 and shapes the copy engine cannot take.  The
+// serves bands past 128 and shapes the copy engine cannot take (past 256
+// the plain and recording entries run the wide pair of chase_pair.cuh, v
+// in dynamic shared memory; the deferred-left entry stops at 256).  The
 // shared-memory tick (wave_smem_kernel: svdt_band_chase_wave_smem and
 // _smem_rec; wave_smem_dl_kernel: _smem_dl; where the wrapper's
 // smem_tick_takes holds: 4 <= b <= 128, b and n multiples of 4, every band
@@ -343,11 +345,13 @@ __global__ void __launch_bounds__(kThreads)
 wave_chase_kernel(float* __restrict__ A, float* __restrict__ d,
                   float* __restrict__ e, int n, int b, int L, int T,
                   unsigned* ctr, Ring ring, Records rec) {
-  __shared__ float v[kMaxBand];
+  __shared__ float v_narrow[kMaxBand];
   __shared__ float vp[kMaxBand];
   __shared__ float fcol[2 * kMaxBand];
   __shared__ float part[kThreads];
   __shared__ float s_tau[2];
+  extern __shared__ float v_wide[];  // b floats for the wide pair
+  float* v = KPL == kWide ? v_wide : v_narrow;
   const Smem sm = {v, vp, fcol, part, s_tau};
   const DenseL2At a = {A, (size_t)n};
   const Slot none = {nullptr, nullptr};
@@ -1036,7 +1040,8 @@ template <bool DeferLeft, bool Rec>
 int launch(float* A, float* d, float* e, int n, int b, unsigned* ctr,
            float* ring_v, float* ring_t, int ring_slots, Records rec,
            int max_ctas, int* ctas, void* stream) {
-  if (n < 2 || b < 1 || b > kMaxBand) return (int)cudaErrorInvalidValue;
+  // the deferred-left slot has no wide instance: b <= kMaxBand
+  if (n < 2 || b < 1 || (DeferLeft && b > kMaxBand)) return (int)cudaErrorInvalidValue;
   const int S = nc_of(0, n, b) + (DeferLeft ? 1 : 0);  // slots past the head
   int L = lanes_of(S);
   int T = 3 * (n - 2) + S + 1;
@@ -1045,8 +1050,14 @@ int launch(float* A, float* d, float* e, int n, int b, unsigned* ctr,
   cudaStream_t s = (cudaStream_t)stream;
   void* args[] = {&A, &d, &e, &n, &b, &L, &T, &ctr, &ring, &rec};
   int err = 0;
-  SVDT_KPL_DISPATCH(b, err = coop_launch(wave_chase_kernel<KPL, DeferLeft, Rec>,
-                                         L + 1, max_ctas, args, 0, s, ctas));
+  if constexpr (DeferLeft)
+    SVDT_KPL_DISPATCH(b, err = coop_launch(wave_chase_kernel<KPL, true, Rec>, L + 1,
+                                           max_ctas, args, 0, s, ctas));
+  else  // the wide pair's v: b floats of dynamic shared memory
+    SVDT_BAND_DISPATCH(b, err = coop_launch(wave_chase_kernel<KPL, false, Rec>, L + 1,
+                                            max_ctas, args,
+                                            KPL == kWide ? sizeof(float) * (size_t)b : 0,
+                                            s, ctas));
   return err;
 }
 

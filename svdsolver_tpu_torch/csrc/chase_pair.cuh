@@ -24,6 +24,17 @@
 //    in the order of the groups.
 // KPL = b/32 rounded up to a power of two is a template parameter so the
 // register arrays stay registers.
+//
+// Bands past kMaxBand take the wide pair (KPL = kWide): the same schedule,
+// masks and reflector rule, with v in shared memory of b floats (the
+// kernel's dynamic shared memory), each reflector built by the whole block
+// (a block reduction of the sum of squares), the right apply a warp a row
+// in passes of 32 columns, and the left apply a thread a column in passes
+// over the 2b window columns.  Its products and sums are rounded one
+// operation at a time (__fmul_rn, __fadd_rn), so the kernels that run it
+// (the L2 sequential kernel and the wavefront's L2 tick, plain and
+// recording) give the same (d, e) and records bit for bit.  The narrow
+// instances (b <= kMaxBand) are untouched by it.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -43,6 +54,7 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxBand = kThreads / 2;  // 2b columns <= kThreads
 constexpr int kChunk = 16;     // left-apply rows a thread holds at once
+constexpr int kWide = 0;       // the KPL of the wide pair (b > kMaxBand)
 
 // ---- accessors: where entry (r, c) lives ----
 
@@ -315,9 +327,9 @@ __device__ void apply_left(const Acc& a, int n, int b, int rl, int c0,
 // one to slot `rl_`.  v (b floats), part (kThreads floats) and s_tau (2
 // floats) are shared memory.  Ends with a barrier.
 template <int KPL, bool Rec, class Acc>
-__device__ void chase_pair(const Acc& a, int n, int b, int r0, int c0, int wr,
-                           int lr0, float* v, float* part, float* s_tau,
-                           Slot rr, Slot rl_) {
+__device__ void chase_pair_narrow(const Acc& a, int n, int b, int r0, int c0,
+                                  int wr, int lr0, float* v, float* part,
+                                  float* s_tau, Slot rr, Slot rl_) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   if (c0 >= n) return;  // all-zero window: both reflectors are the identity
@@ -354,6 +366,161 @@ __device__ void chase_pair(const Acc& a, int n, int b, int r0, int c0, int wr,
   SVDT_SPLIT(6);
 }
 
+// ---- the wide pair (b > kMaxBand, KPL = kWide) ----
+
+// Every thread: the reflector of x[k] = load(k), k < b, pivot x[0], built
+// in shared v (b floats); returns tau to every thread.  The sum of squares
+// of x[1:]: each thread's entries k = tid + kThreads q in order of q, a
+// warp butterfly, then every thread sums the kWarps warp totals (part) in
+// warp order, so all hold the same bits.  Ends with a barrier.
+template <class Load>
+__device__ float block_reflector(Load load, int b, float* v, float* part) {
+  const int tid = threadIdx.x;
+  float s = 0.f;
+  for (int k = tid; k < b; k += kThreads) {
+    const float x = load(k);
+    v[k] = x;
+    if (k >= 1) s = __fadd_rn(s, __fmul_rn(x, x));
+  }
+  s = warp_sum(s);
+  if ((tid & 31) == 0) part[tid >> 5] = s;
+  __syncthreads();
+  float sigma2 = 0.f;
+  for (int w = 0; w < kWarps; ++w) sigma2 = __fadd_rn(sigma2, part[w]);
+  const float pivot = v[0];
+  const float norm = __fsqrt_rn(__fadd_rn(__fmul_rn(pivot, pivot), sigma2));
+  const float beta = pivot >= 0.f ? -norm : norm;
+  const bool trivial = sigma2 == 0.f;
+  const float denom = trivial ? 1.f : __fsub_rn(pivot, beta);
+  const float tau =
+      trivial ? 0.f : __fdiv_rn(__fsub_rn(beta, pivot), beta == 0.f ? 1.f : beta);
+  __syncthreads();  // every thread has read v[0] and part
+  for (int k = tid; k < b; k += kThreads) v[k] = k == 0 ? 1.f : __fdiv_rn(v[k], denom);
+  __syncthreads();
+  return tau;
+}
+
+// Every thread, after block_reflector: the reflector into its record slot
+// (a zero row for tau = 0), as record() stores a narrow one.
+__device__ __forceinline__ void block_record(const float* v, float tau, int b,
+                                             Slot s) {
+  for (int k = threadIdx.x; k < b; k += kThreads) s.v[k] = tau != 0.f ? v[k] : 0.f;
+  if (threadIdx.x == 0) *s.t = tau;
+}
+
+// Entries the wide pair's passes hold in registers at once: their loads go
+// out together, then the dependent sums or the stores (a store may alias a
+// later load, so an unchunked loop pays an L2 round trip an entry).
+constexpr int kWideChunk = 8;
+
+// The right reflector (v, tau) on rows [r0, r0 + wr) x columns [c0, c0 + b):
+// a warp a row, lane k's columns k, k + 32, ... summed in order, then the
+// warp butterfly; the row is read again for the update.
+template <class Acc>
+__device__ void wide_apply_right(const Acc& a, int n, int b, int r0, int c0,
+                                 int wr, const float* v, float tau) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int rows = min(wr, n - r0);
+  const int cols = min(b, n - c0);
+  for (int i = warp; i < rows; i += kWarps) {
+    float s = 0.f;
+    for (int k0 = lane; k0 < cols; k0 += 32 * kWideChunk) {
+      float x[kWideChunk];
+#pragma unroll
+      for (int u = 0; u < kWideChunk; ++u) {
+        const int k = k0 + 32 * u;
+        x[u] = k < cols ? a.load(r0 + i, c0 + k) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kWideChunk; ++u) {
+        const int k = k0 + 32 * u;
+        if (k < cols) s = __fadd_rn(s, __fmul_rn(x[u], v[k]));
+      }
+    }
+    const float f = __fmul_rn(tau, warp_sum(s));
+    for (int k0 = lane; k0 < cols; k0 += 32 * kWideChunk) {
+      float x[kWideChunk];
+#pragma unroll
+      for (int u = 0; u < kWideChunk; ++u) {
+        const int k = k0 + 32 * u;
+        x[u] = k < cols ? a.load(r0 + i, c0 + k) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kWideChunk; ++u) {
+        const int k = k0 + 32 * u;
+        if (k < cols) a.store(r0 + i, c0 + k, __fsub_rn(x[u], __fmul_rn(f, v[k])));
+      }
+    }
+  }
+}
+
+// The left reflector (v, tau2) on rows [rl, rl + b) x columns [c0, c0 + 2b):
+// a thread a column, its b rows summed in order, then read again for the
+// update; the columns in passes of kThreads.
+template <class Acc>
+__device__ void wide_apply_left(const Acc& a, int n, int b, int rl, int c0,
+                                const float* v, float tau2) {
+  const int rows = min(b, n - rl);
+  const int cols = min(2 * b, n - c0);
+  for (int c = threadIdx.x; c < cols; c += kThreads) {
+    float s = 0.f;
+    for (int i0 = 0; i0 < rows; i0 += kWideChunk) {
+      float x[kWideChunk];
+#pragma unroll
+      for (int u = 0; u < kWideChunk; ++u)
+        x[u] = i0 + u < rows ? a.load(rl + i0 + u, c0 + c) : 0.f;
+#pragma unroll
+      for (int u = 0; u < kWideChunk; ++u)
+        if (i0 + u < rows) s = __fadd_rn(s, __fmul_rn(v[i0 + u], x[u]));
+    }
+    const float f = __fmul_rn(tau2, s);
+    for (int i0 = 0; i0 < rows; i0 += kWideChunk) {
+      float x[kWideChunk];
+#pragma unroll
+      for (int u = 0; u < kWideChunk; ++u)
+        x[u] = i0 + u < rows ? a.load(rl + i0 + u, c0 + c) : 0.f;
+#pragma unroll
+      for (int u = 0; u < kWideChunk; ++u)
+        if (i0 + u < rows)
+          a.store(rl + i0 + u, c0 + c, __fsub_rn(x[u], __fmul_rn(f, v[i0 + u])));
+    }
+  }
+}
+
+// chase_pair for b > kMaxBand: v is b floats of shared memory, part at
+// least kWarps.  Ends with a barrier.
+template <bool Rec, class Acc>
+__device__ void chase_pair_wide(const Acc& a, int n, int b, int r0, int c0,
+                                int wr, int lr0, float* v, float* part, Slot rr,
+                                Slot rl_) {
+  if (c0 >= n) return;  // all-zero window: both reflectors are the identity
+  const float tau = block_reflector(
+      [&](int k) { return c0 + k < n ? a.load(r0, c0 + k) : 0.f; }, b, v, part);
+  if constexpr (Rec) block_record(v, tau, b, rr);
+  if (tau != 0.f) wide_apply_right(a, n, b, r0, c0, wr, v, tau);
+  __syncthreads();
+  const int rl = r0 + lr0;
+  const float tau2 = block_reflector(
+      [&](int k) { return rl + k < n ? a.load(rl + k, c0) : 0.f; }, b, v, part);
+  if constexpr (Rec) block_record(v, tau2, b, rl_);
+  if (tau2 != 0.f) wide_apply_left(a, n, b, rl, c0, v, tau2);
+  __syncthreads();
+}
+
+// The elimination pair of every chase kernel: the narrow instances for
+// b <= kMaxBand, the wide pair for KPL = kWide (v then holds b floats).
+template <int KPL, bool Rec, class Acc>
+__device__ __forceinline__ void chase_pair(const Acc& a, int n, int b, int r0,
+                                           int c0, int wr, int lr0, float* v,
+                                           float* part, float* s_tau, Slot rr,
+                                           Slot rl_) {
+  if constexpr (KPL == kWide)
+    chase_pair_wide<Rec>(a, n, b, r0, c0, wr, lr0, v, part, rr, rl_);
+  else
+    chase_pair_narrow<KPL, Rec>(a, n, b, r0, c0, wr, lr0, v, part, s_tau, rr, rl_);
+}
+
 // nc_of: chase pairs of sweep i, max(0, ceil((n - (i + 2b + 1)) / b)) + 1
 // (ops/chase_schedule.py).
 __device__ __host__ __forceinline__ int nc_of(int i, int n, int b) {
@@ -377,6 +544,18 @@ __device__ __host__ __forceinline__ int nc_of(int i, int n, int b) {
     } else {                                          \
       constexpr int KPL = 8;                          \
       __VA_ARGS__;                                    \
+    }                                                 \
+  } while (0)
+
+// SVDT_KPL_DISPATCH, and KPL = kWide for b > kMaxBand (the kernel then
+// needs 4 b bytes of dynamic shared memory for v).
+#define SVDT_BAND_DISPATCH(b, ...)                    \
+  do {                                                \
+    if ((b) > kMaxBand) {                             \
+      constexpr int KPL = kWide;                      \
+      __VA_ARGS__;                                    \
+    } else {                                          \
+      SVDT_KPL_DISPATCH(b, __VA_ARGS__);              \
     }                                                 \
   } while (0)
 

@@ -56,6 +56,16 @@
 // load lands a whole quad on one side of ws (ws, W, m multiples of 4), and
 // a spilled column is read and written by this CTA only, ordered by the
 // same __syncthreads and cluster barriers as the shared-memory ones.
+//
+// Wide panels: at b <= 256 every row has G >= 4 lanes.  Past it a row has 2
+// lanes (b <= 512) or 1, and past 1024 rows each thread loops over several
+// rows (the passes step by RS = 1024 / G rows); nothing in the passes
+// assumes G >= 4.  The slab's rows are then not whole 16-byte quads (row
+// stride = G mod 32), so the host plan turns the float4 load off.  Past
+// b = 256 this CTA's T columns (b x b / C floats) stay in device memory, in
+// its own columns of the output Tt (the TDev instantiation, plan tld == 0):
+// only this CTA reads or writes them, ordered by the same barriers, and
+// the slab keeps the shared memory.  Every plan of b <= 256 is as it was.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -73,8 +83,8 @@ struct Plan {
   int ws;   // of them in shared memory (ws == W unless Spill)
   int ld;   // slab row stride in shared memory, = G (mod 32)
   int tc;   // T columns a CTA
-  int tld;  // their row stride
-  int G;    // lanes a row in the dot and update passes (power of two, >= 4)
+  int tld;  // their row stride (0: in device memory, Tt itself: TDev)
+  int G;    // lanes a row in the dot and update passes (power of two)
   int vec;  // Pt rows 16-byte aligned: load with float4
 };
 
@@ -130,7 +140,15 @@ __device__ __forceinline__ float dot_total(const float* recv, int C, int b,
   return t;
 }
 
-template <bool Spill>
+// This CTA's T columns: in shared memory (row stride tld) or, TDev, its
+// own columns of Tt in device memory (row stride b).
+struct TCols {
+  float* p;
+  int ld;
+  __device__ float& at(int i, int cl) const { return p[(size_t)i * ld + cl]; }
+};
+
+template <bool Spill, bool TDev>
 __global__ void __launch_bounds__(kThreads, 1)
 panel_qr_cluster(const float* __restrict__ Pt, float* __restrict__ Rt,
                  float* __restrict__ Vt, float* __restrict__ Tt, int b, int m,
@@ -142,7 +160,7 @@ panel_qr_cluster(const float* __restrict__ Pt, float* __restrict__ Rt,
   float* slab = reinterpret_cast<float*>(smem4);  // b x ld
   float* v = slab + (size_t)b * pl.ld;            // W: v of the current column
   float* tl = v + pl.W;                           // b x tld: this CTA's T columns
-  float* sig = tl + (size_t)b * pl.tld;           // 2 x (C norm partials, pivot)
+  float* sig = tl + (TDev ? 0 : (size_t)b * pl.tld);  // 2 x (C norm partials, pivot)
   float* recv = sig + 2 * (kMaxCluster + 1);      // C x b: partial dots by rank
 
   const int tid = threadIdx.x;
@@ -158,6 +176,7 @@ panel_qr_cluster(const float* __restrict__ Pt, float* __restrict__ Rt,
   const int c0 = rank * pl.tc;
   const int tcn = max(0, min(pl.tc, b - c0));
   const Slab<Spill> s = {slab, pl.ld, Spill ? pl.ws : pl.W, Rt + cbase, m};
+  const TCols tcol = TDev ? TCols{Tt + c0, b} : TCols{tl, pl.tld};
 
   // load the slab once
   if (pl.vec) {
@@ -176,7 +195,12 @@ panel_qr_cluster(const float* __restrict__ Pt, float* __restrict__ Rt,
       s.at(i, k) = Pt[(size_t)i * m + cbase + k];
     }
   }
-  for (int idx = tid; idx < b * pl.tld; idx += kThreads) tl[idx] = 0.f;
+  if (TDev) {
+    for (int idx = tid; idx < b * tcn; idx += kThreads)
+      tcol.at(idx / tcn, idx % tcn) = 0.f;
+  } else {
+    for (int idx = tid; idx < b * pl.tld; idx += kThreads) tl[idx] = 0.f;
+  }
   __syncthreads();
 
   auto owner = [&](int i) { return (i % RS) / RW; };  // warp of row i's passes
@@ -256,10 +280,10 @@ panel_qr_cluster(const float* __restrict__ Pt, float* __restrict__ Rt,
       for (int cl = warp; cl < tcn; cl += kWarps) {
         float acc = 0.f;
         for (int i = lane; i < j; i += 32)
-          acc += dot_total(recv, C, b, i) * tl[i * pl.tld + cl];
+          acc += dot_total(recv, C, b, i) * tcol.at(i, cl);
         acc = warp_sum(acc);
         if (lane == 0)
-          tl[j * pl.tld + cl] = -tau * acc + (c0 + cl == j ? tau : 0.f);
+          tcol.at(j, cl) = -tau * acc + (c0 + cl == j ? tau : 0.f);
       }
     }
   }
@@ -275,18 +299,19 @@ panel_qr_cluster(const float* __restrict__ Pt, float* __restrict__ Rt,
     Rt[(size_t)i * m + kg] = kg <= pi ? x : 0.f;
     Vt[(size_t)i * m + kg] = kg < pi ? 0.f : (kg == pi ? 1.f : x);
   }
-  for (int idx = tid; idx < b * tcn; idx += kThreads) {
-    const int i = idx / tcn;
-    const int cl = idx - i * tcn;
-    Tt[(size_t)i * b + c0 + cl] = tl[i * pl.tld + cl];
-  }
+  if (!TDev)
+    for (int idx = tid; idx < b * tcn; idx += kThreads) {
+      const int i = idx / tcn;
+      const int cl = idx - i * tcn;
+      Tt[(size_t)i * b + c0 + cl] = tl[i * pl.tld + cl];
+    }
   cluster.sync();  // no CTA leaves while another may read its shared memory
 }
 
-template <bool Spill>
+template <bool Spill, bool TDev>
 cudaError_t configure(int C, int smem, cudaLaunchConfig_t* cfg,
                       cudaLaunchAttribute* attr, cudaStream_t stream) {
-  auto kernel = panel_qr_cluster<Spill>;
+  auto kernel = panel_qr_cluster<Spill, TDev>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess && C > 8)
@@ -306,50 +331,56 @@ cudaError_t configure(int C, int smem, cudaLaunchConfig_t* cfg,
   return err;
 }
 
-template <bool Spill>
+template <bool Spill, bool TDev>
 int launch(const float* Pt, float* Rt, float* Vt, float* Tt, int b, int m,
            int r_off, int C, Plan pl, int smem, void* stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = configure<Spill>(C, smem, &cfg, &attr, (cudaStream_t)stream);
+  cudaError_t err = configure<Spill, TDev>(C, smem, &cfg, &attr, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
-  err = cudaLaunchKernelEx(&cfg, panel_qr_cluster<Spill>, Pt, Rt, Vt, Tt, b,
+  err = cudaLaunchKernelEx(&cfg, panel_qr_cluster<Spill, TDev>, Pt, Rt, Vt, Tt, b,
                            m, r_off, pl);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+template <bool Spill, bool TDev>
+int clusters_of(int C, int smem, int* clusters) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = configure<Spill, TDev>(C, smem, &cfg, &attr, 0);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(clusters, panel_qr_cluster<Spill, TDev>, &cfg);
+  return (int)err;
 }
 
 }  // namespace
 
 // How many clusters of C CTAs with smem bytes of shared memory each can be
 // resident at once (cudaOccupancyMaxActiveClusters) into *clusters; spill
-// picks the large-panel instantiation.  Returns the cudaError_t.
-extern "C" int svdt_panel_qr_clusters(int C, int smem, int spill,
+// picks the large-panel instantiation, tdev the one with T in device
+// memory.  Returns the cudaError_t.
+extern "C" int svdt_panel_qr_clusters(int C, int smem, int spill, int tdev,
                                       int* clusters) {
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  cudaError_t err;
-  if (spill) {
-    err = configure<true>(C, smem, &cfg, &attr, 0);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveClusters(clusters, panel_qr_cluster<true>, &cfg);
-  } else {
-    err = configure<false>(C, smem, &cfg, &attr, 0);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveClusters(clusters, panel_qr_cluster<false>, &cfg);
-  }
-  return (int)err;
+  if (tdev)
+    return spill ? clusters_of<true, true>(C, smem, clusters)
+                 : clusters_of<false, true>(C, smem, clusters);
+  return spill ? clusters_of<true, false>(C, smem, clusters)
+               : clusters_of<false, false>(C, smem, clusters);
 }
 
 // Launches the panel QR on `stream` as one cluster of C CTAs under the plan
-// (W, ws, ld, tc, tld, G, vec; smem bytes a CTA) of cluster_plan; returns
-// the launch's cudaError_t.
+// (W, ws, ld, tc, tld, G, vec; smem bytes a CTA) of cluster_plan (tld == 0:
+// T in device memory); returns the launch's cudaError_t.
 extern "C" int svdt_panel_qr(const float* Pt, float* Rt, float* Vt, float* Tt,
                              int b, int m, int r_off, int C, int W, int ws,
                              int ld, int tc, int tld, int G, int vec, int smem,
                              void* stream) {
   const Plan pl = {W, ws, ld, tc, tld, G, vec};
+  if (tld == 0)
+    return ws < W ? launch<true, true>(Pt, Rt, Vt, Tt, b, m, r_off, C, pl, smem, stream)
+                  : launch<false, true>(Pt, Rt, Vt, Tt, b, m, r_off, C, pl, smem, stream);
   if (ws < W)
-    return launch<true>(Pt, Rt, Vt, Tt, b, m, r_off, C, pl, smem, stream);
-  return launch<false>(Pt, Rt, Vt, Tt, b, m, r_off, C, pl, smem, stream);
+    return launch<true, false>(Pt, Rt, Vt, Tt, b, m, r_off, C, pl, smem, stream);
+  return launch<false, false>(Pt, Rt, Vt, Tt, b, m, r_off, C, pl, smem, stream);
 }

@@ -8,8 +8,9 @@ Everything routes through the port's two-stage pipeline (``svd``,
 kernels, and every contraction goes through ``ops.precision.pdot`` (TF32
 off).  Inputs are taken as ``models.svd.as_input`` takes them: a tensor
 keeps its device and dtype; a numpy array or array-like goes to the CUDA
-card as float32 (and raises when there is none).  A ``method`` the port's
-``svd`` lacks raises ``NotImplementedError`` naming its ROADMAP item.
+card as float32 (and raises when there is none).  ``method`` passes
+through to ``svd`` (``jacobi`` included); complex input raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 import numpy as np

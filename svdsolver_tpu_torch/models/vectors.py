@@ -34,6 +34,7 @@ import torch
 from svdsolver_tpu_torch.models import two_stage
 from svdsolver_tpu_torch.models.blocked import labrd_step, panel_buffers
 from svdsolver_tpu_torch.models.diagonalize import bisect_svdvals
+from svdsolver_tpu_torch.models.jacobi import svd_jacobi
 from svdsolver_tpu_torch.models.svd import (
     _auto_block,
     _pad_to_multiple,
@@ -527,8 +528,9 @@ def svd(A, panel=32, method="tpu2", band=None):
     ``A``: a tensor runs on its own device (float32 CUDA through the
     kernels); a numpy array or array-like goes to the CUDA card as float32
     and raises when there is none.  ``method``: ``tpu2``, ``tpu1`` and
-    ``multicore`` run :func:`svd_two_stage`; ``jacobi`` is not ported yet;
-    every other name (``singlecore``, ``base``) runs the one-stage path, as
+    ``multicore`` run :func:`svd_two_stage`; ``jacobi`` runs
+    ``models.jacobi.svd_jacobi(A)`` (one-sided block Jacobi, its default
+    block); every other name (``singlecore``, ``base``) runs the one-stage path, as
     the reference does: :func:`bidiagonalize_blocked_uv` with panel width
     ``panel``, then :func:`bidiagonal_svd` (the bisection and TGK solve
     kernels on the card), then ``U = Ug U_b``, ``V = Vg V_b``.  A
@@ -536,10 +538,7 @@ def svd(A, panel=32, method="tpu2", band=None):
     """
     A = as_input(A)
     if method == "jacobi":
-        raise NotImplementedError(
-            "method 'jacobi' is not ported yet: ROADMAP queue 1, item 11 "
-            "(models/jacobi.py)"
-        )
+        return svd_jacobi(A)
     m, n = A.shape
     if m < n:
         U, s, Vh = svd(A.T, panel=panel, method=method, band=band)

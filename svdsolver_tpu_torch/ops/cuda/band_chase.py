@@ -11,8 +11,10 @@ wrappers run those):
   it runs wherever :func:`staged_tma_takes` holds (4 <= band <= 128, band
   and n multiples of 4, A 16-byte aligned: every band of the main paths);
 * the L2 kernel (``csrc/band_chase.cu``): each pair on the matrix through
-  L2.  It runs every other shape, and is the bitwise oracle of the chase
-  family (:func:`band_to_bidiagonal_l2`, :func:`band_to_bidiagonal_accum_l2`).
+  L2.  It runs every other shape (bands past 256 on the wide pair of
+  ``csrc/chase_pair.cuh``, bit-equal to the wavefront's L2 tick there), and
+  is the bitwise oracle of the chase family (:func:`band_to_bidiagonal_l2`,
+  :func:`band_to_bidiagonal_accum_l2`).
 
 :func:`staged_route` picks between them by shape before launch.  So
 :func:`band_to_bidiagonal` stands for the TPU's ``band_chase._chase_kernel``
@@ -50,7 +52,6 @@ _ENTRIES = {
         + [_build.INT, _build.VOIDP]
     ),
 }
-MAX_BAND = 256  # the kernel's 2b window columns map onto its 512 threads
 # the TMA design's static shared memory: v, col (SMEM_BAND each), vg
 # (2 SMEM_BAND), partial sums (512), 2 taus, and an 8-byte mbarrier for each
 # of up to STAGED_MAX_SLOTS ring slots (one parity bit each in a 32-bit mask)
@@ -67,15 +68,6 @@ _STAGED_ENTRIES = {
 
 band_to_bidiagonal_plain = two_stage.band_to_bidiagonal
 band_to_bidiagonal_accum_plain = two_stage.band_to_bidiagonal_accum
-
-
-def _check_band(A, b):
-    n = A.shape[0]
-    if A.shape[1] != n:
-        raise ValueError(f"A must be square, got {tuple(A.shape)}")
-    if not 1 <= b <= MAX_BAND:
-        raise ValueError(f"band={b} outside the kernel's range [1, {MAX_BAND}]")
-    return n
 
 
 def staged_slot_floats(band):
@@ -159,7 +151,7 @@ def _sequential(A, b, khops, record, l2=False):
     launch of the kernel :func:`staged_route` picks (the L2 kernel with
     ``l2``)."""
     on_card = _build.check_input(A, "A", 2)
-    n = _check_band(A, b)
+    n = band_chase_wave.check_band(A, b)
     K = 0 if l2 else staged_route(A, b, khops)
     if record and n < 2:
         raise ValueError("band_to_bidiagonal_accum needs n >= 2")
@@ -176,9 +168,10 @@ def band_to_bidiagonal(A, band=128, wavefront=False, pipelined=False,
     """Bulge-chase the upper-band ``A`` (n, n; ``band`` superdiagonals) to
     bidiagonal; returns ``(d, e)``.
 
-    A CUDA tensor must be contiguous float32 with ``1 <= band <= 256`` and
-    launches a kernel on a copy of ``A`` (the chase runs in place on it);
-    a CPU tensor runs the plain version.  ``wavefront`` runs the wavefront
+    A CUDA tensor must be contiguous float32 with a band ``band_chase_wave.
+    band_range`` takes (any band up to 256; up to n past it, where the L2
+    kernel runs the wide pair) and launches a kernel on a copy of ``A``
+    (the chase runs in place on it); a CPU tensor runs the plain version.  ``wavefront`` runs the wavefront
     kernel (``band_chase_wave``).  Every other call runs the sequential
     chase, on the kernel :func:`staged_route` picks by shape: the staged
     TMA design with its copies one pair ahead (no flag, and ``pipelined``),
@@ -203,9 +196,9 @@ def band_to_bidiagonal_accum(A, band=128):
     reflector; returns ``(d, e, VL, TL, VR, TR)`` as
     ``models.two_stage.band_to_bidiagonal_accum``.
 
-    A CUDA tensor must be contiguous float32 with ``n >= 2`` and
-    ``1 <= band <= 256``; it launches the recording entry of the kernel
-    :func:`staged_route` picks (the staged TMA design, its copies one pair
+    A CUDA tensor must be contiguous float32 with ``n >= 2`` and a band
+    ``band_chase_wave.band_range`` takes; it launches the recording entry
+    of the kernel :func:`staged_route` picks (the staged TMA design, its copies one pair
     ahead, or the L2 kernel) on a copy of ``A``.  Its
     ``(d, e)`` are bit-equal to :func:`band_to_bidiagonal`'s, its records
     to either kernel's.  The kernels store identity reflectors (and slots

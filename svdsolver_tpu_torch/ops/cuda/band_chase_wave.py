@@ -55,7 +55,10 @@ launches_dl_l2 = 0  # band_to_bidiagonal_wave_dl, L2 tick
 last_ctas = 0  # CTAs of the last launch (lanes stride over them)
 last_tick = ""  # "smem" or "l2": the tick of the last launch
 
-MAX_BAND = 256  # the one chase pair's 2b window columns on 512 threads
+NARROW_BAND = 256  # the narrow chase pair's 2b window columns on 512 threads
+# the wide pair (bands past NARROW_BAND): v in dynamic shared memory, beside
+# the kernels' static arrays (8 KB at most)
+WIDE_MAX_BAND = (_build.MAX_SMEM - 8 * 1024) // 4
 SMEM_BAND = 128  # the widest band of the shared-memory tick (3 b x b tiles)
 
 _ENTRIES = {
@@ -136,12 +139,24 @@ def band_to_bidiagonal_wave_tiles_plain(A, band=128, record=False, carry=True,
                                                         carry=carry, defer_left=defer_left)
 
 
-def _check_band(A, b):
-    """``n`` of a square ``A`` whose band ``b`` the wave kernel takes."""
+def band_range(n, defer_left=False):
+    """The widest band the chase kernels take for an (n, n) band: any band
+    up to ``NARROW_BAND`` (the narrow pair), and up to ``n`` past it (the
+    wide pair, at most ``WIDE_MAX_BAND``); the deferred-left entry has no
+    wide instance and stops at ``NARROW_BAND``."""
+    if defer_left:
+        return NARROW_BAND
+    return max(NARROW_BAND, min(int(n), WIDE_MAX_BAND))
+
+
+def check_band(A, b, defer_left=False):
+    """``n`` of a square ``A`` whose band ``b`` the chase kernels take
+    (:func:`band_range`); raises ``ValueError`` otherwise."""
     if A.ndim != 2 or A.shape[0] != A.shape[1]:
         raise ValueError(f"A must be square, got {tuple(A.shape)}")
-    if not 1 <= b <= MAX_BAND:
-        raise ValueError(f"band={b} outside the kernel's range [1, {MAX_BAND}]")
+    top = band_range(A.shape[0], defer_left)
+    if not 1 <= b <= top:
+        raise ValueError(f"band={b} outside the kernel's range [1, {top}]")
     return A.shape[0]
 
 
@@ -218,8 +233,10 @@ def band_to_bidiagonal_wave(A, band=128, _ctas=None, _tick=None, _smem=None):
     bidiagonal on the wavefront schedule; returns ``(d, e)``, bit-equal to
     the sequential chase's.
 
-    A CUDA tensor must be contiguous float32 with ``1 <= band <= 256``; it
-    launches the kernel on a copy of ``A`` over as many CTAs as lanes, or as
+    A CUDA tensor must be contiguous float32 with a band
+    :func:`band_range` takes (any band up to 256, and up to n past it,
+    where the L2 tick runs the wide pair); it launches the kernel on a
+    copy of ``A`` over as many CTAs as lanes, or as
     fit on the card at once (``_ctas`` caps them; lanes stride over CTAs).
     Where :func:`smem_tick_takes` holds (every band of the main paths) the
     kernel runs the shared-memory tick, else the L2 tick; ``_tick`` ("smem"
@@ -229,7 +246,7 @@ def band_to_bidiagonal_wave(A, band=128, _ctas=None, _tick=None, _smem=None):
     """
     global launches, launches_l2
     b = int(band)
-    n = _check_band(A, b)
+    n = check_band(A, b)
     if not _build.check_input(A, "A", 2):
         return _plain(A, b, False, _ctas, _tick)
     if n < 2:
@@ -247,15 +264,16 @@ def band_to_bidiagonal_wave_dl(A, band=128, _ctas=None, _tick=None):
     """As :func:`band_to_bidiagonal_wave`, each pair's left apply deferred
     one tick and fused into the same sweep's next right apply (two passes
     over a pair's rows instead of three); ``(d, e)`` bit-equal to
-    :func:`band_to_bidiagonal_wave`'s.  The tick is chosen as there, by
-    shape before the launch (``_tick`` forces one); a failed launch raises.
+    :func:`band_to_bidiagonal_wave`'s, for bands up to 256 (it has no
+    wide instance).  The tick is chosen as there, by shape before the
+    launch (``_tick`` forces one); a failed launch raises.
     A CPU tensor runs the plain version of the tick the card would take
     (``band_to_bidiagonal_wavefront_tiles(defer_left=True)``, or
     ``band_to_bidiagonal_wavefront(defer_left=True)`` for the L2 tick).
     """
     global launches_dl, launches_dl_l2
     b = int(band)
-    n = _check_band(A, b)
+    n = check_band(A, b, defer_left=True)
     if not _build.check_input(A, "A", 2):
         return _plain(A, b, False, _ctas, _tick, defer_left=True)
     if n < 2:
@@ -282,7 +300,7 @@ def band_to_bidiagonal_wave_accum(A, band=128, _ctas=None, _tick=None, _smem=Non
     """
     global launches_rec, launches_rec_l2
     b = int(band)
-    n = _check_band(A, b)
+    n = check_band(A, b)
     if not _build.check_input(A, "A", 2):
         if n < 2:
             raise ValueError("band_to_bidiagonal_accum needs n >= 2")

@@ -24,21 +24,23 @@ launches = 0  # kernel launches by panel_qr since the last reset
 
 _ENTRIES = {
     "svdt_panel_qr": [_build.VOIDP] * 4 + [_build.INT] * 12 + [_build.VOIDP],
-    "svdt_panel_qr_clusters": [_build.INT] * 3 + [_build.VOIDP],
+    "svdt_panel_qr_clusters": [_build.INT] * 4 + [_build.VOIDP],
 }
 THREADS = 1024  # a CTA of the kernel
 MAX_CLUSTER = 16  # CTAs a cluster at most (non-portable above 8)
-MAX_BAND = 256  # b <= THREADS / 4: at least 4 lanes a row
+NARROW_BAND = 256  # b <= THREADS / 4: 4 lanes a row or more, T in shared memory
 CTA_TARGET = 64 * 1024  # slab bytes a CTA aims at: C grows until it is met
-_resident = {}  # (ctas, smem, spill) -> clusters that fit on the card
+_resident = {}  # (ctas, smem, spill, tdev) -> clusters that fit on the card
 
 
 class ClusterPlan(NamedTuple):
     """How the kernel cuts a (b, m) panel: ``ctas`` CTAs of one cluster,
     ``width`` columns each, ``smem_cols`` of them in shared memory with row
     stride ``ld`` (the rest, if any, in device memory: the large-panel
-    route), ``tcols`` columns of T each (row stride ``tld``), ``groups``
-    lanes a row in the dot and update passes, ``smem`` bytes a CTA."""
+    route), ``tcols`` columns of T each (row stride ``tld`` in shared
+    memory; ``tld = 0``: in device memory, the CTA's own columns of the
+    output T), ``groups`` lanes a row in the dot and update passes,
+    ``smem`` bytes a CTA."""
 
     ctas: int
     width: int
@@ -52,6 +54,10 @@ class ClusterPlan(NamedTuple):
     @property
     def spill(self):
         return self.smem_cols < self.width
+
+    @property
+    def tdev(self):
+        return self.tld == 0
 
 
 def _cdiv(a, b):
@@ -69,25 +75,34 @@ def cluster_plan(b, m, ctas=None):
     CTA's T columns and the exchange arrays, the columns past what fits stay
     in device memory, in the CTA's own columns of ``Rt`` (the large-panel
     route: at b = 128 every m above 6,784, e.g. 1,048 of 1,440 columns a
-    CTA at m = 23,040).  Raises ``ValueError`` for ``b`` outside
-    ``[1, 256]`` and for a panel so long that v and the exchange arrays
-    leave the slab no shared memory (m past ~860,000 at b = 128).
+    CTA at m = 23,040).  ``groups`` is the largest power of two up to 32
+    with ``groups * b <= THREADS``, at least 1: 4 or more lanes a row up to
+    b = 256, 2 up to 512, 1 past it (a thread then loops over rows).  Past
+    b = 256 the T columns stay in device memory (``tld = 0``: the CTA's own
+    columns of the output), and ``ctas=None`` halves the cluster while the
+    exchanged dots (``ctas * b`` floats) would take more than half of the
+    shared memory; the plans of ``b <= 256`` are unchanged by either.
+    Raises ``ValueError`` for ``b < 1`` or ``m < 1``, and for a panel so
+    long or wide that v and the exchange arrays leave the slab no shared
+    memory (m past ~860,000 at b = 128; b past ~19,000 at m = b).
     """
     b, m = int(b), int(m)
-    if not 1 <= b <= MAX_BAND:
-        raise ValueError(f"panel width b={b} outside the kernel's range [1, {MAX_BAND}]")
+    if b < 1:
+        raise ValueError(f"panel width b={b} must be >= 1")
     if m < 1:
         raise ValueError(f"panel length m={m} must be >= 1")
     if ctas is None:
         C = next((c for c in (1, 2, 4, 8) if 4 * b * _cdiv(m, c) <= CTA_TARGET), MAX_CLUSTER)
+        while C > 1 and 4 * C * b > _build.MAX_SMEM // 2:
+            C //= 2
     else:
         C = int(ctas)
         if not 1 <= C <= MAX_CLUSTER:
             raise ValueError(f"a cluster holds 1 to {MAX_CLUSTER} CTAs, not {ctas}")
     W = 4 * _cdiv(_cdiv(m, C), 4)
-    G = 1 << (min(32, THREADS // b).bit_length() - 1)
+    G = 1 << (max(1, min(32, THREADS // b)).bit_length() - 1)
     tc = _cdiv(b, C)
-    tld = tc + 1 if tc % 2 == 0 else tc
+    tld = 0 if b > NARROW_BAND else (tc + 1 if tc % 2 == 0 else tc)
     other = W + b * tld + 2 * (MAX_CLUSTER + 1) + C * b  # floats beside the slab
     room = _build.MAX_SMEM // 4 - other  # slab floats that fit
     ld = W + (G - W) % 32  # the smallest stride >= W that is = G (mod 32)
@@ -106,11 +121,11 @@ def cluster_plan(b, m, ctas=None):
 
 def _check_resident(lib, plan):
     """Raise unless one cluster of the plan fits on the card."""
-    key = (plan.ctas, plan.smem, plan.spill)
+    key = (plan.ctas, plan.smem, plan.spill, plan.tdev)
     if key not in _resident:
         got = ctypes.c_int(0)
         err = lib.svdt_panel_qr_clusters(plan.ctas, plan.smem, int(plan.spill),
-                                         ctypes.addressof(got))
+                                         int(plan.tdev), ctypes.addressof(got))
         _build.raise_on_error(err, "cudaOccupancyMaxActiveClusters (panel_qr)")
         _resident[key] = got.value
     if _resident[key] < 1:
@@ -152,10 +167,11 @@ def panel_qr(Pt, r_off, _cluster=None):
     ``r_off + j``; returns ``(Rt, Vt, Tt)`` as :func:`panel_qr_plain`.
 
     A CUDA tensor must be contiguous float32 and launches the kernel as one
-    cluster under :func:`cluster_plan` (``_cluster`` fixes its CTA count);
-    a shape past the plan's limits, or a cluster the card cannot hold,
-    raises ``ValueError``.  A CPU tensor runs the plain version.  Pivots at
-    or past ``m`` give identity reflectors (``tau = 0``, ``v = 0``).
+    cluster under :func:`cluster_plan` (``_cluster`` fixes its CTA count),
+    at any width ``b`` the plan holds; a shape past the plan's limits, or a
+    cluster the card cannot hold, raises ``ValueError``.  A CPU tensor runs
+    the plain version.  Pivots at or past ``m`` give identity reflectors
+    (``tau = 0``, ``v = 0``).
     """
     global launches
     r_off = int(r_off)
@@ -164,11 +180,21 @@ def panel_qr(Pt, r_off, _cluster=None):
     if not _build.check_input(Pt, "Pt", 2):
         return panel_qr_plain(Pt, r_off)
     b, m = Pt.shape
-    plan = cluster_plan(b, m, _cluster)
+    out = _launch(Pt, r_off, cluster_plan(b, m, _cluster))
+    launches += 1
+    return out
+
+
+def _launch(Pt, r_off, plan):
+    """One launch of the kernel on ``Pt`` under ``plan``: ``(Rt, Vt, Tt)``;
+    raises if the card cannot hold the cluster or the launch fails."""
+    b, m = Pt.shape
     Rt = torch.empty_like(Pt)
     Vt = torch.empty_like(Pt)
     Tt = torch.empty((b, b), dtype=Pt.dtype, device=Pt.device)
-    vec = int(m % 4 == 0 and Pt.data_ptr() % 16 == 0)
+    # 16-byte loads into the slab need rows of whole quads: a row stride
+    # = groups (mod 32) is one where groups >= 4 (b <= 256)
+    vec = int(m % 4 == 0 and Pt.data_ptr() % 16 == 0 and plan.groups >= 4)
     lib = _build.load("panel_qr", _ENTRIES)
     with torch.cuda.device(Pt.device):
         _check_resident(lib, plan)
@@ -179,7 +205,6 @@ def panel_qr(Pt, r_off, _cluster=None):
             _build.stream_of(Pt),
         )
     _build.raise_on_error(err, "panel_qr")
-    launches += 1
     return Rt, Vt, Tt
 
 

@@ -11,15 +11,19 @@ factors the pivot-block column through every slab and leaves the (v, tau)
 history; :func:`apply_sweep` (``csrc/tiled_apply.cu``, every SM) applies
 it to the other columns.  Both give the first design's bits.  The first
 design, :func:`factor_slab` (``csrc/tiled_slab.cu``, one launch a slab),
-stays as their bitwise oracle and runs the bands they do not take.
+stays as their bitwise oracle and runs the bands they do not take.  The
+wide instance (``csrc/tiled_wide.cu``: :func:`wide_chain` and
+:func:`wide_apply`) runs a half-sweep with every column in device memory,
+at any band, again with the first design's bits.
 
 :func:`dense_to_band_tiled` picks by shape (:func:`tiled_route`): bands up
 to 128 run the two kernels, ``2 (2 n / t - 1)`` launches (the LQ half on
 a transposed contiguous copy, made once a tile sweep); bands up to 168
-(238 for a single tile) the first design, ``(n / t)^2`` launches; a wider
-band raises ``ValueError`` before any launch.  On a CPU tensor every entry
-runs its plain version (``models/tiled``).  The plans (:func:`slab_plan`,
-:func:`chain_plan`, :func:`apply_plan`) are plain Python.
+(238 for a single tile) the first design, ``(n / t)^2`` launches; every
+wider band up to ``n`` the wide instance, again two launches a
+half-sweep.  On a CPU tensor every entry runs its plain version
+(``models/tiled``).  The plans (:func:`slab_plan`, :func:`chain_plan`,
+:func:`apply_plan`) are plain Python.
 """
 
 from typing import NamedTuple
@@ -32,6 +36,8 @@ from svdsolver_tpu_torch.ops.cuda import _build
 launches = 0  # kernel launches by factor_slab (the first design) since the last reset
 launches_chain = 0  # by the chain kernel (factor_sweep)
 launches_apply = 0  # by the apply kernel (apply_sweep)
+launches_wide_chain = 0  # by the wide instance's chain kernel (wide_chain)
+launches_wide_apply = 0  # by the wide instance's apply kernel (wide_apply)
 
 ROWS_PER_LANE = (1, 2, 4, 8, 11)  # the slab kernel's instances: rows of a column a lane holds
 SWEEP_RPL = (1, 2, 4, 8)  # the chain's and the apply's: rows a lane (the chain: columns a warp)
@@ -42,6 +48,8 @@ _ENTRIES = {"svdt_tiled_slab": [_P] + [_I] * 10 + [_P, _P]}
 _CHAIN_ENTRIES = {e: [_P] + [_I] * 5 + [_P, _P, _I, _I, _P]
                   for e in ("svdt_tiled_chain", "svdt_tiled_chain_alone")}
 _APPLY_ENTRIES = {"svdt_tiled_apply": [_P] + [_I] * 11 + [_P, _P, _P]}
+_WIDE_ENTRIES = {"svdt_tiled_wide_chain": [_P] + [_I] * 5 + [_P, _P, _I, _P, _P],
+                 "svdt_tiled_wide_apply": [_P] + [_I] * 6 + [_P, _P, _I, _P]}
 
 
 class SlabPlan(NamedTuple):
@@ -148,13 +156,20 @@ def tiled_route(n, t, sms):
     (the chain and the apply kernels, two launches a half-sweep) for every
     band :func:`chain_plan` takes (t <= 128); else ``"slabs"`` (the first
     design, a launch a slab) where :func:`slab_plan` takes both slab shapes
-    (t <= 168; 238 when ``n == t``); else ``ValueError``."""
+    (t <= 168; 238 when ``n == t``); else ``"wide"`` (the wide instance,
+    two launches a half-sweep, every column in device memory).  Raises
+    ``ValueError`` only for a band outside ``[1, n]``."""
     n, t = int(n), int(t)
-    if 1 <= t <= 16 * SWEEP_RPL[-1]:
+    if not 1 <= t <= n:
+        raise ValueError(f"band t={t} outside [1, n={n}]")
+    if t <= 16 * SWEEP_RPL[-1]:
         return "sweeps"
-    slab_plan(n, t, t, sms)
-    if n > t:
-        slab_plan(n, t, 2 * t, sms)
+    try:
+        slab_plan(n, t, t, sms)
+        if n > t:
+            slab_plan(n, t, 2 * t, sms)
+    except ValueError:
+        return "wide"
     return "slabs"
 
 
@@ -295,6 +310,73 @@ def apply_sweep(M, top, pc, t, V, tau):
     return M
 
 
+def _wide_history(M, t, slabs):
+    """The wide instance's history: ``slabs`` x ``t`` reflectors of ``2 t``
+    floats (``models/tiled.chain_plain``'s layout; the kernel writes every
+    entry, zeros past a slab's rows) and their taus."""
+    return (torch.empty((slabs, t, 2 * t), dtype=M.dtype, device=M.device),
+            torch.empty((slabs, t), dtype=M.dtype, device=M.device))
+
+
+def _launch_wide_chain(M, top, pc, t, m, V, tau):
+    global launches_wide_chain
+    lib = _build.load("tiled_wide", _WIDE_ENTRIES)
+    block = torch.empty((t, 2 * t), dtype=M.dtype, device=M.device)  # the pivot block, by column
+    with torch.cuda.device(M.device):
+        err = lib.svdt_tiled_wide_chain(M.data_ptr(), M.stride(0), top, pc, t, m, V.data_ptr(),
+                                        tau.data_ptr(), V.shape[2], block.data_ptr(),
+                                        _build.stream_of(M))
+    _build.raise_on_error(err, "tiled_wide_chain")
+    launches_wide_chain += 1
+
+
+def _launch_wide_apply(M, top, pc, t, m, V, tau):
+    global launches_wide_apply
+    lib = _build.load("tiled_wide", _WIDE_ENTRIES)
+    with torch.cuda.device(M.device):
+        err = lib.svdt_tiled_wide_apply(M.data_ptr(), M.stride(0), M.shape[1], top, pc, t, m,
+                                        V.data_ptr(), tau.data_ptr(), V.shape[2],
+                                        _build.stream_of(M))
+    _build.raise_on_error(err, "tiled_wide_apply")
+    launches_wide_apply += 1
+
+
+def wide_chain(M, top, pc, t):
+    """:func:`factor_sweep` on the wide instance's chain kernel
+    (``csrc/tiled_wide.cu``, one CTA, the pivot block copied by column into
+    device memory), at
+    any band: the pivot-block column of half-sweep ``(top, pc)`` in place,
+    and its history ``(V, tau)`` in ``models/tiled.chain_plain``'s layout
+    (``2 t`` floats a reflector, zeros past its rows).  A CPU ``M`` runs
+    ``chain_plain``."""
+    top, pc, t = int(top), int(pc), int(t)
+    m = _check_sweep(M, top, pc, t)
+    if not _build.check_input(M, "M", 2):
+        return tiled.chain_plain(M, top, pc, t)
+    V, tau = _wide_history(M, t, m + 1)
+    _launch_wide_chain(M, top, pc, t, m, V, tau)
+    return V, tau
+
+
+def wide_apply(M, top, pc, t, V, tau):
+    """:func:`apply_sweep` on the wide instance's apply kernel (a warp a
+    column outside ``[pc, pc + t)``), the history as :func:`wide_chain`
+    leaves it.  A CPU ``M`` runs ``apply_plain``.  Returns ``M``."""
+    top, pc, t = int(top), int(pc), int(t)
+    m = _check_sweep(M, top, pc, t)
+    if not _build.check_input(M, "M", 2):
+        return tiled.apply_plain(M, top, pc, t, V, tau)
+    if tuple(V.shape) != (m + 1, t, 2 * t) or tuple(tau.shape) != (m + 1, t):
+        raise ValueError(f"history of shape {tuple(V.shape)}, {tuple(tau.shape)}: want "
+                         f"{(m + 1, t, 2 * t)}, {(m + 1, t)}")
+    _build.check_input(V, "V", 3)
+    _build.check_input(tau, "tau", 2)
+    if V.device != M.device or tau.device != M.device:
+        raise ValueError("the history must lie on M's device")
+    _launch_wide_apply(M, top, pc, t, m, V, tau)
+    return M
+
+
 def chain_alone_ms(M, top, pc, t):
     """ms of the chain alone on half-sweep ``(top, pc)`` of float32 CUDA
     ``M`` (``svdt_tiled_chain_alone``: the waits, pivot-column updates,
@@ -337,8 +419,8 @@ def dense_to_band_slabs(A, band):
     """The first design's tiled Stage I on float32 CUDA ``A`` in place: every
     slab through :func:`factor_slab`, ``(n / band)^2`` launches, after
     checking that both slab shapes fit (``ValueError`` before any launch).
-    The bitwise oracle of the two-kernel design, and its route for bands
-    past 128.  Returns ``A``."""
+    The bitwise oracle of the two-kernel design and of the wide instance,
+    and the route for bands 128 < t <= 168.  Returns ``A``."""
     t = int(band)
     n = A.shape[0]
     sms = _sms(A.device)
@@ -348,14 +430,33 @@ def dense_to_band_slabs(A, band):
     return tiled.tile_sweeps(A, t, tiled.slab_sweep(factor_slab), _transposer(A))
 
 
+def dense_to_band_wide(A, band):
+    """The tiled Stage I on float32 CUDA ``A`` in place with every
+    half-sweep through the wide instance (:func:`wide_chain`, then
+    :func:`wide_apply` of its history), ``2 (2 n /
+    band - 1)`` launches: the route for bands past the first design's, and
+    at any band bit-equal to it and to the two-kernel design.  Returns
+    ``A``."""
+    t = int(band)
+    n = A.shape[0]
+    V, tau = _wide_history(A, t, n // t)
+
+    def sweep(M, top, pc, t):
+        m = (n - top) // t - 1
+        _launch_wide_chain(M, top, pc, t, m, V, tau)
+        _launch_wide_apply(M, top, pc, t, m, V, tau)
+
+    return tiled.tile_sweeps(A, t, sweep, _transposer(A))
+
+
 def dense_to_band_tiled(A, band=32):
     """Tiled Stage I (the reference's ``brd_p1``, the ``multicore`` rung):
     reduce square ``A`` to upper-band form with ``band`` superdiagonals
     (``n % band == 0``).  A float32 CUDA tensor takes :func:`tiled_route`'s
     design: bands up to 128 run each half-sweep as one chain and one apply
     launch, ``2 (2 n / band - 1)`` launches; bands up to 168 the first
-    design, ``(n / band)^2``; a wider band raises ``ValueError`` before any
-    launch.  Both designs give the same bits.  A CPU tensor runs
+    design, ``(n / band)^2``; every wider band the wide instance, two
+    launches a half-sweep.  All three give the same bits.  A CPU tensor runs
     ``models/tiled.dense_to_band_tiled_plain``.  Returns a new tensor."""
     t = int(band)
     tiled.check_tiled(A, t)
@@ -363,8 +464,11 @@ def dense_to_band_tiled(A, band=32):
     if not _build.check_input(A, "A", 2):
         return tiled.dense_to_band_tiled_plain(A, t)
     n = A.shape[0]
-    if tiled_route(n, t, _sms(A.device)) == "slabs":
+    route = tiled_route(n, t, _sms(A.device))
+    if route == "slabs":
         return dense_to_band_slabs(A, t)
+    if route == "wide":
+        return dense_to_band_wide(A, t)
     chain, apply = chain_plan(t), apply_plan(n, t, _sms(A.device))
     V, tau = _history(A, t, n // t, chain.rpl)
 

@@ -3,7 +3,8 @@
 On the H100 a float32 matmul may run on the tensor cores in TF32, which
 keeps about three decimal digits (~1e-3 relative error) — unacceptable for
 orthogonal reductions, whose error must stay near machine epsilon.  All
-contractions in the solver go through :func:`pdot`, which defaults to full
+contractions in the solver go through :func:`pdot` (or :func:`peinsum`),
+which default to full
 float32 ('highest': TF32 off for both cuBLAS and cuDNN).  Callers chasing
 raw throughput can lower it globally with :func:`set_dot_precision`
 ('default' | 'float32' | 'highest'), the twin of the JAX package's switch.
@@ -51,3 +52,11 @@ def pdot(a, b):
     if _PRECISION == "highest":
         _require_full_fp32()
     return torch.matmul(a, b)
+
+
+def peinsum(equation, *operands):
+    """Precision-controlled einsum (the twin of ``jnp.einsum`` at the
+    package's precision), for contractions that are no plain matmul."""
+    if _PRECISION == "highest":
+        _require_full_fp32()
+    return torch.einsum(equation, *operands)

@@ -114,8 +114,11 @@ def test_kernels_reject_float64(dev):
 
 
 def test_chase_kernel_rejects_wide_band(dev):
+    # past 256 the chase takes bands up to n (the wide pair); wider raise
     with pytest.raises(ValueError, match="band"):
-        band_chase.band_to_bidiagonal(torch.zeros(600, 600, device=dev), band=300)
+        band_chase.band_to_bidiagonal(torch.zeros(280, 280, device=dev), band=300)
+    with pytest.raises(ValueError, match="band"):
+        band_chase_wave.band_to_bidiagonal_wave_dl(torch.zeros(600, 600, device=dev), band=300)
 
 
 def test_recording_chase_matches_plain(dev, rng):
@@ -938,15 +941,18 @@ def test_tiled_slab_kernel_matches_plain(dev, rng, t, kind):
 
 
 def test_tiled_slab_refuses_a_tile_past_shared_memory(dev):
+    # the first design's kernel refuses a TS slab past its shared memory;
+    # the Stage I takes such a band through the wide instance, with no
+    # first-design launch
     from svdsolver_tpu_torch.ops.cuda import tiled_slab
 
     A = torch.zeros((1024, 1024), device=dev)
-    before = tiled_slab.launches
+    before = (tiled_slab.launches, tiled_slab.launches_wide_chain)
     with pytest.raises(ValueError, match="shared-memory limit"):
         tiled_slab.factor_slab(A, 0, 0, 192, bot=512)
-    with pytest.raises(ValueError, match="shared-memory limit"):
-        tiled_slab.dense_to_band_tiled(A, band=256)
-    assert tiled_slab.launches == before
+    tiled_slab.dense_to_band_tiled(A, band=256)
+    assert tiled_slab.launches == before[0]
+    assert tiled_slab.launches_wide_chain - before[1] == 2 * (1024 // 256) - 1
 
 
 def test_svdvals_multicore_on_card(dev):
@@ -1021,3 +1027,107 @@ def test_svdvals_batch_rows_bit_equal_on_card(dev, rng):
     for i in range(4):
         assert torch.equal(S[i], svdvals(As[i]))
     assert _sigma_err(As[0], S[0]) <= 1e-5
+
+
+# ---- the wide instances (bands past the narrow kernels') ----
+
+def _uniform_on(dev, n, seed=0):
+    a = np.random.default_rng(seed).uniform(0, 5, (n, n)).astype(np.float32)
+    return torch.from_numpy(a).to(dev)
+
+
+@pytest.mark.parametrize("method,n,block", [
+    ("multicore", 1024, 192), ("multicore", 1024, 256), ("tpu2", 2048, 384),
+    ("tpu2", 2048, 512), ("tpu2", 256, 256), ("multicore", 256, 256)])
+def test_svdvals_at_wide_blocks(dev, method, n, block):
+    # K1 past b = 256, the chases' wide pair, the tiled Stage I's wide
+    # instance, block = n; sigma against float64 within 1e-5 sigma_max
+    A = _uniform_on(dev, n)
+    assert _sigma_err(A, svdvals(A, method=method, block=block)) <= 1e-5
+
+
+def test_svd_at_band_512(dev):
+    n = 2048
+    A = _uniform_on(dev, n, seed=1)
+    U, s, Vh = svd(A, band=512)
+    Ad, Ud, Vd = A.double(), U.double(), Vh.double()
+    eye = torch.eye(n, dtype=torch.float64, device=dev)
+    smax = float(torch.linalg.svdvals(Ad)[0])
+    assert _sigma_err(A, s) <= 1e-5
+    assert float((Ud * s.double() @ Vd - Ad).abs().max()) / smax <= 1e-4
+    assert float((Ud.T @ Ud - eye).abs().max()) <= 1e-4
+    assert float((Vd @ Vd.T - eye).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("n,b", [(1152, 384), (2304, 384)])
+def test_wide_chases_bit_equal_to_each_other(dev, n, b):
+    # the L2 sequential kernel and the wavefront's L2 tick share the wide
+    # pair: (d, e) and every record bit-equal; the spectrum against float64
+    A = _uniform_on(dev, n, seed=2)
+    Ab = panel_qr.dense_to_band_fused(A, band=b)
+    seq = band_chase.band_to_bidiagonal_accum_l2(Ab, band=b)
+    wave = band_chase_wave.band_to_bidiagonal_wave_accum(Ab, band=b)
+    assert band_chase_wave.last_tick == "l2"
+    for x, y in zip(seq, wave):
+        assert torch.equal(x, y)
+    d, e = band_chase.band_to_bidiagonal_l2(Ab, band=b)
+    assert torch.equal(d, seq[0]) and torch.equal(e, seq[1])
+    B = torch.diag(d.double()) + torch.diag(e.double(), 1)
+    want = torch.linalg.svdvals(A.double())
+    assert float((torch.linalg.svdvals(B) - want).abs().max()) <= 1e-5 * float(want[0])
+
+
+@pytest.mark.parametrize("n,t", [(640, 160), (512, 64)])
+def test_wide_tiled_instance_bit_equal_to_the_narrow_designs(dev, n, t):
+    from svdsolver_tpu_torch.ops.cuda import tiled_slab
+
+    A = _uniform_on(dev, n, seed=3)
+    got = tiled_slab.dense_to_band_wide(A.clone(), t)
+    want = (tiled_slab.dense_to_band_slabs(A.clone(), t) if t > 128
+            else tiled_slab.dense_to_band_tiled(A, band=t))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b,m", [(384, 2048), (512, 1024), (1024, 1024)])
+def test_panel_qr_at_wide_panels(dev, rng, b, m):
+    # Q = I - V T V^T orthogonal and Q R = P (float64 from the kernel's
+    # outputs); two launches bit-identical
+    Pt = torch.from_numpy(rng.normal(size=(b, m)).astype(np.float32)).to(dev)
+    got = panel_qr.panel_qr(Pt, 0)
+    again = panel_qr.panel_qr(Pt, 0)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    Rt, Vt, Tt = got
+    V, T = Vt.double().T, Tt.double().T
+    Q = torch.eye(m, dtype=torch.float64, device=dev) - V @ T @ V.T
+    assert float((Q.T @ Q - torch.eye(m, dtype=torch.float64, device=dev)).abs().max()) < 1e-5
+    P = Pt.double().T
+    assert float(torch.linalg.norm(Q @ Rt.double().T - P) / torch.linalg.norm(P)) < 1e-5
+
+
+# ---- one-sided block Jacobi on the card ----
+
+def _jacobi_ok(A, U, s, Vh, tol):
+    Ad, Ud, Vd = A.double(), U.double(), Vh.double()
+    n = A.shape[-1]
+    ref = torch.linalg.svdvals(Ad)
+    assert float((s.double() - ref).abs().max() / ref[0]) <= tol
+    assert float(torch.linalg.norm(Ud * s.double() @ Vd - Ad) / torch.linalg.norm(Ad)) <= tol
+    eye = torch.eye(n, dtype=torch.float64, device=A.device)
+    assert float((Ud.T @ Ud - eye).abs().max()) <= tol
+    assert float((Vd @ Vd.T - eye).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-4), (torch.float64, 1e-10)])
+def test_jacobi_entries_on_card(dev, dtype, tol):
+    from svdsolver_tpu_torch import svd_jacobi, svd_jacobi_batch, svd_jacobi_pre
+
+    A = _uniform_on(dev, 256, seed=4).to(dtype)
+    for fn in (svd_jacobi, svd_jacobi_pre, lambda X: svd(X, method="jacobi")):
+        U, s, Vh = fn(A)
+        assert s.dtype == dtype and s.device == A.device
+        _jacobi_ok(A, U, s, Vh, tol)
+    As = torch.stack([_uniform_on(dev, 64, seed=k).to(dtype) for k in range(3)])
+    U, s, Vh = svd_jacobi_batch(As)
+    for i in range(3):
+        _jacobi_ok(As[i], U[i], s[i], Vh[i], tol)
+

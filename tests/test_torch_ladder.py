@@ -260,8 +260,12 @@ def test_dense_to_band_tiled_launches_per_slab(launched, n, t):
 
 
 def test_tile_past_the_limit_raises_before_any_launch(launched):
-    with pytest.raises(ValueError, match="shared-memory limit"):
-        tiled_slab.dense_to_band_tiled(torch.zeros((512, 512)), band=256)
+    # every band up to n has a design (the wide instance past 168); a band
+    # past n raises before any launch
+    with pytest.raises(ValueError, match="band=1024"):
+        tiled_slab.dense_to_band_tiled(torch.zeros((512, 512)), band=1024)
+    with pytest.raises(ValueError, match="outside"):
+        tiled_slab.tiled_route(512, 1024, 132)
     assert launched == []
 
 

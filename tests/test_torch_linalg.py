@@ -150,10 +150,13 @@ def test_eigh_complex_raises_item_12():
             eigh(x)
 
 
-def test_unported_method_raises_its_item(rng):
-    A = from_numpy(_f32(rng, (16, 16)))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        pinv(A, method="jacobi")
+def test_pinv_jacobi_matches_jax(rng):
+    # method="jacobi" passes through to svd's Jacobi dispatch (item 11,
+    # once refused): the pseudo-inverse is unique, so the packages agree
+    A = _f32(rng, (24, 24))
+    got, want = _both(pinv, jla.pinv, A, method="jacobi")
+    np.testing.assert_allclose(to_numpy(got), np.asarray(want), rtol=0,
+                               atol=5e-4 * np.abs(np.asarray(want)).max())
 
 
 def test_polar_singlecore_matches_jax(rng):

@@ -163,9 +163,9 @@ def test_svd_singlecore_runs_the_one_stage_path(rng):
 @pytest.mark.parametrize(
     "call,match",
     [
-        (lambda A: svd(A, method="jacobi"), "ROADMAP queue 1, item 11"),
         (lambda A: svd(A.to(torch.complex64)), "ROADMAP queue 1, item 12"),
         (lambda A: svds(A.to(torch.complex64), 2), "ROADMAP queue 1, item 12"),
+        (lambda A: svdvals(A.to(torch.complex64)), "ROADMAP queue 1, item 12"),
     ],
 )
 def test_unported_options_raise(call, match):

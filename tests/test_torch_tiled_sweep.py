@@ -82,17 +82,19 @@ def test_sweep_wrappers_run_the_plain_versions_on_cpu(rng):
 @pytest.mark.parametrize("n,t,want", [
     (3840, 128, "sweeps"), (1024, 64, "sweeps"), (1024, 32, "sweeps"), (200, 8, "sweeps"),
     (40, 40, "sweeps"), (272, 136, "slabs"), (4032, 168, "slabs"), (200, 200, "slabs"),
-    (238, 238, "slabs"),
+    (238, 238, "slabs"), (338, 169, "wide"), (512, 256, "wide"), (239, 239, "wide"),
 ])
 def test_tiled_route_by_band(n, t, want):
     # the two-kernel design takes every band up to 128; the first design the
-    # wider ones it holds (168 with TS slabs, 238 for one tile)
+    # wider ones it holds (168 with TS slabs, 238 for one tile); the wide
+    # instance every band past those
     assert tiled_slab.tiled_route(n, t, 132) == want
 
 
-@pytest.mark.parametrize("n,t", [(338, 169), (512, 256), (239, 239)])
+@pytest.mark.parametrize("n,t", [(338, 339), (512, 0), (239, 240)])
 def test_tiled_route_refuses_what_neither_design_takes(n, t):
-    with pytest.raises(ValueError, match="shared-memory limit"):
+    # no design takes a band outside [1, n]
+    with pytest.raises(ValueError, match="outside"):
         tiled_slab.tiled_route(n, t, 132)
 
 

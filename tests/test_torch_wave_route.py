@@ -121,8 +121,13 @@ def test_cluster_plan_limits():
     assert panel_qr.cluster_plan(128, 861000).spill
     with pytest.raises(ValueError, match="limit"):
         panel_qr.cluster_plan(128, 862000)
-    with pytest.raises(ValueError, match="range"):
-        panel_qr.cluster_plan(257, 1024)
+    # every width plans (past 256: 2 lanes a row, T in device memory) up to
+    # where v and the exchange arrays leave no room, b ~ 19,000 at m = b
+    assert panel_qr.cluster_plan(257, 1024).tdev
+    with pytest.raises(ValueError, match="limit"):
+        panel_qr.cluster_plan(20000, 20000)
+    with pytest.raises(ValueError, match="b=0"):
+        panel_qr.cluster_plan(0, 1024)
     with pytest.raises(ValueError, match="m="):
         panel_qr.cluster_plan(8, 0)
     with pytest.raises(ValueError, match="cluster"):

@@ -1,0 +1,271 @@
+"""The widths the card takes (F3's repair): every band the reference's XLA
+path runs, 1 <= b <= n after padding, reaches a hand-written kernel.
+
+On the CPU the wrappers' launches are patched out (fixture ``launched``:
+``_build.check_input`` says "on the card", each ``_launch`` logs its call
+and returns a stand-in of the right shape), and every plain version a
+width route could fall back to is replaced by a function that fails the
+test.  So these tests show which kernel entry each width reaches (K1's
+cluster plan, the chase entry, the tiled Stage I's design), that none
+reaches a ``*_plain`` function, and that a failed launch raises.  The
+kernels' numbers are the card's checks (``chip_smoke.phase_wide``, the
+card tests).  The plans of the narrow instances (b <= 256, t <= 168) are
+held to their earlier values: those widths keep their kernels and bits.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from svdsolver_tpu_torch import svd, svdvals
+from svdsolver_tpu_torch.models.svd import bidiagonalize
+from svdsolver_tpu_torch.models import svd as svd_mod
+from svdsolver_tpu_torch.models import tiled, two_stage, vectors
+from svdsolver_tpu_torch.ops.chase_schedule import s_max_of
+from svdsolver_tpu_torch.ops.cuda import _build, band_chase, band_chase_wave, panel_qr, tiled_slab
+from svdsolver_tpu_torch.utils.convert import from_numpy
+
+WIDE = (192, 256, 384, 512)
+
+
+# ---- the plans, by shape ----
+
+@pytest.mark.parametrize("b,m,want", [
+    # b <= 256: the plans of the narrow instance, as they were
+    (128, 3840, (16, 240, 240, 264, 8, 9, 8, 149064)),
+    (64, 1024, (4, 256, 256, 272, 16, 17, 16, 76168)),
+    (256, 1024, (16, 64, 64, 68, 16, 17, 4, 103816)),
+    (192, 1152, (16, 72, 72, 100, 12, 13, 4, 99496)),
+    # past 256: 2 lanes a row (1 past 512), T in device memory (tld = 0)
+    (384, 2304, (16, 144, 130, 130, 24, 0, 2, 224968)),
+    (512, 2048, (16, 128, 66, 66, 32, 0, 2, 168584)),
+    (1024, 1024, (16, 64, 33, 33, 64, 0, 1, 201096)),
+])
+def test_cluster_plan_by_width(b, m, want):
+    got = panel_qr.cluster_plan(b, m)
+    assert tuple(got) == want
+    assert got.smem <= _build.MAX_SMEM
+    assert got.ctas * got.width >= m and got.ctas * got.tcols >= b
+    assert got.tdev == (b > 256)
+    assert got.groups == max(1, min(32, 1 << (1024 // b).bit_length() - 1))
+    assert got.ld % 32 == got.groups % 32  # a warp's rows on distinct banks
+
+
+@pytest.mark.parametrize("n", [192, 256, 384, 512, 1024, 2048, 4096, 8192])
+def test_cluster_plan_takes_block_n(n):
+    """Stage I with block = n: one (n, n) panel; the cluster halves while
+    the exchanged dots would take more than half the shared memory."""
+    plan = panel_qr.cluster_plan(n, n)
+    assert plan.smem <= _build.MAX_SMEM and plan.ctas * plan.width >= n
+    assert 4 * plan.ctas * n <= _build.MAX_SMEM // 2 or plan.ctas == 1
+
+
+@pytest.mark.parametrize("n,t,want", [
+    (1024, 128, "sweeps"), (1024, 160, "slabs"), (960, 192, "wide"), (1024, 256, "wide"),
+    (1536, 384, "wide"), (2048, 512, "wide"), (256, 256, "wide"), (238, 238, "slabs"),
+    (640, 640, "wide"),
+])
+def test_tiled_route_takes_every_band(n, t, want):
+    assert tiled_slab.tiled_route(n, t, 132) == want
+
+
+@pytest.mark.parametrize("n,defer_left,want", [
+    (40, False, 256), (256, False, 256), (1024, False, 1024), (10 ** 6, False,
+                                                                band_chase_wave.WIDE_MAX_BAND),
+    (1024, True, 256),
+])
+def test_chase_band_range(n, defer_left, want):
+    assert band_chase_wave.band_range(n, defer_left) == want
+
+
+# ---- the launches, patched out ----
+
+@pytest.fixture
+def launched(monkeypatch):
+    """CPU tensors down the kernel paths of K1, the chases and the tiled
+    Stage I; each launch logged as (kernel, width, detail) and given a
+    stand-in output; every plain version of those routes fails the test."""
+    calls = []
+
+    class OnCard:
+        def __getattr__(self, k):
+            return getattr(_build, k)
+
+        @staticmethod
+        def check_input(t, name, ndim):
+            return True
+
+    for mod in (panel_qr, band_chase, band_chase_wave, tiled_slab):
+        monkeypatch.setattr(mod, "_build", OnCard())
+    monkeypatch.setattr(tiled_slab, "_sms", lambda device: 132)
+    for mod in (svd_mod, vectors):
+        monkeypatch.setattr(mod, "use_kernels", lambda t: t.dtype == torch.float32)
+
+    def k1(Pt, r_off, plan):
+        calls.append(("panel_qr", Pt.shape[0], (plan.groups, plan.tdev)))
+        b, m = Pt.shape
+        return Pt.clone(), Pt.new_zeros((b, m)), Pt.new_zeros((b, b))
+
+    def chase(A, b, K, record):
+        calls.append(("band_chase_staged" if K else "band_chase", b, record))
+        return _stand_in(A, b, record)
+
+    def wave(A, b, defer_left, ctas, record=False, tick="l2", smem=None):
+        calls.append(("band_chase_wave", b, (record, tick)))
+        return _stand_in(A, b, record)
+
+    def wide_chain(M, top, pc, t, m, V, tau):
+        calls.append(("tiled_wide_chain", t, (top, pc, m)))
+        V.zero_()
+        tau.zero_()
+
+    def wide_apply(M, top, pc, t, m, V, tau):
+        calls.append(("tiled_wide_apply", t, (top, pc, m)))
+
+    def refuse(name):
+        def fn(*a, **k):
+            raise AssertionError(f"the plain route {name} was taken")
+        return fn
+
+    monkeypatch.setattr(panel_qr, "_launch", k1)
+    monkeypatch.setattr(band_chase, "_launch", chase)
+    monkeypatch.setattr(band_chase_wave, "_launch", wave)
+    monkeypatch.setattr(tiled_slab, "_launch_wide_chain", wide_chain)
+    monkeypatch.setattr(tiled_slab, "_launch_wide_apply", wide_apply)
+    for mod, names in (
+            (panel_qr, ("panel_qr_plain",)),
+            (band_chase, ("band_to_bidiagonal_plain", "band_to_bidiagonal_accum_plain")),
+            (band_chase_wave, ("band_to_bidiagonal_wave_plain",
+                               "band_to_bidiagonal_wave_accum_plain",
+                               "band_to_bidiagonal_wave_dl_plain",
+                               "band_to_bidiagonal_wave_tiles_plain")),
+            (tiled, ("dense_to_band_tiled_plain", "_factor_slab", "chain_plain", "apply_plain")),
+            (svd_mod, ("dense_to_band_tiled_plain", "band_to_bidiagonal", "dense_to_band")),
+            (two_stage, ("dense_to_band_rec", "band_to_bidiagonal_accum", "dense_to_band_uv"))):
+        for name in names:
+            monkeypatch.setattr(mod, name, refuse(f"{mod.__name__}.{name}"))
+    return calls
+
+
+def _stand_in(A, b, record):
+    """The chase's outputs for a logged launch: the band's diagonal and
+    superdiagonal, and zero records."""
+    d, e = torch.diagonal(A).clone(), torch.diagonal(A, 1).clone()
+    if not record:
+        return d, e
+    n = A.shape[0]
+    s_max = s_max_of(n, b)
+    return (d, e, A.new_zeros((n - 1, s_max, b)), A.new_zeros((n - 1, s_max)),
+            A.new_zeros((n - 1, s_max, b)), A.new_zeros((n - 1, s_max)))
+
+
+def _uniform(n, seed=0):
+    return from_numpy(np.random.default_rng(seed).uniform(0, 5, (n, n)).astype(np.float32))
+
+
+@pytest.mark.parametrize("b", WIDE)
+def test_tpu2_reaches_k1_and_the_chase_at_every_width(launched, b):
+    n = 2 * b + 64  # pads to 3b: one wavefront lane at most
+    svdvals(_uniform(n), method="tpu2", block=b)
+    k1 = [c for c in launched if c[0] == "panel_qr"]
+    chases = [c for c in launched if c[0].startswith("band_chase")]
+    assert k1 and all(c[1] == b for c in k1)
+    assert all(c[2] == (max(1, 1 << (1024 // b).bit_length() - 1), b > 256) for c in k1)
+    # two lanes wanted where the copy engine does not take the band: the
+    # sequential chase's L2 kernel (its wide pair past 256)
+    assert chases == [("band_chase", b, False)]
+
+
+@pytest.mark.parametrize("b", [384, 512])
+def test_tpu2_takes_the_wavefront_l2_tick_with_two_lanes(launched, b):
+    n = 5 * b  # nc_of(0) = 4 chase pairs: two lanes
+    assert band_chase_wave.wave_chase_preferred(n, b)
+    bidiagonalize(_uniform(n), method="tpu2", block=b)
+    assert [c for c in launched if c[0].startswith("band_chase")] == [
+        ("band_chase_wave", b, (False, "l2"))]
+
+
+@pytest.mark.parametrize("t", [192, 256])
+def test_multicore_reaches_the_wide_tiled_instance(launched, t):
+    n = 4 * t
+    svdvals(_uniform(n), method="multicore", block=t)
+    chains = [c for c in launched if c[0] == "tiled_wide_chain"]
+    applies = [c for c in launched if c[0] == "tiled_wide_apply"]
+    assert len(chains) == len(applies) == 2 * (n // t) - 1
+    # the reference's order of half-sweeps: QR (c, c), then LQ (c + t, c)
+    want = []
+    for k in range(n // t):
+        c = k * t
+        want.append((c, c, n // t - k - 1))
+        if k < n // t - 1:
+            want.append((c + t, c, n // t - k - 2))
+    assert [c[2] for c in chains] == want
+    assert not [c for c in launched if c[0] == "panel_qr"]
+    assert [c[0] for c in launched if c[0].startswith("band_chase")] == ["band_chase"]
+
+
+@pytest.mark.parametrize("method", ["tpu2", "multicore"])
+def test_block_n_reaches_the_kernels(launched, method):
+    n = 320
+    svdvals(_uniform(n), method=method, block=n)
+    stage1 = "panel_qr" if method == "tpu2" else "tiled_wide_chain"
+    assert any(c[0] == stage1 and c[1] == n for c in launched)
+    assert [c for c in launched if c[0].startswith("band_chase")] == [
+        ("band_chase", n, False)]
+
+
+@pytest.mark.parametrize("band", [384, 512])
+def test_svd_reaches_the_recording_chase_at_wide_bands(launched, band):
+    n = 2 * band + 64  # svd keeps band < n; pads to 3 band
+    svd(_uniform(n), band=band)
+    assert any(c[0] == "panel_qr" and c[1] == band for c in launched)
+    assert [c for c in launched if c[0].startswith("band_chase")] == [
+        ("band_chase", band, True)]
+
+
+def test_tiled_stage1_keeps_its_narrow_routes(launched, monkeypatch):
+    # t <= 128: the chain and apply kernels; 128 < t <= 168: the first
+    # design; both logged here in place of running
+    logged = []
+    monkeypatch.setattr(tiled_slab, "_launch_chain", lambda *a: logged.append("chain"))
+    monkeypatch.setattr(tiled_slab, "_launch_apply", lambda *a: logged.append("apply"))
+    monkeypatch.setattr(tiled_slab, "_launch", lambda *a: logged.append("slab"))
+    tiled_slab.dense_to_band_tiled(torch.zeros((256, 256)), band=128)
+    assert logged == ["chain", "apply"] * 3
+    logged.clear()
+    tiled_slab.dense_to_band_tiled(torch.zeros((320, 320)), band=160)
+    assert logged == ["slab"] * 4
+    assert not [c for c in launched if c[0].startswith("tiled_wide")]
+
+
+def test_failed_wide_launches_raise(launched, monkeypatch):
+    """A failed launch raises: no width falls back to a plain version."""
+    def fail(name):
+        def fn(*a, **k):
+            _build.raise_on_error(2, name)
+        return fn
+
+    monkeypatch.setattr(panel_qr, "_launch", fail("panel_qr"))
+    with pytest.raises(RuntimeError, match="panel_qr launch failed"):
+        svdvals(_uniform(640), method="tpu2", block=320)
+    monkeypatch.setattr(tiled_slab, "_launch_wide_chain", fail("tiled_wide_chain"))
+    with pytest.raises(RuntimeError, match="tiled_wide_chain launch failed"):
+        svdvals(_uniform(768), method="multicore", block=384)
+    monkeypatch.setattr(band_chase, "_launch", fail("band_chase"))
+    with pytest.raises(RuntimeError, match="band_chase launch failed"):
+        band_chase.band_to_bidiagonal(torch.zeros((640, 640)), band=320)
+    monkeypatch.setattr(band_chase_wave, "_launch", fail("band_chase_wave"))
+    with pytest.raises(RuntimeError, match="band_chase_wave launch failed"):
+        band_chase_wave.band_to_bidiagonal_wave_accum(torch.zeros((640, 640)), band=300)
+
+
+def test_widths_past_the_range_raise_before_any_launch(launched):
+    with pytest.raises(ValueError, match="band=641"):
+        band_chase.band_to_bidiagonal(torch.zeros((640, 640)), band=641)
+    with pytest.raises(ValueError, match="band=257"):
+        band_chase_wave.band_to_bidiagonal_wave_dl(torch.zeros((640, 640)), band=257)
+    with pytest.raises(ValueError, match="limit"):
+        panel_qr.cluster_plan(20000, 20000)
+    with pytest.raises(ValueError, match="outside"):
+        tiled_slab.tiled_route(100, 101, 132)
+    assert launched == []
