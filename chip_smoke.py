@@ -140,7 +140,25 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    ``svd_jacobi_pre`` at 1024, ``svd_jacobi_batch`` at (8, 256) (each
    matrix's sweeps those of its single solve) and float64 ``svd_jacobi``
    at 512, gated at 30 n eps, with sweeps, launches a round (profiler),
-   ms a round and ``torch.linalg.svd`` at the same shape.
+   ms a round and ``torch.linalg.svd`` at the same shape;
+12. runs the robustness net (``phase_robust``): each degenerate input of
+   the CPU net through the kernel its entry routes it to, every plain
+   version forbidden (``ops.cuda.plain_versions``) and the counts read
+   around each call: K1 on zero, zero-column and upper-triangular panels
+   at (16, 96) and the main path's (128, 1024) (tau = 0, no NaN, the plain
+   version's R, V, T, Q orthogonal); the four routed chases on a
+   bidiagonal and a zero band ((d, e) exact, the records rebuilding it);
+   K2 on zero and split (d, e); the tiled Stage I on zero and diagonal
+   matrices; ``svd`` (K9/K10) on the identity and 3 Q; ``svd_batch`` with
+   three spectra; ``bidiag_qr`` and ``dqds`` on zero and split (d, e),
+   bit-equal to their plain versions; then complex SVD (``phase_complex``:
+   complex64 ``svdvals`` and ``svd`` at 1024 and 2048, K2 and K9/K10
+   launched, sigma, reconstruction and unitarity against complex128,
+   launches a column, ``torch.linalg`` on complex64), the CLI
+   (``phase_cli``: ``check 64``, ``check 512 --model tpu2``, ``bench tpu2
+   1024 2 1`` through ``cli.main``) and SBR (``phase_sbr``:
+   ``band_to_bidiagonal_sbr`` at 1024, band 128 to 32, the routed chase at
+   32 launched).
 
 Any failure raises and exits non-zero.  The second-to-last line is the
 kernel table as JSON, the last ``{"ok": true, "device": {...}}``.  With no
@@ -149,6 +167,8 @@ prints no result.  Every timing line stands under the card's name and power
 limit, printed first.
 """
 
+import contextlib
+import io
 import json
 import statistics
 import subprocess
@@ -266,6 +286,7 @@ LINALG = {"pinv": 2048, "lstsq": (4096, 2048, 4), "eigh": 3840, "polar": 2048,
 # the ladder rungs and the batch entries (phase_ladder, phase_batch)
 LADDER = ("base", "singlecore", "multicore")
 LADDER_SIZES = (3840, 1000)
+ONE_STAGE_SIZES = (1000,)  # base, singlecore, svd(singlecore): host-paced loops, 3840 cut
 SLAB_SIZES = (3840, 1024)  # the slab kernel's checks: rows of these matrices
 SLAB_TILES = (32, 64, 128)
 TOL_SLAB = 1e-4  # max |kernel - plain| / max |A| after a slab's t steps (float32 sums
@@ -306,11 +327,25 @@ WIDE_PATHS = (("svdvals", "tpu2", 2048, 384), ("svdvals", "tpu2", 2048, 512),
               ("svd", "tpu2", 2048, 512), ("svd", "tpu2", 2048, 384))
 # one-sided block Jacobi (phase_jacobi): svd(method="jacobi") at these n,
 # svd_jacobi_pre, svd_jacobi_batch (B, n) and svd_jacobi in float64
-JACOBI_SVD = (1024, 3840)
+JACOBI_SVD = (1024,)  # 3840 (a 19 s solve) cut to keep the script near 600 s
 JACOBI_PRE = 1024
 JACOBI_BATCH = (8, 256)
 JACOBI_F64 = 512
 TOL_JACOBI = 30  # sigma, reconstruction and orthogonality: at most 30 n eps
+# the robustness net: degenerate input through the kernels, no plain version
+ROBUST_PANELS = ((16, 96), (128, 1024))  # K1 (b, m): a small panel and a main-path one
+ROBUST_BAND = (256, 32)  # (n, b) of the chases on a bidiagonal and a zero band
+ROBUST_N = (24, 256)  # K2, svd, the diagonalizers (24 only), the tiled Stage I (256)
+ROBUST_TILE = 32
+ROBUST_BATCH = 32  # n of svd_batch with three spectra
+# complex SVD: Golub-Kahan below complex_svd.GK_MAX columns, the blocked
+# reduction from it on
+COMPLEX_SIZES = (1024, 2048)
+CLI_RUNS = (("check 64", ["check", "64"]),
+            ("check 512 tpu2", ["check", "512", "--model", "tpu2"]),
+            ("bench tpu2 1024", ["bench", "tpu2", "1024", "2", "1",
+                                 "--output", "build/chip_smoke/tpu2_benchmark.csv"]))
+SBR_CASE = (1024, 128, 32)  # (n, band, mid) of band_to_bidiagonal_sbr
 # published H100 SXM peaks (NVIDIA's data sheet, 700 W): float32 and
 # float64 outside the tensor cores, and HBM3
 PEAK_FP32 = 67e12
@@ -321,7 +356,8 @@ DEV = "cuda"
 
 CARD = ""  # the card's name and power limit, as nvidia-smi gives them
 TIMED = ("[times]", "[route]", "[profile]", "[slice]", "[svd]", "[ticks]", "[scale]",
-         "[diag]", "[linalg]", "[ladder]", "[batch]", "[wide]", "[jacobi]")
+         "[diag]", "[linalg]", "[ladder]", "[batch]", "[wide]", "[jacobi]", "[complex]",
+         "[cli]", "[sbr]")
 
 
 def say(*parts):
@@ -2532,7 +2568,8 @@ def phase_ladder():
     """The ladder rungs on the card.  The tiled Stage I's kernels first
     (check_slabs: the first design; check_sweeps: the chain and the apply).
     Then svdvals(A, method=m) for m in LADDER at LADDER_SIZES on the
-    uniform matrix, every launch count set to 0 just before each call and
+    uniform matrix (the one-stage rungs at ONE_STAGE_SIZES only), every
+    launch count set to 0 just before each call and
     read just after: sigma within TOL_SIGMA of float64 svdvals; K2 launched
     once by every rung; ``multicore``: a chain and an apply launch for each
     of its 2 n / t - 1 half-sweeps, no slab launch, the routed chase, no
@@ -2540,7 +2577,7 @@ def phase_ladder():
     dense_to_band_tiled at TILED_TIMES in turns with the first design
     (dense_to_band_slabs), dense_to_band_fused at 3840, and at 1024 beside
     its plain version (one run; the bands within TOL_SLAB in Frobenius
-    norm).  svd(A, method="singlecore") at LADDER_SIZES with svd's gates.
+    norm).  svd(A, method="singlecore") at ONE_STAGE_SIZES with svd's gates.
     Returns (counts by run for the svdvals side, counts by run for the svd
     side, the rows of tiled_slab, tiled_chain and tiled_apply)."""
     from svdsolver_tpu_torch import svd, svdvals
@@ -2555,6 +2592,8 @@ def phase_ladder():
         ref = torch.linalg.svdvals(A.double())
         np_, b = path_band(n)
         for m in LADDER:
+            if m != "multicore" and n not in ONE_STAGE_SIZES:
+                continue
             torch.cuda.synchronize()
             reset_counts()
             t0 = time.perf_counter()
@@ -2584,6 +2623,8 @@ def phase_ladder():
                 f"launches {counts}")
             require(err <= TOL_SIGMA, f"svdvals({m}) sigma error {err:.3e} at n={n}")
             counts_vals[f"{m} {n}"] = counts
+        if n not in ONE_STAGE_SIZES:
+            continue
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
@@ -3207,6 +3248,401 @@ def phase_jacobi():
     return out
 
 
+# ---- the robustness net, complex SVD, the CLI and SBR ----
+
+@contextlib.contextmanager
+def forbid_plain():
+    """Every plain version an entry point could run in place of a kernel
+    (``ops.cuda.plain_versions``) replaced by a function that fails."""
+    from svdsolver_tpu_torch.ops.cuda import plain_versions
+
+    saved = [(mod, name, getattr(mod, name)) for mod, name in plain_versions()]
+
+    def failing(name):
+        def fail(*args, **kwargs):
+            raise RuntimeError(f"check failed: the plain version {name} ran on the card")
+        return fail
+
+    for mod, name, _ in saved:
+        setattr(mod, name, failing(name))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def forbidden_run(fn):
+    """``fn()`` with every plain version forbidden and the launch counts
+    set to 0 just before: (result, counts)."""
+    torch.cuda.synchronize()
+    with forbid_plain():
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = read_counts()
+    return out, counts
+
+
+def _chase_routes():
+    from svdsolver_tpu_torch.ops.cuda import band_chase, band_chase_wave
+
+    return {"sequential": (band_chase.band_to_bidiagonal, ("band_chase_staged", "band_chase")),
+            "sequential rec": (band_chase.band_to_bidiagonal_accum,
+                               ("band_chase_staged_rec", "band_chase_rec")),
+            "wavefront": (band_chase_wave.band_to_bidiagonal_wave,
+                          ("band_chase_wave", "band_chase_wave_l2")),
+            "wavefront rec": (band_chase_wave.band_to_bidiagonal_wave_accum,
+                              ("band_chase_wave_rec", "band_chase_wave_rec_l2"))}
+
+
+def robust_panels(rng):
+    """K1 on a zero panel, a panel with every other column zero (zero-norm
+    reflectors) and an upper-triangular one (every reflector the identity)."""
+    from svdsolver_tpu_torch.ops.cuda import panel_qr
+
+    for b, m in ROBUST_PANELS:
+        for kind in ("zero", "zero_columns", "factored"):
+            P = rng.normal(size=(m, b)).astype(np.float32)
+            P = (np.zeros_like(P) if kind == "zero" else np.triu(P) if kind == "factored"
+                 else P * (np.arange(b) % 2 == 0))
+            Pt = torch.from_numpy(np.ascontiguousarray(P.T)).to(DEV)
+            want = panel_qr.panel_qr_plain(Pt, 0)
+            (Rt, Vt, Tt), c = forbidden_run(lambda: panel_qr.panel_qr(Pt, 0))
+            label = f"[robust] K1 b={b} m={m} {kind}"
+            require(c["panel_qr"] == 1, f"{label}: one launch")
+            require(all(bool(torch.isfinite(x).all()) for x in (Rt, Vt, Tt)), f"{label}: finite")
+            tau = torch.diagonal(Tt)
+            zero_j = range(1, b, 2) if kind == "zero_columns" else range(b)
+            require(all(float(tau[j]) == 0.0 for j in zero_j), f"{label}: tau = 0 "
+                    "at every zero-norm reflector")
+            scale = max(float(Pt.abs().max()), 1.0)
+            err = max(float((g - w).abs().max()) for g, w in zip((Rt, Vt, Tt), want)) / scale
+            require(err <= 1e-4, f"{label}: against the plain version ({err:.3e})")
+            if kind != "zero_columns":
+                require(torch.equal(Rt, Pt), f"{label}: R = P exactly")
+            V, T = Vt.double().T, Tt.double().T
+            eye = torch.eye(m, dtype=torch.float64, device=DEV)
+            Q = eye - V @ T @ V.T
+            orth = float((Q.T @ Q - eye).abs().max())
+            qr = float((Q @ Rt.double().T - Pt.double().T).abs().max()) / scale
+            require(orth <= TOL_Q and qr <= TOL_Q, f"{label}: Q orthogonal, Q R = P")
+            say(f"{label}: tau = 0 at {len(zero_j)} of {b} reflectors, no NaN; max |kernel "
+                f"- plain| {err:.3e} (/ max |P|); |Q^T Q - I| {orth:.3e}, |Q R - P| {qr:.3e}")
+
+
+def robust_chases(rng):
+    """The routed chases, plain and recording, on a band that is already
+    bidiagonal and on the zero band: (d, e) exact, the records rebuild the
+    band (every reflector the identity)."""
+    from svdsolver_tpu_torch.models.vectors import _apply_chase_reflectors
+
+    n, b = ROBUST_BAND
+    for kind in ("bidiagonal", "zero"):
+        d0 = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(DEV)
+        e0 = torch.from_numpy(rng.normal(size=n - 1).astype(np.float32)).to(DEV)
+        if kind == "zero":
+            d0.zero_(), e0.zero_()
+        Ab = (torch.diag(d0) + torch.diag(e0, 1)).contiguous()
+        for entry, (fn, keys) in _chase_routes().items():
+            label = f"[robust] {entry} chase n={n} b={b} on a {kind} band"
+            out, c = forbidden_run(lambda: fn(Ab, band=b))
+            ran = [k for k in keys if c[k]]
+            require(sum(c[k] for k in keys) == 1, f"{label}: one launch")
+            require(torch.equal(out[0], d0) and torch.equal(out[1], e0), f"{label}: (d, e) exact")
+            if entry.endswith("rec"):
+                _, _, VL, TL, VR, TR = out
+                eye = torch.eye(n, device=DEV)
+                L = _apply_chase_reflectors(VL, TL, eye, b, reverse=True)
+                R = _apply_chase_reflectors(VR, TR, eye, b, reverse=True)
+                require(torch.equal(L @ Ab @ R.T, Ab), f"{label}: the records rebuild the band")
+            say(f"{label}: {', '.join(ran)} launched, (d, e) exact"
+                + (", the records rebuild the band exactly" if entry.endswith("rec") else ""))
+
+
+def robust_bisect(rng):
+    """K2 on d = e = 0 and on (d, e) with exact zeros inside."""
+    from svdsolver_tpu_torch.ops.cuda import bisect
+
+    for n in ROBUST_N:
+        for kind in ("zero", "split"):
+            d = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(DEV)
+            e = torch.from_numpy(rng.normal(size=n - 1).astype(np.float32)).to(DEV)
+            if kind == "zero":
+                d.zero_(), e.zero_()
+            else:
+                d[[3, n // 2]] = 0
+                e[[5, 6, n - 2]] = 0
+            label = f"[robust] K2 n={n} {kind} (d, e)"
+            want = bisect.bisect_svdvals_plain(d, e)
+            s, c = forbidden_run(lambda: bisect.bisect_svdvals(d, e))
+            require(c["bisect"] == 1 and bool(torch.isfinite(s).all()), f"{label}: one launch")
+            diff = float((s - want).abs().max())
+            ref = bidiag_sigma(d, e)
+            err = float((s.double() - ref).abs().max()) / max(float(ref[0]), 1e-30)
+            if kind == "zero":
+                require(torch.equal(s, torch.zeros_like(s)), f"{label}: sigma exactly 0")
+            else:
+                require(diff <= 1e-6 * float(want.abs().max()) and err <= TOL_SIGMA,
+                        f"{label}: the plain bisection's values ({diff:.3e}), float64 ({err:.3e})")
+            say(f"{label}: max |kernel - plain| {diff:.3e}, sigma err {err:.3e}"
+                + (" (all exactly 0)" if kind == "zero" else ""))
+
+
+def robust_paths(rng):
+    """The tiled Stage I on zero and diagonal matrices; svd (K9/K10) on the
+    identity and 3 Q; svd_batch with three spectra."""
+    from svdsolver_tpu_torch import svd, svd_batch, svdvals
+
+    n, t = ROBUST_N[-1], ROBUST_TILE
+    for kind in ("zero", "diagonal"):
+        x = rng.normal(size=n).astype(np.float32) if kind == "diagonal" else np.zeros(n, np.float32)
+        A = torch.diag(torch.from_numpy(x)).to(DEV)
+        s, c = forbidden_run(lambda: svdvals(A, method="multicore", block=t))
+        label = f"[robust] multicore n={n} t={t} {kind}"
+        half = 2 * (n // t) - 1
+        require(c["tiled_chain"] == half and c["tiled_apply"] == half and c["bisect"] == 1,
+                f"{label}: the chain and the apply kernels, K2")
+        want = torch.from_numpy(np.sort(np.abs(x))[::-1].copy()).to(DEV)
+        err = float((s - want).abs().max()) / max(float(want[0]), 1e-30)
+        require(torch.equal(s, want) if kind == "zero" else err <= 1e-6, f"{label}: sigma")
+        say(f"{label}: {half} chain and {half} apply launches, sigma err {err:.3e}")
+    for n in ROBUST_N:
+        for kind in ("identity", "three_q"):
+            A = (np.eye(n) if kind == "identity"
+                 else 3 * np.linalg.qr(rng.normal(size=(n, n)))[0]).astype(np.float32)
+            A = torch.from_numpy(A).to(DEV)
+            (U, s, Vh), c = forbidden_run(lambda: svd(A))
+            label = f"[robust] svd n={n} {kind}"
+            require(c["tridiag_solve"] == 2 and c["bisect"] == 1, f"{label}: K2, K9/K10 launched")
+            g = svd_gates(label, A, U, s, Vh, torch.linalg.svdvals(A.double()))
+            say(f"{label}: K2 and K9/K10 launched; sigma {g['sigma']:.3e}, recon "
+                f"{g['recon']:.3e}, orth {max(g['orth U'], g['orth Vh']):.3e}")
+    B = ROBUST_BATCH
+    Q1, Q2 = (np.linalg.qr(rng.normal(size=(B, B)))[0] for _ in range(2))
+    specs = [np.linspace(2.0, 1.0, B), np.full(B, 1.5),
+             np.concatenate([np.linspace(3, 1, B - 4), np.full(4, 1e-5)])]
+    As = torch.from_numpy(np.stack([(Q1 * sp[None, :]) @ Q2.T for sp in specs])
+                          .astype(np.float32)).to(DEV)
+    (U, s, Vh), c = forbidden_run(lambda: svd_batch(As))
+    require(c["panel_qr"] > 0 and c["tridiag_solve"] == 2 * len(specs),
+            "[robust] svd_batch: K1 and K9/K10 launched")
+    for i, sp in enumerate(specs):
+        want = torch.from_numpy(np.sort(sp)[::-1].copy()).to(DEV)
+        err = float((s[i].double() - want).abs().max()) / float(want[0])
+        recon = float(((U[i] * s[i]) @ Vh[i] - As[i]).abs().max()) / float(want[0])
+        require(err <= 2e-4 and recon <= 5e-5, f"[robust] svd_batch [{i}]: sigma, recon")
+        say(f"[robust] svd_batch ({len(specs)}, {B}) [{i}]: sigma err {err:.3e}, "
+            f"recon {recon:.3e}")
+
+
+def robust_diag(rng):
+    """bidiag_qr and dqds on zero, split and zero-pivot (d, e): bit-equal
+    to the plain versions, zero (d, e) exactly 0.  A zero d with a zero e
+    elsewhere costs the QR diagonalizer its accuracy in the JAX package
+    too (ROADMAP, shared with the reference): held to bits there."""
+    from svdsolver_tpu_torch.models import diagonalize as dg
+    from svdsolver_tpu_torch.ops.cuda import bidiag_qr, dqds
+
+    n = ROBUST_N[0]
+    for kind in ("zero", "split", "zero_pivot"):
+        d, e = _bidiag_on_card(rng, n, torch.float32)
+        if kind == "zero":
+            d.zero_(), e.zero_()
+        elif kind == "split":
+            e[[10, 11]] = 0
+        else:
+            d[5], e[10] = 0, 0
+        ref = bidiag_sigma(d, e)
+        for name, fn, plain in (("bidiag_qr", bidiag_qr.bidiagonal_svdvals,
+                                 dg.bidiagonal_svdvals_plain),
+                                ("dqds", dqds.dqds_svdvals, dg.dqds_svdvals_plain)):
+            label = f"[robust] {name} n={n} {kind} (d, e)"
+            want = plain(d, e)
+            s, c = forbidden_run(lambda: fn(d, e))
+            require(c[name] == 1 and c["plain_diag_loops"] == 0 and c["dqds_safety_nets"] == 0,
+                    f"{label}: one launch, no plain loop")
+            require(torch.equal(s, want) and bool(torch.isfinite(s).all()),
+                    f"{label}: bit-equal to the plain version")
+            err = float((s.double() - ref).abs().max()) / max(float(ref[0]), 1e-30)
+            if kind == "zero":
+                require(torch.equal(s, torch.zeros_like(s)), f"{label}: sigma exactly 0")
+            elif kind == "split" or name == "dqds":
+                require(err <= TOL_SIGMA, f"{label}: sigma err {err:.3e}")
+            say(f"{label}: bit-equal to the plain version, sigma err {err:.3e}"
+                + (" (shared with the JAX package's QR)" if err > TOL_SIGMA else ""))
+
+
+def phase_robust():
+    """The robustness net on the card: each degenerate input of the CPU net
+    (``tests/test_torch_robustness.py``) through the kernel its entry routes
+    it to, float32, every plain version forbidden and the launch counts
+    read around each call (``forbidden_run``)."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(18)
+    robust_panels(rng)
+    robust_chases(rng)
+    robust_bisect(rng)
+    robust_paths(rng)
+    robust_diag(rng)
+    say(f"[done] phase_robust {time.perf_counter() - t0:.1f} s")
+
+
+def kernel_launches(fn):
+    """Device kernels ``fn()`` launches (torch.profiler's device events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def phase_complex():
+    """Complex SVD (``models/complex_svd.py``, torch complex64; no kernel of
+    its own): ``svdvals`` and ``svd`` at COMPLEX_SIZES (Golub-Kahan, then
+    the blocked reduction), the counts set to 0 before each call and read
+    after (K2; K9/K10 for svd); sigma against complex128
+    ``torch.linalg.svdvals`` to 1e-5 sigma_max, reconstruction and
+    unitarity to 1e-4; one run's ms (CUDA events), ``torch.linalg.svdvals``
+    / ``svd`` on complex64; each reduction's launches a column from the
+    profiler on a 256 x 256 matrix (its column step is the same ops at any
+    n).  Returns ({label: counts} of svdvals, of svd)."""
+    from svdsolver_tpu_torch import svd, svdvals
+    from svdsolver_tpu_torch.models import complex_svd
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(19)
+
+    def cmatrix(n):
+        return torch.from_numpy(rng.normal(size=(n, n)) + 1j * rng.normal(size=(n, n))).to(
+            DEV, torch.complex64)
+
+    S = cmatrix(256)
+    per_col = {}
+    for name, red in (("golub-kahan", complex_svd._gk_c), ("blocked", complex_svd._blocked_c)):
+        for uv in (False, True):
+            red(S, uv=uv)  # warm
+            per_col[name, uv] = kernel_launches(lambda: red(S, uv=uv)) / 256
+        say(f"[complex] {name} reduction: {per_col[name, False]:.1f} launches a column, "
+            f"{per_col[name, True]:.1f} with the factors (profiler, n = 256)")
+    counts_vals, counts_svd = {}, {}
+    for n in COMPLEX_SIZES:
+        A = cmatrix(n)
+        red = "golub-kahan" if n < complex_svd.GK_MAX else "blocked"
+        ref = torch.linalg.svdvals(A.to(torch.complex128))
+        smax = float(ref[0])
+        torch.cuda.synchronize()
+        reset_counts()
+        s, ms = _event_ms(lambda: svdvals(A))
+        c = read_counts()
+        counts_vals[f"complex svdvals {n}"] = c
+        require(c["bisect"] == 1 and c["panel_qr"] == 0, f"complex svdvals n={n}: K2 alone")
+        err = float((s.double() - ref).abs().max()) / smax
+        require(s.dtype == torch.float32 and err <= TOL_SIGMA, f"complex svdvals n={n}: sigma")
+        lib_ms = cuda_ms(lambda: torch.linalg.svdvals(A), reps=3)
+        say(f"[complex] svdvals n={n} complex64 ({red}): {ms:.1f} ms (one run, CUDA events; "
+            f"{ms * 1e3 / (n * per_col[red, False]):.1f} us a launch), sigma err {err:.3e}; "
+            f"torch.linalg.svdvals {lib_ms:.2f} ms")
+        torch.cuda.synchronize()
+        reset_counts()
+        (U, s2, Vh), ms = _event_ms(lambda: svd(A))
+        c = read_counts()
+        counts_svd[f"complex svd {n}"] = c
+        require(c["bisect"] == 1 and c["tridiag_solve"] == 2, f"complex svd n={n}: K2, K9/K10")
+        Ud, Vd = U.to(torch.complex128), Vh.to(torch.complex128)
+        eye = torch.eye(n, dtype=torch.complex128, device=DEV)
+        sig = float((s2.double() - ref).abs().max()) / smax
+        recon = float(((Ud * s2.double()) @ Vd - A.to(torch.complex128)).abs().max()) / smax
+        orth = max(float((Ud.mH @ Ud - eye).abs().max()), float((Vd @ Vd.mH - eye).abs().max()))
+        require(sig <= TOL_SIGMA and recon <= TOL_RECON and orth <= TOL_ORTH,
+                f"complex svd n={n}: sigma {sig:.3e}, recon {recon:.3e}, unitarity {orth:.3e}")
+        lib_ms = cuda_ms(lambda: torch.linalg.svd(A, full_matrices=False), reps=1)
+        say(f"[complex] svd n={n} complex64 ({red}): {ms:.1f} ms (one run, CUDA events), "
+            f"sigma err {sig:.3e}, |U S Vh - A| / sigma_max {recon:.3e}, unitarity {orth:.3e}; "
+            f"torch.linalg.svd {lib_ms:.2f} ms")
+        del A, U, Vh, Ud, Vd, eye
+        torch.cuda.empty_cache()
+    say(f"[done] phase_complex {time.perf_counter() - t0:.1f} s")
+    return counts_vals, counts_svd
+
+
+def phase_cli():
+    """``python -m svdsolver_tpu_torch`` on the card, through ``cli.main``:
+    each of CLI_RUNS with the counts set to 0 before and read after (the
+    tpu2 runs: K1, the routed chase, K2 for check).  Returns {label:
+    counts} of the tpu2 runs."""
+    from svdsolver_tpu_torch.cli import main as cli_main
+
+    t0 = time.perf_counter()
+    counts = {}
+    for label, argv in CLI_RUNS:
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        reset_counts()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(argv)
+        torch.cuda.synchronize()
+        c = read_counts()
+        text = buf.getvalue()
+        for line in text.splitlines():
+            if line.strip():
+                say(f"[cli] {label}: {line.strip()}")
+        require(rc == 0, f"cli {label}: exit code {rc}")
+        if argv[0] == "check":
+            require("CHECK PASSED" in text, f"cli {label}: CHECK PASSED")
+        if "tpu2" in argv:
+            chase = sum(c[k] for k in ("band_chase", "band_chase_staged", "band_chase_wave",
+                                       "band_chase_wave_l2"))
+            require(c["panel_qr"] > 0 and chase > 0, f"cli {label}: K1 and the chase launched")
+            if argv[0] == "check":
+                require(c["bisect"] == 1, f"cli {label}: K2 launched")
+            counts[f"cli {label}"] = c
+            say(f"[cli] {label}: launches {c}")
+    say(f"[done] phase_cli {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def phase_sbr():
+    """``band_to_bidiagonal_sbr`` at SBR_CASE on the band of the panel
+    kernel's Stage I: the block sweep (torch ops) and the routed chase
+    kernel at mid, the counts set to 0 before and read after; sigma against
+    float64; the routed chase timed alone at mid and at the full band on
+    the panel kernel's bands of those widths (the chase's time is its
+    schedule's, not its data's), the block sweep the rest of the run.
+    Returns {label: counts}."""
+    from svdsolver_tpu_torch.models.sbr import band_to_bidiagonal_sbr
+    from svdsolver_tpu_torch.models.svd import routed_chase
+    from svdsolver_tpu_torch.ops.cuda import panel_qr
+
+    t0 = time.perf_counter()
+    n, b, mid = SBR_CASE
+    A = uniform_matrix(n, seed=20)
+    Ab = panel_qr.dense_to_band_fused(A, band=b)
+    torch.cuda.synchronize()
+    reset_counts()
+    (d, e), ms = _event_ms(lambda: band_to_bidiagonal_sbr(Ab, band=b, mid=mid))
+    c = read_counts()
+    chase = {k: c[k] for k in ("band_chase", "band_chase_staged", "band_chase_wave",
+                               "band_chase_wave_l2") if c[k]}
+    require(sum(chase.values()) == 1 and c["panel_qr"] == 0 and c["bisect"] == 0,
+            f"sbr: one routed chase launch at mid ({chase})")
+    ref = torch.linalg.svdvals(A.double())
+    err = float((bidiag_sigma(d, e) - ref).abs().max() / ref[0])
+    require(err <= TOL_SIGMA, f"sbr sigma error {err:.3e}")
+    Am = panel_qr.dense_to_band_fused(A, band=mid)
+    mid_ms = cuda_ms(lambda: routed_chase(Am, mid), reps=3)
+    full_ms = cuda_ms(lambda: routed_chase(Ab, b), reps=3)
+    say(f"[sbr] n={n} band {b} -> {mid}: {ms:.1f} ms (one run, CUDA events) = the block sweep "
+        f"(torch ops) ~{ms - mid_ms:.1f} ms + the routed chase at {mid} {mid_ms:.3f} ms "
+        f"({', '.join(chase)}); the routed chase at {b} alone {full_ms:.3f} ms; sigma err "
+        f"{err:.3e}")
+    say(f"[done] phase_sbr {time.perf_counter() - t0:.1f} s")
+    return {f"sbr {n}": c}
+
+
 def wide_rows(errs, times, counts):
     """The kernel line's rows of the wide instances: launches from
     phase_wide's entry runs."""
@@ -3651,6 +4087,14 @@ def main():
     say(f"[done] the ladder and the batches {time.perf_counter() - t0:.1f} s")
     wide_errs, wide_times, wide_counts = phase_wide(np.random.default_rng(1))
     phase_jacobi()
+    t0 = time.perf_counter()
+    phase_robust()
+    complex_vals, complex_svd = phase_complex()
+    counts_vals.update(complex_vals)
+    counts_svd.update(complex_svd)
+    counts_vals.update(phase_cli())
+    counts_vals.update(phase_sbr())
+    say(f"[done] the robustness net, complex, the CLI and SBR {time.perf_counter() - t0:.1f} s")
     counts_vals.update(ladder_vals)
     counts_vals.update(batch_vals)
     counts_svd.update(ladder_svd)

@@ -17,7 +17,11 @@ deferred-left chases of ``ops.cuda``), the bidiagonal diagonalizers
 themselves (``givens``, the QR sweeps and driver, ``dqds_svdvals``) and the
 SVD applications of ``linalg`` (``pinv``, ``lstsq``, ``matrix_rank``,
 ``cond``, ``norm2``, ``lowrank``, ``rsvd``, ``polar``, ``eigh``, ``orth``,
-``null_space``).  They are plain PyTorch functions on tensors, with
+``null_space``), complex SVD on torch complex dtypes (``svd_c``,
+``svdvals_c``; ``svdvals``, ``svd`` and ``linalg.eigh`` dispatch complex
+input to them), successive band reduction (``models.sbr``), the utilities
+(``utils``: fixtures, CSV, timing, profiling, the native C++ oracle's
+loader) and the command line (``python -m svdsolver_tpu_torch``).  They are plain PyTorch functions on tensors, with
 hand-written CUDA kernels (``csrc/``) on the card: for float32 tensors the
 Stage I panel QR, the band -> bidiagonal chase (plain, recording, wavefront
 with and without deferred left applies, staged in shared memory, packed),
@@ -52,6 +56,7 @@ from svdsolver_tpu_torch.ops.cuda.bidiag_qr import (
 from svdsolver_tpu_torch.ops.cuda.dqds import dqds_svdvals
 from svdsolver_tpu_torch.models.svd import svdvals, svdvals_batch, Bidiagonal
 from svdsolver_tpu_torch.models.vectors import svd, svds, svd_batch, bidiagonal_svd
+from svdsolver_tpu_torch.models.complex_svd import svd_c, svdvals_c
 from svdsolver_tpu_torch.models.jacobi import (
     svd_jacobi,
     svd_jacobi_batch,
@@ -97,6 +102,8 @@ __all__ = [
     "svds",
     "svd_batch",
     "bidiagonal_svd",
+    "svd_c",
+    "svdvals_c",
     "svd_jacobi",
     "svd_jacobi_batch",
     "svd_jacobi_pre",

@@ -9,13 +9,15 @@ kernels, and every contraction goes through ``ops.precision.pdot`` (TF32
 off).  Inputs are taken as ``models.svd.as_input`` takes them: a tensor
 keeps its device and dtype; a numpy array or array-like goes to the CUDA
 card as float32 (and raises when there is none).  ``method`` passes
-through to ``svd`` (``jacobi`` included); complex input raises
-``NotImplementedError`` naming its ROADMAP item.
+through to ``svd`` (``jacobi`` included).  Complex input is taken by
+``eigh`` (Hermitian, through ``complex_svd.svd_c``); the other functions
+raise ``TypeError`` on it.
 """
 
 import numpy as np
 import torch
 
+from svdsolver_tpu_torch.models.complex_svd import as_complex_input, is_complex_input, svd_c
 from svdsolver_tpu_torch.models.svd import as_input, svdvals
 from svdsolver_tpu_torch.models.vectors import svd, svds
 from svdsolver_tpu_torch.ops.precision import pdot
@@ -172,19 +174,26 @@ def polar(A, side="right", method="tpu2"):
 
 
 def eigh(A, method="tpu2"):
-    """Eigendecomposition of a symmetric matrix via the SVD.
+    """Eigendecomposition of a symmetric (or Hermitian) matrix via the SVD.
 
     Returns ``(w, V)`` with eigenvalues ``w`` ascending and ``A @ V ~=
     V @ diag(w)`` (numpy.linalg.eigh convention).  Shift to positive
     definite (``B = A + c I`` with ``c = 1.25 ||A||_inf > ||A||_2``, so B's
     SVD is its eigendecomposition, no sign recovery needed), run the
-    two-stage SVD, shift back.  Complex (Hermitian) input is not ported.
+    two-stage SVD, shift back.  A complex (Hermitian) input takes the same
+    shift through ``complex_svd.svd_c`` (``method`` is ignored there, as in
+    the JAX package) and returns a real ``w`` and a complex ``V``.
     """
-    if A.is_complex() if isinstance(A, torch.Tensor) else np.iscomplexobj(A):
-        raise NotImplementedError(
-            "eigh of complex (Hermitian) input is not ported yet: ROADMAP queue 1, "
-            "item 12 (models/complex_svd.py)"
-        )
+    if is_complex_input(A):
+        A = as_complex_input(A)
+        n = A.shape[0]
+        if A.shape[1] != n:
+            raise ValueError(f"eigh expects a square Hermitian matrix, got {tuple(A.shape)}")
+        A = 0.5 * (A + A.mH)
+        c = (1.25 * torch.max(torch.sum(torch.abs(A), dim=1))
+             + torch.finfo(A.real.dtype).tiny)
+        U, s, _ = svd_c(A + c * torch.eye(n, dtype=A.dtype, device=A.device))
+        return (s - c).flip(0), U.flip(1)
     A = as_input(A)
     m, n = A.shape
     if m != n:

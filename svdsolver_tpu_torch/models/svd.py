@@ -40,11 +40,13 @@ METHODS = ("base", "singlecore", "multicore", "tpu1", "tpu2")
 
 
 def as_input(A):
-    """The matrix an entry point works on.  A tensor keeps its device and
-    dtype.  A numpy array or array-like goes to the CUDA card as float32
+    """The real matrix an entry point works on.  A tensor keeps its device
+    and dtype.  A numpy array or array-like goes to the CUDA card as float32
     (the JAX package's default placement and dtype); with no card this
-    raises, it never runs on the CPU.  Complex input is not ported."""
-    A = _placed(A)
+    raises, it never runs on the CPU.  Complex input is taken by
+    ``svdvals``, ``svd``, ``svd_c``, ``svdvals_c`` and ``linalg.eigh``
+    only; any other entry raises ``TypeError`` on it."""
+    A = _real(placed(A))
     if A.ndim != 2:
         raise ValueError(f"A must be 2-D, got shape {tuple(A.shape)}")
     return A
@@ -53,31 +55,34 @@ def as_input(A):
 def as_batch(As, name):
     """The (B, n, n) batch entry ``name`` works on, placed as
     :func:`as_input` places a matrix; any other shape raises."""
-    As = _placed(As)
+    As = _real(placed(As))
     if As.ndim != 3 or As.shape[-1] != As.shape[-2]:
         raise ValueError(f"{name} expects (B, n, n), got {tuple(As.shape)}")
     return As
 
 
-def _placed(A):
+def placed(A):
+    """``A`` as a tensor: a tensor as it is; a numpy array or array-like on
+    the CUDA card, as complex64 if it is complex and float32 otherwise;
+    with no card this raises."""
     if isinstance(A, torch.Tensor):
-        if A.is_complex():
-            _complex()
         return A
-    if np.iscomplexobj(A):
-        _complex()
     if not torch.cuda.is_available():
         raise RuntimeError(
             "a numpy or array-like input runs on the CUDA card, and none "
             "is available; pass a torch.Tensor to run on its device"
         )
-    return torch.as_tensor(np.asarray(A, dtype=np.float32), device="cuda")
+    dtype = np.complex64 if np.iscomplexobj(A) else np.float32
+    return torch.as_tensor(np.asarray(A, dtype=dtype), device="cuda")
 
 
-def _complex():
-    raise NotImplementedError(
-        "complex input is not ported yet: ROADMAP queue 1, item 12"
-    )
+def _real(A):
+    if A.is_complex():
+        raise TypeError(
+            "complex input is taken by svdvals, svd, svd_c, svdvals_c and "
+            "linalg.eigh; this entry takes real input"
+        )
+    return A
 
 
 def use_kernels(t):
@@ -133,21 +138,52 @@ def bidiagonalize(A, method="tpu2", block=None):
     if method == "singlecore":
         return Bidiagonal(*bidiagonalize_blocked(A, panel=block))
     Ap, n = _pad_to_multiple(A, block)
+    stage1, stage2 = two_stage_fns(method, A)
+    d, e = stage2(stage1(Ap, band=block), band=block)
+    return Bidiagonal(d[:n], e[: n - 1])
+
+
+def two_stage_fns(method, A):
+    """``(stage1, stage2)``, each ``f(A, band=b)``: the Stage I and the
+    chase :func:`bidiagonalize` runs for ``method`` (``multicore``,
+    ``tpu1`` or ``tpu2``) on ``A``'s device and dtype.  For float32 CUDA
+    input and a method other than ``tpu1``: the tiled Stage I's kernels
+    (``multicore``) or the panel kernel (``tpu2``), then
+    :func:`routed_chase`; otherwise the plain versions."""
+    if method not in ("multicore", "tpu1", "tpu2"):
+        raise ValueError(f"{method!r} is no two-stage method")
     on_card = method != "tpu1" and use_kernels(A)
     if method == "multicore":
-        Ab = (tiled_slab.dense_to_band_tiled(Ap, band=block) if on_card
-              else dense_to_band_tiled_plain(Ap, band=block))
-    elif on_card:
-        Ab = panel_qr.dense_to_band_fused(Ap, band=block)
+        stage1 = tiled_slab.dense_to_band_tiled if on_card else dense_to_band_tiled_plain
     else:
-        Ab = dense_to_band(Ap, band=block)
-    if not on_card:
-        d, e = band_to_bidiagonal(Ab, band=block)
-    elif band_chase_wave.wave_chase_preferred(Ab.shape[0], block):
-        d, e = band_chase_wave.band_to_bidiagonal_wave(Ab, band=block)
-    else:
-        d, e = band_chase.band_to_bidiagonal(Ab, band=block)
-    return Bidiagonal(d[:n], e[: n - 1])
+        stage1 = panel_qr.dense_to_band_fused if on_card else dense_to_band
+    return stage1, (routed_chase if on_card else band_to_bidiagonal)
+
+
+def routed_chase(Ab, band):
+    """The chase kernel for the band ``Ab``, picked by
+    :func:`band_chase_wave.wave_chase_preferred`: the wavefront kernel from
+    n = 641, else the sequential chase (the same ``(d, e)`` bit for bit)."""
+    if band_chase_wave.wave_chase_preferred(Ab.shape[0], band):
+        return band_chase_wave.band_to_bidiagonal_wave(Ab, band=band)
+    return band_chase.band_to_bidiagonal(Ab, band=band)
+
+
+def diagonalizer(method, diag, d):
+    """The function ``f(d, e)`` :func:`svdvals` diagonalizes the bidiagonal
+    ``{d, e}`` of ``method`` with: ``diag="qr"`` / ``"dqds"`` their
+    wrappers (the kernels on any CUDA tensor); ``"bisect"`` the bisection
+    kernel for float32 CUDA input and a method other than ``tpu1``, the
+    plain bisection otherwise."""
+    if diag == "qr":
+        return bidiag_qr.bidiagonal_svdvals
+    if diag == "dqds":
+        return dqds.dqds_svdvals
+    if diag != "bisect":
+        raise ValueError(f"unknown diag {diag!r}; 'bisect', 'qr' or 'dqds'")
+    if method != "tpu1" and use_kernels(d):
+        return lambda d, e: bisect.bisect_svdvals(d.contiguous(), e.contiguous())
+    return bisect_svdvals
 
 
 def svdvals(A, method="tpu2", block=None, diag="bisect"):
@@ -160,7 +196,20 @@ def svdvals(A, method="tpu2", block=None, diag="bisect"):
     reduced to its square triangular factor by QR (sigma-preserving).
     ``A``: a tensor runs on its own device; a numpy array or array-like goes
     to the CUDA card as float32 (:func:`as_input`).
+    A complex input (a complex tensor, a numpy complex array) runs
+    :func:`~svdsolver_tpu_torch.models.complex_svd.svdvals_c` and takes
+    only the defaults ``method="tpu2"``, ``diag="bisect"``.
     """
+    from svdsolver_tpu_torch.models import complex_svd
+
+    if complex_svd.is_complex_input(A):
+        if method != "tpu2" or diag != "bisect":
+            raise ValueError(
+                "complex input supports only method='tpu2', diag='bisect' "
+                f"(got method={method!r}, diag={diag!r}); call "
+                "svdsolver_tpu_torch.models.complex_svd.svdvals_c directly"
+            )
+        return complex_svd.svdvals_c(A)
     A = as_input(A)
     if diag not in ("bisect", "qr", "dqds"):
         raise ValueError(f"unknown diag {diag!r}; 'bisect', 'qr' or 'dqds'")
@@ -171,13 +220,7 @@ def svdvals(A, method="tpu2", block=None, diag="bisect"):
             m, n = n, m
         A = torch.linalg.qr(A, mode="r")[1][:n, :n].contiguous()
     B = bidiagonalize(A, method=method, block=block)
-    if diag == "qr":
-        return bidiag_qr.bidiagonal_svdvals(B.d, B.e)[:n]
-    if diag == "dqds":
-        return dqds.dqds_svdvals(B.d, B.e)[:n]
-    if method != "tpu1" and use_kernels(A):
-        return bisect.bisect_svdvals(B.d.contiguous(), B.e.contiguous())[:n]
-    return bisect_svdvals(B.d, B.e)[:n]
+    return diagonalizer(method, diag, B.d)(B.d, B.e)[:n]
 
 
 def svdvals_batch(As, block=None):

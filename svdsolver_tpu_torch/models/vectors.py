@@ -534,8 +534,21 @@ def svd(A, panel=32, method="tpu2", band=None):
     the reference does: :func:`bidiagonalize_blocked_uv` with panel width
     ``panel``, then :func:`bidiagonal_svd` (the bisection and TGK solve
     kernels on the card), then ``U = Ug U_b``, ``V = Vg V_b``.  A
-    rectangular input is reduced by a reduced QR first.
+    rectangular input is reduced by a reduced QR first.  A complex input
+    (a complex tensor, a numpy complex array) runs
+    :func:`~svdsolver_tpu_torch.models.complex_svd.svd_c` and takes only
+    ``method="tpu2"``.
     """
+    from svdsolver_tpu_torch.models import complex_svd
+
+    if complex_svd.is_complex_input(A):
+        if method != "tpu2":
+            raise ValueError(
+                "complex input supports only the default pipeline (got "
+                f"method={method!r}); call "
+                "svdsolver_tpu_torch.models.complex_svd.svd_c directly"
+            )
+        return complex_svd.svd_c(A)
     A = as_input(A)
     if method == "jacobi":
         return svd_jacobi(A)

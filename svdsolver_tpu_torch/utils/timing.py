@@ -33,3 +33,16 @@ def benchmark(fn, instances, *args, warmup=True):
     for inst in instances:
         sync(fn(inst, *args))
     return (time.perf_counter() - t0) / max(len(instances), 1)
+
+
+def benchmark_each(fn, instances, *args, warmup=True):
+    """Per-instance variant of :func:`benchmark`: returns ``(mean_seconds,
+    list_of_seconds)``."""
+    if warmup and len(instances) > 0:
+        sync(fn(instances[0], *args))
+    times = []
+    for inst in instances:
+        t0 = time.perf_counter()
+        sync(fn(inst, *args))
+        times.append(time.perf_counter() - t0)
+    return sum(times) / max(len(times), 1), times

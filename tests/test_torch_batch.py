@@ -131,5 +131,5 @@ def test_batch_numpy_input_needs_a_card(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA card"):
         entry(np.zeros((2, 4, 4), dtype=np.float32))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(TypeError, match="complex"):
         entry(torch.zeros((2, 4, 4), dtype=torch.complex64))

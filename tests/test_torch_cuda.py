@@ -1131,3 +1131,292 @@ def test_jacobi_entries_on_card(dev, dtype, tol):
     for i in range(3):
         _jacobi_ok(As[i], U[i], s[i], Vh[i], tol)
 
+
+
+# ---- the robustness net on the card: degenerate input through the kernels ----
+
+@pytest.fixture
+def no_plain():
+    """``run(fn)``: ``fn()`` with every plain version an entry point could
+    run in place of a kernel replaced by a function that fails."""
+    from svdsolver_tpu_torch.ops.cuda import plain_versions
+
+    def failing(name):
+        def fail(*args, **kwargs):
+            raise AssertionError(f"the plain version {name} ran on a CUDA tensor")
+        return fail
+
+    def run(fn):
+        with pytest.MonkeyPatch.context() as mp:
+            for mod, name in plain_versions():
+                mp.setattr(mod, name, failing(name))
+            return fn()
+
+    return run
+
+
+def _degenerate_panel(rng, b, m, kind):
+    """P (m, b): all zero, every other column zero (zero-norm reflectors),
+    or already upper triangular (every reflector the identity)."""
+    P = rng.normal(size=(m, b)).astype(np.float32)
+    if kind == "zero":
+        P[:] = 0
+    elif kind == "zero_columns":
+        P[:, 1::2] = 0
+    else:
+        P = np.triu(P)
+    return P
+
+
+@pytest.mark.parametrize("kind", ["zero", "zero_columns", "factored"])
+@pytest.mark.parametrize("b,m", [(16, 96), (128, 1024)])
+def test_panel_qr_on_degenerate_panels(dev, rng, no_plain, b, m, kind):
+    # a zero-norm reflector gives tau = 0 and no NaN; R, V, T as the plain
+    # version's; Q = I - V T V^T orthogonal, Q R = P
+    P = _degenerate_panel(rng, b, m, kind)
+    Pt = torch.from_numpy(np.ascontiguousarray(P.T)).to(dev)
+    panel_qr.launches = 0
+    Rt, Vt, Tt = no_plain(lambda: panel_qr.panel_qr(Pt, 0))
+    assert panel_qr.launches == 1
+    assert all(bool(torch.isfinite(x).all()) for x in (Rt, Vt, Tt))
+    tau = torch.diagonal(Tt)
+    zero_tau = {"zero": range(b), "zero_columns": range(1, b, 2), "factored": range(b)}[kind]
+    assert all(float(tau[j]) == 0.0 for j in zero_tau)
+    scale = max(float(Pt.abs().max()), 1.0)
+    for g, w in zip((Rt, Vt, Tt), panel_qr.panel_qr_plain(Pt, 0)):
+        assert float((g - w).abs().max()) <= 1e-4 * scale
+    if kind != "zero_columns":  # every reflector the identity: R = P exactly
+        assert torch.equal(Rt, Pt) and torch.equal(Tt, torch.zeros_like(Tt))
+    V, T = Vt.double().T, Tt.double().T
+    eye = torch.eye(m, dtype=torch.float64, device=dev)
+    Q = eye - V @ T @ V.T
+    assert float((Q.T @ Q - eye).abs().max()) < 1e-5
+    assert float((Q @ Rt.double().T - Pt.double().T).abs().max()) <= 1e-5 * scale
+
+
+def _chase_entries():
+    return {
+        "sequential": (band_chase.band_to_bidiagonal,
+                       ((band_chase, "launches_staged"), (band_chase, "launches"))),
+        "sequential_rec": (band_chase.band_to_bidiagonal_accum,
+                           ((band_chase, "launches_staged_rec"), (band_chase, "launches_rec"))),
+        "wavefront": (band_chase_wave.band_to_bidiagonal_wave,
+                      ((band_chase_wave, "launches"), (band_chase_wave, "launches_l2"))),
+        "wavefront_rec": (band_chase_wave.band_to_bidiagonal_wave_accum,
+                          ((band_chase_wave, "launches_rec"), (band_chase_wave, "launches_rec_l2"))),
+    }
+
+
+@pytest.mark.parametrize("kind", ["bidiagonal", "zero"])
+@pytest.mark.parametrize("entry", ["sequential", "sequential_rec", "wavefront", "wavefront_rec"])
+def test_chases_on_degenerate_bands(dev, rng, no_plain, entry, kind):
+    # a band that is already bidiagonal (every reflector the identity) or
+    # zero: (d, e) exact, the records rebuild the band (L = R = I)
+    n, b = 256, 32
+    d0 = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(dev)
+    e0 = torch.from_numpy(rng.normal(size=n - 1).astype(np.float32)).to(dev)
+    if kind == "zero":
+        d0, e0 = torch.zeros_like(d0), torch.zeros_like(e0)
+    Ab = (torch.diag(d0) + torch.diag(e0, 1)).contiguous()
+    fn, counters = _chase_entries()[entry]
+    for mod, attr in counters:
+        setattr(mod, attr, 0)
+    out = no_plain(lambda: fn(Ab, band=b))
+    assert sum(getattr(mod, attr) for mod, attr in counters) == 1
+    assert torch.equal(out[0], d0) and torch.equal(out[1], e0)
+    if entry.endswith("_rec"):
+        _, _, VL, TL, VR, TR = out
+        assert float(TL.abs().max()) == 0.0 and float(TR.abs().max()) == 0.0
+        eye = torch.eye(n, device=dev)
+        L = _apply_chase_reflectors(VL, TL, eye, b, reverse=True)
+        R = _apply_chase_reflectors(VR, TR, eye, b, reverse=True)
+        assert torch.equal(L @ Ab @ R.T, Ab)
+
+
+@pytest.mark.parametrize("kind", ["zero", "split"])
+@pytest.mark.parametrize("n", [24, 256])
+def test_bisect_on_zero_and_split_bidiagonals(dev, rng, no_plain, n, kind):
+    # d = e = 0: sigma exactly 0; exact zeros inside (d, e): the plain
+    # bisection's values and float64's
+    d = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(dev)
+    e = torch.from_numpy(rng.normal(size=n - 1).astype(np.float32)).to(dev)
+    if kind == "zero":
+        d.zero_(), e.zero_()
+    else:
+        d[[3, n // 2]] = 0
+        e[[5, 6, n - 2]] = 0
+    bisect.launches = 0
+    s = no_plain(lambda: bisect.bisect_svdvals(d, e))
+    assert bisect.launches == 1 and bool(torch.isfinite(s).all())
+    if kind == "zero":
+        assert torch.equal(s, torch.zeros_like(s))
+        return
+    sp = bisect.bisect_svdvals_plain(d, e)
+    torch.testing.assert_close(s, sp, rtol=1e-6, atol=1e-7 * float(sp.abs().max()))
+    want = torch.linalg.svdvals(torch.diag(d.double()) + torch.diag(e.double(), 1))
+    assert float((s.double() - want).abs().max()) <= 1e-5 * float(want[0])
+
+
+@pytest.mark.parametrize("kind", ["zero", "diagonal"])
+def test_multicore_on_zero_and_diagonal(dev, rng, no_plain, kind):
+    # the tiled Stage I's chain and apply kernels on zero tiles
+    from svdsolver_tpu_torch.ops.cuda import tiled_slab
+
+    n, t = 256, 32
+    x = rng.normal(size=n).astype(np.float32) if kind == "diagonal" else np.zeros(n, np.float32)
+    A = torch.diag(torch.from_numpy(x)).to(dev)
+    tiled_slab.launches_chain = tiled_slab.launches_apply = 0
+    s = no_plain(lambda: svdvals(A, method="multicore", block=t))
+    assert tiled_slab.launches_chain == tiled_slab.launches_apply == 2 * (n // t) - 1
+    want = np.sort(np.abs(x))[::-1].copy()
+    if kind == "zero":
+        assert torch.equal(s, torch.zeros_like(s))
+    else:
+        assert float((s.cpu() - torch.from_numpy(want)).abs().max()) <= 1e-6 * float(want[0])
+
+
+@pytest.mark.parametrize("kind", ["identity", "three_q"])
+@pytest.mark.parametrize("n", [24, 256])
+def test_svd_on_duplicate_sigma(dev, rng, no_plain, n, kind):
+    # one cluster of n equal values through the TGK solve kernel (K9/K10)
+    A = (np.eye(n) if kind == "identity"
+         else 3 * np.linalg.qr(rng.normal(size=(n, n)))[0]).astype(np.float32)
+    A = torch.from_numpy(A).to(dev)
+    tridiag_solve.launches = bisect.launches = 0
+    U, s, Vh = no_plain(lambda: svd(A))
+    assert tridiag_solve.launches == 2 and bisect.launches == 1
+    Ad, Ud, Vd = A.double(), U.double(), Vh.double()
+    smax = float(torch.linalg.svdvals(Ad)[0])
+    eye = torch.eye(n, dtype=torch.float64, device=dev)
+    assert _sigma_err(A, s) <= 1e-5
+    assert float((Ud * s.double() @ Vd - Ad).abs().max()) <= 1e-4 * smax
+    assert float((Ud.T @ Ud - eye).abs().max()) <= 1e-4
+    assert float((Vd @ Vd.T - eye).abs().max()) <= 1e-4
+
+
+def test_svd_batch_mixed_spectra_on_card(dev, rng, no_plain):
+    from svdsolver_tpu_torch import svd_batch
+
+    n = 32
+    Q1, _ = np.linalg.qr(rng.normal(size=(n, n)))
+    Q2, _ = np.linalg.qr(rng.normal(size=(n, n)))
+    specs = [np.linspace(2.0, 1.0, n), np.full(n, 1.5),
+             np.concatenate([np.linspace(3, 1, n - 4), np.full(4, 1e-5)])]
+    As = np.stack([(Q1 * sp[None, :]) @ Q2.T for sp in specs]).astype(np.float32)
+    panel_qr.launches = tridiag_solve.launches = 0
+    out = no_plain(lambda: svd_batch(torch.from_numpy(As).to(dev)))
+    U, s, Vh = (x.cpu().numpy() for x in out)
+    assert panel_qr.launches and tridiag_solve.launches == 2 * len(specs)
+    for i, sp in enumerate(specs):
+        want = np.sort(sp)[::-1]
+        np.testing.assert_allclose(s[i], want, rtol=2e-4, atol=2e-5 * want[0])
+        np.testing.assert_allclose(U[i] @ np.diag(s[i]) @ Vh[i], As[i], atol=5e-5 * want[0])
+
+
+@pytest.mark.parametrize("kind", ["zero", "split", "zero_pivot"])
+@pytest.mark.parametrize("kernel", ["bidiag_qr", "dqds"])
+def test_diag_kernels_on_zero_and_split(dev, rng, no_plain, kernel, kind):
+    # bit-equal to their plain versions (float32 and float64); zero (d, e)
+    # gives exact zeros.  "zero_pivot" (a zero d with a zero e elsewhere)
+    # costs the QR diagonalizer its accuracy in the JAX package too
+    # (ROADMAP, faults shared with the reference): bits, not the spectrum
+    from svdsolver_tpu_torch.models import diagonalize as dg
+    from svdsolver_tpu_torch.ops.cuda import bidiag_qr, dqds
+
+    n = 24
+    d = torch.from_numpy(rng.normal(size=n)).to(dev, torch.float32)
+    e = torch.from_numpy(rng.normal(size=n - 1)).to(dev, torch.float32)
+    if kind == "zero":
+        d.zero_(), e.zero_()
+    elif kind == "split":
+        e[[10, 11]] = 0
+    else:
+        d[5], e[10] = 0, 0
+    dg.plain_loops = 0
+    if kernel == "bidiag_qr":
+        bidiag_qr.launches = 0
+        s = no_plain(lambda: bidiag_qr.bidiagonal_svdvals(d, e))
+        assert bidiag_qr.launches == 1
+        assert torch.equal(s, dg.bidiagonal_svdvals_plain(d, e))
+    else:
+        dqds.launches = dg.safety_nets = 0
+        s = no_plain(lambda: dqds.dqds_svdvals(d, e))
+        assert dqds.launches == 1 and dg.safety_nets == 0
+        assert torch.equal(s, dg.dqds_svdvals_plain(d, e))
+    assert bool(torch.isfinite(s).all())
+    if kind == "zero":
+        assert torch.equal(s, torch.zeros_like(s))
+    elif kind == "split" or kernel == "dqds":
+        want = torch.linalg.svdvals(torch.diag(d.double()) + torch.diag(e.double(), 1))
+        assert float((s.double() - want).abs().max()) <= 1e-5 * float(want[0])
+
+
+# ---- complex SVD, SBR and the CLI on the card ----
+
+def test_complex64_gemm_is_fp32(dev, rng):
+    # every complex contraction goes through pdot with TF32 off: one
+    # complex64 GEMM within fp32 rounding of complex128 (TF32 gives ~1e-3)
+    from svdsolver_tpu_torch.ops.precision import pdot
+
+    A = torch.from_numpy(rng.normal(size=(512, 512)) + 1j * rng.normal(size=(512, 512))).to(dev)
+    B = torch.from_numpy(rng.normal(size=(512, 512)) + 1j * rng.normal(size=(512, 512))).to(dev)
+    got = pdot(A.to(torch.complex64), B.to(torch.complex64)).to(torch.complex128)
+    want = A.to(torch.complex64).to(torch.complex128) @ B.to(torch.complex64).to(torch.complex128)
+    assert float((got - want).abs().max() / want.abs().max()) < 1e-5
+
+
+@pytest.mark.parametrize("shape", [(256, 256), (96, 160)])
+def test_complex_svd_on_card(dev, rng, no_plain, shape):
+    # complex64: the reduction on torch ops, then K2 and K9/K10 on the real
+    # bidiagonal; sigma against complex128 LAPACK, the factors' gates
+    from svdsolver_tpu_torch import svd_c, svdvals_c
+
+    m, n = shape
+    A = torch.from_numpy(rng.normal(size=(m, n)) + 1j * rng.normal(size=(m, n))
+                         ).to(dev, torch.complex64)
+    want = torch.linalg.svdvals(A.to(torch.complex128))
+    bisect.launches = tridiag_solve.launches = 0
+    s = no_plain(lambda: svdvals_c(A))
+    assert s.dtype == torch.float32 and s.is_cuda and bisect.launches == 1
+    assert float((s.double() - want).abs().max()) <= 1e-5 * float(want[0])
+    U, s2, Vh = no_plain(lambda: svd(A))
+    assert bisect.launches == 2 and tridiag_solve.launches == 2
+    k = min(m, n)
+    Ud, Vd, Ad = U.to(torch.complex128), Vh.to(torch.complex128), A.to(torch.complex128)
+    eye = torch.eye(k, dtype=torch.complex128, device=dev)
+    assert float((s2.double() - want).abs().max()) <= 1e-5 * float(want[0])
+    assert float((Ud * s2.double() @ Vd - Ad).abs().max()) <= 1e-4 * float(want[0])
+    assert float((Ud.mH @ Ud - eye).abs().max()) <= 1e-4
+    assert float((Vd @ Vd.mH - eye).abs().max()) <= 1e-4
+    s3 = svdvals_c(A.cpu().numpy())  # a numpy complex array goes to the card
+    assert s3.is_cuda and torch.equal(s3, s)
+
+
+def test_sbr_on_card(dev, rng, no_plain):
+    # the block sweep on torch ops, then the routed chase kernel at mid
+    from svdsolver_tpu_torch.models.sbr import band_to_bidiagonal_sbr
+
+    n, b, mid = 256, 32, 8
+    A = torch.from_numpy(rng.uniform(0, 5, (n, n)).astype(np.float32)).to(dev)
+    Ab = panel_qr.dense_to_band_fused(A, band=b)
+    counters = ((band_chase, "launches_staged"), (band_chase, "launches"),
+                (band_chase_wave, "launches"), (band_chase_wave, "launches_l2"))
+    for mod, attr in counters:
+        setattr(mod, attr, 0)
+    d, e = no_plain(lambda: band_to_bidiagonal_sbr(Ab, band=b, mid=mid))
+    assert sum(getattr(mod, attr) for mod, attr in counters) == 1
+    B = torch.diag(d.double()) + torch.diag(e.double(), 1)
+    want = torch.linalg.svdvals(A.double())
+    assert float((torch.linalg.svdvals(B) - want).abs().max()) <= 1e-5 * float(want[0])
+
+
+def test_cli_on_card(dev, tmp_path, capsys):
+    from svdsolver_tpu_torch.cli import main
+
+    assert main(["check", "64"]) == 0
+    assert main(["check", "64", "--model", "tpu2"]) == 0
+    assert "CHECK PASSED" in capsys.readouterr().out
+    out = tmp_path / "tpu2.csv"
+    assert main(["bench", "tpu2", "128", "3", "1", "32", "--output", str(out)]) == 0
+    lines = out.read_text().strip().split("\n")
+    assert len(lines) == 3 and lines[0].replace(" ", "") == "128,256"

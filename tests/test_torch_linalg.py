@@ -144,10 +144,16 @@ def test_eigh_symmetric_indefinite_matches_jax(rng):
 
 
 def test_eigh_complex_raises_item_12():
-    A = np.eye(4, dtype=np.complex64)
+    # complex (Hermitian) input is taken since item 12; a non-square one
+    # raises, and so does any other linalg entry given complex input
+    A = np.ones((4, 3), dtype=np.complex64)
     for x in (A, torch.from_numpy(A)):
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises((ValueError, RuntimeError)):
             eigh(x)
+    with pytest.raises(ValueError, match="square"):
+        eigh(torch.from_numpy(A))
+    with pytest.raises(TypeError, match="complex"):
+        pinv(torch.eye(4, dtype=torch.complex64))
 
 
 def test_pinv_jacobi_matches_jax(rng):

@@ -83,5 +83,6 @@ def test_svdvals_unported_options_raise(kwargs, err):
 
 
 def test_svdvals_complex_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        svdvals(torch.eye(4, dtype=torch.complex64))
+    # complex input runs svdvals_c, which takes only the default diagonalizer
+    with pytest.raises(ValueError, match="complex"):
+        svdvals(torch.eye(4, dtype=torch.complex64), diag="dqds")
