@@ -158,7 +158,19 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    (``phase_cli``: ``check 64``, ``check 512 --model tpu2``, ``bench tpu2
    1024 2 1`` through ``cli.main``) and SBR (``phase_sbr``:
    ``band_to_bidiagonal_sbr`` at 1024, band 128 to 32, the routed chase at
-   32 launched).
+   32 launched);
+13. runs the sharded entries of ``svdsolver_tpu_torch.parallel`` on 4
+   ranks that share the card over gloo (``phase_parallel``): every
+   collective on CUDA tensors checked on every rank, ``svdvals_sharded``
+   and ``svd_sharded`` at 3840/b128 on tp = 4, the pipelined
+   ``svdvals_sharded`` at 1024/b32 on tp = 4 (one superstep kernel launch a
+   rank an active superstep), ``svd_jacobi_sharded`` at 1024 on tp = 4,
+   ``svdvals_batch_sharded`` at (4, 1024)/b128 on dp = tp = 2, each with
+   every plain version forbidden and every rank's counts read; the
+   superstep kernel against its plain version on passes the pipelined
+   entry gives it on every rank at tp = 4, and bit-equal to the L2 kernel
+   at tp = 1; ``dryrun(4)``; each entry's time beside the one-rank
+   entry's, with the collectives' share.
 
 Any failure raises and exits non-zero.  The second-to-last line is the
 kernel table as JSON, the last ``{"ok": true, "device": {...}}``.  With no
@@ -230,7 +242,9 @@ K1_SHAPES = ((128, 3840, 0), (128, 3840, 3776), (64, 1024, 0), (128, 7680, 0),
 TOL_K1 = 1e-4  # |kernel - plain| <= TOL_K1 max|plain|: sums over m in other orders
 TOL_Q = 1e-5  # |Q^T Q - I| and |Q R - P|_F / |P|_F, float64 from the kernel's V, T, R
 # the chase's routing shapes (n, band): svdvals/svd at 1000, svd at 2048,
-# both paths at 3840, svdvals at 7680, the Stage I bands of n = 257 ... 512
+# both paths at 3840 (not 7680: ~7 s of the script's time, its route, the
+# wavefront at 264 against 1671 ms, stands in PERF.md), the Stage I bands of
+# n = 257 ... 512
 # (padded to 384: two lanes, and 512: three lanes), a one-lane shape
 # (n = 256), two- and three-lane bands of 32 (n = 193 ... 256), and the
 # predicates' boundary on the main paths: 640 / 64 (three lanes,
@@ -239,7 +253,7 @@ TOL_Q = 1e-5  # |Q^T Q - I| and |Q R - P|_F / |P|_F, float64 from the kernel's V
 # of Stage II may pass, the lane counts on either side of the boundary:
 # three and four lanes from b = 4 to 48 (b = 32 at both ends of four
 # lanes), two lanes at b = 80, 96, 112 and 128, three at 96
-ROUTE_SHAPES = ((1024, 64), (2048, 128), (3840, 128), (7680, 128), (256, 64),
+ROUTE_SHAPES = ((1024, 64), (2048, 128), (3840, 128), (256, 64),
                 (384, 64), (512, 64), (224, 32), (256, 32), (640, 64), (704, 64),
                 (1024, 128), (32, 4), (44, 4), (80, 8), (88, 8), (96, 12), (132, 12),
                 (160, 16), (176, 16), (192, 24), (264, 24), (320, 32), (352, 32),
@@ -320,11 +334,11 @@ WIDE_TILED_BITS = ((640, 160), (512, 64), (1024, 128))
 # on a 2-slab half-sweep against their plain versions and timed
 WIDE_TILED = ((960, 192), (1024, 256))
 # the entry points at the new widths: (entry, method, n, block)
-WIDE_PATHS = (("svdvals", "tpu2", 2048, 384), ("svdvals", "tpu2", 2048, 512),
+WIDE_PATHS = (("svdvals", "tpu2", 2048, 512),
               ("svdvals", "multicore", 1024, 192), ("svdvals", "multicore", 1024, 256),
               ("svdvals", "tpu2", 256, 256), ("svdvals", "multicore", 256, 256),
               ("svdvals", "tpu2", 640, 640), ("svdvals", "multicore", 640, 640),
-              ("svd", "tpu2", 2048, 512), ("svd", "tpu2", 2048, 384))
+              ("svd", "tpu2", 2048, 512))
 # one-sided block Jacobi (phase_jacobi): svd(method="jacobi") at these n,
 # svd_jacobi_pre, svd_jacobi_batch (B, n) and svd_jacobi in float64
 JACOBI_SVD = (1024,)  # 3840 (a 19 s solve) cut to keep the script near 600 s
@@ -346,6 +360,22 @@ CLI_RUNS = (("check 64", ["check", "64"]),
             ("bench tpu2 1024", ["bench", "tpu2", "1024", "2", "1",
                                  "--output", "build/chip_smoke/tpu2_benchmark.csv"]))
 SBR_CASE = (1024, 128, 32)  # (n, band, mid) of band_to_bidiagonal_sbr
+# the sharded entries (phase_parallel): ranks sharing the card over gloo
+PAR_VALS = (3840, 128)  # (n, band) of svdvals_sharded and svd_sharded on tp = 4
+PAR_BATCH = (4, 1024, 128)  # (B, n, band) of svdvals_batch_sharded on dp = 2, tp = 2
+# (n, band) of the pipelined svdvals_sharded on tp = 4 and of the superstep
+# kernel against its plain version on that entry's passes: its exchange
+# moves two (U + 2 band) x Np blocks a superstep (~22 GB a rank at 3840)
+PAR_PIPE = (1024, 32)
+PAR_JACOBI = 1024  # svd_jacobi_sharded on tp = 4
+PAR_SEEDS = (21, 22, 16, 23)  # the uniform [0, 5) matrices of PAR_VALS, PAR_PIPE, PAR_JACOBI,
+# PAR_BATCH
+# the superstep kernel at tp = 1 bit-equal to svdt_band_chase at these
+# sweeps a group: the default, 1, 3 (the group of PAR_PIPE on tp = 4), 5
+PAR_BITS_LG = (None, 1, 3, 5)
+TOL_PAR = 1e-4  # sigma against float64 LAPACK over sigma_max, reconstruction, orthogonality
+TOL_SUPERSTEP = 1e-4  # max |kernel - plain| / max |L| after one pass (float32 sums in
+# other orders)
 # published H100 SXM peaks (NVIDIA's data sheet, 700 W): float32 and
 # float64 outside the tensor cores, and HBM3
 PEAK_FP32 = 67e12
@@ -357,7 +387,15 @@ DEV = "cuda"
 CARD = ""  # the card's name and power limit, as nvidia-smi gives them
 TIMED = ("[times]", "[route]", "[profile]", "[slice]", "[svd]", "[ticks]", "[scale]",
          "[diag]", "[linalg]", "[ladder]", "[batch]", "[wide]", "[jacobi]", "[complex]",
-         "[cli]", "[sbr]")
+         "[cli]", "[sbr]", "[parallel]", "[clock]")
+
+
+T_START = time.perf_counter()
+
+
+def clock(label):
+    """A line with the seconds since the start, after a phase."""
+    say(f"[clock] {label}: {time.perf_counter() - T_START:.1f} s since the start")
 
 
 def say(*parts):
@@ -471,6 +509,7 @@ def _counters():
             "tiled_apply": (tiled_slab, "launches_apply"),
             "tiled_wide_chain": (tiled_slab, "launches_wide_chain"),
             "tiled_wide_apply": (tiled_slab, "launches_wide_apply"),
+            "band_chase_superstep": (band_chase, "launches_superstep"),
             # not launches: runs of a plain diagonalizer loop, and dqds runs
             # that ended unconverged and took the bisection
             "plain_diag_loops": (diagonalize, "plain_loops"),
@@ -1112,14 +1151,16 @@ def phase_variants(band_state):
         "band_chase_vmem": lambda A, b: band_chase_vmem._launch(A, b, "packed"),
     }
     times = {}
-    for label, Ab_, n_, b_ in (("path", Ab3, n, b), ("check", Ab1, n1, b1)):
+    # one run a turn at full width: the kernels vary by under 0.1 % between
+    # runs there, and three a turn took ~26 s of the script's time
+    for label, Ab_, n_, b_, reps in (("path", Ab3, n, b, 1), ("check", Ab1, n1, b1, SVD_REPS)):
         got = {}
         for k in list(timed) + list(timed)[::-1]:
-            got.setdefault(k, []).append(cuda_ms(lambda: timed[k](Ab_, b_), SVD_REPS))
+            got.setdefault(k, []).append(cuda_ms(lambda: timed[k](Ab_, b_), reps))
         for k, (t1, t2) in got.items():
             times[k, label] = min(t1, t2)
             say(f"[times] {k} n={n_} b={b_}: {t1:.3f} / {t2:.3f} ms (medians "
-                f"of {SVD_REPS}, in turns)")
+                f"of {reps}, in turns)")
     phase_profile(f"wave chase n={n}",
                   lambda: band_chase_wave.band_to_bidiagonal_wave(Ab3, band=b))
     del Ab3, A
@@ -1418,11 +1459,7 @@ def phase_scale():
         say(f"[scale] svdvals n={n}: max|sigma - sigma_ref| / sigma_max = {err:.3e} "
             f"(oracle: {oracle}; K2 G={bisect.last_group})")
         require(err <= TOL_SIGMA, f"sigma error {err:.3e} at n={n}")
-        t0 = time.perf_counter()
-        svdvals(A)
-        torch.cuda.synchronize()
-        seconds_by[n] = (seconds, time.perf_counter() - t0)
-        say(f"[scale] svdvals n={n}: second call {seconds_by[n][1]:.3f} s (host clock)")
+        seconds_by[n] = seconds  # one call: a second one ran within 1 % of it
         counts_by[n] = counts
         del A, s, ref
         torch.cuda.empty_cache()
@@ -1569,7 +1606,7 @@ def phase_route_times():
     """The predicates' evidence: at each ROUTE_SHAPES band (Stage I's), the
     sequential chase (the kernel its route picks: the staged TMA design at
     every such band) and the wavefront chase in turns (seq, wave, wave,
-    seq; at 7680 seq, wave, wave), plain and recording entries."""
+    seq), plain and recording entries."""
     from svdsolver_tpu_torch.ops.cuda import band_chase, band_chase_wave, panel_qr
 
     entries = {
@@ -1579,7 +1616,7 @@ def phase_route_times():
     out = {}
     for n, b in ROUTE_SHAPES:
         Ab = panel_qr.dense_to_band_fused(uniform_matrix(n), band=b)
-        reps = 1 if n > 4000 else SVD_REPS if n > 1000 else REPS
+        reps = SVD_REPS if n > 1000 else REPS
         for record, (seq, wave) in entries.items():
             res = {}
 
@@ -1590,12 +1627,11 @@ def phase_route_times():
                 res["wave"] = wave(Ab, band=b)
 
             reset_counts()
-            s1 = cuda_ms(run_seq, reps, warm=n <= 4000)
+            s1 = cuda_ms(run_seq, reps)
             staged = read_counts()["band_chase_staged_rec" if record else "band_chase_staged"]
             w1 = cuda_ms(run_wave, reps)
             w2 = cuda_ms(run_wave, reps)
-            # at 7680 the sequential chase's ~1.7 s runs once
-            s2 = cuda_ms(run_seq, reps, warm=False) if n <= 4000 else s1
+            s2 = cuda_ms(run_seq, reps, warm=False)
             out[n, b, record] = (min(w1, w2), min(s1, s2))
             same = all(torch.equal(x, y) for x, y in zip(res["wave"], res["seq"]))
             require(same, f"n={n} b={b}: the wavefront chase bit-equal to the sequential one")
@@ -3643,6 +3679,360 @@ def phase_sbr():
     return {f"sbr {n}": c}
 
 
+# ---- the sharded entries (parallel/): ranks sharing the card over gloo ----
+
+def _world_values(mesh, values):
+    """``values`` (a list of floats) of every rank, gathered over both
+    axes: a list a rank, in rank order."""
+    v = torch.tensor([values], dtype=torch.float64)
+    v = mesh.all_gather(v, "tp", dim=0)
+    return mesh.all_gather(v[None], "dp", dim=0).reshape(-1, len(values)).tolist()
+
+
+def _par_run(mesh, fn):
+    """``fn()`` on every rank of ``mesh`` at once, from a barrier, every
+    plain version forbidden and the launch counts set to 0 just before:
+    ``(result, seconds on this rank, every rank's counts, this rank's
+    collective stats)``."""
+    import torch.distributed as dist
+
+    torch.cuda.synchronize()
+    dist.barrier()
+    mesh.reset_stats()
+    with forbid_plain():
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = read_counts()
+    keys = sorted(counts)
+    rows = _world_values(mesh, [float(counts[k]) for k in keys])
+    return out, sec, [dict(zip(keys, map(int, r))) for r in rows], mesh.stats()
+
+
+def _par_collectives(mesh):
+    """Every collective of the mesh on CUDA tensors over ``tp``, each
+    result checked on every rank (gloo's own CUDA path for psum, pmax,
+    all_gather and psum_scatter; ppermute staged)."""
+    tp, me = mesh.shape["tp"], mesh.axis_index("tp")
+    x = torch.arange(8, dtype=torch.float32, device=mesh.device) + 10 * me
+    base = torch.arange(8, dtype=torch.float32)
+    total = sum(base + 10 * r for r in range(tp))
+    got = {"psum": (mesh.psum(x, "tp"), total),
+           "pmax": (mesh.pmax(x, "tp"), base + 10 * (tp - 1)),
+           "all_gather": (mesh.all_gather(x, "tp"), torch.cat([base + 10 * r for r in range(tp)])),
+           "psum_scatter": (mesh.psum_scatter(x, "tp"), total[me * 8 // tp:(me + 1) * 8 // tp]),
+           "ppermute": (mesh.ppermute(x, "tp", [(i, (i + 1) % tp) for i in range(tp)]),
+                        base + 10 * ((me - 1) % tp))}
+    for k, (g, w) in got.items():
+        require(g.device == x.device and torch.equal(g.cpu(), w),
+                f"rank {mesh.rank}: {k} on {x.device}")
+    return sorted(got)
+
+
+def parallel_rank(mesh, inp):
+    """The sharded entries on one rank of a (1, 4) mesh whose ranks share
+    the card, then on a (2, 2) mesh of the same ranks (``phase_parallel``
+    has the list) on the matrices of PAR_SEEDS, made on each rank (``inp``:
+    the float64 references); the gates on rank 0.  Returns rank 0's
+    {label: numbers}."""
+    from svdsolver_tpu_torch.parallel import (make_mesh, svd_jacobi_sharded, svd_sharded,
+                                              svdvals_batch_sharded, svdvals_sharded)
+
+    require("jax" not in sys.modules, "a rank imported jax")
+    dev = mesh.device
+    out = {"collectives": _par_collectives(mesh)}
+    n, b = PAR_VALS
+    A, A1, Aj, As = par_inputs()
+    ref = torch.from_numpy(inp["ref"]).to(dev)
+
+    def record(label, res, extra):
+        _, sec, counts, stats = res
+        out[label] = {"s": sec, "counts": counts, "stats": stats, **extra}
+
+    res = _par_run(mesh, lambda: svdvals_sharded(A, mesh, band=b))
+    err = float((res[0].double() - ref).abs().max() / ref[0])
+    record(f"svdvals_sharded n={n} b={b} tp=4", res, {"sigma": err})
+    res = _par_run(mesh, lambda: svd_sharded(A, mesh, band=b))
+    U, sv, Vh = res[0]
+    gates = {}
+    if mesh.rank == 0:
+        Ud, Vd, sd = U.double(), Vh.double(), sv.double()
+        eye = torch.eye(n, dtype=torch.float64, device=dev)
+        gates = {"sigma": float((sd - ref).abs().max() / ref[0]),
+                 "recon": float((Ud * sd @ Vd - A.double()).abs().max() / ref[0]),
+                 "orth U": float((Ud.T @ Ud - eye).abs().max()),
+                 "orth Vh": float((Vd @ Vd.T - eye).abs().max())}
+        del Ud, Vd, eye
+    del U, Vh
+    record(f"svd_sharded n={n} b={b} tp=4", res, gates)
+    n1, b1 = PAR_PIPE
+    ref1 = torch.from_numpy(inp["ref1"]).to(dev)
+    res = _par_run(mesh, lambda: svdvals_sharded(A1, mesh, band=b1, stage2="pipelined"))
+    record(f"svdvals_sharded pipelined n={n1} b={b1} tp=4", res,
+           {"sigma": float((res[0].double() - ref1).abs().max() / ref1[0])})
+    out["superstep"] = _superstep_checked(mesh, A1)
+    res = _par_run(mesh, lambda: svd_jacobi_sharded(Aj, mesh))
+    record(f"svd_jacobi_sharded n={PAR_JACOBI} tp=4", res,
+           jacobi_gates("svd_jacobi_sharded", Aj, *res[0]) if mesh.rank == 0 else {})
+
+    mesh2 = make_mesh(4, dp=2, device=dev)
+    B, nb, bb = PAR_BATCH
+    refb = torch.from_numpy(inp["refb"]).to(dev)
+    res = _par_run(mesh2, lambda: svdvals_batch_sharded(As, mesh2, band=bb))
+    record(f"svdvals_batch_sharded ({B}, {nb}) b={bb} dp=2 tp=2", res,
+           {"sigma": float(((res[0].double() - refb).abs() / refb[:, :1]).max())})
+
+    require("jax" not in sys.modules, "a rank imported jax")
+    return out
+
+
+def _superstep_checked(mesh, A1):
+    """The pipelined entry at PAR_PIPE once more on ``mesh`` (tp = 4, as
+    in the run that counts), outside the counted run, with each rank's
+    kernel pass at three of its groups held against the plain version on
+    the buffer the path hands it: group 0, the group after the sweeps' top
+    windows enter the rank's rows, and the last group whose top windows
+    lie in them.  Rank 0 times both on its group 0 pass (while the other
+    ranks wait in the exchange).  Returns every rank's [abs err, err / max
+    |L|] at the three groups, the geometry, and rank 0's times and work."""
+    import torch.distributed as dist
+
+    from svdsolver_tpu_torch.ops.cuda import band_chase, panel_qr
+    from svdsolver_tpu_torch.parallel import band_to_bidiagonal_pipelined
+    from svdsolver_tpu_torch.parallel.distributed import pipeline_geometry
+
+    n1, b1 = PAR_PIPE
+    geo = pipeline_geometry(n1, b1, mesh.shape["tp"])
+    R0 = mesh.axis_index("tp") * geo.m
+    groups = (0, R0 // geo.LG + 1, min(geo.NG - 1, (R0 + geo.m - 1) // geo.LG))
+    kernel, plain = band_chase.superstep, band_chase.superstep_plain
+    errs, out = {}, {"geometry": geo._asdict()}
+
+    def checked(L, *args):
+        g = args[2] // geo.LG
+        if g in groups and g not in errs:
+            L0 = L.clone()
+            Lp = plain(L0.clone(), *args)
+            if g == 0 and mesh.rank == 0:
+                Lw = L0.clone()
+                out["ms"] = fresh_ms(lambda: kernel(Lw, *args), lambda: Lw.copy_(L0))
+                out["plain_ms"] = fresh_ms(lambda: plain(Lw, *args), lambda: Lw.copy_(L0),
+                                           reps=3)
+                out["work"] = work_superstep(*args, geo.Np)
+                out["args"] = args
+            kernel(L, *args)
+            err = float((L - Lp).abs().max())
+            errs[g] = [err, err / float(L0.abs().max())]
+            return L
+        return kernel(L, *args)
+
+    Ab1 = panel_qr.dense_to_band_fused(A1, band=b1)
+    torch.cuda.synchronize()
+    dist.barrier()
+    band_chase.superstep = checked
+    try:
+        band_to_bidiagonal_pipelined(Ab1, mesh, band=b1)
+    finally:
+        band_chase.superstep = kernel
+    torch.cuda.synchronize()
+    require(all(g in errs for g in groups), f"rank {mesh.rank}: passes {groups} not all run")
+    rows = _world_values(mesh, [x for g in groups for x in errs[g]])
+    out["errs"] = [[r[2 * k: 2 * k + 2] for k in range(len(groups))] for r in rows]
+    out["groups"] = _world_values(mesh, [float(g) for g in groups])
+    return out
+
+
+def par_inputs():
+    """The matrices of ``phase_parallel`` on the card, from PAR_SEEDS: A
+    (PAR_VALS), A1 (PAR_PIPE), Aj (PAR_JACOBI) and the batch As
+    (PAR_BATCH), each rank making its own."""
+    s, s1, sj, sb = PAR_SEEDS
+    B, nb, _ = PAR_BATCH
+    As = np.random.default_rng(sb).uniform(0, 5, (B, nb, nb)).astype(np.float32)
+    return (uniform_matrix(PAR_VALS[0], seed=s), uniform_matrix(PAR_PIPE[0], seed=s1),
+            uniform_matrix(PAR_JACOBI, seed=sj), torch.from_numpy(As).to(DEV))
+
+
+def work_superstep(n, b, i0, LG, R0, U, m, last, s_chase, Np):
+    """One rank's pass of the pipelined chase: each pair's flops as
+    ``work_chase`` counts them; bytes: the band entries (b + 1 a row) of
+    the rows its windows touch, read once and written once."""
+    from svdsolver_tpu_torch.ops.chase_schedule import nc_of_static
+
+    def pair(r0, c0, wr, lr0):
+        cols = min(b, n - c0)
+        rl = r0 + lr0
+        return (3 * b + 4 * min(wr, n - r0) * cols
+                + 3 * b + 4 * max(min(b, n - rl), 0) * min(2 * b, n - c0))
+
+    flops, rows = 0, set()
+    for l in range(LG):
+        i = i0 + l
+        if i > n - 2:
+            break
+        lo = R0 - 3 * b * l
+        hi = Np if last else R0 + m - 3 * b * l
+        if lo <= i < hi:
+            flops += pair(i, i + 1, b + 1, 1)
+            rows.update(range(i, min(i + b + 1, n)))
+        k0 = max(0, (lo - i - 1 + b - 1) // b)
+        for k in range(k0, min(k0 + s_chase, nc_of_static(i, n, b))):
+            r = i + 1 + k * b
+            if r >= hi:
+                break
+            flops += pair(r, r + b, 2 * b, b)
+            rows.update(range(r, min(r + 2 * b, n)))
+    return flops, 2 * 4 * len(rows) * (b + 1)
+
+
+def phase_parallel():
+    """The sharded entries (``svdsolver_tpu_torch/parallel``) on ranks that
+    share the one card over gloo, in one spawn of 4 ranks: every
+    collective on CUDA tensors checked on every rank; ``svdvals_sharded``
+    and ``svd_sharded`` at PAR_VALS on tp = 4 (sigma against float64
+    LAPACK, reconstruction and orthogonality, TOL_PAR); the pipelined
+    ``svdvals_sharded`` at PAR_PIPE on tp = 4 (the superstep kernel);
+    ``svd_jacobi_sharded`` at PAR_JACOBI on tp = 4 (``jacobi_gates``); then
+    on a (2, 2) mesh ``svdvals_batch_sharded`` at PAR_BATCH.  Between the
+    pipelined and the Jacobi entries, the pipelined entry runs once more,
+    uncounted, with the superstep kernel held against its plain version on
+    the buffers it is handed at three passes of every rank
+    (``_superstep_checked``).  Each entry runs from a barrier with every
+    plain version forbidden and the counts set to 0 on every rank
+    (``_par_run``); the
+    counts of every rank show its kernels.  Then the superstep kernel at
+    tp = 1 (a one-rank group here) bit-equal to the L2 kernel
+    (``svdt_band_chase``) at PAR_PIPE for each group size of PAR_BITS_LG,
+    and ``dryrun(4)``.  Each entry's wall time stands beside the one-rank
+    port entry at the same shape, with the collectives' share (rank 0's
+    host seconds in them).  Returns (counts_vals, counts_svd, the
+    superstep row's numbers)."""
+    from svdsolver_tpu_torch import svd, svdvals, svdvals_batch
+    from svdsolver_tpu_torch.ops.cuda import band_chase, panel_qr
+    from svdsolver_tpu_torch.parallel import band_to_bidiagonal_pipelined, dryrun, spawn
+    from svdsolver_tpu_torch.parallel.mesh import single_rank
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    n, b = PAR_VALS
+    n1, b1 = PAR_PIPE
+    B, nb, bb = PAR_BATCH
+    A, A1, Aj, As = par_inputs()
+    Ab1 = panel_qr.dense_to_band_fused(A1, band=b1)
+    inp = {"ref": torch.linalg.svdvals(A.double()), "ref1": torch.linalg.svdvals(A1.double()),
+           "refb": torch.linalg.svdvals(As.double())}
+    inp = {k: v.cpu().numpy() for k, v in inp.items()}
+    one = {  # the one-rank port entry at each shape (CUDA events, median)
+        f"svdvals_sharded n={n} b={b} tp=4": cuda_ms(lambda: svdvals(A, block=b), reps=3),
+        f"svd_sharded n={n} b={b} tp=4": cuda_ms(lambda: svd(A, band=b), reps=1, warm=False),
+        f"svdvals_sharded pipelined n={n1} b={b1} tp=4":
+            cuda_ms(lambda: svdvals(A1, block=b1), reps=3),
+        f"svd_jacobi_sharded n={PAR_JACOBI} tp=4":
+            cuda_ms(lambda: svd(Aj, method="jacobi"), reps=1, warm=False),
+        f"svdvals_batch_sharded ({B}, {nb}) b={bb} dp=2 tp=2":
+            cuda_ms(lambda: svdvals_batch(As, block=bb), reps=3),
+    }
+    panels = {  # label -> (matrices on rank 0, panel steps a matrix)
+        f"svdvals_sharded n={n} b={b} tp=4": (1, n // b),
+        f"svd_sharded n={n} b={b} tp=4": (1, n // b),
+        f"svdvals_batch_sharded ({B}, {nb}) b={bb} dp=2 tp=2": (B // 2, nb // bb)}
+    ts = time.perf_counter()
+    par = spawn(parallel_rank, 4, dp=1, args=(inp,), timeout=900)
+    spawn_s = time.perf_counter() - ts
+    say(f"[parallel] collectives on CUDA tensors, every rank: {par['collectives']} correct")
+    counts_vals, counts_svd = {}, {}
+    for label, r in par.items():
+        if not isinstance(r, dict) or "counts" not in r:
+            continue
+        if "sigma" in r and not label.startswith("svd_jacobi"):
+            require(r["sigma"] <= TOL_PAR, f"{label}: sigma {r['sigma']:.3e}")
+        if label.startswith("svd_sharded"):
+            for k in ("recon", "orth U", "orth Vh"):
+                require(r[k] <= TOL_PAR, f"{label}: {k} {r[k]:.3e}")
+        total = {k: sum(c[k] for c in r["counts"]) for k in r["counts"][0]}
+        plain = [k for k in ("plain_diag_loops",) if total[k]]
+        require(not plain, f"{label}: a plain loop ran: {plain}")
+        c0 = r["counts"][0]
+        chase = {k: c0[k] for k in CHASES if c0[k]}
+        if label in panels:  # K1 twice a panel step, the routed chase and K2 once a matrix
+            mats, steps = panels[label]
+            require(c0["panel_qr"] == 2 * mats * steps and c0["bisect"] == mats
+                    and sum(chase.values()) == mats, f"{label}: rank 0's kernels: {c0}")
+        if label.startswith("svd_sharded"):
+            require(c0["tridiag_solve"] >= 1, f"{label}: the TGK solve ran: {c0}")
+        if "pipelined" in label:
+            require(all(c["band_chase_superstep"] > 0 for c in r["counts"])
+                    and c0["panel_qr"] == 2 * n1 // b1 and c0["bisect"] == 1 and not chase,
+                    f"{label}: every rank's passes on the superstep kernel: {r['counts']}")
+        coll = sum(v["seconds"] for v in r["stats"].values())
+        moved = sum(v["bytes"] for v in r["stats"].values())
+        staged = sum(v["staged_bytes"] for v in r["stats"].values())
+        calls = sum(v["calls"] for v in r["stats"].values())
+        gates = ", ".join(f"{k} {r[k]:.3e}" for k in ("sigma", "recon", "orth U", "orth Vh",
+                                                      "orth") if k in r)
+        say(f"[parallel] {label}: {1e3 * r['s']:.1f} ms on rank 0 (host clock, from a barrier) "
+            f"vs {one[label]:.1f} ms for the one-rank entry; collectives {calls} calls, "
+            f"{moved / 1e6:.2f} MB ({staged / 1e6:.2f} MB staged through host), "
+            f"{100 * coll / r['s']:.1f}% of the time; {gates}; rank 0 launches "
+            f"{ {k: v for k, v in c0.items() if v} }")
+        r["one_rank_ms"] = one[label]
+        side = counts_svd if label.startswith("svd") and "svdvals" not in label else counts_vals
+        side[label] = total
+    sup = par["superstep"]
+    geo = sup["geometry"]
+    rel = [e[1] for r in sup["errs"] for e in r]
+    require(max(rel) <= TOL_SUPERSTEP, f"superstep kernel vs plain on the path's passes: "
+            f"{sup['errs']}")
+    b_ms, b_by = bound(*sup["work"])
+    say(f"[parallel] superstep kernel vs plain on the pipelined entry's passes at n={n1} b={b1} "
+        f"tp={geo['tp']} (m={geo['m']}, LG={geo['LG']}, U={geo['U']}), groups "
+        f"{[[int(g) for g in r] for r in sup['groups']]} a rank: [abs, / max |L|] "
+        f"{sup['errs']}; rank 0's group 0 pass {sup['ms']:.4f} ms, plain "
+        f"{sup['plain_ms']:.3f} ms, bound {b_ms:.6f} ms ({b_by})")
+    bits = {}
+    d0, e0 = band_chase.band_to_bidiagonal_l2(Ab1, band=b1)
+    for lg in PAR_BITS_LG:
+        with single_rank() as mesh:
+            reset_counts()
+            d, e = band_to_bidiagonal_pipelined(Ab1, mesh, band=b1, sweeps_per_group=lg)
+            torch.cuda.synchronize()
+            launches = read_counts()["band_chase_superstep"]
+        require(torch.equal(d, d0) and torch.equal(e, e0) and launches > 0,
+                f"superstep kernel at tp=1, LG={lg}: (d, e) bit-equal to svdt_band_chase")
+        bits[str(lg)] = launches
+    say(f"[parallel] superstep kernel at tp=1, n={n1} b={b1}: (d, e) bit-equal to "
+        f"svdt_band_chase at LG {list(bits)} ({list(bits.values())} launches)")
+    td = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        dryrun(4)
+    require("dryrun_multichip OK" in buf.getvalue(), "dryrun(4)")
+    say(f"[parallel] dryrun(4): {buf.getvalue().strip()} ({time.perf_counter() - td:.1f} s)")
+    pipe = par[f"svdvals_sharded pipelined n={n1} b={b1} tp=4"]
+    row = {"ms": sup["ms"], "plain_ms": sup["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+           "max_abs_err": max(e[0] for r in sup["errs"] for e in r),
+           "launches": sum(c["band_chase_superstep"] for c in pipe["counts"]),
+           "shape": f"rank 0's group 0 pass of the pipelined entry, n={n1} b={b1} "
+                    f"tp={geo['tp']} (LG={geo['LG']})",
+           "path_launches": [c["band_chase_superstep"] for c in pipe["counts"]],
+           "bits_tp1_launches": bits}
+    say(f"[done] phase_parallel {time.perf_counter() - t0:.1f} s (the spawn of 4 ranks "
+        f"{spawn_s:.1f} s)")
+    return counts_vals, counts_svd, row
+
+
+def parallel_rows(row):
+    """The kernel line's row of the superstep kernel: no TPU kernel (the JAX
+    package runs the pass as XLA windows); ms and its plain version on rank
+    0's group 0 pass of the pipelined entry (tp = 4), launches from that
+    entry's counted run."""
+    return [{"name": "band_chase_superstep", "route": "cuda",
+             "source": "svdsolver_tpu_torch/csrc/band_chase.cu",
+             "replaces": "none: XLA windows of svdsolver_tpu/parallel/distributed.py:352-392",
+             "tpu": [], "library_ms": None, **row}]
+
+
 def wide_rows(errs, times, counts):
     """The kernel line's rows of the wide instances: launches from
     phase_wide's entry runs."""
@@ -4062,31 +4452,41 @@ def main():
 
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False  # the oracles' GEMMs too
-    t_start = time.perf_counter()
+    global T_START
+    t_start = T_START = time.perf_counter()
     name, _ = phase_device()
     t0 = time.perf_counter()
     phase_build()
     say(f"[build] total {time.perf_counter() - t0:.2f} s")
     errs, band_state = phase_kernels(np.random.default_rng(0))
+    clock('phase_kernels')
     diag = check_diag()
+    clock('check_diag')
     variants = phase_variants(band_state)
+    clock('phase_variants')
     counts_vals = phase_slice()
     counts_svd = phase_svd()
     counts_svd[f"svds {SVDS_CASE[0]}"] = phase_svds()
+    clock('phase_slice, phase_svd, phase_svds')
     scale_counts, _, _ = phase_scale()
     for key, c in scale_counts.items():
         if isinstance(key, tuple):
             counts_svd[key[1]] = c
         else:
             counts_vals[key] = c
+    clock('phase_scale')
     counts_diag = phase_diag(diag)
+    clock('phase_diag')
     phase_linalg()
+    clock('phase_linalg')
     t0 = time.perf_counter()
     ladder_vals, ladder_svd, slab_rows = phase_ladder()
     batch_vals, batch_svd = phase_batch()
     say(f"[done] the ladder and the batches {time.perf_counter() - t0:.1f} s")
     wide_errs, wide_times, wide_counts = phase_wide(np.random.default_rng(1))
+    clock('phase_wide')
     phase_jacobi()
+    clock('phase_jacobi')
     t0 = time.perf_counter()
     phase_robust()
     complex_vals, complex_svd = phase_complex()
@@ -4095,22 +4495,31 @@ def main():
     counts_vals.update(phase_cli())
     counts_vals.update(phase_sbr())
     say(f"[done] the robustness net, complex, the CLI and SBR {time.perf_counter() - t0:.1f} s")
+    par_vals, par_svd, par_row = phase_parallel()
+    counts_vals.update(par_vals)
+    counts_svd.update(par_svd)
+    clock('phase_parallel')
     counts_vals.update(ladder_vals)
     counts_vals.update(batch_vals)
     counts_svd.update(ladder_svd)
     counts_svd.update(batch_svd)
     _, kt, lib, k1 = phase_times(band_state)
+    clock('phase_times')
     designs = phase_design_times()
+    clock('phase_design_times')
     route = phase_route_times()
+    clock('phase_route_times')
     ticks = phase_tick_times(band_state)
+    clock('phase_tick_times')
     staged = phase_sequential_times(band_state)
+    clock('phase_sequential_times')
     A = uniform_matrix(3840)
     phase_profile("svdvals n=3840", lambda: svdvals(A))
     phase_profile("svd n=3840", lambda: svd(A))
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     rows = kernel_table(errs, counts_vals, counts_svd, kt, lib, variants, route, k1, ticks,
                         designs, staged) + diag_rows(diag, counts_diag) + slab_rows
-    rows += wide_rows(wide_errs, wide_times, wide_counts)
+    rows += wide_rows(wide_errs, wide_times, wide_counts) + parallel_rows(par_row)
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

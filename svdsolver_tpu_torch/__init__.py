@@ -21,12 +21,17 @@ SVD applications of ``linalg`` (``pinv``, ``lstsq``, ``matrix_rank``,
 ``svdvals_c``; ``svdvals``, ``svd`` and ``linalg.eigh`` dispatch complex
 input to them), successive band reduction (``models.sbr``), the utilities
 (``utils``: fixtures, CSV, timing, profiling, the native C++ oracle's
-loader) and the command line (``python -m svdsolver_tpu_torch``).  They are plain PyTorch functions on tensors, with
+loader), the command line (``python -m svdsolver_tpu_torch``) and the
+sharded entries of ``parallel`` on ``torch.distributed`` (the mesh and its
+collectives, ``spawn``, ``svdvals_sharded``, ``svd_sharded``, the batch
+entries, the pipelined chase, ``svd_jacobi_sharded``, ``dryrun``).  They
+are plain PyTorch functions on tensors, with
 hand-written CUDA kernels (``csrc/``) on the card: for float32 tensors the
 Stage I panel QR, the band -> bidiagonal chase (plain, recording, wavefront
 with and without deferred left applies, staged in shared memory, packed),
 the bisection, the TGK tridiagonal solve and the tiled Stage I (a chain
-and an apply kernel a half-sweep); for float32 and float64
+and an apply kernel a half-sweep) and the pipelined chase's superstep;
+for float32 and float64
 tensors the QR and dqds diagonalizers, each loop in one launch.  Names and
 signatures follow ``svdsolver_tpu`` for what is ported.  This package
 imports torch and never jax.

@@ -64,6 +64,24 @@
 // on the H100 against 845 ms at 512 threads (256 threads: 1058 ms).  Running
 // sweeps 3 pairs apart concurrently (their windows are disjoint) is
 // band_chase_wave.cu.
+//
+// svdt_band_chase_superstep is one rank's pass of one superstep of the
+// pipelined chase over row-sharded ranks (parallel/distributed.py,
+// band_to_bidiagonal_pipelined).  It stands for no TPU kernel: the JAX
+// package runs that pass as XLA windows, some 15 to 25 launches each on
+// PyTorch ops, which at n = 1024, b = 32 would be ~0.7 M launches a run.
+// One block walks the pass in the order of the JAX body
+// (parallel/distributed.py:352-392 of the JAX package): sweeps i = i0 + l,
+// l < LG, each sweep's head pair if lo <= i < hi, then its chase pairs whose
+// start row lies in [lo, hi), lo = R0 - 3 b l, hi = R0 + m - 3 b l (Np on the
+// last rank).  Every pair is the chase_pair of chase_pair.cuh on the rank's
+// local buffer L (U + m + 4 b rows of Np floats, in place) through LocalAt,
+// global row r at local row r - R0 + U; reads past n return zero and writes
+// past n are dropped, as in the sequential kernel.  So on one rank (tp = 1:
+// lo <= 0, hi = Np, every sweep whole and in order) its (d, e) are those of
+// svdt_band_chase bit for bit.  What bounds it: the same chain of dependent
+// L2 round trips a pair as the sequential kernel, a superstep's pairs in
+// order on one SM; the ranks' passes of one superstep run at once.
 #include <cuda_runtime.h>
 
 #include "chase_pair.cuh"
@@ -100,6 +118,59 @@ band_chase_kernel(float* __restrict__ A, float* __restrict__ d,
     d[i] = A[(size_t)i * n + i];
     if (i + 1 < n) e[i] = A[(size_t)i * n + i + 1];
   }
+}
+
+// A rank's local buffer of the pipelined chase: global row r at local row
+// r + off (off = U - R0), Np floats a row.
+struct LocalAt {
+  float* L;
+  size_t ld;
+  int off;
+  __device__ float load(int r, int c) const { return L[(size_t)(r + off) * ld + c]; }
+  __device__ void store(int r, int c, float x) const { L[(size_t)(r + off) * ld + c] = x; }
+};
+
+template <int KPL>
+__global__ void __launch_bounds__(kThreads)
+superstep_kernel(float* __restrict__ L, int ld, int n, int b, int i0, int LG, int R0,
+                 int U, int m, int last, int s_chase) {
+  __shared__ float v_narrow[kMaxBand];
+  __shared__ float part[kThreads];
+  __shared__ float s_tau[2];
+  extern __shared__ float v_wide[];  // b floats for the wide pair
+  float* v = KPL == kWide ? v_wide : v_narrow;
+  const Slot none = {nullptr, nullptr};
+  const LocalAt acc = {L, (size_t)ld, U - R0};
+  for (int l = 0; l < LG; ++l) {
+    const int i = i0 + l;
+    if (i > n - 2) break;
+    const int lo = R0 - 3 * b * l;
+    const int hi = last ? ld : R0 + m - 3 * b * l;
+    if (lo <= i && i < hi)  // head pair
+      chase_pair<KPL, false>(acc, n, b, i, i + 1, b + 1, 1, v, part, s_tau, none, none);
+    const int first = lo - i - 1;  // chase pair k starts at row i + 1 + k b
+    const int k0 = first > 0 ? (first + b - 1) / b : 0;
+    const int k1 = min(k0 + s_chase, nc_of(i, n, b));
+    for (int k = k0; k < k1; ++k) {
+      const int r = i + 1 + k * b;
+      if (r >= hi) break;
+      chase_pair<KPL, false>(acc, n, b, r, r + b, 2 * b, b, v, part, s_tau, none, none);
+    }
+  }
+}
+
+template <int KPL>
+int launch_superstep(float* L, int ld, int n, int b, int i0, int LG, int R0, int U,
+                     int m, int last, int s_chase, cudaStream_t s) {
+  const size_t smem = KPL == kWide ? sizeof(float) * (size_t)b : 0;
+  if (smem > 0) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        superstep_kernel<KPL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  superstep_kernel<KPL><<<1, kThreads, smem, s>>>(L, ld, n, b, i0, LG, R0, U, m, last,
+                                                   s_chase);
+  return (int)cudaGetLastError();
 }
 
 // The wide pair's v: dynamic shared memory of b floats.
@@ -143,4 +214,19 @@ extern "C" int svdt_band_chase_rec(float* A, float* d, float* e, int n, int b,
                                    float* VL, float* TL, float* VR, float* TR,
                                    int s_max, void* stream) {
   return launch<true>(A, d, e, n, b, {VL, TL, VR, TR, s_max}, stream);
+}
+
+// One rank's pass of one superstep of the pipelined chase on its local
+// buffer L (Np = ld floats a row), in place: sweeps i0 .. i0 + LG - 1 of the
+// band of order n and width b, rows [lo, hi) of each (see the top of this
+// file).  Returns the launch's cudaError_t.
+extern "C" int svdt_band_chase_superstep(float* L, int ld, int n, int b, int i0, int LG,
+                                         int R0, int U, int m, int last, int s_chase,
+                                         void* stream) {
+  if (n < 2 || b < 1 || LG < 1 || ld < n) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  int err = 0;
+  SVDT_BAND_DISPATCH(b, err = launch_superstep<KPL>(L, ld, n, b, i0, LG, R0, U, m, last,
+                                                    s_chase, s));
+  return err;
 }

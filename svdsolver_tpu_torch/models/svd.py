@@ -169,6 +169,16 @@ def routed_chase(Ab, band):
     return band_chase.band_to_bidiagonal(Ab, band=band)
 
 
+def routed_chase_accum(Ab, band):
+    """The recording chase kernel for the band ``Ab``, picked by
+    :func:`band_chase_wave.wave_chase_accum_preferred`: the recording
+    wavefront, else the recording sequential chase.  Returns ``(d, e, VL,
+    TL, VR, TR)``."""
+    if band_chase_wave.wave_chase_accum_preferred(Ab.shape[0], band):
+        return band_chase_wave.band_to_bidiagonal_wave_accum(Ab, band=band)
+    return band_chase.band_to_bidiagonal_accum(Ab, band=band)
+
+
 def diagonalizer(method, diag, d):
     """The function ``f(d, e)`` :func:`svdvals` diagonalizes the bidiagonal
     ``{d, e}`` of ``method`` with: ``diag="qr"`` / ``"dqds"`` their

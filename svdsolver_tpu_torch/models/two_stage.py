@@ -238,6 +238,42 @@ def _chase(A, band, record):
     return (d, e, VL, TL, VR, TR) if record else (d, e)
 
 
+def chase_superstep(L, n, band, i0, LG, R0, U, m, last, s_chase):
+    """One rank's pass of one superstep of the pipelined chase
+    (``parallel.distributed.band_to_bidiagonal_pipelined``), in place on
+    its local buffer ``L`` (``U + m + 4 band`` rows of ``Np`` columns, row
+    0 at global row ``R0 - U`` of the padded band): the sweeps ``i = i0 + l``, ``l < LG``, in
+    order, each one's head pair if its row lies in ``[lo, hi)`` and then
+    its chase pairs whose start row does (at most ``s_chase`` of them),
+    ``lo = R0 - 3 band l``, ``hi = R0 + m - 3 band l`` (``Np`` on the
+    ``last`` rank).  The windows and their pairs are :func:`_chase`'s
+    (:func:`make_window_pairs` on views of ``L``), at local row ``r - R0 +
+    U``.  Returns ``L``.  The plain version of the superstep kernel
+    (``ops/cuda/band_chase.superstep``)."""
+    b = int(band)
+    w = b + 1
+    ww = 2 * b
+    Np = L.shape[1]
+    top_pair, chase_pair = make_window_pairs(w)
+    for l in range(LG):
+        i = i0 + l
+        if i > n - 2:
+            break
+        lo = R0 - 3 * b * l
+        hi = Np if last else R0 + m - 3 * b * l
+        if lo <= i < hi:
+            r = i - R0 + U
+            top_pair(L[r : r + w, i + 1 : i + 1 + ww])
+        k0 = max(0, (lo - i - 1 + b - 1) // b)
+        for k in range(k0, min(k0 + s_chase, nc_of_static(i, n, b))):
+            r = i + 1 + k * b
+            if r >= hi:
+                break
+            lr = r - R0 + U
+            chase_pair(L[lr : lr + ww, r + b : r + b + ww])
+    return L
+
+
 def band_to_bidiagonal(A, band=32):
     """Stage II: bulge-chase an upper-band matrix (``band`` superdiagonals)
     down to bidiagonal.  Returns ``(d, e)``.

@@ -40,16 +40,11 @@ from svdsolver_tpu_torch.models.svd import (
     _pad_to_multiple,
     as_batch,
     as_input,
+    routed_chase_accum,
     use_kernels,
 )
 from svdsolver_tpu_torch.ops.chase_schedule import nc_of_static
-from svdsolver_tpu_torch.ops.cuda import (
-    band_chase,
-    band_chase_wave,
-    bisect,
-    panel_qr,
-    tridiag_solve,
-)
+from svdsolver_tpu_torch.ops.cuda import bisect, panel_qr, tridiag_solve
 from svdsolver_tpu_torch.ops.precision import pdot
 
 TW = 128  # tile width of the tiled cluster orthogonalization
@@ -503,11 +498,7 @@ def svd_two_stage(A, band=None, k=None):
         A = torch.nn.functional.pad(A, (0, pad, 0, pad))
     if use_kernels(A):
         Ab, Vq, Tq, Vl, Tl = panel_qr.dense_to_band_rec_fused(A, band=b)
-        if band_chase_wave.wave_chase_accum_preferred(A.shape[0], b):
-            chase = band_chase_wave.band_to_bidiagonal_wave_accum
-        else:
-            chase = band_chase.band_to_bidiagonal_accum
-        d, e, VL, TL, VR, TR = chase(Ab, band=b)
+        d, e, VL, TL, VR, TR = routed_chase_accum(Ab, b)
     else:
         Ab, Vq, Tq, Vl, Tl = two_stage.dense_to_band_rec(A, band=b)
         d, e, VL, TL, VR, TR = two_stage.band_to_bidiagonal_accum(Ab, band=b)
@@ -617,11 +608,7 @@ def _svd_one(A, n, b):
     Ap, _ = _pad_to_multiple(A, b)
     if use_kernels(A):
         Ab, U1, V1 = panel_qr.dense_to_band_uv_fused(Ap, band=b)
-        if band_chase_wave.wave_chase_accum_preferred(Ab.shape[0], b):
-            chase = band_chase_wave.band_to_bidiagonal_wave_accum
-        else:
-            chase = band_chase.band_to_bidiagonal_accum
-        d, e, VL, TL, VR, TR = chase(Ab, band=b)
+        d, e, VL, TL, VR, TR = routed_chase_accum(Ab, b)
         sig = bisect.bisect_svdvals(d.contiguous(), e.contiguous())
     else:
         Ab, U1, V1 = two_stage.dense_to_band_uv(Ap, band=b)

@@ -17,6 +17,7 @@ def plain_versions():
         (panel_qr, "panel_qr_plain"),
         (band_chase, "band_to_bidiagonal_plain"),
         (band_chase, "band_to_bidiagonal_accum_plain"),
+        (band_chase, "superstep_plain"),
         (band_chase_wave, "_plain"),
         (band_chase_vmem, "band_to_bidiagonal_vmem_plain"),
         (bisect, "bisect_svdvals_plain"),

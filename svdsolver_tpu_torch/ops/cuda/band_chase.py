@@ -29,6 +29,12 @@ the wavefront kernel (``band_chase_wave``) runs.  ``wavefront`` sends
 :func:`band_to_bidiagonal` to the wavefront kernel too.  The TMA design's
 plain version is ``two_stage.band_to_bidiagonal_staged_tiles`` (the copies
 of ``chase_schedule.staged_copies``).
+
+:func:`superstep` is one rank's pass of one superstep of the pipelined chase
+(``parallel.distributed.band_to_bidiagonal_pipelined``) in one launch of
+``svdt_band_chase_superstep`` (``csrc/band_chase.cu``), the same pair on
+the rank's local buffer; its plain version is ``two_stage.chase_superstep``.
+It stands for no TPU kernel: the JAX package runs that pass as XLA windows.
 """
 
 import torch
@@ -44,6 +50,7 @@ launches_rec = 0  # the L2 kernel's recording entry
 launches_staged = 0  # the staged TMA design
 launches_staged_rec = 0  # the staged TMA design's recording entry
 last_khops = 0  # pairs the copies of the last staged launch ran ahead
+launches_superstep = 0  # the pipelined chase's superstep entry
 
 _ENTRIES = {
     "svdt_band_chase": [_build.VOIDP] * 3 + [_build.INT] * 2 + [_build.VOIDP],
@@ -51,6 +58,7 @@ _ENTRIES = {
         [_build.VOIDP] * 3 + [_build.INT] * 2 + [_build.VOIDP] * 4
         + [_build.INT, _build.VOIDP]
     ),
+    "svdt_band_chase_superstep": [_build.VOIDP] + [_build.INT] * 10 + [_build.VOIDP],
 }
 # the TMA design's static shared memory: v, col (SMEM_BAND each), vg
 # (2 SMEM_BAND), partial sums (512), 2 taus, and an 8-byte mbarrier for each
@@ -68,6 +76,7 @@ _STAGED_ENTRIES = {
 
 band_to_bidiagonal_plain = two_stage.band_to_bidiagonal
 band_to_bidiagonal_accum_plain = two_stage.band_to_bidiagonal_accum
+superstep_plain = two_stage.chase_superstep
 
 
 def staged_slot_floats(band):
@@ -220,3 +229,32 @@ def band_to_bidiagonal_accum_l2(A, band=128):
     """:func:`band_to_bidiagonal_accum` on the L2 kernel's recording entry
     at every shape (the oracle of the recording chases)."""
     return _sequential(A, int(band), 1, record=True, l2=True)
+
+
+def superstep(L, n, band, i0, LG, R0, U, m, last, s_chase):
+    """One rank's pass of one superstep of the pipelined chase, in place on
+    its local buffer ``L`` (``U + m + 4 band`` rows, ``Np`` columns; the
+    arguments are those of ``two_stage.chase_superstep``, the plain
+    version).  A CUDA tensor must be contiguous float32 with ``band <=
+    band_chase_wave.band_range(n)``; it launches the superstep kernel (one
+    CTA walking the pass in order, every pair the L2 kernel's on the
+    buffer through the accessor of local row ``r - R0 + U``; reads past
+    ``n`` give zero, writes past ``n`` are dropped).  A CPU tensor runs the
+    plain version.  Returns ``L``."""
+    global launches_superstep
+    b = int(band)
+    if not _build.check_input(L, "L", 2):
+        return superstep_plain(L, n, b, i0, LG, R0, U, m, last, s_chase)
+    rows, Np = L.shape
+    if not 1 <= b <= band_chase_wave.band_range(n):
+        raise ValueError(f"band={b} out of range for n={n}")
+    if rows < U + m + 2 * b or Np < n:
+        raise ValueError(f"local buffer {tuple(L.shape)} too small for U={U}, m={m}, n={n}")
+    lib = _build.load("band_chase", _ENTRIES)
+    with torch.cuda.device(L.device):
+        err = lib.svdt_band_chase_superstep(
+            L.data_ptr(), Np, int(n), b, int(i0), int(LG), int(R0), int(U), int(m),
+            int(bool(last)), int(s_chase), _build.stream_of(L))
+    _build.raise_on_error(err, "band_chase_superstep")
+    launches_superstep += 1
+    return L

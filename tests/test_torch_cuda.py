@@ -1420,3 +1420,59 @@ def test_cli_on_card(dev, tmp_path, capsys):
     assert main(["bench", "tpu2", "128", "3", "1", "32", "--output", str(out)]) == 0
     lines = out.read_text().strip().split("\n")
     assert len(lines) == 3 and lines[0].replace(" ", "") == "128,256"
+
+
+# ---- the sharded entries (parallel/): ranks sharing the card over gloo ----
+
+def test_superstep_kernel_bit_equal_to_the_sequential_chase_on_one_rank(dev, rng):
+    """At tp = 1 one pass runs every sweep whole and in order: the
+    pipelined chase through the superstep kernel gives the L2 kernel's
+    (d, e) bit for bit (1024/b32, each group size)."""
+    from svdsolver_tpu_torch.parallel import band_to_bidiagonal_pipelined
+    from svdsolver_tpu_torch.parallel.mesh import single_rank
+
+    A = torch.from_numpy(rng.uniform(0, 5, (1024, 1024)).astype(np.float32)).to(dev)
+    Ab = panel_qr.dense_to_band_fused(A, band=32)
+    d0, e0 = band_chase.band_to_bidiagonal_l2(Ab, band=32)
+    for lg in (None, 1, 5):
+        with single_rank() as mesh:
+            before = band_chase.launches_superstep
+            d, e = band_to_bidiagonal_pipelined(Ab, mesh, band=32, sweeps_per_group=lg)
+            assert band_chase.launches_superstep > before
+        assert torch.equal(d, d0) and torch.equal(e, e0), lg
+
+
+def test_pipelined_chase_on_two_ranks_sharing_the_card(dev, rng):
+    """tp = 2, each rank's passes through the superstep kernel and no plain
+    version: the spectrum of (d, e) within 1e-5 sigma_max of the sequential
+    chase's."""
+    import torch_parallel_ranks as ranks
+    from svdsolver_tpu_torch.parallel import spawn
+
+    A = torch.from_numpy(rng.uniform(0, 5, (1024, 1024)).astype(np.float32)).to(dev)
+    Ab = panel_qr.dense_to_band_fused(A, band=32)
+    d, e, counts = spawn(ranks.card_pipelined, 2, dp=1, args=(Ab.cpu().numpy(), 32),
+                         timeout=600)
+    assert counts["band_chase_superstep"] > 0
+    d0, e0 = band_chase.band_to_bidiagonal_l2(Ab, band=32)
+
+    def sigma(d, e):
+        return torch.linalg.svdvals(torch.diag(d.double()) + torch.diag(e.double(), 1))
+
+    s0, s1 = sigma(d0.cpu(), e0.cpu()), sigma(d, e)
+    assert float((s1 - s0).abs().max() / s0[0]) < 1e-5
+
+
+def test_svdvals_sharded_on_two_ranks_runs_the_kernels(dev, rng):
+    """``svdvals_sharded`` at 1024/b128 on 2 ranks: K1, the routed chase and
+    K2 launched on rank 0, no plain version; sigma against float64."""
+    import torch_parallel_ranks as ranks
+    from svdsolver_tpu_torch.parallel import spawn
+
+    A = rng.uniform(0, 5, (1024, 1024)).astype(np.float32)
+    sig, counts = spawn(ranks.card_svdvals, 2, dp=1, args=(A, 128), timeout=600)
+    assert counts["panel_qr"] == 2 * 1024 // 128 and counts["bisect"] == 1
+    assert counts["band_chase_wave"] + counts["band_chase_wave_l2"] + \
+        counts["band_chase_staged"] + counts["band_chase"] == 1
+    ref = torch.linalg.svdvals(torch.from_numpy(A).double())
+    assert float((sig.double() - ref).abs().max() / ref[0]) < 1e-5

@@ -124,6 +124,9 @@ def test_import_needs_no_jax_nvcc_or_triton(tmp_path):
         "import svdsolver_tpu_torch.ops.cuda.band_chase\n"
         "import svdsolver_tpu_torch.ops.cuda.bisect\n"
         "import svdsolver_tpu_torch.models.svd\n"
+        "import svdsolver_tpu_torch.parallel\n"
+        "import svdsolver_tpu_torch.parallel.mesh, svdsolver_tpu_torch.parallel.distributed\n"
+        "import svdsolver_tpu_torch.parallel.jacobi\n"
         "import svdsolver_tpu_torch.utils.timing, svdsolver_tpu_torch.utils.convert\n"
         "from svdsolver_tpu_torch.ops.cuda import _build\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
