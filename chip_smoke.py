@@ -6,7 +6,8 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
 1. reports the card (name, power limit), torch, CUDA and nvcc;
 2. builds the thirteen kernel sources of ``svdsolver_tpu_torch/csrc`` (one
    ``nvcc`` each, all started together): the panel QR (one thread-block
-   cluster), the sequential chase's L2 kernel (plain and recording
+   cluster, and the product kernel of its blocked panel past b = 256),
+   the sequential chase's L2 kernel (plain and recording
    entries), the bisection, the TGK solve, the wavefront chase (plain,
    recording, and with deferred left applies), the staged chase (the
    sequential chase's TMA design, plain and recording, and the packed
@@ -119,10 +120,16 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    to ``dense_to_band_fused(segments=1)``, the factors' reconstruction and
    orthogonality in float64);
 10. runs the widths past the narrow instances, which the reference takes
-   too (``phase_wide``): K1 past b = 256 against its plain version (Q R = P
-   and Q orthogonal at b up to 1536, block = n; entries within 1e-4 where
-   m >= 2b) and timed beside ``torch.geqrf``, Stage I on it (fused,
-   recording, with factors) against the plain Stage I; the chases' wide
+   too (``phase_wide``): the narrow K1 alone at leaf widths 32-256 and
+   cluster sizes 1-16 (the table the blocked K1's leaf was chosen from);
+   K1 past b = 256 (the blocked panel: sub-panels of 64 rows on the
+   narrow kernel, the products between them on the product kernel)
+   against its plain version (Q R = P and Q orthogonal at b up to 1536,
+   block = n; entries within 1e-4 where m >= 2b), timed in turns with the
+   column-by-column instance beside ``torch.geqrf``, its update and merge
+   products against their plain versions beside ``torch.ormqr``, Stage I
+   on it (fused, recording, with factors) against the plain Stage I and
+   timed in turns with Stage I on the column instance; the chases' wide
    pair (b >
    256) on the L2 sequential kernel and the wavefront's L2 tick, plain and
    recording, bit-equal to each other, against the plain chase, records
@@ -130,7 +137,10 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    (``csrc/tiled_wide.cu``) ``torch.equal`` to the first design at t = 160
    and to the two-kernel design at t = 64 and 128, within 1e-4 of the plain
    Stage I at 960/t192 and 1024/t256, its two kernels against their plain
-   versions and timed beside ``geqrf`` / ``ormqr``; and ``svdvals`` with
+   versions and timed beside ``geqrf`` / ``ormqr``, its apply (the apply
+   kernel's wide instances) ``torch.equal`` to the column apply and timed
+   in turns with it, the Stage I on either apply with the chain / apply
+   split; and ``svdvals`` with
    tpu2 at blocks 384 and 512 (n = 2048), multicore at 192 and 256, block
    = n at 256 and 640, ``svd`` at bands 384 and 512 (n = 2048), the counts
    set to 0 before each call and read after (the path's kernels, the wide
@@ -321,6 +331,14 @@ SWEEP_SLABS = 4  # the half-sweep (top = n - 4t) each new kernel is held to its 
 WIDE_K1 = ((257, 1024, 0), (384, 2048, 0), (512, 2048, 0), (512, 2048, 1792),
            (1024, 1024, 0), (1536, 1536, 0))
 WIDE_K1_TIME = (512, 2048, 0)  # timed beside torch.geqrf of the same panel
+# the blocked K1 in turns with the column-by-column instance at these
+WIDE_K1_TIMES = (WIDE_K1_TIME, (384, 2048, 0), (1024, 1024, 0))
+WIDE_STAGE1_TIME = (2048, 512)  # the fused Stage I on either K1 design, in turns
+# the narrow K1 alone at each leaf width, cluster size and panel length:
+# the blocked K1's leaf is chosen from this table
+K1_LEAF_NB = (32, 64, 128, 256)
+K1_LEAF_C = (1, 2, 4, 8, 16)
+K1_LEAF_M = (2048, 1024)
 WIDE_STAGE1 = (1152, 384)  # the fused Stage I entries against the plain Stage I
 # the chases' wide pair (n, band): the L2 sequential kernel and the
 # wavefront's L2 tick, plain and recording, bit-equal to each other, each
@@ -509,6 +527,9 @@ def _counters():
             "tiled_apply": (tiled_slab, "launches_apply"),
             "tiled_wide_chain": (tiled_slab, "launches_wide_chain"),
             "tiled_wide_apply": (tiled_slab, "launches_wide_apply"),
+            "tiled_wide_apply_cols": (tiled_slab, "launches_wide_apply_cols"),
+            "panel_qr_update": (panel_qr, "launches_update"),
+            "panel_qr_merge": (panel_qr, "launches_merge"),
             "band_chase_superstep": (band_chase, "launches_superstep"),
             # not launches: runs of a plain diagonalizer loop, and dqds runs
             # that ended unconverged and took the bisection
@@ -692,69 +713,100 @@ def path_band(n):
     return -(-n // b) * b, b
 
 
-def check_panel_qr(rng, shapes=None):
+def check_panel_qr(rng, shapes=None, columns=False):
     """K1 against its plain version at ``shapes`` (K1_SHAPES): outputs within TOL_K1
     (panels with m >= 2b),
     exact zeros and ones of the contract, identity reflectors past m, two
     launches bit-identical, Q = I - V T V^T orthogonal and Q R = P within
-    TOL_Q (float64).  Returns the largest |kernel - plain|."""
+    TOL_Q (float64).  With ``columns``, every panel past b = 256 is held so
+    a second time on the column-by-column instance (panel_qr(...,
+    _columns=True), the design before the blocked panel).  Returns the
+    largest |kernel - plain|; with ``columns``, the pair (the routed
+    kernel's, the column instance's)."""
     from svdsolver_tpu_torch.ops.cuda import panel_qr
 
-    k1 = 0.0
+    k1 = {False: 0.0, True: 0.0}
     for b, m, r_off in shapes or K1_SHAPES:
-        plan = panel_qr.cluster_plan(b, m)
         Pt = torch.from_numpy(rng.normal(size=(b, m)).astype(np.float32)).to(DEV)
-        panel_qr.launches = 0
-        got = panel_qr.panel_qr(Pt, r_off)
-        again = panel_qr.panel_qr(Pt, r_off)
-        torch.cuda.synchronize()
-        require(panel_qr.launches == 2, "panel_qr counts its launches")
-        shape = f"b={b} m={m} r_off={r_off}"
-        require(all(torch.equal(x, y) for x, y in zip(got, again)),
-                f"panel_qr {shape}: two launches bit-identical")
-        say(f"[kernels] panel_qr {shape}: one cluster of {plan.ctas} CTAs x "
-            f"{plan.width} columns ({plan.smem_cols} in shared memory"
-            f"{', the rest in device memory' if plan.spill else ''}), {plan.groups} "
-            f"lane(s) a row, T in {'device' if plan.tdev else 'shared'} memory, "
-            f"{plan.smem} B shared memory a CTA; two launches bit-identical")
         want = panel_qr.panel_qr_plain(Pt, r_off)
         torch.cuda.synchronize()
-        # entry by entry where the panel is at least twice as long as wide
-        # (every Stage I panel of b <= 256 at n >= 2b): the reflectors of a
-        # panel nearly as long as wide (block = n) end on tails of a few
-        # rounding-level entries, whose directions differ between two
-        # summation orders; both are held by Q R = P and Q^T Q = I below
-        for label, g, w in zip("RVT", got, want) if m >= 2 * b else ():
-            err = float((g - w).abs().max())
-            scale = float(w.abs().max())
-            require(err <= TOL_K1 * scale, f"panel_qr {label} {shape}: "
-                    f"{err:.3e} > {TOL_K1} * {scale:.3e}")
-            k1 = max(k1, err)
-            say(f"[kernels] panel_qr {shape} {label}: max_abs_err {err:.3e} "
-                f"(scale {scale:.3e})")
-        Rt, Vt, Tt = got
-        cols = torch.arange(m, device=DEV)[None, :]
-        piv = r_off + torch.arange(b, device=DEV)[:, None]
-        require(bool((Rt[cols > piv] == 0).all()), f"panel_qr {shape}: R zero past the pivot")
-        require(bool((Vt[cols < piv] == 0).all()), f"panel_qr {shape}: V zero before the pivot")
-        live = max(0, min(b, m - r_off))
-        require(bool((Vt[:live].gather(1, piv[:live]) == 1).all()),
-                f"panel_qr {shape}: V one at the pivot")
-        if live < b:
-            require(bool((Tt[live:] == 0).all()) and bool((Vt[live:] == 0).all()),
-                    f"panel_qr {shape}: identity reflectors past m")
-            say(f"[kernels] panel_qr {shape}: {b - live} identity reflectors: "
-                "tau 0, zero T rows, zero V rows")
-        V, T = Vt.double().T, Tt.double().T
-        R, P = Rt.double().T, Pt.double().T
-        Q = torch.eye(m, dtype=torch.float64, device=DEV) - V @ T @ V.T
-        orth = float((Q.T @ Q - torch.eye(m, dtype=torch.float64, device=DEV)).abs().max())
-        rebuild = float(torch.linalg.norm(Q @ R - P) / torch.linalg.norm(P))
-        say(f"[kernels] panel_qr {shape}: |Q^T Q - I| {orth:.3e}, "
-            f"|Q R - P|_F / |P|_F {rebuild:.3e} (tolerance {TOL_Q})")
-        require(orth <= TOL_Q and rebuild <= TOL_Q, f"panel_qr {shape}: Q R = P, Q orthogonal")
-        del Q, V, T, R, P
+        wide = b > panel_qr.NARROW_BAND
+        for cols in (False, True) if columns and wide else (False,):
+            k1[cols] = max(k1[cols], hold_panel_qr(Pt, r_off, want, cols))
+        del want, Pt
     torch.cuda.empty_cache()
+    return (k1[False], k1[True]) if columns else k1[False]
+
+
+def hold_panel_qr(Pt, r_off, want, columns):
+    """One panel of check_panel_qr on the routed kernel (the blocked panel
+    past b = 256) or, with ``columns``, on the column-by-column instance,
+    against the plain version's outputs ``want``.  Returns the largest
+    |kernel - plain| (0 where m < 2b)."""
+    from svdsolver_tpu_torch.ops.cuda import panel_qr
+
+    b, m = Pt.shape
+    blocked = b > panel_qr.NARROW_BAND and not columns
+    bp = panel_qr.block_plan(b, m) if blocked else None
+    plan = bp.leaf if blocked else panel_qr.cluster_plan(b, m)
+    reset_counts()
+    got = panel_qr.panel_qr(Pt, r_off, _columns=columns)
+    again = panel_qr.panel_qr(Pt, r_off, _columns=columns)
+    torch.cuda.synchronize()
+    c = read_counts()
+    require(c["panel_qr"] == 2 * (bp.panels if blocked else 1)
+            and (c["panel_qr_update"] > 0) == blocked,
+            f"panel_qr counts its launches: {c['panel_qr']}")
+    shape = f"b={b} m={m} r_off={r_off}" + (" (column-by-column instance)" if columns else "")
+    require(all(torch.equal(x, y) for x, y in zip(got, again)),
+            f"panel_qr {shape}: two launches bit-identical")
+    what = (f"blocked: {bp.panels} sub-panels of {bp.nb} rows, each " if blocked
+            else "") + (
+        f"one cluster of {plan.ctas} CTAs x "
+        f"{plan.width} columns ({plan.smem_cols} in shared memory"
+        f"{', the rest in device memory' if plan.spill else ''}), {plan.groups} "
+        f"lane(s) a row, T in {'device' if plan.tdev else 'shared'} memory, "
+        f"{plan.smem} B shared memory a CTA")
+    if blocked:
+        what += (f"; {c['panel_qr_update'] // 2} Gram/update and "
+                 f"{c['panel_qr_merge'] // 2} merge launches a panel")
+    say(f"[kernels] panel_qr {shape}: {what}; two launches bit-identical")
+    k1 = 0.0
+    # entry by entry where the panel is at least twice as long as wide
+    # (every Stage I panel of b <= 256 at n >= 2b): the reflectors of a
+    # panel nearly as long as wide (block = n) end on tails of a few
+    # rounding-level entries, whose directions differ between two
+    # summation orders; both are held by Q R = P and Q^T Q = I below
+    for label, g, w in zip("RVT", got, want) if m >= 2 * b else ():
+        err = float((g - w).abs().max())
+        scale = float(w.abs().max())
+        require(err <= TOL_K1 * scale, f"panel_qr {label} {shape}: "
+                f"{err:.3e} > {TOL_K1} * {scale:.3e}")
+        k1 = max(k1, err)
+        say(f"[kernels] panel_qr {shape} {label}: max_abs_err {err:.3e} "
+            f"(scale {scale:.3e})")
+    Rt, Vt, Tt = got
+    cols = torch.arange(m, device=DEV)[None, :]
+    piv = r_off + torch.arange(b, device=DEV)[:, None]
+    require(bool((Rt[cols > piv] == 0).all()), f"panel_qr {shape}: R zero past the pivot")
+    require(bool((Vt[cols < piv] == 0).all()), f"panel_qr {shape}: V zero before the pivot")
+    live = max(0, min(b, m - r_off))
+    require(bool((Vt[:live].gather(1, piv[:live]) == 1).all()),
+            f"panel_qr {shape}: V one at the pivot")
+    if live < b:
+        require(bool((Tt[live:] == 0).all()) and bool((Vt[live:] == 0).all()),
+                f"panel_qr {shape}: identity reflectors past m")
+        say(f"[kernels] panel_qr {shape}: {b - live} identity reflectors: "
+            "tau 0, zero T rows, zero V rows")
+    V, T = Vt.double().T, Tt.double().T
+    R, P = Rt.double().T, Pt.double().T
+    Q = torch.eye(m, dtype=torch.float64, device=DEV) - V @ T @ V.T
+    orth = float((Q.T @ Q - torch.eye(m, dtype=torch.float64, device=DEV)).abs().max())
+    rebuild = float(torch.linalg.norm(Q @ R - P) / torch.linalg.norm(P))
+    say(f"[kernels] panel_qr {shape}: |Q^T Q - I| {orth:.3e}, "
+        f"|Q R - P|_F / |P|_F {rebuild:.3e} (tolerance {TOL_Q})")
+    require(orth <= TOL_Q and rebuild <= TOL_Q, f"panel_qr {shape}: Q R = P, Q orthogonal")
+    del Q, V, T, R, P
     return k1
 
 
@@ -2922,17 +2974,55 @@ def check_wide_chases(rng):
     return errs, times
 
 
+def stage1_split(fn):
+    """ms of one call of ``fn`` (a tiled Stage I on the wide instance) by
+    its kernels: (chain, apply), each launch bracketed by CUDA events on
+    the stream (the launches queue behind the chain's ms, so no host gap
+    falls inside), the apply summed over the apply kernel and the column
+    apply."""
+    from svdsolver_tpu_torch.ops.cuda import tiled_slab
+
+    marks = {"chain": [], "apply": []}
+    saved = {k: getattr(tiled_slab, k) for k in ("_launch_wide_chain", "_launch_wide_apply",
+                                                 "_launch_wide_apply_cols")}
+
+    def timed(part, launch):
+        def run_(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            launch(*args)
+            stop.record()
+            marks[part].append((start, stop))
+        return run_
+
+    tiled_slab._launch_wide_chain = timed("chain", saved["_launch_wide_chain"])
+    tiled_slab._launch_wide_apply = timed("apply", saved["_launch_wide_apply"])
+    tiled_slab._launch_wide_apply_cols = timed("apply", saved["_launch_wide_apply_cols"])
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        for k, v in saved.items():
+            setattr(tiled_slab, k, v)
+    return tuple(sum(a.elapsed_time(b) for a, b in marks[part]) for part in ("chain", "apply"))
+
+
 def check_wide_tiled():
     """The tiled Stage I's wide instance: forced at WIDE_TILED_BITS,
     torch.equal to the first design (t = 160) and to the two-kernel design
-    (t <= 128); on its route at WIDE_TILED, its 2 (2 n / t - 1) launches
-    counted and the band within TOL_SLAB of the plain Stage I run on the
-    card (|kernel - plain|_F / |A|_F); its two kernels against their plain
-    versions on a 2-slab half-sweep (top = n - 2t, QR- and LQ-shaped, two
-    launches bit-identical), timed beside the plain versions, torch.geqrf /
-    torch.ormqr of the same slabs and the bounds; the Stage I timed beside
-    dense_to_band_fused at the same band.  Returns ({row: max abs error},
-    {(n, t): times})."""
+    (t <= 128), and with its apply (the apply kernel's wide instances)
+    torch.equal to the same Stage I on the column apply; on its route at
+    WIDE_TILED, its 2 (2 n / t - 1) launches counted and the band within
+    TOL_SLAB of the plain Stage I run on the card (|kernel - plain|_F /
+    |A|_F), torch.equal to the Stage I on the column apply, both timed in
+    turns with the chain / apply split of each (stage1_split); its kernels
+    against their plain versions on a 2-slab half-sweep (top = n - 2t, QR-
+    and LQ-shaped, two launches bit-identical, the apply torch.equal to the
+    column apply), timed beside the plain versions, torch.geqrf /
+    torch.ormqr of the same slabs and the bounds, the apply in turns with
+    the column apply; the Stage I timed beside dense_to_band_fused at the
+    same band.  Returns ({row: max abs error}, {(n, t): times})."""
     from svdsolver_tpu_torch.models import tiled
     from svdsolver_tpu_torch.ops.cuda import panel_qr, tiled_slab
 
@@ -2943,19 +3033,24 @@ def check_wide_tiled():
         torch.cuda.synchronize()
         c = read_counts()
         half = 2 * (n // t) - 1
-        require(c["tiled_wide_chain"] == c["tiled_wide_apply"] == half,
+        require(c["tiled_wide_chain"] == c["tiled_wide_apply"] == half
+                and c["tiled_wide_apply_cols"] == 0,
                 f"dense_to_band_wide n={n} t={t}: {half} launches of each kernel, got {c}")
         if tiled_slab.tiled_route(n, t, tiled_slab._sms(A.device)) == "slabs":
             want, other = tiled_slab.dense_to_band_slabs(A.clone(), t), "first design"
         else:
             want, other = tiled_slab.dense_to_band_tiled(A, band=t), "two-kernel design"
+        cols = tiled_slab.dense_to_band_wide(A.clone(), t, _cols=True)
         torch.cuda.synchronize()
-        same = torch.equal(got, want)
+        same, same_cols = torch.equal(got, want), torch.equal(got, cols)
         say(f"[wide] tiled n={n} t={t}: the wide instance ({half} chain and apply launches) "
-            f"torch.equal to the {other}: {same}")
-        require(same, f"tiled wide instance n={n} t={t} bit-equal to the {other}")
-        del A, got, want
-    errs, times = {"tiled_wide_chain": 0.0, "tiled_wide_apply": 0.0}, {}
+            f"torch.equal to the {other}: {same}; to the wide instance on the column "
+            f"apply: {same_cols}")
+        require(same and same_cols, f"tiled wide instance n={n} t={t} bit-equal to the "
+                f"{other} and to the column apply")
+        del A, got, want, cols
+    errs, times = {"tiled_wide_chain": 0.0, "tiled_wide_apply": 0.0,
+                   "tiled_wide_apply_cols": 0.0}, {}
     for n, t in WIDE_TILED:
         A = uniform_matrix(n, seed=13)
         amax = float(A.abs().max())
@@ -2966,15 +3061,31 @@ def check_wide_tiled():
         c = read_counts()
         half = 2 * (n // t) - 1
         require(c["tiled_wide_chain"] == c["tiled_wide_apply"] == half
-                and c["tiled_chain"] == c["tiled_apply"] == c["tiled_slab"] == 0,
+                and c["tiled_chain"] == c["tiled_apply"] == c["tiled_slab"] == 0
+                and c["tiled_wide_apply_cols"] == 0,
                 f"dense_to_band_tiled n={n} t={t}: the wide instance's launches, got {c}")
         want, p_ms = _event_ms(lambda: tiled.dense_to_band_tiled_plain(A, t))
         rel = float(torch.linalg.norm(got - want) / torch.linalg.norm(A))
         fused = cuda_ms(lambda: panel_qr.dense_to_band_fused(A, band=t), reps=3)
-        wide_ms = cuda_ms(lambda: tiled_slab.dense_to_band_tiled(A, band=t), reps=3)
+        old = lambda: tiled_slab.dense_to_band_wide(A.clone(), t, _cols=True)  # noqa: E731
+        require(torch.equal(got, old()), f"dense_to_band_tiled n={n} t={t} bit-equal to the "
+                "Stage I on the column apply")
+        o1 = cuda_ms(old, reps=3)
+        w1 = cuda_ms(lambda: tiled_slab.dense_to_band_tiled(A, band=t), reps=3)
+        w2 = cuda_ms(lambda: tiled_slab.dense_to_band_tiled(A, band=t), reps=3)
+        o2 = cuda_ms(old, reps=3)
+        wide_ms, old_ms = min(w1, w2), min(o1, o2)
+        split = stage1_split(lambda: tiled_slab.dense_to_band_tiled(A, band=t))
+        split_old = stage1_split(old)
         say(f"[wide] dense_to_band_tiled n={n} t={t} (the wide instance): |kernel - plain|_F "
-            f"/ |A|_F = {rel:.3e}; {wide_ms:.3f} ms (first run {ms:.3f}), plain {p_ms:.1f} ms "
-            f"(one run), dense_to_band_fused at b={t} {fused:.3f} ms")
+            f"/ |A|_F = {rel:.3e}; {wide_ms:.3f} ms (first run {ms:.3f}) in turns with the "
+            f"column apply's {old_ms:.3f} ms (turns {o1:.3f} / {w1:.3f} / {w2:.3f} / "
+            f"{o2:.3f}); plain {p_ms:.1f} ms (one run), dense_to_band_fused at b={t} "
+            f"{fused:.3f} ms")
+        for label, (ch, ap) in (("the apply kernel", split), ("the column apply", split_old)):
+            say(f"[wide] dense_to_band_tiled n={n} t={t} on {label}: ms by kernel (CUDA "
+                f"events around each launch, one run): chain {ch:.3f}, apply {ap:.3f} (apply "
+                f"{100 * ap / (ch + ap):.1f}% of the two)")
         require(rel <= TOL_SLAB, f"dense_to_band_tiled n={n} t={t} against the plain Stage I")
         top = n - 2 * t
         for label, pc_off in (("QR", 0), ("LQ", t)):
@@ -2987,29 +3098,39 @@ def check_wide_tiled():
             require(torch.equal(g1, g2) and torch.equal(V, V2) and torch.equal(tau, tau2),
                     f"tiled_wide_chain {label} n={n} t={t}: two launches bit-identical")
             e_chain = float((g1 - w).abs().max())
-            e_v = max(float((V - Vp).abs().max()), float((tau - taup).abs().max()))
-            plain = g1.clone()
+            e_v = max(float((V[:, :, :2 * t] - Vp).abs().max()),
+                      float((tau - taup).abs().max()))
+            plain, g3 = g1.clone(), g1.clone()
             tiled_slab.wide_apply(g1, top, pc, t, V, tau)
             tiled_slab.wide_apply(g2, top, pc, t, V, tau)
+            tiled_slab.wide_apply_cols(g3, top, pc, t, V, tau)
             tiled.apply_plain(plain, top, pc, t, V, tau)
             torch.cuda.synchronize()
             require(torch.equal(g1, g2), f"tiled_wide_apply {label} n={n} t={t}: two launches "
                     "bit-identical")
+            require(torch.equal(g1, g3), f"tiled_wide_apply {label} n={n} t={t}: torch.equal "
+                    "to the column apply")
             e_apply = float((g1 - plain).abs().max())
             say(f"[wide] tiled_wide_chain / tiled_wide_apply {label} half-sweep n={n} t={t} "
-                f"(rows {top}, pivots {pc}, 2 slabs): two launches bit-identical; chain "
-                f"max|kernel - plain| / max|A| = {e_chain / amax:.3e} (v, tau {e_v:.3e}); "
-                f"apply {e_apply / amax:.3e}")
+                f"(rows {top}, pivots {pc}, 2 slabs): two launches bit-identical, the apply "
+                f"torch.equal to the column apply; chain max|kernel - plain| / max|A| = "
+                f"{e_chain / amax:.3e} (v, tau {e_v:.3e}); apply {e_apply / amax:.3e}")
             require(max(e_chain, e_apply) <= TOL_SLAB * amax and e_v <= TOL_SLAB,
                     f"tiled wide kernels {label} n={n} t={t} against their plain versions")
             errs["tiled_wide_chain"] = max(errs["tiled_wide_chain"], e_chain)
             errs["tiled_wide_apply"] = max(errs["tiled_wide_apply"], e_apply)
+            errs["tiled_wide_apply_cols"] = max(errs["tiled_wide_apply_cols"],
+                                                float((g3 - plain).abs().max()))
         M = A.clone()
         V, tau = tiled_slab.wide_chain(M, top, 0, t)
         chained = M.clone()
         c_ms = fresh_ms(lambda: tiled_slab.wide_chain(M, top, 0, t), lambda: M.copy_(A))
-        a_ms = fresh_ms(lambda: tiled_slab.wide_apply(M, top, 0, t, V, tau),
-                        lambda: M.copy_(chained))
+        restore = lambda: M.copy_(chained)  # noqa: E731
+        cols = lambda: tiled_slab.wide_apply_cols(M, top, 0, t, V, tau)  # noqa: E731
+        new = lambda: tiled_slab.wide_apply(M, top, 0, t, V, tau)  # noqa: E731
+        turns = (fresh_ms(cols, restore), fresh_ms(new, restore), fresh_ms(new, restore),
+                 fresh_ms(cols, restore))
+        a_ms, ac_ms = min(turns[1:3]), min(turns[0], turns[3])
         M.copy_(A)
         _, cp_ms = _event_ms(lambda: tiled.chain_plain(M, top, 0, t))
         M.copy_(chained)
@@ -3017,22 +3138,26 @@ def check_wide_tiled():
         g_ms, o_ms = sweep_library_ms(A, top, 0, t, 2)
         (cw, cb), (aw, ab) = work_sweep(n, t, 2)
         cbound, abound = bound(cw, cb), bound(aw, ab)
-        times[n, t] = {"chain_ms": c_ms, "apply_ms": a_ms, "chain_plain_ms": cp_ms,
-                       "apply_plain_ms": ap_ms, "geqrf_ms": g_ms, "ormqr_ms": o_ms,
-                       "chain_bound": cbound, "apply_bound": abound, "stage1_ms": wide_ms,
-                       "stage1_plain_ms": p_ms, "fused_ms": fused, "steps": 2 * t}
+        times[n, t] = {"chain_ms": c_ms, "apply_ms": a_ms, "apply_cols_ms": ac_ms,
+                       "chain_plain_ms": cp_ms, "apply_plain_ms": ap_ms, "geqrf_ms": g_ms,
+                       "ormqr_ms": o_ms, "chain_bound": cbound, "apply_bound": abound,
+                       "stage1_ms": wide_ms, "stage1_cols_ms": old_ms, "stage1_split": split,
+                       "stage1_cols_split": split_old, "stage1_plain_ms": p_ms,
+                       "fused_ms": fused, "steps": 2 * t}
         say(f"[wide] tiled wide half-sweep n={n} t={t} 2 slabs (top {top}): chain {c_ms:.4f} "
-            f"ms ({c_ms * 1e3 / (2 * t):.3f} us a step), apply {a_ms:.4f} ms; plain chain "
-            f"{cp_ms:.3f}, apply {ap_ms:.3f} ms (one run); torch.geqrf {g_ms:.4f} + "
-            f"torch.ormqr {o_ms:.4f} ms; bound chain {cbound[0]:.5f} ({cbound[1]}), apply "
-            f"{abound[0]:.5f} ms ({abound[1]}) (medians of {REPS})")
+            f"ms ({c_ms * 1e3 / (2 * t):.3f} us a step), apply {a_ms:.4f} ms in turns with "
+            f"the column apply {ac_ms:.4f} ms ({ac_ms / a_ms:.1f}x; turns "
+            f"{' / '.join(f'{x:.4f}' for x in turns)}); plain chain {cp_ms:.3f}, apply "
+            f"{ap_ms:.3f} ms (one run); torch.geqrf {g_ms:.4f} + torch.ormqr {o_ms:.4f} ms "
+            f"(apply / ormqr {a_ms / o_ms:.2f}); bound chain {cbound[0]:.5f} ({cbound[1]}), "
+            f"apply {abound[0]:.5f} ms ({abound[1]}) (medians of {REPS})")
         del A, M, chained
         torch.cuda.empty_cache()
     return errs, times
 
 
 def check_wide_stage1():
-    """Stage I at WIDE_STAGE1 through K1's wide instance against the plain
+    """Stage I at WIDE_STAGE1 through K1's blocked panel against the plain
     Stage I run on the card, output by output: ``dense_to_band_fused``
     against ``two_stage.dense_to_band``, ``dense_to_band_rec_fused`` (band
     and records) against ``dense_to_band_rec``, ``dense_to_band_uv_fused``
@@ -3054,39 +3179,225 @@ def check_wide_stage1():
              lambda: two_stage.dense_to_band_uv(A, band=b))):
         reset_counts()
         got = kern()
-        c = read_counts()["panel_qr"]
+        counts = read_counts()
+        c = counts["panel_qr"]
         want = plain()
         errs = [float(torch.linalg.norm(g - w) / torch.linalg.norm(w)) for g, w in zip(got, want)]
-        say(f"[wide] {name} n={n} b={b} ({c} K1 launches, 2 lanes a row, T in device memory) "
-            f"against the plain Stage I: |kernel - plain|_F / |plain|_F = "
-            f"{', '.join(f'{e:.3e}' for e in errs)} (outputs in order)")
-        require(c == 2 * (n // b) and max(errs) <= TOL_SLAB, f"{name} n={n} b={b} vs plain")
+        per = panel_qr.block_plan(b, n).panels
+        say(f"[wide] {name} n={n} b={b} ({c} K1 launches: {2 * (n // b)} blocked panels of "
+            f"{per} sub-panels; {counts['panel_qr_update']} update and "
+            f"{counts['panel_qr_merge']} merge launches) against the plain Stage I: "
+            f"|kernel - plain|_F / |plain|_F = {', '.join(f'{e:.3e}' for e in errs)} "
+            "(outputs in order)")
+        require(c == 2 * (n // b) * per and max(errs) <= TOL_SLAB,
+                f"{name} n={n} b={b} vs plain")
         worst = max(worst, max(errs))
     return worst
 
 
-def time_wide_k1():
-    """K1 at WIDE_K1_TIME beside its plain version (one run) and
-    torch.geqrf of the same (m, b) panel: (ms, plain ms, library ms)."""
+def time_k1_leaves():
+    """The narrow K1 alone on a (nb, m) panel at every leaf width of
+    K1_LEAF_NB, cluster size of K1_LEAF_C and length of K1_LEAF_M: us a
+    column (CUDA-event median of REPS over nb); "-" where the plan has no
+    room.  The table the blocked K1's leaf (panel_qr.BLOCK_NB,
+    panel_qr.leaf_ctas) was chosen from.  Returns {(nb, m, C): us}."""
     from svdsolver_tpu_torch.ops.cuda import panel_qr
 
+    table = {}
+    for m in K1_LEAF_M:
+        say(f"[wide] K1 leaf sweep m={m}: us a column at C = "
+            f"{', '.join(str(c) for c in K1_LEAF_C)} CTAs")
+        for nb in K1_LEAF_NB:
+            Pt = uniform_matrix(m, seed=19)[:nb].contiguous()
+            cells = []
+            for C in K1_LEAF_C:
+                try:
+                    panel_qr.cluster_plan(nb, m, C)
+                except ValueError:
+                    cells.append("-")
+                    continue
+                us = cuda_ms(lambda: panel_qr.panel_qr(Pt, 0, _cluster=C)) * 1e3 / nb
+                table[nb, m, C] = us
+                cells.append(f"{us:.3f}")
+            say(f"[wide] K1 leaf nb={nb} m={m}: {' | '.join(cells)}")
+    return table
+
+
+def time_wide_k1():
+    """K1 past b = 256 at WIDE_K1_TIMES: the blocked panel in turns with
+    the column-by-column instance (panel_qr(..., _columns=True), the design
+    before it: columns, blocked, blocked, columns), beside torch.geqrf of
+    the same (m, b) panel and the bound; at WIDE_K1_TIME also the blocked
+    plain version (one run).  Returns {(b, m, r_off): times}."""
+    from svdsolver_tpu_torch.ops.cuda import panel_qr
+
+    out = {}
+    for b, m, r_off in WIDE_K1_TIMES:
+        Pt = uniform_matrix(m, seed=14)[:b].contiguous()
+        P = Pt.T.contiguous()
+        cols = lambda: panel_qr.panel_qr(Pt, r_off, _columns=True)  # noqa: E731
+        c1 = cuda_ms(cols, reps=3)
+        k1 = cuda_ms(lambda: panel_qr.panel_qr(Pt, r_off))
+        k2 = cuda_ms(lambda: panel_qr.panel_qr(Pt, r_off))
+        c2 = cuda_ms(cols, reps=3)
+        lib_ms = cuda_ms(lambda: torch.geqrf(P))
+        p_ms = None
+        if (b, m, r_off) == WIDE_K1_TIME:
+            _, p_ms = _event_ms(lambda: panel_qr.panel_qr_blocked_plain(Pt, r_off))
+        bnd = bound(*work_panel_qr(b, m, r_off))
+        ms, col_ms = min(k1, k2), min(c1, c2)
+        out[b, m, r_off] = {"ms": ms, "cols_ms": col_ms, "plain_ms": p_ms, "geqrf_ms": lib_ms,
+                            "bound": bnd, "turns": (c1, k1, k2, c2)}
+        say(f"[wide] panel_qr b={b} m={m} blocked: {ms:.3f} ms, in turns with the "
+            f"column-by-column instance {col_ms:.3f} ms ({col_ms / ms:.2f}x; turns "
+            f"{c1:.3f} / {k1:.3f} / {k2:.3f} / {c2:.3f}); torch.geqrf of the (m, b) panel "
+            f"{lib_ms:.3f} ms (blocked / geqrf {ms / lib_ms:.2f}); bound {bnd[0]:.5f} ms "
+            f"({bnd[1]})" + (f"; blocked plain {p_ms:.1f} ms (one run)" if p_ms else ""))
+    return out
+
+
+@contextlib.contextmanager
+def k1_columns():
+    """K1 past b = 256 on the column-by-column instance (the design before
+    the blocked panel) for the calls inside."""
+    from svdsolver_tpu_torch.ops.cuda import panel_qr
+
+    blocked = panel_qr.panel_qr
+    panel_qr.panel_qr = lambda Pt, r_off, _cluster=None: blocked(Pt, r_off, _cluster,
+                                                                 _columns=True)
+    try:
+        yield
+    finally:
+        panel_qr.panel_qr = blocked
+
+
+def time_wide_stage1_k1():
+    """The fused Stage I at WIDE_STAGE1_TIME, plain and recording, on the
+    blocked K1 in turns with the column-by-column instance (columns,
+    blocked, blocked, columns; medians of 3): what the redesign moves in
+    svdvals and svd at that block.  Returns {entry: (blocked ms, columns
+    ms)}."""
+    from svdsolver_tpu_torch.ops.cuda import panel_qr
+
+    n, b = WIDE_STAGE1_TIME
+    A = uniform_matrix(n, seed=15)
+    out = {}
+    for name, fn in (("dense_to_band_fused", panel_qr.dense_to_band_fused),
+                     ("dense_to_band_rec_fused", panel_qr.dense_to_band_rec_fused)):
+        run_ = lambda: fn(A, band=b)  # noqa: E731
+        with k1_columns():
+            c1 = cuda_ms(run_, reps=3)
+        k1, k2 = cuda_ms(run_, reps=3), cuda_ms(run_, reps=3)
+        with k1_columns():
+            c2 = cuda_ms(run_, reps=3)
+        out[name] = (min(k1, k2), min(c1, c2))
+        say(f"[wide] {name} n={n} b={b}: {min(k1, k2):.3f} ms on the blocked K1, in turns "
+            f"with the column-by-column instance's {min(c1, c2):.3f} ms (turns {c1:.3f} / "
+            f"{k1:.3f} / {k2:.3f} / {c2:.3f})")
+    return out
+
+
+def work_k1_update(b, m, p0, r0, r1):
+    """The blocked K1's Gram and update of sub-panel [r0, r1): the Gram of
+    the b - k other rows with V_k over m - p0 columns, Z = G_rest T_k, the
+    rank-k update of the b - r1 rows below; bytes: V's rows up to r1, the
+    rows below read and written, T_k."""
+    k, K, rest = r1 - r0, m - p0, b - r1
+    flops = 2 * (b - k) * k * K + 2 * rest * k * k + 2 * rest * K * k
+    return flops, 4 * (r1 * K + 2 * rest * K + k * k)
+
+
+def work_k1_merge(b, r0, r1):
+    """The blocked K1's T merge of sub-panel [r0, r1) from its Gram: Y =
+    G^T T_00 (k x r0 x r0), then -T_kk Y (k x k x r0); bytes: the Gram's
+    r0 x k, T_00, T_kk in, the block row out."""
+    k = r1 - r0
+    return 2 * k * r0 * r0 + 2 * k * k * r0, 4 * (r0 * k + r0 * r0 + k * k + k * r0)
+
+
+def time_k1_products():
+    """The blocked K1's products at WIDE_K1_TIME, each against its plain
+    version on the same inputs (the panel's own V and T): the first
+    sub-panel's Gram and update (4 launches: Gram, its sum, Z, the update;
+    max |kernel - plain| of the updated rows; fresh rows each run) beside
+    torch.ormqr of its reflectors on the same rows, and the last
+    sub-panel's T merge (2 launches, on the Gram as torch computes it)
+    beside its plain version on that Gram and torch.linalg.multi_dot of
+    the same three blocks.  Returns {"update": times, "merge": times}."""
+    from svdsolver_tpu_torch.ops.cuda import panel_qr, tiled_slab
+
     b, m, r_off = WIDE_K1_TIME
+    nb = panel_qr.BLOCK_NB
     Pt = uniform_matrix(m, seed=14)[:b].contiguous()
-    P = Pt.T.contiguous()
-    (k_ms, k2_ms), p_ms = in_turns(lambda: panel_qr.panel_qr(Pt, r_off),
-                                   lambda: panel_qr.panel_qr_plain(Pt, r_off))
-    lib_ms = cuda_ms(lambda: torch.geqrf(P))
-    bnd = bound(*work_panel_qr(b, m, r_off))
-    say(f"[wide] panel_qr b={b} m={m}: {min(k_ms, k2_ms):.3f} ms, plain {p_ms:.1f} ms (one "
-        f"run), torch.geqrf of the (m, b) panel {lib_ms:.3f} ms, bound {bnd[0]:.5f} ms "
-        f"({bnd[1]})")
-    return min(k_ms, k2_ms), p_ms, lib_ms
+    Rt, Vt, Tt = panel_qr.panel_qr(Pt, r_off)
+    stream = torch.cuda.current_stream()
+    out = {}
+    r0, r1, p0 = 0, nb, r_off
+    rows, rest = b - nb, b - r1
+    splits = panel_qr._gram_splits(rows, nb, m - p0, tiled_slab._sms(DEV))
+    # the first sub-panel's Gram has no rows above it: all of it is below
+    scratch = torch.empty(splits * rows * nb + rows * nb + rest * nb, device=DEV)
+    parts, G, Z = (panel_qr._ptr(scratch, 0, o)
+                   for o in (0, splits * rows * nb, (splits + 1) * rows * nb))
+    W, Wp = Pt.clone(), Pt.clone()
+    kern = lambda: panel_qr._update(W, Vt, Tt, r0, r1, p0, splits, parts, (G, G), Z,  # noqa: E731
+                                    stream)
+    kern()
+    panel_qr.update_plain(Wp, Vt, Tt, r0, r1, p0)
+    err = float((W - Wp).abs().max())
+    ms = fresh_ms(kern, lambda: W.copy_(Pt))
+    _, p_ms = _event_ms(lambda: panel_qr.update_plain(Wp.copy_(Pt), Vt, Tt, r0, r1, p0))
+    A = Vt[r0:r1, p0:].T.contiguous()
+    tau = torch.diagonal(Tt)[r0:r1].contiguous()
+    C = Pt[r1:, p0:].T.contiguous()
+    lib_ms = cuda_ms(lambda: torch.ormqr(A, tau, C, left=True, transpose=True))
+    bnd = bound(*work_k1_update(b, m, p0, r0, r1))
+    out["update"] = {"ms": ms, "plain_ms": p_ms, "library_ms": lib_ms, "err": err,
+                     "bound": bnd, "shape": f"b={b} m={m} sub-panel [{r0}, {r1})"}
+    say(f"[wide] panel_qr_update b={b} m={m} sub-panel [{r0}, {r1}) (Gram {rows} x {nb} "
+        f"over {m - p0} columns in {splits} splits, the update of {rest} rows): {ms:.4f} ms, "
+        f"plain {p_ms:.3f} ms (one run), torch.ormqr {lib_ms:.4f} ms; max|kernel - plain| "
+        f"{err:.3e}; bound {bnd[0]:.5f} ms ({bnd[1]})")
+    r0, r1 = b - nb, b
+    p0 = r_off + r0
+    Gm = Vt[:r0, p0:] @ Vt[r0:r1, p0:].T  # the Gram's rows [0, r0), TF32 off
+    Tk, Tp = Tt.clone(), Tt.clone()
+    Tk[r0:r1, :r0] = 0
+    Y = torch.empty(nb * r0, device=DEV)
+    kern = lambda: panel_qr._merge(Gm.data_ptr(), Tk, r0, r1, Y.data_ptr(), stream)  # noqa: E731
+    kern()
+    panel_qr.merge_gram_plain(Gm, Tp, r0, r1)
+    err = float((Tk[r0:r1, :r0] - Tp[r0:r1, :r0]).abs().max())
+    ms = cuda_ms(kern)
+    _, p_ms = _event_ms(lambda: panel_qr.merge_gram_plain(Gm, Tp, r0, r1))
+    # one PyTorch call on the same blocks: -T_kk G^T T_00 (the sign taken
+    # into T_kk beforehand)
+    blocks = (-Tt[r0:r1, r0:r1], Gm.T, Tt[:r0, :r0])
+    lib = torch.linalg.multi_dot(blocks)
+    lib_err = float((lib - Tp[r0:r1, :r0]).abs().max())
+    lib_ms = cuda_ms(lambda: torch.linalg.multi_dot(blocks))
+    bnd = bound(*work_k1_merge(b, r0, r1))
+    out["merge"] = {"ms": ms, "plain_ms": p_ms, "library_ms": lib_ms, "err": err,
+                    "bound": bnd, "shape": f"b={b} m={m} sub-panel [{r0}, {r1})"}
+    say(f"[wide] panel_qr_merge b={b} m={m} sub-panel [{r0}, {r1}) (T's block row of "
+        f"{nb} x {r0}, on the Gram): {ms:.4f} ms, plain {p_ms:.3f} ms (one run, on the "
+        f"same Gram), torch.linalg.multi_dot {lib_ms:.4f} ms (|multi_dot - plain| "
+        f"{lib_err:.3e}); max|kernel - plain| {err:.3e} (T scale "
+        f"{float(Tp.abs().max()):.3e}); bound {bnd[0]:.5f} ms ({bnd[1]})")
+    require(out["update"]["err"] <= TOL_K1 * float(Pt.abs().max())
+            and err <= TOL_K1 * float(Tp.abs().max()), "blocked K1 products against plain")
+    return out
 
 
 def phase_wide(rng):
-    """F3's repair, on the card: K1 past b = 256 against its plain version
-    (check_panel_qr at WIDE_K1), the three fused Stage I entries on it
-    against the plain Stage I (check_wide_stage1), K1 timed; the chases'
+    """The wide instances on the card: the narrow K1 alone at each leaf
+    width and cluster size (time_k1_leaves); K1 past b = 256 (the blocked
+    panel, and the column-by-column instance) against its plain version
+    (check_panel_qr at WIDE_K1), the three
+    fused Stage I entries on it against the plain Stage I
+    (check_wide_stage1), K1 timed in turns with the column-by-column
+    instance and its products against their plain versions
+    (time_wide_k1, time_k1_products); the chases'
     wide pair
     (check_wide_chases); the tiled Stage I's wide instance
     (check_wide_tiled); then every entry of WIDE_PATHS with the launch
@@ -3100,9 +3411,15 @@ def phase_wide(rng):
     from svdsolver_tpu_torch.ops.cuda import band_chase_wave, tiled_slab
 
     t0 = time.perf_counter()
-    errs = {"panel_qr_wide": check_panel_qr(rng, WIDE_K1)}
+    leaves = time_k1_leaves()
+    k1_err, cols_err = check_panel_qr(rng, WIDE_K1, columns=True)
+    errs = {"panel_qr_wide": k1_err}
     check_wide_stage1()
     k1_times = time_wide_k1()
+    k1_products = time_k1_products()
+    k1_stage1 = time_wide_stage1_k1()
+    errs["panel_qr_update"] = k1_products["update"]["err"]
+    errs["panel_qr_merge"] = k1_products["merge"]["err"]
     e_chase, chase_times = check_wide_chases(rng)
     e_tiled, tiled_times = check_wide_tiled()
     errs.update(e_chase)
@@ -3132,6 +3449,12 @@ def phase_wide(rng):
         stage1 = c["tiled_wide_chain"] if method == "multicore" else c["panel_qr"]
         require(stage1 > 0 and c["tiled_slab"] == 0 and c["bisect"] > 0,
                 f"{label}: the path's kernels, got {fired}")
+        if method == "tpu2" and b > 256:  # the blocked K1: its products too
+            require(c["panel_qr_update"] > 0 and c["panel_qr_merge"] > 0,
+                    f"{label}: the blocked K1's products, got {fired}")
+        if method == "multicore" and n > b:  # the wide route's apply
+            key = "tiled_wide_apply" if b <= 512 else "tiled_wide_apply_cols"
+            require(c[key] == c["tiled_wide_chain"], f"{label}: the apply {key}, got {fired}")
         chase = sum(c[k] for k in ("band_chase", "band_chase_rec", "band_chase_wave_l2",
                                    "band_chase_wave_rec_l2", "band_chase_staged",
                                    "band_chase_staged_rec", "band_chase_wave",
@@ -3149,7 +3472,9 @@ def phase_wide(rng):
         del A
         torch.cuda.empty_cache()
     say(f"[done] phase_wide {time.perf_counter() - t0:.1f} s")
-    return errs, {"k1": k1_times, "chase": chase_times, "tiled": tiled_times}, counts
+    return errs, {"k1": k1_times, "k1_products": k1_products, "k1_leaves": leaves,
+                  "k1_stage1": k1_stage1, "k1_columns_err": cols_err,
+                  "chase": chase_times, "tiled": tiled_times}, counts
 
 
 def jacobi_gates(label, A, U, s, Vh):
@@ -4040,15 +4365,35 @@ def wide_rows(errs, times, counts):
     total = {k: sum(c[k] for c in counts.values()) for k in next(iter(counts.values()))}
     rows = []
     b, m, r_off = WIDE_K1_TIME
-    k_ms, p_ms, lib_ms = times["k1"]
-    bnd = bound(*work_panel_qr(b, m, r_off))
+    k1 = times["k1"][WIDE_K1_TIME]
     rows.append({
         "name": "panel_qr_wide", "route": "cuda", "source": src.format("panel_qr"),
         "replaces": "svdsolver_tpu/ops/pallas/panel_qr.py:30", "tpu": ["K1"],
-        "launches": total["panel_qr"], "max_abs_err": errs["panel_qr_wide"], "ms": k_ms,
-        "plain_ms": p_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib_ms,
-        "shape": f"b={b} m={m}", "instance": "b > 256: 2 lanes a row (1 past 512), T in "
-                                            "device memory"})
+        "launches": total["panel_qr"], "max_abs_err": errs["panel_qr_wide"], "ms": k1["ms"],
+        "plain_ms": k1["plain_ms"], "bound_ms": k1["bound"][0], "bound_by": k1["bound"][1],
+        "library_ms": k1["geqrf_ms"], "shape": f"b={b} m={m}",
+        "instance": "b > 256: the blocked panel, sub-panels of 64 rows on the narrow "
+                    "cluster kernel (launches: sub-panels), the products between them "
+                    "(panel_qr_update, panel_qr_merge)",
+        "earlier_design_ms": {f"b={b_} m={m_}": v["cols_ms"]
+                              for (b_, m_, _), v in times["k1"].items()},
+        "earlier_design_max_abs_err": times["k1_columns_err"],
+        "ms_by_shape": {f"b={b_} m={m_}": v["ms"] for (b_, m_, _), v in times["k1"].items()},
+        "library_ms_by_shape": {f"b={b_} m={m_}": v["geqrf_ms"]
+                                for (b_, m_, _), v in times["k1"].items()},
+        "stage1_ms": {f"{k} n={WIDE_STAGE1_TIME[0]} b={WIDE_STAGE1_TIME[1]}":
+                      {"blocked": v[0], "columns": v[1]}
+                      for k, v in times["k1_stage1"].items()}})
+    for name in ("panel_qr_update", "panel_qr_merge"):
+        tm = times["k1_products"][name.split("_")[-1]]
+        rows.append({
+            "name": name, "route": "cuda", "source": src.format("panel_qr"),
+            "replaces": "svdsolver_tpu/ops/pallas/panel_qr.py:30 (the column loop's "
+                        "trailing and larft work between sub-panels)", "tpu": ["K1"],
+            "launches": total[name], "max_abs_err": errs[name], "ms": tm["ms"],
+            "plain_ms": tm["plain_ms"], "bound_ms": tm["bound"][0],
+            "bound_by": tm["bound"][1], "library_ms": tm["library_ms"],
+            "shape": tm["shape"]})
     for name, key, record, kernel, tpu, repl in (
             ("band_chase_wide", "l2", False, "band_chase", ["K3", "K5"],
              "svdsolver_tpu/ops/pallas/band_chase.py:331 + band_chase_stream.py:118"),
@@ -4075,19 +4420,26 @@ def wide_rows(errs, times, counts):
             "designs_ms": {f"n={n_} b={b_}": v for (n_, b_), v in times["chase"].items()}})
     n, t = WIDE_TILED[1]
     tm = times["tiled"][n, t]
-    for name, part, lib in (("tiled_wide_chain", "chain", "geqrf_ms"),
-                            ("tiled_wide_apply", "apply", "ormqr_ms")):
-        bnd = tm[f"{part}_bound"]
+    for name, part, kernel, lib in (
+            ("tiled_wide_chain", "chain", "tiled_wide", "geqrf_ms"),
+            ("tiled_wide_apply", "apply", "tiled_apply", "ormqr_ms"),
+            ("tiled_wide_apply_cols", "apply_cols", "tiled_wide", "ormqr_ms")):
+        bnd = tm[f"{part.split('_')[0]}_bound"]
         rows.append({
-            "name": name, "route": "cuda", "source": src.format("tiled_wide"),
+            "name": name, "route": "cuda", "source": src.format(kernel),
             "replaces": ("svdsolver_tpu/models/tiled.py:59 + :72 (the lax.fori_loop of "
                          "_slab_factor_step :33, no Pallas kernel)"),
             "tpu": [], "launches": total[name], "max_abs_err": errs[name],
-            "ms": tm[f"{part}_ms"], "plain_ms": tm[f"{part}_plain_ms"], "bound_ms": bnd[0],
-            "bound_by": bnd[1], "library_ms": tm[lib],
+            "ms": tm[f"{part}_ms"], "plain_ms": tm[f"{part.split('_')[0]}_plain_ms"],
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": tm[lib],
             "shape": f"2-slab half-sweep n={n} t={t} (top = n - 2t)",
             "dense_to_band_tiled_ms": {f"n={n_} t={t_}": v["stage1_ms"]
                                        for (n_, t_), v in times["tiled"].items()}})
+    rows[-2]["instance"] = ("the apply kernel's wide instances (rpl 16, 32) on the wide "
+                            f"route up to t = 512; earlier design (the column apply) "
+                            f"{tm['apply_cols_ms']:.4f} ms")
+    rows[-1]["instance"] = ("a warp a column from device memory: the route past t = 512 and "
+                            "the wide apply's bitwise oracle")
     return rows
 
 

@@ -57,15 +57,22 @@
 // a spilled column is read and written by this CTA only, ordered by the
 // same __syncthreads and cluster barriers as the shared-memory ones.
 //
-// Wide panels: at b <= 256 every row has G >= 4 lanes.  Past it a row has 2
-// lanes (b <= 512) or 1, and past 1024 rows each thread loops over several
-// rows (the passes step by RS = 1024 / G rows); nothing in the passes
-// assumes G >= 4.  The slab's rows are then not whole 16-byte quads (row
-// stride = G mod 32), so the host plan turns the float4 load off.  Past
-// b = 256 this CTA's T columns (b x b / C floats) stay in device memory, in
-// its own columns of the output Tt (the TDev instantiation, plan tld == 0):
-// only this CTA reads or writes them, ordered by the same barriers, and
-// the slab keeps the shared memory.  Every plan of b <= 256 is as it was.
+// Wide panels: past b = 256 the host blocks the panel (ops/cuda/panel_qr.py,
+// panel_qr_blocked): sub-panels of 64 rows, each one launch of this kernel
+// at its narrow plan (T^T into its diagonal block of the whole T, row
+// stride ldt), and the products between them on panel_gemm below.  The
+// column-by-column wide instance stays, off the route, for timing against
+// (panel_qr(..., _columns=True)): past b = 256 a row has 2 lanes (b <= 512)
+// or 1, and past 1024 rows each thread loops over several rows (the passes
+// step by RS = 1024 / G rows); nothing in the passes assumes G >= 4.  The
+// slab's rows are then not whole 16-byte quads (row stride = G mod 32), so
+// the host plan turns the float4 load off, and this CTA's T columns
+// (b x b / C floats) stay in device memory, in its own columns of the
+// output Tt (the TDev instantiation, plan tld == 0): only this CTA reads or
+// writes them, ordered by the same barriers.  It reads its 2-lane rows of
+// the columns spilled to device memory a sector a lane: 39.5 us a column at
+// (512, 2048) on the H100, against ~5.3 us a column for a 64-row
+// sub-panel.  Every plan of b <= 256 is as it was.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -86,6 +93,7 @@ struct Plan {
   int tld;  // their row stride (0: in device memory, Tt itself: TDev)
   int G;    // lanes a row in the dot and update passes (power of two)
   int vec;  // Pt rows 16-byte aligned: load with float4
+  int ldt;  // row stride of the output Tt (b, or the whole T's of a blocked panel)
 };
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -176,7 +184,7 @@ panel_qr_cluster(const float* __restrict__ Pt, float* __restrict__ Rt,
   const int c0 = rank * pl.tc;
   const int tcn = max(0, min(pl.tc, b - c0));
   const Slab<Spill> s = {slab, pl.ld, Spill ? pl.ws : pl.W, Rt + cbase, m};
-  const TCols tcol = TDev ? TCols{Tt + c0, b} : TCols{tl, pl.tld};
+  const TCols tcol = TDev ? TCols{Tt + c0, pl.ldt} : TCols{tl, pl.tld};
 
   // load the slab once
   if (pl.vec) {
@@ -303,7 +311,7 @@ panel_qr_cluster(const float* __restrict__ Pt, float* __restrict__ Rt,
     for (int idx = tid; idx < b * tcn; idx += kThreads) {
       const int i = idx / tcn;
       const int cl = idx - i * tcn;
-      Tt[(size_t)i * b + c0 + cl] = tl[i * pl.tld + cl];
+      Tt[(size_t)i * pl.ldt + c0 + cl] = tl[i * pl.tld + cl];
     }
   cluster.sync();  // no CTA leaves while another may read its shared memory
 }
@@ -354,6 +362,141 @@ int clusters_of(int C, int smem, int* clusters) {
   return (int)err;
 }
 
+// ---- The blocked panel's products (b > 256) ----
+//
+// Past b = 256 the panel is factored in sub-panels of nb rows of Pt, each
+// by the kernel above (ops/cuda/panel_qr.py: panel_qr_blocked); what the
+// TPU kernel's column loop does between them becomes products of tall,
+// thin operands, each one launch of panel_gemm:
+//   the Gram  G = [Vt_{0:k}; Pt_rest] Vt_k^T over the columns from the
+//             sub-panel's first pivot, split over K; panel_sum adds the
+//             splits in order;
+//   update    Pt_rest -= ((G_rest) T_k) Vt_k, T_k = Tt_kk^T;
+//   merge     Tt_{k,0:k} = -Tt_kk (G_{0:k}^T Tt_{0:k,0:k}).
+// Plain fp32 FMA tiles (no tensor cores, no TF32): C_z[i][j] = alpha
+// sum_{k in split z} A(i, k) B(k, j) (+ beta C[i][j] where beta != 0), an
+// operand's element at p + i si + k sk; A's rows from a_split on come from
+// a2 (the Gram's stack of finished V rows over the panel's rows still to
+// factor).  64 x 64 tiles of C, k 16 at a time through shared memory, the
+// next 16 loaded into registers under this step's products, 4 x 4 a
+// thread; the tile loads follow whichever stride is 1.  Every launch gives
+// the same bits.  What bounds them: the Gram reads the panel's rows once
+// (bytes); the update is a rank-nb product (operations, 2 r (m - p0) nb);
+// a few us each beside a sub-panel's ~0.3 ms.
+constexpr int kTile = 64;
+constexpr int kDepth = 16;
+constexpr int kGemmThreads = 256;
+constexpr int kLoads = kTile * kDepth / kGemmThreads;  // elements a thread, a tile
+
+struct GemmArgs {
+  const float* a;
+  const float* a2;
+  long long a_si, a_sk;
+  int a_split;
+  const float* b;
+  long long b_sk, b_sj;
+  float* c;
+  long long c_si, c_sj, c_sz;
+  int M, N, K, chunk;
+  float alpha, beta;
+};
+
+// Element u of this thread's share of a 64 x 16 tile: (row, k) with the
+// unit stride on consecutive threads.
+__device__ __forceinline__ void tile_slot(int e, bool k_fast, int& r, int& k) {
+  if (k_fast) {
+    r = e / kDepth;
+    k = e % kDepth;
+  } else {
+    k = e / kTile;
+    r = e % kTile;
+  }
+}
+
+__global__ void __launch_bounds__(kGemmThreads)
+panel_gemm(GemmArgs g) {
+  __shared__ float As[kDepth][kTile + 4];
+  __shared__ __align__(16) float Bs[kDepth][kTile + 4];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int i0 = blockIdx.y * kTile, j0 = blockIdx.x * kTile;
+  const int kb = blockIdx.z * g.chunk;
+  const int ke = min(g.K, kb + g.chunk);
+  const bool a_kfast = g.a_sk == 1, b_kfast = g.b_sj != 1;
+  float ra[kLoads], rb[kLoads];
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      int r, kk;
+      tile_slot(tid + u * kGemmThreads, a_kfast, r, kk);
+      const int i = i0 + r, k = k0 + kk;
+      ra[u] = i < g.M && k < ke
+                  ? (i < g.a_split ? g.a : g.a2)[i * g.a_si + k * g.a_sk]
+                  : 0.f;
+      tile_slot(tid + u * kGemmThreads, b_kfast, r, kk);
+      const int j = j0 + r;
+      rb[u] = j < g.N && k0 + kk < ke ? g.b[(k0 + kk) * g.b_sk + j * g.b_sj] : 0.f;
+    }
+  };
+  float acc[4][4] = {};
+  if (kb < ke) load(kb);
+  for (int k0 = kb; k0 < ke; k0 += kDepth) {
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      int r, kk;
+      tile_slot(tid + u * kGemmThreads, a_kfast, r, kk);
+      As[kk][r] = ra[u];
+      tile_slot(tid + u * kGemmThreads, b_kfast, r, kk);
+      Bs[kk][r] = rb[u];
+    }
+    __syncthreads();
+    if (k0 + kDepth < ke) load(k0 + kDepth);  // in flight under the products
+#pragma unroll
+    for (int kk = 0; kk < kDepth; ++kk) {
+      float a[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) a[r] = As[kk][ty * 4 + r];
+      const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
+      const float bb[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(a[r], bb[q], acc[r][q]);
+    }
+    __syncthreads();
+  }
+  float* cz = g.c + blockIdx.z * g.c_sz;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = i0 + ty * 4 + r;
+    if (i >= g.M) continue;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int j = j0 + tx * 4 + q;
+      if (j >= g.N) continue;
+      float* out = cz + i * g.c_si + j * g.c_sj;
+      const float y = g.alpha * acc[r][q];
+      *out = g.beta != 0.f ? fmaf(g.beta, *out, y) : y;
+    }
+  }
+}
+
+// The sum of parts[z count + e] over z = 0 .. splits - 1, in order, into
+// out[e] for e < split and out2[e - split] from there on.
+__global__ void __launch_bounds__(kGemmThreads)
+panel_sum(const float* __restrict__ parts, int splits, long long count,
+          float* __restrict__ out, long long split, float* __restrict__ out2) {
+  for (long long e = blockIdx.x * (long long)kGemmThreads + threadIdx.x; e < count;
+       e += (long long)gridDim.x * kGemmThreads) {
+    float s = parts[e];
+#pragma unroll 8
+    for (int z = 1; z < splits; ++z) s += parts[z * count + e];
+    if (e < split)
+      out[e] = s;
+    else
+      out2[e - split] = s;
+  }
+}
+
 }  // namespace
 
 // How many clusters of C CTAs with smem bytes of shared memory each can be
@@ -371,16 +514,49 @@ extern "C" int svdt_panel_qr_clusters(int C, int smem, int spill, int tdev,
 
 // Launches the panel QR on `stream` as one cluster of C CTAs under the plan
 // (W, ws, ld, tc, tld, G, vec; smem bytes a CTA) of cluster_plan (tld == 0:
-// T in device memory); returns the launch's cudaError_t.
+// T in device memory), T^T written with row stride ldt (b for a whole
+// panel; the whole T's for a blocked panel's diagonal block); returns the
+// launch's cudaError_t.
 extern "C" int svdt_panel_qr(const float* Pt, float* Rt, float* Vt, float* Tt,
                              int b, int m, int r_off, int C, int W, int ws,
                              int ld, int tc, int tld, int G, int vec, int smem,
-                             void* stream) {
-  const Plan pl = {W, ws, ld, tc, tld, G, vec};
+                             int ldt, void* stream) {
+  const Plan pl = {W, ws, ld, tc, tld, G, vec, ldt};
   if (tld == 0)
     return ws < W ? launch<true, true>(Pt, Rt, Vt, Tt, b, m, r_off, C, pl, smem, stream)
                   : launch<false, true>(Pt, Rt, Vt, Tt, b, m, r_off, C, pl, smem, stream);
   if (ws < W)
     return launch<true, false>(Pt, Rt, Vt, Tt, b, m, r_off, C, pl, smem, stream);
   return launch<false, false>(Pt, Rt, Vt, Tt, b, m, r_off, C, pl, smem, stream);
+}
+
+// C_z = alpha A B (+ beta C) for the blocked panel's products, split z of
+// K on blockIdx.z (see panel_gemm); returns the launch's cudaError_t.
+extern "C" int svdt_panel_gemm(const float* a, const float* a2, long long a_si,
+                               long long a_sk, int a_split, const float* b,
+                               long long b_sk, long long b_sj, float* c,
+                               long long c_si, long long c_sj, long long c_sz,
+                               int M, int N, int K, int splits, float alpha,
+                               float beta, void* stream) {
+  if (M < 1 || N < 1 || K < 1 || splits < 1) return (int)cudaErrorInvalidValue;
+  const int chunk = (K + splits - 1) / splits;
+  const GemmArgs g = {a, a2, a_si, a_sk, a_split, b, b_sk, b_sj, c, c_si, c_sj, c_sz,
+                      M, N, K, chunk, alpha, beta};
+  const dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile, splits);
+  panel_gemm<<<grid, kGemmThreads, 0, (cudaStream_t)stream>>>(g);
+  return (int)cudaGetLastError();
+}
+
+// The sum of the `splits` slices of `count` floats of parts, in order
+// (the Gram's splits): its first `split` floats into out, the rest into
+// out2; returns the launch's cudaError_t.
+extern "C" int svdt_panel_sum(const float* parts, int splits, long long count,
+                              float* out, long long split, float* out2,
+                              void* stream) {
+  if (splits < 1 || count < 1 || split < 0 || split > count)
+    return (int)cudaErrorInvalidValue;
+  const long long ctas = (count + kGemmThreads - 1) / kGemmThreads;
+  panel_sum<<<(int)(ctas < 1024 ? ctas : 1024), kGemmThreads, 0, (cudaStream_t)stream>>>(
+      parts, splits, count, out, split, out2);
+  return (int)cudaGetLastError();
 }

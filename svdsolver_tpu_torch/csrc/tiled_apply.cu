@@ -26,6 +26,13 @@
 // The arithmetic of a column is tiled_slab.cuh's, in tiled_slab.cu's
 // order, so every bit is the first design's.
 //
+// The wide bands (the wide instance's route, 168 < t <= 512) take the same
+// kernel at rpl = 16 and 32 (16 rpl >= t), on tiled_wide.cu's chain history
+// laid out as tiled_chain.cu's (vld = 32 rpl floats a reflector, zeros past
+// its rows): a warp's 2 x 32 rpl rows stay in registers, which at rpl = 32
+// caps a CTA at 8 warps (16 columns).  Past t = 512 the wide instance's
+// own apply (a warp a column from device memory) stays the route.
+//
 // What bounds it on the H100: fp32 issue.  4 n' sum_j (R - j) operations a
 // slab over n' = n - t columns (366 M for a 2-slab at n = 3840, t = 128:
 // 5.5 us at 67 TFLOP/s), about 5 instructions for 4 of them, and the
@@ -42,7 +49,14 @@ namespace {
 using namespace svdt_tiled;
 
 constexpr int kCols = 2;  // columns a warp
-constexpr int kMaxThreads = 512;
+
+// Threads a CTA at most for rpl = N: 16 warps, 8 at rpl = 32 so that a
+// lane may hold its 2 x 32 rows, v and the next v in registers (the
+// launch bound leaves it 255).
+template <int N>
+constexpr int max_threads() {
+  return N <= 16 ? 512 : 256;
+}
 
 struct Chunk {
   int o0, w, pc, t, pitch;
@@ -100,7 +114,7 @@ __device__ __forceinline__ void load_v(float (&v)[N], const float* slot) {
 }
 
 template <int N>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(max_threads<N>())
 tiled_apply_kernel(float* __restrict__ A, int ld, int n, int top, int pc, int t, int m, int W,
                    const float* __restrict__ hv, const float* __restrict__ ht) {
   constexpr int HS = 32 * N;
@@ -171,16 +185,19 @@ int launch(float* A, int ld, int n, int top, int pc, int t, int m, int W, int ct
 }  // namespace
 
 // Applies the history of half-sweep (top, pc) (hv: (m + 1) t slots of 32 rpl
-// floats, ht: (m + 1) t taus, as svdt_tiled_chain leaves them) to the
-// n - t columns of A outside [pc, pc + t), rows [top, n), on `stream`:
-// W columns a CTA, ctas CTAs of `threads` threads (32 ceil(W / 2), at most
-// 512), rpl rows a lane (1, 2, 4 or 8; 16 rpl >= t), smem dynamic bytes
-// (ops/cuda/tiled_slab.apply_plan).  Returns the launch's cudaError_t.
+// floats, ht: (m + 1) t taus, as svdt_tiled_chain, or svdt_tiled_wide_chain
+// with vld = 32 rpl, leaves them) to the n - t columns of A outside
+// [pc, pc + t), rows [top, n), on `stream`: W columns a CTA, ctas CTAs of
+// `threads` threads (32 ceil(W / 2), at most 512; 256 at rpl = 32), rpl
+// rows a lane (1, 2, 4, 8, or for the wide bands 16 or 32; 16 rpl >= t),
+// smem dynamic bytes (ops/cuda/tiled_slab.apply_plan).  Returns the
+// launch's cudaError_t.
 extern "C" int svdt_tiled_apply(float* A, int ld, int n, int top, int pc, int t, int m, int W,
                                 int ctas, int threads, int rpl, int smem, const float* hv,
                                 const float* ht, void* stream) {
   if (t < 1 || m < 0 || W < 1 || ctas < 1 || t > 16 * rpl || threads < 32 * ((W + kCols - 1) / kCols) ||
-      threads > kMaxThreads || threads % 32 != 0 || top + (m + 1) * t > n || pc + t > n)
+      threads > (rpl <= 16 ? max_threads<16>() : max_threads<32>()) || threads % 32 != 0 ||
+      top + (m + 1) * t > n || pc + t > n)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (rpl) {
@@ -188,6 +205,8 @@ extern "C" int svdt_tiled_apply(float* A, int ld, int n, int top, int pc, int t,
     case 2: return launch<2>(A, ld, n, top, pc, t, m, W, ctas, threads, smem, hv, ht, s);
     case 4: return launch<4>(A, ld, n, top, pc, t, m, W, ctas, threads, smem, hv, ht, s);
     case 8: return launch<8>(A, ld, n, top, pc, t, m, W, ctas, threads, smem, hv, ht, s);
+    case 16: return launch<16>(A, ld, n, top, pc, t, m, W, ctas, threads, smem, hv, ht, s);
+    case 32: return launch<32>(A, ld, n, top, pc, t, m, W, ctas, threads, smem, hv, ht, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

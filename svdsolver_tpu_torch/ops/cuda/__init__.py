@@ -5,9 +5,10 @@ its plain PyTorch version; the twin of ``svdsolver_tpu/ops/pallas``."""
 def plain_versions():
     """``(module, name)`` of every plain version that an entry point runs
     in place of a kernel on a CPU tensor or another dtype: the wrappers'
-    plain versions and the names the entry points bind to plain paths.  On
-    a float32 CUDA tensor none of them may run; the card's robustness
-    checks replace each by a function that fails."""
+    plain versions and the names the entry points bind to plain paths (and
+    the blocked K1's, which no entry runs).  On a float32 CUDA tensor none
+    of them may run; the card's robustness checks replace each by a
+    function that fails."""
     from svdsolver_tpu_torch.models import (complex_svd, diagonalize, sbr, svd, tiled,
                                            two_stage, vectors)
     from svdsolver_tpu_torch.ops.cuda import (band_chase, band_chase_vmem, band_chase_wave,
@@ -15,6 +16,10 @@ def plain_versions():
 
     return (
         (panel_qr, "panel_qr_plain"),
+        (panel_qr, "panel_qr_blocked_plain"),
+        (panel_qr, "update_plain"),
+        (panel_qr, "merge_plain"),
+        (panel_qr, "merge_gram_plain"),
         (band_chase, "band_to_bidiagonal_plain"),
         (band_chase, "band_to_bidiagonal_accum_plain"),
         (band_chase, "superstep_plain"),

@@ -1,12 +1,18 @@
 """Kernel 1: compact-WY panel QR (``csrc/panel_qr.cu``), and the Stage I
 loop around it.
 
-Twin of ``svdsolver_tpu/ops/pallas/panel_qr.py``: the panel factorization
-runs in one launch on the card, one thread-block cluster whose CTAs each
-hold a slab of the panel's columns in shared memory (:func:`cluster_plan`),
-and the trailing updates are plain ``torch.matmul`` GEMMs (fp32, TF32 off),
-as they are XLA GEMMs outside the kernel in the reference.  On a CPU tensor
-:func:`panel_qr` runs :func:`panel_qr_plain`, the same column loop in
+Twin of ``svdsolver_tpu/ops/pallas/panel_qr.py``: up to b = 256 the panel
+factorization runs in one launch on the card, one thread-block cluster
+whose CTAs each hold a slab of the panel's columns in shared memory
+(:func:`cluster_plan`).  Past it the panel is blocked
+(:func:`block_plan`): sub-panels of :data:`BLOCK_NB` rows of ``Pt``, each
+one launch of the same kernel, and between them the block reflector's
+products on the rows still to factor and T's compact-WY merge, each a
+launch of the file's product kernel (``svdt_panel_gemm``).  The Stage
+I's trailing updates are plain ``torch.matmul`` GEMMs (fp32, TF32 off),
+as they are XLA GEMMs outside the kernel in the reference.  On a CPU
+tensor :func:`panel_qr` runs :func:`panel_qr_plain`, the same column loop
+in PyTorch; :func:`panel_qr_blocked_plain` is the blocked order in
 PyTorch.
 """
 
@@ -16,20 +22,35 @@ from typing import NamedTuple
 import torch
 
 from svdsolver_tpu_torch.models.two_stage import _check_stage1, segment_bounds
-from svdsolver_tpu_torch.ops.cuda import _build
+from svdsolver_tpu_torch.ops.cuda import _build, tiled_slab
 from svdsolver_tpu_torch.ops.householder import householder_vector
 from svdsolver_tpu_torch.ops.precision import pdot
 
-launches = 0  # kernel launches by panel_qr since the last reset
+launches = 0  # launches of the panel kernel (a panel, or a blocked panel's sub-panel)
+launches_update = 0  # of the product kernel: a blocked panel's Gram and row updates
+launches_merge = 0  # of the product kernel: a blocked panel's T merges
 
+_P, _I, _L = _build.VOIDP, _build.INT, _build.LONG
+_F = ctypes.c_float
 _ENTRIES = {
-    "svdt_panel_qr": [_build.VOIDP] * 4 + [_build.INT] * 12 + [_build.VOIDP],
-    "svdt_panel_qr_clusters": [_build.INT] * 4 + [_build.VOIDP],
+    "svdt_panel_qr": [_P] * 4 + [_I] * 13 + [_P],
+    "svdt_panel_qr_clusters": [_I] * 4 + [_P],
+    "svdt_panel_gemm": [_P, _P, _L, _L, _I, _P, _L, _L, _P, _L, _L, _L, _I, _I, _I, _I,
+                        _F, _F, _P],
+    "svdt_panel_sum": [_P, _I, _L, _P, _L, _P, _P],
 }
 THREADS = 1024  # a CTA of the kernel
 MAX_CLUSTER = 16  # CTAs a cluster at most (non-portable above 8)
 NARROW_BAND = 256  # b <= THREADS / 4: 4 lanes a row or more, T in shared memory
 CTA_TARGET = 64 * 1024  # slab bytes a CTA aims at: C grows until it is met
+# past NARROW_BAND: sub-panels of BLOCK_NB rows, each a cluster of about
+# LEAF_COLS columns a CTA (the leaf sweep, chip_smoke.time_k1_leaves: on the
+# H100 nb = 64 at 128 columns a CTA took 5.3 us a column at m = 2048 and
+# 5.1 at m = 1024, the least of every nb in 32-256 and C in 1-16)
+BLOCK_NB = 64
+LEAF_COLS = 128
+GEMM_TILE = 64  # the product kernel's tile of C
+GEMM_SPLIT_K = 128  # the Gram's columns a split at least
 _resident = {}  # (ctas, smem, spill, tdev) -> clusters that fit on the card
 
 
@@ -162,16 +183,94 @@ def panel_qr_plain(Pt, r_off):
     return Rt, Vt, Tt
 
 
-def panel_qr(Pt, r_off, _cluster=None):
+class BlockPlan(NamedTuple):
+    """How a (b, m) panel past :data:`NARROW_BAND` is blocked: ``panels``
+    sub-panels of ``nb`` rows of ``Pt`` (the last ``b - (panels - 1) nb``),
+    each launched under ``leaf`` (the plan of a full sub-panel)."""
+
+    nb: int
+    panels: int
+    leaf: ClusterPlan
+
+
+def leaf_ctas(m):
+    """CTAs of a sub-panel's cluster on a panel of length ``m``: the least
+    power of two with at most :data:`LEAF_COLS` columns a CTA, at most
+    :data:`MAX_CLUSTER`."""
+    return min(MAX_CLUSTER, 1 << (_cdiv(int(m), LEAF_COLS) - 1).bit_length())
+
+
+def block_plan(b, m, ctas=None):
+    """The blocked panel of a (b, m) panel: sub-panels of :data:`BLOCK_NB`
+    rows, each one cluster of ``ctas`` (default :func:`leaf_ctas`) CTAs
+    under :func:`cluster_plan`."""
+    C = leaf_ctas(m) if ctas is None else ctas
+    return BlockPlan(BLOCK_NB, _cdiv(int(b), BLOCK_NB), cluster_plan(BLOCK_NB, m, C))
+
+
+def panel_qr_blocked_plain(Pt, r_off, nb=BLOCK_NB):
+    """Plain PyTorch version of the blocked panel: the transposed panel
+    ``Pt`` (b, m) factored in sub-panels of ``nb`` rows, each by
+    :func:`panel_qr_plain` with pivots at ``r_off + r0 + j``; after each,
+    the rows below take its block reflector, ``Pt_rest -= ((Pt_rest
+    Vt_k^T) T_k) Vt_k`` with ``T_k = Tt_kk^T``, and T's block row k comes
+    from the compact-WY merge ``Tt_{k,0:k} = -Tt_kk ((Vt_k Vt_{0:k}^T)
+    Tt_{0:k,0:k})``.  A sub-panel whose pivots all lie at or past ``m`` is
+    identity reflectors and updates nothing.  Returns ``(Rt, Vt, Tt)`` as
+    :func:`panel_qr_plain` (the same maths; sums in another order)."""
+    b, m = Pt.shape
+    nb = int(nb)
+    W = Pt.clone()
+    Rt = torch.empty_like(Pt)
+    Vt = torch.empty_like(Pt)
+    Tt = Pt.new_zeros((b, b))
+    for r0 in range(0, b, nb):
+        r1, p0 = min(b, r0 + nb), r_off + r0
+        Rt[r0:r1], Vt[r0:r1], Tt[r0:r1, r0:r1] = panel_qr_plain(W[r0:r1], p0)
+        if p0 < m:
+            update_plain(W, Vt, Tt, r0, r1, p0)
+            merge_plain(Vt, Tt, r0, r1, p0)
+    return Rt, Vt, Tt
+
+
+def update_plain(W, Vt, Tt, r0, r1, p0):
+    """Plain version of sub-panel ``[r0, r1)``'s update (the product
+    kernel's Gram, sum and two products): ``W_{r1:b, p0:} -= ((W Vt_k^T)
+    T_k) Vt_k`` in place, pivots from ``p0``."""
+    Vk, Tk = Vt[r0:r1, p0:], Tt[r0:r1, r0:r1]
+    W[r1:, p0:] -= pdot(pdot(pdot(W[r1:, p0:], Vk.T), Tk.T), Vk)
+    return W
+
+
+def merge_plain(Vt, Tt, r0, r1, p0):
+    """Plain version of sub-panel ``[r0, r1)``'s T merge, its Gram
+    included: ``Tt_{k,0:r0} = -Tt_kk ((Vt_k Vt_{0:r0}^T) Tt_{0:r0,0:r0})``
+    in place."""
+    return merge_gram_plain(pdot(Vt[:r0, p0:], Vt[r0:r1, p0:].T), Tt, r0, r1)
+
+
+def merge_gram_plain(G, Tt, r0, r1):
+    """Plain version of :func:`_merge` (the product kernel's two merge
+    products) on the Gram's rows ``G = Vt_{0:r0} Vt_k^T`` (r0, k):
+    ``Tt_{k,0:r0} = -Tt_kk (G^T Tt_{0:r0,0:r0})`` in place."""
+    Tt[r0:r1, :r0] = -pdot(Tt[r0:r1, r0:r1], pdot(G.T, Tt[:r0, :r0]))
+    return Tt
+
+
+def panel_qr(Pt, r_off, _cluster=None, _columns=False):
     """Householder QR of the transposed panel ``Pt`` (b, m), pivots at
     ``r_off + j``; returns ``(Rt, Vt, Tt)`` as :func:`panel_qr_plain`.
 
-    A CUDA tensor must be contiguous float32 and launches the kernel as one
-    cluster under :func:`cluster_plan` (``_cluster`` fixes its CTA count),
-    at any width ``b`` the plan holds; a shape past the plan's limits, or a
-    cluster the card cannot hold, raises ``ValueError``.  A CPU tensor runs
-    the plain version.  Pivots at or past ``m`` give identity reflectors
-    (``tau = 0``, ``v = 0``).
+    A CUDA tensor must be contiguous float32.  Up to b = 256
+    (:data:`NARROW_BAND`) it launches the kernel as one cluster under
+    :func:`cluster_plan` (``_cluster`` fixes its CTA count); past it, the
+    blocked panel (:func:`panel_qr_blocked`; ``_cluster`` fixes the
+    leaves' CTAs).  ``_columns`` launches the column-by-column kernel at
+    any width instead (the design before the blocked one, kept to time it
+    against).  A shape past the plans' limits, or a cluster the card
+    cannot hold, raises ``ValueError``.  A CPU tensor runs the plain
+    version.  Pivots at or past ``m`` give identity reflectors (``tau =
+    0``, ``v = 0``).
     """
     global launches
     r_off = int(r_off)
@@ -180,28 +279,188 @@ def panel_qr(Pt, r_off, _cluster=None):
     if not _build.check_input(Pt, "Pt", 2):
         return panel_qr_plain(Pt, r_off)
     b, m = Pt.shape
+    if b > NARROW_BAND and not _columns:
+        return panel_qr_blocked(Pt, r_off, block_plan(b, m, _cluster))
     out = _launch(Pt, r_off, cluster_plan(b, m, _cluster))
     launches += 1
     return out
 
 
-def _launch(Pt, r_off, plan):
-    """One launch of the kernel on ``Pt`` under ``plan``: ``(Rt, Vt, Tt)``;
-    raises if the card cannot hold the cluster or the launch fails."""
+def panel_qr_blocked(Pt, r_off, plan):
+    """The blocked panel on float32 CUDA ``Pt`` (b, m) under ``plan``
+    (:func:`block_plan`), in :func:`panel_qr_blocked_plain`'s order: each
+    sub-panel one launch of the panel kernel, straight into its rows of
+    ``Rt`` and ``Vt`` and T's diagonal block, then its Gram and the update
+    of the rows below (:func:`_update`) on the caller's stream; its T merge
+    (:func:`_merge`), which no later sub-panel waits for, on a second
+    stream, under the next sub-panel.  The first sub-panel reads ``Pt``
+    itself and is launched before the rest is set up; the scratch is made
+    once: the Gram's splits, its rows below and the update's Z shared by
+    the sub-panels, and each sub-panel's r0 x k Gram rows of the panel
+    above its own (the merge reads them while the next sub-panel runs).
+    Returns ``(Rt, Vt, Tt)``."""
     b, m = Pt.shape
+    nb = plan.nb
     Rt = torch.empty_like(Pt)
     Vt = torch.empty_like(Pt)
-    Tt = torch.empty((b, b), dtype=Pt.dtype, device=Pt.device)
+    Tt = torch.zeros((b, b), dtype=Pt.dtype, device=Pt.device)
+    subs = [(r0, min(b, r0 + nb)) for r0 in range(0, b, nb)]
+    _leaf(Pt, r_off, plan, subs[0], (Rt, Vt, Tt))
+    W = Pt.clone()  # the rows still to factor, updated in place
+    sms = tiled_slab._sms(Pt.device)
+    splits = [_gram_splits(b - (r1 - r0), r1 - r0, m - r_off - r0, sms) for r0, r1 in subs]
+    most = max((b - (r1 - r0)) * (r1 - r0) * z for (r0, r1), z in zip(subs, splits))
+    # the Gram's splits, its rows below, Z (rows below x k), Y (k x rows
+    # above), the Grams' rows above
+    scratch = torch.empty(most + 3 * b * nb + sum(r0 * (r1 - r0) for r0, r1 in subs),
+                          dtype=Pt.dtype, device=Pt.device)
+    parts, below, Z, Y, above = (_ptr(scratch, 0, o) for o in (
+        0, most, most + b * nb, most + 2 * b * nb, most + 3 * b * nb))
+    main, side = _streams(Pt.device)
+    for (r0, r1), z in zip(subs, splits):
+        p0 = r_off + r0
+        if r0:
+            _leaf(W, r_off, plan, (r0, r1), (Rt, Vt, Tt))
+        if p0 < m and r1 - r0 < b:
+            _update(W, Vt, Tt, r0, r1, p0, z, parts, (above, below), Z, main)
+            if r0:
+                side.wait_stream(main)
+                _merge(above, Tt, r0, r1, Y, side)
+        above += r0 * (r1 - r0) * Pt.element_size()
+    main.wait_stream(side)
+    return Rt, Vt, Tt
+
+
+def _leaf(src, r_off, plan, sub, out):
+    """Sub-panel ``sub = (r0, r1)`` of ``src``'s rows on the panel kernel,
+    pivots from ``r_off + r0``, into its rows of ``Rt``, ``Vt`` and T's
+    diagonal block."""
+    global launches
+    (r0, r1), (Rt, Vt, Tt) = sub, out
+    leaf = plan.leaf if r1 - r0 == plan.nb else cluster_plan(r1 - r0, src.shape[1],
+                                                             plan.leaf.ctas)
+    _launch(src[r0:r1], r_off + r0, leaf, (Rt[r0:r1], Vt[r0:r1], Tt[r0:r1, r0:r1]))
+    launches += 1
+
+
+_sides = {}
+
+
+def _streams(device):
+    """The caller's stream on ``device`` and the blocked panel's second
+    stream there (made once)."""
+    key = torch.device(device).index
+    if key not in _sides:
+        _sides[key] = torch.cuda.Stream(device)
+    return torch.cuda.current_stream(device), _sides[key]
+
+
+def _gram_splits(rows, cols, K, sms):
+    """Splits of the Gram's K so that its tiles fill the ``sms``
+    multiprocessors about twice."""
+    tiles = _cdiv(rows, GEMM_TILE) * _cdiv(cols, GEMM_TILE)
+    return max(1, min(_cdiv(K, GEMM_SPLIT_K), 2 * sms // tiles))
+
+
+def _ptr(t, i=0, j=0):
+    """Address of element (i, j) of row-major ``t``."""
+    return t.data_ptr() + t.element_size() * (i * t.stride(0) + j)
+
+
+def _update(W, Vt, Tt, r0, r1, p0, splits, parts, G, Z, stream):
+    """Sub-panel ``[r0, r1)``'s Gram and update on ``stream``, pivots from
+    ``p0``: ``[Vt_{0:r0}; W_{r1:b}] Vt_k^T`` over columns ``[p0, m)``
+    (``r0 + b - r1`` rows, ``k = r1 - r0`` columns) in ``splits`` splits at
+    ``parts``, added in order (``svdt_panel_sum``) into ``G = (above,
+    below)``: its rows ``[0, r0)`` (the merge's) at address ``above``, the
+    rest at ``below``; then ``W_{r1:b} -= (G_below T_k) Vt_k``, ``T_k(j, c)
+    = Tt[r0 + c, r0 + j]``, through ``Z``.  Each a launch of the product
+    kernel but the sum."""
+    global launches_update
+    b, m = W.shape
+    k, rest = r1 - r0, b - r1
+    rows = r0 + rest
+    above, below = G
+    # A's rows [0, r0) are V's, rows [r0, rows) W's rows [r1, b)
+    _launch_gemm(stream, rows, k, m - p0, (_ptr(Vt, 0, p0), _ptr(W, r1 - r0, p0), m, 1, r0),
+                 (_ptr(Vt, r0, p0), 1, m), (parts, k, 1, rows * k), splits=splits)
+    _launch_sum(stream, parts, splits, rows * k, above, r0 * k, below)
+    launches_update += 2
+    if rest:
+        _launch_gemm(stream, rest, k, k, (below, 0, k, 1, rest),
+                     (_ptr(Tt, r0, r0), 1, b), (Z, k, 1, 0))
+        _launch_gemm(stream, rest, m - p0, k, (Z, 0, k, 1, rest), (_ptr(Vt, r0, p0), m, 1),
+                     (_ptr(W, r1, p0), m, 1, 0), alpha=-1.0, beta=1.0)
+        launches_update += 2
+
+
+def _merge(G, Tt, r0, r1, Y, stream):
+    """T's block row of sub-panel ``[r0, r1)`` on ``stream`` from its Gram
+    (rows ``[0, r0)`` of ``G``: ``Vt_{0:r0} Vt_k^T``): ``Y = G_{0:r0}^T
+    Tt_{0:r0,0:r0}``, then ``Tt_{k,0:r0} = -Tt_kk Y``, two launches of the
+    product kernel."""
+    global launches_merge
+    b, k = Tt.shape[0], r1 - r0
+    _launch_gemm(stream, k, r0, r0, (G, 0, 1, k, k), (Tt.data_ptr(), b, 1), (Y, r0, 1, 0))
+    _launch_gemm(stream, k, r0, k, (_ptr(Tt, r0, r0), 0, b, 1, k), (Y, r0, 1),
+                 (_ptr(Tt, r0, 0), b, 1, 0), alpha=-1.0)
+    launches_merge += 2
+
+
+_lib = None  # the panel kernel's library, once loaded
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        _lib = _build.load("panel_qr", _ENTRIES)
+    return _lib
+
+
+def _launch_gemm(stream, M, N, K, a, b, c, alpha=1.0, beta=0.0, splits=1):
+    """One launch of the product kernel on ``stream``: ``C_z = alpha A B
+    (+ beta C)``.  ``a = (ptr, ptr2, si, sk, split)``: A(i, k) at ptr
+    (ptr2 from row ``split`` on) + 4 (i si + k sk); ``b = (ptr, sk, sj)``;
+    ``c = (ptr, si, sj, sz)``, split z of K at ptr + 4 z sz.  Raises if the
+    launch fails."""
+    pa, pa2, a_si, a_sk, a_split = a
+    lib = _library()
+    with torch.cuda.device(stream.device):
+        err = lib.svdt_panel_gemm(pa, pa2 or pa, a_si, a_sk, a_split, *b, *c, M, N, K,
+                                  splits, alpha, beta, stream.cuda_stream)
+    _build.raise_on_error(err, "panel_gemm")
+
+
+def _launch_sum(stream, parts, splits, count, out, split, out2):
+    """The sum of the ``splits`` slices of ``count`` floats at ``parts``,
+    in order, on ``stream``: its first ``split`` floats at ``out``, the
+    rest at ``out2``."""
+    lib = _library()
+    with torch.cuda.device(stream.device):
+        err = lib.svdt_panel_sum(parts, splits, count, out, split, out2, stream.cuda_stream)
+    _build.raise_on_error(err, "panel_sum")
+
+
+def _launch(Pt, r_off, plan, out=None):
+    """One launch of the kernel on ``Pt`` under ``plan``: ``(Rt, Vt, Tt)``,
+    into ``out`` where given (row-contiguous views; ``Tt`` a block of a
+    larger T, its row stride passed on); raises if the card cannot hold
+    the cluster or the launch fails."""
+    b, m = Pt.shape
+    if out is None:
+        out = (torch.empty_like(Pt), torch.empty_like(Pt),
+               torch.empty((b, b), dtype=Pt.dtype, device=Pt.device))
+    Rt, Vt, Tt = out
     # 16-byte loads into the slab need rows of whole quads: a row stride
     # = groups (mod 32) is one where groups >= 4 (b <= 256)
     vec = int(m % 4 == 0 and Pt.data_ptr() % 16 == 0 and plan.groups >= 4)
-    lib = _build.load("panel_qr", _ENTRIES)
+    lib = _library()
     with torch.cuda.device(Pt.device):
         _check_resident(lib, plan)
         err = lib.svdt_panel_qr(
             Pt.data_ptr(), Rt.data_ptr(), Vt.data_ptr(), Tt.data_ptr(),
             b, m, r_off, plan.ctas, plan.width, plan.smem_cols, plan.ld,
-            plan.tcols, plan.tld, plan.groups, vec, plan.smem,
+            plan.tcols, plan.tld, plan.groups, vec, plan.smem, Tt.stride(0),
             _build.stream_of(Pt),
         )
     _build.raise_on_error(err, "panel_qr")

@@ -12,9 +12,13 @@ history; :func:`apply_sweep` (``csrc/tiled_apply.cu``, every SM) applies
 it to the other columns.  Both give the first design's bits.  The first
 design, :func:`factor_slab` (``csrc/tiled_slab.cu``, one launch a slab),
 stays as their bitwise oracle and runs the bands they do not take.  The
-wide instance (``csrc/tiled_wide.cu``: :func:`wide_chain` and
-:func:`wide_apply`) runs a half-sweep with every column in device memory,
-at any band, again with the first design's bits.
+wide instance runs a half-sweep at any band, again with the first
+design's bits: :func:`wide_chain` (``csrc/tiled_wide.cu``, the pivot
+block by column in device memory), then :func:`wide_apply`, the apply
+kernel's wide instances up to t = 512 (:data:`WIDE_APPLY_MAX`: the
+columns in registers, the tile rows staged) and past it
+:func:`wide_apply_cols` (``csrc/tiled_wide.cu``, a warp a column in
+device memory; also the wide apply's bitwise oracle).
 
 :func:`dense_to_band_tiled` picks by shape (:func:`tiled_route`): bands up
 to 128 run the two kernels, ``2 (2 n / t - 1)`` launches (the LQ half on
@@ -37,12 +41,15 @@ launches = 0  # kernel launches by factor_slab (the first design) since the last
 launches_chain = 0  # by the chain kernel (factor_sweep)
 launches_apply = 0  # by the apply kernel (apply_sweep)
 launches_wide_chain = 0  # by the wide instance's chain kernel (wide_chain)
-launches_wide_apply = 0  # by the wide instance's apply kernel (wide_apply)
+launches_wide_apply = 0  # by the apply kernel on the wide route (wide_apply)
+launches_wide_apply_cols = 0  # by the wide instance's column apply (wide_apply_cols)
 
 ROWS_PER_LANE = (1, 2, 4, 8, 11)  # the slab kernel's instances: rows of a column a lane holds
 SWEEP_RPL = (1, 2, 4, 8)  # the chain's and the apply's: rows a lane (the chain: columns a warp)
+APPLY_RPL = SWEEP_RPL + (16, 32)  # the apply's instances: 16 and 32 for the wide route
+WIDE_APPLY_MAX = 16 * APPLY_RPL[-1]  # the widest band the apply kernel takes
 APPLY_COLS = 2  # columns a warp of the apply kernel (its kCols)
-APPLY_WIDTH = 32  # most columns an apply CTA takes (16 warps)
+APPLY_WIDTH = 32  # most columns an apply CTA takes (16 warps; 8 at rpl = 32)
 _P, _I = _build.VOIDP, _build.INT
 _ENTRIES = {"svdt_tiled_slab": [_P] + [_I] * 10 + [_P, _P]}
 _CHAIN_ENTRIES = {e: [_P] + [_I] * 5 + [_P, _P, _I, _I, _P]
@@ -139,13 +146,18 @@ def chain_plan(t):
 def apply_plan(n, t, sms):
     """The apply kernel's launch for ``n`` columns and bands of ``t`` on a
     card of ``sms`` multiprocessors: the ``n - t`` columns outside the pivot
-    block in chunks of ``ceil((n - t) / sms)`` (1 to :data:`APPLY_WIDTH`),
-    a warp for every :data:`APPLY_COLS` of them, rows a lane as
-    :func:`chain_plan`'s."""
+    block in chunks of ``ceil((n - t) / sms)`` (1 to :data:`APPLY_WIDTH`,
+    half that at rpl = 32), a warp for every :data:`APPLY_COLS` of them,
+    ``rpl`` the least of :data:`APPLY_RPL` with ``16 rpl >= t`` (up to
+    t = 128 :func:`chain_plan`'s).  Raises ``ValueError`` past
+    :data:`WIDE_APPLY_MAX`."""
     n, t = int(n), int(t)
-    rpl = chain_plan(t).rpl
+    rpl = _apply_rpl(t)
+    if t < 1 or rpl is None:
+        raise ValueError(f"t={t}: the apply kernel takes bands of 1 to {WIDE_APPLY_MAX}")
     other = n - t
-    width = max(1, min(APPLY_WIDTH, -(-other // max(int(sms), 1))))
+    most = APPLY_WIDTH if rpl <= 16 else APPLY_WIDTH // 2
+    width = max(1, min(most, -(-other // max(int(sms), 1))))
     ctas = max(1, -(-other // width))
     threads = 32 * -(-width // APPLY_COLS)
     return ApplyPlan(width, ctas, threads, rpl, 4 * 2 * t * (width | 1))
@@ -310,11 +322,26 @@ def apply_sweep(M, top, pc, t, V, tau):
     return M
 
 
+def _apply_rpl(t):
+    """The apply kernel's rows a lane for bands of ``t``: the least of
+    :data:`APPLY_RPL` with ``16 rpl >= t``, None past them."""
+    return next((r for r in APPLY_RPL if 16 * r >= t), None)
+
+
+def wide_vld(t):
+    """Floats a reflector of the wide instance's history: ``32 rpl`` of
+    :func:`apply_plan` up to :data:`WIDE_APPLY_MAX` (the apply kernel's
+    slots), ``2 t`` past it."""
+    rpl = _apply_rpl(int(t))
+    return 32 * rpl if rpl else 2 * int(t)
+
+
 def _wide_history(M, t, slabs):
-    """The wide instance's history: ``slabs`` x ``t`` reflectors of ``2 t``
-    floats (``models/tiled.chain_plain``'s layout; the kernel writes every
-    entry, zeros past a slab's rows) and their taus."""
-    return (torch.empty((slabs, t, 2 * t), dtype=M.dtype, device=M.device),
+    """The wide instance's history: ``slabs`` x ``t`` reflectors of
+    :func:`wide_vld` floats (``models/tiled.chain_plain``'s layout, zero
+    padded; the kernel writes every entry, zeros past a slab's rows) and
+    their taus."""
+    return (torch.empty((slabs, t, wide_vld(t)), dtype=M.dtype, device=M.device),
             torch.empty((slabs, t), dtype=M.dtype, device=M.device))
 
 
@@ -331,14 +358,25 @@ def _launch_wide_chain(M, top, pc, t, m, V, tau):
 
 
 def _launch_wide_apply(M, top, pc, t, m, V, tau):
+    """The wide route's apply: the apply kernel up to
+    :data:`WIDE_APPLY_MAX`, the column apply past it."""
     global launches_wide_apply
+    if t > WIDE_APPLY_MAX:
+        _launch_wide_apply_cols(M, top, pc, t, m, V, tau)
+        return
+    _launch_apply(M, top, pc, t, m, V, tau, apply_plan(M.shape[0], t, _sms(M.device)))
+    launches_wide_apply += 1
+
+
+def _launch_wide_apply_cols(M, top, pc, t, m, V, tau):
+    global launches_wide_apply_cols
     lib = _build.load("tiled_wide", _WIDE_ENTRIES)
     with torch.cuda.device(M.device):
         err = lib.svdt_tiled_wide_apply(M.data_ptr(), M.stride(0), M.shape[1], top, pc, t, m,
                                         V.data_ptr(), tau.data_ptr(), V.shape[2],
                                         _build.stream_of(M))
     _build.raise_on_error(err, "tiled_wide_apply")
-    launches_wide_apply += 1
+    launches_wide_apply_cols += 1
 
 
 def wide_chain(M, top, pc, t):
@@ -347,8 +385,8 @@ def wide_chain(M, top, pc, t):
     device memory), at
     any band: the pivot-block column of half-sweep ``(top, pc)`` in place,
     and its history ``(V, tau)`` in ``models/tiled.chain_plain``'s layout
-    (``2 t`` floats a reflector, zeros past its rows).  A CPU ``M`` runs
-    ``chain_plain``."""
+    (:func:`wide_vld` floats a reflector, zeros past its rows).  A CPU
+    ``M`` runs ``chain_plain``."""
     top, pc, t = int(top), int(pc), int(t)
     m = _check_sweep(M, top, pc, t)
     if not _build.check_input(M, "M", 2):
@@ -358,22 +396,44 @@ def wide_chain(M, top, pc, t):
     return V, tau
 
 
+def _check_wide_history(M, t, m, V, tau, widths):
+    if tuple(V.shape[:2]) != (m + 1, t) or V.shape[2] not in widths \
+            or tuple(tau.shape) != (m + 1, t):
+        raise ValueError(f"history of shape {tuple(V.shape)}, {tuple(tau.shape)}: want "
+                         f"{(m + 1, t)} x {widths[0]}, {(m + 1, t)}")
+    _build.check_input(V, "V", 3)
+    _build.check_input(tau, "tau", 2)
+    if V.device != M.device or tau.device != M.device:
+        raise ValueError("the history must lie on M's device")
+
+
 def wide_apply(M, top, pc, t, V, tau):
-    """:func:`apply_sweep` on the wide instance's apply kernel (a warp a
-    column outside ``[pc, pc + t)``), the history as :func:`wide_chain`
+    """:func:`apply_sweep` on the wide route's apply (up to
+    :data:`WIDE_APPLY_MAX` the apply kernel's wide instances, then
+    :func:`wide_apply_cols`'s kernel), the history as :func:`wide_chain`
     leaves it.  A CPU ``M`` runs ``apply_plain``.  Returns ``M``."""
     top, pc, t = int(top), int(pc), int(t)
     m = _check_sweep(M, top, pc, t)
     if not _build.check_input(M, "M", 2):
         return tiled.apply_plain(M, top, pc, t, V, tau)
-    if tuple(V.shape) != (m + 1, t, 2 * t) or tuple(tau.shape) != (m + 1, t):
-        raise ValueError(f"history of shape {tuple(V.shape)}, {tuple(tau.shape)}: want "
-                         f"{(m + 1, t, 2 * t)}, {(m + 1, t)}")
-    _build.check_input(V, "V", 3)
-    _build.check_input(tau, "tau", 2)
-    if V.device != M.device or tau.device != M.device:
-        raise ValueError("the history must lie on M's device")
+    _check_wide_history(M, t, m, V, tau, (wide_vld(t),))
     _launch_wide_apply(M, top, pc, t, m, V, tau)
+    return M
+
+
+def wide_apply_cols(M, top, pc, t, V, tau):
+    """:func:`apply_sweep` on the wide instance's column apply
+    (``csrc/tiled_wide.cu``: a warp a column outside ``[pc, pc + t)``, read
+    from device memory at every step), at any band: the route past
+    :data:`WIDE_APPLY_MAX` and the wide apply's bitwise oracle.  ``V`` may
+    be :func:`wide_chain`'s or ``2 t`` wide.  A CPU ``M`` runs
+    ``apply_plain``.  Returns ``M``."""
+    top, pc, t = int(top), int(pc), int(t)
+    m = _check_sweep(M, top, pc, t)
+    if not _build.check_input(M, "M", 2):
+        return tiled.apply_plain(M, top, pc, t, V, tau)
+    _check_wide_history(M, t, m, V, tau, (wide_vld(t), 2 * t))
+    _launch_wide_apply_cols(M, top, pc, t, m, V, tau)
     return M
 
 
@@ -430,21 +490,24 @@ def dense_to_band_slabs(A, band):
     return tiled.tile_sweeps(A, t, tiled.slab_sweep(factor_slab), _transposer(A))
 
 
-def dense_to_band_wide(A, band):
+def dense_to_band_wide(A, band, _cols=False):
     """The tiled Stage I on float32 CUDA ``A`` in place with every
     half-sweep through the wide instance (:func:`wide_chain`, then
-    :func:`wide_apply` of its history), ``2 (2 n /
-    band - 1)`` launches: the route for bands past the first design's, and
-    at any band bit-equal to it and to the two-kernel design.  Returns
-    ``A``."""
+    :func:`wide_apply` of its history; ``_cols``: :func:`wide_apply_cols`
+    at any band, the design before the apply kernel's wide instances, kept
+    to time it against), ``2 (2 n / band - 1)`` launches (no apply at
+    ``band = n``): the route for bands past the first design's, and at any
+    band bit-equal to it and to the two-kernel design.  Returns ``A``."""
     t = int(band)
     n = A.shape[0]
     V, tau = _wide_history(A, t, n // t)
+    apply = _launch_wide_apply_cols if _cols else _launch_wide_apply
 
     def sweep(M, top, pc, t):
         m = (n - top) // t - 1
         _launch_wide_chain(M, top, pc, t, m, V, tau)
-        _launch_wide_apply(M, top, pc, t, m, V, tau)
+        if n > t:
+            apply(M, top, pc, t, m, V, tau)
 
     return tiled.tile_sweeps(A, t, sweep, _transposer(A))
 

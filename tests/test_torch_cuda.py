@@ -1088,13 +1088,19 @@ def test_wide_tiled_instance_bit_equal_to_the_narrow_designs(dev, n, t):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("columns", [False, True])
 @pytest.mark.parametrize("b,m", [(384, 2048), (512, 1024), (1024, 1024)])
-def test_panel_qr_at_wide_panels(dev, rng, b, m):
-    # Q = I - V T V^T orthogonal and Q R = P (float64 from the kernel's
-    # outputs); two launches bit-identical
+def test_panel_qr_at_wide_panels(dev, rng, b, m, columns):
+    # the routed kernel (the blocked panel) and the column-by-column
+    # instance (the design before it): Q = I - V T V^T orthogonal and
+    # Q R = P (float64 from the kernel's outputs); two launches
+    # bit-identical; the column instance one launch and no products
     Pt = torch.from_numpy(rng.normal(size=(b, m)).astype(np.float32)).to(dev)
-    got = panel_qr.panel_qr(Pt, 0)
-    again = panel_qr.panel_qr(Pt, 0)
+    before = (panel_qr.launches, panel_qr.launches_update)
+    got = panel_qr.panel_qr(Pt, 0, _columns=columns)
+    if columns:
+        assert (panel_qr.launches - before[0], panel_qr.launches_update - before[1]) == (1, 0)
+    again = panel_qr.panel_qr(Pt, 0, _columns=columns)
     assert all(torch.equal(g, a) for g, a in zip(got, again))
     Rt, Vt, Tt = got
     V, T = Vt.double().T, Tt.double().T
@@ -1102,6 +1108,56 @@ def test_panel_qr_at_wide_panels(dev, rng, b, m):
     assert float((Q.T @ Q - torch.eye(m, dtype=torch.float64, device=dev)).abs().max()) < 1e-5
     P = Pt.double().T
     assert float(torch.linalg.norm(Q @ Rt.double().T - P) / torch.linalg.norm(P)) < 1e-5
+
+
+@pytest.mark.parametrize("b,m,r_off", [(257, 1024, 0), (384, 2048, 0), (512, 2048, 0),
+                                       (512, 2048, 1792), (1024, 1024, 0), (1536, 1536, 0)])
+def test_blocked_panel_qr_matches_plain(dev, rng, b, m, r_off):
+    # past b = 256 the blocked panel (a launch a sub-panel, the products
+    # between them) against the column loop's plain version: entry by entry
+    # within 1e-4 max|plain| where m >= 2b (the same reflectors, sums in
+    # other orders), identity reflectors past m, and Q R = P, Q^T Q = I
+    Pt = torch.from_numpy(rng.normal(size=(b, m)).astype(np.float32)).to(dev)
+    before = (panel_qr.launches, panel_qr.launches_update, panel_qr.launches_merge)
+    got = panel_qr.panel_qr(Pt, r_off)
+    plan = panel_qr.block_plan(b, m)
+    assert panel_qr.launches - before[0] == plan.panels
+    assert panel_qr.launches_update > before[1] and panel_qr.launches_merge > before[2]
+    again = panel_qr.panel_qr(Pt, r_off)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    want = panel_qr.panel_qr_plain(Pt, r_off)
+    for g, w in zip(got, want) if m >= 2 * b else ():
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * float(w.abs().max()))
+    Rt, Vt, Tt = got
+    live = max(0, min(b, m - r_off))
+    assert bool((Vt[live:] == 0).all()) and bool((Tt[live:] == 0).all())
+    V, T = Vt.double().T, Tt.double().T
+    eye = torch.eye(m, dtype=torch.float64, device=dev)
+    Q = eye - V @ T @ V.T
+    assert float((Q.T @ Q - eye).abs().max()) < 1e-5
+    P = Pt.double().T
+    assert float(torch.linalg.norm(Q @ Rt.double().T - P) / torch.linalg.norm(P)) < 1e-5
+
+
+@pytest.mark.parametrize("n,t", [(960, 192), (1024, 256), (640, 160), (512, 64), (1024, 128),
+                                 (1536, 512)])
+@pytest.mark.parametrize("shape", ["QR", "LQ"])
+def test_wide_apply_bit_equal_to_the_column_apply(dev, n, t, shape):
+    # the wide route's apply (the apply kernel's wide instances) and the
+    # wide instance's column apply on one chain history: torch.equal
+    from svdsolver_tpu_torch.ops.cuda import tiled_slab
+
+    A = _uniform_on(dev, n, seed=6)
+    top = n - 2 * t
+    pc = top - (t if shape == "LQ" else 0)
+    V, tau = tiled_slab.wide_chain(A, top, pc, t)
+    B = A.clone()
+    before = (tiled_slab.launches_wide_apply, tiled_slab.launches_wide_apply_cols)
+    tiled_slab.wide_apply(A, top, pc, t, V, tau)
+    tiled_slab.wide_apply_cols(B, top, pc, t, V, tau)
+    assert tiled_slab.launches_wide_apply == before[0] + 1
+    assert tiled_slab.launches_wide_apply_cols == before[1] + 1
+    assert torch.equal(A, B)
 
 
 # ---- one-sided block Jacobi on the card ----

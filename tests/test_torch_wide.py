@@ -36,27 +36,57 @@ WIDE = (192, 256, 384, 512)
     (64, 1024, (4, 256, 256, 272, 16, 17, 16, 76168)),
     (256, 1024, (16, 64, 64, 68, 16, 17, 4, 103816)),
     (192, 1152, (16, 72, 72, 100, 12, 13, 4, 99496)),
-    # past 256: 2 lanes a row (1 past 512), T in device memory (tld = 0)
-    (384, 2304, (16, 144, 130, 130, 24, 0, 2, 224968)),
-    (512, 2048, (16, 128, 66, 66, 32, 0, 2, 168584)),
-    (1024, 1024, (16, 64, 33, 33, 64, 0, 1, 201096)),
+    # past 256 the blocked panel: sub-panels of 64 rows, each a cluster of
+    # about 128 columns a CTA (16 lanes a row, T in shared memory)
+    (384, 2304, (64, 6, (16, 144, 144, 144, 4, 5, 16, 42952))),
+    (512, 2048, (64, 8, (16, 128, 128, 144, 4, 5, 16, 42888))),
+    (1024, 1024, (64, 16, (8, 128, 128, 144, 8, 9, 16, 41864))),
 ])
 def test_cluster_plan_by_width(b, m, want):
-    got = panel_qr.cluster_plan(b, m)
-    assert tuple(got) == want
+    if b > panel_qr.NARROW_BAND:
+        got = panel_qr.block_plan(b, m)
+        assert (got.nb, got.panels, tuple(got.leaf)) == want
+        assert got.nb * got.panels >= b and got.leaf == panel_qr.cluster_plan(
+            got.nb, m, panel_qr.leaf_ctas(m))
+        got = got.leaf
+        b = panel_qr.BLOCK_NB
+    else:
+        got = panel_qr.cluster_plan(b, m)
+        assert tuple(got) == want
     assert got.smem <= _build.MAX_SMEM
     assert got.ctas * got.width >= m and got.ctas * got.tcols >= b
-    assert got.tdev == (b > 256)
+    assert not got.tdev
     assert got.groups == max(1, min(32, 1 << (1024 // b).bit_length() - 1))
     assert got.ld % 32 == got.groups % 32  # a warp's rows on distinct banks
 
 
+@pytest.mark.parametrize("b,m,want", [
+    # the column-by-column instance past 256 (panel_qr(..., _columns=True),
+    # off the route): 2 lanes a row (1 past 512), T in device memory
+    (384, 2304, (16, 144, 130, 130, 24, 0, 2, 224968)),
+    (512, 2048, (16, 128, 66, 66, 32, 0, 2, 168584)),
+    (1024, 1024, (16, 64, 33, 33, 64, 0, 1, 201096)),
+])
+def test_cluster_plan_of_the_column_instance(b, m, want):
+    got = panel_qr.cluster_plan(b, m)
+    assert tuple(got) == want and got.tdev and got.smem <= _build.MAX_SMEM
+    assert got.groups == max(1, min(32, 1 << (1024 // b).bit_length() - 1))
+
+
 @pytest.mark.parametrize("n", [192, 256, 384, 512, 1024, 2048, 4096, 8192])
 def test_cluster_plan_takes_block_n(n):
-    """Stage I with block = n: one (n, n) panel; the cluster halves while
-    the exchanged dots would take more than half the shared memory."""
-    plan = panel_qr.cluster_plan(n, n)
-    assert plan.smem <= _build.MAX_SMEM and plan.ctas * plan.width >= n
+    """Stage I with block = n: one (n, n) panel; up to 256 one cluster,
+    halved while the exchanged dots would take more than half the shared
+    memory; past it the blocked panel, every sub-panel a narrow cluster."""
+    if n > panel_qr.NARROW_BAND:
+        got = panel_qr.block_plan(n, n)
+        assert got.nb * got.panels >= n and got.leaf.ctas == panel_qr.leaf_ctas(n)
+        assert got.leaf.ctas * got.leaf.width >= n
+        plan, n = got.leaf, got.nb
+    else:
+        plan = panel_qr.cluster_plan(n, n)
+        assert plan.ctas * plan.width >= n
+    assert plan.smem <= _build.MAX_SMEM
     assert 4 * plan.ctas * n <= _build.MAX_SMEM // 2 or plan.ctas == 1
 
 
@@ -101,10 +131,21 @@ def launched(monkeypatch):
     for mod in (svd_mod, vectors):
         monkeypatch.setattr(mod, "use_kernels", lambda t: t.dtype == torch.float32)
 
-    def k1(Pt, r_off, plan):
+    def k1(Pt, r_off, plan, out=None):
         calls.append(("panel_qr", Pt.shape[0], (plan.groups, plan.tdev)))
         b, m = Pt.shape
-        return Pt.clone(), Pt.new_zeros((b, m)), Pt.new_zeros((b, b))
+        if out is None:
+            return Pt.clone(), Pt.new_zeros((b, m)), Pt.new_zeros((b, b))
+        out[0].copy_(Pt)
+        out[1].zero_()
+        out[2].zero_()
+        return out
+
+    def gemm(stream, M, N, K, a, b, c, alpha=1.0, beta=0.0, splits=1):
+        calls.append(("panel_gemm", M, (N, K, splits)))
+
+    def add(stream, parts, splits, count, out, split, out2):
+        calls.append(("panel_sum", splits, count))
 
     def chase(A, b, K, record):
         calls.append(("band_chase_staged" if K else "band_chase", b, record))
@@ -119,8 +160,11 @@ def launched(monkeypatch):
         V.zero_()
         tau.zero_()
 
-    def wide_apply(M, top, pc, t, m, V, tau):
-        calls.append(("tiled_wide_apply", t, (top, pc, m)))
+    def apply(M, top, pc, t, m, V, tau, plan):
+        calls.append(("tiled_apply", t, (top, pc, m, plan.rpl, V.shape[2])))
+
+    def wide_apply_cols(M, top, pc, t, m, V, tau):
+        calls.append(("tiled_wide_apply_cols", t, (top, pc, m)))
 
     def refuse(name):
         def fn(*a, **k):
@@ -128,12 +172,16 @@ def launched(monkeypatch):
         return fn
 
     monkeypatch.setattr(panel_qr, "_launch", k1)
+    monkeypatch.setattr(panel_qr, "_launch_gemm", gemm)
+    monkeypatch.setattr(panel_qr, "_launch_sum", add)
+    monkeypatch.setattr(panel_qr, "_streams", lambda device: (StandIn(), StandIn()))
     monkeypatch.setattr(band_chase, "_launch", chase)
     monkeypatch.setattr(band_chase_wave, "_launch", wave)
     monkeypatch.setattr(tiled_slab, "_launch_wide_chain", wide_chain)
-    monkeypatch.setattr(tiled_slab, "_launch_wide_apply", wide_apply)
+    monkeypatch.setattr(tiled_slab, "_launch_apply", apply)
+    monkeypatch.setattr(tiled_slab, "_launch_wide_apply_cols", wide_apply_cols)
     for mod, names in (
-            (panel_qr, ("panel_qr_plain",)),
+            (panel_qr, ("panel_qr_plain", "panel_qr_blocked_plain")),
             (band_chase, ("band_to_bidiagonal_plain", "band_to_bidiagonal_accum_plain")),
             (band_chase_wave, ("band_to_bidiagonal_wave_plain",
                                "band_to_bidiagonal_wave_accum_plain",
@@ -145,6 +193,13 @@ def launched(monkeypatch):
         for name in names:
             monkeypatch.setattr(mod, name, refuse(f"{mod.__name__}.{name}"))
     return calls
+
+
+class StandIn:
+    """A stream for the blocked panel's host loop on CPU tensors."""
+
+    def wait_stream(self, other):
+        pass
 
 
 def _stand_in(A, b, record):
@@ -159,6 +214,25 @@ def _stand_in(A, b, record):
             A.new_zeros((n - 1, s_max, b)), A.new_zeros((n - 1, s_max)))
 
 
+def _blocked_k1(launched, b):
+    """The launches of K1's blocked panels of width b: every sub-panel on
+    the narrow kernel (BLOCK_NB rows, 16 lanes a row, T in shared memory),
+    ceil(b / nb) a panel, and product launches between them.  Returns the
+    number of panels."""
+    nb = panel_qr.BLOCK_NB
+    k1 = [c for c in launched if c[0] in ("panel_qr", "panel_gemm", "panel_sum")]
+    leaves = [c for c in k1 if c[0] == "panel_qr"]
+    per = -(-b // nb)
+    assert leaves and all(c[1:] == (nb, (16, False)) for c in leaves)
+    assert len(leaves) % per == 0 and len(k1) > len(leaves)
+    # a panel: its first launch a sub-panel; after each at most the Gram,
+    # its sum, two update products and two merge products
+    assert k1[0][0] == "panel_qr"
+    panels = len(leaves) // per
+    assert len(k1) - len(leaves) <= panels * (6 * per - 4)
+    return panels
+
+
 def _uniform(n, seed=0):
     return from_numpy(np.random.default_rng(seed).uniform(0, 5, (n, n)).astype(np.float32))
 
@@ -169,8 +243,12 @@ def test_tpu2_reaches_k1_and_the_chase_at_every_width(launched, b):
     svdvals(_uniform(n), method="tpu2", block=b)
     k1 = [c for c in launched if c[0] == "panel_qr"]
     chases = [c for c in launched if c[0].startswith("band_chase")]
-    assert k1 and all(c[1] == b for c in k1)
-    assert all(c[2] == (max(1, 1 << (1024 // b).bit_length() - 1), b > 256) for c in k1)
+    if b > panel_qr.NARROW_BAND:  # the blocked panel
+        assert _blocked_k1(launched, b) > 0
+    else:
+        assert k1 and all(c[1] == b for c in k1)
+        assert all(c[2] == (max(1, 1 << (1024 // b).bit_length() - 1), False) for c in k1)
+        assert not [c for c in launched if c[0] in ("panel_gemm", "panel_sum")]
     # two lanes wanted where the copy engine does not take the band: the
     # sequential chase's L2 kernel (its wide pair past 256)
     assert chases == [("band_chase", b, False)]
@@ -190,8 +268,12 @@ def test_multicore_reaches_the_wide_tiled_instance(launched, t):
     n = 4 * t
     svdvals(_uniform(n), method="multicore", block=t)
     chains = [c for c in launched if c[0] == "tiled_wide_chain"]
-    applies = [c for c in launched if c[0] == "tiled_wide_apply"]
+    applies = [c for c in launched if c[0] == "tiled_apply"]
     assert len(chains) == len(applies) == 2 * (n // t) - 1
+    # the apply kernel's wide instance, on the chain's history of 32 rpl
+    assert all(c[2][3:] == (16, 512) for c in applies)
+    assert [c[2][:3] for c in applies] == [c[2] for c in chains]
+    assert not [c for c in launched if c[0] == "tiled_wide_apply_cols"]
     # the reference's order of half-sweeps: QR (c, c), then LQ (c + t, c)
     want = []
     for k in range(n // t):
@@ -208,8 +290,10 @@ def test_multicore_reaches_the_wide_tiled_instance(launched, t):
 def test_block_n_reaches_the_kernels(launched, method):
     n = 320
     svdvals(_uniform(n), method=method, block=n)
-    stage1 = "panel_qr" if method == "tpu2" else "tiled_wide_chain"
-    assert any(c[0] == stage1 and c[1] == n for c in launched)
+    if method == "tpu2":
+        assert _blocked_k1(launched, n) > 0
+    else:
+        assert any(c[0] == "tiled_wide_chain" and c[1] == n for c in launched)
     assert [c for c in launched if c[0].startswith("band_chase")] == [
         ("band_chase", n, False)]
 
@@ -218,9 +302,29 @@ def test_block_n_reaches_the_kernels(launched, method):
 def test_svd_reaches_the_recording_chase_at_wide_bands(launched, band):
     n = 2 * band + 64  # svd keeps band < n; pads to 3 band
     svd(_uniform(n), band=band)
-    assert any(c[0] == "panel_qr" and c[1] == band for c in launched)
+    assert _blocked_k1(launched, band) > 0
     assert [c for c in launched if c[0].startswith("band_chase")] == [
         ("band_chase", band, True)]
+
+
+@pytest.mark.parametrize("n,t,want", [
+    (1024, 512, ("tiled_apply", 32)), (1536, 384, ("tiled_apply", 32)),
+    (960, 192, ("tiled_apply", 16)), (1280, 640, ("tiled_wide_apply_cols", None)),
+    (512, 512, (None, 32)), (1024, 1024, (None, None))])
+def test_wide_tiled_route_takes_the_apply_kernel_up_to_512(launched, n, t, want):
+    # up to t = 512 the apply kernel's wide instances (rpl 16, 32) on a
+    # history of 32 rpl floats a reflector; past it the column apply on one
+    # of 2t; block = n has no column outside the pivot block: no apply
+    tiled_slab.dense_to_band_tiled(torch.zeros((n, n)), band=t)
+    chains = [c for c in launched if c[0] == "tiled_wide_chain"]
+    applies = [c for c in launched if c[0].startswith("tiled_")
+               and c[0] != "tiled_wide_chain"]
+    assert len(chains) == 2 * (n // t) - 1
+    assert len(applies) == (len(chains) if n > t else 0)
+    assert {c[0] for c in applies} == ({want[0]} if n > t else set())
+    if want[1] and n > t:
+        assert {c[2][3:] for c in applies} == {(want[1], 32 * want[1])}
+    assert tiled_slab.wide_vld(t) == (32 * want[1] if want[1] else 2 * t)
 
 
 def test_tiled_stage1_keeps_its_narrow_routes(launched, monkeypatch):
@@ -248,8 +352,16 @@ def test_failed_wide_launches_raise(launched, monkeypatch):
     monkeypatch.setattr(panel_qr, "_launch", fail("panel_qr"))
     with pytest.raises(RuntimeError, match="panel_qr launch failed"):
         svdvals(_uniform(640), method="tpu2", block=320)
+    monkeypatch.setattr(panel_qr, "_launch", lambda Pt, r_off, plan, out=None: out)
+    monkeypatch.setattr(panel_qr, "_launch_gemm", fail("panel_gemm"))
+    with pytest.raises(RuntimeError, match="panel_gemm launch failed"):
+        svdvals(_uniform(640), method="tpu2", block=320)
     monkeypatch.setattr(tiled_slab, "_launch_wide_chain", fail("tiled_wide_chain"))
     with pytest.raises(RuntimeError, match="tiled_wide_chain launch failed"):
+        svdvals(_uniform(768), method="multicore", block=384)
+    monkeypatch.setattr(tiled_slab, "_launch_wide_chain", lambda *a: None)
+    monkeypatch.setattr(tiled_slab, "_launch_apply", fail("tiled_apply"))
+    with pytest.raises(RuntimeError, match="tiled_apply launch failed"):
         svdvals(_uniform(768), method="multicore", block=384)
     monkeypatch.setattr(band_chase, "_launch", fail("band_chase"))
     with pytest.raises(RuntimeError, match="band_chase launch failed"):

@@ -8,7 +8,9 @@ A change that adds wide instances (panel widths past 256, bands past 256)
 must leave the narrow ones' bits as they were.  ``save`` runs the checkout
 on ``PYTHONPATH`` (e.g. an unpacked parent commit, ``git archive HEAD
 svdsolver_tpu_torch | tar -x -C build/parent``) on seeded inputs and saves
-every output: K1 (``panel_qr``) at six panels with b <= 256, and the L2
+every output: K1 (``panel_qr``) at six panels with b <= 256, the tiled
+Stage I at four bands up to 160 (the two-kernel design and the first
+design), and the L2
 sequential chase, plain and recording, and the wavefront's L2 tick, plain,
 recording and deferred-left, at five (n, band) with band <= 256 (bands
 made once by the plain Stage I and saved beside the outputs, so both runs
@@ -23,11 +25,12 @@ import numpy as np
 import torch
 
 from svdsolver_tpu_torch.models import two_stage
-from svdsolver_tpu_torch.ops.cuda import band_chase, band_chase_wave, panel_qr
+from svdsolver_tpu_torch.ops.cuda import band_chase, band_chase_wave, panel_qr, tiled_slab
 
 K1 = ((128, 3840, 0), (64, 1024, 0), (256, 1024, 0), (256, 2048, 1900), (200, 1000, 0),
       (128, 7680, 0))
 CHASE = ((1024, 64), (640, 160), (768, 256), (512, 200), (1000, 256))
+TILED = ((1024, 32), (1024, 64), (1024, 128), (640, 160))  # the tiled Stage I's narrow routes
 
 
 def outputs(mode, path):
@@ -37,6 +40,10 @@ def outputs(mode, path):
         Pt = torch.from_numpy(rng.normal(size=(b, m)).astype(np.float32)).cuda()
         for k, x in zip("RVT", panel_qr.panel_qr(Pt, r)):
             out[f"k1 {b} {m} {r} {k}"] = x.cpu()
+    for n, t in TILED:
+        A = np.random.default_rng(n + t).uniform(0, 5, (n, n)).astype(np.float32)
+        out[f"tiled {n} {t}"] = tiled_slab.dense_to_band_tiled(
+            torch.from_numpy(A).cuda(), band=t).cpu()
     entries = (
         ("l2", band_chase.band_to_bidiagonal_l2),
         ("l2rec", band_chase.band_to_bidiagonal_accum_l2),
