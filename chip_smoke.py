@@ -125,22 +125,23 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    K1 past b = 256 (the blocked panel: sub-panels of 64 rows on the
    narrow kernel, the products between them on the product kernel)
    against its plain version (Q R = P and Q orthogonal at b up to 1536,
-   block = n; entries within 1e-4 where m >= 2b), timed in turns with the
-   column-by-column instance beside ``torch.geqrf``, its update and merge
-   products against their plain versions beside ``torch.ormqr``, Stage I
-   on it (fused, recording, with factors) against the plain Stage I and
-   timed in turns with Stage I on the column instance; the chases' wide
-   pair (b >
-   256) on the L2 sequential kernel and the wavefront's L2 tick, plain and
-   recording, bit-equal to each other, against the plain chase, records
-   rebuilding the band, both timed; the tiled Stage I's wide instance
-   (``csrc/tiled_wide.cu``) ``torch.equal`` to the first design at t = 160
-   and to the two-kernel design at t = 64 and 128, within 1e-4 of the plain
-   Stage I at 960/t192 and 1024/t256, its two kernels against their plain
-   versions and timed beside ``geqrf`` / ``ormqr``, its apply (the apply
-   kernel's wide instances) ``torch.equal`` to the column apply and timed
-   in turns with it, the Stage I on either apply with the chain / apply
-   split; and ``svdvals`` with
+   block = n; entries within 1e-4 where m >= 2b), timed beside
+   ``torch.geqrf``, its update and merge products against their plain
+   versions beside ``torch.ormqr``, Stage I on it (fused, recording, with
+   factors) against the plain Stage I and timed; the chases' wide pair (b
+   > 256) on the L2 sequential kernel and the wavefront's L2 tick, plain
+   and recording, bit-equal to each other, against the plain chase,
+   records rebuilding the band, both timed; the tiled Stage I's wide
+   instance (the cluster chain ``csrc/tiled_wide_cluster.cu``, then the
+   apply kernel's wide instances) ``torch.equal`` to the same Stage I on
+   the device-memory chain (``csrc/tiled_wide.cu``), to the first design
+   at t = 160 and to the two-kernel design at t = 64 and 128, within 1e-4
+   of the plain Stage I at 960/t192 and 1024/t256, its kernels against
+   their plain versions on QR- and LQ-shaped half-sweeps (the cluster
+   chain ``torch.equal`` to the device-memory chain, the apply to the
+   column apply) and timed in turns with those earlier designs beside
+   ``geqrf`` / ``ormqr``, the chain alone and the bounds, the Stage I on
+   either chain with the chain / apply split; and ``svdvals`` with
    tpu2 at blocks 384 and 512 (n = 2048), multicore at 192 and 256, block
    = n at 256 and 640, ``svd`` at bands 384 and 512 (n = 2048), the counts
    set to 0 before each call and read after (the path's kernels, the wide
@@ -213,7 +214,7 @@ REPS = 5
 SVD_REPS = 3
 SOURCES = ("panel_qr", "band_chase", "bisect", "tridiag_solve",
            "band_chase_wave", "band_chase_staged", "band_chase_vmem", "bidiag_qr", "dqds",
-           "tiled_slab", "tiled_chain", "tiled_apply", "tiled_wide")
+           "tiled_slab", "tiled_chain", "tiled_apply", "tiled_wide", "tiled_wide_cluster")
 # the variants' entries, counted by the kernel that ran: the packed chase
 # runs "band_chase_vmem_tma" (the TMA design on the band store) at every
 # band of these checks; "band_chase_vmem", its L2 packed kernel, takes the
@@ -331,9 +332,9 @@ SWEEP_SLABS = 4  # the half-sweep (top = n - 4t) each new kernel is held to its 
 WIDE_K1 = ((257, 1024, 0), (384, 2048, 0), (512, 2048, 0), (512, 2048, 1792),
            (1024, 1024, 0), (1536, 1536, 0))
 WIDE_K1_TIME = (512, 2048, 0)  # timed beside torch.geqrf of the same panel
-# the blocked K1 in turns with the column-by-column instance at these
+# the blocked K1 timed beside torch.geqrf at these
 WIDE_K1_TIMES = (WIDE_K1_TIME, (384, 2048, 0), (1024, 1024, 0))
-WIDE_STAGE1_TIME = (2048, 512)  # the fused Stage I on either K1 design, in turns
+WIDE_STAGE1_TIME = (2048, 512)  # the fused Stage I on the blocked K1, timed
 # the narrow K1 alone at each leaf width, cluster size and panel length:
 # the blocked K1's leaf is chosen from this table
 K1_LEAF_NB = (32, 64, 128, 256)
@@ -526,6 +527,7 @@ def _counters():
             "tiled_chain": (tiled_slab, "launches_chain"),
             "tiled_apply": (tiled_slab, "launches_apply"),
             "tiled_wide_chain": (tiled_slab, "launches_wide_chain"),
+            "tiled_wide_chain_dev": (tiled_slab, "launches_wide_chain_dev"),
             "tiled_wide_apply": (tiled_slab, "launches_wide_apply"),
             "tiled_wide_apply_cols": (tiled_slab, "launches_wide_apply_cols"),
             "panel_qr_update": (panel_qr, "launches_update"),
@@ -713,51 +715,44 @@ def path_band(n):
     return -(-n // b) * b, b
 
 
-def check_panel_qr(rng, shapes=None, columns=False):
+def check_panel_qr(rng, shapes=None):
     """K1 against its plain version at ``shapes`` (K1_SHAPES): outputs within TOL_K1
     (panels with m >= 2b),
     exact zeros and ones of the contract, identity reflectors past m, two
     launches bit-identical, Q = I - V T V^T orthogonal and Q R = P within
-    TOL_Q (float64).  With ``columns``, every panel past b = 256 is held so
-    a second time on the column-by-column instance (panel_qr(...,
-    _columns=True), the design before the blocked panel).  Returns the
-    largest |kernel - plain|; with ``columns``, the pair (the routed
-    kernel's, the column instance's)."""
+    TOL_Q (float64).  Returns the largest |kernel - plain|."""
     from svdsolver_tpu_torch.ops.cuda import panel_qr
 
-    k1 = {False: 0.0, True: 0.0}
+    k1 = 0.0
     for b, m, r_off in shapes or K1_SHAPES:
         Pt = torch.from_numpy(rng.normal(size=(b, m)).astype(np.float32)).to(DEV)
         want = panel_qr.panel_qr_plain(Pt, r_off)
         torch.cuda.synchronize()
-        wide = b > panel_qr.NARROW_BAND
-        for cols in (False, True) if columns and wide else (False,):
-            k1[cols] = max(k1[cols], hold_panel_qr(Pt, r_off, want, cols))
+        k1 = max(k1, hold_panel_qr(Pt, r_off, want))
         del want, Pt
     torch.cuda.empty_cache()
-    return (k1[False], k1[True]) if columns else k1[False]
+    return k1
 
 
-def hold_panel_qr(Pt, r_off, want, columns):
+def hold_panel_qr(Pt, r_off, want):
     """One panel of check_panel_qr on the routed kernel (the blocked panel
-    past b = 256) or, with ``columns``, on the column-by-column instance,
-    against the plain version's outputs ``want``.  Returns the largest
-    |kernel - plain| (0 where m < 2b)."""
+    past b = 256) against the plain version's outputs ``want``.  Returns
+    the largest |kernel - plain| (0 where m < 2b)."""
     from svdsolver_tpu_torch.ops.cuda import panel_qr
 
     b, m = Pt.shape
-    blocked = b > panel_qr.NARROW_BAND and not columns
+    blocked = b > panel_qr.NARROW_BAND
     bp = panel_qr.block_plan(b, m) if blocked else None
     plan = bp.leaf if blocked else panel_qr.cluster_plan(b, m)
     reset_counts()
-    got = panel_qr.panel_qr(Pt, r_off, _columns=columns)
-    again = panel_qr.panel_qr(Pt, r_off, _columns=columns)
+    got = panel_qr.panel_qr(Pt, r_off)
+    again = panel_qr.panel_qr(Pt, r_off)
     torch.cuda.synchronize()
     c = read_counts()
     require(c["panel_qr"] == 2 * (bp.panels if blocked else 1)
             and (c["panel_qr_update"] > 0) == blocked,
             f"panel_qr counts its launches: {c['panel_qr']}")
-    shape = f"b={b} m={m} r_off={r_off}" + (" (column-by-column instance)" if columns else "")
+    shape = f"b={b} m={m} r_off={r_off}"
     require(all(torch.equal(x, y) for x, y in zip(got, again)),
             f"panel_qr {shape}: two launches bit-identical")
     what = (f"blocked: {bp.panels} sub-panels of {bp.nb} rows, each " if blocked
@@ -765,8 +760,7 @@ def hold_panel_qr(Pt, r_off, want, columns):
         f"one cluster of {plan.ctas} CTAs x "
         f"{plan.width} columns ({plan.smem_cols} in shared memory"
         f"{', the rest in device memory' if plan.spill else ''}), {plan.groups} "
-        f"lane(s) a row, T in {'device' if plan.tdev else 'shared'} memory, "
-        f"{plan.smem} B shared memory a CTA")
+        f"lane(s) a row, T in shared memory, {plan.smem} B shared memory a CTA")
     if blocked:
         what += (f"; {c['panel_qr_update'] // 2} Gram/update and "
                  f"{c['panel_qr_merge'] // 2} merge launches a panel")
@@ -1203,12 +1197,14 @@ def phase_variants(band_state):
         "band_chase_vmem": lambda A, b: band_chase_vmem._launch(A, b, "packed"),
     }
     times = {}
-    # one run a turn at full width: the kernels vary by under 0.1 % between
-    # runs there, and three a turn took ~26 s of the script's time
+    # one run a turn and no warm-up at full width (every kernel ran on the
+    # path's band in the checks above): the kernels vary by under 0.1 %
+    # between runs there, and three a turn took ~26 s of the script's time
     for label, Ab_, n_, b_, reps in (("path", Ab3, n, b, 1), ("check", Ab1, n1, b1, SVD_REPS)):
         got = {}
         for k in list(timed) + list(timed)[::-1]:
-            got.setdefault(k, []).append(cuda_ms(lambda: timed[k](Ab_, b_), reps))
+            got.setdefault(k, []).append(cuda_ms(lambda: timed[k](Ab_, b_), reps,
+                                                 warm=label == "check"))
         for k, (t1, t2) in got.items():
             times[k, label] = min(t1, t2)
             say(f"[times] {k} n={n_} b={b_}: {t1:.3f} / {t2:.3f} ms (medians "
@@ -1668,7 +1664,7 @@ def phase_route_times():
     out = {}
     for n, b in ROUTE_SHAPES:
         Ab = panel_qr.dense_to_band_fused(uniform_matrix(n), band=b)
-        reps = SVD_REPS if n > 1000 else REPS
+        reps = 1 if n > 1000 else SVD_REPS
         for record, (seq, wave) in entries.items():
             res = {}
 
@@ -1682,7 +1678,7 @@ def phase_route_times():
             s1 = cuda_ms(run_seq, reps)
             staged = read_counts()["band_chase_staged_rec" if record else "band_chase_staged"]
             w1 = cuda_ms(run_wave, reps)
-            w2 = cuda_ms(run_wave, reps)
+            w2 = cuda_ms(run_wave, reps, warm=False)
             s2 = cuda_ms(run_seq, reps, warm=False)
             out[n, b, record] = (min(w1, w2), min(s1, s2))
             same = all(torch.equal(x, y) for x, y in zip(res["wave"], res["seq"]))
@@ -1722,7 +1718,7 @@ def phase_sequential_times(band_state):
             res = {}
             l1 = cuda_ms(lambda: res.setdefault("l2", l2(Ab, band=b)), reps, warm=n < 2000)
             t1 = cuda_ms(lambda: res.setdefault("tma", tma(Ab, band=b)), reps)
-            t2 = cuda_ms(lambda: tma(Ab, band=b), reps)
+            t2 = cuda_ms(lambda: tma(Ab, band=b), reps, warm=n < 2000)
             l2_ms = cuda_ms(lambda: l2(Ab, band=b), reps, warm=n < 2000)
             require(all(torch.equal(x, y) for x, y in zip(res["tma"], res["l2"])),
                     f"sequential n={n} b={b}: the staged TMA design bit-equal to the L2 kernel")
@@ -1760,13 +1756,13 @@ def phase_tick_times(band_state):
     for n, b in TICK_SHAPES:
         Ab = (band_state[0] if (n, b) == VAR_CHECK[:2]
               else panel_qr.dense_to_band_fused(uniform_matrix(n), band=b))
-        reps = 1 if n > 4000 else SVD_REPS
+        reps, warm = (1, n < 4000) if n > 2000 else (SVD_REPS, True)
         for record in (False, True):
             fn = bw.band_to_bidiagonal_wave_accum if record else bw.band_to_bidiagonal_wave
-            l1 = cuda_ms(lambda: fn(Ab, band=b, _tick="l2"), reps)
-            s1 = cuda_ms(lambda: fn(Ab, band=b, _tick="smem"), reps)
-            s2 = cuda_ms(lambda: fn(Ab, band=b, _tick="smem"), reps)
-            l2 = cuda_ms(lambda: fn(Ab, band=b, _tick="l2"), reps)
+            l1 = cuda_ms(lambda: fn(Ab, band=b, _tick="l2"), reps, warm)
+            s1 = cuda_ms(lambda: fn(Ab, band=b, _tick="smem"), reps, warm)
+            s2 = cuda_ms(lambda: fn(Ab, band=b, _tick="smem"), reps, False)
+            l2 = cuda_ms(lambda: fn(Ab, band=b, _tick="l2"), reps, False)
             out[n, b, record] = (min(s1, s2), min(l1, l2))
             say(f"[ticks] n={n} b={b} {'recording' if record else 'plain'}: shared-memory "
                 f"tick {s1:.3f} / {s2:.3f} ms, L2 tick {l1:.3f} / {l2:.3f} ms (medians of "
@@ -2978,8 +2974,8 @@ def stage1_split(fn):
     """ms of one call of ``fn`` (a tiled Stage I on the wide instance) by
     its kernels: (chain, apply), each launch bracketed by CUDA events on
     the stream (the launches queue behind the chain's ms, so no host gap
-    falls inside), the apply summed over the apply kernel and the column
-    apply."""
+    falls inside), the chain summed over the cluster and the device-memory
+    chain, the apply over the apply kernel and the column apply."""
     from svdsolver_tpu_torch.ops.cuda import tiled_slab
 
     marks = {"chain": [], "apply": []}
@@ -3008,21 +3004,61 @@ def stage1_split(fn):
     return tuple(sum(a.elapsed_time(b) for a, b in marks[part]) for part in ("chain", "apply"))
 
 
+def wide_half_sweep(A, n, t, label):
+    """The cluster chain on the 2-slab half-sweep of ``A`` (top = n - 2t;
+    QR-shaped: pivots from top, LQ-shaped: a tile left), held torch.equal
+    to the device-memory chain (block and history) and to its own second
+    launch, and within TOL_SLAB of chain_plain (block: of max|A|).
+    Returns (top, pc, the block after the chain, V, tau, max|kernel -
+    plain| of the block)."""
+    from svdsolver_tpu_torch.models import tiled
+    from svdsolver_tpu_torch.ops.cuda import tiled_slab
+
+    top = n - 2 * t
+    pc = top - (t if label == "LQ" else 0)
+    g1, g2, d = A.clone(), A.clone(), A.clone()
+    V, tau = tiled_slab.wide_chain(g1, top, pc, t)
+    V2, tau2 = tiled_slab.wide_chain(g2, top, pc, t)
+    Vd, taud = tiled_slab.wide_chain(d, top, pc, t, _device_block=True)
+    torch.cuda.synchronize()
+    require(torch.equal(g1, g2) and torch.equal(V, V2) and torch.equal(tau, tau2),
+            f"tiled_wide_chain {label} n={n} t={t}: two launches bit-identical")
+    same = torch.equal(g1, d) and torch.equal(V, Vd) and torch.equal(tau, taud)
+    w = A.clone()
+    Vp, taup = tiled.chain_plain(w, top, pc, t)
+    e_chain = float((g1 - w).abs().max())
+    e_v = max(float((V[:, :, :2 * t] - Vp).abs().max()), float((tau - taup).abs().max()))
+    amax = float(A.abs().max())
+    say(f"[wide] tiled_wide_chain {label} half-sweep n={n} t={t} (rows {top}, pivots {pc}, 2 "
+        f"slabs; {tiled_slab.wide_chain_plan(t).ctas} CTAs): two launches bit-identical; "
+        f"block and history torch.equal to the device-memory chain: {same}; max|kernel - "
+        f"plain| / max|A| = {e_chain / amax:.3e} (v, tau {e_v:.3e})")
+    require(same, f"tiled_wide_chain {label} n={n} t={t} bit-equal to the device-memory chain")
+    require(e_chain <= TOL_SLAB * amax and e_v <= TOL_SLAB,
+            f"tiled_wide_chain {label} n={n} t={t} against chain_plain")
+    return top, pc, g1, V, tau, e_chain
+
+
 def check_wide_tiled():
-    """The tiled Stage I's wide instance: forced at WIDE_TILED_BITS,
-    torch.equal to the first design (t = 160) and to the two-kernel design
-    (t <= 128), and with its apply (the apply kernel's wide instances)
-    torch.equal to the same Stage I on the column apply; on its route at
-    WIDE_TILED, its 2 (2 n / t - 1) launches counted and the band within
-    TOL_SLAB of the plain Stage I run on the card (|kernel - plain|_F /
-    |A|_F), torch.equal to the Stage I on the column apply, both timed in
-    turns with the chain / apply split of each (stage1_split); its kernels
-    against their plain versions on a 2-slab half-sweep (top = n - 2t, QR-
-    and LQ-shaped, two launches bit-identical, the apply torch.equal to the
-    column apply), timed beside the plain versions, torch.geqrf /
-    torch.ormqr of the same slabs and the bounds, the apply in turns with
-    the column apply; the Stage I timed beside dense_to_band_fused at the
-    same band.  Returns ({row: max abs error}, {(n, t): times})."""
+    """The tiled Stage I's wide instance: the cluster chain, then the apply
+    kernel's wide instances.  Forced at WIDE_TILED_BITS
+    (dense_to_band_wide), torch.equal to the first design (t = 160), to the
+    two-kernel design (t <= 128) and to the same Stage I on the
+    device-memory chain (``_device_block``, the design before the
+    cluster); on its route at WIDE_TILED, its 2 (2 n / t - 1) launches
+    counted, the band within TOL_SLAB of the plain Stage I run on the card
+    (|kernel - plain|_F / |A|_F), torch.equal to the Stage I on the
+    device-memory chain, both timed in turns with the chain / apply split
+    of each (stage1_split); at every shape of both, the cluster chain on
+    QR- and LQ-shaped 2-slab half-sweeps torch.equal to the device-memory
+    chain and within TOL_SLAB of chain_plain (wide_half_sweep); at
+    WIDE_TILED also the apply torch.equal to the column apply and within
+    TOL_SLAB of apply_plain, the chain timed in turns with the
+    device-memory chain (old, new, new, old) beside the chain alone (its
+    latency bound), the plain versions, torch.geqrf / torch.ormqr of the
+    same slabs and the bounds, the apply in turns with the column apply;
+    the Stage I beside dense_to_band_fused at the same band.  Returns
+    ({row: max abs error}, {(n, t): times})."""
     from svdsolver_tpu_torch.models import tiled
     from svdsolver_tpu_torch.ops.cuda import panel_qr, tiled_slab
 
@@ -3034,23 +3070,25 @@ def check_wide_tiled():
         c = read_counts()
         half = 2 * (n // t) - 1
         require(c["tiled_wide_chain"] == c["tiled_wide_apply"] == half
-                and c["tiled_wide_apply_cols"] == 0,
+                and c["tiled_wide_chain_dev"] == c["tiled_wide_apply_cols"] == 0,
                 f"dense_to_band_wide n={n} t={t}: {half} launches of each kernel, got {c}")
         if tiled_slab.tiled_route(n, t, tiled_slab._sms(A.device)) == "slabs":
             want, other = tiled_slab.dense_to_band_slabs(A.clone(), t), "first design"
         else:
             want, other = tiled_slab.dense_to_band_tiled(A, band=t), "two-kernel design"
-        cols = tiled_slab.dense_to_band_wide(A.clone(), t, _cols=True)
+        dev = tiled_slab.dense_to_band_wide(A.clone(), t, _device_block=True)
         torch.cuda.synchronize()
-        same, same_cols = torch.equal(got, want), torch.equal(got, cols)
-        say(f"[wide] tiled n={n} t={t}: the wide instance ({half} chain and apply launches) "
-            f"torch.equal to the {other}: {same}; to the wide instance on the column "
-            f"apply: {same_cols}")
-        require(same and same_cols, f"tiled wide instance n={n} t={t} bit-equal to the "
-                f"{other} and to the column apply")
-        del A, got, want, cols
-    errs, times = {"tiled_wide_chain": 0.0, "tiled_wide_apply": 0.0,
-                   "tiled_wide_apply_cols": 0.0}, {}
+        same, same_dev = torch.equal(got, want), torch.equal(got, dev)
+        say(f"[wide] tiled n={n} t={t}: the wide instance ({half} cluster chain and apply "
+            f"launches) torch.equal to the {other}: {same}; to the wide instance on the "
+            f"device-memory chain: {same_dev}")
+        require(same and same_dev, f"tiled wide instance n={n} t={t} bit-equal to the "
+                f"{other} and to the device-memory chain")
+        for label in ("QR", "LQ"):
+            wide_half_sweep(A, n, t, label)  # the errors of the rows: at WIDE_TILED
+        del A, got, want, dev
+    errs, times = {"tiled_wide_chain": 0.0, "tiled_wide_chain_dev": 0.0,
+                   "tiled_wide_apply": 0.0, "tiled_wide_apply_cols": 0.0}, {}
     for n, t in WIDE_TILED:
         A = uniform_matrix(n, seed=13)
         amax = float(A.abs().max())
@@ -3062,45 +3100,33 @@ def check_wide_tiled():
         half = 2 * (n // t) - 1
         require(c["tiled_wide_chain"] == c["tiled_wide_apply"] == half
                 and c["tiled_chain"] == c["tiled_apply"] == c["tiled_slab"] == 0
-                and c["tiled_wide_apply_cols"] == 0,
+                and c["tiled_wide_chain_dev"] == c["tiled_wide_apply_cols"] == 0,
                 f"dense_to_band_tiled n={n} t={t}: the wide instance's launches, got {c}")
         want, p_ms = _event_ms(lambda: tiled.dense_to_band_tiled_plain(A, t))
         rel = float(torch.linalg.norm(got - want) / torch.linalg.norm(A))
         fused = cuda_ms(lambda: panel_qr.dense_to_band_fused(A, band=t), reps=3)
-        old = lambda: tiled_slab.dense_to_band_wide(A.clone(), t, _cols=True)  # noqa: E731
+        new = lambda: tiled_slab.dense_to_band_tiled(A, band=t)  # noqa: E731
+        old = lambda: tiled_slab.dense_to_band_wide(A.clone(), t, _device_block=True)  # noqa: E731
         require(torch.equal(got, old()), f"dense_to_band_tiled n={n} t={t} bit-equal to the "
-                "Stage I on the column apply")
-        o1 = cuda_ms(old, reps=3)
-        w1 = cuda_ms(lambda: tiled_slab.dense_to_band_tiled(A, band=t), reps=3)
-        w2 = cuda_ms(lambda: tiled_slab.dense_to_band_tiled(A, band=t), reps=3)
-        o2 = cuda_ms(old, reps=3)
-        wide_ms, old_ms = min(w1, w2), min(o1, o2)
-        split = stage1_split(lambda: tiled_slab.dense_to_band_tiled(A, band=t))
-        split_old = stage1_split(old)
+                "Stage I on the device-memory chain")
+        turns = (cuda_ms(old, reps=3), cuda_ms(new, reps=3), cuda_ms(new, reps=3),
+                 cuda_ms(old, reps=3))
+        wide_ms, old_ms = min(turns[1:3]), min(turns[0], turns[3])
+        split, split_old = stage1_split(new), stage1_split(old)
         say(f"[wide] dense_to_band_tiled n={n} t={t} (the wide instance): |kernel - plain|_F "
             f"/ |A|_F = {rel:.3e}; {wide_ms:.3f} ms (first run {ms:.3f}) in turns with the "
-            f"column apply's {old_ms:.3f} ms (turns {o1:.3f} / {w1:.3f} / {w2:.3f} / "
-            f"{o2:.3f}); plain {p_ms:.1f} ms (one run), dense_to_band_fused at b={t} "
-            f"{fused:.3f} ms")
-        for label, (ch, ap) in (("the apply kernel", split), ("the column apply", split_old)):
+            f"device-memory chain's {old_ms:.3f} ms ({old_ms / wide_ms:.2f}x; turns "
+            f"{' / '.join(f'{x:.3f}' for x in turns)}); plain {p_ms:.1f} ms (one run), "
+            f"dense_to_band_fused at b={t} {fused:.3f} ms")
+        for label, (ch, ap) in (("the cluster chain", split),
+                                ("the device-memory chain", split_old)):
             say(f"[wide] dense_to_band_tiled n={n} t={t} on {label}: ms by kernel (CUDA "
-                f"events around each launch, one run): chain {ch:.3f}, apply {ap:.3f} (apply "
-                f"{100 * ap / (ch + ap):.1f}% of the two)")
+                f"events around each launch, one run): chain {ch:.3f}, apply {ap:.3f} (chain "
+                f"{100 * ch / (ch + ap):.1f}% of the two)")
         require(rel <= TOL_SLAB, f"dense_to_band_tiled n={n} t={t} against the plain Stage I")
-        top = n - 2 * t
-        for label, pc_off in (("QR", 0), ("LQ", t)):
-            pc = top - pc_off
-            g1, g2, w = A.clone(), A.clone(), A.clone()
-            V, tau = tiled_slab.wide_chain(g1, top, pc, t)
-            V2, tau2 = tiled_slab.wide_chain(g2, top, pc, t)
-            Vp, taup = tiled.chain_plain(w, top, pc, t)
-            torch.cuda.synchronize()
-            require(torch.equal(g1, g2) and torch.equal(V, V2) and torch.equal(tau, tau2),
-                    f"tiled_wide_chain {label} n={n} t={t}: two launches bit-identical")
-            e_chain = float((g1 - w).abs().max())
-            e_v = max(float((V[:, :, :2 * t] - Vp).abs().max()),
-                      float((tau - taup).abs().max()))
-            plain, g3 = g1.clone(), g1.clone()
+        for label in ("QR", "LQ"):
+            top, pc, g1, V, tau, e_chain = wide_half_sweep(A, n, t, label)
+            g2, plain, g3 = g1.clone(), g1.clone(), g1.clone()
             tiled_slab.wide_apply(g1, top, pc, t, V, tau)
             tiled_slab.wide_apply(g2, top, pc, t, V, tau)
             tiled_slab.wide_apply_cols(g3, top, pc, t, V, tau)
@@ -3111,46 +3137,58 @@ def check_wide_tiled():
             require(torch.equal(g1, g3), f"tiled_wide_apply {label} n={n} t={t}: torch.equal "
                     "to the column apply")
             e_apply = float((g1 - plain).abs().max())
-            say(f"[wide] tiled_wide_chain / tiled_wide_apply {label} half-sweep n={n} t={t} "
-                f"(rows {top}, pivots {pc}, 2 slabs): two launches bit-identical, the apply "
-                f"torch.equal to the column apply; chain max|kernel - plain| / max|A| = "
-                f"{e_chain / amax:.3e} (v, tau {e_v:.3e}); apply {e_apply / amax:.3e}")
-            require(max(e_chain, e_apply) <= TOL_SLAB * amax and e_v <= TOL_SLAB,
-                    f"tiled wide kernels {label} n={n} t={t} against their plain versions")
-            errs["tiled_wide_chain"] = max(errs["tiled_wide_chain"], e_chain)
+            say(f"[wide] tiled_wide_apply {label} half-sweep n={n} t={t}: torch.equal to the "
+                f"column apply; max|kernel - plain| / max|A| = {e_apply / amax:.3e}")
+            require(e_apply <= TOL_SLAB * amax,
+                    f"tiled_wide_apply {label} n={n} t={t} against its plain version")
+            for row in ("tiled_wide_chain", "tiled_wide_chain_dev"):  # the same bits
+                errs[row] = max(errs[row], e_chain)
             errs["tiled_wide_apply"] = max(errs["tiled_wide_apply"], e_apply)
             errs["tiled_wide_apply_cols"] = max(errs["tiled_wide_apply_cols"],
                                                 float((g3 - plain).abs().max()))
+        top = n - 2 * t
         M = A.clone()
         V, tau = tiled_slab.wide_chain(M, top, 0, t)
         chained = M.clone()
-        c_ms = fresh_ms(lambda: tiled_slab.wide_chain(M, top, 0, t), lambda: M.copy_(A))
+        fresh = lambda: M.copy_(A)  # noqa: E731
+        cluster = lambda: tiled_slab.wide_chain(M, top, 0, t)  # noqa: E731
+        dev_chain = lambda: tiled_slab.wide_chain(M, top, 0, t, _device_block=True)  # noqa: E731
+        chain_turns = (fresh_ms(dev_chain, fresh), fresh_ms(cluster, fresh),
+                       fresh_ms(cluster, fresh), fresh_ms(dev_chain, fresh))
+        c_ms, cd_ms = min(chain_turns[1:3]), min(chain_turns[0], chain_turns[3])
+        alone = statistics.median(tiled_slab.wide_chain_alone_ms(fresh(), top, 0, t)
+                                  for _ in range(REPS))
         restore = lambda: M.copy_(chained)  # noqa: E731
         cols = lambda: tiled_slab.wide_apply_cols(M, top, 0, t, V, tau)  # noqa: E731
-        new = lambda: tiled_slab.wide_apply(M, top, 0, t, V, tau)  # noqa: E731
-        turns = (fresh_ms(cols, restore), fresh_ms(new, restore), fresh_ms(new, restore),
-                 fresh_ms(cols, restore))
-        a_ms, ac_ms = min(turns[1:3]), min(turns[0], turns[3])
-        M.copy_(A)
+        app = lambda: tiled_slab.wide_apply(M, top, 0, t, V, tau)  # noqa: E731
+        apply_turns = (fresh_ms(cols, restore), fresh_ms(app, restore), fresh_ms(app, restore),
+                       fresh_ms(cols, restore))
+        a_ms, ac_ms = min(apply_turns[1:3]), min(apply_turns[0], apply_turns[3])
+        fresh()
         _, cp_ms = _event_ms(lambda: tiled.chain_plain(M, top, 0, t))
-        M.copy_(chained)
+        restore()
         _, ap_ms = _event_ms(lambda: tiled.apply_plain(M, top, 0, t, V, tau))
         g_ms, o_ms = sweep_library_ms(A, top, 0, t, 2)
         (cw, cb), (aw, ab) = work_sweep(n, t, 2)
         cbound, abound = bound(cw, cb), bound(aw, ab)
-        times[n, t] = {"chain_ms": c_ms, "apply_ms": a_ms, "apply_cols_ms": ac_ms,
+        plan = tiled_slab.wide_chain_plan(t)
+        times[n, t] = {"chain_ms": c_ms, "chain_dev_ms": cd_ms, "chain_alone_ms": alone,
+                       "chain_turns": chain_turns, "apply_ms": a_ms, "apply_cols_ms": ac_ms,
                        "chain_plain_ms": cp_ms, "apply_plain_ms": ap_ms, "geqrf_ms": g_ms,
                        "ormqr_ms": o_ms, "chain_bound": cbound, "apply_bound": abound,
-                       "stage1_ms": wide_ms, "stage1_cols_ms": old_ms, "stage1_split": split,
-                       "stage1_cols_split": split_old, "stage1_plain_ms": p_ms,
-                       "fused_ms": fused, "steps": 2 * t}
-        say(f"[wide] tiled wide half-sweep n={n} t={t} 2 slabs (top {top}): chain {c_ms:.4f} "
-            f"ms ({c_ms * 1e3 / (2 * t):.3f} us a step), apply {a_ms:.4f} ms in turns with "
-            f"the column apply {ac_ms:.4f} ms ({ac_ms / a_ms:.1f}x; turns "
-            f"{' / '.join(f'{x:.4f}' for x in turns)}); plain chain {cp_ms:.3f}, apply "
-            f"{ap_ms:.3f} ms (one run); torch.geqrf {g_ms:.4f} + torch.ormqr {o_ms:.4f} ms "
-            f"(apply / ormqr {a_ms / o_ms:.2f}); bound chain {cbound[0]:.5f} ({cbound[1]}), "
-            f"apply {abound[0]:.5f} ms ({abound[1]}) (medians of {REPS})")
+                       "stage1_ms": wide_ms, "stage1_dev_ms": old_ms, "stage1_split": split,
+                       "stage1_dev_split": split_old, "stage1_plain_ms": p_ms,
+                       "fused_ms": fused, "steps": 2 * t, "ctas": plan.ctas}
+        say(f"[wide] tiled wide half-sweep n={n} t={t} 2 slabs (top {top}): the cluster chain "
+            f"({plan.ctas} CTAs of {16 * plan.cols} columns, {plan.slots} slots, {plan.smem} B "
+            f"a CTA) {c_ms:.4f} ms ({c_ms * 1e3 / (2 * t):.3f} us a step) in turns with the "
+            f"device-memory chain's {cd_ms:.4f} ({cd_ms / c_ms:.1f}x; turns "
+            f"{' / '.join(f'{x:.4f}' for x in chain_turns)}); the chain alone {alone:.4f} ms "
+            f"({alone * 1e3 / (2 * t):.3f} us a step); apply {a_ms:.4f} ms in turns with the "
+            f"column apply {ac_ms:.4f} ms ({ac_ms / a_ms:.1f}x); plain chain {cp_ms:.3f}, apply "
+            f"{ap_ms:.3f} ms (one run); torch.geqrf {g_ms:.4f} (chain / geqrf "
+            f"{c_ms / g_ms:.2f}) + torch.ormqr {o_ms:.4f} ms; bound chain {cbound[0]:.5f} "
+            f"({cbound[1]}), apply {abound[0]:.5f} ms ({abound[1]}) (medians of {REPS})")
         del A, M, chained
         torch.cuda.empty_cache()
     return errs, times
@@ -3224,59 +3262,33 @@ def time_k1_leaves():
 
 
 def time_wide_k1():
-    """K1 past b = 256 at WIDE_K1_TIMES: the blocked panel in turns with
-    the column-by-column instance (panel_qr(..., _columns=True), the design
-    before it: columns, blocked, blocked, columns), beside torch.geqrf of
-    the same (m, b) panel and the bound; at WIDE_K1_TIME also the blocked
-    plain version (one run).  Returns {(b, m, r_off): times}."""
+    """K1 past b = 256 at WIDE_K1_TIMES: the blocked panel beside
+    torch.geqrf of the same (m, b) panel and the bound; at WIDE_K1_TIME
+    also the blocked plain version (one run).  Returns {(b, m, r_off):
+    times}."""
     from svdsolver_tpu_torch.ops.cuda import panel_qr
 
     out = {}
     for b, m, r_off in WIDE_K1_TIMES:
         Pt = uniform_matrix(m, seed=14)[:b].contiguous()
         P = Pt.T.contiguous()
-        cols = lambda: panel_qr.panel_qr(Pt, r_off, _columns=True)  # noqa: E731
-        c1 = cuda_ms(cols, reps=3)
-        k1 = cuda_ms(lambda: panel_qr.panel_qr(Pt, r_off))
-        k2 = cuda_ms(lambda: panel_qr.panel_qr(Pt, r_off))
-        c2 = cuda_ms(cols, reps=3)
+        ms = cuda_ms(lambda: panel_qr.panel_qr(Pt, r_off))
         lib_ms = cuda_ms(lambda: torch.geqrf(P))
         p_ms = None
         if (b, m, r_off) == WIDE_K1_TIME:
             _, p_ms = _event_ms(lambda: panel_qr.panel_qr_blocked_plain(Pt, r_off))
         bnd = bound(*work_panel_qr(b, m, r_off))
-        ms, col_ms = min(k1, k2), min(c1, c2)
-        out[b, m, r_off] = {"ms": ms, "cols_ms": col_ms, "plain_ms": p_ms, "geqrf_ms": lib_ms,
-                            "bound": bnd, "turns": (c1, k1, k2, c2)}
-        say(f"[wide] panel_qr b={b} m={m} blocked: {ms:.3f} ms, in turns with the "
-            f"column-by-column instance {col_ms:.3f} ms ({col_ms / ms:.2f}x; turns "
-            f"{c1:.3f} / {k1:.3f} / {k2:.3f} / {c2:.3f}); torch.geqrf of the (m, b) panel "
-            f"{lib_ms:.3f} ms (blocked / geqrf {ms / lib_ms:.2f}); bound {bnd[0]:.5f} ms "
+        out[b, m, r_off] = {"ms": ms, "plain_ms": p_ms, "geqrf_ms": lib_ms, "bound": bnd}
+        say(f"[wide] panel_qr b={b} m={m} blocked: {ms:.3f} ms; torch.geqrf of the (m, b) "
+            f"panel {lib_ms:.3f} ms (blocked / geqrf {ms / lib_ms:.2f}); bound {bnd[0]:.5f} ms "
             f"({bnd[1]})" + (f"; blocked plain {p_ms:.1f} ms (one run)" if p_ms else ""))
     return out
 
 
-@contextlib.contextmanager
-def k1_columns():
-    """K1 past b = 256 on the column-by-column instance (the design before
-    the blocked panel) for the calls inside."""
-    from svdsolver_tpu_torch.ops.cuda import panel_qr
-
-    blocked = panel_qr.panel_qr
-    panel_qr.panel_qr = lambda Pt, r_off, _cluster=None: blocked(Pt, r_off, _cluster,
-                                                                 _columns=True)
-    try:
-        yield
-    finally:
-        panel_qr.panel_qr = blocked
-
-
 def time_wide_stage1_k1():
     """The fused Stage I at WIDE_STAGE1_TIME, plain and recording, on the
-    blocked K1 in turns with the column-by-column instance (columns,
-    blocked, blocked, columns; medians of 3): what the redesign moves in
-    svdvals and svd at that block.  Returns {entry: (blocked ms, columns
-    ms)}."""
+    blocked K1 (medians of 3): what K1 past b = 256 costs svdvals and svd
+    at that block.  Returns {entry: ms}."""
     from svdsolver_tpu_torch.ops.cuda import panel_qr
 
     n, b = WIDE_STAGE1_TIME
@@ -3284,16 +3296,8 @@ def time_wide_stage1_k1():
     out = {}
     for name, fn in (("dense_to_band_fused", panel_qr.dense_to_band_fused),
                      ("dense_to_band_rec_fused", panel_qr.dense_to_band_rec_fused)):
-        run_ = lambda: fn(A, band=b)  # noqa: E731
-        with k1_columns():
-            c1 = cuda_ms(run_, reps=3)
-        k1, k2 = cuda_ms(run_, reps=3), cuda_ms(run_, reps=3)
-        with k1_columns():
-            c2 = cuda_ms(run_, reps=3)
-        out[name] = (min(k1, k2), min(c1, c2))
-        say(f"[wide] {name} n={n} b={b}: {min(k1, k2):.3f} ms on the blocked K1, in turns "
-            f"with the column-by-column instance's {min(c1, c2):.3f} ms (turns {c1:.3f} / "
-            f"{k1:.3f} / {k2:.3f} / {c2:.3f})")
+        out[name] = cuda_ms(lambda: fn(A, band=b), reps=3)
+        say(f"[wide] {name} n={n} b={b}: {out[name]:.3f} ms on the blocked K1")
     return out
 
 
@@ -3392,19 +3396,17 @@ def time_k1_products():
 def phase_wide(rng):
     """The wide instances on the card: the narrow K1 alone at each leaf
     width and cluster size (time_k1_leaves); K1 past b = 256 (the blocked
-    panel, and the column-by-column instance) against its plain version
-    (check_panel_qr at WIDE_K1), the three
+    panel) against its plain version (check_panel_qr at WIDE_K1), the three
     fused Stage I entries on it against the plain Stage I
-    (check_wide_stage1), K1 timed in turns with the column-by-column
-    instance and its products against their plain versions
-    (time_wide_k1, time_k1_products); the chases'
-    wide pair
-    (check_wide_chases); the tiled Stage I's wide instance
-    (check_wide_tiled); then every entry of WIDE_PATHS with the launch
+    (check_wide_stage1), K1 timed beside torch.geqrf and its products
+    against their plain versions (time_wide_k1, time_k1_products); the
+    chases' wide pair (check_wide_chases); the tiled Stage I's wide
+    instance (check_wide_tiled); then every entry of WIDE_PATHS with the launch
     counts set to 0 just before each call and read just after: sigma
     against float64 torch.linalg.svdvals to TOL_SIGMA sigma_max, svd's
     gates, and the counts showing the kernels of the path (K1 or the tiled
-    Stage I's wide instance, the routed chase, K2; no first-design slab
+    Stage I's wide instance: the cluster chain up to block 512, the
+    device-memory chain past it; the routed chase, K2; no first-design slab
     launch).  The narrow instances' bits are the other phases' checks.
     Returns (errors, times, {label: counts})."""
     from svdsolver_tpu_torch import svd, svdvals
@@ -3412,8 +3414,7 @@ def phase_wide(rng):
 
     t0 = time.perf_counter()
     leaves = time_k1_leaves()
-    k1_err, cols_err = check_panel_qr(rng, WIDE_K1, columns=True)
-    errs = {"panel_qr_wide": k1_err}
+    errs = {"panel_qr_wide": check_panel_qr(rng, WIDE_K1)}
     check_wide_stage1()
     k1_times = time_wide_k1()
     k1_products = time_k1_products()
@@ -3446,7 +3447,12 @@ def phase_wide(rng):
             del U, Vh
         fired = {k: v for k, v in c.items() if v}
         say(f"[wide] {label}: {ms:.1f} ms (one run, builds done); {gates}; launches {fired}")
-        stage1 = c["tiled_wide_chain"] if method == "multicore" else c["panel_qr"]
+        stage1 = c["panel_qr"]
+        if method == "multicore":  # the cluster chain up to 512, the device-memory one past
+            cluster = b <= tiled_slab.WIDE_CHAIN_MAX
+            stage1 = c["tiled_wide_chain" if cluster else "tiled_wide_chain_dev"]
+            require(c["tiled_wide_chain_dev" if cluster else "tiled_wide_chain"] == 0,
+                    f"{label}: the wide chain of the route, got {fired}")
         require(stage1 > 0 and c["tiled_slab"] == 0 and c["bisect"] > 0,
                 f"{label}: the path's kernels, got {fired}")
         if method == "tpu2" and b > 256:  # the blocked K1: its products too
@@ -3454,7 +3460,7 @@ def phase_wide(rng):
                     f"{label}: the blocked K1's products, got {fired}")
         if method == "multicore" and n > b:  # the wide route's apply
             key = "tiled_wide_apply" if b <= 512 else "tiled_wide_apply_cols"
-            require(c[key] == c["tiled_wide_chain"], f"{label}: the apply {key}, got {fired}")
+            require(c[key] == stage1, f"{label}: the apply {key}, got {fired}")
         chase = sum(c[k] for k in ("band_chase", "band_chase_rec", "band_chase_wave_l2",
                                    "band_chase_wave_rec_l2", "band_chase_staged",
                                    "band_chase_staged_rec", "band_chase_wave",
@@ -3473,7 +3479,7 @@ def phase_wide(rng):
         torch.cuda.empty_cache()
     say(f"[done] phase_wide {time.perf_counter() - t0:.1f} s")
     return errs, {"k1": k1_times, "k1_products": k1_products, "k1_leaves": leaves,
-                  "k1_stage1": k1_stage1, "k1_columns_err": cols_err,
+                  "k1_stage1": k1_stage1,
                   "chase": chase_times, "tiled": tiled_times}, counts
 
 
@@ -4375,14 +4381,10 @@ def wide_rows(errs, times, counts):
         "instance": "b > 256: the blocked panel, sub-panels of 64 rows on the narrow "
                     "cluster kernel (launches: sub-panels), the products between them "
                     "(panel_qr_update, panel_qr_merge)",
-        "earlier_design_ms": {f"b={b_} m={m_}": v["cols_ms"]
-                              for (b_, m_, _), v in times["k1"].items()},
-        "earlier_design_max_abs_err": times["k1_columns_err"],
         "ms_by_shape": {f"b={b_} m={m_}": v["ms"] for (b_, m_, _), v in times["k1"].items()},
         "library_ms_by_shape": {f"b={b_} m={m_}": v["geqrf_ms"]
                                 for (b_, m_, _), v in times["k1"].items()},
-        "stage1_ms": {f"{k} n={WIDE_STAGE1_TIME[0]} b={WIDE_STAGE1_TIME[1]}":
-                      {"blocked": v[0], "columns": v[1]}
+        "stage1_ms": {f"{k} n={WIDE_STAGE1_TIME[0]} b={WIDE_STAGE1_TIME[1]}": v
                       for k, v in times["k1_stage1"].items()}})
     for name in ("panel_qr_update", "panel_qr_merge"):
         tm = times["k1_products"][name.split("_")[-1]]
@@ -4420,8 +4422,10 @@ def wide_rows(errs, times, counts):
             "designs_ms": {f"n={n_} b={b_}": v for (n_, b_), v in times["chase"].items()}})
     n, t = WIDE_TILED[1]
     tm = times["tiled"][n, t]
+    by_shape = {f"n={n_} t={t_}": v for (n_, t_), v in times["tiled"].items()}
     for name, part, kernel, lib in (
-            ("tiled_wide_chain", "chain", "tiled_wide", "geqrf_ms"),
+            ("tiled_wide_chain", "chain", "tiled_wide_cluster", "geqrf_ms"),
+            ("tiled_wide_chain_dev", "chain_dev", "tiled_wide", "geqrf_ms"),
             ("tiled_wide_apply", "apply", "tiled_apply", "ormqr_ms"),
             ("tiled_wide_apply_cols", "apply_cols", "tiled_wide", "ormqr_ms")):
         bnd = tm[f"{part.split('_')[0]}_bound"]
@@ -4433,8 +4437,15 @@ def wide_rows(errs, times, counts):
             "ms": tm[f"{part}_ms"], "plain_ms": tm[f"{part.split('_')[0]}_plain_ms"],
             "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": tm[lib],
             "shape": f"2-slab half-sweep n={n} t={t} (top = n - 2t)",
-            "dense_to_band_tiled_ms": {f"n={n_} t={t_}": v["stage1_ms"]
-                                       for (n_, t_), v in times["tiled"].items()}})
+            "ms_by_shape": {k: v[f"{part}_ms"] for k, v in by_shape.items()}})
+    rows[-4]["instance"] = (f"one cluster of {tm['ctas']} CTAs, the pivot block in registers, "
+                            "up to t = 512; earlier design (the device-memory chain) "
+                            f"{tm['chain_dev_ms']:.4f} ms")
+    rows[-4]["chain_alone_ms"] = {k: v["chain_alone_ms"] for k, v in by_shape.items()}
+    rows[-4]["dense_to_band_tiled_ms"] = {k: v["stage1_ms"] for k, v in by_shape.items()}
+    rows[-3]["instance"] = ("one CTA, the pivot block by column in device memory: the route "
+                            "past t = 512 and the cluster chain's bitwise oracle")
+    rows[-3]["dense_to_band_tiled_ms"] = {k: v["stage1_dev_ms"] for k, v in by_shape.items()}
     rows[-2]["instance"] = ("the apply kernel's wide instances (rpl 16, 32) on the wide "
                             f"route up to t = 512; earlier design (the column apply) "
                             f"{tm['apply_cols_ms']:.4f} ms")

@@ -60,19 +60,8 @@
 // Wide panels: past b = 256 the host blocks the panel (ops/cuda/panel_qr.py,
 // panel_qr_blocked): sub-panels of 64 rows, each one launch of this kernel
 // at its narrow plan (T^T into its diagonal block of the whole T, row
-// stride ldt), and the products between them on panel_gemm below.  The
-// column-by-column wide instance stays, off the route, for timing against
-// (panel_qr(..., _columns=True)): past b = 256 a row has 2 lanes (b <= 512)
-// or 1, and past 1024 rows each thread loops over several rows (the passes
-// step by RS = 1024 / G rows); nothing in the passes assumes G >= 4.  The
-// slab's rows are then not whole 16-byte quads (row stride = G mod 32), so
-// the host plan turns the float4 load off, and this CTA's T columns
-// (b x b / C floats) stay in device memory, in its own columns of the
-// output Tt (the TDev instantiation, plan tld == 0): only this CTA reads or
-// writes them, ordered by the same barriers.  It reads its 2-lane rows of
-// the columns spilled to device memory a sector a lane: 39.5 us a column at
-// (512, 2048) on the H100, against ~5.3 us a column for a 64-row
-// sub-panel.  Every plan of b <= 256 is as it was.
+// stride ldt), and the products between them on panel_gemm below.  So this
+// kernel takes b <= 256: 4 lanes a row or more, T in shared memory.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -90,7 +79,7 @@ struct Plan {
   int ws;   // of them in shared memory (ws == W unless Spill)
   int ld;   // slab row stride in shared memory, = G (mod 32)
   int tc;   // T columns a CTA
-  int tld;  // their row stride (0: in device memory, Tt itself: TDev)
+  int tld;  // their row stride in shared memory
   int G;    // lanes a row in the dot and update passes (power of two)
   int vec;  // Pt rows 16-byte aligned: load with float4
   int ldt;  // row stride of the output Tt (b, or the whole T's of a blocked panel)
@@ -148,15 +137,14 @@ __device__ __forceinline__ float dot_total(const float* recv, int C, int b,
   return t;
 }
 
-// This CTA's T columns: in shared memory (row stride tld) or, TDev, its
-// own columns of Tt in device memory (row stride b).
+// This CTA's T columns in shared memory (row stride tld).
 struct TCols {
   float* p;
   int ld;
   __device__ float& at(int i, int cl) const { return p[(size_t)i * ld + cl]; }
 };
 
-template <bool Spill, bool TDev>
+template <bool Spill>
 __global__ void __launch_bounds__(kThreads, 1)
 panel_qr_cluster(const float* __restrict__ Pt, float* __restrict__ Rt,
                  float* __restrict__ Vt, float* __restrict__ Tt, int b, int m,
@@ -168,7 +156,7 @@ panel_qr_cluster(const float* __restrict__ Pt, float* __restrict__ Rt,
   float* slab = reinterpret_cast<float*>(smem4);  // b x ld
   float* v = slab + (size_t)b * pl.ld;            // W: v of the current column
   float* tl = v + pl.W;                           // b x tld: this CTA's T columns
-  float* sig = tl + (TDev ? 0 : (size_t)b * pl.tld);  // 2 x (C norm partials, pivot)
+  float* sig = tl + (size_t)b * pl.tld;           // 2 x (C norm partials, pivot)
   float* recv = sig + 2 * (kMaxCluster + 1);      // C x b: partial dots by rank
 
   const int tid = threadIdx.x;
@@ -184,7 +172,7 @@ panel_qr_cluster(const float* __restrict__ Pt, float* __restrict__ Rt,
   const int c0 = rank * pl.tc;
   const int tcn = max(0, min(pl.tc, b - c0));
   const Slab<Spill> s = {slab, pl.ld, Spill ? pl.ws : pl.W, Rt + cbase, m};
-  const TCols tcol = TDev ? TCols{Tt + c0, pl.ldt} : TCols{tl, pl.tld};
+  const TCols tcol = {tl, pl.tld};
 
   // load the slab once
   if (pl.vec) {
@@ -203,12 +191,7 @@ panel_qr_cluster(const float* __restrict__ Pt, float* __restrict__ Rt,
       s.at(i, k) = Pt[(size_t)i * m + cbase + k];
     }
   }
-  if (TDev) {
-    for (int idx = tid; idx < b * tcn; idx += kThreads)
-      tcol.at(idx / tcn, idx % tcn) = 0.f;
-  } else {
-    for (int idx = tid; idx < b * pl.tld; idx += kThreads) tl[idx] = 0.f;
-  }
+  for (int idx = tid; idx < b * pl.tld; idx += kThreads) tl[idx] = 0.f;
   __syncthreads();
 
   auto owner = [&](int i) { return (i % RS) / RW; };  // warp of row i's passes
@@ -307,19 +290,18 @@ panel_qr_cluster(const float* __restrict__ Pt, float* __restrict__ Rt,
     Rt[(size_t)i * m + kg] = kg <= pi ? x : 0.f;
     Vt[(size_t)i * m + kg] = kg < pi ? 0.f : (kg == pi ? 1.f : x);
   }
-  if (!TDev)
-    for (int idx = tid; idx < b * tcn; idx += kThreads) {
-      const int i = idx / tcn;
-      const int cl = idx - i * tcn;
-      Tt[(size_t)i * pl.ldt + c0 + cl] = tl[i * pl.tld + cl];
-    }
+  for (int idx = tid; idx < b * tcn; idx += kThreads) {
+    const int i = idx / tcn;
+    const int cl = idx - i * tcn;
+    Tt[(size_t)i * pl.ldt + c0 + cl] = tl[i * pl.tld + cl];
+  }
   cluster.sync();  // no CTA leaves while another may read its shared memory
 }
 
-template <bool Spill, bool TDev>
+template <bool Spill>
 cudaError_t configure(int C, int smem, cudaLaunchConfig_t* cfg,
                       cudaLaunchAttribute* attr, cudaStream_t stream) {
-  auto kernel = panel_qr_cluster<Spill, TDev>;
+  auto kernel = panel_qr_cluster<Spill>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess && C > 8)
@@ -339,26 +321,26 @@ cudaError_t configure(int C, int smem, cudaLaunchConfig_t* cfg,
   return err;
 }
 
-template <bool Spill, bool TDev>
+template <bool Spill>
 int launch(const float* Pt, float* Rt, float* Vt, float* Tt, int b, int m,
            int r_off, int C, Plan pl, int smem, void* stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = configure<Spill, TDev>(C, smem, &cfg, &attr, (cudaStream_t)stream);
+  cudaError_t err = configure<Spill>(C, smem, &cfg, &attr, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
-  err = cudaLaunchKernelEx(&cfg, panel_qr_cluster<Spill, TDev>, Pt, Rt, Vt, Tt, b,
+  err = cudaLaunchKernelEx(&cfg, panel_qr_cluster<Spill>, Pt, Rt, Vt, Tt, b,
                            m, r_off, pl);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-template <bool Spill, bool TDev>
+template <bool Spill>
 int clusters_of(int C, int smem, int* clusters) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = configure<Spill, TDev>(C, smem, &cfg, &attr, 0);
+  cudaError_t err = configure<Spill>(C, smem, &cfg, &attr, 0);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveClusters(clusters, panel_qr_cluster<Spill, TDev>, &cfg);
+    err = cudaOccupancyMaxActiveClusters(clusters, panel_qr_cluster<Spill>, &cfg);
   return (int)err;
 }
 
@@ -501,33 +483,24 @@ panel_sum(const float* __restrict__ parts, int splits, long long count,
 
 // How many clusters of C CTAs with smem bytes of shared memory each can be
 // resident at once (cudaOccupancyMaxActiveClusters) into *clusters; spill
-// picks the large-panel instantiation, tdev the one with T in device
-// memory.  Returns the cudaError_t.
-extern "C" int svdt_panel_qr_clusters(int C, int smem, int spill, int tdev,
-                                      int* clusters) {
-  if (tdev)
-    return spill ? clusters_of<true, true>(C, smem, clusters)
-                 : clusters_of<false, true>(C, smem, clusters);
-  return spill ? clusters_of<true, false>(C, smem, clusters)
-               : clusters_of<false, false>(C, smem, clusters);
+// picks the large-panel instantiation.  Returns the cudaError_t.
+extern "C" int svdt_panel_qr_clusters(int C, int smem, int spill, int* clusters) {
+  return spill ? clusters_of<true>(C, smem, clusters) : clusters_of<false>(C, smem, clusters);
 }
 
 // Launches the panel QR on `stream` as one cluster of C CTAs under the plan
-// (W, ws, ld, tc, tld, G, vec; smem bytes a CTA) of cluster_plan (tld == 0:
-// T in device memory), T^T written with row stride ldt (b for a whole
-// panel; the whole T's for a blocked panel's diagonal block); returns the
-// launch's cudaError_t.
+// (W, ws, ld, tc, tld, G, vec; smem bytes a CTA) of cluster_plan, T^T
+// written with row stride ldt (b for a whole panel; the whole T's for a
+// blocked panel's diagonal block); returns the launch's cudaError_t.
 extern "C" int svdt_panel_qr(const float* Pt, float* Rt, float* Vt, float* Tt,
                              int b, int m, int r_off, int C, int W, int ws,
                              int ld, int tc, int tld, int G, int vec, int smem,
                              int ldt, void* stream) {
+  if (tld < 1) return (int)cudaErrorInvalidValue;
   const Plan pl = {W, ws, ld, tc, tld, G, vec, ldt};
-  if (tld == 0)
-    return ws < W ? launch<true, true>(Pt, Rt, Vt, Tt, b, m, r_off, C, pl, smem, stream)
-                  : launch<false, true>(Pt, Rt, Vt, Tt, b, m, r_off, C, pl, smem, stream);
   if (ws < W)
-    return launch<true, false>(Pt, Rt, Vt, Tt, b, m, r_off, C, pl, smem, stream);
-  return launch<false, false>(Pt, Rt, Vt, Tt, b, m, r_off, C, pl, smem, stream);
+    return launch<true>(Pt, Rt, Vt, Tt, b, m, r_off, C, pl, smem, stream);
+  return launch<false>(Pt, Rt, Vt, Tt, b, m, r_off, C, pl, smem, stream);
 }
 
 // C_z = alpha A B (+ beta C) for the blocked panel's products, split z of

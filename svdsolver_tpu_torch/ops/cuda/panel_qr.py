@@ -34,7 +34,7 @@ _P, _I, _L = _build.VOIDP, _build.INT, _build.LONG
 _F = ctypes.c_float
 _ENTRIES = {
     "svdt_panel_qr": [_P] * 4 + [_I] * 13 + [_P],
-    "svdt_panel_qr_clusters": [_I] * 4 + [_P],
+    "svdt_panel_qr_clusters": [_I] * 3 + [_P],
     "svdt_panel_gemm": [_P, _P, _L, _L, _I, _P, _L, _L, _P, _L, _L, _L, _I, _I, _I, _I,
                         _F, _F, _P],
     "svdt_panel_sum": [_P, _I, _L, _P, _L, _P, _P],
@@ -51,7 +51,7 @@ BLOCK_NB = 64
 LEAF_COLS = 128
 GEMM_TILE = 64  # the product kernel's tile of C
 GEMM_SPLIT_K = 128  # the Gram's columns a split at least
-_resident = {}  # (ctas, smem, spill, tdev) -> clusters that fit on the card
+_resident = {}  # (ctas, smem, spill) -> clusters that fit on the card
 
 
 class ClusterPlan(NamedTuple):
@@ -59,9 +59,8 @@ class ClusterPlan(NamedTuple):
     ``width`` columns each, ``smem_cols`` of them in shared memory with row
     stride ``ld`` (the rest, if any, in device memory: the large-panel
     route), ``tcols`` columns of T each (row stride ``tld`` in shared
-    memory; ``tld = 0``: in device memory, the CTA's own columns of the
-    output T), ``groups`` lanes a row in the dot and update passes,
-    ``smem`` bytes a CTA."""
+    memory), ``groups`` lanes a row in the dot and update passes, ``smem``
+    bytes a CTA."""
 
     ctas: int
     width: int
@@ -76,17 +75,14 @@ class ClusterPlan(NamedTuple):
     def spill(self):
         return self.smem_cols < self.width
 
-    @property
-    def tdev(self):
-        return self.tld == 0
-
 
 def _cdiv(a, b):
     return -(-a // b)
 
 
 def cluster_plan(b, m, ctas=None):
-    """The cluster launch of the panel kernel for a (b, m) panel.
+    """The cluster launch of the panel kernel for a (b, m) panel, b up to
+    :data:`NARROW_BAND` (wider panels are blocked: :func:`block_plan`).
 
     ``ctas=None`` takes the fewest CTAs (a power of two, at most 16) whose
     slabs are at most ``CTA_TARGET`` bytes, else 16.  Each CTA's slab of
@@ -97,33 +93,29 @@ def cluster_plan(b, m, ctas=None):
     in device memory, in the CTA's own columns of ``Rt`` (the large-panel
     route: at b = 128 every m above 6,784, e.g. 1,048 of 1,440 columns a
     CTA at m = 23,040).  ``groups`` is the largest power of two up to 32
-    with ``groups * b <= THREADS``, at least 1: 4 or more lanes a row up to
-    b = 256, 2 up to 512, 1 past it (a thread then loops over rows).  Past
-    b = 256 the T columns stay in device memory (``tld = 0``: the CTA's own
-    columns of the output), and ``ctas=None`` halves the cluster while the
-    exchanged dots (``ctas * b`` floats) would take more than half of the
-    shared memory; the plans of ``b <= 256`` are unchanged by either.
-    Raises ``ValueError`` for ``b < 1`` or ``m < 1``, and for a panel so
-    long or wide that v and the exchange arrays leave the slab no shared
-    memory (m past ~860,000 at b = 128; b past ~19,000 at m = b).
+    with ``groups * b <= THREADS``: 4 or more lanes a row.  Raises
+    ``ValueError`` for ``b < 1``, ``m < 1`` or ``b`` past
+    :data:`NARROW_BAND`, and for a panel so long that v and the exchange
+    arrays leave the slab no shared memory (m past ~860,000 at b = 128).
     """
     b, m = int(b), int(m)
     if b < 1:
         raise ValueError(f"panel width b={b} must be >= 1")
+    if b > NARROW_BAND:
+        raise ValueError(f"panel width b={b} past the cluster kernel's limit of "
+                         f"{NARROW_BAND}: block_plan cuts wider panels")
     if m < 1:
         raise ValueError(f"panel length m={m} must be >= 1")
     if ctas is None:
         C = next((c for c in (1, 2, 4, 8) if 4 * b * _cdiv(m, c) <= CTA_TARGET), MAX_CLUSTER)
-        while C > 1 and 4 * C * b > _build.MAX_SMEM // 2:
-            C //= 2
     else:
         C = int(ctas)
         if not 1 <= C <= MAX_CLUSTER:
             raise ValueError(f"a cluster holds 1 to {MAX_CLUSTER} CTAs, not {ctas}")
     W = 4 * _cdiv(_cdiv(m, C), 4)
-    G = 1 << (max(1, min(32, THREADS // b)).bit_length() - 1)
+    G = 1 << (min(32, THREADS // b).bit_length() - 1)
     tc = _cdiv(b, C)
-    tld = 0 if b > NARROW_BAND else (tc + 1 if tc % 2 == 0 else tc)
+    tld = tc + 1 if tc % 2 == 0 else tc
     other = W + b * tld + 2 * (MAX_CLUSTER + 1) + C * b  # floats beside the slab
     room = _build.MAX_SMEM // 4 - other  # slab floats that fit
     ld = W + (G - W) % 32  # the smallest stride >= W that is = G (mod 32)
@@ -142,11 +134,11 @@ def cluster_plan(b, m, ctas=None):
 
 def _check_resident(lib, plan):
     """Raise unless one cluster of the plan fits on the card."""
-    key = (plan.ctas, plan.smem, plan.spill, plan.tdev)
+    key = (plan.ctas, plan.smem, plan.spill)
     if key not in _resident:
         got = ctypes.c_int(0)
         err = lib.svdt_panel_qr_clusters(plan.ctas, plan.smem, int(plan.spill),
-                                         int(plan.tdev), ctypes.addressof(got))
+                                         ctypes.addressof(got))
         _build.raise_on_error(err, "cudaOccupancyMaxActiveClusters (panel_qr)")
         _resident[key] = got.value
     if _resident[key] < 1:
@@ -257,7 +249,7 @@ def merge_gram_plain(G, Tt, r0, r1):
     return Tt
 
 
-def panel_qr(Pt, r_off, _cluster=None, _columns=False):
+def panel_qr(Pt, r_off, _cluster=None):
     """Householder QR of the transposed panel ``Pt`` (b, m), pivots at
     ``r_off + j``; returns ``(Rt, Vt, Tt)`` as :func:`panel_qr_plain`.
 
@@ -265,9 +257,7 @@ def panel_qr(Pt, r_off, _cluster=None, _columns=False):
     (:data:`NARROW_BAND`) it launches the kernel as one cluster under
     :func:`cluster_plan` (``_cluster`` fixes its CTA count); past it, the
     blocked panel (:func:`panel_qr_blocked`; ``_cluster`` fixes the
-    leaves' CTAs).  ``_columns`` launches the column-by-column kernel at
-    any width instead (the design before the blocked one, kept to time it
-    against).  A shape past the plans' limits, or a cluster the card
+    leaves' CTAs).  A shape past the plans' limits, or a cluster the card
     cannot hold, raises ``ValueError``.  A CPU tensor runs the plain
     version.  Pivots at or past ``m`` give identity reflectors (``tau =
     0``, ``v = 0``).
@@ -279,7 +269,7 @@ def panel_qr(Pt, r_off, _cluster=None, _columns=False):
     if not _build.check_input(Pt, "Pt", 2):
         return panel_qr_plain(Pt, r_off)
     b, m = Pt.shape
-    if b > NARROW_BAND and not _columns:
+    if b > NARROW_BAND:
         return panel_qr_blocked(Pt, r_off, block_plan(b, m, _cluster))
     out = _launch(Pt, r_off, cluster_plan(b, m, _cluster))
     launches += 1
@@ -452,8 +442,8 @@ def _launch(Pt, r_off, plan, out=None):
                torch.empty((b, b), dtype=Pt.dtype, device=Pt.device))
     Rt, Vt, Tt = out
     # 16-byte loads into the slab need rows of whole quads: a row stride
-    # = groups (mod 32) is one where groups >= 4 (b <= 256)
-    vec = int(m % 4 == 0 and Pt.data_ptr() % 16 == 0 and plan.groups >= 4)
+    # = groups (mod 32), groups >= 4 (b <= 256)
+    vec = int(m % 4 == 0 and Pt.data_ptr() % 16 == 0)
     lib = _library()
     with torch.cuda.device(Pt.device):
         _check_resident(lib, plan)

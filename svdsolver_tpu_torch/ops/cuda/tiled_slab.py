@@ -13,8 +13,11 @@ it to the other columns.  Both give the first design's bits.  The first
 design, :func:`factor_slab` (``csrc/tiled_slab.cu``, one launch a slab),
 stays as their bitwise oracle and runs the bands they do not take.  The
 wide instance runs a half-sweep at any band, again with the first
-design's bits: :func:`wide_chain` (``csrc/tiled_wide.cu``, the pivot
-block by column in device memory), then :func:`wide_apply`, the apply
+design's bits: :func:`wide_chain`, up to t = 512 (:data:`WIDE_CHAIN_MAX`)
+one thread-block cluster that holds the pivot block in registers
+(``csrc/tiled_wide_cluster.cu``, :func:`wide_chain_plan`), past it the
+pivot block by column in device memory (``csrc/tiled_wide.cu``, one CTA;
+also the cluster's bitwise oracle), then :func:`wide_apply`, the apply
 kernel's wide instances up to t = 512 (:data:`WIDE_APPLY_MAX`: the
 columns in registers, the tile rows staged) and past it
 :func:`wide_apply_cols` (``csrc/tiled_wide.cu``, a warp a column in
@@ -40,7 +43,8 @@ from svdsolver_tpu_torch.ops.cuda import _build
 launches = 0  # kernel launches by factor_slab (the first design) since the last reset
 launches_chain = 0  # by the chain kernel (factor_sweep)
 launches_apply = 0  # by the apply kernel (apply_sweep)
-launches_wide_chain = 0  # by the wide instance's chain kernel (wide_chain)
+launches_wide_chain = 0  # by the wide instance's cluster chain (wide_chain, t <= 512)
+launches_wide_chain_dev = 0  # by its device-memory chain (past 512, or _device_block)
 launches_wide_apply = 0  # by the apply kernel on the wide route (wide_apply)
 launches_wide_apply_cols = 0  # by the wide instance's column apply (wide_apply_cols)
 
@@ -50,6 +54,16 @@ APPLY_RPL = SWEEP_RPL + (16, 32)  # the apply's instances: 16 and 32 for the wid
 WIDE_APPLY_MAX = 16 * APPLY_RPL[-1]  # the widest band the apply kernel takes
 APPLY_COLS = 2  # columns a warp of the apply kernel (its kCols)
 APPLY_WIDTH = 32  # most columns an apply CTA takes (16 warps; 8 at rpl = 32)
+WIDE_CHAIN_MAX = WIDE_APPLY_MAX  # the widest band the cluster chain takes
+WIDE_CHAIN_WARPS = 16  # warps a CTA of the cluster chain
+WIDE_CHAIN_MAX_CTAS = 16  # CTAs a cluster at most (non-portable above 8)
+# the cluster chain's instances: rows a lane -> columns a warp (its x takes
+# cols * rpl of a thread's 128 registers at 512 threads; 64 at most, with
+# v); the package's build holds 2 columns a warp, 1 and 4 only the timing
+# build of tools/tiled_split.py --wide --plans, the choices 2 was taken from
+WIDE_CHAIN_INSTANCES = {16: (1, 2, 4), 32: (2,)}
+WIDE_CHAIN_COLS = 2  # columns a warp: 32 a CTA
+WIDE_CHAIN_SLOTS = 8  # reflector slots of the ring by default
 _P, _I = _build.VOIDP, _build.INT
 _ENTRIES = {"svdt_tiled_slab": [_P] + [_I] * 10 + [_P, _P]}
 _CHAIN_ENTRIES = {e: [_P] + [_I] * 5 + [_P, _P, _I, _I, _P]
@@ -57,6 +71,9 @@ _CHAIN_ENTRIES = {e: [_P] + [_I] * 5 + [_P, _P, _I, _I, _P]
 _APPLY_ENTRIES = {"svdt_tiled_apply": [_P] + [_I] * 11 + [_P, _P, _P]}
 _WIDE_ENTRIES = {"svdt_tiled_wide_chain": [_P] + [_I] * 5 + [_P, _P, _I, _P, _P],
                  "svdt_tiled_wide_apply": [_P] + [_I] * 6 + [_P, _P, _I, _P]}
+_CLUSTER_ENTRIES = {e: [_P] + [_I] * 5 + [_P, _P] + [_I] * 6 + [_P]
+                    for e in ("svdt_tiled_wide_chain_cluster",
+                              "svdt_tiled_wide_chain_cluster_alone")}
 
 
 class SlabPlan(NamedTuple):
@@ -163,13 +180,63 @@ def apply_plan(n, t, sms):
     return ApplyPlan(width, ctas, threads, rpl, 4 * 2 * t * (width | 1))
 
 
+class WideChainPlan(NamedTuple):
+    """The cluster chain's launch: ``ctas`` CTAs of one cluster, each of
+    ``warps`` warps holding ``cols`` columns a warp (16 cols a CTA) at
+    ``rpl`` rows a lane, ``slots`` reflector slots in each CTA's ring,
+    ``smem`` dynamic shared-memory bytes a CTA."""
+
+    ctas: int
+    warps: int
+    cols: int
+    rpl: int
+    slots: int
+    smem: int
+
+
+def wide_chain_plan(t, cols=None, slots=None):
+    """The cluster chain (``csrc/tiled_wide_cluster.cu``) for bands of
+    ``t``: ``rpl`` 16 up to t = 256, 32 up to :data:`WIDE_CHAIN_MAX` (a
+    lane's rows of the 2t-row stack); ``cols`` columns a warp (default
+    :data:`WIDE_CHAIN_COLS`), so ``ceil(t / (16 cols))`` CTAs; ``slots``
+    ring slots (default :data:`WIDE_CHAIN_SLOTS`, at least 2).  Shared
+    memory a CTA: the ring's barriers and wait counts (5 slots floats,
+    rounded up to 32), the slots (32 rpl + 4 floats each) and the staging
+    tile (t x (16 cols + 1) floats).  Raises ``ValueError`` past
+    :data:`WIDE_CHAIN_MAX`, for a ``cols`` the instance does not hold in
+    its registers (:data:`WIDE_CHAIN_INSTANCES`), a cluster past
+    :data:`WIDE_CHAIN_MAX_CTAS` CTAs, or shared memory past the limit."""
+    t = int(t)
+    if not 1 <= t <= WIDE_CHAIN_MAX:
+        raise ValueError(f"t={t}: the cluster chain takes bands of 1 to {WIDE_CHAIN_MAX}")
+    rpl = 16 if t <= 256 else 32
+    cols = WIDE_CHAIN_COLS if cols is None else int(cols)
+    slots = WIDE_CHAIN_SLOTS if slots is None else int(slots)
+    if cols not in WIDE_CHAIN_INSTANCES[rpl]:
+        raise ValueError(f"t={t}: {cols} columns a warp at {rpl} rows a lane pass the register "
+                         f"budget of the instances (columns a warp {WIDE_CHAIN_INSTANCES[rpl]})")
+    width = WIDE_CHAIN_WARPS * cols
+    ctas = -(-t // width)
+    if ctas > WIDE_CHAIN_MAX_CTAS:
+        raise ValueError(f"t={t}: {ctas} CTAs of {width} columns pass the cluster's "
+                         f"{WIDE_CHAIN_MAX_CTAS}")
+    if slots < 2:
+        raise ValueError(f"the ring needs 2 slots at least, not {slots}")
+    smem = 4 * ((5 * slots + 31) // 32 * 32 + slots * (32 * rpl + 4) + t * (width + 1))
+    if smem > _room():
+        raise ValueError(f"t={t}: the cluster chain's {smem} bytes a CTA pass the "
+                         f"{_room()}-byte shared-memory limit of one block")
+    return WideChainPlan(ctas, WIDE_CHAIN_WARPS, cols, rpl, slots, smem)
+
+
 def tiled_route(n, t, sms):
     """Which design runs ``dense_to_band_tiled`` at ``(n, t)``: ``"sweeps"``
     (the chain and the apply kernels, two launches a half-sweep) for every
     band :func:`chain_plan` takes (t <= 128); else ``"slabs"`` (the first
     design, a launch a slab) where :func:`slab_plan` takes both slab shapes
     (t <= 168; 238 when ``n == t``); else ``"wide"`` (the wide instance,
-    two launches a half-sweep, every column in device memory).  Raises
+    two launches a half-sweep: :func:`wide_chain`, then
+    :func:`wide_apply`).  Raises
     ``ValueError`` only for a band outside ``[1, n]``."""
     n, t = int(n), int(t)
     if not 1 <= t <= n:
@@ -345,8 +412,32 @@ def _wide_history(M, t, slabs):
             torch.empty((slabs, t), dtype=M.dtype, device=M.device))
 
 
-def _launch_wide_chain(M, top, pc, t, m, V, tau):
+def _launch_wide_chain(M, top, pc, t, m, V, tau, _device_block=False):
+    """The wide route's chain: the cluster chain up to
+    :data:`WIDE_CHAIN_MAX`, the device-memory chain past it (or forced by
+    ``_device_block``)."""
+    if t <= WIDE_CHAIN_MAX and not _device_block:
+        _launch_wide_cluster(M, top, pc, t, m, V, tau, wide_chain_plan(t))
+    else:
+        _launch_wide_dev(M, top, pc, t, m, V, tau)
+
+
+def _cluster_args(M, top, pc, t, m, V, tau, plan):
+    return (M.data_ptr(), M.stride(0), top, pc, t, m, V.data_ptr(), tau.data_ptr(), V.shape[2],
+            plan.ctas, plan.cols, plan.rpl, plan.slots, plan.smem, _build.stream_of(M))
+
+
+def _launch_wide_cluster(M, top, pc, t, m, V, tau, plan):
     global launches_wide_chain
+    lib = _build.load("tiled_wide_cluster", _CLUSTER_ENTRIES)
+    with torch.cuda.device(M.device):
+        err = lib.svdt_tiled_wide_chain_cluster(*_cluster_args(M, top, pc, t, m, V, tau, plan))
+    _build.raise_on_error(err, "tiled_wide_chain_cluster")
+    launches_wide_chain += 1
+
+
+def _launch_wide_dev(M, top, pc, t, m, V, tau):
+    global launches_wide_chain_dev
     lib = _build.load("tiled_wide", _WIDE_ENTRIES)
     block = torch.empty((t, 2 * t), dtype=M.dtype, device=M.device)  # the pivot block, by column
     with torch.cuda.device(M.device):
@@ -354,7 +445,7 @@ def _launch_wide_chain(M, top, pc, t, m, V, tau):
                                         tau.data_ptr(), V.shape[2], block.data_ptr(),
                                         _build.stream_of(M))
     _build.raise_on_error(err, "tiled_wide_chain")
-    launches_wide_chain += 1
+    launches_wide_chain_dev += 1
 
 
 def _launch_wide_apply(M, top, pc, t, m, V, tau):
@@ -379,20 +470,22 @@ def _launch_wide_apply_cols(M, top, pc, t, m, V, tau):
     launches_wide_apply_cols += 1
 
 
-def wide_chain(M, top, pc, t):
-    """:func:`factor_sweep` on the wide instance's chain kernel
-    (``csrc/tiled_wide.cu``, one CTA, the pivot block copied by column into
-    device memory), at
-    any band: the pivot-block column of half-sweep ``(top, pc)`` in place,
-    and its history ``(V, tau)`` in ``models/tiled.chain_plain``'s layout
-    (:func:`wide_vld` floats a reflector, zeros past its rows).  A CPU
-    ``M`` runs ``chain_plain``."""
+def wide_chain(M, top, pc, t, _device_block=False):
+    """:func:`factor_sweep` at any band: the pivot-block column of
+    half-sweep ``(top, pc)`` in place, and its history ``(V, tau)`` in
+    ``models/tiled.chain_plain``'s layout (:func:`wide_vld` floats a
+    reflector, zeros past its rows).  A CUDA ``M`` launches the cluster
+    chain (``csrc/tiled_wide_cluster.cu``, :func:`wide_chain_plan`) up to
+    :data:`WIDE_CHAIN_MAX`, past it (or with ``_device_block``, the card
+    checks' handle on the bitwise oracle) the device-memory chain
+    (``csrc/tiled_wide.cu``, one CTA, the pivot block by column in device
+    memory); both give the same bits.  A CPU ``M`` runs ``chain_plain``."""
     top, pc, t = int(top), int(pc), int(t)
     m = _check_sweep(M, top, pc, t)
     if not _build.check_input(M, "M", 2):
         return tiled.chain_plain(M, top, pc, t)
     V, tau = _wide_history(M, t, m + 1)
-    _launch_wide_chain(M, top, pc, t, m, V, tau)
+    _launch_wide_chain(M, top, pc, t, m, V, tau, _device_block)
     return V, tau
 
 
@@ -463,6 +556,32 @@ def chain_alone_ms(M, top, pc, t):
     return start.elapsed_time(stop)
 
 
+def wide_chain_alone_ms(M, top, pc, t):
+    """ms of the cluster chain alone on half-sweep ``(top, pc)`` of float32
+    CUDA ``M`` (``svdt_tiled_wide_chain_cluster_alone``: the waits,
+    pivot-column updates, reflectors, broadcasts and slab hand-overs, no
+    other column's apply) under :func:`wide_chain_plan`, one launch between
+    CUDA events.  The wide chain's latency bound;
+    uncounted, and it leaves ``M`` as no half-sweep does."""
+    top, pc, t = int(top), int(pc), int(t)
+    m = _check_sweep(M, top, pc, t)
+    if not _build.check_input(M, "M", 2):
+        raise ValueError("wide_chain_alone_ms times the kernel: M must be a CUDA tensor")
+    plan = wide_chain_plan(t)
+    V, tau = _wide_history(M, t, m + 1)
+    lib = _build.load("tiled_wide_cluster", _CLUSTER_ENTRIES)
+    with torch.cuda.device(M.device):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        err = lib.svdt_tiled_wide_chain_cluster_alone(
+            *_cluster_args(M, top, pc, t, m, V, tau, plan))
+        stop.record()
+    _build.raise_on_error(err, "tiled_wide_chain_cluster_alone")
+    torch.cuda.synchronize(M.device)
+    return start.elapsed_time(stop)
+
+
 def _transposer(A):
     """``transpose`` of ``models/tiled.tile_sweeps`` on the card: the other
     of two contiguous buffers takes ``M.T``."""
@@ -490,24 +609,23 @@ def dense_to_band_slabs(A, band):
     return tiled.tile_sweeps(A, t, tiled.slab_sweep(factor_slab), _transposer(A))
 
 
-def dense_to_band_wide(A, band, _cols=False):
+def dense_to_band_wide(A, band, _device_block=False):
     """The tiled Stage I on float32 CUDA ``A`` in place with every
     half-sweep through the wide instance (:func:`wide_chain`, then
-    :func:`wide_apply` of its history; ``_cols``: :func:`wide_apply_cols`
-    at any band, the design before the apply kernel's wide instances, kept
-    to time it against), ``2 (2 n / band - 1)`` launches (no apply at
+    :func:`wide_apply` of its history; ``_device_block``: the device-memory
+    chain at any band, the design before the cluster chain, kept to hold
+    and time it against), ``2 (2 n / band - 1)`` launches (no apply at
     ``band = n``): the route for bands past the first design's, and at any
     band bit-equal to it and to the two-kernel design.  Returns ``A``."""
     t = int(band)
     n = A.shape[0]
     V, tau = _wide_history(A, t, n // t)
-    apply = _launch_wide_apply_cols if _cols else _launch_wide_apply
 
     def sweep(M, top, pc, t):
         m = (n - top) // t - 1
-        _launch_wide_chain(M, top, pc, t, m, V, tau)
+        _launch_wide_chain(M, top, pc, t, m, V, tau, _device_block)
         if n > t:
-            apply(M, top, pc, t, m, V, tau)
+            _launch_wide_apply(M, top, pc, t, m, V, tau)
 
     return tiled.tile_sweeps(A, t, sweep, _transposer(A))
 

@@ -1088,19 +1088,14 @@ def test_wide_tiled_instance_bit_equal_to_the_narrow_designs(dev, n, t):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("columns", [False, True])
 @pytest.mark.parametrize("b,m", [(384, 2048), (512, 1024), (1024, 1024)])
-def test_panel_qr_at_wide_panels(dev, rng, b, m, columns):
-    # the routed kernel (the blocked panel) and the column-by-column
-    # instance (the design before it): Q = I - V T V^T orthogonal and
+def test_panel_qr_at_wide_panels(dev, rng, b, m):
+    # the routed kernel (the blocked panel): Q = I - V T V^T orthogonal and
     # Q R = P (float64 from the kernel's outputs); two launches
-    # bit-identical; the column instance one launch and no products
+    # bit-identical
     Pt = torch.from_numpy(rng.normal(size=(b, m)).astype(np.float32)).to(dev)
-    before = (panel_qr.launches, panel_qr.launches_update)
-    got = panel_qr.panel_qr(Pt, 0, _columns=columns)
-    if columns:
-        assert (panel_qr.launches - before[0], panel_qr.launches_update - before[1]) == (1, 0)
-    again = panel_qr.panel_qr(Pt, 0, _columns=columns)
+    got = panel_qr.panel_qr(Pt, 0)
+    again = panel_qr.panel_qr(Pt, 0)
     assert all(torch.equal(g, a) for g, a in zip(got, again))
     Rt, Vt, Tt = got
     V, T = Vt.double().T, Tt.double().T
@@ -1158,6 +1153,45 @@ def test_wide_apply_bit_equal_to_the_column_apply(dev, n, t, shape):
     assert tiled_slab.launches_wide_apply == before[0] + 1
     assert tiled_slab.launches_wide_apply_cols == before[1] + 1
     assert torch.equal(A, B)
+
+
+@pytest.mark.parametrize("n,t", [(960, 192), (1024, 256), (1536, 384), (1024, 512)])
+@pytest.mark.parametrize("shape", ["QR", "LQ"])
+def test_cluster_chain_bit_equal_to_the_device_memory_chain(dev, n, t, shape):
+    # the wide route's chain (one cluster, the pivot block in registers)
+    # and the device-memory chain (its oracle) on a 2-slab half-sweep:
+    # block and history torch.equal; two launches of the cluster identical.
+    # An LQ-shaped one (pivots a tile left of its rows) needs n >= 3t.
+    n = max(n, 3 * t) if shape == "LQ" else n
+    from svdsolver_tpu_torch.ops.cuda import tiled_slab
+
+    A = _uniform_on(dev, n, seed=7)
+    top = n - 2 * t
+    pc = top - (t if shape == "LQ" else 0)
+    got, again, want = A.clone(), A.clone(), A.clone()
+    before = (tiled_slab.launches_wide_chain, tiled_slab.launches_wide_chain_dev)
+    hist = tiled_slab.wide_chain(got, top, pc, t)
+    hist2 = tiled_slab.wide_chain(again, top, pc, t)
+    hist_d = tiled_slab.wide_chain(want, top, pc, t, _device_block=True)
+    assert (tiled_slab.launches_wide_chain - before[0],
+            tiled_slab.launches_wide_chain_dev - before[1]) == (2, 1)
+    assert torch.equal(got, want) and torch.equal(got, again)
+    assert all(torch.equal(g, w) for g, w in zip(hist, hist_d))
+    assert all(torch.equal(g, w) for g, w in zip(hist, hist2))
+
+
+@pytest.mark.parametrize("n,t", [(960, 192), (1024, 256), (512, 512)])
+def test_wide_stage1_on_the_cluster_chain_bit_equal(dev, n, t):
+    # the whole wide Stage I (the route: the cluster chain) torch.equal to
+    # the same Stage I on the device-memory chain, and to itself
+    from svdsolver_tpu_torch.ops.cuda import tiled_slab
+
+    A = _uniform_on(dev, n, seed=8)
+    before = tiled_slab.launches_wide_chain
+    got = tiled_slab.dense_to_band_tiled(A, band=t)
+    assert tiled_slab.launches_wide_chain - before == 2 * (n // t) - 1
+    assert torch.equal(got, tiled_slab.dense_to_band_tiled(A, band=t))
+    assert torch.equal(got, tiled_slab.dense_to_band_wide(A.clone(), t, _device_block=True))
 
 
 # ---- one-sided block Jacobi on the card ----

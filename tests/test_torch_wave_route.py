@@ -121,9 +121,10 @@ def test_cluster_plan_limits():
     assert panel_qr.cluster_plan(128, 861000).spill
     with pytest.raises(ValueError, match="limit"):
         panel_qr.cluster_plan(128, 862000)
-    # every width plans (past 256: 2 lanes a row, T in device memory) up to
-    # where v and the exchange arrays leave no room, b ~ 19,000 at m = b
-    assert panel_qr.cluster_plan(257, 1024).tdev
+    # past b = 256 the cluster kernel takes no panel: block_plan cuts it
+    # into sub-panels of the narrow plans
+    with pytest.raises(ValueError, match="block_plan"):
+        panel_qr.cluster_plan(257, 1024)
     with pytest.raises(ValueError, match="limit"):
         panel_qr.cluster_plan(20000, 20000)
     with pytest.raises(ValueError, match="b=0"):

@@ -55,22 +55,9 @@ def test_cluster_plan_by_width(b, m, want):
         assert tuple(got) == want
     assert got.smem <= _build.MAX_SMEM
     assert got.ctas * got.width >= m and got.ctas * got.tcols >= b
-    assert not got.tdev
+    assert got.tld >= got.tcols  # T in shared memory
     assert got.groups == max(1, min(32, 1 << (1024 // b).bit_length() - 1))
     assert got.ld % 32 == got.groups % 32  # a warp's rows on distinct banks
-
-
-@pytest.mark.parametrize("b,m,want", [
-    # the column-by-column instance past 256 (panel_qr(..., _columns=True),
-    # off the route): 2 lanes a row (1 past 512), T in device memory
-    (384, 2304, (16, 144, 130, 130, 24, 0, 2, 224968)),
-    (512, 2048, (16, 128, 66, 66, 32, 0, 2, 168584)),
-    (1024, 1024, (16, 64, 33, 33, 64, 0, 1, 201096)),
-])
-def test_cluster_plan_of_the_column_instance(b, m, want):
-    got = panel_qr.cluster_plan(b, m)
-    assert tuple(got) == want and got.tdev and got.smem <= _build.MAX_SMEM
-    assert got.groups == max(1, min(32, 1 << (1024 // b).bit_length() - 1))
 
 
 @pytest.mark.parametrize("n", [192, 256, 384, 512, 1024, 2048, 4096, 8192])
@@ -132,7 +119,7 @@ def launched(monkeypatch):
         monkeypatch.setattr(mod, "use_kernels", lambda t: t.dtype == torch.float32)
 
     def k1(Pt, r_off, plan, out=None):
-        calls.append(("panel_qr", Pt.shape[0], (plan.groups, plan.tdev)))
+        calls.append(("panel_qr", Pt.shape[0], plan.groups))
         b, m = Pt.shape
         if out is None:
             return Pt.clone(), Pt.new_zeros((b, m)), Pt.new_zeros((b, b))
@@ -155,8 +142,13 @@ def launched(monkeypatch):
         calls.append(("band_chase_wave", b, (record, tick)))
         return _stand_in(A, b, record)
 
-    def wide_chain(M, top, pc, t, m, V, tau):
-        calls.append(("tiled_wide_chain", t, (top, pc, m)))
+    def wide_cluster(M, top, pc, t, m, V, tau, plan):
+        calls.append(("tiled_wide_chain", t, (top, pc, m), plan, tuple(V.shape)))
+        V.zero_()
+        tau.zero_()
+
+    def wide_dev(M, top, pc, t, m, V, tau):
+        calls.append(("tiled_wide_chain_dev", t, (top, pc, m)))
         V.zero_()
         tau.zero_()
 
@@ -177,7 +169,8 @@ def launched(monkeypatch):
     monkeypatch.setattr(panel_qr, "_streams", lambda device: (StandIn(), StandIn()))
     monkeypatch.setattr(band_chase, "_launch", chase)
     monkeypatch.setattr(band_chase_wave, "_launch", wave)
-    monkeypatch.setattr(tiled_slab, "_launch_wide_chain", wide_chain)
+    monkeypatch.setattr(tiled_slab, "_launch_wide_cluster", wide_cluster)
+    monkeypatch.setattr(tiled_slab, "_launch_wide_dev", wide_dev)
     monkeypatch.setattr(tiled_slab, "_launch_apply", apply)
     monkeypatch.setattr(tiled_slab, "_launch_wide_apply_cols", wide_apply_cols)
     for mod, names in (
@@ -223,7 +216,7 @@ def _blocked_k1(launched, b):
     k1 = [c for c in launched if c[0] in ("panel_qr", "panel_gemm", "panel_sum")]
     leaves = [c for c in k1 if c[0] == "panel_qr"]
     per = -(-b // nb)
-    assert leaves and all(c[1:] == (nb, (16, False)) for c in leaves)
+    assert leaves and all(c[1:] == (nb, 16) for c in leaves)
     assert len(leaves) % per == 0 and len(k1) > len(leaves)
     # a panel: its first launch a sub-panel; after each at most the Gram,
     # its sum, two update products and two merge products
@@ -247,7 +240,7 @@ def test_tpu2_reaches_k1_and_the_chase_at_every_width(launched, b):
         assert _blocked_k1(launched, b) > 0
     else:
         assert k1 and all(c[1] == b for c in k1)
-        assert all(c[2] == (max(1, 1 << (1024 // b).bit_length() - 1), False) for c in k1)
+        assert all(c[2] == max(1, 1 << (1024 // b).bit_length() - 1) for c in k1)
         assert not [c for c in launched if c[0] in ("panel_gemm", "panel_sum")]
     # two lanes wanted where the copy engine does not take the band: the
     # sequential chase's L2 kernel (its wide pair past 256)
@@ -273,6 +266,7 @@ def test_multicore_reaches_the_wide_tiled_instance(launched, t):
     # the apply kernel's wide instance, on the chain's history of 32 rpl
     assert all(c[2][3:] == (16, 512) for c in applies)
     assert [c[2][:3] for c in applies] == [c[2] for c in chains]
+    assert not [c for c in launched if c[0] == "tiled_wide_chain_dev"]
     assert not [c for c in launched if c[0] == "tiled_wide_apply_cols"]
     # the reference's order of half-sweeps: QR (c, c), then LQ (c + t, c)
     want = []
@@ -316,15 +310,70 @@ def test_wide_tiled_route_takes_the_apply_kernel_up_to_512(launched, n, t, want)
     # history of 32 rpl floats a reflector; past it the column apply on one
     # of 2t; block = n has no column outside the pivot block: no apply
     tiled_slab.dense_to_band_tiled(torch.zeros((n, n)), band=t)
-    chains = [c for c in launched if c[0] == "tiled_wide_chain"]
+    chains = [c for c in launched if c[0].startswith("tiled_wide_chain")]
     applies = [c for c in launched if c[0].startswith("tiled_")
-               and c[0] != "tiled_wide_chain"]
+               and not c[0].startswith("tiled_wide_chain")]
+    # the cluster chain up to t = 512, the device-memory chain past it
+    assert {c[0] for c in chains} == {"tiled_wide_chain" if t <= 512 else "tiled_wide_chain_dev"}
     assert len(chains) == 2 * (n // t) - 1
     assert len(applies) == (len(chains) if n > t else 0)
     assert {c[0] for c in applies} == ({want[0]} if n > t else set())
     if want[1] and n > t:
         assert {c[2][3:] for c in applies} == {(want[1], 32 * want[1])}
     assert tiled_slab.wide_vld(t) == (32 * want[1] if want[1] else 2 * t)
+
+
+@pytest.mark.parametrize("t", WIDE)
+def test_multicore_reaches_the_cluster_chain(launched, t):
+    # blocks 192-512: every half-sweep's chain on the cluster kernel under
+    # wide_chain_plan(t), with the device-memory kernel's (top, pc, m), then
+    # its apply: 2 (2 n / t - 1) launches in all
+    n = 3 * t
+    svdvals(_uniform(n), method="multicore", block=t)
+    chains = [c for c in launched if c[0] == "tiled_wide_chain"]
+    applies = [c for c in launched if c[0] == "tiled_apply"]
+    half = 2 * (n // t) - 1
+    assert len(chains) == len(applies) == half
+    assert len(chains) + len(applies) == 2 * (2 * n // t - 1)
+    assert all(c[3] == tiled_slab.wide_chain_plan(t) for c in chains)
+    assert [c[2] for c in chains] == [c[2][:3] for c in applies]
+    assert [c[2] for c in chains] == [(0, 0, 2), (t, 0, 1), (t, t, 1), (2 * t, t, 0),
+                                      (2 * t, 2 * t, 0)]
+    assert not [c for c in launched if c[0] in ("tiled_wide_chain_dev",
+                                                "tiled_wide_apply_cols")]
+
+
+def test_block_n_past_512_reaches_the_device_memory_chain(launched):
+    # block = n = 640: one half-sweep of one slab, past the cluster chain's
+    # 512: the device-memory chain, and no apply (no column outside)
+    svdvals(_uniform(640), method="multicore", block=640)
+    kernels = [c for c in launched if c[0].startswith("tiled_")]
+    assert kernels == [("tiled_wide_chain_dev", 640, (0, 0, 0))]
+
+
+@pytest.mark.parametrize("n,t", [(960, 192), (1024, 256), (1536, 384), (1024, 512)])
+def test_the_cluster_chain_hands_the_apply_its_history(launched, n, t):
+    # the history the cluster chain fills is the one the apply reads, in
+    # the apply's layout: (n / t) slabs x t reflectors of wide_vld(t) =
+    # 32 rpl floats, rpl the apply kernel's (16 up to 256, 32 past it)
+    tiled_slab.dense_to_band_tiled(torch.zeros((n, n)), band=t)
+    chains = [c for c in launched if c[0] == "tiled_wide_chain"]
+    applies = [c for c in launched if c[0] == "tiled_apply"]
+    rpl = 16 if t <= 256 else 32
+    assert {c[4] for c in chains} == {(n // t, t, 32 * rpl)}
+    assert {c[2][3:] for c in applies} == {(rpl, 32 * rpl)}
+    assert all(c[3].rpl * 32 >= 32 * rpl for c in chains)
+
+
+def test_the_device_memory_chain_is_forced_by_its_handle(launched):
+    # wide_chain(..., _device_block=True): the bitwise oracle of the card
+    # checks; the route without it takes the cluster
+    M = torch.zeros((768, 768))
+    V, tau = tiled_slab.wide_chain(M, 384, 0, 192, _device_block=True)
+    assert V.shape == (2, 192, tiled_slab.wide_vld(192)) and tau.shape == (2, 192)
+    tiled_slab.wide_chain(M, 384, 0, 192)
+    assert [c[0] for c in launched] == ["tiled_wide_chain_dev", "tiled_wide_chain"]
+    assert launched[0][2] == launched[1][2] == (384, 0, 1)
 
 
 def test_tiled_stage1_keeps_its_narrow_routes(launched, monkeypatch):
@@ -356,9 +405,12 @@ def test_failed_wide_launches_raise(launched, monkeypatch):
     monkeypatch.setattr(panel_qr, "_launch_gemm", fail("panel_gemm"))
     with pytest.raises(RuntimeError, match="panel_gemm launch failed"):
         svdvals(_uniform(640), method="tpu2", block=320)
-    monkeypatch.setattr(tiled_slab, "_launch_wide_chain", fail("tiled_wide_chain"))
-    with pytest.raises(RuntimeError, match="tiled_wide_chain launch failed"):
+    monkeypatch.setattr(tiled_slab, "_launch_wide_cluster", fail("tiled_wide_chain_cluster"))
+    with pytest.raises(RuntimeError, match="tiled_wide_chain_cluster launch failed"):
         svdvals(_uniform(768), method="multicore", block=384)
+    monkeypatch.setattr(tiled_slab, "_launch_wide_dev", fail("tiled_wide_chain"))
+    with pytest.raises(RuntimeError, match="tiled_wide_chain launch failed"):
+        svdvals(_uniform(640), method="multicore", block=640)
     monkeypatch.setattr(tiled_slab, "_launch_wide_chain", lambda *a: None)
     monkeypatch.setattr(tiled_slab, "_launch_apply", fail("tiled_apply"))
     with pytest.raises(RuntimeError, match="tiled_apply launch failed"):

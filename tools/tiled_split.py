@@ -1,6 +1,7 @@
 """Split the time of the tiled Stage I's two kernels on the card.
 
     python3 tools/tiled_split.py [--root DIR] [--stamps | --full | --oracle DIR]
+    python3 tools/tiled_split.py --wide [--stamps | --plans]
 
 Builds ``csrc/tiled_chain.cu`` and ``csrc/tiled_apply.cu`` of this
 checkout (or of ``--root``, an unpacked other commit) under
@@ -21,6 +22,21 @@ at each shape through the build's entries; with ``--oracle DIR`` it holds
 this tree's ``dense_to_band_tiled`` bit-equal to the first design of DIR
 (an unpacked parent, ``git archive HEAD svdsolver_tpu_torch | tar -x -C
 DIR``).
+
+With ``--wide`` it times the wide route's chains at WIDE_SHAPES ((960,
+192), (1024, 256)) the same way, on 1- and 2-slab half-sweeps: the
+device-memory chain (``csrc/tiled_wide.cu``), the cluster chain
+(``csrc/tiled_wide_cluster.cu`` at ``tiled_slab.wide_chain_plan``), the
+cluster chain alone (its latency bound) and the cluster chain again,
+then the apply kernel's wide instance on the chain's history; with
+``--wide --stamps`` it builds both wide chains with
+``SVDT_SPLIT_STAMPS`` and prints where a TS slab's step goes in each (the
+wait, the pivot column's update, the reflector, the broadcast or block
+barrier, the apply) at 1024/t256; with ``--wide --plans`` it times the
+cluster chain and the chain alone on the 2-slab half-sweeps at every
+columns a warp of the instances (built with ``SVDT_WIDE_PLANS``) and 4, 8
+and 16 ring slots (the choices ``tiled_slab.wide_chain_plan`` was fixed
+from).
 """
 
 import argparse
@@ -36,7 +52,9 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 ENTRIES = ("svdt_tiled_chain", "svdt_tiled_chain_alone", "svdt_tiled_chain")
 SHAPES = ((3840, 128), (1024, 64))
+WIDE_SHAPES = ((960, 192), (1024, 256))
 P, I = ctypes.c_void_p, ctypes.c_int
+CLUSTER_ARGS = [P] + [I] * 5 + [P, P] + [I] * 6 + [P]
 
 
 def card():
@@ -95,6 +113,8 @@ def main():
     ap.add_argument("--stamps", action="store_true")
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--oracle", default=None)
+    ap.add_argument("--wide", action="store_true")
+    ap.add_argument("--plans", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("tiled_split: no CUDA device", file=sys.stderr)
@@ -105,6 +125,8 @@ def main():
     csrc = Path(args.root).resolve() / "svdsolver_tpu_torch" / "csrc"
     defines = []
     label = Path(args.root).resolve().name
+    if args.wide:
+        return wide_stamps(csrc, label) if args.stamps else wide(csrc, label, args.plans)
     chains = {e: build(csrc / "tiled_chain.cu", defines, label, e, [P] + [I] * 5 + [P, P, I, I, P])
               for e in set(ENTRIES)}
     apply = build(csrc / "tiled_apply.cu", defines, label, "svdt_tiled_apply",
@@ -153,6 +175,179 @@ def main():
             t_ms = ms(run_apply, restore=lambda: M.copy_(chained))
             print(f"[split] n={n} t={t} {slabs} slab(s): apply {t_ms:.4f} ms "
                   f"({t_ms * 1e3 / (slabs * t):.3f} us a step) {tag}", flush=True)
+    return 0
+
+
+def wide(csrc, label, plans=False):
+    """The wide route's chains at WIDE_SHAPES on 1- and 2-slab
+    half-sweeps (top = n - slabs t, pivots from 0): the device-memory
+    chain, the cluster chain, the cluster chain alone, the cluster chain
+    again, then the apply on the cluster chain's history.  With ``plans``:
+    the cluster chain and the chain alone on the 2-slab half-sweeps under
+    every plan of the instances' columns a warp and 4, 8, 16 slots."""
+    from svdsolver_tpu_torch.ops.cuda import tiled_slab
+
+    tag = f"{label} | {card()}"
+    dev = build(csrc / "tiled_wide.cu", [], label, "svdt_tiled_wide_chain",
+                [P] + [I] * 5 + [P, P, I, P, P])
+    flags, tag_c = (["-DSVDT_WIDE_PLANS"], f"{label}_plans") if plans else ([], label)
+    entries = {e: build(csrc / "tiled_wide_cluster.cu", flags, tag_c, e, CLUSTER_ARGS)
+               for e in ("svdt_tiled_wide_chain_cluster", "svdt_tiled_wide_chain_cluster_alone")}
+    apply = build(csrc / "tiled_apply.cu", [], label, "svdt_tiled_apply",
+                  [P] + [I] * 11 + [P, P, P])
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n, t in WIDE_SHAPES:
+        a = np.random.default_rng(0).uniform(0, 5, (n, n)).astype(np.float32)
+        A0 = torch.from_numpy(a).cuda()
+        plan, ap_ = tiled_slab.wide_chain_plan(t), tiled_slab.apply_plan(n, t, sms)
+        vld = tiled_slab.wide_vld(t)
+        block = torch.empty((t, 2 * t), device="cuda")
+        if plans:
+            rpl = tiled_slab.wide_chain_plan(t).rpl
+            top, m = n - 2 * t, 1
+            V = torch.empty((2, t, vld), device="cuda")
+            tau = torch.empty((2, t), device="cuda")
+            M = A0.clone()
+            for cols in tiled_slab.WIDE_CHAIN_INSTANCES[rpl]:
+                for slots in (4, 8, 16):
+                    p = tiled_slab.wide_chain_plan(t, cols, slots)
+                    got = []
+                    for e in ("svdt_tiled_wide_chain_cluster",
+                              "svdt_tiled_wide_chain_cluster_alone"):
+                        def run(e=e):
+                            err = entries[e](M.data_ptr(), n, top, 0, t, m, V.data_ptr(),
+                                             tau.data_ptr(), vld, p.ctas, p.cols, p.rpl,
+                                             p.slots, p.smem, stream)
+                            if err:
+                                raise RuntimeError(f"{e}: cudaError_t {err}")
+                        got.append(ms(run, restore=lambda: M.copy_(A0)))
+                    print(f"[split] n={n} t={t} 2 slabs: cluster chain at {cols} columns a "
+                          f"warp ({p.ctas} CTAs), {slots} slots: {got[0]:.4f} ms "
+                          f"({got[0] * 1e3 / (2 * t):.3f} us a step), alone {got[1]:.4f} ms "
+                          f"{tag}", flush=True)
+            continue
+        for slabs in (1, 2):
+            top, pc, m = n - slabs * t, 0, slabs - 1
+            V = torch.empty((slabs, t, vld), device="cuda")
+            tau = torch.empty((slabs, t), device="cuda")
+            M = A0.clone()
+
+            def check(err, what):
+                if err:
+                    raise RuntimeError(f"{what}: cudaError_t {err}")
+
+            runs = (("device-memory chain", lambda: check(dev(
+                        M.data_ptr(), n, top, pc, t, m, V.data_ptr(), tau.data_ptr(), vld,
+                        block.data_ptr(), stream), "tiled_wide_chain")),)
+            for e in ("svdt_tiled_wide_chain_cluster", "svdt_tiled_wide_chain_cluster_alone",
+                      "svdt_tiled_wide_chain_cluster"):
+                runs += ((e, lambda e=e: check(entries[e](
+                    M.data_ptr(), n, top, pc, t, m, V.data_ptr(), tau.data_ptr(), vld,
+                    plan.ctas, plan.cols, plan.rpl, plan.slots, plan.smem, stream), e)),)
+            for name, run in runs:
+                t_ms = ms(run, restore=lambda: M.copy_(A0))
+                print(f"[split] n={n} t={t} {slabs} slab(s): {name} {t_ms:.4f} ms "
+                      f"({t_ms * 1e3 / (slabs * t):.3f} us a step; {plan.ctas} CTAs) {tag}",
+                      flush=True)
+            chained = M.clone()  # the last run: the cluster chain's block and history
+
+            def run_apply():
+                check(apply(M.data_ptr(), n, n, top, pc, t, m, ap_.width, ap_.ctas,
+                            ap_.threads, ap_.rpl, ap_.smem, V.data_ptr(), tau.data_ptr(),
+                            stream), "tiled_apply")
+
+            t_ms = ms(run_apply, restore=lambda: M.copy_(chained))
+            print(f"[split] n={n} t={t} {slabs} slab(s): apply {t_ms:.4f} ms "
+                  f"({t_ms * 1e3 / (slabs * t):.3f} us a step) {tag}", flush=True)
+    return 0
+
+
+def wide_stamps(csrc, label):
+    """A 2-slab half-sweep at n = 1024, t = 256 through each wide chain
+    built with SVDT_SPLIT_STAMPS: the percentiles over the TS slab's
+    steps of each part of a step (cycles of one SM's clock; a difference
+    of two stamps of one warp)."""
+    from svdsolver_tpu_torch.ops.cuda import tiled_slab
+
+    tag = f"{label} | {card()}"
+    n, t = WIDE_SHAPES[1]
+    a = np.random.default_rng(0).uniform(0, 5, (n, n)).astype(np.float32)
+    stream = torch.cuda.current_stream().cuda_stream
+    vld = tiled_slab.wide_vld(t)
+    V = torch.empty((2, t, vld), device="cuda")
+    tau = torch.empty((2, t), device="cuda")
+
+    def stamped(src, entry, argtypes, setter, shape):
+        fn = build(csrc / src, ["-DSVDT_SPLIT_STAMPS"], f"{label}_stamps", entry, argtypes)
+        lib = ctypes.CDLL(str(REPO / "build" / "tiled_split" /
+                              f"lib{Path(src).stem}_{label}_stamps.so"))
+        getattr(lib, setter).argtypes = [P]
+        st = torch.zeros(shape + (128, 8), dtype=torch.int64, device="cuda")
+        if getattr(lib, setter)(st.data_ptr()):
+            raise RuntimeError("cudaMemcpyToSymbol failed")
+        return fn, st
+
+    def show(name, arr):
+        q = np.percentile(arr, [10, 50, 90])
+        print(f"[stamps] {name}: p10 {q[0]:.0f}, median {q[1]:.0f}, p90 {q[2]:.0f} cycles "
+              f"{tag}", flush=True)
+
+    # the device-memory chain: warp (j + 1) % 16 owns the next pivot
+    fn, st = stamped("tiled_wide.cu", "svdt_tiled_wide_chain", [P] + [I] * 5 + [P, P, I, P, P],
+                     "svdt_tiled_wide_stamps", (16,))
+    M = torch.from_numpy(a).cuda()
+    block = torch.empty((t, 2 * t), device="cuda")
+    err = fn(M.data_ptr(), n, n - 2 * t, 0, t, 1, V.data_ptr(), tau.data_ptr(), vld,
+             block.data_ptr(), stream)
+    torch.cuda.synchronize()
+    if err:
+        raise RuntimeError(f"cudaError_t {err}")
+    S = st.cpu().numpy().astype(np.float64)
+    steps = range(127)
+    own = [(j + 1) % 16 for j in steps]
+    print(f"[stamps] device-memory chain n={n} t={t}, TS slab steps 0-126:", flush=True)
+    show("step period (warp 0's step starts)", np.diff(S[0, :128, 0]))
+    show("pivot: its column's update", [S[own[j], j, 1] - S[own[j], j, 0] for j in steps])
+    show("pivot: reflector", [S[own[j], j, 2] - S[own[j], j, 1] for j in steps])
+    show("pivot: its other columns' applies", [S[own[j], j, 3] - S[own[j], j, 2] for j in steps])
+    show("other warps: applies", [S[w, j, 3] - S[w, j, 0] for j in steps for w in range(16)
+                                  if w != own[j]])
+    show("block barrier (a warp's wait)", (S[:, :127, 4] - S[:, :127, 3]).ravel())
+
+    # the cluster chain: CTA (j + 1) // W, its warp (j + 1) % 16 owns the next pivot
+    plan = tiled_slab.wide_chain_plan(t)
+    W = 16 * plan.cols
+    fn, st = stamped("tiled_wide_cluster.cu", "svdt_tiled_wide_chain_cluster", CLUSTER_ARGS,
+                     "svdt_tiled_wide_cluster_stamps", (plan.ctas, 16))
+    M = torch.from_numpy(a).cuda()
+    err = fn(M.data_ptr(), n, n - 2 * t, 0, t, 1, V.data_ptr(), tau.data_ptr(), vld, plan.ctas,
+             plan.cols, plan.rpl, plan.slots, plan.smem, stream)
+    torch.cuda.synchronize()
+    if err:
+        raise RuntimeError(f"cudaError_t {err}")
+    S = st.cpu().numpy().astype(np.float64)
+    own = [((j + 1) // W, (j + 1) % W % 16) for j in steps]
+    print(f"[stamps] cluster chain n={n} t={t} ({plan.ctas} CTAs of {W} columns), TS slab "
+          "steps 0-126:", flush=True)
+    show("step period (publications of consecutive reflectors on one SM)",
+         [S[c2, w2, j + 1, 4] - S[c, w, j, 4] for j, ((c, w), (c2, w2))
+          in enumerate(zip(own[:-1], own[1:])) if c == c2])
+    show("pivot: wait for its reflector", [S[c, w, j, 1] - S[c, w, j, 0]
+                                           for j, (c, w) in enumerate(own)])
+    show("pivot: its column's update", [S[c, w, j, 2] - S[c, w, j, 1]
+                                        for j, (c, w) in enumerate(own)])
+    show("pivot: claim of its slot before the wait (the empty barrier)",
+         [S[c, w, j, 0] - S[c, w, j, 6] for j, (c, w) in enumerate(own)])
+    show("pivot: reflector", [S[c, w, j, 3] - S[c, w, j, 2] for j, (c, w) in enumerate(own)])
+    show("pivot: broadcast (arrival, remote copies)", [S[c, w, j, 4] - S[c, w, j, 3]
+                                                      for j, (c, w) in enumerate(own)])
+    show("pivot: history and its other columns' apply", [S[c, w, j, 5] - S[c, w, j, 4]
+                                                         for j, (c, w) in enumerate(own)])
+    show("other warps: wait", [S[c, w, j, 1] - S[c, w, j, 0] for j in steps
+                               for c in range(plan.ctas) for w in range(16) if (c, w) != own[j]])
+    show("other warps: apply", [S[c, w, j, 5] - S[c, w, j, 1] for j in steps
+                                for c in range(plan.ctas) for w in range(16) if (c, w) != own[j]])
     return 0
 
 
