@@ -129,9 +129,15 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    ``torch.geqrf``, its update and merge products against their plain
    versions beside ``torch.ormqr``, Stage I on it (fused, recording, with
    factors) against the plain Stage I and timed; the chases' wide pair (b
-   > 256) on the L2 sequential kernel and the wavefront's L2 tick, plain
-   and recording, bit-equal to each other, against the plain chase,
-   records rebuilding the band, both timed; the tiled Stage I's wide
+   > 256) on the cluster kernels (the sequential chase on one
+   thread-block cluster, the wavefront's cluster tick) and on the L2
+   kernels they replace (the L2 sequential kernel, the L2 tick), plain and
+   recording, all bit-equal to the L2 kernel at 1152/b384, 2048/b512,
+   1440/b288, 900/b257 and 640/b640, against the plain chase, records
+   rebuilding the band, each timed (the cluster kernels in turns with the
+   L2 kernel at 2048/b512), and the cluster kernels in turns at
+   ``wave_lanes_needed``'s wide table (one to four lanes, 2048/b512 to
+   6144/b512); the tiled Stage I's wide
    instance (the cluster chain ``csrc/tiled_wide_cluster.cu``, then the
    apply kernel's wide instances) ``torch.equal`` to the same Stage I on
    the device-memory chain (``csrc/tiled_wide.cu``), to the first design
@@ -143,9 +149,10 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    ``geqrf`` / ``ormqr``, the chain alone and the bounds, the Stage I on
    either chain with the chain / apply split; and ``svdvals`` with
    tpu2 at blocks 384 and 512 (n = 2048), multicore at 192 and 256, block
-   = n at 256 and 640, ``svd`` at bands 384 and 512 (n = 2048), the counts
-   set to 0 before each call and read after (the path's kernels, the wide
-   pair on the routed chase);
+   = n at 256 and 640, ``svd`` at bands 384 and 512 (n = 2048), and
+   ``svdvals`` / ``svd`` at 3840, block 512 (three wavefront lanes), the
+   counts set to 0 before each call and read after (the path's kernels,
+   the wide pair on the routed cluster kernel);
 11. runs one-sided block Jacobi (``phase_jacobi``, PyTorch ops, no kernel
    of its own): ``svd(A, method="jacobi")`` at n = 1024 and 3840,
    ``svd_jacobi_pre`` at 1024, ``svd_jacobi_batch`` at (8, 256) (each
@@ -214,7 +221,8 @@ REPS = 5
 SVD_REPS = 3
 SOURCES = ("panel_qr", "band_chase", "bisect", "tridiag_solve",
            "band_chase_wave", "band_chase_staged", "band_chase_vmem", "bidiag_qr", "dqds",
-           "tiled_slab", "tiled_chain", "tiled_apply", "tiled_wide", "tiled_wide_cluster")
+           "tiled_slab", "tiled_chain", "tiled_apply", "tiled_wide", "tiled_wide_cluster",
+           "band_chase_cluster")
 # the variants' entries, counted by the kernel that ran: the packed chase
 # runs "band_chase_vmem_tma" (the TMA design on the band store) at every
 # band of these checks; "band_chase_vmem", its L2 packed kernel, takes the
@@ -224,11 +232,13 @@ VARIANTS = ("band_chase_wave", "band_chase_wave_dl", "band_chase_staged",
 SVD_PATH = ("panel_qr", "bisect", "tridiag_solve")  # and the routed chase
 # the chase entries count by the kernel that ran: the sequential chase's
 # "band_chase_staged(_rec)" the staged TMA design, "band_chase(_rec)" the L2
-# kernel; the wavefront's "band_chase_wave(_rec)" the shared-memory tick,
-# "_l2" the L2 tick
+# kernel, "band_chase_cluster(_rec)" the cluster kernel (b > 256); the
+# wavefront's "band_chase_wave(_rec)" the shared-memory tick, "_l2" the L2
+# tick, "band_chase_wave_cluster(_rec)" the cluster tick (b > 256)
 CHASES = ("band_chase", "band_chase_rec", "band_chase_staged", "band_chase_staged_rec",
           "band_chase_wave", "band_chase_wave_rec", "band_chase_wave_l2",
-          "band_chase_wave_rec_l2")
+          "band_chase_wave_rec_l2", "band_chase_cluster", "band_chase_cluster_rec",
+          "band_chase_wave_cluster", "band_chase_wave_cluster_rec")
 # the two wavefront ticks in turns (n, band): the check band and the widest
 # chases of the main paths
 TICK_SHAPES = ((1024, 64), (3840, 128), (7680, 128))
@@ -341,11 +351,23 @@ K1_LEAF_NB = (32, 64, 128, 256)
 K1_LEAF_C = (1, 2, 4, 8, 16)
 K1_LEAF_M = (2048, 1024)
 WIDE_STAGE1 = (1152, 384)  # the fused Stage I entries against the plain Stage I
-# the chases' wide pair (n, band): the L2 sequential kernel and the
-# wavefront's L2 tick, plain and recording, bit-equal to each other, each
-# against the plain chase; the first has one wavefront lane, the second two
-WIDE_CHASE = ((1152, 384), (2048, 512), (1440, 288))
-WIDE_CHASE_TIME = (2048, 512)  # the rows' shape: both kernels, medians of 3
+# the chases' wide pair (n, band): the cluster kernels (the sequential one
+# and the wavefront's cluster tick) and the L2 kernels they replace (the L2
+# sequential kernel, the wavefront's L2 tick), plain and recording, all
+# bit-equal; one to three wavefront lanes (1804 / 257: the fewest pairs
+# with three), and b = n
+WIDE_CHASE = ((1152, 384), (2048, 512), (1440, 288), (900, 257), (640, 640), (1804, 257))
+# where the plain chase (a host-paced loop, ~1 ms a pair) runs too: the
+# main path's 2048 / 512 and b = n, and three lanes (the main path's 3840 /
+# 512 takes three lanes at 4096 / 512, ~19,000 pairs)
+WIDE_CHASE_PLAIN = ((2048, 512), (640, 640), (1804, 257))
+WIDE_CHASE_TIME = (2048, 512)  # the rows' shape: the cluster kernels in turns with L2
+# where the records' rank-1 rebuild of the band runs (slow at many pairs)
+WIDE_CHASE_REBUILD = ((1152, 384), (1440, 288), (900, 257), (640, 640))
+# the main path's three lanes past 2048: the sequential cluster kernel and
+# the cluster tick in turns, bit-equal (the whole route table, one to four
+# lanes at C = 4, 8, 16: tools/chase_cluster_split.py --lanes)
+WIDE_ROUTE = ((3840, 512),)
 # the tiled Stage I's wide instance forced where the first design (t = 160)
 # and the two-kernel design (t = 64, 128) run: torch.equal to them
 WIDE_TILED_BITS = ((640, 160), (512, 64), (1024, 128))
@@ -357,7 +379,9 @@ WIDE_PATHS = (("svdvals", "tpu2", 2048, 512),
               ("svdvals", "multicore", 1024, 192), ("svdvals", "multicore", 1024, 256),
               ("svdvals", "tpu2", 256, 256), ("svdvals", "multicore", 256, 256),
               ("svdvals", "tpu2", 640, 640), ("svdvals", "multicore", 640, 640),
-              ("svd", "tpu2", 2048, 512))
+              ("svd", "tpu2", 2048, 512),
+              # three wavefront lanes past b = 256: the cluster tick's route
+              ("svdvals", "tpu2", 3840, 512), ("svd", "tpu2", 3840, 512))
 # one-sided block Jacobi (phase_jacobi): svd(method="jacobi") at these n,
 # svd_jacobi_pre, svd_jacobi_batch (B, n) and svd_jacobi in float64
 JACOBI_SVD = (1024,)  # 3840 (a 19 s solve) cut to keep the script near 600 s
@@ -533,6 +557,10 @@ def _counters():
             "panel_qr_update": (panel_qr, "launches_update"),
             "panel_qr_merge": (panel_qr, "launches_merge"),
             "band_chase_superstep": (band_chase, "launches_superstep"),
+            "band_chase_cluster": (band_chase, "launches_cluster"),
+            "band_chase_cluster_rec": (band_chase, "launches_cluster_rec"),
+            "band_chase_wave_cluster": (band_chase_wave, "launches_cluster"),
+            "band_chase_wave_cluster_rec": (band_chase_wave, "launches_cluster_rec"),
             # not launches: runs of a plain diagonalizer loop, and dqds runs
             # that ended unconverged and took the bisection
             "plain_diag_loops": (diagonalize, "plain_loops"),
@@ -691,18 +719,21 @@ def chase_entry(n, b, record):
     predicates and, for the sequential chase, ``band_chase.staged_route``."""
     from svdsolver_tpu_torch.ops.cuda import band_chase, band_chase_wave
 
-    if record:
-        if band_chase_wave.wave_chase_accum_preferred(n, b):
-            return "band_chase_wave_rec", band_chase_wave.band_to_bidiagonal_wave_accum
-        fn = band_chase.band_to_bidiagonal_accum
-    else:
-        if band_chase_wave.wave_chase_preferred(n, b):
-            return "band_chase_wave", band_chase_wave.band_to_bidiagonal_wave
-        fn = band_chase.band_to_bidiagonal
-    # the band's shape on the meta device: its address 0 is aligned, as the
-    # main paths' fresh bands are
-    staged = band_chase.staged_route(torch.empty((n, n), device="meta"), b)
-    return ("band_chase_staged" if staged else "band_chase") + ("_rec" if record else ""), fn
+    rec = "_rec" if record else ""
+    meta = torch.empty((n, n), device="meta")  # address 0: aligned, as fresh bands are
+    if band_chase_wave.wave_chase_preferred(n, b):
+        fn = (band_chase_wave.band_to_bidiagonal_wave_accum if record
+              else band_chase_wave.band_to_bidiagonal_wave)
+        if b <= band_chase_wave.NARROW_BAND:
+            return "band_chase_wave" + rec, fn
+        tick = band_chase_wave._tick_of(meta, b, None)
+        return ("band_chase_wave_cluster" + rec if tick == "cluster"
+                else "band_chase_wave" + rec + "_l2"), fn
+    fn = band_chase.band_to_bidiagonal_accum if record else band_chase.band_to_bidiagonal
+    if band_chase.wide_route(n, b) is not None:
+        return "band_chase_cluster" + rec, fn
+    staged = band_chase.staged_route(meta, b)
+    return ("band_chase_staged" if staged else "band_chase") + rec, fn
 
 
 def path_band(n):
@@ -2895,79 +2926,172 @@ def phase_batch():
     return counts_vals, counts_svd
 
 
-def check_wide_chases(rng):
-    """The chases' wide pair at WIDE_CHASE, on the wide K1's Stage I band:
-    the L2 sequential kernel and the wavefront's L2 tick bit-equal to each
-    other, plain ((d, e)) and recording ((d, e) and the four records); the
-    recording (d, e) bit-equal to the plain; each against the plain chase
-    run on the card (spectra against float64 sigma(A), leading |d|); the
-    records rebuilding the band (but at the largest shape, whose rank-1
-    rebuild is slow); each run timed once (CUDA events), and both kernels
-    at WIDE_CHASE_TIME as medians of 3.  Returns ({row: max |sigma_kernel -
-    sigma_plain|}, {(n, b): times})."""
-    from svdsolver_tpu_torch.ops.cuda import band_chase, band_chase_wave, panel_qr
-    from svdsolver_tpu_torch.models import two_stage
+def wide_entries():
+    """The chases' wide entries of check_wide_chases: row name -> (counter,
+    call)."""
+    from svdsolver_tpu_torch.ops.cuda import band_chase as bc, band_chase_wave as bw
 
-    errs = {"band_chase_wide": 0.0, "band_chase_rec_wide": 0.0,
-            "band_chase_wave_wide": 0.0, "band_chase_wave_rec_wide": 0.0}
+    return {
+        "band_chase_wide": ("band_chase", lambda A, b: bc.band_to_bidiagonal_l2(A, band=b)),
+        "band_chase_rec_wide": (
+            "band_chase_rec", lambda A, b: bc.band_to_bidiagonal_accum_l2(A, band=b)),
+        "band_chase_wave_wide": (
+            "band_chase_wave_l2", lambda A, b: bw.band_to_bidiagonal_wave(A, band=b, _tick="l2")),
+        "band_chase_wave_rec_wide": (
+            "band_chase_wave_rec_l2",
+            lambda A, b: bw.band_to_bidiagonal_wave_accum(A, band=b, _tick="l2")),
+        "band_chase_cluster_wide": (
+            "band_chase_cluster", lambda A, b: bc.band_to_bidiagonal(A, band=b)),
+        "band_chase_cluster_rec_wide": (
+            "band_chase_cluster_rec", lambda A, b: bc.band_to_bidiagonal_accum(A, band=b)),
+        "band_chase_wave_cluster_wide": (
+            "band_chase_wave_cluster",
+            lambda A, b: bw.band_to_bidiagonal_wave(A, band=b, _tick="cluster")),
+        "band_chase_wave_cluster_rec_wide": (
+            "band_chase_wave_cluster_rec",
+            lambda A, b: bw.band_to_bidiagonal_wave_accum(A, band=b, _tick="cluster")),
+    }
+
+
+def wide_band(n, b):
+    """(A, its band): the uniform [0, 5) matrix of seed 11 and the wide K1's
+    Stage I band of it, or, where b does not divide n (no Stage I of this
+    n), A's own upper band as both."""
+    from svdsolver_tpu_torch.ops.cuda import panel_qr
+
+    A = uniform_matrix(n, seed=11)
+    if n % b:
+        A = (torch.triu(A) - torch.triu(A, b + 1)).contiguous()
+        return A, A
+    return A, panel_qr.dense_to_band_fused(A, band=b)
+
+
+def check_wide_chases(rng):
+    """The chases' wide pair at WIDE_CHASE, on the wide K1's Stage I band
+    (where n is a multiple of b, else a uniform upper band):
+    the cluster kernels (the sequential cluster kernel, the wavefront's
+    cluster tick) and the L2 kernels (the L2 sequential kernel, the
+    wavefront's L2 tick), plain ((d, e)) and recording ((d, e) and the four
+    records), each launched once and all bit-equal to the L2 kernel; the
+    recording (d, e) bit-equal to the plain; the kernels' (d, e) against
+    float64 sigma(A), and at WIDE_CHASE_PLAIN the plain chase run on the
+    card too (its spectrum, the leading |d| against the kernels'); the
+    records rebuilding the band at WIDE_CHASE_REBUILD; each run timed once
+    (CUDA events), and at WIDE_CHASE_TIME the two cluster kernels once
+    more after them, then the L2 kernel (turns: L2, cluster, cluster, L2).
+    Returns ({row: max |sigma_kernel - sigma_plain|}, {(n, b): times})."""
+    from svdsolver_tpu_torch.models import two_stage
+    from svdsolver_tpu_torch.ops.cuda import band_chase, band_chase_wave
+
+    entries = wide_entries()
+    errs = {name: 0.0 for name in entries}
     times = {}
     for n, b in WIDE_CHASE:
-        A = uniform_matrix(n, seed=11)
-        Ab = panel_qr.dense_to_band_fused(A, band=b)
+        A, Ab = wide_band(n, b)
         reset_counts()
-        (d, e), l2 = _event_ms(lambda: band_chase.band_to_bidiagonal_l2(Ab, band=b))
-        (dw, ew), wv = _event_ms(lambda: band_chase_wave.band_to_bidiagonal_wave(Ab, band=b))
-        rec, l2r = _event_ms(lambda: band_chase.band_to_bidiagonal_accum_l2(Ab, band=b))
-        recw, wvr = _event_ms(lambda: band_chase_wave.band_to_bidiagonal_wave_accum(Ab, band=b))
+        out, tm = {}, {}
+        for name, (_, fn) in entries.items():
+            out[name], tm[name] = _event_ms(lambda: fn(Ab, b))
         c = read_counts()
         lanes = two_stage.wave_lanes(n, b)
         shape = f"n={n} b={b}"
-        require((c["band_chase"], c["band_chase_rec"], c["band_chase_wave_l2"],
-                 c["band_chase_wave_rec_l2"]) == (1, 1, 1, 1),
-                f"wide chases {shape}: one launch of each L2 entry, got {c}")
-        require(torch.equal(d, dw) and torch.equal(e, ew),
-                f"wide chase {shape}: wavefront L2 tick bit-equal to the L2 kernel")
-        require(all(torch.equal(x, y) for x, y in zip(rec, recw)),
-                f"wide recording chase {shape}: wavefront bit-equal to the L2 kernel")
-        require(torch.equal(rec[0], d) and torch.equal(rec[1], e),
+        require(all(c[k] == 1 for k, _ in entries.values()),
+                f"wide chases {shape}: one launch of each entry's kernel, got {c}")
+        want, want_rec = out["band_chase_wide"], out["band_chase_rec_wide"]
+        for name, got in out.items():
+            ref = want_rec if len(got) == 6 else want
+            require(all(torch.equal(x, y) for x, y in zip(got, ref)),
+                    f"wide chase {shape}: {name} bit-equal to the L2 kernel")
+        require(torch.equal(want_rec[0], want[0]) and torch.equal(want_rec[1], want[1]),
                 f"wide recording chase {shape}: (d, e) bit-equal to the plain entry's")
-        say(f"[wide] chase {shape} ({lanes} wavefront lane(s)): L2 kernel and wavefront L2 "
+        say(f"[wide] chase {shape} ({lanes} wavefront lane(s)): the cluster kernel, the "
+            f"cluster tick ({band_chase_wave.last_ctas} CTAs), the L2 kernel and the L2 "
             "tick bit-equal, plain and recording ((d, e) and the four records)")
-        (dp, ep), pl = _event_ms(lambda: band_chase.band_to_bidiagonal_plain(Ab, band=b))
-        _, plr = _event_ms(lambda: band_chase.band_to_bidiagonal_accum_plain(Ab, band=b))
+        d, e = want
         s_a = torch.linalg.svdvals(A.double())
         smax = float(s_a[0])
-        s_k, s_p = bidiag_sigma(d, e), bidiag_sigma(dp, ep)
-        for label, sg in (("kernel", s_k), ("plain", s_p)):
+        s_k = bidiag_sigma(d, e)
+        spectra = [("kernels", s_k)]
+        pl = plr = float("nan")  # the plain chase's times, where it runs
+        if (n, b) in WIDE_CHASE_PLAIN:
+            (dp, ep), pl = _event_ms(lambda: band_chase.band_to_bidiagonal_plain(Ab, band=b))
+            if (n, b) == WIDE_CHASE_TIME:  # its recording entry at the rows' shape only
+                _, plr = _event_ms(lambda: band_chase.band_to_bidiagonal_accum_plain(Ab, band=b))
+            s_p = bidiag_sigma(dp, ep)
+            spectra.append(("plain", s_p))
+            lead = float(((d.abs() - dp.abs())[:8].abs() / dp.abs()[:8]).max())
+            say(f"[wide] chase {shape} |d|[:8] rel diff kernels vs plain: {lead:.3e}")
+            require(lead <= 1e-4, f"wide chase {shape}: leading |d| vs plain")
+            err = float((s_k - s_p).abs().max())
+            for k in errs:
+                errs[k] = max(errs[k], err)
+        for label, sg in spectra:
             err = float((sg - s_a).abs().max())
             say(f"[wide] chase {shape} {label} spectrum vs float64 sigma(A): "
                 f"{err / smax:.3e} * sigma_max")
             require(err <= TOL_SIGMA * smax, f"wide chase {shape} {label} spectrum")
-        lead = float(((d.abs() - dp.abs())[:8].abs() / dp.abs()[:8]).max())
-        say(f"[wide] chase {shape} |d|[:8] rel diff kernel vs plain: {lead:.3e}")
-        require(lead <= 1e-4, f"wide chase {shape}: leading |d| vs plain")
-        err = float((s_k - s_p).abs().max())
-        for k in errs:
-            errs[k] = max(errs[k], err)
-        if (n, b) != WIDE_CHASE_TIME:
-            check_records(f"wide kernel {shape}", Ab, b, rec)
-        del rec, recw
-        times[n, b] = {"l2": l2, "wave": wv, "l2_rec": l2r, "wave_rec": wvr, "plain": pl,
-                       "plain_rec": plr}
-        if (n, b) == WIDE_CHASE_TIME:
-            times[n, b].update({
-                "l2": cuda_ms(lambda: band_chase.band_to_bidiagonal_l2(Ab, band=b), reps=3),
-                "wave": cuda_ms(lambda: band_chase_wave.band_to_bidiagonal_wave(Ab, band=b),
-                                reps=3)})
-        tm = times[n, b]
+        if (n, b) in WIDE_CHASE_REBUILD:
+            check_records(f"wide kernels {shape}", Ab, b, want_rec)
+        del out, want, want_rec
+        tm.update({"plain": pl, "plain_rec": plr, "lanes": lanes})
+        again = ""
+        if (n, b) == WIDE_CHASE_TIME:  # turns: L2 and cluster (above), cluster, L2
+            for name in ("band_chase_cluster_wide", "band_chase_wave_cluster_wide"):
+                _, t = _event_ms(lambda: entries[name][1](Ab, b))
+                again += f", {name} again {t:.3f}"
+                tm[name] = min(tm[name], t)
+            _, t = _event_ms(lambda: entries["band_chase_wide"][1](Ab, b))
+            again += f", band_chase_wide again {t:.3f}"
+        times[n, b] = tm
         bnd, bnd_r = bound(*work_chase(n, b, False)), bound(*work_chase(n, b, True))
-        say(f"[wide] chase {shape}: L2 kernel {tm['l2']:.3f} ms, wavefront L2 tick "
-            f"{tm['wave']:.3f} ms, recording {l2r:.3f} / {wvr:.3f} ms; plain {pl:.1f} / "
-            f"{plr:.1f} ms (one run each{'' if (n, b) != WIDE_CHASE_TIME else '; the L2 kernel '
-            'and the wavefront medians of 3'}); bound {bnd[0]:.4f} ({bnd[1]}) / {bnd_r[0]:.4f} ms")
+        say(f"[wide] chase {shape}: cluster kernel {tm['band_chase_cluster_wide']:.3f} ms, "
+            f"cluster tick {tm['band_chase_wave_cluster_wide']:.3f}, L2 kernel "
+            f"{tm['band_chase_wide']:.3f}, L2 tick {tm['band_chase_wave_wide']:.3f}; recording "
+            f"{tm['band_chase_cluster_rec_wide']:.3f} / {tm['band_chase_wave_cluster_rec_wide']:.3f}"
+            f" / {tm['band_chase_rec_wide']:.3f} / {tm['band_chase_wave_rec_wide']:.3f} ms; plain "
+            f"{pl:.1f} / {plr:.1f} ms (one run each"
+            + ("" if not again else f"; the cluster kernels the lesser of two runs{again}")
+            + f"); bound {bnd[0]:.4f} ({bnd[1]}) / {bnd_r[0]:.4f} ms")
         del A, Ab
         torch.cuda.empty_cache()
+    times["route"] = time_wide_route()
     return errs, times
+
+
+def time_wide_route():
+    """The main path's three lanes past 2048 (WIDE_ROUTE): the sequential
+    cluster kernel and the cluster tick in turns, plain then recording,
+    one run each and bit-equal ((d, e) and the four records), with no L2
+    kernel and no plain run.  Returns {(n, b): {...}}."""
+    from svdsolver_tpu_torch.models import two_stage
+    from svdsolver_tpu_torch.ops.cuda import band_chase_wave
+
+    entries = wide_entries()
+    k1, k1r = entries["band_chase_cluster_wide"][1], entries["band_chase_cluster_rec_wide"][1]
+    k2, k2r = (entries["band_chase_wave_cluster_wide"][1],
+               entries["band_chase_wave_cluster_rec_wide"][1])
+    out = {}
+    for n, b in WIDE_ROUTE:
+        _, Ab = wide_band(n, b)
+        lanes = two_stage.wave_lanes(n, b)
+        (d1, e1), t1 = _event_ms(lambda: k1(Ab, b))
+        (d2, e2), t2 = _event_ms(lambda: k2(Ab, b))
+        r1, t1r = _event_ms(lambda: k1r(Ab, b))
+        r2, t2r = _event_ms(lambda: k2r(Ab, b))
+        require(torch.equal(d1, d2) and torch.equal(e1, e2)
+                and all(torch.equal(x, y) for x, y in zip(r1, r2)),
+                f"wide route n={n} b={b}: the cluster tick bit-equal to the cluster kernel")
+        del r1, r2
+        routed = "wavefront" if band_chase_wave.wave_chase_preferred(n, b) else "sequential"
+        out[n, b] = {"lanes": lanes, "band_chase_cluster_wide": t1,
+                     "band_chase_wave_cluster_wide": t2, "band_chase_cluster_rec_wide": t1r,
+                     "band_chase_wave_cluster_rec_wide": t2r, "routed": routed}
+        say(f"[route] wide n={n} b={b} ({lanes} lane(s)): cluster kernel {t1:.3f} ms, cluster "
+            f"tick {t2:.3f} ms (in turns, bit-equal); recording {t1r:.3f} / {t2r:.3f} ms; "
+            f"routed: {routed}")
+        del Ab
+        torch.cuda.empty_cache()
+    return out
 
 
 def stage1_split(fn):
@@ -3461,16 +3585,12 @@ def phase_wide(rng):
         if method == "multicore" and n > b:  # the wide route's apply
             key = "tiled_wide_apply" if b <= 512 else "tiled_wide_apply_cols"
             require(c[key] == stage1, f"{label}: the apply {key}, got {fired}")
-        chase = sum(c[k] for k in ("band_chase", "band_chase_rec", "band_chase_wave_l2",
-                                   "band_chase_wave_rec_l2", "band_chase_staged",
-                                   "band_chase_staged_rec", "band_chase_wave",
-                                   "band_chase_wave_rec"))
+        chase = sum(c[k] for k in CHASES)
         require(chase == 1, f"{label}: one chase launch, got {fired}")
-        if b > band_chase_wave.NARROW_BAND and n > b:
-            lanes = band_chase_wave.wave_chase_preferred(n, b)
-            key = ("band_chase_wave" if lanes else "band_chase") + (
-                "_rec" if entry == "svd" else "") + ("_l2" if lanes else "")
-            require(c[key] == 1, f"{label}: the wide pair on the routed chase {key}")
+        if b > band_chase_wave.NARROW_BAND:  # the cluster kernels, as the route decides
+            key = chase_entry(-(-n // b) * b, b, entry == "svd")[0]  # n padded to b
+            require(key.endswith(("cluster", "cluster_rec")) and c[key] == 1,
+                    f"{label}: the wide pair on the routed cluster kernel {key}, got {fired}")
         if method == "multicore" and b > 168:
             require(tiled_slab.tiled_route(n, b, tiled_slab._sms(A.device)) == "wide",
                     f"{label}: the wide tiled route")
@@ -4364,9 +4484,40 @@ def parallel_rows(row):
              "tpu": [], "library_ms": None, **row}]
 
 
-def wide_rows(errs, times, counts):
+def wide_schedule_ms(n, b, ctas, rate, wave):
+    """The wide pair's schedule bound (ms): the bytes each pair moves (its
+    right and its left window, work_chase's windows, each read and written
+    once) over ``ctas`` CTAs' copy rate (``ctas`` x one CTA's window copy
+    rate ``rate``, bytes a ms), summed over the critical path's pairs: every
+    pair in order on the sequential kernels, each tick's largest pair on
+    the wavefront's."""
+    from svdsolver_tpu_torch.ops.chase_schedule import nc_of_static
+
+    def moved(r0, c0, wr, lr0):
+        if c0 >= n:
+            return 0
+        rl = r0 + lr0
+        return 8 * (min(wr, n - r0) * min(b, n - c0)
+                    + max(min(b, n - rl), 0) * min(2 * b, n - c0))
+
+    most = {}
+    total = 0
+    for i in range(n - 1):
+        pairs = [(0, (i, i + 1, b + 1, 1))] + [
+            (k + 1, (i + 1 + k * b, i + 1 + (k + 1) * b, 2 * b, b))
+            for k in range(nc_of_static(i, n, b))]
+        for s_, win in pairs:
+            x = moved(*win)
+            total += x
+            t = 3 * i + s_
+            most[t] = max(most.get(t, 0), x)
+    return (sum(most.values()) if wave else total) / (ctas * rate)
+
+
+def wide_rows(errs, times, counts, rate):
     """The kernel line's rows of the wide instances: launches from
-    phase_wide's entry runs."""
+    phase_wide's entry runs; the chases' schedule bounds over ``rate``,
+    one CTA's window copy rate (bytes a ms, phase_tick_times)."""
     src = "svdsolver_tpu_torch/csrc/{}.cu"
     total = {k: sum(c[k] for c in counts.values()) for k in next(iter(counts.values()))}
     rows = []
@@ -4396,30 +4547,48 @@ def wide_rows(errs, times, counts):
             "plain_ms": tm["plain_ms"], "bound_ms": tm["bound"][0],
             "bound_by": tm["bound"][1], "library_ms": tm["library_ms"],
             "shape": tm["shape"]})
-    for name, key, record, kernel, tpu, repl in (
-            ("band_chase_wide", "l2", False, "band_chase", ["K3", "K5"],
-             "svdsolver_tpu/ops/pallas/band_chase.py:331 + band_chase_stream.py:118"),
-            ("band_chase_rec_wide", "l2_rec", True, "band_chase", ["K6", "K8"],
-             "svdsolver_tpu/ops/pallas/band_chase.py:191 + band_chase_stream.py:118 (rec=True)"),
-            ("band_chase_wave_wide", "wave", False, "band_chase_wave", ["K4", "K13"],
-             "svdsolver_tpu/ops/pallas/band_chase.py:676 + band_chase_wave.py:687"),
-            ("band_chase_wave_rec_wide", "wave_rec", True, "band_chase_wave", ["K7"],
-             "svdsolver_tpu/ops/pallas/band_chase_wave.py:959")):
-        n, bw = WIDE_CHASE_TIME
-        tm = times["chase"][n, bw]
+    n, bw = WIDE_CHASE_TIME
+    tm = times["chase"][n, bw]
+    entries = wide_entries()
+    seq = ("svdsolver_tpu/ops/pallas/band_chase.py:331 + band_chase_stream.py:118",
+           "svdsolver_tpu/ops/pallas/band_chase.py:191 + band_chase_stream.py:118 (rec=True)")
+    wave = ("svdsolver_tpu/ops/pallas/band_chase.py:676 + band_chase_wave.py:687",
+            "svdsolver_tpu/ops/pallas/band_chase_wave.py:959")
+    for name, kernel, tpu, repl, ctas, wavefront in (
+            ("band_chase_wide", "band_chase", ["K3", "K5"], seq[0], 1, False),
+            ("band_chase_rec_wide", "band_chase", ["K6", "K8"], seq[1], 1, False),
+            ("band_chase_wave_wide", "band_chase_wave", ["K4", "K13"], wave[0], 1, True),
+            ("band_chase_wave_rec_wide", "band_chase_wave", ["K7"], wave[1], 1, True),
+            ("band_chase_cluster_wide", "band_chase_cluster", ["K3", "K5"], seq[0], 16, False),
+            ("band_chase_cluster_rec_wide", "band_chase_cluster", ["K6", "K8"], seq[1], 16,
+             False),
+            ("band_chase_wave_cluster_wide", "band_chase_cluster", ["K4", "K13"], wave[0], 16,
+             True),
+            ("band_chase_wave_cluster_rec_wide", "band_chase_cluster", ["K7"], wave[1], 16,
+             True)):
+        record = "_rec" in name
         bnd = bound(*work_chase(n, bw, record))
-        count = {"band_chase_wide": "band_chase", "band_chase_rec_wide": "band_chase_rec",
-                 "band_chase_wave_wide": "band_chase_wave_l2",
-                 "band_chase_wave_rec_wide": "band_chase_wave_rec_l2"}[name]
+        count = entries[name][0]
+        cluster = ctas > 1
         rows.append({
             "name": name, "route": "cuda", "source": src.format(kernel), "replaces": repl,
             "tpu": tpu, "launches": sum(c[count] for lbl, c in counts.items()
                                         if int(lbl.split("block=")[1]) > 256),
-            "max_abs_err": errs[name], "ms": tm[key],
+            "max_abs_err": errs[name], "ms": tm[name],
             "plain_ms": tm["plain_rec" if record else "plain"], "bound_ms": bnd[0],
             "bound_by": bnd[1], "library_ms": None, "shape": f"n={n} b={bw}",
-            "instance": "the wide pair of chase_pair.cuh (b > 256)",
-            "designs_ms": {f"n={n_} b={b_}": v for (n_, b_), v in times["chase"].items()}})
+            "schedule_bound_ms": wide_schedule_ms(n, bw, ctas, rate, wavefront),
+            "instance": ("the wide pair split over one thread-block cluster of 16 CTAs "
+                         "(chase_cluster.cuh)" + (", a cluster a work unit" if wavefront else "")
+                         if cluster else "the wide pair of chase_pair.cuh on one CTA: kept, the "
+                         "bitwise oracle and the route past the cluster plan"),
+            "designs_ms": {f"n={k[0]} b={k[1]}": v[name] for k, v in times["chase"].items()
+                           if k != "route"}})
+        if cluster:
+            by_shape = {k: v for k, v in times["chase"].items() if k != "route"}
+            by_shape.update(times["chase"]["route"])
+            rows[-1]["route_table_ms"] = {f"n={n_} b={b_} lanes={v['lanes']}": v[name]
+                                          for (n_, b_), v in by_shape.items()}
     n, t = WIDE_TILED[1]
     tm = times["tiled"][n, t]
     by_shape = {f"n={n_} t={t_}": v for (n_, t_), v in times["tiled"].items()}
@@ -4882,7 +5051,7 @@ def main():
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     rows = kernel_table(errs, counts_vals, counts_svd, kt, lib, variants, route, k1, ticks,
                         designs, staged) + diag_rows(diag, counts_diag) + slab_rows
-    rows += wide_rows(wide_errs, wide_times, wide_counts) + parallel_rows(par_row)
+    rows += wide_rows(wide_errs, wide_times, wide_counts, ticks[2]) + parallel_rows(par_row)
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

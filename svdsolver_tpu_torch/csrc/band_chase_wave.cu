@@ -36,8 +36,9 @@
 // tick is the head pair (ticks t % 3 == 0), units 1..L the chase lanes
 // (lane l holds sweep q - l, q = floor((t - 1) / 3)); CTA g runs units g,
 // g + G, ..., so a shape with more lanes than co-resident CTAs still runs.
-// After each tick a grid barrier (an atomic arrival counter, thread 0 of each
-// CTA spinning on an acquire load) orders the ticks.  A window rewritten by
+// After each tick a grid barrier (grid_sync.cuh: an atomic arrival counter,
+// thread 0 of each CTA spinning on an acquire load; ~10 s of spinning
+// traps) orders the ticks.  A window rewritten by
 // one CTA is read by another after the barrier, so the matrix is read and
 // written through L2 only (DenseL2At): no SM can hold a stale L1 line of it.
 //
@@ -116,30 +117,11 @@
 
 #include "chase_pair.cuh"
 #include "chase_tma.cuh"
+#include "grid_sync.cuh"
 
 namespace {
 
 using namespace svdt;
-
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned x;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(x) : "l"(p) : "memory");
-  return x;
-}
-
-// Grid barrier number k (target = (k + 1) * gridDim.x): every CTA's writes
-// before it are seen by every CTA after it.
-__device__ __forceinline__ void grid_sync(unsigned* ctr, unsigned target) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(ctr, 1u);
-    while (ld_acquire(ctr) < target) {
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
 
 // The pending left (vp, fcol = tau_p * column sums) and the right reflector
 // (v, tau; tau == 0: none) of a deferred-left lane, applied in one pass:

@@ -25,7 +25,12 @@ shared-memory tick copies each pair's window into shared memory by TMA and
 keeps a lane's shared tile (and, deferring the left applies, its pending
 reflector) for its next slot (:func:`smem_tick_takes`: every band of the
 main paths, b <= 128), the L2 tick runs the pair on the matrix through L2
-(wider bands, other shapes).  Each tick counts its own launches; the plain
+(wider bands, other shapes).  Past b = 256, wherever ``band_chase.
+wide_route`` takes the band, a third tick runs the schedule with one
+thread-block cluster a work unit (``csrc/band_chase_cluster.cu``,
+``svdt_band_chase_wave_cluster`` and ``_cluster_rec``: each pair the wide
+pair split over the cluster's CTAs, bit-equal to the L2 tick, which stays
+as its oracle and as the route past the plan).  Each tick counts its own launches; the plain
 version of the shared-memory tick is ``two_stage.
 band_to_bidiagonal_wavefront_tiles`` (tiles copied in and out as the
 kernel copies them; ``defer_left`` for the deferred-left entry's).  The
@@ -45,15 +50,17 @@ from svdsolver_tpu_torch.ops.chase_schedule import s_max_of
 from svdsolver_tpu_torch.ops.cuda import _build
 
 # Launches since the last reset, by entry and tick: the shared-memory tick
-# (b <= 128) and the L2 tick (wider bands, other shapes).
+# (b <= 128), the cluster tick (b > 256) and the L2 tick (other shapes).
 launches = 0  # band_to_bidiagonal_wave, shared-memory tick
 launches_l2 = 0  # band_to_bidiagonal_wave, L2 tick
 launches_rec = 0  # band_to_bidiagonal_wave_accum, shared-memory tick
 launches_rec_l2 = 0  # band_to_bidiagonal_wave_accum, L2 tick
 launches_dl = 0  # band_to_bidiagonal_wave_dl, shared-memory tick
 launches_dl_l2 = 0  # band_to_bidiagonal_wave_dl, L2 tick
-last_ctas = 0  # CTAs of the last launch (lanes stride over them)
-last_tick = ""  # "smem" or "l2": the tick of the last launch
+launches_cluster = 0  # band_to_bidiagonal_wave, cluster tick
+launches_cluster_rec = 0  # band_to_bidiagonal_wave_accum, cluster tick
+last_ctas = 0  # CTAs of the last launch (lanes stride over them, or over clusters)
+last_tick = ""  # "smem", "cluster" or "l2": the tick of the last launch
 
 NARROW_BAND = 256  # the narrow chase pair's 2b window columns on 512 threads
 # the wide pair (bands past NARROW_BAND): v in dynamic shared memory, beside
@@ -108,15 +115,22 @@ def smem_tick_takes(A, band):
     return tma_shape_takes(A.shape[0], band) and A.data_ptr() % 16 == 0
 
 
-def _tick_of(A, b, tick):
-    """The tick a launch takes: the shared-memory one where it can, or the
-    one ``tick`` names ("smem" raises where it cannot)."""
-    if tick not in (None, "smem", "l2"):
-        raise ValueError(f"_tick must be None, 'smem' or 'l2', got {tick!r}")
+def _tick_of(A, b, tick, defer_left=False):
+    """The tick a launch takes: the shared-memory one where it can, the
+    cluster one past b = 256 where its plan takes the band, else the L2
+    tick; or the one ``tick`` names ("smem" and "cluster" raise where they
+    cannot)."""
+    if tick not in (None, "smem", "l2", "cluster"):
+        raise ValueError(f"_tick must be None, 'smem', 'l2' or 'cluster', got {tick!r}")
     takes = smem_tick_takes(A, b)
     if tick == "smem" and not takes:
         raise ValueError(f"the shared-memory tick does not take n={A.shape[0]}, band={b}")
-    return tick or ("smem" if takes else "l2")
+    from svdsolver_tpu_torch.ops.cuda import band_chase
+
+    cluster = not defer_left and band_chase.wide_route(A.shape[0], b) is not None
+    if tick == "cluster" and not cluster:
+        raise ValueError(f"the cluster tick does not take n={A.shape[0]}, band={b}")
+    return tick or ("smem" if takes else "cluster" if cluster else "l2")
 
 
 def band_to_bidiagonal_wave_plain(A, band=128):
@@ -162,7 +176,7 @@ def check_band(A, b, defer_left=False):
 
 def _plain(A, b, record, ctas, tick, defer_left=False):
     """A CPU tensor: the plain version of the tick the card would take."""
-    if _tick_of(A, b, tick) == "l2":
+    if _tick_of(A, b, tick, defer_left) != "smem":
         return (band_to_bidiagonal_wave_accum_plain if record
                 else band_to_bidiagonal_wave_dl_plain if defer_left
                 else band_to_bidiagonal_wave_plain)(A, band=b)
@@ -172,8 +186,45 @@ def _plain(A, b, record, ctas, tick, defer_left=False):
                                                defer_left=defer_left)
 
 
+def _launch_cluster(A, b, ctas, record):
+    """One launch of the cluster tick on a copy of the CUDA ``A``: at most
+    ``ctas`` // C clusters (all that are co-resident, at most one a unit,
+    where None) of the plan's C CTAs."""
+    global last_ctas, last_tick
+    from svdsolver_tpu_torch.ops.cuda import band_chase
+
+    n = A.shape[0]
+    plan = band_chase.wide_route(n, b)
+    if plan is None:
+        raise ValueError(f"the cluster tick does not take n={n}, band={b}")
+    cap = 0 if ctas is None else max(1, int(ctas) // plan.ctas)
+    work = A.clone()
+    d = torch.empty((n,), dtype=A.dtype, device=A.device)
+    e = torch.empty((n - 1,), dtype=A.dtype, device=A.device)
+    ctr = torch.zeros((1,), dtype=torch.int32, device=A.device)  # grid barrier
+    got = ctypes.c_int(0)
+    args = [work.data_ptr(), d.data_ptr(), e.data_ptr(), n, b]
+    recs = []
+    if record:
+        recs, s_max = band_chase._records(n, b, A)
+        args += [t.data_ptr() for t in recs] + [s_max]
+    kernel = "band_chase_wave_cluster" + ("_rec" if record else "")
+    with torch.cuda.device(A.device):
+        lib = _build.load("band_chase_cluster", band_chase._CLUSTER_ENTRIES)
+        band_chase.check_resident(lib, plan, True, record)
+        err = getattr(lib, f"svdt_{kernel}")(
+            *args, ctr.data_ptr(), *band_chase.plan_args(plan), cap, ctypes.addressof(got),
+            _build.stream_of(A))
+    _build.raise_on_error(err, kernel)
+    last_ctas = got.value * plan.ctas
+    last_tick = "cluster"
+    return (d, e, *recs)
+
+
 def _launch(A, b, defer_left, ctas, record=False, tick="l2", smem=None):
     global last_ctas, last_tick
+    if tick == "cluster":
+        return _launch_cluster(A, b, ctas, record)
     n = A.shape[0]
     work = A.clone()
     d = torch.empty((n,), dtype=A.dtype, device=A.device)
@@ -235,16 +286,18 @@ def band_to_bidiagonal_wave(A, band=128, _ctas=None, _tick=None, _smem=None):
 
     A CUDA tensor must be contiguous float32 with a band
     :func:`band_range` takes (any band up to 256, and up to n past it,
-    where the L2 tick runs the wide pair); it launches the kernel on a
-    copy of ``A`` over as many CTAs as lanes, or as
-    fit on the card at once (``_ctas`` caps them; lanes stride over CTAs).
-    Where :func:`smem_tick_takes` holds (every band of the main paths) the
-    kernel runs the shared-memory tick, else the L2 tick; ``_tick`` ("smem"
-    or "l2") forces one, ``_smem`` sets the shared-memory tick's dynamic
-    shared memory a CTA (bytes).  A failed launch raises.  A CPU tensor runs
-    the plain version of the tick the card would take.
+    where the cluster tick or the L2 tick runs the wide pair); it launches
+    the kernel on a copy of ``A`` over as many CTAs (clusters, on the
+    cluster tick) as work units, or as fit on the card at once (``_ctas``
+    caps the CTAs; units stride over them).  Where :func:`smem_tick_takes`
+    holds (every band of the main paths) the kernel runs the shared-memory
+    tick; past b = 256 the cluster tick where ``band_chase.wide_route``
+    takes the band; else the L2 tick.  ``_tick`` ("smem", "cluster" or
+    "l2") forces one, ``_smem`` sets the shared-memory tick's dynamic
+    shared memory a CTA (bytes).  A failed launch raises.  A CPU tensor
+    runs the plain version of the tick the card would take.
     """
-    global launches, launches_l2
+    global launches, launches_l2, launches_cluster
     b = int(band)
     n = check_band(A, b)
     if not _build.check_input(A, "A", 2):
@@ -255,6 +308,8 @@ def band_to_bidiagonal_wave(A, band=128, _ctas=None, _tick=None, _smem=None):
     out = _launch(A, b, False, _ctas, tick=tick, smem=_smem)
     if tick == "smem":
         launches += 1
+    elif tick == "cluster":
+        launches_cluster += 1
     else:
         launches_l2 += 1
     return out
@@ -278,7 +333,7 @@ def band_to_bidiagonal_wave_dl(A, band=128, _ctas=None, _tick=None):
         return _plain(A, b, False, _ctas, _tick, defer_left=True)
     if n < 2:
         return torch.abs(torch.diagonal(A)), A.new_zeros((0,))
-    tick = _tick_of(A, b, _tick)
+    tick = _tick_of(A, b, _tick, defer_left=True)
     out = _launch(A, b, True, _ctas, tick=tick)
     if tick == "smem":
         launches_dl += 1
@@ -298,7 +353,7 @@ def band_to_bidiagonal_wave_accum(A, band=128, _ctas=None, _tick=None, _smem=Non
     (record=True)`` or its tile twin, whose records keep ``v = e_0`` for
     identity reflectors, as the plain sequential chase's do).
     """
-    global launches_rec, launches_rec_l2
+    global launches_rec, launches_rec_l2, launches_cluster_rec
     b = int(band)
     n = check_band(A, b)
     if not _build.check_input(A, "A", 2):
@@ -311,6 +366,8 @@ def band_to_bidiagonal_wave_accum(A, band=128, _ctas=None, _tick=None, _smem=Non
     out = _launch(A, b, False, _ctas, record=True, tick=tick, smem=_smem)
     if tick == "smem":
         launches_rec += 1
+    elif tick == "cluster":
+        launches_cluster_rec += 1
     else:
         launches_rec_l2 += 1
     return out
@@ -339,9 +396,12 @@ def wave_lanes_needed(n, band):
     ``band``, by shape.  Where both run their copy-engine designs
     (:func:`tma_shape_takes`): four lanes up to ``band = 64``, three at
     ``band = 128``, and two between, where the sequential design runs its
-    run-time-band instance of four columns a thread; elsewhere both run
-    through L2, and two lanes, as measured against the L2 sequential
-    kernel (one lane at 256 / 64: 3.060 against 4.621 ms).
+    run-time-band instance of four columns a thread; elsewhere two lanes:
+    where both run through L2, as measured against the L2 sequential
+    kernel (one lane at 256 / 64: 3.060 against 4.621 ms), and past
+    ``band = 256``, where ``band_chase.wide_route`` takes the band and
+    both run on thread-block clusters (the sequential cluster kernel
+    against the cluster tick: the wide table below).
 
     Measured on one NVIDIA H100 80GB HBM3 at 700.00 W, all rows in one run
     (``chip_smoke.py``, ``phase_route_times``: Stage I bands of a uniform
@@ -391,6 +451,28 @@ def wave_lanes_needed(n, band):
     read the other way) and 480 / 96 (two lanes; 8 %).  At 640 / 64 the
     two tie within the spread between runs (the recording entries 1.4 %
     apart here), as do 80 / 8 and 160 / 16 at three lanes.
+
+    The wide table: the sequential cluster kernel and the cluster tick
+    (``csrc/band_chase_cluster.cu``, 16 CTAs a cluster) in turns on a
+    uniform band, one run each, ms (``tools/chase_cluster_split.py
+    --lanes``; NVIDIA H100 80GB HBM3 at 700.00 W).  The tick ran slower
+    on 4 and 8 CTAs a cluster at every row (at 6144 / 512: 1159.127 and
+    693.609 ms):
+
+    ===========  =====  ==============  ============  ===========  =========  ==========
+    n / band     lanes  cluster kernel  cluster tick  kernel rec.  tick rec.  routed
+    ===========  =====  ==============  ============  ===========  =========  ==========
+    2048 / 512   1      96.831          95.713        106.615      98.793     sequential
+    1440 / 288   2      54.389          50.644        57.439       51.447     wavefront
+    3840 / 512   3      340.319         233.046       349.940      235.793    wavefront
+    6144 / 512   4      872.045         417.648       894.048      419.512    wavefront
+    ===========  =====  ==============  ============  ===========  =========  ==========
+
+    One lane is a near tie at 2048 / 512 (the tick 1 % ahead) and the
+    sequential kernel's elsewhere: 24.376 against 26.286 ms at 900 / 257,
+    9.374 against 11.751 at 640 / 640 (``chip_smoke.py``,
+    ``check_wide_chases``, the same call's build); so the wide bands keep
+    the rule of two lanes.
     """
     b = int(band)
     if not tma_shape_takes(n, b):

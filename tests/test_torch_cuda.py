@@ -1066,7 +1066,7 @@ def test_wide_chases_bit_equal_to_each_other(dev, n, b):
     A = _uniform_on(dev, n, seed=2)
     Ab = panel_qr.dense_to_band_fused(A, band=b)
     seq = band_chase.band_to_bidiagonal_accum_l2(Ab, band=b)
-    wave = band_chase_wave.band_to_bidiagonal_wave_accum(Ab, band=b)
+    wave = band_chase_wave.band_to_bidiagonal_wave_accum(Ab, band=b, _tick="l2")
     assert band_chase_wave.last_tick == "l2"
     for x, y in zip(seq, wave):
         assert torch.equal(x, y)
@@ -1075,6 +1075,65 @@ def test_wide_chases_bit_equal_to_each_other(dev, n, b):
     B = torch.diag(d.double()) + torch.diag(e.double(), 1)
     want = torch.linalg.svdvals(A.double())
     assert float((torch.linalg.svdvals(B) - want).abs().max()) <= 1e-5 * float(want[0])
+
+
+def _cluster_counts():
+    return (band_chase.launches_cluster, band_chase.launches_cluster_rec,
+            band_chase_wave.launches_cluster, band_chase_wave.launches_cluster_rec)
+
+
+@pytest.mark.parametrize("n,b", [(1152, 384), (2048, 512), (1440, 288), (900, 257),
+                                 (640, 640)])
+def test_cluster_chases_bit_equal_to_the_l2_kernel(dev, n, b):
+    # past b = 256 the cluster kernels (the sequential chase on one
+    # cluster, the wavefront's cluster tick), plain and recording,
+    # torch.equal to the L2 kernel: (d, e) and the four records; one and
+    # two wavefront lanes, and b = n; the spectrum against float64
+    A = _uniform_on(dev, n, seed=3)
+    if n % b:  # no Stage I of this n: the upper band of A itself
+        A = (A.triu() - A.triu(b + 1)).contiguous()
+    Ab = panel_qr.dense_to_band_fused(A, band=b) if n % b == 0 else A
+    want = band_chase.band_to_bidiagonal_accum_l2(Ab, band=b)
+    before = _cluster_counts()
+    got = {"sequential": band_chase.band_to_bidiagonal(Ab, band=b),
+           "sequential rec": band_chase.band_to_bidiagonal_accum(Ab, band=b),
+           "wavefront": band_chase_wave.band_to_bidiagonal_wave(Ab, band=b, _tick="cluster"),
+           "wavefront rec": band_chase_wave.band_to_bidiagonal_wave_accum(
+               Ab, band=b, _tick="cluster")}
+    assert band_chase_wave.last_tick == "cluster"
+    assert tuple(x - y for x, y in zip(_cluster_counts(), before)) == (1, 1, 1, 1)
+    for name, out in got.items():
+        assert len(out) == (6 if name.endswith("rec") else 2)
+        for x, y in zip(out, want):
+            assert torch.equal(x, y), name
+    d, e = want[:2]
+    B = torch.diag(d.double()) + torch.diag(e.double(), 1)
+    ref = torch.linalg.svdvals(A.double())
+    assert float((torch.linalg.svdvals(B) - ref).abs().max()) <= 1e-5 * float(ref[0])
+
+
+def test_cluster_tick_at_three_lanes_bit_equal_to_the_cluster_kernel(dev):
+    # 4096/b512 (3840 padded to the band): three lanes, where the main
+    # paths take the cluster tick
+    n, b = 4096, 512
+    Ab = panel_qr.dense_to_band_fused(_uniform_on(dev, n, seed=4), band=b)
+    assert band_chase_wave.wave_chase_preferred(n, b)
+    seq = band_chase.band_to_bidiagonal_accum(Ab, band=b)
+    wave = band_chase_wave.band_to_bidiagonal_wave_accum(Ab, band=b)
+    assert band_chase_wave.last_tick == "cluster" and band_chase_wave.last_ctas == 4 * 16
+    for x, y in zip(seq, wave):
+        assert torch.equal(x, y)
+
+
+def test_cluster_kernels_refuse_what_their_plan_does_not_take(dev, monkeypatch):
+    Ab = _uniform_on(dev, 640).triu()
+    with pytest.raises(ValueError, match="cluster tick does not take"):
+        band_chase_wave.band_to_bidiagonal_wave(Ab, band=256, _tick="cluster")
+    with monkeypatch.context() as m:  # one CTA cannot hold 640 columns
+        m.setattr(band_chase, "CLUSTER_MAX_CTAS", 1)
+        with pytest.raises(ValueError, match="cluster tick does not take"):
+            band_chase_wave.band_to_bidiagonal_wave(Ab, band=320, _tick="cluster")
+    assert band_chase.wide_route(640, 256) is None
 
 
 @pytest.mark.parametrize("n,t", [(640, 160), (512, 64)])

@@ -13,6 +13,9 @@ card tests).  The plans of the narrow instances (b <= 256, t <= 168) are
 held to their earlier values: those widths keep their kernels and bits.
 """
 
+import contextlib
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -138,6 +141,11 @@ def launched(monkeypatch):
         calls.append(("band_chase_staged" if K else "band_chase", b, record))
         return _stand_in(A, b, record)
 
+    def chase_cluster(A, b, plan, record):
+        calls.append(("band_chase_cluster", b, record))
+        assert plan == band_chase.wide_chase_plan(A.shape[0], b)
+        return _stand_in(A, b, record)
+
     def wave(A, b, defer_left, ctas, record=False, tick="l2", smem=None):
         calls.append(("band_chase_wave", b, (record, tick)))
         return _stand_in(A, b, record)
@@ -168,6 +176,7 @@ def launched(monkeypatch):
     monkeypatch.setattr(panel_qr, "_launch_sum", add)
     monkeypatch.setattr(panel_qr, "_streams", lambda device: (StandIn(), StandIn()))
     monkeypatch.setattr(band_chase, "_launch", chase)
+    monkeypatch.setattr(band_chase, "_launch_cluster", chase_cluster)
     monkeypatch.setattr(band_chase_wave, "_launch", wave)
     monkeypatch.setattr(tiled_slab, "_launch_wide_cluster", wide_cluster)
     monkeypatch.setattr(tiled_slab, "_launch_wide_dev", wide_dev)
@@ -242,18 +251,23 @@ def test_tpu2_reaches_k1_and_the_chase_at_every_width(launched, b):
         assert k1 and all(c[1] == b for c in k1)
         assert all(c[2] == max(1, 1 << (1024 // b).bit_length() - 1) for c in k1)
         assert not [c for c in launched if c[0] in ("panel_gemm", "panel_sum")]
-    # two lanes wanted where the copy engine does not take the band: the
-    # sequential chase's L2 kernel (its wide pair past 256)
-    assert chases == [("band_chase", b, False)]
+    # more lanes wanted than the band has: the sequential chase, on the L2
+    # kernel up to 256 (the copy engine does not take the band) and on the
+    # cluster kernel past it
+    want = "band_chase_cluster" if b > band_chase_wave.NARROW_BAND else "band_chase"
+    assert chases == [(want, b, False)]
 
 
 @pytest.mark.parametrize("b", [384, 512])
 def test_tpu2_takes_the_wavefront_l2_tick_with_two_lanes(launched, b):
+    # past b = 256 two lanes take the wavefront, now on its cluster tick
+    # (wave_lanes_needed's wide table); the L2 tick only by its handle
     n = 5 * b  # nc_of(0) = 4 chase pairs: two lanes
     assert band_chase_wave.wave_chase_preferred(n, b)
+    assert band_chase_wave.wave_lanes_needed(n, b) == 2
     bidiagonalize(_uniform(n), method="tpu2", block=b)
     assert [c for c in launched if c[0].startswith("band_chase")] == [
-        ("band_chase_wave", b, (False, "l2"))]
+        ("band_chase_wave", b, (False, "cluster"))]
 
 
 @pytest.mark.parametrize("t", [192, 256])
@@ -289,7 +303,7 @@ def test_block_n_reaches_the_kernels(launched, method):
     else:
         assert any(c[0] == "tiled_wide_chain" and c[1] == n for c in launched)
     assert [c for c in launched if c[0].startswith("band_chase")] == [
-        ("band_chase", n, False)]
+        ("band_chase_cluster", n, False)]
 
 
 @pytest.mark.parametrize("band", [384, 512])
@@ -298,7 +312,7 @@ def test_svd_reaches_the_recording_chase_at_wide_bands(launched, band):
     svd(_uniform(n), band=band)
     assert _blocked_k1(launched, band) > 0
     assert [c for c in launched if c[0].startswith("band_chase")] == [
-        ("band_chase", band, True)]
+        ("band_chase_cluster", band, True)]
 
 
 @pytest.mark.parametrize("n,t,want", [
@@ -415,9 +429,12 @@ def test_failed_wide_launches_raise(launched, monkeypatch):
     monkeypatch.setattr(tiled_slab, "_launch_apply", fail("tiled_apply"))
     with pytest.raises(RuntimeError, match="tiled_apply launch failed"):
         svdvals(_uniform(768), method="multicore", block=384)
+    monkeypatch.setattr(band_chase, "_launch_cluster", fail("band_chase_cluster"))
+    with pytest.raises(RuntimeError, match="band_chase_cluster launch failed"):
+        band_chase.band_to_bidiagonal(torch.zeros((640, 640)), band=320)
     monkeypatch.setattr(band_chase, "_launch", fail("band_chase"))
     with pytest.raises(RuntimeError, match="band_chase launch failed"):
-        band_chase.band_to_bidiagonal(torch.zeros((640, 640)), band=320)
+        band_chase.band_to_bidiagonal_l2(torch.zeros((640, 640)), band=320)
     monkeypatch.setattr(band_chase_wave, "_launch", fail("band_chase_wave"))
     with pytest.raises(RuntimeError, match="band_chase_wave launch failed"):
         band_chase_wave.band_to_bidiagonal_wave_accum(torch.zeros((640, 640)), band=300)
@@ -433,3 +450,86 @@ def test_widths_past_the_range_raise_before_any_launch(launched):
     with pytest.raises(ValueError, match="outside"):
         tiled_slab.tiled_route(100, 101, 132)
     assert launched == []
+
+
+def test_l2_handles_force_the_l2_kernels(launched):
+    # band_to_bidiagonal_l2 / _accum_l2 and _tick="l2" keep the L2 kernels
+    # past b = 256 (the cluster kernels' bitwise oracles); the routes take
+    # the cluster kernels there
+    A = torch.zeros((640, 640))
+    band_chase.band_to_bidiagonal_l2(A, band=320)
+    band_chase.band_to_bidiagonal_accum_l2(A, band=320)
+    band_chase_wave.band_to_bidiagonal_wave(A, band=320, _tick="l2")
+    band_chase_wave.band_to_bidiagonal_wave_accum(A, band=320, _tick="l2")
+    band_chase.band_to_bidiagonal(A, band=320)
+    band_chase.band_to_bidiagonal_accum(A, band=320)
+    band_chase_wave.band_to_bidiagonal_wave(A, band=320)
+    band_chase_wave.band_to_bidiagonal_wave_accum(A, band=320)
+    assert launched == [
+        ("band_chase", 320, False), ("band_chase", 320, True),
+        ("band_chase_wave", 320, (False, "l2")), ("band_chase_wave", 320, (True, "l2")),
+        ("band_chase_cluster", 320, False), ("band_chase_cluster", 320, True),
+        ("band_chase_wave", 320, (False, "cluster")), ("band_chase_wave", 320, (True, "cluster"))]
+    # past the cluster plan's range (and at narrow bands) the routes keep the L2 kernels
+    assert band_chase.wide_route(8200, band_chase.CLUSTER_MAX_BAND + 1) is None
+    with pytest.raises(ValueError, match="cluster tick does not take"):
+        band_chase_wave.band_to_bidiagonal_wave(A, band=200, _tick="cluster")
+
+
+class _ClusterLib:
+    """The cluster entries as the card's library answers them: ``fit``
+    clusters resident, each launch returning ``err``."""
+
+    def __init__(self, fit, err):
+        self.fit, self.err, self.calls = fit, err, []
+
+    def svdt_band_chase_cluster_fit(self, C, smem, wave, rec, out):
+        ctypes.c_int.from_address(out).value = self.fit
+        return 0
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append(name)
+            return self.err
+        return entry
+
+
+@pytest.mark.parametrize("fit,err,raises", [
+    (1, 0, None), (1, 719, RuntimeError), (0, 0, ValueError)])
+def test_cluster_launches_check_residency_and_raise(monkeypatch, fit, err, raises):
+    # the wrappers' own launch code on CPU tensors, the library stood in
+    # for: a refused or failed launch raises, and a plan the card cannot
+    # hold raises before any launch; nothing falls back to a plain version
+    lib = _ClusterLib(fit, err)
+
+    class OnCard:
+        def __getattr__(self, k):
+            return getattr(_build, k)
+
+        @staticmethod
+        def load(name, entries):
+            assert name == "band_chase_cluster" and "svdt_band_chase_cluster" in entries
+            return lib
+
+        @staticmethod
+        def stream_of(t):
+            return 0
+
+    monkeypatch.setattr(band_chase, "_build", OnCard())
+    monkeypatch.setattr(band_chase_wave, "_build", OnCard())
+    monkeypatch.setattr(band_chase, "_resident", {})
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    A = torch.zeros((640, 640))
+    plan = band_chase.wide_chase_plan(640, 320)
+    for launch in (lambda: band_chase._launch_cluster(A, 320, plan, False),
+                   lambda: band_chase._launch_cluster(A, 320, plan, True),
+                   lambda: band_chase_wave._launch_cluster(A, 320, None, False),
+                   lambda: band_chase_wave._launch_cluster(A, 320, None, True)):
+        if raises is None:
+            launch()
+        else:
+            with pytest.raises(raises, match="launch failed" if err else "resident"):
+                launch()
+    want = ["svdt_band_chase_cluster", "svdt_band_chase_cluster_rec",
+            "svdt_band_chase_wave_cluster", "svdt_band_chase_wave_cluster_rec"]
+    assert lib.calls == ([] if fit == 0 else want)
