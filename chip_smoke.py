@@ -4,7 +4,7 @@
 Run from the repository root: ``python3 chip_smoke.py``.  It
 
 1. reports the card (name, power limit), torch, CUDA and nvcc;
-2. builds the thirteen kernel sources of ``svdsolver_tpu_torch/csrc`` (one
+2. builds the sixteen kernel sources of ``svdsolver_tpu_torch/csrc`` (one
    ``nvcc`` each, all started together): the panel QR (one thread-block
    cluster, and the product kernel of its blocked panel past b = 256),
    the sequential chase's L2 kernel (plain and recording
@@ -15,7 +15,8 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    kernel, the QR and dqds diagonalizers (each loop in one launch), and
    the tiled Stage I's kernels (a half-sweep's pivot-block chain, its apply
    to the other columns, the first design: a slab's t steps in one launch,
-   and the wide instance for bands past it);
+   and the wide instance for bands past it), the wide chases' cluster
+   kernels and the pipelined chase's pass on the shared-memory tick;
 3. holds each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it: the panel QR at (b, m, r_off) = (128,
    3840, 0), (128, 3840, 3776) (identity reflectors past m), (64, 1024, 0)
@@ -181,14 +182,18 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    ranks that share the card over gloo (``phase_parallel``): every
    collective on CUDA tensors checked on every rank, ``svdvals_sharded``
    and ``svd_sharded`` at 3840/b128 on tp = 4, the pipelined
-   ``svdvals_sharded`` at 1024/b32 on tp = 4 (one superstep kernel launch a
-   rank an active superstep), ``svd_jacobi_sharded`` at 1024 on tp = 4,
+   ``svdvals_sharded`` at 1024/b32 on tp = 4 (one pass launch a rank an
+   active superstep with work), ``svd_jacobi_sharded`` at 1024 on tp = 4,
    ``svdvals_batch_sharded`` at (4, 1024)/b128 on dp = tp = 2, each with
-   every plain version forbidden and every rank's counts read; the
-   superstep kernel against its plain version on passes the pipelined
-   entry gives it on every rank at tp = 4, and bit-equal to the L2 kernel
-   at tp = 1; ``dryrun(4)``; each entry's time beside the one-rank
-   entry's, with the collectives' share.
+   every plain version forbidden and every rank's counts read; the routed
+   pass (the shared-memory design of ``csrc/band_chase_superstep.cu``)
+   against its plain version and ``torch.equal`` to the first design on
+   passes the pipelined entry gives it on every rank at tp = 4, both
+   designs timed in turns on rank 0's first pass, and the pipelined entry
+   at tp = 1 bit-equal to the L2 kernel; single-process passes at
+   3840/b32 (the tp = 4 geometry's rank 0 and tp = 1), both designs
+   bit-equal and in turns beside their schedule bound; ``dryrun(4)``; each
+   entry's time beside the one-rank entry's, with the collectives' share.
 
 Any failure raises and exits non-zero.  The second-to-last line is the
 kernel table as JSON, the last ``{"ok": true, "device": {...}}``.  With no
@@ -198,6 +203,7 @@ limit, printed first.
 """
 
 import contextlib
+import functools
 import io
 import json
 import statistics
@@ -222,7 +228,7 @@ SVD_REPS = 3
 SOURCES = ("panel_qr", "band_chase", "bisect", "tridiag_solve",
            "band_chase_wave", "band_chase_staged", "band_chase_vmem", "bidiag_qr", "dqds",
            "tiled_slab", "tiled_chain", "tiled_apply", "tiled_wide", "tiled_wide_cluster",
-           "band_chase_cluster")
+           "band_chase_cluster", "band_chase_superstep")
 # the variants' entries, counted by the kernel that ran: the packed chase
 # runs "band_chase_vmem_tma" (the TMA design on the band store) at every
 # band of these checks; "band_chase_vmem", its L2 packed kernel, takes the
@@ -416,6 +422,9 @@ PAR_SEEDS = (21, 22, 16, 23)  # the uniform [0, 5) matrices of PAR_VALS, PAR_PIP
 # the superstep kernel at tp = 1 bit-equal to svdt_band_chase at these
 # sweeps a group: the default, 1, 3 (the group of PAR_PIPE on tp = 4), 5
 PAR_BITS_LG = (None, 1, 3, 5)
+# (n, band) of the single-process passes: rank 0's group 0 pass of the tp =
+# 4 geometry and the group 0 pass at tp = 1, both designs in turns
+PASS_TIMES = (3840, 32)
 TOL_PAR = 1e-4  # sigma against float64 LAPACK over sigma_max, reconstruction, orthogonality
 TOL_SUPERSTEP = 1e-4  # max |kernel - plain| / max |L| after one pass (float32 sums in
 # other orders)
@@ -557,6 +566,7 @@ def _counters():
             "panel_qr_update": (panel_qr, "launches_update"),
             "panel_qr_merge": (panel_qr, "launches_merge"),
             "band_chase_superstep": (band_chase, "launches_superstep"),
+            "band_chase_superstep_l2": (band_chase, "launches_superstep_l2"),
             "band_chase_cluster": (band_chase, "launches_cluster"),
             "band_chase_cluster_rec": (band_chase, "launches_cluster_rec"),
             "band_chase_wave_cluster": (band_chase_wave, "launches_cluster"),
@@ -4242,14 +4252,18 @@ def parallel_rank(mesh, inp):
 def _superstep_checked(mesh, A1):
     """The pipelined entry at PAR_PIPE once more on ``mesh`` (tp = 4, as
     in the run that counts), outside the counted run, with each rank's
-    kernel pass at three of its groups held against the plain version on
-    the buffer the path hands it: group 0, the group after the sweeps' top
-    windows enter the rank's rows, and the last group whose top windows
-    lie in them.  Rank 0 times both on its group 0 pass (while the other
-    ranks wait in the exchange).  Returns every rank's [abs err, err / max
-    |L|] at the three groups, the geometry, and rank 0's times and work."""
+    routed pass at three of its groups held against the plain version and
+    against the first design (``_design="l2"``, the whole buffer
+    ``torch.equal``) on the buffer the path hands it: group 0, the group
+    after the sweeps' top windows enter the rank's rows, and the last group
+    whose top windows lie in them.  Rank 0 times both designs in turns, and
+    the plain version once, on its group 0 pass (while the other ranks wait
+    in the exchange).  Returns every rank's [abs err, err / max |L|, equal
+    to the first design, the first design's abs err] at the three groups,
+    the geometry, and rank 0's times and work."""
     import torch.distributed as dist
 
+    from svdsolver_tpu_torch.ops.chase_schedule import superstep_copy_bytes
     from svdsolver_tpu_torch.ops.cuda import band_chase, panel_qr
     from svdsolver_tpu_torch.parallel import band_to_bidiagonal_pipelined
     from svdsolver_tpu_torch.parallel.distributed import pipeline_geometry
@@ -4261,21 +4275,33 @@ def _superstep_checked(mesh, A1):
     kernel, plain = band_chase.superstep, band_chase.superstep_plain
     errs, out = {}, {"geometry": geo._asdict()}
 
+    def first(L, *args):
+        return kernel(L, *args, _design="l2")
+
     def checked(L, *args):
         g = args[2] // geo.LG
         if g in groups and g not in errs:
             L0 = L.clone()
             Lp = plain(L0.clone(), *args)
+            Ll = first(L0.clone(), *args)
             if g == 0 and mesh.rank == 0:
                 Lw = L0.clone()
-                out["ms"] = fresh_ms(lambda: kernel(Lw, *args), lambda: Lw.copy_(L0))
-                out["plain_ms"] = fresh_ms(lambda: plain(Lw, *args), lambda: Lw.copy_(L0),
-                                           reps=3)
+
+                def restore():
+                    Lw.copy_(L0)
+
+                turns = [fresh_ms(lambda: fn(Lw, *args), restore)
+                         for fn in (kernel, first, first, kernel)]
+                out["turns_ms"] = turns
+                out["plain_ms"] = fresh_ms(lambda: plain(Lw, *args), restore, reps=3)
                 out["work"] = work_superstep(*args, geo.Np)
+                out["copy_bytes"] = superstep_copy_bytes(*args[:5], *args[6:], geo.Np)
+                out["ctas"] = band_chase.last_superstep_ctas
                 out["args"] = args
             kernel(L, *args)
             err = float((L - Lp).abs().max())
-            errs[g] = [err, err / float(L0.abs().max())]
+            errs[g] = [err, err / float(L0.abs().max()), float(torch.equal(L, Ll)),
+                       float((Ll - Lp).abs().max())]
             return L
         return kernel(L, *args)
 
@@ -4290,8 +4316,81 @@ def _superstep_checked(mesh, A1):
     torch.cuda.synchronize()
     require(all(g in errs for g in groups), f"rank {mesh.rank}: passes {groups} not all run")
     rows = _world_values(mesh, [x for g in groups for x in errs[g]])
-    out["errs"] = [[r[2 * k: 2 * k + 2] for k in range(len(groups))] for r in rows]
+    out["errs"] = [[r[4 * k: 4 * k + 4] for k in range(len(groups))] for r in rows]
     out["groups"] = _world_values(mesh, [float(g) for g in groups])
+    return out
+
+
+def pass_buffer(Ab, geo, rank):
+    """Rank ``rank``'s local buffer of the pipelined chase of the band
+    ``Ab`` under the geometry ``geo`` as ``local_buffer`` seeds it (its own
+    rows at row U, the upper halo from rank - 1's rows and the lower one
+    from rank + 1's, zero past the band and in the dummy zone), sliced from
+    the band in one process."""
+    n, b, U, m = geo.n, geo.b, geo.U, geo.m
+    R0 = rank * m
+    L = Ab.new_zeros((U + m + 4 * b, geo.Np))
+    lo = R0 - U if rank > 0 else R0
+    hi = min(n, R0 + m + (2 * b if rank < geo.tp - 1 else 0))
+    L[lo - R0 + U: hi - R0 + U, :n] = Ab[lo:hi]
+    return L
+
+
+def time_passes():
+    """Single-process passes at PASS_TIMES, each buffer sliced from the
+    padded band as ``local_buffer`` seeds it: rank 0's group 0 pass of the
+    tp = 4 geometry and the group 0 pass at tp = 1.  The routed pass (the
+    shared-memory design) ``torch.equal`` to the first design on the whole
+    buffer; both timed in turns (routed, first, first, routed: CUDA-event
+    medians on the restored buffer); the bytes bound (``work_superstep``)
+    and the schedule bound (``superstep_copy_bytes`` over one CTA's window
+    copy rate at this band, measured here).  No plain version runs.
+    Returns {label: numbers}."""
+    from svdsolver_tpu_torch.ops.chase_schedule import superstep_copy_bytes, superstep_pairs
+    from svdsolver_tpu_torch.ops.cuda import band_chase, band_chase_wave, panel_qr
+    from svdsolver_tpu_torch.parallel.distributed import pipeline_geometry
+
+    n, b = PASS_TIMES
+    Ab = panel_qr.dense_to_band_fused(uniform_matrix(n, seed=PAR_SEEDS[1]), band=b)
+    reps_copy = 1000
+    t = cuda_ms(lambda: band_chase_wave.window_copy(Ab, b, n // 2, n // 2 + b, reps_copy))
+    rate = 6 * 4 * b * (b + 4) * reps_copy / t  # bytes a millisecond
+    say(f"[parallel] one CTA's window copy b={b}: {t / reps_copy * 1e3:.3f} us for "
+        f"{6 * 4 * b * (b + 4)} bytes in and out, {rate / 1e6:.2f} GB/s (median of {REPS} "
+        f"runs of {reps_copy})")
+    out = {"window_copy_gb_s": rate / 1e6}
+    for tp in (4, 1):
+        geo = pipeline_geometry(n, b, tp)
+        L0 = pass_buffer(Ab, geo, 0)
+        args = (n, b, 0, geo.LG, 0, geo.U, geo.m, tp == 1, geo.s_chase)
+        sched = (*args[:5], *args[6:], geo.Np)
+        Lw, Ll = L0.clone(), L0.clone()
+        band_chase.superstep(Lw, *args)
+        ctas = band_chase.last_superstep_ctas
+        band_chase.superstep(Ll, *args, _design="l2")
+        require(torch.equal(Lw, Ll), f"pass at n={n} b={b} tp={tp}: the routed pass "
+                f"torch.equal to the first design")
+        del Ll
+
+        def restore():
+            Lw.copy_(L0)
+
+        turns = [fresh_ms(lambda: band_chase.superstep(Lw, *args, _design=d), restore)
+                 for d in ("wave", "l2", "l2", "wave")]
+        pairs = superstep_pairs(*sched)
+        ticks = len({p.t for p in pairs})
+        b_ms, b_by = bound(*work_superstep(*args, geo.Np))
+        s_ms = superstep_copy_bytes(*sched) / rate
+        label = f"pass n={n} b={b} tp={tp} rank 0 group 0"
+        out[label] = {"turns_ms": turns, "pairs": len(pairs), "ticks": ticks, "ctas": ctas,
+                      "LG": geo.LG, "bound_ms": b_ms, "bound_by": b_by, "schedule_ms": s_ms}
+        say(f"[parallel] {label} (LG={geo.LG}, {len(pairs)} pairs, {ticks} ticks, {ctas} "
+            f"CTAs): bit-equal to the first design; shared-memory design {turns[0]:.4f} / "
+            f"{turns[3]:.4f} ms, first design {turns[1]:.4f} / {turns[2]:.4f} ms (in turns, "
+            f"medians of {REPS}); schedule bound {s_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+        del Lw, L0
+    del Ab
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4348,18 +4447,19 @@ def phase_parallel():
     ``svd_jacobi_sharded`` at PAR_JACOBI on tp = 4 (``jacobi_gates``); then
     on a (2, 2) mesh ``svdvals_batch_sharded`` at PAR_BATCH.  Between the
     pipelined and the Jacobi entries, the pipelined entry runs once more,
-    uncounted, with the superstep kernel held against its plain version on
-    the buffers it is handed at three passes of every rank
-    (``_superstep_checked``).  Each entry runs from a barrier with every
-    plain version forbidden and the counts set to 0 on every rank
-    (``_par_run``); the
-    counts of every rank show its kernels.  Then the superstep kernel at
-    tp = 1 (a one-rank group here) bit-equal to the L2 kernel
-    (``svdt_band_chase``) at PAR_PIPE for each group size of PAR_BITS_LG,
-    and ``dryrun(4)``.  Each entry's wall time stands beside the one-rank
-    port entry at the same shape, with the collectives' share (rank 0's
-    host seconds in them).  Returns (counts_vals, counts_svd, the
-    superstep row's numbers)."""
+    uncounted, with the routed pass held against its plain version and
+    against the first design on the buffers it is handed at three passes
+    of every rank (``_superstep_checked``).  Each entry runs from a barrier
+    with every plain version forbidden and the counts set to 0 on every
+    rank (``_par_run``); the counts of every rank show its kernels.  Before
+    the spawn, the single-process passes at PASS_TIMES (``time_passes``);
+    after it, the pipelined entry at tp = 1 (a one-rank group here)
+    bit-equal to the L2 kernel (``svdt_band_chase``) at PAR_PIPE for each
+    group size of PAR_BITS_LG, its passes on the shared-memory design, and
+    ``dryrun(4)``.  Each entry's wall time stands beside the one-rank port
+    entry at the same shape, with the collectives' share (rank 0's host
+    seconds in them).  Returns (counts_vals, counts_svd, the pass rows'
+    numbers)."""
     from svdsolver_tpu_torch import svd, svdvals, svdvals_batch
     from svdsolver_tpu_torch.ops.cuda import band_chase, panel_qr
     from svdsolver_tpu_torch.parallel import band_to_bidiagonal_pipelined, dryrun, spawn
@@ -4389,6 +4489,7 @@ def phase_parallel():
         f"svdvals_sharded n={n} b={b} tp=4": (1, n // b),
         f"svd_sharded n={n} b={b} tp=4": (1, n // b),
         f"svdvals_batch_sharded ({B}, {nb}) b={bb} dp=2 tp=2": (B // 2, nb // bb)}
+    passes = time_passes()
     ts = time.perf_counter()
     par = spawn(parallel_rank, 4, dp=1, args=(inp,), timeout=900)
     spawn_s = time.perf_counter() - ts
@@ -4414,9 +4515,10 @@ def phase_parallel():
         if label.startswith("svd_sharded"):
             require(c0["tridiag_solve"] >= 1, f"{label}: the TGK solve ran: {c0}")
         if "pipelined" in label:
-            require(all(c["band_chase_superstep"] > 0 for c in r["counts"])
+            require(all(c["band_chase_superstep"] > 0 and not c["band_chase_superstep_l2"]
+                        for c in r["counts"])
                     and c0["panel_qr"] == 2 * n1 // b1 and c0["bisect"] == 1 and not chase,
-                    f"{label}: every rank's passes on the superstep kernel: {r['counts']}")
+                    f"{label}: every rank's passes on the shared-memory design: {r['counts']}")
         coll = sum(v["seconds"] for v in r["stats"].values())
         moved = sum(v["bytes"] for v in r["stats"].values())
         staged = sum(v["staged_bytes"] for v in r["stats"].values())
@@ -4434,54 +4536,83 @@ def phase_parallel():
     sup = par["superstep"]
     geo = sup["geometry"]
     rel = [e[1] for r in sup["errs"] for e in r]
-    require(max(rel) <= TOL_SUPERSTEP, f"superstep kernel vs plain on the path's passes: "
+    require(max(rel) <= TOL_SUPERSTEP, f"routed pass vs plain on the path's passes: "
             f"{sup['errs']}")
+    require(all(e[2] == 1.0 for r in sup["errs"] for e in r),
+            f"routed pass torch.equal to the first design on the path's passes: {sup['errs']}")
     b_ms, b_by = bound(*sup["work"])
-    say(f"[parallel] superstep kernel vs plain on the pipelined entry's passes at n={n1} b={b1} "
+    turns = sup["turns_ms"]
+    ms, ms_l2 = min(turns[0], turns[3]), min(turns[1], turns[2])
+    s_ms = sup["copy_bytes"] / passes["window_copy_gb_s"] / 1e6
+    say(f"[parallel] routed pass vs plain on the pipelined entry's passes at n={n1} b={b1} "
         f"tp={geo['tp']} (m={geo['m']}, LG={geo['LG']}, U={geo['U']}), groups "
-        f"{[[int(g) for g in r] for r in sup['groups']]} a rank: [abs, / max |L|] "
-        f"{sup['errs']}; rank 0's group 0 pass {sup['ms']:.4f} ms, plain "
-        f"{sup['plain_ms']:.3f} ms, bound {b_ms:.6f} ms ({b_by})")
+        f"{[[int(g) for g in r] for r in sup['groups']]} a rank: [abs, / max |L|, equal to "
+        f"the first design, the first design's abs] {sup['errs']}; rank 0's group 0 pass "
+        f"({sup['ctas']} CTAs): shared-memory design {turns[0]:.4f} / {turns[3]:.4f} ms, first "
+        f"design {turns[1]:.4f} / {turns[2]:.4f} ms (in turns), plain {sup['plain_ms']:.3f} "
+        f"ms, schedule bound {s_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
     bits = {}
     d0, e0 = band_chase.band_to_bidiagonal_l2(Ab1, band=b1)
-    for lg in PAR_BITS_LG:
-        with single_rank() as mesh:
-            reset_counts()
-            d, e = band_to_bidiagonal_pipelined(Ab1, mesh, band=b1, sweeps_per_group=lg)
-            torch.cuda.synchronize()
-            launches = read_counts()["band_chase_superstep"]
-        require(torch.equal(d, d0) and torch.equal(e, e0) and launches > 0,
-                f"superstep kernel at tp=1, LG={lg}: (d, e) bit-equal to svdt_band_chase")
-        bits[str(lg)] = launches
-    say(f"[parallel] superstep kernel at tp=1, n={n1} b={b1}: (d, e) bit-equal to "
-        f"svdt_band_chase at LG {list(bits)} ({list(bits.values())} launches)")
+    routed = band_chase.superstep
+    for lg, design in [(lg, None) for lg in PAR_BITS_LG] + [(1, "wave")]:
+        band_chase.superstep = functools.partial(routed, _design=design)
+        try:
+            with single_rank() as mesh:
+                reset_counts()
+                d, e = band_to_bidiagonal_pipelined(Ab1, mesh, band=b1, sweeps_per_group=lg)
+                torch.cuda.synchronize()
+                c = read_counts()
+        finally:
+            band_chase.superstep = routed
+        wave, l2 = c["band_chase_superstep"], c["band_chase_superstep_l2"]
+        require(torch.equal(d, d0) and torch.equal(e, e0)
+                and ((wave > 0 and not l2) if lg != 1 or design else (l2 > 0 and not wave)),
+                f"passes at tp=1, LG={lg}, design {design or 'routed'}: (d, e) bit-equal to "
+                f"svdt_band_chase ({c})")
+        bits[f"{lg}{' wave' if design else ''}"] = [wave, l2]
+    say(f"[parallel] passes at tp=1, n={n1} b={b1}: (d, e) bit-equal to svdt_band_chase at "
+        f"LG {list(bits)} ([shared-memory, first design] launches: {list(bits.values())}; "
+        f"one-sweep passes routed to the first design, and forced onto the shared-memory "
+        f"one)")
     td = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()) as buf:
         dryrun(4)
     require("dryrun_multichip OK" in buf.getvalue(), "dryrun(4)")
     say(f"[parallel] dryrun(4): {buf.getvalue().strip()} ({time.perf_counter() - td:.1f} s)")
     pipe = par[f"svdvals_sharded pipelined n={n1} b={b1} tp=4"]
-    row = {"ms": sup["ms"], "plain_ms": sup["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
-           "max_abs_err": max(e[0] for r in sup["errs"] for e in r),
-           "launches": sum(c["band_chase_superstep"] for c in pipe["counts"]),
-           "shape": f"rank 0's group 0 pass of the pipelined entry, n={n1} b={b1} "
-                    f"tp={geo['tp']} (LG={geo['LG']})",
-           "path_launches": [c["band_chase_superstep"] for c in pipe["counts"]],
-           "bits_tp1_launches": bits}
+    shape = (f"rank 0's group 0 pass of the pipelined entry, n={n1} b={b1} tp={geo['tp']} "
+             f"(LG={geo['LG']})")
+    common = {"plain_ms": sup["plain_ms"], "bound_ms": b_ms, "bound_by": b_by, "shape": shape,
+              "schedule_bound_ms": s_ms, "turns_ms": turns,
+              "passes": {k: v for k, v in passes.items() if k != "window_copy_gb_s"},
+              "window_copy_gb_s": passes["window_copy_gb_s"]}
+    row = {"wave": {"ms": ms, "max_abs_err": max(e[0] for r in sup["errs"] for e in r),
+                    "launches": sum(c["band_chase_superstep"] for c in pipe["counts"]),
+                    "path_launches": [c["band_chase_superstep"] for c in pipe["counts"]],
+                    "bits_tp1_launches": bits, **common},
+           "l2": {"ms": ms_l2, "max_abs_err": max(e[3] for r in sup["errs"] for e in r),
+                  "launches": sum(c["band_chase_superstep_l2"] for c in pipe["counts"]),
+                  **common}}
     say(f"[done] phase_parallel {time.perf_counter() - t0:.1f} s (the spawn of 4 ranks "
         f"{spawn_s:.1f} s)")
     return counts_vals, counts_svd, row
 
 
 def parallel_rows(row):
-    """The kernel line's row of the superstep kernel: no TPU kernel (the JAX
-    package runs the pass as XLA windows); ms and its plain version on rank
-    0's group 0 pass of the pipelined entry (tp = 4), launches from that
-    entry's counted run."""
-    return [{"name": "band_chase_superstep", "route": "cuda",
-             "source": "svdsolver_tpu_torch/csrc/band_chase.cu",
-             "replaces": "none: XLA windows of svdsolver_tpu/parallel/distributed.py:352-392",
-             "tpu": [], "library_ms": None, **row}]
+    """The kernel line's rows of the pipelined chase's pass, no TPU kernel
+    (the JAX package runs the pass as XLA windows): the routed design (the
+    pass's wavefront on the shared-memory tick) and the first design, its
+    bitwise oracle; ms in turns and the plain version on rank 0's group 0
+    pass of the pipelined entry (tp = 4), launches from that entry's
+    counted run."""
+    base = {"route": "cuda",
+            "replaces": "none: XLA windows of svdsolver_tpu/parallel/distributed.py:352-392",
+            "tpu": [], "library_ms": None}
+    return [{"name": "band_chase_superstep",
+             "source": "svdsolver_tpu_torch/csrc/band_chase_superstep.cu", **base,
+             **row["wave"]},
+            {"name": "band_chase_superstep_l2", "source": "svdsolver_tpu_torch/csrc/band_chase.cu",
+             **base, **row["l2"]}]
 
 
 def wide_schedule_ms(n, b, ctas, rate, wave):

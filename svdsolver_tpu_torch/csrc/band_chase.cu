@@ -67,21 +67,26 @@
 //
 // svdt_band_chase_superstep is one rank's pass of one superstep of the
 // pipelined chase over row-sharded ranks (parallel/distributed.py,
-// band_to_bidiagonal_pipelined).  It stands for no TPU kernel: the JAX
-// package runs that pass as XLA windows, some 15 to 25 launches each on
-// PyTorch ops, which at n = 1024, b = 32 would be ~0.7 M launches a run.
-// One block walks the pass in the order of the JAX body
-// (parallel/distributed.py:352-392 of the JAX package): sweeps i = i0 + l,
-// l < LG, each sweep's head pair if lo <= i < hi, then its chase pairs whose
-// start row lies in [lo, hi), lo = R0 - 3 b l, hi = R0 + m - 3 b l (Np on the
-// last rank).  Every pair is the chase_pair of chase_pair.cuh on the rank's
-// local buffer L (U + m + 4 b rows of Np floats, in place) through LocalAt,
-// global row r at local row r - R0 + U; reads past n return zero and writes
-// past n are dropped, as in the sequential kernel.  So on one rank (tp = 1:
-// lo <= 0, hi = Np, every sweep whole and in order) its (d, e) are those of
-// svdt_band_chase bit for bit.  What bounds it: the same chain of dependent
-// L2 round trips a pair as the sequential kernel, a superstep's pairs in
-// order on one SM; the ranks' passes of one superstep run at once.
+// band_to_bidiagonal_pipelined), its first design.  It stands for no TPU
+// kernel: the JAX package runs that pass as XLA windows
+// (svdsolver_tpu/parallel/distributed.py:352-392).  The pass's second
+// design, a wavefront over its sweeps on the shared-memory tick
+// (band_chase_superstep.cu), runs it wherever ops/cuda/band_chase.
+// superstep_design takes the pass (4 <= b <= 128, b, n and the row pitch
+// multiples of 4, the buffer 16-byte aligned: every pipelined geometry of
+// the main paths; two sweeps a pass or more); this one runs the other
+// passes (one sweep a pass among them) and is its bitwise oracle.  One block walks the pass in the order of the JAX body: sweeps
+// i = i0 + l, l < LG, each sweep's head pair if lo <= i < hi, then its
+// chase pairs whose start row lies in [lo, hi), lo = R0 - 3 b l, hi = R0 +
+// m - 3 b l (Np on the last rank).  Every pair is the chase_pair of
+// chase_pair.cuh on the rank's local buffer L (U + m + 4 b rows of Np
+// floats, in place) through LocalAt, global row r at local row r - R0 + U;
+// reads past n return zero and writes past n are dropped, as in the
+// sequential kernel.  So on one rank (tp = 1: lo <= 0, hi = Np, every sweep
+// whole and in order) its (d, e) are those of svdt_band_chase bit for bit.
+// What bounds it: the same chain of dependent L2 round trips a pair as the
+// sequential kernel, a pass's pairs in order on one SM; the ranks' passes
+// of one superstep run at once.
 #include <cuda_runtime.h>
 
 #include "chase_pair.cuh"

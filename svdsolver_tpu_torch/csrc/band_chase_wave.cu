@@ -84,6 +84,9 @@
 //     in instead of three, and two of three two out;
 //   - the head pair's window, (b + 1) x 2b, is two boxes and its last row,
 //     which the threads copy.
+// A pair of this tick is chase_tma.cuh's tick_head / tick_chase, which the
+// pipelined chase's pass on the same tick (band_chase_superstep.cu) runs
+// too.
 // The deferred-left tick (wave_smem_dl_kernel) runs the L2 tick's slot
 // arithmetic (dl_head on an accessor of its window in shared memory; dl_slot's
 // passes specialised to pointers into the tiles, tiles_partials,
@@ -394,75 +397,30 @@ wave_smem_kernel(const __grid_constant__ CUtensorMap tile_map,
                  float* __restrict__ e, int n, int b_rt, int L, int T,
                  unsigned* ctr, Records rec) {
   extern __shared__ __align__(128) float smem_raw[];
-  float* tiles = align128(smem_raw);
   __shared__ float v[kSmemBand];
   __shared__ __align__(16) float vg[2 * kSmemBand];
   __shared__ float col[kSmemBand];
   __shared__ float part[kThreads];
   __shared__ float s_tau[2];
   __shared__ __align__(8) uint64_t bar[3];
+  const TickSmem sm = {align128(smem_raw), bar, v, vg, col, part, s_tau};
+  const TickMat mat = {&tile_map, A, (size_t)n, 0, n};
   const int b = BF ? BF : b_rt;
   const int G = gridDim.x;
   const bool carry = G == L + 1;  // a unit a CTA: a lane's tile can stay
-  const int tsz = tile_floats(b);
-  const int ldt = box_cols(b);
-  const unsigned tile_bytes = 4u * b * ldt;
   const Slot none = {nullptr, nullptr};
-  if (threadIdx.x == 0) {
-    for (int k = 0; k < 3; ++k) mbar_init(bar + k);
-    fence_async();
-  }
-  __syncthreads();
-  unsigned parity = 0;
-  int cur = 0;                   // the slot of the (r, c) tile
-  int kept_i = -1, kept_s = -1;  // the pair whose (r, c) tile slot `cur` holds
+  tick_init(bar);
+  TickLane ln;
   unsigned target = 0;
   for (int t = 0; t < T; ++t) {
     SVDT_SPLIT_TICK(t);
     const int q = t >= 1 ? (t - 1) / 3 : -1;  // newest sweep past its head
     for (int u = blockIdx.x; u <= L; u += G) {
-      Waits wt = {bar, parity, 0u};
       if (u == 0) {  // the head pair of sweep t / 3
-        // window rows [i, i + b] x columns [i + 1, i + 2b]: two b x b boxes
-        // by the copy engine, in slots 0 and 1, and row i + b by the threads
-        // after each box (so each slot is b + 1 rows of b)
         const int i = t / 3;
         if (t % 3 != 0 || i > n - 2) continue;
-        const int dl = (i + 1) & 3;
-        const int a = i + 1 - dl;
-        float* h0 = tiles;
-        float* h1 = tiles + tsz;
-        if (threadIdx.x == 0) {
-          mbar_expect(bar, 2 * tile_bytes);
-          tma_load(h0, &tile_map, i, a, bar);
-          tma_load(h1, &tile_map, i, a + b, bar);
-        }
-        const int hr = i + b;
-        float* x0 = h0 + b * ldt + dl;  // row i + b, columns [i + 1, i + 1 + b)
-        float* x1 = h1 + b * ldt + dl - b;
-        for (int k = threadIdx.x; k < 2 * b; k += kThreads) {
-          const int hc = i + 1 + k;
-          (k < b ? x0 : x1)[k] = hr < n && hc < n ? __ldcg(A + (size_t)hr * n + hc) : 0.f;
-        }
-        const Win w = {h0 + dl, h0 + dl, h0 + dl + ldt, h1 + dl + ldt, ldt, b + 1, b + 1, 1};
-        smem_pair<KPL, BF, Rec>(w, b, wt, 0, -1, -1, NoMid{}, v, vg, col, part,
-                                s_tau, Rec ? rec.right(i, 0, b) : none,
+        tick_head<KPL, BF, Rec>(mat, b, i, sm, ln, Rec ? rec.right(i, 0, b) : none,
                                 Rec ? rec.left(i, 0, b) : none);
-        share_overlap(h0, h1, b, dl, b);
-        fence_async();
-        __syncthreads();
-        if (threadIdx.x == 0) {
-          tma_store(&tile_map, i, a, h0);
-          tma_store(&tile_map, i, a + b, h1);
-          tma_store_drain();
-          fence_async();
-        }
-        for (int k = threadIdx.x; k < 2 * b; k += kThreads) {
-          const int hc = i + 1 + k;
-          if (hr < n && hc < n) __stcg(A + (size_t)hr * n + hc, (k < b ? x0 : x1)[k]);
-        }
-        parity ^= 1u;
-        kept_i = -1;  // the head's window took slots 0 and 1
         continue;
       }
       const int i = q - (u - 1);
@@ -471,46 +429,9 @@ wave_smem_kernel(const __grid_constant__ CUtensorMap tile_map,
       const int r = i + 1 + (s - 1) * b;
       const int c = r + b;
       if (c >= n) continue;  // all-zero window: both reflectors the identity
-      const int dl = c & 3;  // the tiles' column in their boxes
-      const int a = c - dl;
-      const bool cin = kept_i == i && kept_s == s;
-      const bool cout = carry && carries(i, s, n, b);
-      const int s00 = cur, s10 = (cur + 1) % 3, s11 = (cur + 2) % 3;
-      float* t00 = tiles + s00 * tsz;
-      float* t10 = tiles + s10 * tsz;
-      float* t11 = tiles + s11 * tsz;
-      if (threadIdx.x == 0) {
-        if (!cin) {
-          mbar_expect(bar + s00, tile_bytes);
-          tma_load(t00, &tile_map, r, a, bar + s00);
-        }
-        mbar_expect(bar + s10, tile_bytes);
-        tma_load(t10, &tile_map, r + b, a, bar + s10);
-        mbar_expect(bar + s11, tile_bytes);
-        tma_load(t11, &tile_map, r + b, a + b, bar + s11);
-      }
-      const Win w = {t00 + dl, t10 + dl, t10 + dl, t11 + dl, ldt, 2 * b, b, b};
-      // tile (r, c) goes back once the right apply is done
-      const auto store_rc = [&] {
-        if (threadIdx.x == 0) tma_store(&tile_map, r, a, t00);
-      };
-      smem_pair<KPL, BF, Rec>(w, b, wt, cin ? -1 : s00, s10, s11, store_rc, v, vg,
-                              col, part, s_tau,
-                              Rec ? rec.right(i, s, b) : none,
-                              Rec ? rec.left(i, s, b) : none);
-      share_overlap(t10, t11, b, dl, b);
-      fence_async();
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        tma_store(&tile_map, r + b, a, t10);
-        if (!cout) tma_store(&tile_map, r + b, a + b, t11);
-        tma_store_drain();
-        fence_async();
-      }
-      parity ^= (cin ? 0u : 1u << s00) | 1u << s10 | 1u << s11;
-      kept_i = cout ? i : -1;
-      kept_s = s + 1;
-      if (cout) cur = s11;
+      tick_chase<KPL, BF, Rec>(mat, b, i, s, r, c, carry && carries(i, s, n, b), sm, ln,
+                               Rec ? rec.right(i, s, b) : none,
+                               Rec ? rec.left(i, s, b) : none);
     }
     SVDT_SPLIT(7);
     target += G;
@@ -959,30 +880,6 @@ wave_copy_kernel(const __grid_constant__ CUtensorMap tile_map, int b, int r,
 // Lanes of the schedule: ceil(S / 3) chase lanes for S slots a sweep at most.
 int lanes_of(int S) { return (S + 2) / 3; }
 
-template <class Kernel>
-int coop_launch(Kernel kernel, int units, int max_ctas, void** args,
-                size_t smem, cudaStream_t s, int* ctas) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess && smem > 0)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  int G = units < per_sm * sms ? units : per_sm * sms;
-  if (max_ctas > 0 && max_ctas < G) G = max_ctas;
-  if (G < 1) return (int)cudaErrorInvalidConfiguration;
-  *ctas = G;
-  return (int)cudaLaunchCooperativeKernel((const void*)kernel, dim3(G),
-                                          dim3(kThreads), args, smem, s);
-}
-
-size_t smem_tick_bytes(int b) { return sizeof(float) * 3 * (size_t)tile_floats(b) + 128; }
-
 template <bool DeferLeft, bool Rec>
 int launch_smem(float* A, float* d, float* e, int n, int b, unsigned* ctr,
                 Ring ring, Records rec, int max_ctas, int* ctas, int smem_req,
@@ -999,14 +896,14 @@ int launch_smem(float* A, float* d, float* e, int n, int b, unsigned* ctr,
   cudaStream_t s = (cudaStream_t)stream;
   void* args[] = {&tile_map, &A, &d, &e, &n, &b, &L, &T, &ctr,
                   DeferLeft ? (void*)&ring : (void*)&rec};
-#define SVDT_SMEM_LAUNCH(KPL, BF)                                               \
-  do {                                                                          \
-    if constexpr (DeferLeft)                                                    \
-      err = coop_launch(wave_smem_dl_kernel<KPL, BF>, L + 1, max_ctas, args,    \
-                        smem, s, ctas);                                         \
-    else                                                                        \
-      err = coop_launch(wave_smem_kernel<KPL, BF, Rec>, L + 1, max_ctas, args,  \
-                        smem, s, ctas);                                         \
+#define SVDT_SMEM_LAUNCH(KPL, BF)                                                   \
+  do {                                                                              \
+    if constexpr (DeferLeft)                                                        \
+      err = coop_launch(wave_smem_dl_kernel<KPL, BF>, kThreads, L + 1, max_ctas,    \
+                        args, smem, s, ctas);                                       \
+    else                                                                            \
+      err = coop_launch(wave_smem_kernel<KPL, BF, Rec>, kThreads, L + 1, max_ctas,  \
+                        args, smem, s, ctas);                                       \
   } while (0)
   if (b == 32) SVDT_SMEM_LAUNCH(1, 32);
   else if (b < 32) SVDT_SMEM_LAUNCH(1, 0);
@@ -1033,11 +930,11 @@ int launch(float* A, float* d, float* e, int n, int b, unsigned* ctr,
   void* args[] = {&A, &d, &e, &n, &b, &L, &T, &ctr, &ring, &rec};
   int err = 0;
   if constexpr (DeferLeft)
-    SVDT_KPL_DISPATCH(b, err = coop_launch(wave_chase_kernel<KPL, true, Rec>, L + 1,
-                                           max_ctas, args, 0, s, ctas));
+    SVDT_KPL_DISPATCH(b, err = coop_launch(wave_chase_kernel<KPL, true, Rec>, kThreads,
+                                           L + 1, max_ctas, args, 0, s, ctas));
   else  // the wide pair's v: b floats of dynamic shared memory
-    SVDT_BAND_DISPATCH(b, err = coop_launch(wave_chase_kernel<KPL, false, Rec>, L + 1,
-                                            max_ctas, args,
+    SVDT_BAND_DISPATCH(b, err = coop_launch(wave_chase_kernel<KPL, false, Rec>, kThreads,
+                                            L + 1, max_ctas, args,
                                             KPL == kWide ? sizeof(float) * (size_t)b : 0,
                                             s, ctas));
   return err;

@@ -1,6 +1,7 @@
 // The copy engine (TMA) pieces of the chase kernels that stage a pair's
 // window in shared memory: the wavefront chase's shared-memory tick
-// (band_chase_wave.cu) and the staged chase (band_chase_staged.cu).
+// (band_chase_wave.cu), the pipelined chase's pass on that tick
+// (band_chase_superstep.cu) and the staged chase (band_chase_staged.cu).
 //
 //  * mbarrier and bulk-copy primitives: one thread issues a box copy of a
 //    tensor map between device and shared memory, a load completing on an
@@ -9,7 +10,10 @@
 //    shared memory tiles, chase_pair's arithmetic entry for entry, waiting
 //    on each tile's copy just before it first reads it;
 //  * the box geometry (box_cols, tile_floats, share_overlap, align128) and
-//    the host's tensor map encoder.
+//    the host's tensor map encoder;
+//  * tick_head and tick_chase: one pair of a shared-memory tick, its boxes
+//    copied in, smem_pair, its boxes back, a lane's tile kept for its next
+//    pair (the wavefront chase and the pipelined chase's pass).
 //
 // A box starts at a 16-byte column and its shared-memory destination on a
 // 128-byte boundary: either fault shows as "illegal instruction".
@@ -349,11 +353,12 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  CUtensorMapInterleave, CUtensorMapSwizzle,
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// A tensor map of the n x n matrix whose entry (g, j) sits at A[ld g + j]
-// (ld = n: row-major; ld < n: the skewed band store of band_chase_staged.cu,
-// rows overlapping in memory) with box (rows, cols): no swizzle, zero fill
-// past the edges.  Returns a cudaError_t.
-inline int encode_map(CUtensorMap* map, float* A, int n, int ld, int rows, int cols) {
+// A tensor map of the h x w matrix whose entry (g, j) sits at A[ld g + j]
+// (ld >= w: row-major rows of pitch ld; ld < w: the skewed band store of
+// band_chase_staged.cu, rows overlapping in memory) with box (rows, cols):
+// no swizzle, zero fill past the edges.  Returns a cudaError_t.
+inline int encode_rect_map(CUtensorMap* map, float* A, int h, int w, int ld, int rows,
+                           int cols) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -365,7 +370,7 @@ inline int encode_map(CUtensorMap* map, float* A, int n, int ld, int rows, int c
       return (int)cudaErrorSymbolNotFound;
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
-  const cuuint64_t dims[2] = {(cuuint64_t)n, (cuuint64_t)n};
+  const cuuint64_t dims[2] = {(cuuint64_t)w, (cuuint64_t)h};
   const cuuint64_t strides[1] = {(cuuint64_t)ld * sizeof(float)};
   const cuuint32_t box[2] = {(cuuint32_t)cols, (cuuint32_t)rows};
   const cuuint32_t unit[2] = {1, 1};
@@ -377,11 +382,165 @@ inline int encode_map(CUtensorMap* map, float* A, int n, int ld, int rows, int c
   return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// encode_rect_map of the n x n matrix.
+inline int encode_map(CUtensorMap* map, float* A, int n, int ld, int rows, int cols) {
+  return encode_rect_map(map, A, n, n, ld, rows, cols);
+}
+
 // Whether the copy engine takes a band b at address A with row pitch ld
 // (floats): 16-byte row strides and box rows, 4 <= b <= 128.
 inline bool tma_takes(const float* A, int ld, int b) {
   return b >= 4 && b <= kSmemBand && b % 4 == 0 && ld % 4 == 0 &&
          reinterpret_cast<uintptr_t>(A) % 16 == 0;
 }
+
+// ---- one pair of a shared-memory tick: the wavefront chase's
+// (band_chase_wave.cu) and the pipelined chase's pass (band_chase_superstep.cu) ----
+
+// The matrix a tick's pairs run on: a tensor map whose row g + off holds
+// global row g (boxes of b rows of box_cols(b) columns, the map clipped at
+// global row and column n, so reads past n give zero and writes there are
+// dropped), and the same rows through A (global row g at A + (g + off) ld)
+// for the head pair's last window row, which the threads copy.
+struct TickMat {
+  const CUtensorMap* map;
+  float* A;
+  size_t ld;
+  int off, n;
+  __device__ float* at(int g, int c) const { return A + (size_t)(g + off) * ld + c; }
+};
+
+// A CTA's shared memory on the tick: three tile slots of tile_floats(b)
+// floats from `tiles` (128-byte aligned), an mbarrier a slot, and
+// smem_pair's vectors.
+struct TickSmem {
+  float* tiles;
+  uint64_t* bar;
+  float *v, *vg, *col, *part, *s_tau;
+};
+
+// What a CTA keeps from one pair to its next: the phase of each slot's
+// copies, the slot of the (r, c) tile, and the pair (i, s) whose (r, c)
+// tile that slot holds (kept_i = -1: none).
+struct TickLane {
+  unsigned parity = 0;
+  int cur = 0;
+  int kept_i = -1, kept_s = -1;
+};
+
+// The slots' mbarriers, once a launch, before any copy.
+__device__ __forceinline__ void tick_init(uint64_t* bar) {
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < 3; ++k) mbar_init(bar + k);
+    fence_async();
+  }
+  __syncthreads();
+}
+
+// The head pair of sweep i: window rows [i, i + b] x columns [i + 1, i + 2b]
+// as two b x b boxes by the copy engine, in slots 0 and 1, and row i + b by
+// the threads after each box (so each slot is b + 1 rows of b).  Its stores
+// are drained and fenced before it returns.
+template <int KPL, int BF, bool Rec>
+__device__ __forceinline__ void tick_head(const TickMat& m, int b, int i, const TickSmem& sm,
+                                          TickLane& ln, Slot rr, Slot rl) {
+  const int tsz = tile_floats(b);
+  const int ldt = box_cols(b);
+  const unsigned tile_bytes = 4u * b * ldt;
+  const int n = m.n;
+  Waits wt = {sm.bar, ln.parity, 0u};
+  const int dl = (i + 1) & 3;
+  const int a = i + 1 - dl;
+  float* h0 = sm.tiles;
+  float* h1 = sm.tiles + tsz;
+  if (threadIdx.x == 0) {
+    mbar_expect(sm.bar, 2 * tile_bytes);
+    tma_load(h0, m.map, i + m.off, a, sm.bar);
+    tma_load(h1, m.map, i + m.off, a + b, sm.bar);
+  }
+  const int hr = i + b;
+  float* x0 = h0 + b * ldt + dl;  // row i + b, columns [i + 1, i + 1 + b)
+  float* x1 = h1 + b * ldt + dl - b;
+  for (int k = threadIdx.x; k < 2 * b; k += kThreads) {
+    const int hc = i + 1 + k;
+    (k < b ? x0 : x1)[k] = hr < n && hc < n ? __ldcg(m.at(hr, hc)) : 0.f;
+  }
+  const Win w = {h0 + dl, h0 + dl, h0 + dl + ldt, h1 + dl + ldt, ldt, b + 1, b + 1, 1};
+  smem_pair<KPL, BF, Rec>(w, b, wt, 0, -1, -1, NoMid{}, sm.v, sm.vg, sm.col, sm.part,
+                          sm.s_tau, rr, rl);
+  share_overlap(h0, h1, b, dl, b);
+  fence_async();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    tma_store(m.map, i + m.off, a, h0);
+    tma_store(m.map, i + m.off, a + b, h1);
+    tma_store_drain();
+    fence_async();
+  }
+  for (int k = threadIdx.x; k < 2 * b; k += kThreads) {
+    const int hc = i + 1 + k;
+    if (hr < n && hc < n) __stcg(m.at(hr, hc), (k < b ? x0 : x1)[k]);
+  }
+  ln.parity ^= 1u;
+  ln.kept_i = -1;  // the head's window took slots 0 and 1
+}
+
+// Chase pair (i, s) at corner (r, c), c < n: tiles (r, c), (r + b, c) and
+// (r + b, c + b) in the CTA's three slots.  Tile (r, c) stays from the CTA's
+// last pair where that pair kept it for (i, s); tile (r + b, c + b) stays in
+// shared memory for the CTA's next pair, (i, s + 1), whose (r, c) tile it is,
+// where `cout` (no other pair may touch it at either tick).  Tile (r, c) goes
+// back once the right apply is done, the others after the left apply; the
+// stores are drained and fenced before it returns.
+template <int KPL, int BF, bool Rec>
+__device__ __forceinline__ void tick_chase(const TickMat& m, int b, int i, int s, int r,
+                                           int c, bool cout, const TickSmem& sm,
+                                           TickLane& ln, Slot rr, Slot rl) {
+  const int tsz = tile_floats(b);
+  const int ldt = box_cols(b);
+  const unsigned tile_bytes = 4u * b * ldt;
+  Waits wt = {sm.bar, ln.parity, 0u};
+  const int dl = c & 3;  // the tiles' column in their boxes
+  const int a = c - dl;
+  const int rm = r + m.off;  // the map's row of global row r
+  const bool cin = ln.kept_i == i && ln.kept_s == s;
+  const int s00 = ln.cur, s10 = (ln.cur + 1) % 3, s11 = (ln.cur + 2) % 3;
+  float* t00 = sm.tiles + s00 * tsz;
+  float* t10 = sm.tiles + s10 * tsz;
+  float* t11 = sm.tiles + s11 * tsz;
+  if (threadIdx.x == 0) {
+    if (!cin) {
+      mbar_expect(sm.bar + s00, tile_bytes);
+      tma_load(t00, m.map, rm, a, sm.bar + s00);
+    }
+    mbar_expect(sm.bar + s10, tile_bytes);
+    tma_load(t10, m.map, rm + b, a, sm.bar + s10);
+    mbar_expect(sm.bar + s11, tile_bytes);
+    tma_load(t11, m.map, rm + b, a + b, sm.bar + s11);
+  }
+  const Win w = {t00 + dl, t10 + dl, t10 + dl, t11 + dl, ldt, 2 * b, b, b};
+  const auto store_rc = [&] {
+    if (threadIdx.x == 0) tma_store(m.map, rm, a, t00);
+  };
+  smem_pair<KPL, BF, Rec>(w, b, wt, cin ? -1 : s00, s10, s11, store_rc, sm.v, sm.vg, sm.col,
+                          sm.part, sm.s_tau, rr, rl);
+  share_overlap(t10, t11, b, dl, b);
+  fence_async();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    tma_store(m.map, rm + b, a, t10);
+    if (!cout) tma_store(m.map, rm + b, a + b, t11);
+    tma_store_drain();
+    fence_async();
+  }
+  ln.parity ^= (cin ? 0u : 1u << s00) | 1u << s10 | 1u << s11;
+  ln.kept_i = cout ? i : -1;
+  ln.kept_s = s + 1;
+  if (cout) ln.cur = s11;
+}
+
+// The dynamic shared memory of a CTA on the tick: the three tile slots and
+// the 128 bytes align128 may skip.
+inline size_t smem_tick_bytes(int b) { return sizeof(float) * 3 * (size_t)tile_floats(b) + 128; }
 
 }  // namespace svdt

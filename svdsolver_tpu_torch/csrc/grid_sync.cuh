@@ -1,8 +1,9 @@
-// The grid barrier of the wavefront chases (band_chase_wave.cu's ticks and
-// band_chase_cluster.cu's cluster tick): an atomic arrival counter, thread
-// 0 of each CTA spinning on an acquire load.  Every CTA must be
-// co-resident (a cooperative launch).  A spin of ~10 s traps, so a broken
-// count ends the launch with an error instead of holding the card.
+// The grid barrier of the wavefront chases (band_chase_wave.cu's ticks,
+// band_chase_superstep.cu's pass and band_chase_cluster.cu's cluster tick):
+// an atomic arrival counter, thread 0 of each CTA spinning on an acquire
+// load.  Every CTA must be co-resident (a cooperative launch, coop_launch
+// below).  A spin of ~10 s traps, so a broken count ends the launch with an
+// error instead of holding the card.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -31,6 +32,44 @@ __device__ __forceinline__ void grid_sync(unsigned* ctr, unsigned target) {
     __threadfence();
   }
   __syncthreads();
+}
+
+// A cooperative launch of `kernel`, `threads` a CTA and `smem` bytes of
+// dynamic shared memory, over one CTA a work unit, at most as many as the
+// card holds at once and at most max_ctas (0: no cap); the grid size goes to
+// *ctas.  The card's capacity is asked again only when the kernel, the
+// device or the shared memory changes from the last call of this instance
+// (a launch of the pipelined chase's pass runs for some 100 us, and the
+// queries would be a good part of it).  Returns the launch's cudaError_t.
+template <class Kernel>
+int coop_launch(Kernel kernel, int threads, int units, int max_ctas, void** args,
+                size_t smem, cudaStream_t s, int* ctas) {
+  static const void* known_fn = nullptr;
+  static int known_dev = -1, known_max = 0;
+  static size_t known_smem = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if ((const void*)kernel != known_fn || dev != known_dev || smem != known_smem) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess && smem > 0)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    if (err != cudaSuccess) return (int)err;
+    known_fn = (const void*)kernel;
+    known_dev = dev;
+    known_smem = smem;
+    known_max = per_sm * sms;
+  }
+  int G = units < known_max ? units : known_max;
+  if (max_ctas > 0 && max_ctas < G) G = max_ctas;
+  if (G < 1) return (int)cudaErrorInvalidConfiguration;
+  *ctas = G;
+  return (int)cudaLaunchCooperativeKernel((const void*)kernel, dim3(G), dim3(threads), args,
+                                          smem, s);
 }
 
 }  // namespace svdt

@@ -21,6 +21,7 @@ from svdsolver_tpu_torch.ops.chase_schedule import (
     store_floats,
     store_pitch,
     store_range,
+    superstep_pairs,
     wave_pairs,
 )
 from svdsolver_tpu_torch.ops.householder import householder_vector
@@ -248,8 +249,9 @@ def chase_superstep(L, n, band, i0, LG, R0, U, m, last, s_chase):
     ``lo = R0 - 3 band l``, ``hi = R0 + m - 3 band l`` (``Np`` on the
     ``last`` rank).  The windows and their pairs are :func:`_chase`'s
     (:func:`make_window_pairs` on views of ``L``), at local row ``r - R0 +
-    U``.  Returns ``L``.  The plain version of the superstep kernel
-    (``ops/cuda/band_chase.superstep``)."""
+    U``.  Returns ``L``.  The plain version of the pass's first design,
+    the L2 superstep kernel (``ops/cuda/band_chase.superstep`` with
+    ``_design="l2"``)."""
     b = int(band)
     w = b + 1
     ww = 2 * b
@@ -269,6 +271,32 @@ def chase_superstep(L, n, band, i0, LG, R0, U, m, last, s_chase):
             r = i + 1 + k * b
             if r >= hi:
                 break
+            lr = r - R0 + U
+            chase_pair(L[lr : lr + ww, r + b : r + b + ww])
+    return L
+
+
+def chase_superstep_wavefront(L, n, band, i0, LG, R0, U, m, last, s_chase):
+    """:func:`chase_superstep` in the order of the pass's wavefront: the
+    same pairs on the same windows of ``L`` (:func:`make_window_pairs`),
+    taken by global tick (``chase_schedule.superstep_pairs``: sweep ``i``'s
+    head pair at tick ``3 i``, its chase pair ``k`` at ``3 i + k + 1``) and
+    by lane within a tick.  The JAX body staggers a pass's sweeps by ``3
+    band`` rows, so pairs of one tick touch disjoint rows and pairs whose
+    windows meet run in :func:`chase_superstep`'s order: ``L`` comes out
+    bit-equal to it.  Returns ``L``.  The oracle of the tick order of the
+    pass's wavefront kernel (``ops/cuda/band_chase.superstep``), whose
+    plain version is :func:`chase_superstep`."""
+    b = int(band)
+    w = b + 1
+    ww = 2 * b
+    top_pair, chase_pair = make_window_pairs(w)
+    for p in superstep_pairs(n, b, i0, LG, R0, m, last, s_chase, L.shape[1]):
+        if p.k < 0:
+            r = p.i - R0 + U
+            top_pair(L[r : r + w, p.i + 1 : p.i + 1 + ww])
+        else:
+            r = p.i + 1 + p.k * b
             lr = r - R0 + U
             chase_pair(L[lr : lr + ww, r + b : r + b + ww])
     return L

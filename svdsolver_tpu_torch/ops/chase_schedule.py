@@ -188,6 +188,72 @@ def wave_copy_bytes(n, b, defer_left=False):
     return sum(most.values())
 
 
+class SuperstepPair(NamedTuple):
+    """One pair of a rank's pass of the pipelined chase, as the pass's
+    wavefront kernel (``csrc/band_chase_superstep.cu``) runs it: at global
+    tick ``t`` (``3 i`` for the head pair, ``3 i + k + 1`` for chase pair
+    ``k``) on lane ``lane`` (sweep ``i = i0 + lane``); ``k = -1`` is the
+    head pair, whose window's corner is ``(i, i + 1)``; chase pair ``k``'s
+    is ``(r, r + b)``, ``r = i + 1 + k b``."""
+
+    t: int
+    lane: int
+    i: int
+    k: int
+
+
+def superstep_pairs(n, b, i0, LG, R0, m, last, s_chase, Np):
+    """The pairs of one rank's pass of one superstep of the pipelined chase
+    (``models.two_stage.chase_superstep``'s pairs, the same arguments, ``Np``
+    the buffer's columns) as :class:`SuperstepPair`, in tick order and lane
+    order within a tick.  Sweep ``i = i0 + l`` runs its head pair if ``lo
+    <= i < hi`` and its chase pairs from the first whose start row reaches
+    ``lo``, at most ``s_chase`` of them and while the start row is below
+    ``hi``; ``lo = R0 - 3 b l``, ``hi = R0 + m - 3 b l`` (``Np`` on the
+    ``last`` rank).  Every pair is listed, those whose corner column lies
+    past ``n`` (no-ops) too."""
+    pairs = []
+    for l in range(LG):
+        i = i0 + l
+        if i > n - 2:
+            break
+        lo = R0 - 3 * b * l
+        hi = Np if last else R0 + m - 3 * b * l
+        if lo <= i < hi:
+            pairs.append(SuperstepPair(3 * i, l, i, -1))
+        k0 = max(0, (lo - i - 1 + b - 1) // b)
+        for k in range(k0, min(k0 + s_chase, nc_of_static(i, n, b))):
+            if i + 1 + k * b >= hi:
+                break
+            pairs.append(SuperstepPair(3 * i + k + 1, l, i, k))
+    return sorted(pairs)
+
+
+def superstep_copy_bytes(n, b, i0, LG, R0, m, last, s_chase, Np):
+    """Bytes the pass's copies move on its critical path (the schedule
+    bound's, over one CTA's copy rate): at each tick the most any one pair
+    of :func:`superstep_pairs` with work (corner column below ``n``) moves,
+    as :func:`wave_copy_bytes` counts a pair: boxes of ``b`` rows of ``b +
+    4`` float32 in and out, two each way and the window's last row (``2b``
+    floats) both ways for a head pair, three each way for a chase pair less
+    the tile its lane keeps from its last pair and the one it keeps for its
+    next (a lane keeps its ``(r + b, c + b)`` tile whenever its next chase
+    pair runs)."""
+    box = 4 * b * (b + 4)
+    most = {}
+    pairs = superstep_pairs(n, b, i0, LG, R0, m, last, s_chase, Np)
+    work = {(p.lane, p.k) for p in pairs if p.k >= 0 and p.i + 1 + (p.k + 1) * b < n}
+    for p in pairs:
+        if p.k < 0:
+            nbytes = 4 * box + 16 * b
+        elif (p.lane, p.k) in work:
+            nbytes = (6 - ((p.lane, p.k - 1) in work) - ((p.lane, p.k + 1) in work)) * box
+        else:
+            continue
+        most[p.t] = max(most.get(p.t, 0), nbytes)
+    return sum(most.values())
+
+
 def staged_pairs(i, n, b):
     """Chase pairs of sweep ``i`` that do work (corner column ``i + 1 +
     (k + 1) b`` below ``n``): a prefix of its ``nc_of_static`` pairs."""

@@ -37,10 +37,19 @@ plain version is ``two_stage.band_to_bidiagonal_staged_tiles`` (the copies
 of ``chase_schedule.staged_copies``).
 
 :func:`superstep` is one rank's pass of one superstep of the pipelined chase
-(``parallel.distributed.band_to_bidiagonal_pipelined``) in one launch of
-``svdt_band_chase_superstep`` (``csrc/band_chase.cu``), the same pair on
-the rank's local buffer; its plain version is ``two_stage.chase_superstep``.
-It stands for no TPU kernel: the JAX package runs that pass as XLA windows.
+(``parallel.distributed.band_to_bidiagonal_pipelined``) in one launch.  It
+stands for no TPU kernel: the JAX package runs that pass as XLA windows.
+Two designs run it, chosen by shape before launch (:func:`superstep_design`):
+the pass as a wavefront over its sweeps on the shared-memory tick
+(``csrc/band_chase_superstep.cu``, one CTA a sweep, each pair's tiles
+copied by TMA; ``two_stage.chase_superstep_wavefront`` is the same pass
+in its tick order, the oracle of that schedule) wherever
+:func:`superstep_takes` holds and LG >= 2, and the first design
+(``svdt_band_chase_superstep`` in ``csrc/band_chase.cu``: one CTA walking
+the pass in order, each pair the L2 kernel's on the buffer) elsewhere and
+for LG = 1 passes, its bitwise oracle.  Both leave the buffer bit-equal
+to the plain version ``two_stage.chase_superstep``, which a CPU tensor
+runs.
 """
 
 import ctypes
@@ -59,7 +68,11 @@ launches_rec = 0  # the L2 kernel's recording entry
 launches_staged = 0  # the staged TMA design
 launches_staged_rec = 0  # the staged TMA design's recording entry
 last_khops = 0  # pairs the copies of the last staged launch ran ahead
-launches_superstep = 0  # the pipelined chase's superstep entry
+launches_superstep = 0  # the pipelined chase's pass on the shared-memory tick
+launches_superstep_l2 = 0  # the pass's first design (the L2 kernel's pair)
+last_superstep_ctas = 0  # CTAs of the last pass on the shared-memory tick (0: no work)
+_counters = {}  # (device, stream) -> the pass's grid barrier counter
+SUPERSTEP_LANES = 2  # the least LG (sweeps a group) that takes the shared-memory design
 launches_cluster = 0  # the cluster kernel (b > 256)
 launches_cluster_rec = 0  # the cluster kernel's recording entry
 
@@ -70,6 +83,12 @@ _ENTRIES = {
         + [_build.INT, _build.VOIDP]
     ),
     "svdt_band_chase_superstep": [_build.VOIDP] + [_build.INT] * 10 + [_build.VOIDP],
+}
+_SUPERSTEP_ENTRIES = {
+    "svdt_band_chase_superstep_wave": (
+        [_build.VOIDP] + [_build.INT] * 11 + [_build.VOIDP, _build.INT, _build.VOIDP,
+                                              _build.VOIDP]
+    ),
 }
 # the TMA design's static shared memory: v, col (SMEM_BAND each), vg
 # (2 SMEM_BAND), partial sums (512), 2 taus, and an 8-byte mbarrier for each
@@ -421,17 +440,100 @@ def band_to_bidiagonal_accum_l2(A, band=128):
     return _sequential(A, int(band), 1, record=True, l2=True)
 
 
-def superstep(L, n, band, i0, LG, R0, U, m, last, s_chase):
+def superstep_takes(L, n, band):
+    """Whether the pass's shared-memory design takes the local buffer ``L``
+    of an (n, n) band of ``band``: ``band_chase_wave.tma_shape_takes(n,
+    band)`` (4 <= band <= 128, band and n multiples of 4), a row pitch
+    ``Np`` that is a multiple of 4, and ``L`` 16-byte aligned.  Every
+    pipelined geometry of the main paths has ``Np % 4 == 0``."""
+    return (band_chase_wave.tma_shape_takes(n, band) and L.shape[1] % 4 == 0
+            and L.data_ptr() % 16 == 0)
+
+
+def superstep_design(L, n, band, LG, design=None):
+    """The design a pass of ``LG`` sweeps on ``L`` takes, by shape before
+    launch: "wave" (the pass's wavefront on the shared-memory tick) where
+    :func:`superstep_takes` holds and ``LG >= SUPERSTEP_LANES``, else "l2"
+    (the first design); or the one ``design`` names ("wave" raises where
+    the shape is not taken).  A card-only choice: a CPU tensor runs the
+    plain version whatever this says.
+
+    LG = 1 passes (each sweep whole and in order on one CTA) take the first
+    design: there a tick of the shared-memory design (a pair, its stores
+    drained and a grid barrier: 5.44 us at b = 32) costs more than the
+    first design's pair (~4.1 us).  The test reads LG, not the lanes that
+    have pairs: a pass with LG >= 2 in which one sweep alone has pairs
+    (the last groups near n, a rank's edge) takes the shared-memory design
+    and pays that one-lane cost on its few pairs (the first row below) to
+    keep the route free of a host-side count of the pass's pairs.  Rank
+    0's group 0 pass at n = 1024, b = 32
+    (one NVIDIA H100 80GB HBM3 at 700 W, ``tools/superstep_split.py``: the
+    designs in turns, CUDA-event medians of 5, ms):
+
+    ==========  ==  =====  =====  =============  =============
+    LG (lanes)  tp  pairs  ticks  shared-memory  first design
+    ==========  ==  =====  =====  =============  =============
+    1           1   32     32     0.178 / 0.177  0.159 / 0.159
+    2           1   64     35     0.215 / 0.211  0.303 / 0.300
+    3           4   21     10     0.105 / 0.097  0.129 / 0.128
+    11          1   352    62     0.384 / 0.343  1.443 / 1.449
+    ==========  ==  =====  =====  =============  =============
+    """
+    if design not in (None, "wave", "l2"):
+        raise ValueError(f"_design must be None, 'wave' or 'l2', got {design!r}")
+    takes = superstep_takes(L, n, band)
+    if design == "wave" and not takes:
+        raise ValueError(f"the pass's shared-memory design does not take n={n}, "
+                         f"band={band}, Np={L.shape[1]}")
+    return design or ("wave" if takes and int(LG) >= SUPERSTEP_LANES else "l2")
+
+
+def _barrier_counter(device, stream):
+    """The grid barrier's counter of the pass's launches on ``device`` and
+    ``stream``: one int32 kept for the process, which the C entry sets to
+    zero on that stream before each launch (launches on one stream run in
+    order, so they never share it at once)."""
+    key = (device, stream)
+    if key not in _counters:
+        _counters[key] = torch.zeros((1,), dtype=torch.int32, device=device)
+    return _counters[key]
+
+
+def _launch_superstep_wave(L, n, b, i0, LG, R0, U, m, last, s_chase):
+    """One launch of the pass's wavefront kernel on the CUDA ``L``, in
+    place; counted where it launched (a pass with no pair with work
+    launches nothing)."""
+    global launches_superstep, last_superstep_ctas
+    rows, Np = L.shape
+    stream = _build.stream_of(L)
+    ctr = _barrier_counter(L.device, stream)
+    got = ctypes.c_int(0)
+    lib = _build.load("band_chase_superstep", _SUPERSTEP_ENTRIES)
+    with torch.cuda.device(L.device):
+        err = lib.svdt_band_chase_superstep_wave(
+            L.data_ptr(), Np, rows, int(n), b, int(i0), int(LG), int(R0), int(U), int(m),
+            int(bool(last)), int(s_chase), ctr.data_ptr(), 0, ctypes.addressof(got), stream)
+    _build.raise_on_error(err, "band_chase_superstep_wave")
+    last_superstep_ctas = got.value
+    if got.value:
+        launches_superstep += 1
+
+
+def superstep(L, n, band, i0, LG, R0, U, m, last, s_chase, _design=None):
     """One rank's pass of one superstep of the pipelined chase, in place on
     its local buffer ``L`` (``U + m + 4 band`` rows, ``Np`` columns; the
-    arguments are those of ``two_stage.chase_superstep``, the plain
-    version).  A CUDA tensor must be contiguous float32 with ``band <=
-    band_chase_wave.band_range(n)``; it launches the superstep kernel (one
-    CTA walking the pass in order, every pair the L2 kernel's on the
-    buffer through the accessor of local row ``r - R0 + U``; reads past
-    ``n`` give zero, writes past ``n`` are dropped).  A CPU tensor runs the
-    plain version.  Returns ``L``."""
-    global launches_superstep
+    arguments are those of ``two_stage.chase_superstep``).  A CUDA tensor
+    must be contiguous float32 with ``band <= band_chase_wave.
+    band_range(n)``; it launches the design :func:`superstep_design` picks
+    (``_design`` forces one): the pass's wavefront kernel, one CTA a sweep
+    of the pass, the pairs by global tick with a grid barrier between
+    ticks, each pair's window staged in shared memory by TMA; or the first
+    design, one CTA walking the pass in order, every pair the L2 kernel's
+    on the buffer through the accessor of local row ``r - R0 + U``.  Both
+    read zero past ``n`` and drop writes there, and leave ``L`` bit-equal.
+    A CPU tensor runs the plain version (``two_stage.chase_superstep``).
+    Returns ``L``."""
+    global launches_superstep_l2
     b = int(band)
     if not _build.check_input(L, "L", 2):
         return superstep_plain(L, n, b, i0, LG, R0, U, m, last, s_chase)
@@ -440,11 +542,14 @@ def superstep(L, n, band, i0, LG, R0, U, m, last, s_chase):
         raise ValueError(f"band={b} out of range for n={n}")
     if rows < U + m + 2 * b or Np < n:
         raise ValueError(f"local buffer {tuple(L.shape)} too small for U={U}, m={m}, n={n}")
+    if superstep_design(L, n, b, LG, _design) == "wave":
+        _launch_superstep_wave(L, n, b, i0, LG, R0, U, m, last, s_chase)
+        return L
     lib = _build.load("band_chase", _ENTRIES)
     with torch.cuda.device(L.device):
         err = lib.svdt_band_chase_superstep(
             L.data_ptr(), Np, int(n), b, int(i0), int(LG), int(R0), int(U), int(m),
             int(bool(last)), int(s_chase), _build.stream_of(L))
     _build.raise_on_error(err, "band_chase_superstep")
-    launches_superstep += 1
+    launches_superstep_l2 += 1
     return L

@@ -51,7 +51,7 @@ DIRECT_CUDA = frozenset({"psum", "pmax", "all_gather", "psum_scatter"})
 # the kernel sources the sharded entries launch, built once in the parent
 # before the ranks start (each rank would otherwise run nvcc itself)
 KERNEL_SOURCES = ("panel_qr", "band_chase", "band_chase_staged", "band_chase_wave",
-                  "bisect", "tridiag_solve")
+                  "band_chase_superstep", "bisect", "tridiag_solve")
 
 
 def default_dp(n_devices):

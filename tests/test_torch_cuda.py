@@ -1575,8 +1575,9 @@ def test_cli_on_card(dev, tmp_path, capsys):
 
 def test_superstep_kernel_bit_equal_to_the_sequential_chase_on_one_rank(dev, rng):
     """At tp = 1 one pass runs every sweep whole and in order: the
-    pipelined chase through the superstep kernel gives the L2 kernel's
-    (d, e) bit for bit (1024/b32, each group size)."""
+    pipelined chase through the routed passes gives the L2 kernel's (d, e)
+    bit for bit (1024/b32, each group size; one-sweep passes on the first
+    design, the others on the shared-memory design)."""
     from svdsolver_tpu_torch.parallel import band_to_bidiagonal_pipelined
     from svdsolver_tpu_torch.parallel.mesh import single_rank
 
@@ -1585,10 +1586,79 @@ def test_superstep_kernel_bit_equal_to_the_sequential_chase_on_one_rank(dev, rng
     d0, e0 = band_chase.band_to_bidiagonal_l2(Ab, band=32)
     for lg in (None, 1, 5):
         with single_rank() as mesh:
-            before = band_chase.launches_superstep
+            before = band_chase.launches_superstep, band_chase.launches_superstep_l2
             d, e = band_to_bidiagonal_pipelined(Ab, mesh, band=32, sweeps_per_group=lg)
-            assert band_chase.launches_superstep > before
+            wave = band_chase.launches_superstep - before[0]
+            l2 = band_chase.launches_superstep_l2 - before[1]
+            if lg == 1:  # one sweep a pass: the first design
+                assert wave == 0 and l2 > 0
+            else:
+                assert wave > 0 and l2 == 0
         assert torch.equal(d, d0) and torch.equal(e, e0), lg
+
+
+def _pass_buffers(rng, n, b, tp, lg, dev):
+    """Every rank's local buffer of the pipelined chase at (n, b, tp, lg),
+    random in every entry (past the band, past column n and in the dummy
+    zone too), with the pass arguments of three of its groups: ``[(L,
+    args)]``."""
+    from svdsolver_tpu_torch.parallel.distributed import pipeline_geometry
+
+    geo = pipeline_geometry(n, b, tp, lg)
+    out = []
+    for rank in range(tp):
+        R0 = rank * geo.m
+        L = torch.from_numpy(rng.uniform(-1, 1, (geo.U + geo.m + 4 * b, geo.Np))
+                             .astype(np.float32)).to(dev)
+        for g in sorted({0, geo.NG // 2, geo.NG - 1}):
+            out.append((L, (n, b, g * geo.LG, geo.LG, R0, geo.U, geo.m, rank == tp - 1,
+                            geo.s_chase)))
+    return out
+
+
+@pytest.mark.parametrize("n,b,tp,lg", [(1024, 32, 4, None), (1024, 32, 1, None),
+                                       (1024, 32, 1, 1), (300, 12, 4, None), (256, 8, 2, 3),
+                                       (512, 64, 2, None), (1024, 128, 1, None),
+                                       (260, 4, 4, 5)])
+def test_superstep_wave_bit_equal_to_the_first_design(dev, rng, n, b, tp, lg):
+    """The pass's shared-memory design against the first design on the
+    same buffers: the whole buffer ``torch.equal``, and the columns past
+    n and the rows past n untouched by both (reads there give zero,
+    writes are dropped).  The route takes the shared-memory design from
+    two sweeps a pass on."""
+    for L0, args in _pass_buffers(rng, n, b, tp, lg, dev):
+        R0, U = args[4], args[5]
+        assert band_chase.superstep_design(L0, n, b, args[3]) == ("wave" if args[3] > 1
+                                                                  else "l2")
+        before = band_chase.launches_superstep, band_chase.launches_superstep_l2
+        Lw = band_chase.superstep(L0.clone(), *args, _design="wave")
+        Ll = band_chase.superstep(L0.clone(), *args, _design="l2")
+        assert torch.equal(Lw, Ll), args
+        assert band_chase.launches_superstep_l2 == before[1] + 1
+        assert band_chase.launches_superstep == before[0] + (band_chase.last_superstep_ctas > 0)
+        assert torch.equal(Lw[:, n:], L0[:, n:]) and torch.equal(Lw[n - R0 + U:], L0[n - R0 + U:])
+
+
+def test_superstep_wave_matches_the_plain_pass(dev, rng):
+    """The routed pass on a band buffer (zero past the band and past n, as
+    the pipelined entry's are) within 1e-4 max |L| of its plain version on
+    the CPU (float32 sums in another order), and ``torch.equal`` to the
+    first design; rank 1 of 4 at 1024/b32."""
+    from svdsolver_tpu_torch.models import two_stage
+    from svdsolver_tpu_torch.parallel.distributed import pipeline_geometry
+
+    n, b = 1024, 32
+    geo = pipeline_geometry(n, b, 4)
+    A = torch.from_numpy(rng.uniform(0, 5, (n, n)).astype(np.float32)).to(dev)
+    Ab = panel_qr.dense_to_band_fused(A, band=b)
+    R0 = geo.m
+    L = Ab.new_zeros((geo.U + geo.m + 4 * b, geo.Np))
+    L[: geo.U + geo.m + 2 * b, :n] = Ab[R0 - geo.U : R0 + geo.m + 2 * b]
+    args = (n, b, R0 // geo.LG * geo.LG, geo.LG, R0, geo.U, geo.m, False, geo.s_chase)
+    got = band_chase.superstep(L.clone(), *args)
+    assert torch.equal(got, band_chase.superstep(L.clone(), *args, _design="l2"))
+    want = two_stage.chase_superstep(L.cpu().clone(), *args)
+    assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(L.abs().max())
 
 
 def test_pipelined_chase_on_two_ranks_sharing_the_card(dev, rng):

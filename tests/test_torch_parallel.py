@@ -264,9 +264,10 @@ def test_pipeline_geometry_is_the_jax_body_s():
 
 
 def test_superstep_wrapper_runs_the_plain_version_on_the_cpu(monkeypatch):
-    """On a CPU tensor the superstep wrapper runs ``two_stage.
-    chase_superstep`` in place; on a CUDA tensor it calls the C entry with
-    the buffer's pointer and leading dimension (the library patched)."""
+    """On a CPU tensor the superstep wrapper runs its plain version in
+    place (bit-equal to ``two_stage.chase_superstep``); on a CUDA tensor
+    with ``_design="l2"`` it calls the first design's C entry with the
+    buffer's pointer and leading dimension (the library patched)."""
     n, b = 40, 4
     g = pipeline_geometry(n, b, 1)
     rng = np.random.default_rng(3)
@@ -275,9 +276,10 @@ def test_superstep_wrapper_runs_the_plain_version_on_the_cpu(monkeypatch):
     L[g.U : g.U + n, :n] = Ab
     want = L.clone()
     two_stage.chase_superstep(want, n, b, 0, g.LG, 0, g.U, g.m, True, g.s_chase)
-    before = band_chase.launches_superstep
+    before = band_chase.launches_superstep, band_chase.launches_superstep_l2
     assert band_chase.superstep(L, n, b, 0, g.LG, 0, g.U, g.m, True, g.s_chase) is L
-    assert torch.equal(L, want) and band_chase.launches_superstep == before
+    assert torch.equal(L, want)
+    assert (band_chase.launches_superstep, band_chase.launches_superstep_l2) == before
 
     calls = []
 
@@ -292,9 +294,10 @@ def test_superstep_wrapper_runs_the_plain_version_on_the_cpu(monkeypatch):
     monkeypatch.setattr(band_chase.torch.cuda, "device", lambda d: __import__("contextlib")
                         .nullcontext())
     L32 = L.float()
-    band_chase.superstep(L32, n, b, 6, g.LG, 0, g.U, g.m, True, g.s_chase)
+    band_chase.superstep(L32, n, b, 6, g.LG, 0, g.U, g.m, True, g.s_chase, _design="l2")
     assert calls == [(L32.data_ptr(), g.Np, n, b, 6, g.LG, 0, g.U, g.m, 1, g.s_chase, 0)]
-    assert band_chase.launches_superstep == before + 1
+    assert band_chase.launches_superstep_l2 == before[1] + 1
+    assert band_chase.launches_superstep == before[0]
     assert len(band_chase._ENTRIES["svdt_band_chase_superstep"]) == len(calls[0])
 
 

@@ -76,6 +76,31 @@ def tp_cases(mesh, inp):
     return out
 
 
+def pipelined_tick_order(mesh, bands):
+    """The pipelined entry on each band of ``bands`` ({(n, band, LG,
+    dtype name): numpy band}) with its own pass and with the pass's plain
+    tick-order twin (``two_stage.chase_superstep_wavefront``) in place of
+    ``band_chase.superstep_plain``: {key: ((d, e) own, (d, e) tick
+    order)}."""
+    from svdsolver_tpu_torch.models import two_stage
+    from svdsolver_tpu_torch.ops.cuda import band_chase
+
+    no_jax()
+    out = {}
+    for key, Ab in bands.items():
+        _, b, lg, _ = key
+        own = band_to_bidiagonal_pipelined(Ab, mesh, band=b, sweeps_per_group=lg)
+        saved = band_chase.superstep_plain
+        band_chase.superstep_plain = two_stage.chase_superstep_wavefront
+        try:
+            tick = band_to_bidiagonal_pipelined(Ab, mesh, band=b, sweeps_per_group=lg)
+        finally:
+            band_chase.superstep_plain = saved
+        out[key] = (own, tick)
+    no_jax()
+    return out
+
+
 def dp_cases(mesh, inp):
     """The batch entries on a (dp, tp) mesh, with the largest collective of
     the batch path and the ``ValueError`` of a batch ``dp`` does not
@@ -141,6 +166,7 @@ def launch_counts():
             "band_chase": band_chase.launches, "band_chase_wave": band_chase_wave.launches,
             "band_chase_wave_l2": band_chase_wave.launches_l2,
             "band_chase_superstep": band_chase.launches_superstep,
+            "band_chase_superstep_l2": band_chase.launches_superstep_l2,
             "tridiag_solve": tridiag_solve.launches}
 
 
@@ -150,6 +176,7 @@ def reset_launches():
 
     panel_qr.launches = bisect.launches = tridiag_solve.launches = 0
     band_chase.launches = band_chase.launches_staged = band_chase.launches_superstep = 0
+    band_chase.launches_superstep_l2 = 0
     band_chase_wave.launches = band_chase_wave.launches_l2 = 0
 
 
