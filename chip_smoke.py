@@ -228,7 +228,7 @@ SVD_REPS = 3
 SOURCES = ("panel_qr", "band_chase", "bisect", "tridiag_solve",
            "band_chase_wave", "band_chase_staged", "band_chase_vmem", "bidiag_qr", "dqds",
            "tiled_slab", "tiled_chain", "tiled_apply", "tiled_wide", "tiled_wide_cluster",
-           "band_chase_cluster", "band_chase_superstep")
+           "band_chase_cluster", "band_chase_superstep", "panel_products")
 # the variants' entries, counted by the kernel that ran: the packed chase
 # runs "band_chase_vmem_tma" (the TMA design on the band store) at every
 # band of these checks; "band_chase_vmem", its L2 packed kernel, takes the
@@ -565,6 +565,8 @@ def _counters():
             "tiled_wide_apply_cols": (tiled_slab, "launches_wide_apply_cols"),
             "panel_qr_update": (panel_qr, "launches_update"),
             "panel_qr_merge": (panel_qr, "launches_merge"),
+            "panel_qr_update_gemm": (panel_qr, "launches_update_gemm"),
+            "panel_qr_merge_gemm": (panel_qr, "launches_merge_gemm"),
             "band_chase_superstep": (band_chase, "launches_superstep"),
             "band_chase_superstep_l2": (band_chase, "launches_superstep_l2"),
             "band_chase_cluster": (band_chase, "launches_cluster"),
@@ -790,12 +792,21 @@ def hold_panel_qr(Pt, r_off, want):
     again = panel_qr.panel_qr(Pt, r_off)
     torch.cuda.synchronize()
     c = read_counts()
-    require(c["panel_qr"] == 2 * (bp.panels if blocked else 1)
-            and (c["panel_qr_update"] > 0) == blocked,
-            f"panel_qr counts its launches: {c['panel_qr']}")
+    leaves, updates, merges = (panel_qr.blocked_launches(b, m, r_off) if blocked
+                               else (1, 0, 0))
+    require((c["panel_qr"], c["panel_qr_update"], c["panel_qr_merge"])
+            == (2 * leaves, 2 * updates, 2 * merges)
+            and c["panel_qr_update_gemm"] + c["panel_qr_merge_gemm"] == 0,
+            f"panel_qr counts its launches: {c['panel_qr']}, {c['panel_qr_update']}, "
+            f"{c['panel_qr_merge']}")
     shape = f"b={b} m={m} r_off={r_off}"
     require(all(torch.equal(x, y) for x, y in zip(got, again)),
             f"panel_qr {shape}: two launches bit-identical")
+    if blocked:  # the products' first design at the same splits: the same bits
+        first = panel_qr.panel_qr(Pt, r_off, _design="gemm")
+        require(all(torch.equal(x, y) for x, y in zip(got, first)),
+                f"panel_qr {shape}: bit-equal to the products' first design")
+        del first
     what = (f"blocked: {bp.panels} sub-panels of {bp.nb} rows, each " if blocked
             else "") + (
         f"one cluster of {plan.ctas} CTAs x "
@@ -803,8 +814,8 @@ def hold_panel_qr(Pt, r_off, want):
         f"{', the rest in device memory' if plan.spill else ''}), {plan.groups} "
         f"lane(s) a row, T in shared memory, {plan.smem} B shared memory a CTA")
     if blocked:
-        what += (f"; {c['panel_qr_update'] // 2} Gram/update and "
-                 f"{c['panel_qr_merge'] // 2} merge launches a panel")
+        what += (f"; {updates} update and {merges} merge launches a panel, bit-equal to "
+                 "the products' first design")
     say(f"[kernels] panel_qr {shape}: {what}; two launches bit-identical")
     k1 = 0.0
     # entry by entry where the panel is at least twice as long as wide
@@ -3435,33 +3446,54 @@ def time_wide_stage1_k1():
     return out
 
 
+def stage1_k1_launches(n, b):
+    """(sub-panels, updates, merges) of the blocked K1 in one fused Stage I
+    of an n x n matrix at band b > 256 (panel_qr.blocked_launches of each
+    of panel_qr.stage1_panels)."""
+    from svdsolver_tpu_torch.ops.cuda import panel_qr
+
+    total = [0, 0, 0]
+    for m, r_off in panel_qr.stage1_panels(n, b):
+        for i, x in enumerate(panel_qr.blocked_launches(b, m, r_off)):
+            total[i] += x
+    return tuple(total)
+
+
 def work_k1_update(b, m, p0, r0, r1):
     """The blocked K1's Gram and update of sub-panel [r0, r1): the Gram of
-    the b - k other rows with V_k over m - p0 columns, Z = G_rest T_k, the
-    rank-k update of the b - r1 rows below; bytes: V's rows up to r1, the
-    rows below read and written, T_k."""
+    the b - k other rows with V_k over m - p0 columns, Z = G_rest T_k (T_k
+    triangular: k (k + 1) / 2 entries), the rank-k update of the b - r1 rows
+    below; bytes: V's rows up to r1, the rows below read and written, T_k's
+    triangle."""
     k, K, rest = r1 - r0, m - p0, b - r1
-    flops = 2 * (b - k) * k * K + 2 * rest * k * k + 2 * rest * K * k
-    return flops, 4 * (r1 * K + 2 * rest * K + k * k)
+    flops = 2 * (b - k) * k * K + rest * k * (k + 1) + 2 * rest * K * k
+    return flops, 4 * (r1 * K + 2 * rest * K + k * (k + 1) // 2)
 
 
 def work_k1_merge(b, r0, r1):
     """The blocked K1's T merge of sub-panel [r0, r1) from its Gram: Y =
-    G^T T_00 (k x r0 x r0), then -T_kk Y (k x k x r0); bytes: the Gram's
-    r0 x k, T_00, T_kk in, the block row out."""
+    G^T T_00, then -T_kk Y, T_00 (r0 x r0) and T_kk (k x k) triangular, so
+    only their nonzero triangles count (k r0 (r0 + 1) and k (k + 1) r0
+    operations); bytes: the Gram's r0 x k and the two triangles in, the
+    block row out."""
     k = r1 - r0
-    return 2 * k * r0 * r0 + 2 * k * k * r0, 4 * (r0 * k + r0 * r0 + k * k + k * r0)
+    flops = k * r0 * (r0 + 1) + k * (k + 1) * r0
+    return flops, 4 * (r0 * k + r0 * (r0 + 1) // 2 + k * (k + 1) // 2 + k * r0)
 
 
 def time_k1_products():
-    """The blocked K1's products at WIDE_K1_TIME, each against its plain
-    version on the same inputs (the panel's own V and T): the first
-    sub-panel's Gram and update (4 launches: Gram, its sum, Z, the update;
-    max |kernel - plain| of the updated rows; fresh rows each run) beside
-    torch.ormqr of its reflectors on the same rows, and the last
-    sub-panel's T merge (2 launches, on the Gram as torch computes it)
-    beside its plain version on that Gram and torch.linalg.multi_dot of
-    the same three blocks.  Returns {"update": times, "merge": times}."""
+    """The blocked K1's products at WIDE_K1_TIME on the panel's own V and T,
+    each timed in turns with their first design at the same splits (first,
+    new, new, first; svdt_panel_gemm + svdt_panel_sum against
+    svdt_panel_update, svdt_panel_gemm twice against svdt_panel_merge): the
+    first sub-panel's Gram and update (one launch against four; fresh rows
+    each run; max |kernel - plain| of the updated rows) beside torch.ormqr of
+    its reflectors on the same rows; the last sub-panel's T merge (one launch
+    against two, on the Gram rows the update kernel wrote) beside its plain
+    version on them and torch.linalg.multi_dot of the same three blocks.
+    Both designs are torch.equal at the first and the last sub-panel (W, the
+    Gram's rows above, T's block row).  Returns {"update", "merge",
+    "update_gemm", "merge_gemm": times}."""
     from svdsolver_tpu_torch.ops.cuda import panel_qr, tiled_slab
 
     b, m, r_off = WIDE_K1_TIME
@@ -3469,44 +3501,79 @@ def time_k1_products():
     Pt = uniform_matrix(m, seed=14)[:b].contiguous()
     Rt, Vt, Tt = panel_qr.panel_qr(Pt, r_off)
     stream = torch.cuda.current_stream()
+    sms = tiled_slab._sms(DEV)
+    ptr = panel_qr._ptr
+
+    def designs(r0):
+        """Sub-panel r0's update on both designs: (plan, new, first, the
+        rows W, W_first, the Gram rows above on each)."""
+        r1, p0 = min(b, r0 + nb), r_off + r0
+        k, rows = r1 - r0, b - (r1 - r0)
+        plan = panel_qr.update_plan(b, m, r0, r1, p0, sms)
+        W, Wg = Pt.clone(), Pt.clone()
+        above, above_g = torch.zeros(r0 * k + 1, device=DEV), torch.zeros(r0 * k + 1, device=DEV)
+        scratch = torch.empty(plan.splits * rows * k + 2 * b * nb, device=DEV)
+        below, Z = (ptr(scratch, 0, plan.splits * rows * k + o * b * nb) for o in (0, 1))
+        new = lambda: panel_qr._update(W, Vt, Tt, r0, r1, p0, plan, above.data_ptr(),  # noqa: E731
+                                       stream)
+        first = lambda: panel_qr._update_gemm(  # noqa: E731
+            Wg, Vt, Tt, r0, r1, p0, plan.splits, scratch.data_ptr(),
+            (above_g.data_ptr(), below), Z, stream)
+        new()
+        first()
+        torch.cuda.synchronize()
+        require(torch.equal(W, Wg) and torch.equal(above, above_g),
+                f"panel_qr_update b={b} m={m} sub-panel [{r0}, {r1}): torch.equal to the "
+                "first design")
+        return plan, new, first, W, Wg, above
+
     out = {}
     r0, r1, p0 = 0, nb, r_off
     rows, rest = b - nb, b - r1
-    splits = panel_qr._gram_splits(rows, nb, m - p0, tiled_slab._sms(DEV))
-    # the first sub-panel's Gram has no rows above it: all of it is below
-    scratch = torch.empty(splits * rows * nb + rows * nb + rest * nb, device=DEV)
-    parts, G, Z = (panel_qr._ptr(scratch, 0, o)
-                   for o in (0, splits * rows * nb, (splits + 1) * rows * nb))
-    W, Wp = Pt.clone(), Pt.clone()
-    kern = lambda: panel_qr._update(W, Vt, Tt, r0, r1, p0, splits, parts, (G, G), Z,  # noqa: E731
-                                    stream)
-    kern()
+    plan, new, first, W, Wg, _ = designs(r0)
+    Wp = Pt.clone()
     panel_qr.update_plain(Wp, Vt, Tt, r0, r1, p0)
     err = float((W - Wp).abs().max())
-    ms = fresh_ms(kern, lambda: W.copy_(Pt))
+    restore = (lambda: W.copy_(Pt), lambda: Wg.copy_(Pt))
+    turns = [fresh_ms(first, restore[1]), fresh_ms(new, restore[0]),
+             fresh_ms(new, restore[0]), fresh_ms(first, restore[1])]
     _, p_ms = _event_ms(lambda: panel_qr.update_plain(Wp.copy_(Pt), Vt, Tt, r0, r1, p0))
     A = Vt[r0:r1, p0:].T.contiguous()
     tau = torch.diagonal(Tt)[r0:r1].contiguous()
     C = Pt[r1:, p0:].T.contiguous()
     lib_ms = cuda_ms(lambda: torch.ormqr(A, tau, C, left=True, transpose=True))
     bnd = bound(*work_k1_update(b, m, p0, r0, r1))
-    out["update"] = {"ms": ms, "plain_ms": p_ms, "library_ms": lib_ms, "err": err,
-                     "bound": bnd, "shape": f"b={b} m={m} sub-panel [{r0}, {r1})"}
-    say(f"[wide] panel_qr_update b={b} m={m} sub-panel [{r0}, {r1}) (Gram {rows} x {nb} "
-        f"over {m - p0} columns in {splits} splits, the update of {rest} rows): {ms:.4f} ms, "
-        f"plain {p_ms:.3f} ms (one run), torch.ormqr {lib_ms:.4f} ms; max|kernel - plain| "
-        f"{err:.3e}; bound {bnd[0]:.5f} ms ({bnd[1]})")
+    shape = f"b={b} m={m} sub-panel [{r0}, {r1})"
+    common = {"plain_ms": p_ms, "library_ms": lib_ms, "err": err, "bound": bnd, "shape": shape}
+    out["update"] = {"ms": min(turns[1:3]), "turns": turns, **common}
+    out["update_gemm"] = {"ms": min(turns[0], turns[3]), "turns": turns, **common}
+    say(f"[wide] panel_qr_update {shape} (Gram {rows} x {nb} over {m - p0} columns in "
+        f"{plan.splits} splits, {plan.clusters} clusters, {plan.boxes} boxes a CTA"
+        f"{', spilled' if plan.spill else ''}, the update of {rest} rows): in turns first "
+        f"design / new / new / first design {' / '.join(f'{t:.4f}' for t in turns)} ms "
+        f"(one launch against four; torch.equal); plain {p_ms:.3f} ms (one run), "
+        f"torch.ormqr {lib_ms:.4f} ms; max|kernel - plain| {err:.3e}; bound {bnd[0]:.5f} ms "
+        f"({bnd[1]})")
     r0, r1 = b - nb, b
     p0 = r_off + r0
-    Gm = Vt[:r0, p0:] @ Vt[r0:r1, p0:].T  # the Gram's rows [0, r0), TF32 off
-    Tk, Tp = Tt.clone(), Tt.clone()
+    k = r1 - r0
+    _, _, _, _, _, above = designs(r0)  # the last sub-panel: the Gram's rows above only
+    Gm = above[:-1].view(r0, k)
+    Tk, Tg, Tp = Tt.clone(), Tt.clone(), Tt.clone()
     Tk[r0:r1, :r0] = 0
+    Tg[r0:r1, :r0] = 0
     Y = torch.empty(nb * r0, device=DEV)
-    kern = lambda: panel_qr._merge(Gm.data_ptr(), Tk, r0, r1, Y.data_ptr(), stream)  # noqa: E731
-    kern()
+    new = lambda: panel_qr._merge(Gm.data_ptr(), Tk, r0, r1, stream)  # noqa: E731
+    first = lambda: panel_qr._merge_gemm(Gm.data_ptr(), Tg, r0, r1, Y.data_ptr(),  # noqa: E731
+                                         stream)
+    new()
+    first()
+    torch.cuda.synchronize()
+    require(torch.equal(Tk, Tg), f"panel_qr_merge b={b} m={m} sub-panel [{r0}, {r1}): "
+            "torch.equal to the first design")
     panel_qr.merge_gram_plain(Gm, Tp, r0, r1)
     err = float((Tk[r0:r1, :r0] - Tp[r0:r1, :r0]).abs().max())
-    ms = cuda_ms(kern)
+    turns = [cuda_ms(first), cuda_ms(new), cuda_ms(new), cuda_ms(first)]
     _, p_ms = _event_ms(lambda: panel_qr.merge_gram_plain(Gm, Tp, r0, r1))
     # one PyTorch call on the same blocks: -T_kk G^T T_00 (the sign taken
     # into T_kk beforehand)
@@ -3515,13 +3582,16 @@ def time_k1_products():
     lib_err = float((lib - Tp[r0:r1, :r0]).abs().max())
     lib_ms = cuda_ms(lambda: torch.linalg.multi_dot(blocks))
     bnd = bound(*work_k1_merge(b, r0, r1))
-    out["merge"] = {"ms": ms, "plain_ms": p_ms, "library_ms": lib_ms, "err": err,
-                    "bound": bnd, "shape": f"b={b} m={m} sub-panel [{r0}, {r1})"}
-    say(f"[wide] panel_qr_merge b={b} m={m} sub-panel [{r0}, {r1}) (T's block row of "
-        f"{nb} x {r0}, on the Gram): {ms:.4f} ms, plain {p_ms:.3f} ms (one run, on the "
-        f"same Gram), torch.linalg.multi_dot {lib_ms:.4f} ms (|multi_dot - plain| "
-        f"{lib_err:.3e}); max|kernel - plain| {err:.3e} (T scale "
-        f"{float(Tp.abs().max()):.3e}); bound {bnd[0]:.5f} ms ({bnd[1]})")
+    shape = f"b={b} m={m} sub-panel [{r0}, {r1})"
+    common = {"plain_ms": p_ms, "library_ms": lib_ms, "err": err, "bound": bnd, "shape": shape}
+    out["merge"] = {"ms": min(turns[1:3]), "turns": turns, **common}
+    out["merge_gemm"] = {"ms": min(turns[0], turns[3]), "turns": turns, **common}
+    say(f"[wide] panel_qr_merge {shape} (T's block row of {nb} x {r0}, on the Gram's rows "
+        f"above from the update kernel): in turns first design / new / new / first design "
+        f"{' / '.join(f'{t:.4f}' for t in turns)} ms (one launch against two; torch.equal); "
+        f"plain {p_ms:.3f} ms (one run, on the same Gram), torch.linalg.multi_dot "
+        f"{lib_ms:.4f} ms (|multi_dot - plain| {lib_err:.3e}); max|kernel - plain| {err:.3e} "
+        f"(T scale {float(Tp.abs().max()):.3e}); bound {bnd[0]:.5f} ms ({bnd[1]})")
     require(out["update"]["err"] <= TOL_K1 * float(Pt.abs().max())
             and err <= TOL_K1 * float(Tp.abs().max()), "blocked K1 products against plain")
     return out
@@ -3553,8 +3623,8 @@ def phase_wide(rng):
     k1_times = time_wide_k1()
     k1_products = time_k1_products()
     k1_stage1 = time_wide_stage1_k1()
-    errs["panel_qr_update"] = k1_products["update"]["err"]
-    errs["panel_qr_merge"] = k1_products["merge"]["err"]
+    for name in ("update", "merge", "update_gemm", "merge_gemm"):
+        errs[f"panel_qr_{name}"] = k1_products[name]["err"]
     e_chase, chase_times = check_wide_chases(rng)
     e_tiled, tiled_times = check_wide_tiled()
     errs.update(e_chase)
@@ -3589,9 +3659,12 @@ def phase_wide(rng):
                     f"{label}: the wide chain of the route, got {fired}")
         require(stage1 > 0 and c["tiled_slab"] == 0 and c["bisect"] > 0,
                 f"{label}: the path's kernels, got {fired}")
-        if method == "tpu2" and b > 256:  # the blocked K1: its products too
-            require(c["panel_qr_update"] > 0 and c["panel_qr_merge"] > 0,
-                    f"{label}: the blocked K1's products, got {fired}")
+        if method == "tpu2" and b > 256:  # the blocked K1: an update and a merge a sub-panel
+            want = dict(zip(("panel_qr", "panel_qr_update", "panel_qr_merge"),
+                            stage1_k1_launches(n, b)))
+            require(all(c[k] == v for k, v in want.items())
+                    and c["panel_qr_update_gemm"] + c["panel_qr_merge_gemm"] == 0,
+                    f"{label}: the blocked K1's launches {want}, got {fired}")
         if method == "multicore" and n > b:  # the wide route's apply
             key = "tiled_wide_apply" if b <= 512 else "tiled_wide_apply_cols"
             require(c[key] == stage1, f"{label}: the apply {key}, got {fired}")
@@ -4668,16 +4741,31 @@ def wide_rows(errs, times, counts, rate):
                                 for (b_, m_, _), v in times["k1"].items()},
         "stage1_ms": {f"{k} n={WIDE_STAGE1_TIME[0]} b={WIDE_STAGE1_TIME[1]}": v
                       for k, v in times["k1_stage1"].items()}})
-    for name in ("panel_qr_update", "panel_qr_merge"):
-        tm = times["k1_products"][name.split("_")[-1]]
+    between = ("svdsolver_tpu/ops/pallas/panel_qr.py:30 (the column loop's trailing and "
+               "larft work between sub-panels)")
+    for name, kernel, instance in (
+            ("panel_qr_update", "panel_products",
+             "one thread-block cluster a 64-row block of the Gram's rows, a CTA a split: "
+             "the Gram, its split sum through DSMEM, Z and the update of W from shared "
+             "memory, one launch a sub-panel"),
+            ("panel_qr_merge", "panel_products",
+             "a CTA a 16-column block of T's block row, Y in shared memory, one launch a "
+             "sub-panel, on the second stream"),
+            ("panel_qr_update_gemm", "panel_qr",
+             "the first design (svdt_panel_gemm + svdt_panel_sum: the Gram in splits, their "
+             "sum, Z, the update, four launches): kept, the bitwise oracle"),
+            ("panel_qr_merge_gemm", "panel_qr",
+             "the first design (svdt_panel_gemm twice, Y in device memory): kept, the "
+             "bitwise oracle")):
+        tm = times["k1_products"][name.split("_", 2)[2]]
         rows.append({
-            "name": name, "route": "cuda", "source": src.format("panel_qr"),
-            "replaces": "svdsolver_tpu/ops/pallas/panel_qr.py:30 (the column loop's "
-                        "trailing and larft work between sub-panels)", "tpu": ["K1"],
+            "name": name, "route": "cuda", "source": src.format(kernel),
+            "replaces": between, "tpu": ["K1"],
             "launches": total[name], "max_abs_err": errs[name], "ms": tm["ms"],
             "plain_ms": tm["plain_ms"], "bound_ms": tm["bound"][0],
             "bound_by": tm["bound"][1], "library_ms": tm["library_ms"],
-            "shape": tm["shape"]})
+            "shape": tm["shape"], "instance": instance,
+            "turns_ms": {"first, new, new, first": tm["turns"]}})
     n, bw = WIDE_CHASE_TIME
     tm = times["chase"][n, bw]
     entries = wide_entries()

@@ -14,9 +14,11 @@ results are bit-equal to the plain versions only if no ``a*b + c`` is
 contracted into one rounding.
 """
 
+import ast
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -105,6 +107,36 @@ def load(name, entries):
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
     return lib
+
+
+def constants(name):
+    """The ``constexpr int`` constants of ``csrc/<name>.cu`` whose values
+    are integer expressions of literals and earlier such constants, by name,
+    read from the source (no build): so a host plan that must agree with a
+    kernel's layout takes that layout from the kernel's own definition."""
+    ops = {ast.Add: int.__add__, ast.Sub: int.__sub__, ast.Mult: int.__mul__,
+           ast.Div: int.__floordiv__}
+    found = {}
+
+    def value(node):
+        if isinstance(node, ast.Constant) and type(node.value) is int:
+            return node.value
+        if isinstance(node, ast.Name):
+            return found[node.id]
+        if isinstance(node, ast.BinOp) and type(node.op) in ops:
+            left, right = value(node.left), value(node.right)
+            if isinstance(node.op, ast.Div) and (left < 0 or right <= 0):
+                raise KeyError(node)  # C++ truncates: keep to what both agree on
+            return ops[type(node.op)](left, right)
+        raise KeyError(node)
+
+    text = (CSRC / f"{name}.cu").read_text()
+    for key, expr in re.findall(r"^\s*constexpr int (\w+) = ([^;]+);", text, re.M):
+        try:
+            found[key] = value(ast.parse(expr.strip(), mode="eval").body)
+        except (KeyError, SyntaxError):
+            continue
+    return found
 
 
 def check_input(t, name, ndim, dtypes=(torch.float32,)):

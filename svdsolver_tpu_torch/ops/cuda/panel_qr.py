@@ -7,13 +7,17 @@ whose CTAs each hold a slab of the panel's columns in shared memory
 (:func:`cluster_plan`).  Past it the panel is blocked
 (:func:`block_plan`): sub-panels of :data:`BLOCK_NB` rows of ``Pt``, each
 one launch of the same kernel, and between them the block reflector's
-products on the rows still to factor and T's compact-WY merge, each a
-launch of the file's product kernel (``svdt_panel_gemm``).  The Stage
-I's trailing updates are plain ``torch.matmul`` GEMMs (fp32, TF32 off),
-as they are XLA GEMMs outside the kernel in the reference.  On a CPU
-tensor :func:`panel_qr` runs :func:`panel_qr_plain`, the same column loop
-in PyTorch; :func:`panel_qr_blocked_plain` is the blocked order in
-PyTorch.
+update of the rows still to factor (one cluster launch of
+``csrc/panel_products.cu``'s ``svdt_panel_update`` a sub-panel,
+:func:`update_plan`) and T's compact-WY merge (one launch of its
+``svdt_panel_merge``).  ``_design="gemm"`` runs the first design of those
+products instead, ``panel_qr.cu``'s ``svdt_panel_gemm`` and
+``svdt_panel_sum`` (four launches an update, two a merge): the bitwise
+oracle, which the main path never takes.  The Stage I's trailing updates
+are plain ``torch.matmul`` GEMMs (fp32, TF32 off), as they are XLA GEMMs
+outside the kernel in the reference.  On a CPU tensor :func:`panel_qr`
+runs :func:`panel_qr_plain`, the same column loop in PyTorch;
+:func:`panel_qr_blocked_plain` is the blocked order in PyTorch.
 """
 
 import ctypes
@@ -27,8 +31,12 @@ from svdsolver_tpu_torch.ops.householder import householder_vector
 from svdsolver_tpu_torch.ops.precision import pdot
 
 launches = 0  # launches of the panel kernel (a panel, or a blocked panel's sub-panel)
-launches_update = 0  # of the product kernel: a blocked panel's Gram and row updates
-launches_merge = 0  # of the product kernel: a blocked panel's T merges
+launches_update = 0  # svdt_panel_update: a blocked panel's Gram and row update, one a sub-panel
+launches_merge = 0  # svdt_panel_merge: a blocked panel's T merge, one a sub-panel
+# the first design of the products (the oracle, _design="gemm"): launches of
+# svdt_panel_gemm and svdt_panel_sum for the update, of svdt_panel_gemm for the merge
+launches_update_gemm = 0
+launches_merge_gemm = 0
 
 _P, _I, _L = _build.VOIDP, _build.INT, _build.LONG
 _F = ctypes.c_float
@@ -38,6 +46,10 @@ _ENTRIES = {
     "svdt_panel_gemm": [_P, _P, _L, _L, _I, _P, _L, _L, _P, _L, _L, _L, _I, _I, _I, _I,
                         _F, _F, _P],
     "svdt_panel_sum": [_P, _I, _L, _P, _L, _P, _P],
+}
+_PRODUCT_ENTRIES = {
+    "svdt_panel_update": [_P] * 4 + [_I] * 10 + [_P],
+    "svdt_panel_merge": [_P, _P, _I, _I, _I, _P],
 }
 THREADS = 1024  # a CTA of the kernel
 MAX_CLUSTER = 16  # CTAs a cluster at most (non-portable above 8)
@@ -49,8 +61,16 @@ CTA_TARGET = 64 * 1024  # slab bytes a CTA aims at: C grows until it is met
 # 5.1 at m = 1024, the least of every nb in 32-256 and C in 1-16)
 BLOCK_NB = 64
 LEAF_COLS = 128
-GEMM_TILE = 64  # the product kernel's tile of C
+GEMM_TILE = 64  # the first design's product tile of C
 GEMM_SPLIT_K = 128  # the Gram's columns a split at least
+# svdt_panel_update's layout, read from its source (csrc/panel_products.cu),
+# which defines it once: the columns of its copy boxes (BLOCK_NB rows each),
+# box slots a CTA at most, the shared-memory bytes beside the boxes (the
+# partial Gram, G, Z^T, T_k, alignment) and the dynamic shared memory it takes
+_UPDATE = _build.constants("panel_products")
+UPDATE_BOX = _UPDATE["kBox"]
+UPDATE_MAX_STAGES = _UPDATE["kMaxStages"]
+UPDATE_FIXED = _UPDATE["kFixedBytes"]
 _resident = {}  # (ctas, smem, spill) -> clusters that fit on the card
 
 
@@ -200,6 +220,39 @@ def block_plan(b, m, ctas=None):
     return BlockPlan(BLOCK_NB, _cdiv(int(b), BLOCK_NB), cluster_plan(BLOCK_NB, m, C))
 
 
+def blocked_launches(b, m, r_off, nb=BLOCK_NB):
+    """``(sub-panels, updates, merges)``: the launches of one blocked
+    (b, m) panel with pivots from ``r_off`` (:func:`panel_qr_blocked`):
+    every sub-panel on the panel kernel; each sub-panel with a pivot below
+    m one update, and one merge where it is not the first."""
+    live = [r0 for r0 in range(0, int(b), nb) if r_off + r0 < m]
+    return _cdiv(int(b), nb), len(live), sum(r0 > 0 for r0 in live)
+
+
+def stage1_pairs(n, b, segments=None):
+    """``(s0, c)``: the panel pairs of the fused Stage I (:func:`_stage1_fused`)
+    on an n x n matrix at band b, in order: each pair's segment starts at
+    row and column ``s0`` and its QR panel at column ``c`` of the segment's
+    trailing block ``A[s0:, s0:]``.  ``segments=None`` picks
+    :func:`_auto_segments`."""
+    if segments is None:
+        segments = _auto_segments(n, b)
+    bounds = segment_bounds(n // b, segments)
+    for k0, k1 in zip(bounds, bounds[1:]):
+        for k in range(k1 - k0):
+            yield k0 * b, k * b
+
+
+def stage1_panels(n, b):
+    """``(m, r_off)`` of every panel the fused Stage I factors on an n x n
+    matrix (n padded to a multiple of b) at band b: the QR and the LQ panel
+    of each of :func:`stage1_pairs`, on the segment's trailing block."""
+    n = _cdiv(int(n), b) * b
+    for s0, c in stage1_pairs(n, b):
+        yield n - s0, c
+        yield n - s0, c + b
+
+
 def panel_qr_blocked_plain(Pt, r_off, nb=BLOCK_NB):
     """Plain PyTorch version of the blocked panel: the transposed panel
     ``Pt`` (b, m) factored in sub-panels of ``nb`` rows, each by
@@ -249,7 +302,7 @@ def merge_gram_plain(G, Tt, r0, r1):
     return Tt
 
 
-def panel_qr(Pt, r_off, _cluster=None):
+def panel_qr(Pt, r_off, _cluster=None, _design="cluster"):
     """Householder QR of the transposed panel ``Pt`` (b, m), pivots at
     ``r_off + j``; returns ``(Rt, Vt, Tt)`` as :func:`panel_qr_plain`.
 
@@ -257,10 +310,10 @@ def panel_qr(Pt, r_off, _cluster=None):
     (:data:`NARROW_BAND`) it launches the kernel as one cluster under
     :func:`cluster_plan` (``_cluster`` fixes its CTA count); past it, the
     blocked panel (:func:`panel_qr_blocked`; ``_cluster`` fixes the
-    leaves' CTAs).  A shape past the plans' limits, or a cluster the card
-    cannot hold, raises ``ValueError``.  A CPU tensor runs the plain
-    version.  Pivots at or past ``m`` give identity reflectors (``tau =
-    0``, ``v = 0``).
+    leaves' CTAs, ``_design`` its products).  A shape past the plans'
+    limits, or a cluster the card cannot hold, raises ``ValueError``.  A
+    CPU tensor runs the plain version.  Pivots at or past ``m`` give
+    identity reflectors (``tau = 0``, ``v = 0``).
     """
     global launches
     r_off = int(r_off)
@@ -270,25 +323,27 @@ def panel_qr(Pt, r_off, _cluster=None):
         return panel_qr_plain(Pt, r_off)
     b, m = Pt.shape
     if b > NARROW_BAND:
-        return panel_qr_blocked(Pt, r_off, block_plan(b, m, _cluster))
+        return panel_qr_blocked(Pt, r_off, block_plan(b, m, _cluster), _design)
     out = _launch(Pt, r_off, cluster_plan(b, m, _cluster))
     launches += 1
     return out
 
 
-def panel_qr_blocked(Pt, r_off, plan):
+def panel_qr_blocked(Pt, r_off, plan, _design="cluster"):
     """The blocked panel on float32 CUDA ``Pt`` (b, m) under ``plan``
     (:func:`block_plan`), in :func:`panel_qr_blocked_plain`'s order: each
     sub-panel one launch of the panel kernel, straight into its rows of
     ``Rt`` and ``Vt`` and T's diagonal block, then its Gram and the update
-    of the rows below (:func:`_update`) on the caller's stream; its T merge
-    (:func:`_merge`), which no later sub-panel waits for, on a second
-    stream, under the next sub-panel.  The first sub-panel reads ``Pt``
-    itself and is launched before the rest is set up; the scratch is made
-    once: the Gram's splits, its rows below and the update's Z shared by
-    the sub-panels, and each sub-panel's r0 x k Gram rows of the panel
-    above its own (the merge reads them while the next sub-panel runs).
-    Returns ``(Rt, Vt, Tt)``."""
+    of the rows below (:func:`_update`, one cluster launch) on the caller's
+    stream, writing the Gram's rows of the panel above it into a scratch of
+    its own; its T merge (:func:`_merge`) from those rows, which no later
+    sub-panel waits for, on a second stream, under the next sub-panel.  The
+    first sub-panel reads ``Pt`` itself and is launched before the rest is
+    set up.  ``_design="gemm"`` takes the first design's products
+    (:func:`_update_gemm`, :func:`_merge_gemm`) with their scratch: the
+    Gram's splits, its rows below, Z and Y.  Returns ``(Rt, Vt, Tt)``."""
+    if _design not in ("cluster", "gemm"):
+        raise ValueError(f"the blocked panel's products are 'cluster' or 'gemm', not {_design!r}")
     b, m = Pt.shape
     nb = plan.nb
     Rt = torch.empty_like(Pt)
@@ -298,24 +353,37 @@ def panel_qr_blocked(Pt, r_off, plan):
     _leaf(Pt, r_off, plan, subs[0], (Rt, Vt, Tt))
     W = Pt.clone()  # the rows still to factor, updated in place
     sms = tiled_slab._sms(Pt.device)
-    splits = [_gram_splits(b - (r1 - r0), r1 - r0, m - r_off - r0, sms) for r0, r1 in subs]
-    most = max((b - (r1 - r0)) * (r1 - r0) * z for (r0, r1), z in zip(subs, splits))
-    # the Gram's splits, its rows below, Z (rows below x k), Y (k x rows
-    # above), the Grams' rows above
-    scratch = torch.empty(most + 3 * b * nb + sum(r0 * (r1 - r0) for r0, r1 in subs),
+    gemm = _design == "gemm"
+    # the Grams' rows above each sub-panel (the merges read them while the
+    # next sub-panel runs); the first design's scratch before them
+    most = 0
+    if gemm:
+        splits = [_gram_splits(b - (r1 - r0), r1 - r0, m - r_off - r0, sms) for r0, r1 in subs]
+        most = max((b - (r1 - r0)) * (r1 - r0) * z for (r0, r1), z in zip(subs, splits))
+        most += 3 * b * nb
+    scratch = torch.empty(most + sum(r0 * (r1 - r0) for r0, r1 in subs),
                           dtype=Pt.dtype, device=Pt.device)
-    parts, below, Z, Y, above = (_ptr(scratch, 0, o) for o in (
-        0, most, most + b * nb, most + 2 * b * nb, most + 3 * b * nb))
+    above = _ptr(scratch, 0, most)
+    if gemm:  # the Gram's splits, its rows below, Z (rows below x k), Y (k x rows above)
+        parts, below, Z, Y = (_ptr(scratch, 0, o) for o in (
+            0, most - 3 * b * nb, most - 2 * b * nb, most - b * nb))
     main, side = _streams(Pt.device)
-    for (r0, r1), z in zip(subs, splits):
+    for r0, r1 in subs:
         p0 = r_off + r0
         if r0:
             _leaf(W, r_off, plan, (r0, r1), (Rt, Vt, Tt))
         if p0 < m and r1 - r0 < b:
-            _update(W, Vt, Tt, r0, r1, p0, z, parts, (above, below), Z, main)
+            if gemm:
+                _update_gemm(W, Vt, Tt, r0, r1, p0, splits[r0 // nb], parts, (above, below),
+                             Z, main)
+            else:
+                _update(W, Vt, Tt, r0, r1, p0, update_plan(b, m, r0, r1, p0, sms), above, main)
             if r0:
                 side.wait_stream(main)
-                _merge(above, Tt, r0, r1, Y, side)
+                if gemm:
+                    _merge_gemm(above, Tt, r0, r1, Y, side)
+                else:
+                    _merge(above, Tt, r0, r1, side)
         above += r0 * (r1 - r0) * Pt.element_size()
     main.wait_stream(side)
     return Rt, Vt, Tt
@@ -352,21 +420,95 @@ def _gram_splits(rows, cols, K, sms):
     return max(1, min(_cdiv(K, GEMM_SPLIT_K), 2 * sms // tiles))
 
 
+class UpdatePlan(NamedTuple):
+    """How ``svdt_panel_update`` cuts a sub-panel's update: ``clusters``
+    clusters (one a 64-row block of the Gram's rows) of ``splits`` CTAs,
+    ``chunk`` columns a CTA, read in at most ``boxes`` copy boxes of
+    :data:`UPDATE_BOX` columns through ``stages`` box slots (each a box of
+    the block's rows and one of V_k's), ``smem`` bytes of dynamic shared
+    memory a CTA."""
+
+    clusters: int
+    splits: int
+    chunk: int
+    boxes: int
+    stages: int
+    smem: int
+
+    @property
+    def spill(self):
+        """The slots cannot hold every box: the update reads them again."""
+        return self.stages < self.boxes
+
+
+def update_plan(b, m, r0, r1, p0, sms):
+    """The launch of ``svdt_panel_update`` for sub-panel ``[r0, r1)`` of a
+    (b, m) blocked panel, pivots from ``p0 < m``, on a card of ``sms``
+    multiprocessors.  The splits are the first design's
+    (:func:`_gram_splits`) up to :data:`MAX_CLUSTER` (a cluster holds the
+    splits of one block), so the sums run in its order; CTA z takes
+    columns ``[p0 + z chunk, p0 + (z + 1) chunk)`` and reads them in boxes
+    from its first column rounded down to a multiple of 4 (16 bytes).
+    Every box of the widest CTA gets a slot where they all fit
+    ``_build.MAX_SMEM`` beside the fixed arrays (:data:`UPDATE_FIXED`);
+    past that (~280 columns a CTA) as many slots as fit, and the boxes
+    stream through them (the spill instance)."""
+    k, rest, K = r1 - r0, b - r1, m - p0
+    if not (0 < k <= BLOCK_NB and r0 % BLOCK_NB == 0 and 0 <= p0 < m):
+        raise ValueError(f"no update for sub-panel [{r0}, {r1}) from p0={p0} of (b={b}, m={m})")
+    S = min(MAX_CLUSTER, _gram_splits(b - k, k, K, sms))
+    chunk = _cdiv(K, S)
+    boxes = 0
+    for z in range(S):
+        s, e = p0 + min(K, z * chunk), p0 + min(K, (z + 1) * chunk)
+        if e > s:
+            boxes = max(boxes, _cdiv(4 * _cdiv(e, 4) - (s - s % 4), UPDATE_BOX))
+    slot = 2 * _UPDATE["kBoxFloats"] * 4
+    room = (_UPDATE["kMaxDynSmem"] - UPDATE_FIXED) // slot
+    stages = min(boxes, room, UPDATE_MAX_STAGES)
+    clusters = r0 // BLOCK_NB + _cdiv(rest, BLOCK_NB)
+    return UpdatePlan(clusters, S, chunk, boxes, stages, UPDATE_FIXED + stages * slot)
+
+
 def _ptr(t, i=0, j=0):
     """Address of element (i, j) of row-major ``t``."""
     return t.data_ptr() + t.element_size() * (i * t.stride(0) + j)
 
 
-def _update(W, Vt, Tt, r0, r1, p0, splits, parts, G, Z, stream):
+def _update(W, Vt, Tt, r0, r1, p0, plan, above, stream):
     """Sub-panel ``[r0, r1)``'s Gram and update on ``stream``, pivots from
-    ``p0``: ``[Vt_{0:r0}; W_{r1:b}] Vt_k^T`` over columns ``[p0, m)``
-    (``r0 + b - r1`` rows, ``k = r1 - r0`` columns) in ``splits`` splits at
-    ``parts``, added in order (``svdt_panel_sum``) into ``G = (above,
-    below)``: its rows ``[0, r0)`` (the merge's) at address ``above``, the
-    rest at ``below``; then ``W_{r1:b} -= (G_below T_k) Vt_k``, ``T_k(j, c)
-    = Tt[r0 + c, r0 + j]``, through ``Z``.  Each a launch of the product
-    kernel but the sum."""
+    ``p0``, one launch of ``svdt_panel_update`` under ``plan``
+    (:func:`update_plan`): ``G = [Vt_{0:r0}; W_{r1:b}] Vt_k^T`` over
+    columns ``[p0, m)``, its rows ``[0, r0)`` (r0 x k, row-major) to
+    address ``above``, and ``W_{r1:b} -= (G_{r1:b} T_k) Vt_k``, ``T_k(j,
+    c) = Tt[r0 + c, r0 + j]``."""
     global launches_update
+    b, m = W.shape
+    # the copy engine takes rows of whole 16-byte units at 16-byte bases
+    tma = int(m % 4 == 0 and W.data_ptr() % 16 == 0 and Vt.data_ptr() % 16 == 0)
+    _launch_update(stream, (W.data_ptr(), Vt.data_ptr(), Tt.data_ptr(), above),
+                   (b, m, r0, r1, p0), plan, tma)
+    launches_update += 1
+
+
+def _merge(G, Tt, r0, r1, stream):
+    """T's block row of sub-panel ``[r0, r1)`` on ``stream`` from its Gram
+    (the r0 x k rows ``Vt_{0:r0} Vt_k^T`` at address ``G``): ``Tt_{k,0:r0}
+    = -Tt_kk (G^T Tt_{0:r0,0:r0})``, one launch of ``svdt_panel_merge``."""
+    global launches_merge
+    _launch_merge(stream, G, Tt, r0, r1)
+    launches_merge += 1
+
+
+def _update_gemm(W, Vt, Tt, r0, r1, p0, splits, parts, G, Z, stream):
+    """The first design of :func:`_update` (the oracle): the Gram over
+    columns ``[p0, m)`` (``r0 + b - r1`` rows, ``k = r1 - r0`` columns) in
+    ``splits`` splits at ``parts``, added in order (``svdt_panel_sum``)
+    into ``G = (above, below)``: its rows ``[0, r0)`` (the merge's) at
+    address ``above``, the rest at ``below``; then ``W_{r1:b} -= (G_below
+    T_k) Vt_k`` through ``Z``.  Each a launch of the product kernel but
+    the sum."""
+    global launches_update_gemm
     b, m = W.shape
     k, rest = r1 - r0, b - r1
     rows = r0 + rest
@@ -375,26 +517,25 @@ def _update(W, Vt, Tt, r0, r1, p0, splits, parts, G, Z, stream):
     _launch_gemm(stream, rows, k, m - p0, (_ptr(Vt, 0, p0), _ptr(W, r1 - r0, p0), m, 1, r0),
                  (_ptr(Vt, r0, p0), 1, m), (parts, k, 1, rows * k), splits=splits)
     _launch_sum(stream, parts, splits, rows * k, above, r0 * k, below)
-    launches_update += 2
+    launches_update_gemm += 2
     if rest:
         _launch_gemm(stream, rest, k, k, (below, 0, k, 1, rest),
                      (_ptr(Tt, r0, r0), 1, b), (Z, k, 1, 0))
         _launch_gemm(stream, rest, m - p0, k, (Z, 0, k, 1, rest), (_ptr(Vt, r0, p0), m, 1),
                      (_ptr(W, r1, p0), m, 1, 0), alpha=-1.0, beta=1.0)
-        launches_update += 2
+        launches_update_gemm += 2
 
 
-def _merge(G, Tt, r0, r1, Y, stream):
-    """T's block row of sub-panel ``[r0, r1)`` on ``stream`` from its Gram
-    (rows ``[0, r0)`` of ``G``: ``Vt_{0:r0} Vt_k^T``): ``Y = G_{0:r0}^T
-    Tt_{0:r0,0:r0}``, then ``Tt_{k,0:r0} = -Tt_kk Y``, two launches of the
-    product kernel."""
-    global launches_merge
+def _merge_gemm(G, Tt, r0, r1, Y, stream):
+    """The first design of :func:`_merge` (the oracle): ``Y = G^T
+    Tt_{0:r0,0:r0}`` into ``Y``, then ``Tt_{k,0:r0} = -Tt_kk Y``, two
+    launches of the product kernel."""
+    global launches_merge_gemm
     b, k = Tt.shape[0], r1 - r0
     _launch_gemm(stream, k, r0, r0, (G, 0, 1, k, k), (Tt.data_ptr(), b, 1), (Y, r0, 1, 0))
     _launch_gemm(stream, k, r0, k, (_ptr(Tt, r0, r0), 0, b, 1, k), (Y, r0, 1),
                  (_ptr(Tt, r0, 0), b, 1, 0), alpha=-1.0)
-    launches_merge += 2
+    launches_merge_gemm += 2
 
 
 _lib = None  # the panel kernel's library, once loaded
@@ -407,12 +548,46 @@ def _library():
     return _lib
 
 
+_plib = None  # the products' library (csrc/panel_products.cu), once loaded
+
+
+def _products():
+    global _plib
+    if _plib is None:
+        _plib = _build.load("panel_products", _PRODUCT_ENTRIES)
+    return _plib
+
+
+def _launch_update(stream, ptrs, shape, plan, tma):
+    """One launch of ``svdt_panel_update`` on ``stream``: ``ptrs = (W, Vt,
+    Tt, above)`` addresses, ``shape = (b, m, r0, r1, p0)``, ``plan`` an
+    :class:`UpdatePlan`, ``tma`` whether the copy engine loads the boxes.
+    Raises if the launch fails (also where the card cannot hold a cluster
+    of the plan's CTAs)."""
+    lib = _products()
+    with torch.cuda.device(stream.device):
+        err = lib.svdt_panel_update(*ptrs, *shape, plan.splits, plan.chunk, plan.stages,
+                                    plan.smem, tma, stream.cuda_stream)
+    _build.raise_on_error(err, "panel_update")
+
+
+def _launch_merge(stream, G, Tt, r0, r1):
+    """One launch of ``svdt_panel_merge`` on ``stream``: T's block row of
+    sub-panel ``[r0, r1)`` from the Gram's rows at address ``G``.  Raises
+    if the launch fails."""
+    lib = _products()
+    with torch.cuda.device(stream.device):
+        err = lib.svdt_panel_merge(G, Tt.data_ptr(), Tt.shape[0], r0, r1 - r0,
+                                   stream.cuda_stream)
+    _build.raise_on_error(err, "panel_merge")
+
+
 def _launch_gemm(stream, M, N, K, a, b, c, alpha=1.0, beta=0.0, splits=1):
-    """One launch of the product kernel on ``stream``: ``C_z = alpha A B
-    (+ beta C)``.  ``a = (ptr, ptr2, si, sk, split)``: A(i, k) at ptr
-    (ptr2 from row ``split`` on) + 4 (i si + k sk); ``b = (ptr, sk, sj)``;
-    ``c = (ptr, si, sj, sz)``, split z of K at ptr + 4 z sz.  Raises if the
-    launch fails."""
+    """One launch of the first design's product kernel on ``stream``:
+    ``C_z = alpha A B (+ beta C)``.  ``a = (ptr, ptr2, si, sk, split)``:
+    A(i, k) at ptr (ptr2 from row ``split`` on) + 4 (i si + k sk); ``b =
+    (ptr, sk, sj)``; ``c = (ptr, si, sj, sz)``, split z of K at ptr + 4 z
+    sz.  Raises if the launch fails."""
     pa, pa2, a_si, a_sk, a_split = a
     lib = _library()
     with torch.cuda.device(stream.device):
@@ -502,29 +677,23 @@ def _stage1_fused(A, b, segments, record):
     """The fused Stage I loop; with ``record`` also the panel records."""
     _check_stage1(A, b, "dense_to_band_fused")
     n = A.shape[0]
-    if segments is None:
-        segments = _auto_segments(n, b)
     # every pair updates a view of this copy in place
     A = A.clone(memory_format=torch.contiguous_format)
     if record:
         p = n // b
         Vq, Vl = A.new_zeros((2, p, b, n))
         Tq, Tl = A.new_zeros((2, p, b, b))
-    bounds = segment_bounds(n // b, segments)
-    for s in range(len(bounds) - 1):
-        k0, k1 = bounds[s], bounds[s + 1]
-        s0 = k0 * b
-        sub = A[s0:, s0:]
-        for k in range(k1 - k0):
-            _, recs = _fused_panel_pair_step(b, sub, k * b)
-            if record:
-                # A reflector of this segment pivots at or past s0, so it is
-                # zero above s0: embed the (b, n - s0) rows at column s0.
-                # Identity reflectors (tau 0) are recorded as zero rows.
-                for V, T, (Vt, Tt) in ((Vq, Tq, recs[:2]), (Vl, Tl, recs[2:])):
-                    live = torch.diagonal(Tt) != 0
-                    V[k0 + k, :, s0:] = torch.where(live[:, None], Vt, 0.0)
-                    T[k0 + k] = Tt
+    for s0, c in stage1_pairs(n, b, segments):
+        _, recs = _fused_panel_pair_step(b, A[s0:, s0:], c)
+        if record:
+            # A reflector of this segment pivots at or past s0, so it is
+            # zero above s0: embed the (b, n - s0) rows at column s0.
+            # Identity reflectors (tau 0) are recorded as zero rows.
+            i = (s0 + c) // b
+            for V, T, (Vt, Tt) in ((Vq, Tq, recs[:2]), (Vl, Tl, recs[2:])):
+                live = torch.diagonal(Tt) != 0
+                V[i, :, s0:] = torch.where(live[:, None], Vt, 0.0)
+                T[i] = Tt
     return (A, Vq, Tq, Vl, Tl) if record else A
 
 

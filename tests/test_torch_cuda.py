@@ -1193,6 +1193,75 @@ def test_blocked_panel_qr_matches_plain(dev, rng, b, m, r_off):
     assert float(torch.linalg.norm(Q @ Rt.double().T - P) / torch.linalg.norm(P)) < 1e-5
 
 
+@pytest.mark.parametrize("b,m,r_off", [(257, 1024, 0), (384, 2048, 0), (512, 2048, 0),
+                                       (512, 2048, 1792), (1024, 1024, 0), (1536, 1536, 0)])
+def test_blocked_panel_bit_equal_under_both_designs(dev, rng, b, m, r_off):
+    # the products as one cluster launch an update and one launch a merge
+    # (svdt_panel_update, svdt_panel_merge) against the first design (the
+    # product kernel and the split sum) at the same splits: torch.equal,
+    # one update a live sub-panel, one merge a live sub-panel past the first
+    Pt = torch.from_numpy(rng.normal(size=(b, m)).astype(np.float32)).to(dev)
+    before = (panel_qr.launches_update, panel_qr.launches_merge)
+    got = panel_qr.panel_qr(Pt, r_off)
+    torch.cuda.synchronize()
+    live = [r0 for r0 in range(0, b, panel_qr.BLOCK_NB) if r_off + r0 < m]
+    assert (panel_qr.launches_update - before[0], panel_qr.launches_merge - before[1]) == (
+        len(live), sum(r0 > 0 for r0 in live))
+    want = panel_qr.panel_qr(Pt, r_off, _design="gemm")
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("b,m,r_off,r0", [
+    (512, 2048, 0, 0), (512, 2048, 0, 448), (512, 2048, 1792, 64),
+    (320, 8192, 0, 0), (320, 8192, 0, 64),  # the spill instance (boxes in two rounds)
+    (320, 8190, 0, 64),  # cp.async boxes (rows not of whole 16-byte units), spilled
+    (300, 1026, 2, 128),  # cp.async, p0 = 130: a split starting inside a quad; k = 44
+    (257, 1024, 257, 256)])  # k = 1
+def test_panel_products_bit_equal_to_the_first_design(dev, rng, b, m, r_off, r0):
+    # one sub-panel's update and merge on both designs at the update plan's
+    # splits: torch.equal; V's rows past the sub-panel read as NaN and the
+    # columns before p0 and the rows above r1 are left alone; both within
+    # 1e-4 of the plain versions
+    from svdsolver_tpu_torch.ops.cuda import tiled_slab
+
+    Pt = torch.from_numpy(rng.normal(size=(b, m)).astype(np.float32)).to(dev)
+    _, Vt, Tt = panel_qr.panel_qr(Pt, r_off)
+    r1, p0 = min(b, r0 + panel_qr.BLOCK_NB), r_off + r0
+    k, rows = r1 - r0, b - (r1 - r0)
+    Vt[r1:] = float("nan")
+    plan = panel_qr.update_plan(b, m, r0, r1, p0, tiled_slab._sms(dev))
+    if (b, m) == (320, 8192):
+        assert plan.spill
+    stream = torch.cuda.current_stream()
+    W, Wg = Pt.clone(), Pt.clone()
+    above, above_g = (torch.full((r0 * k + 1,), float("nan"), device=dev) for _ in range(2))
+    parts = torch.empty(plan.splits * rows * k + 3 * b * k, device=dev)
+    below, Z = (panel_qr._ptr(parts, 0, plan.splits * rows * k + o * b * k) for o in (0, 1))
+    panel_qr._update(W, Vt, Tt, r0, r1, p0, plan, above.data_ptr(), stream)
+    panel_qr._update_gemm(Wg, Vt, Tt, r0, r1, p0, plan.splits, parts.data_ptr(),
+                          (above_g.data_ptr(), below), Z, stream)
+    torch.cuda.synchronize()
+    assert torch.equal(W, Wg) and torch.equal(above[:-1], above_g[:-1])
+    assert torch.equal(W[:r1], Pt[:r1]) and torch.equal(W[:, :p0], Pt[:, :p0])
+    want = Pt.clone()
+    panel_qr.update_plain(want, Vt[:r1].contiguous(), Tt, r0, r1, p0)
+    torch.testing.assert_close(W, want, rtol=0, atol=1e-4 * float(Pt.abs().max()))
+    if r0:
+        G = above[:-1].view(r0, k)
+        torch.testing.assert_close(G, Vt[:r0, p0:] @ Vt[r0:r1, p0:].T, rtol=0, atol=1e-4)
+        T, Tg = Tt.clone(), Tt.clone()
+        T[r0:r1, :r0] = float("nan")
+        Tg[r0:r1, :r0] = float("nan")
+        Y = torch.empty(k * r0, device=dev)
+        panel_qr._merge(above.data_ptr(), T, r0, r1, stream)
+        panel_qr._merge_gemm(above.data_ptr(), Tg, r0, r1, Y.data_ptr(), stream)
+        torch.cuda.synchronize()
+        assert torch.equal(T, Tg)
+        Tp = Tt.clone()
+        panel_qr.merge_gram_plain(G, Tp, r0, r1)
+        torch.testing.assert_close(T, Tp, rtol=0, atol=1e-4 * float(Tp.abs().max()))
+
+
 @pytest.mark.parametrize("n,t", [(960, 192), (1024, 256), (640, 160), (512, 64), (1024, 128),
                                  (1536, 512)])
 @pytest.mark.parametrize("shape", ["QR", "LQ"])

@@ -137,6 +137,12 @@ def launched(monkeypatch):
     def add(stream, parts, splits, count, out, split, out2):
         calls.append(("panel_sum", splits, count))
 
+    def update(stream, ptrs, shape, plan, tma):
+        calls.append(("panel_update", shape, plan))
+
+    def merge(stream, G, Tt, r0, r1):
+        calls.append(("panel_merge", r0, r1))
+
     def chase(A, b, K, record):
         calls.append(("band_chase_staged" if K else "band_chase", b, record))
         return _stand_in(A, b, record)
@@ -174,6 +180,8 @@ def launched(monkeypatch):
     monkeypatch.setattr(panel_qr, "_launch", k1)
     monkeypatch.setattr(panel_qr, "_launch_gemm", gemm)
     monkeypatch.setattr(panel_qr, "_launch_sum", add)
+    monkeypatch.setattr(panel_qr, "_launch_update", update)
+    monkeypatch.setattr(panel_qr, "_launch_merge", merge)
     monkeypatch.setattr(panel_qr, "_streams", lambda device: (StandIn(), StandIn()))
     monkeypatch.setattr(band_chase, "_launch", chase)
     monkeypatch.setattr(band_chase, "_launch_cluster", chase_cluster)
@@ -219,19 +227,22 @@ def _stand_in(A, b, record):
 def _blocked_k1(launched, b):
     """The launches of K1's blocked panels of width b: every sub-panel on
     the narrow kernel (BLOCK_NB rows, 16 lanes a row, T in shared memory),
-    ceil(b / nb) a panel, and product launches between them.  Returns the
-    number of panels."""
+    ceil(b / nb) a panel, and product launches between them: an update
+    (svdt_panel_update) and a merge (svdt_panel_merge) at most after each,
+    never the first design's product kernel.  Returns the number of
+    panels."""
     nb = panel_qr.BLOCK_NB
-    k1 = [c for c in launched if c[0] in ("panel_qr", "panel_gemm", "panel_sum")]
+    k1 = [c for c in launched if c[0] in ("panel_qr", "panel_update", "panel_merge")]
     leaves = [c for c in k1 if c[0] == "panel_qr"]
     per = -(-b // nb)
     assert leaves and all(c[1:] == (nb, 16) for c in leaves)
     assert len(leaves) % per == 0 and len(k1) > len(leaves)
-    # a panel: its first launch a sub-panel; after each at most the Gram,
-    # its sum, two update products and two merge products
+    # a panel: its first launch a sub-panel; after each at most one update,
+    # after each but the first at most one merge
     assert k1[0][0] == "panel_qr"
     panels = len(leaves) // per
-    assert len(k1) - len(leaves) <= panels * (6 * per - 4)
+    assert len(k1) - len(leaves) <= panels * (2 * per - 1)
+    assert not [c for c in launched if c[0] in ("panel_gemm", "panel_sum")]
     return panels
 
 
@@ -250,7 +261,8 @@ def test_tpu2_reaches_k1_and_the_chase_at_every_width(launched, b):
     else:
         assert k1 and all(c[1] == b for c in k1)
         assert all(c[2] == max(1, 1 << (1024 // b).bit_length() - 1) for c in k1)
-        assert not [c for c in launched if c[0] in ("panel_gemm", "panel_sum")]
+        assert not [c for c in launched
+                    if c[0] in ("panel_gemm", "panel_sum", "panel_update", "panel_merge")]
     # more lanes wanted than the band has: the sequential chase, on the L2
     # kernel up to 256 (the copy engine does not take the band) and on the
     # cluster kernel past it
@@ -416,8 +428,12 @@ def test_failed_wide_launches_raise(launched, monkeypatch):
     with pytest.raises(RuntimeError, match="panel_qr launch failed"):
         svdvals(_uniform(640), method="tpu2", block=320)
     monkeypatch.setattr(panel_qr, "_launch", lambda Pt, r_off, plan, out=None: out)
-    monkeypatch.setattr(panel_qr, "_launch_gemm", fail("panel_gemm"))
-    with pytest.raises(RuntimeError, match="panel_gemm launch failed"):
+    monkeypatch.setattr(panel_qr, "_launch_update", fail("panel_update"))
+    with pytest.raises(RuntimeError, match="panel_update launch failed"):
+        svdvals(_uniform(640), method="tpu2", block=320)
+    monkeypatch.setattr(panel_qr, "_launch_update", lambda *a: None)
+    monkeypatch.setattr(panel_qr, "_launch_merge", fail("panel_merge"))
+    with pytest.raises(RuntimeError, match="panel_merge launch failed"):
         svdvals(_uniform(640), method="tpu2", block=320)
     monkeypatch.setattr(tiled_slab, "_launch_wide_cluster", fail("tiled_wide_chain_cluster"))
     with pytest.raises(RuntimeError, match="tiled_wide_chain_cluster launch failed"):
